@@ -1,0 +1,17 @@
+"""repro_torch -- ParaLiNGAM in PyTorch, with hand-written CUDA kernels for
+an NVIDIA H100 (Hopper, sm_90a).
+
+The port of the JAX package ``repro``, slice by slice, with the same layout
+(``core/``, ``kernels/``, ``utils/``). It imports neither JAX nor ``repro``.
+Entry points run on the CUDA device unless the caller asks for the CPU
+(``fit(..., device="cpu")`` runs the plain torch path).
+
+Importing it does no work: kernels are compiled on first use
+(``kernels/_build.py``).
+"""
+
+__version__ = "0.1.0"
+
+from repro_torch.core.paralingam import ParaLiNGAMConfig, ParaLiNGAMResult, fit
+
+__all__ = ["ParaLiNGAMConfig", "ParaLiNGAMResult", "__version__", "fit"]

@@ -1,0 +1,120 @@
+"""DirectLiNGAM step 2 on the device: causal strengths B + noise variances
+from a causal order.
+
+Same closed form as the numpy oracle (``repro_torch.core.pruning``): with
+the rows in causal order, Sigma = A Omega A^T for the unit-lower-triangular
+A = (I - B)^{-1}, so one jittered Cholesky + one unit-lower triangular solve
+give B = I - A^{-1} and Omega = diag(L)^2. Running it as torch ops keeps
+phase 2 on the device right behind the causal-order scan, with no host
+round-trip between the phases.
+
+Two numerical deviations from the oracle, both deliberate:
+
+  * **correlation scaling** — the Cholesky runs on the correlation matrix R
+    (rows pre-scaled by their sample std) rather than the raw covariance
+    Sigma. Since Sigma = D R D for diagonal D, chol(Sigma) = D chol(R); B and
+    Omega are recovered by undoing the scaling. In f32 this is better
+    conditioned than factoring Sigma directly.
+  * **jitter placement** — the oracle adds ``JITTER_SCALE * mean(var)`` to
+    Sigma's diagonal; here ``JITTER_SCALE * mean(diag R)`` is added to R,
+    the same relative ridge applied per-variable instead of uniformly.
+
+Padding contracts (the batched seam, shared with the scan driver):
+
+  * ``mask`` marks live variable rows; padded (dead) rows must be zero in
+    ``x`` and sit *after* all live entries in ``order`` (use
+    :func:`complete_order` to sanitize a scan-driver order). Dead rows come
+    back with zero B rows/columns and zero noise variance.
+  * ``n_valid`` counts valid sample columns (``covariance.normalize``
+    contract: padded columns zero).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.covariance import (
+    VAR_EPS,
+    _sample_count,
+    full_precision_matmul,
+    sample_mask,
+)
+from repro_torch.core.pruning import JITTER_SCALE
+
+
+def complete_order(order, mask):
+    """Extend a scan-driver causal order over a padded buffer into a full
+    permutation of ``0..p-1``: the first ``sum(mask)`` entries are the live
+    variables, the garbage entries past them are replaced by the dead
+    variable ids in ascending order."""
+    p = order.shape[0]
+    p_live = torch.sum(mask)
+    valid_pos = torch.arange(p, device=order.device) < p_live
+    seen = torch.zeros((p,), dtype=torch.int32, device=order.device)
+    seen = seen.scatter_add(0, order.long(), valid_pos.to(torch.int32)) > 0
+    # unseen ids first, ascending (stable), like nonzero(~seen, size=p)
+    missing = torch.argsort(seen.to(torch.int8), stable=True).to(order.dtype)
+    take = torch.clamp(torch.arange(p, device=order.device) - p_live, 0, p - 1)
+    return torch.where(valid_pos, order, missing[take])
+
+
+def _cholesky_ladder(corr, base):
+    """Cholesky of ``corr`` + ridge, escalating the ridge 1e-10 -> 1e-6 ->
+    1e-4 (times ``base``) only where the factorization failed. All three
+    factorizations run and a select picks, so the host never waits on the
+    failure flag."""
+    eye = torch.eye(corr.shape[0], dtype=corr.dtype, device=corr.device)
+    chol, info = torch.linalg.cholesky_ex(corr + (JITTER_SCALE * base) * eye)
+    failed = (info != 0) | torch.isnan(chol).any()
+    for scale in (1e-6, 1e-4):
+        retry, rinfo = torch.linalg.cholesky_ex(corr + (scale * base) * eye)
+        chol = torch.where(failed, retry, chol)
+        failed = torch.where(failed, (rinfo != 0) | torch.isnan(retry).any(), failed)
+    return chol
+
+
+def adjacency_from_order(x, order, mask=None, n_valid=None,
+                         prune_below: float = 0.0):
+    """B (p, p) and noise variances Omega (p,) from raw samples ``x: (p, n)``
+    and a *permutation* ``order`` (see :func:`complete_order` for padded
+    buffers). Returns ``(b, omega)`` in original variable ids; the hard
+    threshold ``prune_below`` zeroes spurious small edges."""
+    p, n = x.shape
+    order = order.long()
+    xo = x.index_select(0, order)  # rows in causal order; padded rows last
+
+    # Centered covariance on the true sample count; padded columns stay 0.
+    smask = sample_mask(n, n_valid, x.device)
+    if smask is None:
+        xc = xo - torch.mean(xo, dim=1, keepdim=True)
+    else:
+        mu = torch.sum(torch.where(smask, xo, 0.0), dim=1, keepdim=True) / _sample_count(n_valid, n)
+        xc = torch.where(smask, xo - mu, 0.0)
+    cov_den = _sample_count(n_valid, n, 1)
+    var = torch.sum(torch.square(xc), dim=1) / cov_den
+    std = torch.sqrt(torch.clamp(var, min=VAR_EPS))  # dead rows -> sqrt(VAR_EPS)
+    xs = xc / std[:, None]
+    with full_precision_matmul():
+        corr = (xs @ xs.T) / cov_den
+
+    p_live = p if mask is None else torch.sum(mask)
+    base = torch.trace(corr) / (max(p_live, 1) if mask is None else torch.clamp(p_live, min=1))
+    chol = _cholesky_ladder(corr, base)
+    diag = torch.diagonal(chol)
+    a_r = chol / diag[None, :]  # unit lower triangular
+    eye = torch.eye(p, dtype=corr.dtype, device=x.device)
+    a_r_inv = torch.linalg.solve_triangular(a_r, eye, upper=False, unitriangular=True)
+    # Undo the std scaling: A = D A_R D^{-1}  =>  A^{-1} = D A_R^{-1} D^{-1}.
+    b_ord = eye - a_r_inv * (std[:, None] / std[None, :])
+    omega_ord = torch.square(diag * std)
+    if mask is not None:
+        pos_live = torch.arange(p, device=x.device) < p_live
+        b_ord = torch.where(pos_live[:, None] & pos_live[None, :], b_ord, 0.0)
+        omega_ord = torch.where(pos_live, omega_ord, 0.0)
+    if prune_below > 0.0:
+        b_ord = torch.where(torch.abs(b_ord) < prune_below, 0.0, b_ord)
+
+    # b[order[a], order[c]] = b_ord[a, c], as a gather by the inverse order.
+    inv = torch.argsort(order)
+    b = b_ord.index_select(0, inv).index_select(1, inv)
+    return b, omega_ord.index_select(0, inv)

@@ -67,6 +67,11 @@ def pytest_configure(config):
         "auto-skipped when the backend has fewer (the CI `multidevice` lane "
         "forces 8 host devices via XLA_FLAGS so these run on every PR)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's hand-written kernels); skips "
+        "without one. On the card: pytest -m cuda tests/test_torch_*.py",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

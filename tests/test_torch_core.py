@@ -1,0 +1,344 @@
+"""The port's numerical core held against the JAX package on the same numpy
+inputs: entropy, covariance and rank-1 updates, the pairwise score
+formulations, the stage schedule, phase-2 adjacency and the numpy modules
+the port keeps its own copies of.
+
+Tolerances: both sides compute in float32 with the same formulas, so they
+differ only where XLA and torch order a reduction or fuse a multiply-add
+differently — a few ulps of the reduced quantity. Element-wise results are
+held to rtol 1e-6; reductions over n <= 700 samples to rtol 1e-5 /
+atol 1e-6 (the tolerance of ``tests/test_fused_score.py``). Scores S are
+sums of squares of stats I ~ 1e-3 that are differences of entropies near
+1.42, so float32 rounding of the entropies is ~1e-4 of I and ~2e-4 of S; on
+this Gaussian data S is 1e-7..1e-5, below any fixed atol worth the name. S
+is held to 1e-3 of the case's largest score (largest difference measured:
+6.3e-4, the diagonal-tile scores of ``fused_layout`` at p=20).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from repro.core import adjacency as j_adj  # noqa: E402
+from repro.core import covariance as j_cov  # noqa: E402
+from repro.core import direct_lingam as j_dl  # noqa: E402
+from repro.core import entropy as j_ent  # noqa: E402
+from repro.core import pairwise as j_pw  # noqa: E402
+from repro.core import pruning as j_prune  # noqa: E402
+from repro.core import sem as j_sem  # noqa: E402
+from repro.core import validate as j_val  # noqa: E402
+from repro.utils import schedule as j_sched  # noqa: E402
+from repro_torch.core import adjacency as t_adj  # noqa: E402
+from repro_torch.core import covariance as t_cov  # noqa: E402
+from repro_torch.core import direct_lingam as t_dl  # noqa: E402
+from repro_torch.core import entropy as t_ent  # noqa: E402
+from repro_torch.core import pairwise as t_pw  # noqa: E402
+from repro_torch.core import pruning as t_prune  # noqa: E402
+from repro_torch.core import sem as t_sem  # noqa: E402
+from repro_torch.core import validate as t_val  # noqa: E402
+from repro_torch.utils import schedule as t_sched  # noqa: E402
+from repro_torch.utils.shapes import next_pow2  # noqa: E402
+
+RTOL, ATOL = 1e-5, 1e-6
+#: Largest score difference allowed, as a share of the case's largest score.
+SCORE_SHARE = 1e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _np(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _close(t, j, rtol=RTOL, atol=ATOL):
+    np.testing.assert_allclose(_np(t), np.asarray(j), rtol=rtol, atol=atol,
+                               equal_nan=True)
+
+
+def _close_scores(t, j, sel=slice(None)):
+    """Scores: equal +inf pattern, finite ones within SCORE_SHARE of the
+    largest."""
+    t, j = np.asarray(_np(t), np.float64)[sel], np.asarray(j, np.float64)[sel]
+    np.testing.assert_array_equal(np.isinf(t), np.isinf(j))
+    live = np.isfinite(j)
+    scale = np.abs(j[live]).max()
+    assert scale > 0, "every reference score is zero: the comparison is empty"
+    np.testing.assert_allclose(t[live], j[live], rtol=0, atol=SCORE_SHARE * scale)
+
+
+def _normalized(p, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((p, n)).astype(np.float32)
+    xn = np.array(jax.jit(j_cov.normalize)(jnp.asarray(x)))
+    c = np.array(jax.jit(j_cov.cov_matrix)(jnp.asarray(xn)))
+    return xn, c
+
+
+# ---------------------------------------------------------------------------
+# entropy
+# ---------------------------------------------------------------------------
+
+
+def test_entropy_constants_equal():
+    assert (t_ent.K1, t_ent.K2, t_ent.BETA, t_ent.H_GAUSS) == (
+        j_ent.K1, j_ent.K2, j_ent.BETA, j_ent.H_GAUSS)
+
+
+@pytest.mark.parametrize("fn", ["log_cosh", "u_exp_moment"])
+def test_entropy_integrands_match(fn):
+    u = np.random.default_rng(0).standard_normal((5, 700)).astype(np.float32) * 8.0
+    u[0, :4] = [0.0, 40.0, -60.0, 1e-8]
+    _close(getattr(t_ent, fn)(torch.from_numpy(u)),
+           getattr(j_ent, fn)(jnp.asarray(u)), rtol=1e-6, atol=1e-7)
+
+
+def test_entropy_matches():
+    rng = np.random.default_rng(1)
+    u = np.stack([rng.standard_normal(600), rng.laplace(size=600),
+                  rng.uniform(-1.7, 1.7, 600)]).astype(np.float32)
+    _close(t_ent.entropy(torch.from_numpy(u)), j_ent.entropy(jnp.asarray(u)))
+    m1, m2 = np.float32([0.3, 0.4, 0.5]), np.float32([0.01, -0.2, 0.1])
+    _close(t_ent.entropy_from_moments(torch.from_numpy(m1), torch.from_numpy(m2)),
+           j_ent.entropy_from_moments(jnp.asarray(m1), jnp.asarray(m2)),
+           rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# covariance
+# ---------------------------------------------------------------------------
+
+
+def test_sample_count_types():
+    assert t_cov._sample_count(None, 10, 1) == 9
+    assert t_cov._sample_count(None, 1, 1) == 1
+    nv = t_cov._sample_count(torch.tensor(7), 10, 1)
+    assert nv.dtype == torch.float32 and float(nv) == 6.0
+    assert (t_cov.VAR_EPS, t_cov.COLLINEAR_FLOOR) == (j_cov.VAR_EPS, j_cov.COLLINEAR_FLOOR)
+
+
+def test_full_precision_matmul_is_scoped():
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with t_cov.full_precision_matmul():
+            assert torch.get_float32_matmul_precision() == "highest"
+            assert not torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+@pytest.mark.parametrize("n_valid", [None, 450])
+def test_normalize_and_cov_match(n_valid):
+    p, n = 17, 600
+    x = np.random.default_rng(2).standard_normal((p, n)).astype(np.float32) * 3 + 1
+    if n_valid is not None:
+        x[:, n_valid:] = 0.0
+    nv_t = None if n_valid is None else torch.tensor(n_valid)
+    nv_j = None if n_valid is None else jnp.asarray(n_valid)
+    xn_t = t_cov.normalize(torch.from_numpy(x), n_valid=nv_t)
+    xn_j = jax.jit(j_cov.normalize)(jnp.asarray(x), n_valid=nv_j)
+    _close(xn_t, xn_j)
+    if n_valid is not None:
+        assert torch.all(xn_t[:, n_valid:] == 0)
+    _close(t_cov.cov_matrix(xn_t, n_valid=nv_t), j_cov.cov_matrix(xn_j, n_valid=nv_j))
+
+
+@pytest.mark.parametrize("p,root,dead,n_valid",
+                         [(13, 4, (1, 7), None), (17, 0, (16,), 500),
+                          (33, 32, (3, 5, 20), None)])
+def test_rank1_updates_match(p, root, dead, n_valid):
+    """update_data / update_cov at odd p with dead rows holding NaN."""
+    xn, c = _normalized(p, 600, seed=p)
+    if n_valid is not None:
+        xn[:, n_valid:] = 0.0
+    mask = np.ones(p, bool)
+    for d in dead:
+        mask[d] = False
+        xn[d] = np.nan
+        c[d, :] = np.nan
+        c[:, d] = np.nan
+        c[d, d] = 1.0
+    nv_t = None if n_valid is None else torch.tensor(n_valid)
+    nv_j = None if n_valid is None else jnp.asarray(n_valid)
+    root_t = torch.tensor(root)
+    x_t = t_cov.update_data(torch.from_numpy(xn), torch.from_numpy(c), root_t,
+                            torch.from_numpy(mask), n_valid=nv_t)
+    x_j = jax.jit(j_cov.update_data)(jnp.asarray(xn), jnp.asarray(c), root,
+                            jnp.asarray(mask), n_valid=nv_j)
+    _close(x_t, x_j)
+    c_t = t_cov.update_cov(torch.from_numpy(c), root_t, torch.from_numpy(mask))
+    c_j = jax.jit(j_cov.update_cov)(jnp.asarray(c), root, jnp.asarray(mask))
+    _close(c_t, c_j, rtol=1e-6, atol=1e-7)
+    b_t, s_t = t_cov.rank1_gates(torch.from_numpy(c[:, root]), torch.from_numpy(mask))
+    b_j, s_j = j_cov.rank1_gates(jnp.asarray(c[:, root]), jnp.asarray(mask))
+    _close(b_t, b_j, rtol=0, atol=0)
+    _close(s_t, s_j, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# pairwise
+# ---------------------------------------------------------------------------
+
+
+def test_residual_entropy_block_pair_matches():
+    xn, c = _normalized(12, 500, seed=5)
+    hf_t, hr_t = t_pw.residual_entropy_block_pair(
+        torch.from_numpy(xn[:5]), torch.from_numpy(c[:5, 5:]), torch.from_numpy(xn[5:]))
+    hf_j, hr_j = jax.jit(j_pw.residual_entropy_block_pair)(
+        jnp.asarray(xn[:5]), jnp.asarray(c[:5, 5:]), jnp.asarray(xn[5:]))
+    _close(hf_t, hf_j)
+    _close(hr_t, hr_j)
+
+
+@pytest.mark.parametrize("n_valid", [None, 400])
+def test_stream_and_row_entropies_match(n_valid):
+    xn, _ = _normalized(9, 500, seed=6)
+    if n_valid is not None:
+        xn[:, n_valid:] = 0.0
+    mask = np.arange(9) % 4 != 1
+    nv_t = None if n_valid is None else torch.tensor(n_valid)
+    nv_j = None if n_valid is None else jnp.asarray(n_valid)
+    for t, j in zip(t_pw.stream_moments(torch.from_numpy(xn), n_valid=nv_t),
+                    jax.jit(j_pw.stream_moments)(jnp.asarray(xn), n_valid=nv_j)):
+        _close(t, j)
+    _close(t_pw.row_entropies(torch.from_numpy(xn), torch.from_numpy(mask), n_valid=nv_t),
+           jax.jit(j_pw.row_entropies)(jnp.asarray(xn), jnp.asarray(mask), n_valid=nv_j))
+
+
+def test_tri_block_maps_match_triu_order():
+    for nt in (1, 2, 3, 5, 8):
+        im_t, jm_t = t_pw.tri_block_maps(nt)
+        im_j, jm_j = j_pw.tri_block_maps(nt)
+        np.testing.assert_array_equal(im_t, im_j)
+        np.testing.assert_array_equal(jm_t, jm_j)
+        ij = torch.triu_indices(nt, nt, 1)
+        np.testing.assert_array_equal(ij[0].numpy(), im_j)
+        np.testing.assert_array_equal(ij[1].numpy(), jm_j)
+
+
+@pytest.mark.parametrize("p,block", [(20, 8), (33, 16), (7, 32)])
+def test_fused_layout_matches(p, block):
+    xn, c = _normalized(p, 500, seed=p + block)
+    mask = np.arange(p) % 5 != 2
+    out_t = t_pw.fused_layout(torch.from_numpy(xn), torch.from_numpy(c),
+                              torch.from_numpy(mask), block)
+    out_j = jax.jit(j_pw.fused_layout, static_argnums=3)(
+        jnp.asarray(xn), jnp.asarray(c), jnp.asarray(mask), block)
+    for name, t, j in zip(("xpad", "cp", "c4", "hxb", "mb", "s_diag"), out_t, out_j):
+        assert tuple(t.shape) == tuple(j.shape), name
+        if name == "s_diag":
+            _close_scores(t, j)
+        else:
+            _close(t, j)
+
+
+@pytest.mark.parametrize("p,n,block", [(8, 512, 8), (33, 700, 16), (20, 600, 32)])
+def test_fused_scores_match(p, n, block):
+    xn, c = _normalized(p, n, seed=p + block)
+    mask = np.ones(p, bool)
+    s_t = t_pw.fused_scores(torch.from_numpy(xn), torch.from_numpy(c),
+                            torch.from_numpy(mask), block=block)
+    s_j = j_pw.fused_scores(jnp.asarray(xn), jnp.asarray(c), jnp.asarray(mask),
+                            block=block)
+    _close_scores(s_t, s_j)
+
+
+@pytest.mark.parametrize("p,n", [(16, 600), (21, 333)])
+def test_dense_scores_match(p, n):
+    xn, c = _normalized(p, n, seed=3 * p)
+    mask = np.arange(p) % 3 != 0
+    out_t = t_pw.dense_scores(torch.from_numpy(xn), torch.from_numpy(c),
+                              torch.from_numpy(mask))
+    out_j = j_pw.dense_scores(jnp.asarray(xn), jnp.asarray(c), jnp.asarray(mask),
+                              block_j=p)
+    s_t, i_t, hr_t = out_t
+    s_j, i_j, hr_j = out_j
+    _close_scores(s_t, s_j)
+    _close(i_t, i_j)
+    # HR's diagonal regresses a row on itself (1 - c_ii^2 clamps to VAR_EPS,
+    # amplifying rounding by 1e6); it is never read unmasked.
+    off = ~np.eye(p, dtype=bool)
+    _close(hr_t.numpy()[off], np.asarray(hr_j)[off])
+
+
+def test_residual_entropy_matrix_chunking_is_exact(monkeypatch):
+    """Column chunks change the buffer size, not the arithmetic."""
+    xn, c = _normalized(10, 300, seed=8)
+    full = t_pw.residual_entropy_matrix(torch.from_numpy(xn), torch.from_numpy(c))
+    monkeypatch.setattr(t_pw, "CHUNK_ELEMS", 3 * 10 * 300)
+    chunked = t_pw.residual_entropy_matrix(torch.from_numpy(xn), torch.from_numpy(c))
+    assert torch.equal(full, chunked)
+
+
+# ---------------------------------------------------------------------------
+# schedule, adjacency and the copied numpy modules
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("p,min_bucket,ring", [(1, 32, 1), (8, 8, 1), (85, 32, 1),
+                                               (512, 32, 1), (100, 16, 4)])
+def test_schedule_matches(p, min_bucket, ring):
+    assert (t_sched.make_schedule(p, min_bucket, ring=ring).stages
+            == j_sched.make_schedule(p, min_bucket, ring=ring).stages)
+    assert next_pow2(p) == j_sched.next_pow2(p)
+
+
+def test_complete_order_matches():
+    order = np.array([3, 0, 5, 0, 0, 2, 1], np.int32)  # 3 live, garbage tail
+    mask = np.array([True, False, False, True, False, True, False])
+    out_t = t_adj.complete_order(torch.from_numpy(order), torch.from_numpy(mask))
+    out_j = jax.jit(j_adj.complete_order)(jnp.asarray(order), jnp.asarray(mask))
+    np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_adjacency_from_order_matches(padded):
+    """B to 1e-4 absolute and Omega to 1e-4 relative: both factor a 17x17
+    float32 correlation matrix whose entries differ by a few ulps."""
+    data = t_sem.generate(t_sem.SemSpec(p=17, n=800, seed=4))
+    x = data["x"].astype(np.float32)
+    order = np.asarray(data["order"], np.int32)
+    kw_t, kw_j = {}, {}
+    if padded:  # two dead rows last in the order, 100 padded sample columns
+        x = np.concatenate([x, np.zeros((2, 800), np.float32)])
+        x = np.concatenate([x, np.zeros((19, 100), np.float32)], axis=1)
+        order = np.concatenate([order, [17, 18]]).astype(np.int32)
+        mask = np.arange(19) < 17
+        kw_t = dict(mask=torch.from_numpy(mask), n_valid=torch.tensor(800))
+        kw_j = dict(mask=jnp.asarray(mask), n_valid=jnp.asarray(800))
+    b_t, om_t = t_adj.adjacency_from_order(torch.from_numpy(x), torch.from_numpy(order),
+                                           prune_below=0.05, **kw_t)
+    b_j, om_j = jax.jit(j_adj.adjacency_from_order, static_argnames="prune_below")(jnp.asarray(x), jnp.asarray(order),
+                                           prune_below=0.05, **kw_j)
+    _close(b_t, b_j, rtol=0, atol=1e-4)
+    _close(om_t, om_j, rtol=1e-4, atol=0)
+
+
+def test_copied_numpy_modules_agree():
+    spec = dict(p=9, n=700, density="dense", seed=7)
+    d_t = t_sem.generate(t_sem.SemSpec(**spec))
+    d_j = j_sem.generate(j_sem.SemSpec(**spec))
+    for k in ("x", "b_true", "perm"):
+        np.testing.assert_array_equal(d_t[k], d_j[k])
+    assert t_sem.is_valid_causal_order(d_t["order"], d_t["b_true"])
+    assert t_dl.causal_order(d_t["x"]) == j_dl.causal_order(d_j["x"])
+    np.testing.assert_array_equal(
+        t_prune.estimate_adjacency(d_t["x"], d_t["order"], prune_below=0.1),
+        j_prune.estimate_adjacency(d_j["x"], d_j["order"], prune_below=0.1))
+    bad = d_t["x"].copy()
+    bad[2, 5] = np.nan
+    bad[4] = bad[1]
+    assert (dataclasses.asdict(t_val.validate_dataset(bad))
+            == dataclasses.asdict(j_val.validate_dataset(bad)))
