@@ -20,9 +20,26 @@ Phases, each printed on its own line:
    at every smaller stage size on Gaussian rows under the fit's mask (the
    fit's own inputs there score ~0), the fit's wall time, and the kernel's
    time per launch at m=512.
-5. With ``--profile``: where one fit's time goes (torch.profiler device time
-   by kernel, and the device's busy share), at both fit sizes.
-6. A ``{"kernels": [...]}`` line with each hand kernel's launches on the main
+5. The batched kernel (``fused_score_batch``) against its batched plain
+   version: B=8 ragged E. coli-size datasets (p 70-85, n 8000-10000, dead
+   rows holding NaN) in the (128, 16384) bucket and B=2 at (512, 2048), per
+   dataset within ``score_tolerance`` and with the same root; row i of a
+   batched launch bit-identical to a one-dataset ``launch()`` on the same
+   prologue inputs; its time per launch at B=8.
+6. ``fit_batch`` on that E. coli bucket: ``hopper_fused`` and ``torch`` give
+   equal orders, B and noise variances, and the batched kernel runs once per
+   find-root (``p_pad - 1`` launches per dispatch).
+7. The serving path: ``AsyncLingamEngine`` with real threads, two dispatcher
+   replicas and both buckets pre-warmed serves 8 E. coli-size and 2
+   iJR904-size requests from 3 submitter threads. Every ticket resolves,
+   every result is bit-identical to a replay of its recorded dispatch
+   through ``fit_batch``, the stats ledger balances, ``kernel_bypass`` and
+   ``auto_downgrade`` are 0; requests/s, seconds per dispatch, and one
+   ``fit`` per request for comparison are printed.
+8. With ``--profile``: where one fit's time goes (torch.profiler device time
+   by kernel, and the device's busy share), at both fit sizes, and the
+   device's busy share while the engine serves the same requests again.
+9. A ``{"kernels": [...]}`` line with each hand kernel's launches on the main
    path, its error against the plain version, its time, the plain version's
    time and its bound.
 
@@ -38,6 +55,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -48,9 +66,16 @@ import torch  # noqa: E402
 
 from repro_torch.core import direct_lingam, sem  # noqa: E402
 from repro_torch.core.covariance import cov_matrix, normalize  # noqa: E402
-from repro_torch.core.paralingam import ParaLiNGAMConfig, fit  # noqa: E402
+from repro_torch.core import paralingam  # noqa: E402
+from repro_torch.core.paralingam import ParaLiNGAMConfig, fit, fit_batch  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import fused_score as fs  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    AsyncLingamEngine,
+    BatchingConfig,
+    LingamServeConfig,
+)
+from repro_torch.serve.lingam_engine import pack_bucket  # noqa: E402
 
 # Kernel against plain: the same root, and per live row the error bound of
 # fused_score.score_tolerance — float32 rounding of each entropy carried
@@ -63,6 +88,10 @@ from repro_torch.kernels import fused_score as fs  # noqa: E402
 HBM_BPS, FP32_FLOPS, SFU_OPS = 3.35e12, 67e12, 132 * 16 * 1.98e9
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/fused_score.cu"
 KERNEL_REPLACES = "src/repro/kernels/fused_score.py:70"
+BATCH_REPLACES = "src/repro/kernels/fused_score.py:208"
+# The serving buckets: E. coli core size (p=85, n=10000) and the iJR904
+# slice (p=512, n=2000), under LingamServeConfig's pow-2 grid.
+ECOLI_BUCKET, IJR_BUCKET = (128, 16384), (512, 2048)
 
 
 def say(tag: str, **kw):
@@ -92,11 +121,18 @@ def compare(name, xn, c, mask, **kw):
     s_r = fs.fused_score_vector_ref(xn, c, mask, block=kw.get("block", 8),
                                     n_valid=kw.get("n_valid"))
     torch.cuda.synchronize()
+    return hold(name, s_k, s_r, xn, c, mask, kw.get("n_valid"))
+
+
+def hold(name, s_k, s_r, xn, c, mask, n_valid=None):
+    """One dataset's kernel scores against its plain scores: dead rows +inf,
+    every live row within ``score_tolerance``, the same root, and most rows
+    farther than their tolerance from 0. Returns the max absolute error."""
     check(bool(torch.all(torch.isinf(s_k[~mask]))), f"{name}: dead rows not +inf")
     k, r = s_k[mask].double(), s_r[mask].double()
     check(bool(torch.all(torch.isfinite(k))), f"{name}: non-finite live scores")
     err = (k - r).abs()
-    tol = fs.score_tolerance(s_r, xn, c, mask, n_valid=kw.get("n_valid"))[mask].double()
+    tol = fs.score_tolerance(s_r, xn, c, mask, n_valid=n_valid)[mask].double()
     # A row whose score is within its tolerance of 0 would pass a kernel that
     # wrote zeros there; a case tests the kernel only if most rows are not so.
     held = int(torch.sum(r.abs() > tol))
@@ -274,11 +310,284 @@ def phase_fit_slice(dev, gpu):
         kernel_fraction_of_bound=f"{bound / ms:.3f}", gpu=f"'{gpu}'")
     return launches, max(errs), ms, plain_ms, bound, wrapper_ms
 
+SERVE_CFG = LingamServeConfig(max_batch=8)
+
+
+def ecoli_requests():
+    """8 ragged E. coli-size SEM datasets (p 70-85, n 8193-10000: all in the
+    (128, 16384) bucket)."""
+    rng = np.random.default_rng(13)
+    shapes = [(int(rng.integers(70, 86)), int(rng.integers(8193, 10_001)))
+              for _ in range(8)]
+    return [sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=100 + i))["x"]
+            for i, (p, n) in enumerate(shapes)]
+
+
+def ijr_requests():
+    """2 iJR904-size SEM datasets: the slice of bench_table2.py and a ragged one."""
+    return [sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=seed))["x"]
+            for p, n, seed in ((512, 2000, 1), (480, 1950, 3))]
+
+
+def bucket_inputs(raw, bucket, dev):
+    """The batched kernel's inputs for ``raw`` datasets packed into a bucket:
+    rows normalized on the card with each dataset's valid count, and dead
+    rows holding NaN in xn and c (the kernel must never read them)."""
+    xs, mask, nv, _ = pack_bucket(raw, *bucket)
+    x, mk, n_valid = (torch.from_numpy(a).to(dev) for a in (xs, mask, nv))
+    xn = torch.where(mk[..., None], normalize(x, n_valid=n_valid), 0.0)
+    c = cov_matrix(xn, n_valid=n_valid)
+    xn = torch.where(mk[..., None], xn, torch.nan).contiguous()
+    c = torch.where(mk[:, :, None] & mk[:, None, :], c, torch.nan).contiguous()
+    return xn, c, mk, n_valid
+
+
+def live_tile_pairs(mask, b=8):
+    """Ordered pairs of live rows in the off-diagonal tiles of each dataset:
+    the (row, row) work of the tile kernel that these inputs need."""
+    live = mask.sum(dim=1).double()
+    per_tile = mask.reshape(mask.shape[0], -1, b).sum(dim=2).double()
+    return live * (live - 1) - (per_tile * (per_tile - 1)).sum(dim=1)
+
+
+def phase_batch_kernel(dev, gpu):
+    """(a) The batched kernel against its batched plain version. Returns
+    (max_abs_err, kernel ms, wrapper ms, plain ms, bound ms, padded bound ms,
+    the timed case's shape)."""
+    gauss = gauss_data(500, 1900, 4)
+    cases = (("ecoli_b8", ecoli_requests(), ECOLI_BUCKET),
+             ("ijr904_b2", [ijr_requests()[0], gauss], IJR_BUCKET))
+    errs, timing = [], None
+    for name, raw, bucket in cases:
+        xb, cb, mb, nv = bucket_inputs(raw, bucket, dev)
+        s_k = fs.fused_score_batch(xb, cb, mb, n_valid=nv)
+        s_r = fs.fused_score_batch_ref(xb, cb, mb, n_valid=nv)
+        torch.cuda.synchronize()
+        for i in range(len(raw)):
+            errs.append(hold(f"{name}[{i}]", s_k[i], s_r[i], xb[i], cb[i], mb[i], nv[i]))
+        # Row i of a batched launch is bit-identical to a launch of dataset i
+        # alone on the same prologue inputs, and repeated launches agree.
+        _, _, _, hxb, mbb, s_diag = fs.fused_layout(xb, cb, mb, 8, n_valid=nv)
+        den = nv.float()
+        out = fs.launch_batch(xb, cb, hxb, mbb, s_diag, den)
+        rows = [torch.equal(out[i], fs.launch(xb[i], cb[i], hxb[i], mbb[i], s_diag[i],
+                                              den[i:i + 1]))
+                for i in range(len(raw))]
+        repeat = torch.equal(out, s_k)
+        say("batch_row_invariance", case=name, B=len(raw),
+            rows_bit_identical=f"{sum(rows)}/{len(rows)}", repeat_bit_identical=repeat)
+        check(all(rows), f"{name}: a batched row differs from its one-dataset launch")
+        check(repeat, f"{name}: two launches on the same inputs differ")
+        if timing is None:
+            bsz, _, n_pad = xb.shape
+            ms = time_ms(lambda: fs.launch_batch(xb, cb, hxb, mbb, s_diag, den), reps=20)
+            wrapper_ms = time_ms(lambda: fs.fused_score_batch(xb, cb, mb, n_valid=nv), reps=10)
+            plain_ms = time_ms(lambda: fs.fused_score_batch_ref(xb, cb, mb, n_valid=nv),
+                               reps=2, warmup=1)
+            # What these inputs need: live ordered pairs of the off-diagonal
+            # tiles times each dataset's valid samples, 3 transcendentals
+            # (SFU) and ~12 FP32 operations each; the live data read once.
+            elems = float((live_tile_pairs(mb) * nv.double()).sum())
+            live_p = mb.sum(dim=1).double()
+            bytes_moved = float((4 * (live_p * nv.double() + live_p * live_p + 3 * live_p)).sum())
+            bound = max(bytes_moved / HBM_BPS, 12 * elems / FP32_FLOPS, 3 * elems / SFU_OPS) * 1e3
+            nt = mbb.shape[1]
+            padded = 3 * bsz * nt * (nt - 1) * 64 * n_pad / SFU_OPS * 1e3
+            say("batch_kernel_time", case=name, B=bsz, bucket=f"{tuple(xb.shape[1:])}",
+                kernel_ms=f"{ms:.4f}", wrapper_ms=f"{wrapper_ms:.4f}",
+                plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+                bound_ms_padded_buffer=f"{padded:.4f}",
+                kernel_fraction_of_bound=f"{bound / ms:.3f}", gpu=f"'{gpu}'")
+            live_p, live_n = live_p.long(), nv.long()
+            shape = (f"B={bsz},bucket={xb.shape[1]}x{n_pad},"
+                     f"p={int(live_p.min())}-{int(live_p.max())},"
+                     f"n={int(live_n.min())}-{int(live_n.max())},block=8")
+            timing = (ms, wrapper_ms, plain_ms, bound, padded, shape)
+    return (max(errs), *timing)
+
+
+def phase_fit_batch(dev, gpu):
+    """(b) ``fit_batch`` on the E. coli bucket with the kernel and with the
+    plain square path. Returns each request's order."""
+    raw = ecoli_requests()
+    xs, mask, nv, _ = pack_bucket(raw, *ECOLI_BUCKET)
+    runs = {}
+    for backend in ("hopper_fused", "torch"):
+        fs.BATCH_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_batch(xs, ParaLiNGAMConfig(score_backend=backend), n_valid=nv,
+                        mask=mask, device=dev)
+        orders = res.orders.cpu().numpy()
+        torch.cuda.synchronize()
+        runs[backend] = (res, orders, time.perf_counter() - t0, fs.BATCH_LAUNCHES)
+    (rk, ok_, tk, launches), (rp, op_, tp_, _) = runs["hopper_fused"], runs["torch"]
+    p_live = [x.shape[0] for x in raw]
+    same = [list(ok_[i, :p]) == list(op_[i, :p]) for i, p in enumerate(p_live)]
+    b_err = (rk.b - rp.b).abs().max().item()
+    nv_err = ((rk.noise_var - rp.noise_var).abs() / rp.noise_var.abs().clamp(min=1e-30)).max().item()
+    finite = bool(torch.isfinite(rk.b).all() and torch.isfinite(rk.noise_var).all())
+    say("fit_batch_ecoli", B=len(raw), bucket=f"{ECOLI_BUCKET}", orders_equal=f"{sum(same)}/{len(same)}",
+        b_max_abs_diff=b_err, noise_var_max_rel_diff=nv_err, launches=launches,
+        find_roots=ECOLI_BUCKET[0] - 1, fit_batch_s_hopper_fused=f"{tk:.4f}",
+        fit_batch_s_torch=f"{tp_:.4f}", gpu=f"'{gpu}'")
+    check(all(same), "hopper_fused and torch orders differ in the E. coli bucket")
+    check(b_err <= 1e-6 and nv_err <= 1e-6, "B or noise_var differ between the backends")
+    check(launches == ECOLI_BUCKET[0] - 1,
+          f"{launches} batched launches for {ECOLI_BUCKET[0] - 1} find-roots")
+    check(finite, "non-finite B or noise variances in the E. coli bucket")
+    return [list(ok_[i, :p]) for i, p in enumerate(p_live)]
+
+
+def conserved(st) -> bool:
+    return (st["submitted"] == st["admitted"] + st["shed"] + st["rejected"] + st["quarantined"]
+            and st["admitted"] == st["delivered"] + st["timeouts"] + st["failed"]
+            + st["queue_depth"] + st["in_flight"])
+
+
+def serve_round(eng, requests, threads=3):
+    """Submit ``requests`` from ``threads`` submitter threads; wait for every
+    ticket. Returns (results, wall seconds)."""
+    tickets, errors = [None] * len(requests), []
+
+    def submitter(w):
+        try:
+            for i in range(w, len(requests), threads):
+                tickets[i] = eng.submit(requests[i])
+        except Exception as e:  # noqa: BLE001 — reported through `errors`
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    pool = [threading.Thread(target=submitter, args=(w,)) for w in range(threads)]
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(600)
+    check(not errors and all(not th.is_alive() for th in pool), f"submit failed: {errors}")
+    results = [t.result(600) for t in tickets]
+    return results, time.perf_counter() - t0
+
+
+def phase_engine(dev, gpu, batch_orders, profile: bool):
+    """(c) The serving path on the card. Returns the batched kernel's
+    launches in the served run."""
+    ecoli, ijr = ecoli_requests(), ijr_requests()
+    requests = ecoli + ijr
+    cfg = ParaLiNGAMConfig()
+    records, mu, holder = [], threading.Lock(), {}
+
+    def recording(bucket, payloads):
+        t0 = time.perf_counter()
+        out = holder["eng"]._device_dispatch(bucket, payloads)
+        with mu:
+            records.append((bucket, list(payloads), out, time.perf_counter() - t0))
+        return out
+
+    # A bucket flushes when it holds 8 requests, or 1 s after its oldest one
+    # arrived: the submitters validate each dataset first (~0.1 s each).
+    t0 = time.perf_counter()
+    eng = AsyncLingamEngine(
+        cfg, SERVE_CFG, batch_cfg=BatchingConfig(max_batch=8, max_queue=64, flush_interval=1.0),
+        dispatch=recording, replicas=2, prewarm=[(85, 10_000), (512, 2000)], device=dev)
+    holder["eng"] = eng
+    prewarm_s = time.perf_counter() - t0
+    try:
+        fs.LAUNCHES = fs.BATCH_LAUNCHES = 0
+        paralingam.reset_dispatch_stats()
+        results, wall = serve_round(eng, requests)  # the main path
+        launches, vec_launches = fs.BATCH_LAUNCHES, fs.LAUNCHES
+        st = eng.stats()
+        busy = None
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+            with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, wall2 = serve_round(eng, requests)
+            busy = (device_rows(prof), wall2)
+    finally:
+        eng.close(timeout=120)
+    served = records[:st["dispatches"]]
+    dispatch_s = [f"{r[0]}x{len(r[1])}:{r[3]:.4f}" for r in served]
+    say("engine", requests=len(requests), dispatches=st["dispatches"], prewarm_s=f"{prewarm_s:.2f}",
+        prewarm_buckets=st["prewarm"]["buckets"], wall_s=f"{wall:.4f}",
+        requests_per_s=f"{len(requests) / wall:.3f}", seconds_per_dispatch=",".join(dispatch_s),
+        launches=launches, gpu=f"'{gpu}'")
+    check(all(r is not None for r in results), "a ticket did not resolve")
+    check(conserved(st), f"stats ledger does not balance: {st}")
+    check(st["delivered"] == len(requests), f"{st['delivered']} of {len(requests)} delivered")
+    check(st["kernel_bypass"] == 0 and st["auto_downgrade"] == 0,
+          f"kernel_bypass={st['kernel_bypass']} auto_downgrade={st['auto_downgrade']}")
+    want = sum(r[0][0] - 1 for r in served)
+    check(launches == want and vec_launches == 0,
+          f"{launches} batched launches (want {want}), {vec_launches} one-dataset launches")
+
+    # Each result is bit-identical to a replay of its recorded dispatch.
+    replay_ok = 0
+    for bucket, payloads, out, _ in served:
+        xs, mask, nv, exact = pack_bucket(payloads, *bucket)
+        seams = {} if exact else dict(n_valid=nv, mask=mask)
+        res = fit_batch(xs, cfg, device=dev, **seams)
+        orders, b, omega = res.orders.cpu().numpy(), res.b.cpu().numpy(), res.noise_var.cpu().numpy()
+        for i, (x, f) in enumerate(zip(payloads, out)):
+            p = x.shape[0]
+            replay_ok += (list(orders[i, :p]) == f.order and np.array_equal(b[i, :p, :p], f.b)
+                          and np.array_equal(omega[i, :p], f.noise_var))
+    say("engine_replay", results_bit_identical_to_replay=f"{replay_ok}/{len(requests)}")
+    check(replay_ok == len(requests), "a served result differs from the replay of its dispatch")
+    same_as_b = sum(res.order == o for res, o in zip(results[:len(ecoli)], batch_orders))
+    say("engine_vs_fit_batch", ecoli_orders_equal_to_phase_b=f"{same_as_b}/{len(ecoli)}",
+        held=False)
+    for res in results:
+        check(np.isfinite(res.b).all() and np.isfinite(res.noise_var).all(),
+              "non-finite B or noise variances served")
+
+    # One fit per request, for comparison: the whole round, and the E. coli
+    # requests against the seconds of their bucket's dispatches.
+    serial = []
+    for x in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(x, cfg, device=dev)
+        torch.cuda.synchronize()
+        serial.append(time.perf_counter() - t0)
+    serial_ecoli = sum(serial[:len(ecoli)])
+    ecoli_s = sum(r[3] for r in served if r[0] == ECOLI_BUCKET)
+    say("engine_vs_serial_fit", requests=len(requests), serial_fit_s=f"{sum(serial):.4f}",
+        serial_requests_per_s=f"{len(requests) / sum(serial):.3f}",
+        engine_requests_per_s=f"{len(requests) / wall:.3f}",
+        ecoli_serial_fit_s=f"{serial_ecoli:.4f}",
+        ecoli_serial_requests_per_s=f"{len(ecoli) / serial_ecoli:.3f}",
+        ecoli_dispatch_s=f"{ecoli_s:.4f}",
+        ecoli_batched_requests_per_s=f"{len(ecoli) / ecoli_s:.3f}",
+        ecoli_speedup=f"{serial_ecoli / ecoli_s:.2f}", gpu=f"'{gpu}'")
+    if busy is not None:
+        rows, wall2 = busy
+        busy_us = sum(r[0] for r in rows)
+        say("profile_engine", requests=len(requests), wall_s=f"{wall2:.4f}",
+            device_busy_s=f"{busy_us / 1e6:.4f}", device_busy_share=f"{busy_us / 1e6 / wall2:.3f}",
+            gpu=f"'{gpu}'")
+        say_rows("engine", rows, busy_us)
+    return launches
+
+
+def device_rows(prof):
+    """(device us, kernel name, calls) of a torch.profiler run, largest first."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sorted((r for r in rows if r[0] > 0), reverse=True)
+
+
+def say_rows(run, rows, busy_us, top=12):
+    for us, key, count in rows[:top]:
+        say("profile_kernel", run=run, share=f"{us / busy_us:.3f}", device_ms=f"{us / 1e3:.3f}",
+            calls=count, name=f"'{key[:90]}'")
+
 
 def profile_fits(dev, gpu):
     """``--profile``: where the time of one fit goes, from torch.profiler —
     device time by kernel, and the device's busy share of the wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for p, n, seed in ((85, 10_000, 0), (512, 2000, 1)):
@@ -286,15 +595,24 @@ def profile_fits(dev, gpu):
         run_fit(x, "hopper_fused", dev)  # warm-up
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, _, wall, _ = run_fit(x, "hopper_fused", dev)
-        rows = [(e.self_device_time_total, e.key, e.count)
-                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+        rows = device_rows(prof)
         busy_us = sum(r[0] for r in rows)
         say("profile", p=p, n=n, wall_s=f"{wall:.4f}", device_busy_s=f"{busy_us / 1e6:.4f}",
             device_busy_share=f"{busy_us / 1e6 / wall:.3f}", gpu=f"'{gpu}'")
-        for us, key, count in rows[:12]:
-            say("profile_kernel", p=p, share=f"{us / busy_us:.3f}", device_ms=f"{us / 1e3:.3f}",
-                calls=count, name=f"'{key[:90]}'")
+        say_rows(f"fit_p{p}", rows, busy_us)
+    # One dispatch of the E. coli bucket (B=8), as the engine runs it.
+    xs, mask, nv, _ = pack_bucket(ecoli_requests(), *ECOLI_BUCKET)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit_batch(xs, ParaLiNGAMConfig(), n_valid=nv, mask=mask, device=dev).orders.cpu()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    say("profile", run="fit_batch_ecoli_b8", wall_s=f"{wall:.4f}",
+        device_busy_s=f"{busy_us / 1e6:.4f}", device_busy_share=f"{busy_us / 1e6 / wall:.3f}",
+        gpu=f"'{gpu}'")
+    say_rows("fit_batch_ecoli_b8", rows, busy_us)
 
 
 def main() -> int:
@@ -320,7 +638,11 @@ def main() -> int:
     phase_fit_small(dev)
     err_core = phase_fit_core(dev, gpu)
     launches, err_fit, ms, plain_ms, bound, wrapper_ms = phase_fit_slice(dev, gpu)
-    if "--profile" in sys.argv[1:]:
+    err_b, ms_b, wrapper_b, plain_b, bound_b, padded_b, shape_b = phase_batch_kernel(dev, gpu)
+    batch_orders = phase_fit_batch(dev, gpu)
+    profile = "--profile" in sys.argv[1:]
+    launches_b = phase_engine(dev, gpu, batch_orders, profile)
+    if profile:
         profile_fits(dev, gpu)
     print(json.dumps({"kernels": [{
         "name": "fused_score", "route": "cuda", "source": KERNEL_SOURCE,
@@ -329,6 +651,12 @@ def main() -> int:
         "bound_ms": bound, "bound_by": "operations", "library_ms": None,
         "wrapper_ms": wrapper_ms, "shape": "p=512,n=2000,block=8",
         "gpu": gpu,
+    }, {
+        "name": "fused_score_batch", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": BATCH_REPLACES, "launches": launches_b, "max_abs_err": err_b,
+        "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": "operations",
+        "library_ms": None, "wrapper_ms": wrapper_b, "bound_ms_padded_buffer": padded_b,
+        "shape": shape_b, "gpu": gpu,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 an NVIDIA H100 (Hopper, sm_90a).
 
 The port of the JAX package ``repro``, slice by slice, with the same layout
-(``core/``, ``kernels/``, ``utils/``). It imports neither JAX nor ``repro``.
-Entry points run on the CUDA device unless the caller asks for the CPU
-(``fit(..., device="cpu")`` runs the plain torch path).
+(``core/``, ``kernels/``, ``serve/``, ``utils/``). It imports neither JAX nor
+``repro``. Entry points (``fit``, ``fit_batch``, ``causal_order_batch`` and
+the engines of ``repro_torch.serve``) run on the CUDA device unless the
+caller asks for the CPU (``device="cpu"`` runs the plain torch path).
 
 Importing it does no work: kernels are compiled on first use
 (``kernels/_build.py``).
@@ -12,6 +13,14 @@ Importing it does no work: kernels are compiled on first use
 
 __version__ = "0.1.0"
 
-from repro_torch.core.paralingam import ParaLiNGAMConfig, ParaLiNGAMResult, fit
+from repro_torch.core.paralingam import (
+    BatchFitResult,
+    ParaLiNGAMConfig,
+    ParaLiNGAMResult,
+    causal_order_batch,
+    fit,
+    fit_batch,
+)
 
-__all__ = ["ParaLiNGAMConfig", "ParaLiNGAMResult", "__version__", "fit"]
+__all__ = ["BatchFitResult", "ParaLiNGAMConfig", "ParaLiNGAMResult",
+           "__version__", "causal_order_batch", "fit", "fit_batch"]

@@ -27,6 +27,10 @@ Padding contracts (the batched seam, shared with the scan driver):
     back with zero B rows/columns and zero noise variance.
   * ``n_valid`` counts valid sample columns (``covariance.normalize``
     contract: padded columns zero).
+
+Both functions take a leading dataset axis as well (``x: (B, p, n)``,
+``order``/``mask: (B, p)``, ``n_valid: (B,)``); every reduction and every
+escalation of the jitter ladder is per dataset.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.core.covariance import (
     VAR_EPS,
     _sample_count,
     full_precision_matmul,
+    per_dataset,
     sample_mask,
 )
 from repro_torch.core.pruning import JITTER_SCALE
@@ -47,29 +52,36 @@ def complete_order(order, mask):
     permutation of ``0..p-1``: the first ``sum(mask)`` entries are the live
     variables, the garbage entries past them are replaced by the dead
     variable ids in ascending order."""
-    p = order.shape[0]
-    p_live = torch.sum(mask)
+    p = order.shape[-1]
+    p_live = torch.sum(mask, dim=-1, keepdim=True)
     valid_pos = torch.arange(p, device=order.device) < p_live
-    seen = torch.zeros((p,), dtype=torch.int32, device=order.device)
-    seen = seen.scatter_add(0, order.long(), valid_pos.to(torch.int32)) > 0
+    seen = torch.zeros(order.shape, dtype=torch.int32, device=order.device)
+    seen = seen.scatter_add(-1, order.long(), valid_pos.to(torch.int32)) > 0
     # unseen ids first, ascending (stable), like nonzero(~seen, size=p)
-    missing = torch.argsort(seen.to(torch.int8), stable=True).to(order.dtype)
+    missing = torch.argsort(seen.to(torch.int8), dim=-1, stable=True).to(order.dtype)
     take = torch.clamp(torch.arange(p, device=order.device) - p_live, 0, p - 1)
-    return torch.where(valid_pos, order, missing[take])
+    return torch.where(valid_pos, order, torch.take_along_dim(missing, take, dim=-1))
 
 
 def _cholesky_ladder(corr, base):
     """Cholesky of ``corr`` + ridge, escalating the ridge 1e-10 -> 1e-6 ->
     1e-4 (times ``base``) only where the factorization failed. All three
     factorizations run and a select picks, so the host never waits on the
-    failure flag."""
-    eye = torch.eye(corr.shape[0], dtype=corr.dtype, device=corr.device)
+    failure flag. With a leading dataset axis each dataset escalates on its
+    own failure only: one dataset's ill-conditioning never moves another's
+    jitter."""
+    eye = torch.eye(corr.shape[-1], dtype=corr.dtype, device=corr.device)
+    base = per_dataset(base, corr.ndim)
+
+    def failed_of(chol, info):
+        return per_dataset((info != 0) | torch.isnan(chol).any(dim=(-2, -1)), corr.ndim)
+
     chol, info = torch.linalg.cholesky_ex(corr + (JITTER_SCALE * base) * eye)
-    failed = (info != 0) | torch.isnan(chol).any()
+    failed = failed_of(chol, info)
     for scale in (1e-6, 1e-4):
         retry, rinfo = torch.linalg.cholesky_ex(corr + (scale * base) * eye)
         chol = torch.where(failed, retry, chol)
-        failed = torch.where(failed, (rinfo != 0) | torch.isnan(retry).any(), failed)
+        failed = torch.where(failed, failed_of(retry, rinfo), failed)
     return chol
 
 
@@ -79,42 +91,50 @@ def adjacency_from_order(x, order, mask=None, n_valid=None,
     and a *permutation* ``order`` (see :func:`complete_order` for padded
     buffers). Returns ``(b, omega)`` in original variable ids; the hard
     threshold ``prune_below`` zeroes spurious small edges."""
-    p, n = x.shape
+    p, n = x.shape[-2:]
     order = order.long()
-    xo = x.index_select(0, order)  # rows in causal order; padded rows last
+    # rows in causal order; padded rows last
+    xo = torch.take_along_dim(x, order[..., None], dim=-2)
 
     # Centered covariance on the true sample count; padded columns stay 0.
     smask = sample_mask(n, n_valid, x.device)
     if smask is None:
-        xc = xo - torch.mean(xo, dim=1, keepdim=True)
+        xc = xo - torch.mean(xo, dim=-1, keepdim=True)
     else:
-        mu = torch.sum(torch.where(smask, xo, 0.0), dim=1, keepdim=True) / _sample_count(n_valid, n)
+        mean_den = per_dataset(_sample_count(n_valid, n), x.ndim)
+        mu = torch.sum(torch.where(smask, xo, 0.0), dim=-1, keepdim=True) / mean_den
         xc = torch.where(smask, xo - mu, 0.0)
     cov_den = _sample_count(n_valid, n, 1)
-    var = torch.sum(torch.square(xc), dim=1) / cov_den
+    var = torch.sum(torch.square(xc), dim=-1) / per_dataset(cov_den, x.ndim - 1)
     std = torch.sqrt(torch.clamp(var, min=VAR_EPS))  # dead rows -> sqrt(VAR_EPS)
-    xs = xc / std[:, None]
+    xs = xc / std[..., None]
     with full_precision_matmul():
-        corr = (xs @ xs.T) / cov_den
+        corr = (xs @ xs.mT) / per_dataset(cov_den, x.ndim)
 
-    p_live = p if mask is None else torch.sum(mask)
-    base = torch.trace(corr) / (max(p_live, 1) if mask is None else torch.clamp(p_live, min=1))
+    trace = torch.diagonal(corr, dim1=-2, dim2=-1).sum(dim=-1)
+    if mask is None:
+        p_live, base = p, trace / max(p, 1)
+    else:
+        p_live = torch.sum(mask, dim=-1)
+        base = trace / torch.clamp(p_live, min=1)
     chol = _cholesky_ladder(corr, base)
-    diag = torch.diagonal(chol)
-    a_r = chol / diag[None, :]  # unit lower triangular
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+    a_r = chol / diag[..., None, :]  # unit lower triangular
     eye = torch.eye(p, dtype=corr.dtype, device=x.device)
-    a_r_inv = torch.linalg.solve_triangular(a_r, eye, upper=False, unitriangular=True)
+    a_r_inv = torch.linalg.solve_triangular(a_r, eye.expand_as(a_r), upper=False,
+                                            unitriangular=True)
     # Undo the std scaling: A = D A_R D^{-1}  =>  A^{-1} = D A_R^{-1} D^{-1}.
-    b_ord = eye - a_r_inv * (std[:, None] / std[None, :])
+    b_ord = eye - a_r_inv * (std[..., :, None] / std[..., None, :])
     omega_ord = torch.square(diag * std)
     if mask is not None:
-        pos_live = torch.arange(p, device=x.device) < p_live
-        b_ord = torch.where(pos_live[:, None] & pos_live[None, :], b_ord, 0.0)
+        pos_live = torch.arange(p, device=x.device) < p_live[..., None]
+        b_ord = torch.where(pos_live[..., :, None] & pos_live[..., None, :], b_ord, 0.0)
         omega_ord = torch.where(pos_live, omega_ord, 0.0)
     if prune_below > 0.0:
         b_ord = torch.where(torch.abs(b_ord) < prune_below, 0.0, b_ord)
 
     # b[order[a], order[c]] = b_ord[a, c], as a gather by the inverse order.
-    inv = torch.argsort(order)
-    b = b_ord.index_select(0, inv).index_select(1, inv)
-    return b, omega_ord.index_select(0, inv)
+    inv = torch.argsort(order, dim=-1)
+    b = torch.take_along_dim(b_ord, inv[..., :, None], dim=-2)
+    b = torch.take_along_dim(b, inv[..., None, :], dim=-1)
+    return b, torch.take_along_dim(omega_ord, inv, dim=-1)

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.covariance import VAR_EPS, _sample_count
+from repro_torch.core.covariance import VAR_EPS, _sample_count, per_dataset
 from repro_torch.core.entropy import entropy_from_moments, log_cosh, u_exp_moment
 
 #: Element budget of one chunk's (tiles, b, b, n) or (p, cols, n) residual
@@ -50,8 +50,9 @@ def stream_moments(u, n_valid=None):
     means of ``log cosh u`` and ``u exp(-u^2/2)`` (reduce axis -1), taken as
     raw sums over the sample axis divided by the valid count. Zero-padded
     sample columns add exactly 0 to both sums, so ``n_valid`` only changes
-    the denominator."""
-    den = _sample_count(n_valid, u.shape[-1])
+    the denominator. A (B,) ``n_valid`` holds one count per entry of the
+    leading axis of ``u``."""
+    den = per_dataset(_sample_count(n_valid, u.shape[-1]), u.ndim - 1)
     return torch.sum(log_cosh(u), dim=-1) / den, torch.sum(u_exp_moment(u), dim=-1) / den
 
 
@@ -94,15 +95,18 @@ def diag_block_scores(xb, c_diag, hxb, mb, n_valid=None):
 
     ``xb: (nt, b, n)`` row blocks, ``c_diag: (nt, b, b)`` the matching
     diagonal correlation blocks, ``hxb: (nt, b)`` row entropies, ``mb:
-    (nt, b)`` live mask. One HR block per tile covers both orderings of every
-    in-block pair, so only the row-sum credit applies. Returns (nt, b)."""
+    (nt, b)`` live mask, ``n_valid`` one count or one per tile (nt,). One HR
+    block per tile covers both orderings of every in-block pair, so only the
+    row-sum credit applies. Returns (nt, b)."""
     nt, b, n = xb.shape
     eye = torch.eye(b, dtype=torch.bool, device=xb.device)
     step = max(1, CHUNK_ELEMS // max(b * b * n, 1))
+    per_tile = isinstance(n_valid, torch.Tensor) and n_valid.ndim == 1
     out = []
     for t0 in range(0, nt, step):
         sl = slice(t0, t0 + step)
-        hr = residual_entropy_block(xb[sl], c_diag[sl], xb[sl], n_valid=n_valid)
+        hr = residual_entropy_block(xb[sl], c_diag[sl], xb[sl],
+                                    n_valid=n_valid[sl] if per_tile else n_valid)
         stat = pair_stat_matrix(hxb[sl], hr)
         pm = mb[sl, :, None] & mb[sl, None, :] & ~eye
         out.append(torch.sum(_credits(stat, pm)[0], dim=-1))
@@ -125,20 +129,29 @@ def fused_layout(xn, c, mask, block: int, n_valid=None):
     the diagonal tiles. Returns ``(xpad, cp, c4, hxb, mb, s_diag)`` with
     ``xpad: (nt*b, n)``, ``cp: (nt*b, nt*b)`` the padded correlations,
     ``c4: (nt, nt, b, b)`` their tile view, ``hxb``/``mb``/``s_diag`` all
-    (nt, b)."""
-    p, n = xn.shape
+    (nt, b).
+
+    With a leading dataset axis (``xn: (B, p, n)``, ``c: (B, p, p)``,
+    ``mask: (B, p)``, ``n_valid`` None or (B,)) every output gains it too,
+    and the whole bucket is one set of torch ops: the diagonal tiles of all
+    datasets are scored together, each with its dataset's valid count."""
+    *lead, p, n = xn.shape
     b = min(block, max(p, 1))
     pad = (-p) % b
     nt = (p + pad) // b
     xpad = F.pad(xn.to(torch.float32), (0, 0, 0, pad))
-    mb = torch.cat([mask, mask.new_zeros(pad)]).reshape(nt, b)
+    mb = torch.cat([mask, mask.new_zeros(*lead, pad)], dim=-1).reshape(*lead, nt, b)
     cp = F.pad(c.to(torch.float32), (0, pad, 0, pad))
-    c4 = cp.reshape(nt, b, nt, b).permute(0, 2, 1, 3)  # (nt, nt, b, b)
+    c4 = cp.reshape(*lead, nt, b, nt, b).transpose(-3, -2)  # (..., nt, nt, b, b)
     hx = row_entropies(xn, mask, n_valid=n_valid)
-    hxb = F.pad(hx.to(torch.float32), (0, pad)).reshape(nt, b)
-    c_diag = c4.diagonal(dim1=0, dim2=1).permute(2, 0, 1)  # (nt, b, b)
-    s_diag = diag_block_scores(xpad.reshape(nt, b, n), c_diag, hxb, mb,
-                               n_valid=n_valid)
+    hxb = F.pad(hx.to(torch.float32), (0, pad)).reshape(*lead, nt, b)
+    c_diag = c4.diagonal(dim1=-4, dim2=-3).movedim(-1, -3)  # (..., nt, b, b)
+    tile_nv = n_valid
+    if lead and n_valid is not None:  # one count per dataset -> per tile
+        tile_nv = torch.as_tensor(n_valid, device=xn.device).repeat_interleave(nt)
+    s_diag = diag_block_scores(xpad.reshape(-1, b, n), c_diag.reshape(-1, b, b),
+                               hxb.reshape(-1, b), mb.reshape(-1, b),
+                               n_valid=tile_nv).reshape(*lead, nt, b)
     return xpad, cp, c4, hxb, mb, s_diag
 
 

@@ -1,31 +1,36 @@
 """ParaLiNGAM (Algorithms 3 and 9-10 of the paper) in PyTorch: the dense
-estimator end to end on one device.
+estimator end to end on one device, for one dataset (``fit``) or a bucket of
+datasets at once (``fit_batch``, what the serving engines call).
 
-``fit`` runs the whole pipeline as device work with one host readback at the
+Both run the whole pipeline as device work with one host readback at the
 end: normalize -> covariance -> the staged causal-order scan (p find-root ->
 rank-1-update iterations on the power-of-two stage plan of
 ``utils/schedule``) -> phase-2 adjacency by Cholesky. Each find-root is the
 one-shot dense evaluation with messaging folded in: every residual entropy
 is computed once and both workers of a pair are credited (Section 3.1).
 
-The rows still in U are compacted into power-of-two buffers at the <= log2 p
-stage transitions, with a stable ``argsort`` of the dead-row mask (no
-``nonzero``, which syncs to the host); the per-iteration counters stay on
-the device until :func:`_result_from_counters`.
+The driver works on a leading dataset axis throughout (``fit`` is a bucket
+of one), so a bucket of B datasets costs one set of torch ops and one kernel
+launch per find-root, not B. The rows still in U are compacted into
+power-of-two buffers at the <= log2 p stage transitions, per dataset, with a
+stable ``argsort`` of the dead-row mask (no ``nonzero``, which syncs to the
+host); the per-iteration counters stay on the device until they are read.
 
 Not in this module yet (``ConfigError`` names the ROADMAP item that brings
 each): the threshold state machine (``threshold=True``), the messaging ring
-(``order_backend="ring"``), the batched frontend and the host driver.
+(``order_backend="ring"``) and the host driver.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from repro_torch.core.adjacency import adjacency_from_order
+from repro_torch.core.adjacency import adjacency_from_order, complete_order
 from repro_torch.core.covariance import cov_matrix, normalize, update_cov, update_data
 from repro_torch.core.pairwise import (
     fused_scores,
@@ -187,80 +192,116 @@ class ParaLiNGAMResult:
 # ---------------------------------------------------------------------------
 
 
-def _find_root_dense_impl(xn, c, mask, block_j: int, backend: str):
-    """Concrete-backend dense evaluation (``backend`` already resolved —
-    never ``"auto"`` here). Returns ``(root, scores)`` with ``root`` a 0-dim
-    device tensor (the first minimum, as ``jnp.argmin``)."""
+def _find_root_dense_impl(xb, cb, mask, block_j: int, backend: str,
+                          n_valid=None, single: bool = False):
+    """Concrete-backend dense evaluation of a bucket (``backend`` already
+    resolved — never ``"auto"`` here): ``xb: (B, m, n)``, ``cb: (B, m, m)``,
+    ``mask: (B, m)``, ``n_valid`` None or (B,). Returns ``(roots, scores)``
+    with ``roots`` (B,) device indices (each dataset's first minimum, as
+    ``jnp.argmin``).
+
+    ``hopper_fused`` is one launch of the batched kernel per call; with
+    ``single`` (``fit``'s bucket of one) it is the one-dataset kernel entry
+    instead. The plain backends score each dataset on its own."""
     if backend == "hopper_fused":
-        s = kops.score_vector(xn, c, mask)
-    elif backend == "torch_fused":
-        s = fused_scores(xn, c, mask, block=min(block_j, xn.shape[0]))
-    elif backend == "torch":
-        hx = row_entropies(xn, mask)
-        hr = residual_entropy_matrix(xn, c)
-        s = scores_from_stats(pair_stat_matrix(hx, hr), mask)
+        if single:
+            nv = None if n_valid is None else n_valid[0]
+            s = kops.score_vector(xb[0], cb[0], mask[0], n_valid=nv)[None]
+        else:
+            s = kops.score_batch(xb, cb, mask, n_valid=n_valid)
+    elif backend in ("torch", "torch_fused"):
+        rows = []
+        for i in range(xb.shape[0]):
+            nv = None if n_valid is None else n_valid[i]
+            if backend == "torch_fused":
+                rows.append(fused_scores(xb[i], cb[i], mask[i],
+                                         block=min(block_j, xb.shape[1]), n_valid=nv))
+            else:
+                hx = row_entropies(xb[i], mask[i], n_valid=nv)
+                hr = residual_entropy_matrix(xb[i], cb[i], n_valid=nv)
+                rows.append(scores_from_stats(pair_stat_matrix(hx, hr), mask[i]))
+        s = torch.stack(rows)
     else:
         raise kops.BackendUnavailable(f"no dense evaluation for {backend!r}")
-    return torch.argmin(s), s
+    return torch.argmin(s, dim=-1), s
 
 
 def _compact(mloc, m: int):
-    """Indices that pack the live rows of ``mloc`` first (ascending), then
-    fill up to ``m`` rows — ``jnp.nonzero(mloc, size=m)`` without a sync."""
-    sel = torch.argsort((~mloc).to(torch.int8), stable=True)[:m]
-    if sel.numel() < m:
-        sel = torch.cat([sel, sel.new_zeros(m - sel.numel())])
+    """(B, m) indices that pack each dataset's live rows first (ascending),
+    then fill up to ``m`` rows — ``jnp.nonzero(mloc, size=m)`` per dataset,
+    without a sync."""
+    sel = torch.argsort((~mloc).to(torch.int8), dim=-1, stable=True)[:, :m]
+    if sel.shape[1] < m:
+        sel = torch.cat([sel, sel.new_zeros(sel.shape[0], m - sel.shape[1])], dim=1)
     return sel
 
 
-def _scan_order_impl(xn, c, block_j: int = 32, backend: str = "torch",
-                     min_bucket: int = 32):
-    """Device-resident outer loop: all p find-root -> update iterations with
-    no host round-trip.
+def _rows(t, sel):
+    """``t[b, sel[b]]`` for every dataset b: rows of a (B, p, k) tensor."""
+    return torch.take_along_dim(t, sel[:, :, None], dim=1)
 
-    The loop is staged on the power-of-two schedule; each stage runs its
-    iterations on fixed-size mask-based buffers, and the stage transitions
-    compact the live rows with a device-side gather. Dead rows stay in the
-    buffers (their content is never read unmasked), so ``argmin`` over the
-    ``+inf`` dead scores resolves ties like the JAX driver.
 
-    Returns ``(order, comps_it)``: the causal order and the per-iteration
-    comparison counts r(r-1)/2, both device tensors."""
-    p = xn.shape[0]
+def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
+                     backend: str = "torch", min_bucket: int = 32,
+                     single: bool = False):
+    """Device-resident outer loop over a bucket: all p find-root -> update
+    iterations of every dataset, with no host round-trip.
+
+    ``xn: (B, p, n)`` normalized rows and ``c: (B, p, p)`` correlations.
+    ``mask0`` ((B, p) bool, None -> all live) marks each dataset's live
+    rows; dead rows must be exactly zero in ``xn``. ``n_valid`` (None or
+    (B,)) is each dataset's valid sample count. The stage plan is static: a
+    dataset with fewer live rows drains early, after which its iterations
+    retire nothing and write garbage order entries past its live prefix
+    (``adjacency.complete_order`` sanitizes them). Live counts therefore
+    come from the device (``sum(mask)``), never from ``p - iteration``.
+
+    Each stage runs its iterations on fixed-size mask-based buffers, and the
+    stage transitions compact each dataset's live rows with a device-side
+    gather. Dead rows stay in the buffers (their content is never read
+    unmasked), so ``argmin`` over the ``+inf`` dead scores resolves ties like
+    the JAX driver.
+
+    Returns ``(order, comps_it)``: the (B, p) causal orders and the (B, p)
+    per-iteration comparison counts r(r-1)/2, both device tensors."""
+    bsz, p = xn.shape[:2]
     dev = xn.device
-    order = torch.zeros((p,), dtype=torch.int64, device=dev)
-    comps_it = torch.zeros((p,), dtype=torch.int64, device=dev)
+    order = torch.zeros((bsz, p), dtype=torch.int64, device=dev)
+    comps_it = torch.zeros((bsz, p), dtype=torch.int64, device=dev)
     if p == 1:
         return order, comps_it
 
-    idx_g = torch.arange(p, device=dev)  # local row -> global variable id
+    idx_g = torch.arange(p, device=dev).expand(bsz, p)  # local row -> variable id
     xb, cb = xn, c
-    mloc = torch.ones((p,), dtype=torch.bool, device=dev)
+    mloc = torch.ones((bsz, p), dtype=torch.bool, device=dev) if mask0 is None else mask0
     m_cur = p
     pos = 0
     for m, cnt in make_schedule(p, min_bucket).stages:
         if m != m_cur:
-            live = torch.sum(mloc)
+            live = torch.sum(mloc, dim=1, keepdim=True)
             sel = _compact(mloc, m)
-            idx_g = idx_g.index_select(0, sel)
-            xb = xb.index_select(0, sel)
-            cb = cb.index_select(0, sel).index_select(1, sel)
+            idx_g = torch.take_along_dim(idx_g, sel, dim=1)
+            xb = _rows(xb, sel)
+            cb = torch.take_along_dim(_rows(cb, sel), sel[:, None, :], dim=2)
             mloc = torch.arange(m, device=dev) < live
             m_cur = m
         ar = torch.arange(m, device=dev)
         for it in range(pos, pos + cnt):
-            root_l, _ = _find_root_dense_impl(xb, cb, mloc, block_j=min(block_j, m),
-                                              backend=backend)
-            r = torch.sum(mloc)  # live rows this iteration
-            order[it:it + 1] = idx_g.index_select(0, root_l.reshape(1))
-            comps_it[it:it + 1] = (r * (r - 1) // 2).reshape(1)
-            xb = update_data(xb, cb, root_l, mloc)
-            cb = update_cov(cb, root_l, mloc)
-            mloc = mloc & (ar != root_l)
+            roots, _ = _find_root_dense_impl(xb, cb, mloc, block_j=min(block_j, m),
+                                             backend=backend, n_valid=n_valid,
+                                             single=single)
+            r = torch.sum(mloc, dim=1)  # live rows this iteration
+            order[:, it] = torch.take_along_dim(idx_g, roots[:, None], dim=1)[:, 0]
+            comps_it[:, it] = r * (r - 1) // 2
+            xb = update_data(xb, cb, roots, mloc, n_valid=n_valid)
+            cb = update_cov(cb, roots, mloc)
+            mloc = mloc & (ar != roots[:, None])
         pos += cnt
 
-    # One live row remains; no find-root needed.
-    order[p - 1:] = idx_g.index_select(0, torch.argmax(mloc.to(torch.int8)).reshape(1))
+    # One live row remains (for a full buffer); no find-root needed. An
+    # already-drained padded buffer writes garbage here, past its live prefix.
+    last = torch.argmax(mloc.to(torch.int8), dim=1, keepdim=True)
+    order[:, p - 1] = torch.take_along_dim(idx_g, last, dim=1)[:, 0]
     return order, comps_it
 
 
@@ -285,15 +326,83 @@ def _result_from_counters(order, comps_it, p: int) -> ParaLiNGAMResult:
     )
 
 
-def _device(device) -> torch.device:
+def _device(device, caller: str = "repro_torch.fit") -> torch.device:
     """``None`` means the card; raise rather than fall back to the CPU."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "repro_torch.fit runs on a CUDA device and none is available; "
+            f"{caller} runs on a CUDA device and none is available; "
             "pass device='cpu' to run the plain torch path on the CPU"
         )
     return dev
+
+
+# Host-side estimator dispatch counters, threaded up into the serving stats
+# surface (``serve.async_engine.AsyncLingamEngine.stats``).
+#
+#   "kernel_bypass"  — dispatches where a kernel backend was requested but a
+#     plain torch formulation ran instead. Every backend serves every seam
+#     (``n_valid``, masks, batching), so nothing increments it: it is the
+#     tripwire the engine tests hold at 0.
+#   "auto_downgrade" — dispatches where ``score_backend="auto"`` resolved to
+#     a plain torch backend (``kernels.ops.select_backend``: any device that
+#     is not the card). Expected on the CPU; surfaced in
+#     ``AsyncLingamEngine.stats()`` so a deployment can tell "kernels were
+#     never requested" from "kernels silently unavailable".
+dispatch_stats: dict = {"kernel_bypass": 0, "auto_downgrade": 0}
+# Submitter and dispatcher-replica threads all count through _bump_stat.
+_dispatch_stats_mu = threading.Lock()
+
+
+def reset_dispatch_stats() -> None:
+    """Zero ``dispatch_stats`` (tests). Thread-safe against concurrent
+    dispatches."""
+    with _dispatch_stats_mu:
+        for k in dispatch_stats:
+            dispatch_stats[k] = 0
+
+
+def dispatch_stats_snapshot() -> dict:
+    """Consistent point-in-time copy of ``dispatch_stats``."""
+    with _dispatch_stats_mu:
+        return dict(dispatch_stats)
+
+
+def _bump_stat(key: str, delta: int = 1) -> None:
+    """Thread-safe ``dispatch_stats`` increment."""
+    with _dispatch_stats_mu:
+        dispatch_stats[key] += delta
+
+
+def _note_backend(cfg: ParaLiNGAMConfig, backend: str) -> None:
+    """Count an ``"auto"`` request that resolved to a plain torch backend."""
+    if cfg.score_backend == "auto" and backend.startswith("torch"):
+        _bump_stat("auto_downgrade")
+
+
+def _pipeline(x, cfg: ParaLiNGAMConfig, backend: str, *, adjacency: bool,
+              n_valid=None, mask0=None, prune_below: float = 0.0,
+              single: bool = False):
+    """The whole estimator over a bucket ``x: (B, p, n)`` of raw samples:
+    normalize -> covariance -> staged causal-order scan -> (optionally)
+    phase-2 adjacency, all device work. Returns ``(order, comps_it, b,
+    omega)`` (the last two ``None`` without ``adjacency``); phase 2 takes the
+    raw ``x`` and the completed order permutation, like the numpy oracle."""
+    xn = normalize(x, n_valid=n_valid)
+    if mask0 is not None:
+        xn = torch.where(mask0[..., None], xn, 0.0)  # dead rows exactly zero
+    c = cov_matrix(xn, n_valid=n_valid)
+    p = x.shape[1]
+    order, comps_it = _scan_order_impl(
+        xn, c, mask0=mask0, n_valid=n_valid, block_j=min(cfg.block_j, p),
+        backend=backend, min_bucket=cfg.min_bucket, single=single,
+    )
+    if not adjacency:
+        return order, comps_it, None, None
+    perm = order if mask0 is None else complete_order(order, mask0)
+    b, omega = adjacency_from_order(x, perm, mask=mask0, n_valid=n_valid,
+                                    prune_below=prune_below)
+    return order, comps_it, b, omega
 
 
 def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
@@ -314,6 +423,7 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
     cfg = config or ParaLiNGAMConfig()
     dev = _device(device)
     backend = kops.select_backend(cfg, dev)
+    _note_backend(cfg, backend)
     diag = None
     if validate:
         from repro_torch.core.validate import require_valid
@@ -322,19 +432,145 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
         diag = require_valid(x_host)
 
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    p = x.shape[0]
-    xn = normalize(x)
-    c = cov_matrix(xn)
-    order, comps_it = _scan_order_impl(
-        xn, c, block_j=min(cfg.block_j, p), backend=backend,
-        min_bucket=cfg.min_bucket,
-    )
-    b, omega = adjacency_from_order(x, order, prune_below=prune_below)
-    result = _result_from_counters(order, comps_it, p)
-    result.noise_var = omega.cpu().numpy()
+    order, comps_it, b, omega = _pipeline(x[None], cfg, backend, adjacency=True,
+                                          prune_below=prune_below, single=True)
+    result = _result_from_counters(order[0], comps_it[0], x.shape[0])
+    result.noise_var = omega[0].cpu().numpy()
     result.diagnostics = diag
-    return result, b
+    return result, b[0]
 
 
-__all__ = ["ConfigError", "ParaLiNGAMConfig", "ParaLiNGAMResult",
-           "config_from_reference", "fit"]
+# ---------------------------------------------------------------------------
+# the batched frontend
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BatchFitResult:
+    """Batched estimator outputs, one leading dataset axis everywhere.
+
+    All fields are tensors on the fit's device — nothing is read back until
+    the caller reads them. ``orders[i]`` is valid up to the i-th dataset's
+    live-row count (the serve engine slices); ``comparisons``/``rounds`` are
+    per-iteration counters (sum for totals), ``converged`` per-iteration
+    threshold convergence (``all`` for the dataset verdict; the dense scan
+    always converges). ``b``/``noise_var`` are None for order-only runs."""
+
+    orders: torch.Tensor  # (B, p) int64
+    comparisons: torch.Tensor  # (B, p) int64
+    rounds: torch.Tensor  # (B, p) int32
+    converged: torch.Tensor  # (B, p) bool
+    b: torch.Tensor | None = None  # (B, p, p)
+    noise_var: torch.Tensor | None = None  # (B, p)
+
+
+def _coerce_batch(xs, n_valid, mask, caller: str, dev):
+    """Shared frontend validation of the batched entry points: the (B, p, n)
+    float32 stack and the per-dataset padding seams, on the device."""
+    xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+    if xs.ndim != 3:
+        raise ValueError(f"{caller} wants (B, p, n), got {tuple(xs.shape)}")
+    nv = None
+    if n_valid is not None:
+        nv = torch.as_tensor(n_valid, dtype=torch.int32, device=dev)
+        nv = nv.expand(xs.shape[0]) if nv.ndim == 0 else nv
+    mk = None if mask is None else torch.as_tensor(mask, dtype=torch.bool, device=dev)
+    return xs, nv, mk
+
+
+def _run_batch(xs, config, n_valid, mask, device, caller: str, *,
+               adjacency: bool, prune_below: float = 0.0) -> BatchFitResult:
+    cfg = config or ParaLiNGAMConfig()
+    dev = _device(device, caller)
+    backend = kops.select_backend(cfg, dev)
+    _note_backend(cfg, backend)
+    xs, nv, mk = _coerce_batch(xs, n_valid, mask, caller, dev)
+    order, comps, b, omega = _pipeline(xs, cfg, backend, adjacency=adjacency,
+                                       n_valid=nv, mask0=mk, prune_below=prune_below)
+    return BatchFitResult(
+        orders=order, comparisons=comps,
+        rounds=torch.zeros(order.shape, dtype=torch.int32, device=dev),
+        converged=torch.ones(order.shape, dtype=torch.bool, device=dev),
+        b=b, noise_var=omega)
+
+
+def fit_batch(xs, config: ParaLiNGAMConfig | None = None, *, n_valid=None,
+              mask=None, prune_below: float = 0.0, device=None) -> BatchFitResult:
+    """Batched DirectLiNGAM over ``xs: (B, p, n)``: the pipeline of
+    :func:`fit` over a leading dataset axis, so B problems share every torch
+    op and one launch of the batched score kernel per find-root (the
+    amortization of host cost per iteration the serve engine is built on).
+
+    ``n_valid`` ((B,) or scalar) and ``mask`` ((B, p) bool) mark the valid
+    sample columns / live variable rows of shape-padded datasets (zero-pad
+    the data; see ``serve.buckets.pad_dataset``). ``device`` as in
+    :func:`fit`: ``None`` means ``cuda`` and raises without a card. There is
+    no mesh to shard the dataset axis over (ROADMAP.md queue 1 item 8)."""
+    return _run_batch(xs, config, n_valid, mask, device, "fit_batch",
+                      adjacency=True, prune_below=prune_below)
+
+
+def causal_order_batch(xs, config: ParaLiNGAMConfig | None = None, *,
+                       n_valid=None, mask=None, device=None) -> BatchFitResult:
+    """Batched causal order only (phase 1): :func:`fit_batch` without the
+    adjacency epilogue (``b`` and ``noise_var`` are None)."""
+    return _run_batch(xs, config, n_valid, mask, device, "causal_order_batch",
+                      adjacency=False)
+
+
+@dataclass
+class CompiledFitBatch:
+    """:func:`fit_batch` warmed up for ONE ``(batch, p, n)`` bucket shape
+    (see :func:`aot_fit_batch`). Calling it mirrors ``fit_batch`` (same
+    result type, same padding contract) on inputs of exactly that shape.
+
+    PyTorch compiles nothing per shape; what a bucket's first request would
+    otherwise pay is the kernel library's build and load, the device
+    context, the math libraries' handles, the allocator's first blocks and
+    the kernel's tile maps per stage. The warm-up paid them, and
+    ``compile_seconds`` (the name the JAX package gives it) is what it took."""
+
+    batch: int
+    p: int
+    n: int
+    cfg: ParaLiNGAMConfig
+    backend: str  # concrete score backend the bucket runs
+    device: torch.device
+    compile_seconds: float  # what the warm-up saved the first request
+
+    def __call__(self, xs, n_valid=None, mask=None) -> BatchFitResult:
+        if tuple(xs.shape) != (self.batch, self.p, self.n):
+            raise ValueError(
+                f"CompiledFitBatch is specialized to "
+                f"{(self.batch, self.p, self.n)}, got {tuple(xs.shape)}")
+        return fit_batch(xs, self.cfg, n_valid=n_valid, mask=mask,
+                         device=self.device)
+
+
+def aot_fit_batch(batch: int, p: int, n: int,
+                  config: ParaLiNGAMConfig | None = None, *,
+                  device=None) -> CompiledFitBatch:
+    """Warm up the :func:`fit_batch` path for one ``(batch, p, n)`` bucket:
+    run one fit at that shape on seeded Gaussian data, through the
+    ``n_valid``/mask seams a padded bucket uses, and wait for it. That builds
+    and loads the kernel library on the card; after it, the bucket's first
+    request pays no build, module load or library-handle setup. The serving
+    engines call this over their bucket grid
+    (``AsyncLingamEngine(prewarm=...)``)."""
+    cfg = config or ParaLiNGAMConfig()
+    dev = _device(device, "aot_fit_batch")
+    backend = kops.select_backend(cfg, dev)
+    t0 = time.perf_counter()
+    xs = np.random.default_rng(0).standard_normal((batch, p, n)).astype(np.float32)
+    res = fit_batch(xs, cfg, n_valid=np.full((batch,), n, np.int32),
+                    mask=np.ones((batch, p), bool), device=dev)
+    res.orders.cpu()  # wait for the device
+    return CompiledFitBatch(batch=batch, p=p, n=n, cfg=cfg, backend=backend,
+                            device=dev, compile_seconds=time.perf_counter() - t0)
+
+
+__all__ = ["BatchFitResult", "CompiledFitBatch", "ConfigError",
+           "ParaLiNGAMConfig", "ParaLiNGAMResult", "aot_fit_batch",
+           "causal_order_batch", "config_from_reference",
+           "dispatch_stats_snapshot", "fit", "fit_batch",
+           "reset_dispatch_stats"]

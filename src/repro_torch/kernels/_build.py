@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -27,6 +28,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_mu = threading.Lock()  # dispatcher threads may reach a first use at once
 
 
 def nvcc() -> str:
@@ -80,9 +82,10 @@ def build_all() -> dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        _compile(name)
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
-    return lib
+    with _load_mu:
+        lib = _loaded.get(name)
+        if lib is None:
+            _compile(name)
+            lib = ctypes.CDLL(str(library_path(name)))
+            _loaded[name] = lib
+        return lib

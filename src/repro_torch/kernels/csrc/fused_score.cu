@@ -1,7 +1,8 @@
 // Fused triangular score sweep for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_fused_tri_kernel` in src/repro/kernels/fused_score.py
-// (entry `fused_score_vector`). It computes the same function, not the same
+// (entries `fused_score_vector` and, over a bucket of datasets on a (T, B)
+// grid, `fused_score_batch`). It computes the same function, not the same
 // block schedule:
 //
 //   for every unordered off-diagonal pair of row blocks (i < j) of size b,

@@ -1,7 +1,9 @@
-"""Fused triangular score sweep: the CUDA kernel's wrapper and plain version.
+"""Fused triangular score sweep: the CUDA kernel's wrappers and plain versions.
 
 Replaces the TPU kernel ``_fused_tri_kernel`` of
-``src/repro/kernels/fused_score.py`` (entry ``fused_score_vector``). The
+``src/repro/kernels/fused_score.py`` through both of its entries:
+``fused_score_vector`` (one dataset) and ``fused_score_batch`` (a bucket of
+datasets on a (B, T) grid, one valid sample count per dataset). The
 kernel, ``csrc/fused_score.cu``, visits every unordered off-diagonal pair of
 row blocks once, streams the samples through shared memory, keeps the four
 raw moment sums per row pair in registers, finalizes the entropies, the
@@ -26,14 +28,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from repro_torch.core.covariance import _sample_count
 from repro_torch.core.pairwise import fused_layout, fused_scores
 
-#: Kernel launches since the last reset (one per wrapper call on the card).
+#: Kernel launches since the last reset, one per call on the card:
+#: ``LAUNCHES`` of ``fused_score_vector``, ``BATCH_LAUNCHES`` of
+#: ``fused_score_batch``. Concurrent dispatcher threads count under a lock.
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
+_count_mu = threading.Lock()
 
 _MAX_BLOCK = 32  # b * b pairs must fit one thread block
 #: Samples per chunk staged in shared memory: 2 * 32 * 513 floats at the
@@ -79,12 +86,23 @@ def score_tolerance(s_ref, xn, c, mask, n_valid=None):
     return SCORE_RTOL * s_ref.abs() + slack
 
 
-def _check(xn, c, mask, block: int):
-    if xn.ndim != 2 or xn.shape[0] < 1 or xn.shape[1] < 1:
-        raise ValueError(f"xn must be (p, n) with p, n >= 1, got {tuple(xn.shape)}")
-    p = xn.shape[0]
-    if tuple(c.shape) != (p, p) or tuple(mask.shape) != (p,):
-        raise ValueError(f"want c ({p}, {p}) and mask ({p},), got "
+def fused_score_batch_ref(xb, cb, maskb, *, block: int = 8, n_valid=None):
+    """Plain version of the batched sweep: ``fused_score_vector_ref`` on each
+    dataset with its own valid count, stacked to (B, p)."""
+    return torch.stack([
+        fused_scores(xb[i], cb[i], maskb[i], block=block,
+                     n_valid=None if n_valid is None else n_valid[i])
+        for i in range(xb.shape[0])])
+
+
+def _check(xn, c, mask, block: int, batched: bool = False):
+    lead = xn.shape[:1] if batched else ()
+    want = "(B, p, n)" if batched else "(p, n)"
+    if xn.ndim != 2 + batched or min(xn.shape) < 1:
+        raise ValueError(f"xn must be {want} with p, n >= 1, got {tuple(xn.shape)}")
+    p = xn.shape[-2]
+    if tuple(c.shape) != (*lead, p, p) or tuple(mask.shape) != (*lead, p):
+        raise ValueError(f"want c {(*lead, p, p)} and mask {(*lead, p)}, got "
                          f"{tuple(c.shape)} and {tuple(mask.shape)}")
     if xn.dtype != torch.float32 or c.dtype != torch.float32:
         raise TypeError(f"xn and c must be float32, got {xn.dtype} and {c.dtype}")
@@ -96,6 +114,14 @@ def _check(xn, c, mask, block: int):
         raise ValueError("xn, c and mask must be contiguous")
     if not 1 <= block <= _MAX_BLOCK:
         raise ValueError(f"need 1 <= block <= {_MAX_BLOCK}, got block={block}")
+
+
+def _valid_count(n_valid, n: int, device):
+    """The finalize denominators on the card as float32 (one per dataset),
+    or ``None`` when every sample is valid (the kernel divides by n)."""
+    if n_valid is None:
+        return None
+    return _sample_count(n_valid, n).reshape(-1).to(device)
 
 
 def _lanes(b: int, tiles: int) -> int:
@@ -121,10 +147,27 @@ def fused_score_vector(xn, c, mask, *, block: int = 8, n_valid=None):
     if xn.device.type != "cuda":
         raise ValueError(f"fused_score_vector runs on cuda or cpu, not {xn.device}")
     _, _, _, hxb, mb, s_diag = fused_layout(xn, c, mask, block, n_valid=n_valid)
-    den = None
-    if n_valid is not None:
-        den = _sample_count(n_valid, xn.shape[1]).reshape(1).to(xn.device)
-    return launch(xn, c, hxb, mb, s_diag, den)
+    return launch(xn, c, hxb, mb, s_diag, _valid_count(n_valid, xn.shape[1], xn.device))
+
+
+def fused_score_batch(xb, cb, maskb, *, block: int = 8, n_valid=None):
+    """Score vectors of a bucket of datasets in one launch of the fused
+    triangular kernel, on a (B, T) grid.
+
+    ``xb: (B, p, n)`` normalized rows, ``cb: (B, p, p)`` correlations, both
+    float32 and contiguous, ``maskb: (B, p)`` bool live rows, ``n_valid``
+    ``None`` or (B,) valid sample counts of zero-padded datasets. Returns
+    (B, p) float32 scores (+inf on dead rows). Row i is bit-identical to a
+    one-dataset launch on dataset i's prologue inputs: the thread layout is
+    chosen from the per-dataset tile count, never from B."""
+    _check(xb, cb, maskb, block, batched=True)
+    if xb.device.type == "cpu":
+        return fused_score_batch_ref(xb, cb, maskb, block=block, n_valid=n_valid)
+    if xb.device.type != "cuda":
+        raise ValueError(f"fused_score_batch runs on cuda or cpu, not {xb.device}")
+    _, _, _, hxb, mb, s_diag = fused_layout(xb, cb, maskb, block, n_valid=n_valid)
+    return launch_batch(xb, cb, hxb, mb, s_diag,
+                        _valid_count(n_valid, xb.shape[2], xb.device))
 
 
 @functools.cache
@@ -143,27 +186,45 @@ def _entry():
     return fn
 
 
-def launch(xn, c, hxb, mb, s_diag, den=None):
-    """Both CUDA kernels (tiles, then the ordered per-row reduce) on inputs
-    the prologue has prepared: ``hxb``, ``mb``, ``s_diag`` (nt, b) from
-    ``fused_layout`` and ``den`` (1,) the valid count on the card, or
-    ``None`` for all n samples."""
-    global LAUNCHES
-    p, n = xn.shape
-    nt, b = mb.shape
+def _launch(xb, c, hxb, mb, s_diag, den):
+    """Both CUDA kernels (tiles, then the ordered per-row reduce) over a
+    (B, p, n) bucket; returns (B, p) scores."""
+    bsz, p, n = xb.shape
+    nt, b = mb.shape[-2:]
     tiles = nt * (nt - 1) // 2
-    lanes = _lanes(b, tiles)
+    lanes = _lanes(b, tiles)  # per-dataset tiles: independent of B
     smem = 4 * max(2 * b * (BLOCK_N + 1), 4 * b * b * lanes + 2 * b * b)
-    ij = _tile_maps(nt, xn.device)
-    partial = torch.empty((1, tiles, 2, b), dtype=torch.float32, device=xn.device)
-    out = torch.empty((p,), dtype=torch.float32, device=xn.device)
+    ij = _tile_maps(nt, xb.device)
+    partial = torch.empty((bsz, tiles, 2, b), dtype=torch.float32, device=xb.device)
+    out = torch.empty((bsz, p), dtype=torch.float32, device=xb.device)
     rc = _entry()(
-        xn.data_ptr(), c.data_ptr(), hxb.data_ptr(), mb.data_ptr(),
+        xb.data_ptr(), c.data_ptr(), hxb.data_ptr(), mb.data_ptr(),
         s_diag.data_ptr(), None if den is None else den.data_ptr(),
         ij[0].data_ptr(), ij[1].data_ptr(), partial.data_ptr(), out.data_ptr(),
-        1, p, n, nt * b, b, nt, BLOCK_N, lanes, smem,
-        torch.cuda.current_stream(xn.device).cuda_stream)
+        bsz, p, n, nt * b, b, nt, BLOCK_N, lanes, smem,
+        torch.cuda.current_stream(xb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_score kernel launch failed with CUDA error {rc}")
-    LAUNCHES += 1
+    return out
+
+
+def launch(xn, c, hxb, mb, s_diag, den=None):
+    """The kernels for one dataset, on inputs the prologue has prepared:
+    ``hxb``, ``mb``, ``s_diag`` (nt, b) from ``fused_layout`` and ``den``
+    (1,) the valid count on the card, or ``None`` for all n samples."""
+    global LAUNCHES
+    out = _launch(xn[None], c, hxb, mb, s_diag, den)[0]
+    with _count_mu:
+        LAUNCHES += 1
+    return out
+
+
+def launch_batch(xb, cb, hxb, mb, s_diag, den=None):
+    """The kernels for a bucket, on the batched prologue's inputs: ``hxb``,
+    ``mb``, ``s_diag`` (B, nt, b) and ``den`` (B,) valid counts on the card,
+    or ``None`` for all n samples of every dataset."""
+    global BATCH_LAUNCHES
+    out = _launch(xb, cb, hxb, mb, s_diag, den)
+    with _count_mu:
+        BATCH_LAUNCHES += 1
     return out

@@ -53,3 +53,11 @@ def score_vector(xn, c, mask, *, n_valid=None):
     """Messaging-folded (p,) score vector via the fused triangular kernel at
     its 8-row block. Plain version: ``repro_torch.core.pairwise.fused_scores``."""
     return _fused.fused_score_vector(xn, c, mask, block=8, n_valid=n_valid)
+
+
+def score_batch(xb, cb, maskb, *, n_valid=None):
+    """(B, p) score vectors of a bucket of datasets via one launch of the
+    batched fused triangular kernel at its 8-row block; ``n_valid`` is None
+    or one valid sample count per dataset. Plain version:
+    ``fused_score.fused_score_batch_ref``."""
+    return _fused.fused_score_batch(xb, cb, maskb, block=8, n_valid=n_valid)

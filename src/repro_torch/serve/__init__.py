@@ -1,0 +1,35 @@
+"""The LiNGAM serving stack of the port: bucketing, the continuous-batching
+core, the replicated dispatcher pool, and the sync and async engines over
+the batched estimator on the card. (The JAX package's LM engine,
+``serve/engine.py``, is not ported yet: ROADMAP.md queue 1 item 10.)"""
+
+from repro_torch.serve.batching import (
+    BatchingConfig,
+    BatchingCore,
+    BucketQuarantined,
+    DispatchFailed,
+    EngineClosed,
+    ManualDispatcher,
+    QueueFull,
+    RequestTimeout,
+    ServeError,
+    Ticket,
+    bucket_dim,
+    bucket_dims,
+    pad_to,
+)
+from repro_torch.serve.buckets import bucket_shape, pad_dataset
+from repro_torch.serve.lingam_engine import (
+    LingamEngine,
+    LingamFit,
+    LingamServeConfig,
+    dispatch_bucket,
+)
+from repro_torch.serve.async_engine import AsyncLingamEngine
+from repro_torch.serve.replica import (
+    ChaosDispatcher,
+    HungDispatch,
+    ReplicaCrashed,
+    ReplicaPool,
+    ReplicaPoolConfig,
+)

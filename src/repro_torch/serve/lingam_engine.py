@@ -1,0 +1,220 @@
+"""LiNGAM serving engine: the front door for causal-discovery traffic, on
+the card.
+
+Requests (one observation matrix each, any shape) are queued, bucketed by
+power-of-two padded ``(p, n)`` shape, stacked into batches, and dispatched
+through the batched estimator (``paralingam.fit_batch``: normalize ->
+covariance -> causal-order scan -> Cholesky adjacency over a leading dataset
+axis). Results are unpadded back to each request's true shape before
+delivery.
+
+Why bucketing matters here: the estimator's cost on the card is dominated by
+host work per find-root iteration (tens of small torch ops and one kernel
+launch), whatever the data size. A bucket of B datasets pays that host cost
+once per iteration instead of B times, and one launch of the batched score
+kernel covers all B datasets.
+
+Padding is exact, not approximate: dead variable rows ride a live mask
+through the scan driver, padded sample columns ride ``n_valid`` through every
+moment denominator (``pairwise.stream_moments``), so a padded request returns
+the causal order of a dedicated unpadded ``fit`` up to float32 rounding of
+its sums (asserted on the CPU in tests/test_torch_serve.py).
+
+Each dispatch packs its requests into one float32 host array, copies it to
+the device once, and reads every result back in one copy.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.core.paralingam import ParaLiNGAMConfig, _device, fit_batch
+from repro_torch.core.validate import require_valid
+from repro_torch.serve.buckets import bucket_shape, pad_dataset  # noqa: F401
+
+
+@dataclass(frozen=True)
+class LingamServeConfig:
+    max_batch: int = 64  # datasets per dispatch (a bucket splits into chunks)
+    min_p_bucket: int = 8  # floors of the pow-2 padding grid: tiny requests
+    min_n_bucket: int = 64  # share one bucket instead of one each
+    validate: bool = True  # run the core.validate admission guardrails on
+    #   every submitted dataset (NaN/Inf cells, constant/duplicate variables,
+    #   p > n rank deficiency) and reject with a typed DatasetError before
+    #   the request ever occupies a batch slot or burns a retry.
+
+
+@dataclass
+class LingamFit:
+    """One request's unpadded result."""
+
+    order: list[int]
+    b: np.ndarray  # (p, p) causal strengths
+    noise_var: np.ndarray  # (p,) exogenous noise variances
+    comparisons: int
+    rounds: int
+    converged: bool
+
+
+@dataclass
+class _Pending:
+    req_id: int
+    x: np.ndarray  # (p, n) raw observations
+
+
+def check_dataset(x, *, validate: bool = False) -> np.ndarray:
+    """Coerce one request payload to a float64 (p, n) matrix (shared request
+    validation of the sync and async engines). ``validate=True`` additionally
+    runs the :mod:`repro_torch.core.validate` admission guardrails, raising a
+    typed ``DatasetError`` (a ``ValueError``) with full diagnostics on
+    degenerate data — before any queueing or device work."""
+    x = np.asarray(x, np.float64)
+    if x.ndim != 2:
+        raise ValueError(f"expected one (p, n) dataset, got shape {x.shape}")
+    if validate:
+        require_valid(x)
+    return x
+
+
+def pack_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int):
+    """Zero-pad ragged datasets into one float32 ``(b, p_pad, n_pad)`` host
+    batch, one dataset per request. Returns ``(xs, mask, n_valid, exact)``:
+    the live-row mask (b, p_pad), the valid sample counts (b,), and whether
+    no dataset was padded at all (then the seams can be left out)."""
+    b = len(xs_list)
+    xs = np.zeros((b, p_pad, n_pad), np.float32)
+    mask = np.zeros((b, p_pad), bool)
+    n_valid = np.full((b,), n_pad, np.int32)
+    exact = True
+    for i, x in enumerate(xs_list):
+        p, n = x.shape
+        xs[i, :p, :n] = x
+        mask[i, :p] = True
+        n_valid[i] = n
+        exact &= (p == p_pad and n == n_pad)
+    return xs, mask, n_valid, exact
+
+
+def _read_back(*ts):
+    """Numpy copies of device tensors through ONE device-to-host copy: their
+    bytes are concatenated on the device and split again on the host (pass
+    the widest dtypes first, so every piece stays aligned)."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in ts]
+    host = torch.cat(flat).cpu().numpy()
+    out, off = [], 0
+    for t, f in zip(ts, flat):
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(host[off:off + f.numel()].view(dtype).reshape(t.shape))
+        off += f.numel()
+    return out
+
+
+def dispatch_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int,
+                    config: ParaLiNGAMConfig, *,
+                    device=None) -> list[LingamFit]:
+    """One bucket's device dispatch, shared by the sync and async engines:
+    pack the raw ragged datasets into a zero-padded (B, p_pad, n_pad) batch,
+    copy it to the device once, run the batched fit, read the results back
+    once, and unpad each back to its request's true shape. Returns one
+    ``LingamFit`` per input dataset, in order."""
+    dev = _device(device, "dispatch_bucket")
+    xs, mask, n_valid, exact = pack_bucket(xs_list, p_pad, n_pad)
+    xs_dev = torch.from_numpy(xs).to(dev)
+    seams = {}
+    if not exact:
+        seams = dict(n_valid=torch.from_numpy(n_valid).to(dev),
+                     mask=torch.from_numpy(mask).to(dev))
+    res = fit_batch(xs_dev, config, device=dev, **seams)
+
+    orders, comps, bs, omegas, rounds, conv = _read_back(
+        res.orders, res.comparisons, res.b, res.noise_var, res.rounds,
+        res.converged)
+    out = []
+    for i, x in enumerate(xs_list):
+        p = x.shape[0]
+        out.append(LingamFit(
+            order=[int(v) for v in orders[i, :p]],
+            b=bs[i, :p, :p],
+            noise_var=omegas[i, :p],
+            comparisons=int(comps[i, : max(p - 1, 0)].sum()),
+            rounds=int(rounds[i, : max(p - 1, 0)].sum()),
+            converged=bool(conv[i, : max(p - 1, 0)].all()),
+        ))
+    return out
+
+
+class LingamEngine:
+    """Queue -> bucket -> batched fit -> unpad. Single-host front door.
+
+    ``submit`` enqueues and returns a request id; ``flush`` dispatches every
+    pending bucket and returns ``{req_id: LingamFit}``. ``fit_many`` is the
+    submit-all + flush convenience. ``stats`` counts requests, dispatches and
+    per-bucket traffic. ``device`` as in ``fit``: ``None`` means ``cuda``
+    and raises at construction without a card; ``"cpu"`` runs the plain
+    torch path."""
+
+    def __init__(self, config: ParaLiNGAMConfig | None = None,
+                 serve_cfg: LingamServeConfig | None = None, *, device=None):
+        self.config = config or ParaLiNGAMConfig()
+        self.serve_cfg = serve_cfg or LingamServeConfig()
+        self.device = _device(device, "LingamEngine")
+        self._queue: list[_Pending] = []
+        self._completed: dict[int, LingamFit] = {}  # survives a failed flush
+        self._next_id = 0
+        self.stats: dict = {"requests": 0, "dispatches": 0, "buckets": {}}
+
+    # -- intake -------------------------------------------------------------
+
+    def submit(self, x) -> int:
+        x = check_dataset(x, validate=self.serve_cfg.validate)
+        req_id = self._next_id
+        self._next_id += 1
+        self._queue.append(_Pending(req_id, x))
+        self.stats["requests"] += 1
+        key = bucket_shape(*x.shape, self.serve_cfg)
+        self.stats["buckets"][key] = self.stats["buckets"].get(key, 0) + 1
+        return req_id
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    # -- dispatch -----------------------------------------------------------
+
+    def flush(self) -> dict[int, LingamFit]:
+        """Dispatch every pending bucket. No request's work is ever lost to a
+        failing dispatch: each chunk's results are stashed on the engine as
+        soon as its dispatch delivers and its requests leave the queue, so
+        when a *later* chunk raises, the exception propagates with the
+        failing + undispatched requests still queued and the finished
+        results retained — a retry ``flush`` reruns only the remainder and
+        returns everything."""
+        scfg = self.serve_cfg
+        buckets: dict[tuple[int, int], list[_Pending]] = {}
+        for req in self._queue:
+            buckets.setdefault(bucket_shape(*req.x.shape, scfg), []).append(req)
+
+        for (p_pad, n_pad), reqs in sorted(buckets.items()):
+            for lo in range(0, len(reqs), scfg.max_batch):
+                chunk = reqs[lo: lo + scfg.max_batch]
+                self._completed.update(self._dispatch(chunk, p_pad, n_pad))
+                delivered = {req.req_id for req in chunk}
+                self._queue = [r for r in self._queue
+                               if r.req_id not in delivered]
+        out, self._completed = self._completed, {}
+        return out
+
+    def fit_many(self, xs) -> list[LingamFit]:
+        ids = [self.submit(x) for x in xs]
+        results = self.flush()
+        return [results[i] for i in ids]
+
+    def _dispatch(self, reqs: list[_Pending], p_pad: int,
+                  n_pad: int) -> dict[int, LingamFit]:
+        fits = dispatch_bucket([req.x for req in reqs], p_pad, n_pad,
+                               self.config, device=self.device)
+        self.stats["dispatches"] += 1
+        return {req.req_id: f for req, f in zip(reqs, fits)}

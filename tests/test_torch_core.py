@@ -16,6 +16,9 @@ is held to 1e-3 of the case's largest score (largest difference measured:
 """
 
 import dataclasses
+import os
+import re
+import threading
 
 import numpy as np
 import pytest
@@ -125,6 +128,43 @@ def test_sample_count_types():
     nv = t_cov._sample_count(torch.tensor(7), 10, 1)
     assert nv.dtype == torch.float32 and float(nv) == 6.0
     assert (t_cov.VAR_EPS, t_cov.COLLINEAR_FLOOR) == (j_cov.VAR_EPS, j_cov.COLLINEAR_FLOOR)
+
+
+def test_full_precision_matmul_is_shared_across_threads():
+    """Two threads enter the scope with the caller at "high". Each reads
+    "highest" inside the scope after the other has left, and "high" comes
+    back only when both have left."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    entered, failures = threading.Barrier(2), []
+    left = [threading.Event(), threading.Event()]
+
+    def worker(me, first_out):
+        try:
+            with t_cov.full_precision_matmul():
+                entered.wait(10)
+                if me != first_out:
+                    assert left[first_out].wait(10)
+                    assert torch.get_float32_matmul_precision() == "highest"
+            left[me].set()
+        except Exception as e:  # noqa: BLE001 — reported through `failures`
+            failures.append(repr(e))
+
+    try:
+        for first_out in (0, 1):
+            for ev in left:
+                ev.clear()
+            threads = [threading.Thread(target=worker, args=(me, first_out))
+                       for me in (0, 1)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(30)
+            assert all(not th.is_alive() for th in threads)
+            assert failures == []
+            assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def test_full_precision_matmul_is_scoped():
@@ -324,6 +364,105 @@ def test_adjacency_from_order_matches(padded):
                                            prune_below=0.05, **kw_j)
     _close(b_t, b_j, rtol=0, atol=1e-4)
     _close(om_t, om_j, rtol=1e-4, atol=0)
+
+
+def _ragged_batch(shapes, n_pad, seed):
+    """Zero-padded raw datasets, their live-row masks and valid counts."""
+    rng = np.random.default_rng(seed)
+    p_pad = max(p for p, _ in shapes)
+    x = np.zeros((len(shapes), p_pad, n_pad), np.float32)
+    mask = np.zeros((len(shapes), p_pad), bool)
+    for i, (p, n) in enumerate(shapes):
+        x[i, :p, :n] = rng.standard_normal((p, n)) * (1 + i) + i
+        mask[i, :p] = True
+    nv = np.array([n for _, n in shapes], np.int32)
+    return torch.from_numpy(x), torch.from_numpy(mask), torch.from_numpy(nv)
+
+
+def test_batched_core_equals_per_dataset_calls():
+    """A leading dataset axis changes nothing: every batched call of the
+    numerical core is bit-identical, dataset by dataset, to the one-dataset
+    call on the CPU (normalize, covariance, both rank-1 updates with one root
+    per dataset, the fused prologue, complete_order and phase 2)."""
+    x, mask, nv = _ragged_batch([(21, 700), (17, 650), (21, 500)], 700, 3)
+    xn = torch.where(mask[..., None], t_cov.normalize(x, n_valid=nv), 0.0)
+    c = t_cov.cov_matrix(xn, n_valid=nv)
+    roots = torch.tensor([2, 16, 0])
+    up_x = t_cov.update_data(xn, c, roots, mask, n_valid=nv)
+    up_c = t_cov.update_cov(c, roots, mask)
+    layout = t_pw.fused_layout(xn, c, mask, 8, n_valid=nv)
+    order = torch.stack([torch.from_numpy(np.random.default_rng(i).permutation(21))
+                         for i in range(3)])
+    order = torch.where(torch.arange(21) < mask.sum(1, keepdim=True), order, 0)
+    perm = t_adj.complete_order(order, mask)
+    b, om = t_adj.adjacency_from_order(x, perm, mask=mask, n_valid=nv, prune_below=0.05)
+    for i in range(3):
+        xi = torch.where(mask[i, :, None], t_cov.normalize(x[i], n_valid=nv[i]), 0.0)
+        assert torch.equal(xi, xn[i])
+        assert torch.equal(t_cov.cov_matrix(xi, n_valid=nv[i]), c[i])
+        assert torch.equal(t_cov.update_data(xi, c[i], roots[i], mask[i], n_valid=nv[i]), up_x[i])
+        assert torch.equal(t_cov.update_cov(c[i], roots[i], mask[i]), up_c[i])
+        for one, many in zip(t_pw.fused_layout(xi, c[i], mask[i], 8, n_valid=nv[i]), layout):
+            assert torch.equal(one, many[i])
+        assert torch.equal(t_adj.complete_order(order[i], mask[i]), perm[i])
+        b_i, om_i = t_adj.adjacency_from_order(x[i], perm[i], mask=mask[i], n_valid=nv[i],
+                                               prune_below=0.05)
+        assert torch.equal(b_i, b[i]) and torch.equal(om_i, om[i])
+
+
+def test_batched_core_matches_reference_vmap():
+    """The batched normalize, covariance and updates against ``jax.vmap`` of
+    the JAX package's functions on the same ragged bucket."""
+    x, mask, nv = _ragged_batch([(19, 600), (12, 450)], 600, 5)
+    xj, mj, nvj = jnp.asarray(x.numpy()), jnp.asarray(mask.numpy()), jnp.asarray(nv.numpy())
+    xn_t = torch.where(mask[..., None], t_cov.normalize(x, n_valid=nv), 0.0)
+    xn_j = jax.vmap(lambda a, m, n: jnp.where(m[:, None], j_cov.normalize(a, n_valid=n), 0.0))(
+        xj, mj, nvj)
+    _close(xn_t, xn_j)
+    c_t = t_cov.cov_matrix(xn_t, n_valid=nv)
+    c_j = jax.vmap(lambda a, n: j_cov.cov_matrix(a, n_valid=n))(xn_j, nvj)
+    _close(c_t, c_j)
+    roots = np.array([4, 11])
+    up_t = t_cov.update_data(xn_t, c_t, torch.from_numpy(roots), mask, n_valid=nv)
+    up_j = jax.vmap(lambda a, cc, r, m, n: j_cov.update_data(a, cc, r, m, n_valid=n))(
+        xn_j, c_j, jnp.asarray(roots), mj, nvj)
+    _close(up_t, up_j)
+    uc_t = t_cov.update_cov(c_t, torch.from_numpy(roots), mask)
+    uc_j = jax.vmap(j_cov.update_cov)(c_j, jnp.asarray(roots), mj)
+    live = np.asarray(mask[:, :, None] & mask[:, None, :])
+    _close(uc_t.numpy()[live], np.asarray(uc_j)[live])
+
+
+def test_cholesky_ladder_escalates_per_dataset():
+    """One dataset whose correlation matrix is singular (a duplicated row)
+    escalates the jitter; its neighbour in the batch keeps the smallest
+    ridge, bit-identical to its own one-dataset call."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 6, 300)).astype(np.float32)
+    x[0, 4] = x[0, 1]  # exactly collinear: Cholesky fails at the 1e-10 ridge
+    x = torch.from_numpy(x)
+    order = torch.arange(6).expand(2, 6)
+    b, om = t_adj.adjacency_from_order(x, order)
+    b1, om1 = t_adj.adjacency_from_order(x[1], order[1])
+    assert torch.equal(b[1], b1) and torch.equal(om[1], om1)
+    b0, om0 = t_adj.adjacency_from_order(x[0], order[0])
+    assert torch.equal(b[0], b0) and torch.equal(om[0], om0)
+    assert bool(torch.isfinite(b).all())
+
+
+#: The pure-Python modules the port copies verbatim from the JAX package;
+#: they may differ only in the package name of their imports and docstrings.
+_COPIED = ("utils/clock.py", "serve/buckets.py", "serve/batching.py", "serve/replica.py")
+
+
+@pytest.mark.parametrize("path", _COPIED)
+def test_copied_python_modules_equal_reference(path):
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    with open(os.path.join(src, "repro", path)) as f:
+        ref = f.read()
+    with open(os.path.join(src, "repro_torch", path)) as f:
+        port = f.read()
+    assert port == re.sub(r"\brepro\.", "repro_torch.", ref)
 
 
 def test_copied_numpy_modules_agree():

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card,
+through both entries: one dataset (``fused_score_vector``) and a bucket of
+datasets (``fused_score_batch``).
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports neither JAX nor ``repro``, so it runs on a
@@ -84,3 +86,58 @@ def test_kernel_is_deterministic(cuda):
     first = fs.fused_score_vector(xn, c, mask)
     for _ in range(3):
         assert torch.equal(fs.fused_score_vector(xn, c, mask), first)
+
+
+def _bucket(shapes, n_pad, seed, device):
+    """Ragged Gaussian datasets zero-padded into one bucket and normalized
+    with their valid counts; dead rows hold NaN in xn and c."""
+    p_pad = max(p for p, _ in shapes)
+    rng = np.random.default_rng(seed)
+    x = torch.zeros((len(shapes), p_pad, n_pad), device=device)
+    mask = torch.zeros((len(shapes), p_pad), dtype=torch.bool, device=device)
+    for i, (p, n) in enumerate(shapes):
+        x[i, :p, :n] = torch.from_numpy(rng.standard_normal((p, n)).astype(np.float32))
+        mask[i, :p] = True
+    nv = torch.tensor([n for _, n in shapes], dtype=torch.int32, device=device)
+    xn = torch.where(mask[..., None], normalize(x, n_valid=nv), 0.0)
+    c = cov_matrix(xn, n_valid=nv)
+    xn = torch.where(mask[..., None], xn, torch.nan).contiguous()
+    c = torch.where(mask[:, :, None] & mask[:, None, :], c, torch.nan).contiguous()
+    return xn, c, mask, nv
+
+
+def test_batch_kernel_matches_plain(cuda):
+    """Ragged p and n in one bucket, per-dataset valid counts, NaN dead rows."""
+    xb, cb, mb, nv = _bucket([(37, 1300), (29, 900), (40, 1500), (8, 700)], 1536, 5, cuda)
+    before = fs.BATCH_LAUNCHES
+    s_k = fs.fused_score_batch(xb, cb, mb, n_valid=nv)
+    torch.cuda.synchronize()
+    assert fs.BATCH_LAUNCHES == before + 1
+    s_r = fs.fused_score_batch_ref(xb, cb, mb, n_valid=nv)
+    assert torch.all(torch.isinf(s_k[~mb]))
+    for i in range(xb.shape[0]):
+        tol = fs.score_tolerance(s_r[i], xb[i], cb[i], mb[i], n_valid=nv[i])
+        assert torch.all((s_k[i] - s_r[i])[mb[i]].abs() <= tol[mb[i]])
+        assert int(torch.argmin(s_k[i])) == int(torch.argmin(s_r[i]))
+
+
+def test_batch_row_is_batch_size_invariant(cuda):
+    """Row i of a batched launch is bit-identical to a launch of dataset i
+    alone on the same prologue inputs, whatever the batch size."""
+    xb, cb, mb, nv = _bucket([(24, 640)] * 6, 640, 7, cuda)
+    _, _, _, hxb, mbb, s_diag = fs.fused_layout(xb, cb, mb, 8, n_valid=nv)
+    den = nv.float()
+    full = fs.launch_batch(xb, cb, hxb, mbb, s_diag, den)
+    half = fs.launch_batch(xb[:3].contiguous(), cb[:3].contiguous(), hxb[:3].contiguous(),
+                           mbb[:3].contiguous(), s_diag[:3].contiguous(), den[:3].contiguous())
+    assert torch.equal(full[:3], half)
+    for i in range(xb.shape[0]):
+        one = fs.launch(xb[i], cb[i], hxb[i], mbb[i], s_diag[i], den[i:i + 1])
+        assert torch.equal(full[i], one)
+
+
+def test_batch_kernel_is_deterministic(cuda):
+    xb, cb, mb, nv = _bucket([(128, 2048), (100, 1900)], 2048, 11, cuda)
+    first = fs.fused_score_batch(xb, cb, mb, n_valid=nv)
+    for _ in range(3):
+        assert torch.equal(fs.fused_score_batch(xb, cb, mb, n_valid=nv), first)

@@ -1,8 +1,11 @@
-"""The fused triangular score kernel's plain version held against the JAX
-package's Pallas kernel (interpret mode) and its jnp oracle, on the cases of
+"""The fused triangular score kernel's plain versions held against the JAX
+package's Pallas kernels (interpret mode) and its jnp oracle, on the cases of
 ``tests/test_fused_score.py``: odd p, several sample chunk widths, dead rows
-holding NaN, masks and ``n_valid`` padding. The wrapper's input checks run
-here too; the kernel itself runs only on the card (``test_torch_cuda.py``).
+holding NaN, masks and ``n_valid`` padding; and the batched entry
+(``fused_score_batch``) on ragged buckets with one valid count per dataset,
+against ``repro.kernels.fused_score.fused_score_batch``. The wrappers' input
+checks run here too; the kernel itself runs only on the card
+(``test_torch_cuda.py``).
 
 Tolerance: a live score may differ by 1e-3 of the largest score of its
 case. Both sides take the same float32 formulas and differ only in the order
@@ -22,7 +25,9 @@ jnp = jax.numpy
 
 from repro.core.covariance import cov_matrix, normalize  # noqa: E402
 from repro.core.pairwise import fused_scores as j_fused_scores  # noqa: E402
+from repro.kernels.fused_score import fused_score_batch as j_batch_kernel  # noqa: E402
 from repro.kernels.fused_score import fused_score_vector as j_kernel  # noqa: E402
+from repro_torch.core.pairwise import fused_layout as t_layout  # noqa: E402
 from repro_torch.kernels import fused_score as fs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -165,3 +170,79 @@ def test_lanes_fit_one_thread_block(b, tiles):
     lanes = fs._lanes(b, tiles)
     threads = b * b * lanes
     assert 2 * b <= threads <= 1024
+
+
+def _ragged_bucket(shapes, n_pad, seed):
+    """Ragged normalized datasets zero-padded into one bucket (JAX side), with
+    dead rows holding NaN in xn and c and one valid count per dataset."""
+    rng = np.random.default_rng(seed)
+    p_pad = max(p for p, _ in shapes)
+    xs = np.zeros((len(shapes), p_pad, n_pad), np.float32)
+    cs = np.full((len(shapes), p_pad, p_pad), np.nan, np.float32)
+    mask = np.zeros((len(shapes), p_pad), bool)
+    for i, (p, n) in enumerate(shapes):
+        xn = np.array(jax.jit(normalize)(jnp.asarray(rng.standard_normal((p, n)), jnp.float32)))
+        xs[i, :p, :n] = xn
+        xs[i, p:] = np.nan
+        cs[i, :p, :p] = np.array(jax.jit(cov_matrix)(jnp.asarray(xn)))
+        mask[i, :p] = True
+    return xs, cs, mask, np.array([n for _, n in shapes], np.int32)
+
+
+def test_batch_plain_matches_pallas_batch_kernel():
+    """Ragged p and n in one bucket, NaN dead rows, per-dataset valid counts;
+    each dataset's scores within SCORE_SHARE of its largest score."""
+    xs, cs, mask, nv = _ragged_bucket([(20, 600), (13, 450), (17, 512)], 640, 21)
+    s_t = fs.fused_score_batch(torch.from_numpy(xs), torch.from_numpy(cs),
+                               torch.from_numpy(mask), n_valid=torch.from_numpy(nv)).numpy()
+    s_k = j_batch_kernel(jnp.asarray(xs), jnp.asarray(cs), jnp.asarray(mask), block=8,
+                         block_n=128, interpret=True, n_valid=jnp.asarray(nv))
+    for i in range(xs.shape[0]):
+        assert np.all(np.isinf(s_t[i][~mask[i]]))
+        _close(s_t[i], np.asarray(s_k[i]), mask[i])
+
+
+def test_batch_plain_is_vector_plain_row_for_row():
+    xs, cs, mask, nv = _ragged_bucket([(9, 300), (16, 280), (12, 320)], 320, 4)
+    xs_t, cs_t, mask_t = (torch.from_numpy(a) for a in (xs, cs, mask))
+    nv_t = torch.from_numpy(nv)
+    s = fs.fused_score_batch_ref(xs_t, cs_t, mask_t, n_valid=nv_t)
+    for i in range(xs.shape[0]):
+        assert torch.equal(s[i], fs.fused_score_vector_ref(xs_t[i], cs_t[i], mask_t[i],
+                                                           n_valid=nv_t[i]))
+
+
+def test_batch_prologue_equals_per_dataset_prologue():
+    """The batched ``fused_layout`` the card's wrapper runs (diagonal tiles
+    and row entropies of the whole bucket at once, one valid count per
+    dataset) is bit-identical to the one-dataset prologue, row for row."""
+    xs, cs, mask, nv = _ragged_bucket([(21, 600), (10, 500), (16, 640)], 640, 9)
+    xs_t, cs_t, mask_t = (torch.from_numpy(a) for a in (xs, cs, mask))
+    nv_t = torch.from_numpy(nv)
+    batched = t_layout(xs_t, cs_t, mask_t, 8, n_valid=nv_t)
+    for i in range(xs.shape[0]):
+        for one, many in zip(t_layout(xs_t[i], cs_t[i], mask_t[i], 8, n_valid=nv_t[i]),
+                             batched):
+            torch.testing.assert_close(many[i], one, rtol=0, atol=0, equal_nan=True)
+
+
+def test_batch_wrapper_checks_inputs():
+    xs, cs, mask, _ = (torch.from_numpy(a) for a in _ragged_bucket([(9, 64), (9, 64)], 64, 1))
+    with pytest.raises(ValueError, match="B, p, n"):
+        fs.fused_score_batch(xs[0], cs[0], mask[0])
+    with pytest.raises(ValueError):
+        fs.fused_score_batch(xs, cs[:, :8, :8], mask)
+    with pytest.raises(ValueError):
+        fs.fused_score_batch(xs, cs, mask[:1])
+    with pytest.raises(TypeError):
+        fs.fused_score_batch(xs.double(), cs, mask)
+    with pytest.raises(ValueError):
+        fs.fused_score_batch(xs.to("meta"), cs.to("meta"), mask.to("meta"))
+
+
+def test_batch_cpu_route_runs_plain_version_uncounted():
+    xs, cs, mask, nv = (torch.from_numpy(a) for a in _ragged_bucket([(12, 200), (7, 150)], 200, 2))
+    before = fs.BATCH_LAUNCHES
+    s = ops.score_batch(xs, cs, mask, n_valid=nv)
+    assert fs.BATCH_LAUNCHES == before
+    assert torch.equal(s, fs.fused_score_batch_ref(xs, cs, mask, n_valid=nv))
