@@ -36,12 +36,33 @@ Phases, each printed on its own line:
    through ``fit_batch``, the stats ledger balances, ``kernel_bypass`` and
    ``auto_downgrade`` are 0; requests/s, seconds per dispatch, and one
    ``fit`` per request for comparison are printed.
-8. With ``--profile``: where one fit's time goes (torch.profiler device time
-   by kernel, and the device's busy share), at both fit sizes, and the
-   device's busy share while the engine serves the same requests again.
-9. A ``{"kernels": [...]}`` line with each hand kernel's launches on the main
-   path, its error against the plain version, its time, the plain version's
-   time and its bound.
+8. The square moments kernel (``pairwise_moments``, ``score_backend=
+   "hopper"``) against its plain version: ragged p=13/n=700, a non-square
+   block, the E. coli fit's first stage (m=128, n=10000), Gaussian m=512
+   n=2000, off-diagonal live sums within ``pairwise_score.sum_tolerance``
+   and entropies within 1e-5; zero-padding of n bit-exact; row b of a B=8
+   launch at the (128, 16384) bucket bit-identical to a one-dataset launch;
+   times per launch.
+9. ``fit(score_backend="hopper")`` at the E. coli core size (84 launches,
+   the orders of ``hopper_fused`` and ``torch``), the host driver
+   ``causal_order`` with both kernels (the order of ``fit``), and
+   ``fit_batch(score_backend="hopper")`` on the E. coli bucket (127
+   launches, the orders of phase 6). An order may depart from another only
+   at an f32 near-tie of the dense scores (``fused_score.score_tolerance``).
+10. The threshold mechanism: the E. coli example's configuration (p=85,
+    n=10000, seed 7, chunk 16) through ``fit`` and the host driver, equal to
+    each other and to the dense order, with comparisons, rounds and host
+    reads; a p=8 threshold fit against the float64 oracle;
+    ``fit_batch(threshold=True)`` on the E. coli bucket against each
+    dataset's own ``fit_batch``; one served round of those requests through
+    ``AsyncLingamEngine(ParaLiNGAMConfig(threshold=True))``, replayed.
+11. With ``--profile``: where one fit's time goes (torch.profiler device
+    time by kernel, and the device's busy share), at both fit sizes and for
+    the threshold fit, and the device's busy share while the engine serves
+    the same requests again.
+12. A ``{"kernels": [...]}`` line with each hand kernel's launches on the
+    main path, its error against the plain version, its time, the plain
+    version's time and its bound.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. It needs a CUDA device (it exits non-zero without one) and imports
@@ -67,9 +88,15 @@ import torch  # noqa: E402
 from repro_torch.core import direct_lingam, sem  # noqa: E402
 from repro_torch.core.covariance import cov_matrix, normalize  # noqa: E402
 from repro_torch.core import paralingam  # noqa: E402
-from repro_torch.core.paralingam import ParaLiNGAMConfig, fit, fit_batch  # noqa: E402
+from repro_torch.core.paralingam import (  # noqa: E402
+    ParaLiNGAMConfig,
+    causal_order,
+    fit,
+    fit_batch,
+)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import fused_score as fs  # noqa: E402
+from repro_torch.kernels import pairwise_score as ps  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AsyncLingamEngine,
     BatchingConfig,
@@ -92,6 +119,8 @@ BATCH_REPLACES = "src/repro/kernels/fused_score.py:208"
 # The serving buckets: E. coli core size (p=85, n=10000) and the iJR904
 # slice (p=512, n=2000), under LingamServeConfig's pow-2 grid.
 ECOLI_BUCKET, IJR_BUCKET = (128, 16384), (512, 2048)
+# The E. coli core size and the iJR904 slice of bench_table2.py, (p, n).
+ECOLI, SLICE = (85, 10_000), (512, 2000)
 
 
 def say(tag: str, **kw):
@@ -242,25 +271,27 @@ def phase_fit_small(dev):
 
 
 def phase_fit_core(dev, gpu) -> float:
-    data = sem.generate(sem.SemSpec(p=85, n=10_000, density="sparse", seed=0))
+    p, n = ECOLI
+    data = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=0))
     captured, warm, _ = fit_stage_inputs(data["x"], dev)
     res_k, b_k, t_k, launches = run_fit(data["x"], "hopper_fused", dev)
     res_p, b_p, t_p, _ = run_fit(data["x"], "torch", dev)
     same = res_k.order == res_p.order
     b_err = (b_k - b_p).abs().max().item()
     nv_err = float(np.max(np.abs(res_k.noise_var / res_p.noise_var - 1)))
-    say("fit_ecoli_core", p=85, n=10000, orders_equal=same, b_max_abs_diff=b_err,
-        noise_var_max_rel_diff=nv_err, launches=launches, find_roots=84,
+    say("fit_ecoli_core", p=p, n=n, orders_equal=same, b_max_abs_diff=b_err,
+        noise_var_max_rel_diff=nv_err, launches=launches, find_roots=p - 1,
         valid_order=sem.is_valid_causal_order(res_k.order, data["b_true"]),
         fit_s_hopper_fused=f"{t_k:.3f}", fit_s_torch=f"{t_p:.3f}", gpu=f"'{gpu}'")
     check(same, "hopper_fused and torch orders differ at p=85")
     # Same order and same raw data: phase 2 sees identical inputs.
     check(b_err <= 1e-6 and nv_err <= 1e-6, "B or noise_var differ at p=85")
-    check(launches == 84, f"{launches} kernel launches for 84 find-roots")
+    check(launches == p - 1, f"{launches} kernel launches for {p - 1} find-roots")
     check(res_k.order == warm.order, "two fits of the same data gave different orders")
     check(bool(torch.all(torch.isfinite(b_k))) and np.all(np.isfinite(res_k.noise_var)),
           "non-finite B or noise variances")
-    return max(compare(f"fit85_stage_m{m}", *captured[m]) for m in sorted(captured, reverse=True))
+    err = max(compare(f"fit85_stage_m{m}", *captured[m]) for m in sorted(captured, reverse=True))
+    return err, {"x": data["x"], "hopper_fused": (res_k, b_k, t_k), "torch": (res_p, b_p, t_p)}
 
 
 def phase_fit_slice(dev, gpu):
@@ -329,16 +360,17 @@ def ijr_requests():
             for p, n, seed in ((512, 2000, 1), (480, 1950, 3))]
 
 
-def bucket_inputs(raw, bucket, dev):
-    """The batched kernel's inputs for ``raw`` datasets packed into a bucket:
+def bucket_inputs(raw, bucket, dev, dead=torch.nan):
+    """The batched kernels' inputs for ``raw`` datasets packed into a bucket:
     rows normalized on the card with each dataset's valid count, and dead
-    rows holding NaN in xn and c (the kernel must never read them)."""
+    rows holding ``dead`` in xn and c (NaN: the fused kernel must never read
+    them; 0: what the pipeline gives the square kernel)."""
     xs, mask, nv, _ = pack_bucket(raw, *bucket)
     x, mk, n_valid = (torch.from_numpy(a).to(dev) for a in (xs, mask, nv))
     xn = torch.where(mk[..., None], normalize(x, n_valid=n_valid), 0.0)
     c = cov_matrix(xn, n_valid=n_valid)
-    xn = torch.where(mk[..., None], xn, torch.nan).contiguous()
-    c = torch.where(mk[:, :, None] & mk[:, None, :], c, torch.nan).contiguous()
+    xn = torch.where(mk[..., None], xn, dead).contiguous()
+    c = torch.where(mk[:, :, None] & mk[:, None, :], c, dead).contiguous()
     return xn, c, mk, n_valid
 
 
@@ -468,12 +500,21 @@ def serve_round(eng, requests, threads=3):
     return results, time.perf_counter() - t0
 
 
-def phase_engine(dev, gpu, batch_orders, profile: bool):
-    """(c) The serving path on the card. Returns the batched kernel's
-    launches in the served run."""
-    ecoli, ijr = ecoli_requests(), ijr_requests()
-    requests = ecoli + ijr
-    cfg = ParaLiNGAMConfig()
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    fs.LAUNCHES = fs.BATCH_LAUNCHES = ps.LAUNCHES = ps.BATCH_LAUNCHES = 0
+
+
+def counts() -> dict:
+    return {"fused_score": fs.LAUNCHES, "fused_score_batch": fs.BATCH_LAUNCHES,
+            "pairwise_moments": ps.LAUNCHES, "pairwise_moments_batch": ps.BATCH_LAUNCHES}
+
+
+def engine_round(cfg, requests, dev, *, replicas=1, prewarm=None, profile=False):
+    """Serve ``requests`` once through an ``AsyncLingamEngine`` whose
+    dispatch seam records every dispatch. Returns (results, wall seconds,
+    stats, the served dispatch records, prewarm seconds, kernel launches of
+    the served round, profiler rows of a second round or None)."""
     records, mu, holder = [], threading.Lock(), {}
 
     def recording(bucket, payloads):
@@ -488,14 +529,14 @@ def phase_engine(dev, gpu, batch_orders, profile: bool):
     t0 = time.perf_counter()
     eng = AsyncLingamEngine(
         cfg, SERVE_CFG, batch_cfg=BatchingConfig(max_batch=8, max_queue=64, flush_interval=1.0),
-        dispatch=recording, replicas=2, prewarm=[(85, 10_000), (512, 2000)], device=dev)
+        dispatch=recording, replicas=replicas, prewarm=prewarm, device=dev)
     holder["eng"] = eng
     prewarm_s = time.perf_counter() - t0
     try:
-        fs.LAUNCHES = fs.BATCH_LAUNCHES = 0
+        reset_counts()
         paralingam.reset_dispatch_stats()
         results, wall = serve_round(eng, requests)  # the main path
-        launches, vec_launches = fs.BATCH_LAUNCHES, fs.LAUNCHES
+        launches = counts()
         st = eng.stats()
         busy = None
         if profile:
@@ -506,32 +547,53 @@ def phase_engine(dev, gpu, batch_orders, profile: bool):
             busy = (device_rows(prof), wall2)
     finally:
         eng.close(timeout=120)
-    served = records[:st["dispatches"]]
-    dispatch_s = [f"{r[0]}x{len(r[1])}:{r[3]:.4f}" for r in served]
-    say("engine", requests=len(requests), dispatches=st["dispatches"], prewarm_s=f"{prewarm_s:.2f}",
-        prewarm_buckets=st["prewarm"]["buckets"], wall_s=f"{wall:.4f}",
-        requests_per_s=f"{len(requests) / wall:.3f}", seconds_per_dispatch=",".join(dispatch_s),
-        launches=launches, gpu=f"'{gpu}'")
     check(all(r is not None for r in results), "a ticket did not resolve")
     check(conserved(st), f"stats ledger does not balance: {st}")
     check(st["delivered"] == len(requests), f"{st['delivered']} of {len(requests)} delivered")
-    check(st["kernel_bypass"] == 0 and st["auto_downgrade"] == 0,
-          f"kernel_bypass={st['kernel_bypass']} auto_downgrade={st['auto_downgrade']}")
-    want = sum(r[0][0] - 1 for r in served)
-    check(launches == want and vec_launches == 0,
-          f"{launches} batched launches (want {want}), {vec_launches} one-dataset launches")
+    check(st["kernel_bypass"] == 0, f"kernel_bypass={st['kernel_bypass']}")
+    return results, wall, st, records[:st["dispatches"]], prewarm_s, launches, busy
 
-    # Each result is bit-identical to a replay of its recorded dispatch.
-    replay_ok = 0
+
+def replay_identical(served, cfg, dev) -> int:
+    """How many served results are bit-identical to a replay of their
+    recorded dispatch through ``fit_batch``."""
+    ok = 0
     for bucket, payloads, out, _ in served:
         xs, mask, nv, exact = pack_bucket(payloads, *bucket)
         seams = {} if exact else dict(n_valid=nv, mask=mask)
         res = fit_batch(xs, cfg, device=dev, **seams)
         orders, b, omega = res.orders.cpu().numpy(), res.b.cpu().numpy(), res.noise_var.cpu().numpy()
+        comps, rounds = res.comparisons.cpu().numpy(), res.rounds.cpu().numpy()
         for i, (x, f) in enumerate(zip(payloads, out)):
             p = x.shape[0]
-            replay_ok += (list(orders[i, :p]) == f.order and np.array_equal(b[i, :p, :p], f.b)
-                          and np.array_equal(omega[i, :p], f.noise_var))
+            ok += (list(orders[i, :p]) == f.order and np.array_equal(b[i, :p, :p], f.b)
+                   and np.array_equal(omega[i, :p], f.noise_var)
+                   and int(comps[i, :p - 1].sum()) == f.comparisons
+                   and int(rounds[i, :p - 1].sum()) == f.rounds)
+    return ok
+
+
+def phase_engine(dev, gpu, batch_orders, profile: bool):
+    """(c) The serving path on the card. Returns the batched kernel's
+    launches in the served run."""
+    ecoli, ijr = ecoli_requests(), ijr_requests()
+    requests = ecoli + ijr
+    cfg = ParaLiNGAMConfig()
+    results, wall, st, served, prewarm_s, launched, busy = engine_round(
+        cfg, requests, dev, replicas=2, prewarm=[(85, 10_000), (512, 2000)], profile=profile)
+    launches, vec_launches = launched["fused_score_batch"], launched["fused_score"]
+    dispatch_s = [f"{r[0]}x{len(r[1])}:{r[3]:.4f}" for r in served]
+    say("engine", requests=len(requests), dispatches=st["dispatches"], prewarm_s=f"{prewarm_s:.2f}",
+        prewarm_buckets=st["prewarm"]["buckets"], wall_s=f"{wall:.4f}",
+        requests_per_s=f"{len(requests) / wall:.3f}", seconds_per_dispatch=",".join(dispatch_s),
+        launches=launches, gpu=f"'{gpu}'")
+    check(st["auto_downgrade"] == 0, f"auto_downgrade={st['auto_downgrade']}")
+    want = sum(r[0][0] - 1 for r in served)
+    check(launches == want and vec_launches == 0,
+          f"{launches} batched launches (want {want}), {vec_launches} one-dataset launches")
+
+    # Each result is bit-identical to a replay of its recorded dispatch.
+    replay_ok = replay_identical(served, cfg, dev)
     say("engine_replay", results_bit_identical_to_replay=f"{replay_ok}/{len(requests)}")
     check(replay_ok == len(requests), "a served result differs from the replay of its dispatch")
     same_as_b = sum(res.order == o for res, o in zip(results[:len(ecoli)], batch_orders))
@@ -600,6 +662,17 @@ def profile_fits(dev, gpu):
         say("profile", p=p, n=n, wall_s=f"{wall:.4f}", device_busy_s=f"{busy_us / 1e6:.4f}",
             device_busy_share=f"{busy_us / 1e6 / wall:.3f}", gpu=f"'{gpu}'")
         say_rows(f"fit_p{p}", rows, busy_us)
+    # The threshold fit of examples/causal_discovery_ecoli.py.
+    x = sem.generate(sem.SemSpec(p=85, n=10_000, density="sparse", seed=7))["x"]
+    cfg = ParaLiNGAMConfig(threshold=True, chunk=16)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: fit(x, cfg, device=dev))
+    rows = device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    say("profile", run="threshold_fit_p85", wall_s=f"{wall:.4f}",
+        device_busy_s=f"{busy_us / 1e6:.4f}", device_busy_share=f"{busy_us / 1e6 / wall:.3f}",
+        gpu=f"'{gpu}'")
+    say_rows("threshold_fit_p85", rows, busy_us)
     # One dispatch of the E. coli bucket (B=8), as the engine runs it.
     xs, mask, nv, _ = pack_bucket(ecoli_requests(), *ECOLI_BUCKET)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -615,10 +688,384 @@ def profile_fits(dev, gpu):
     say_rows("fit_batch_ecoli_b8", rows, busy_us)
 
 
+# -- slice 3: the square moments kernel, the host driver, the threshold machine
+
+SQUARE_SOURCE = "src/repro_torch/kernels/csrc/pairwise_moments.cu"
+SQUARE_REPLACES = "src/repro/kernels/pairwise_score.py:46"
+# Entropies after the epilogue, kernel against plain: the rtol/atol of
+# tests/test_kernel_moments.py (the JAX package's kernel route).
+H_RTOL = H_ATOL = 1e-5
+
+
+def live_off_diagonal(mask_i, mask_j=None):
+    """(pi, pj) pairs of live rows with i != j: the sums that reach a score.
+    The (i, i) sums are rounding noise amplified by up to 1e6 (c_ii ~ 1), and
+    so are those of a row against its copies in a compacted buffer's dead
+    slots."""
+    mask_j = mask_i if mask_j is None else mask_j
+    pi, pj = mask_i.shape[0], mask_j.shape[0]
+    eye = torch.arange(pi, device=mask_i.device)[:, None] == torch.arange(pj, device=mask_i.device)
+    return mask_i[:, None] & mask_j[None, :] & ~eye
+
+
+def hold_sums(name, xi, xj, c, sel):
+    """The square kernel against its plain version on one dataset: the raw
+    sums on the ``sel`` entries within ``sum_tolerance``, and the entropies
+    after ``finalize_moments`` within H_RTOL/H_ATOL. Returns the max abs
+    error of the sums."""
+    k1, k2 = ps.pairwise_moments(xi, xj, c)
+    r1, r2 = ps.pairwise_moments_ref(xi, xj, c)
+    torch.cuda.synchronize()
+    tol = ps.sum_tolerance(xi, xj, c)[sel].double()
+    errs, ratios = [], []
+    for k, r in ((k1, r1), (k2, r2)):
+        check(bool(torch.all(torch.isfinite(k[sel]))), f"{name}: non-finite sums")
+        e = (k[sel].double() - r[sel].double()).abs()
+        errs.append(e.max().item())
+        ratios.append((e / tol).max().item())
+    n = xi.shape[-1]
+    hk, hr = ps.finalize(k1, k2, n)[sel].double(), ps.finalize(r1, r2, n)[sel].double()
+    h_ok = bool(torch.all((hk - hr).abs() <= H_ATOL + H_RTOL * hr.abs()))
+    ok = max(ratios) <= 1.0 and h_ok
+    say("pairwise_vs_plain", case=name, pi=xi.shape[0], pj=xj.shape[0], n=n,
+        held_entries=int(sel.sum()), max_abs_m1=f"{errs[0]:.3e}", max_abs_m2=f"{errs[1]:.3e}",
+        max_err_over_tol=f"{max(ratios):.3e}",
+        max_rel_entropy=f"{((hk - hr).abs() / hr.abs().clamp(min=1e-30)).max().item():.3e}",
+        entropies_ok=h_ok, ok=ok)
+    check(ok, f"{name}: square kernel disagrees with plain")
+    return max(errs)
+
+
+def square_bound_ms(pairs_x_samples: float, bytes_moved: float) -> tuple[float, str]:
+    """Least time of the square sums: 3 transcendentals (SFU) and ~10 FP32
+    operations per (ordered pair, sample), or the bytes once over HBM."""
+    t = {"bytes": bytes_moved / HBM_BPS, "sfu": 3 * pairs_x_samples / SFU_OPS,
+         "fp32": 10 * pairs_x_samples / FP32_FLOPS}
+    key = max(t, key=t.get)
+    return t[key] * 1e3, "bytes" if key == "bytes" else "operations"
+
+
+def capture_dense_inputs(x, backend, dev):
+    """Fit once and keep the find-root inputs of the first iteration of every
+    stage (rows, correlations, mask), keyed by the stage's buffer size."""
+    captured, orig = {}, paralingam._find_root_dense_impl
+
+    def spy(xb, cb, mask, **kw):
+        if xb.shape[1] not in captured:
+            captured[xb.shape[1]] = (xb[0].clone(), cb[0].clone(), mask[0].clone())
+        return orig(xb, cb, mask, **kw)
+
+    paralingam._find_root_dense_impl = spy
+    try:
+        fit(x, ParaLiNGAMConfig(score_backend=backend), device=dev)
+    finally:
+        paralingam._find_root_dense_impl = orig
+    return captured
+
+
+def phase_pairwise_kernel(dev, gpu, ecoli_x):
+    """The square moments kernel against its plain version: ragged edges,
+    the E. coli fit's first stage (m=128, n=10000), m=512 n=2000, padding
+    exactness, batch-row identity at the (128, 16384) bucket, and times."""
+    errs, timing = [], {}
+    xn, c = normalized(np.random.default_rng(1).standard_normal((13, 700)), dev)
+    full = torch.ones(13, dtype=torch.bool, device=dev)
+    errs.append(hold_sums("ragged_p13_n700", xn, xn, c, live_off_diagonal(full)))
+    xi, cj = xn[:, :].contiguous(), c[:, :5].contiguous()
+    errs.append(hold_sums("block_13x5_n700", xi, xn[:5].contiguous(), cj,
+                          live_off_diagonal(full, full[:5])))
+    # zero columns add exactly 0: bit-identical sums
+    same = []
+    for n_pad in (1024, 2048):
+        xp = torch.zeros((13, n_pad), device=dev)
+        xp[:, :700] = xn
+        same += [torch.equal(a, b) for a, b in zip(ps.pairwise_moments(xn, xn, c),
+                                                    ps.pairwise_moments(xp, xp, c))]
+    say("pairwise_padding", sums_bit_identical=f"{sum(same)}/{len(same)}")
+    check(all(same), "zero-padding n changed the square kernel's sums")
+
+    stages = capture_dense_inputs(ecoli_x, "hopper", dev)
+    xe, ce, me = stages[max(stages)]  # the first stage
+    errs.append(hold_sums(f"ecoli_fit_stage_m{xe.shape[0]}", xe, xe, ce, live_off_diagonal(me)))
+    xg, cg = normalized(gauss_data(*SLICE, 1), dev)
+    errs.append(hold_sums(f"gauss_m{SLICE[0]}_n{SLICE[1]}", xg, xg, cg,
+                          live_off_diagonal(torch.ones(SLICE[0], dtype=torch.bool, device=dev))))
+
+    for name, (x_, c_) in (("ecoli_stage", (xe, ce)), ("slice", (xg, cg))):
+        m, n = x_.shape
+        ms = time_ms(lambda: ps._launch(x_[None], x_[None], c_[None]), reps=50)
+        wrapper_ms = time_ms(lambda: ps.pairwise_moments(x_, x_, c_), reps=20)
+        plain_ms = time_ms(lambda: ps.pairwise_moments_ref(x_, x_, c_), reps=3, warmup=1)
+        bound, by = square_bound_ms(m * m * n, 4 * (m * n + 3 * m * m))
+        timing[name] = (ms, wrapper_ms, plain_ms, bound, by)
+        say("pairwise_kernel_time", shape=f"m{m}_n{n}", kernel_ms=f"{ms:.4f}",
+            wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+            bound_by=by, kernel_fraction_of_bound=f"{bound / ms:.3f}", gpu=f"'{gpu}'")
+
+    # The batched entry on the E. coli bucket, dead rows exactly 0 as the
+    # pipeline gives them: per dataset against plain, and row b bit-identical
+    # to a one-dataset launch.
+    xb, cb, mb, nv = bucket_inputs(ecoli_requests(), ECOLI_BUCKET, dev, dead=0.0)
+    b1, b2 = ps.pairwise_moments_batch(xb, cb)
+    r1, r2 = ps.pairwise_moments_batch_ref(xb, cb)
+    torch.cuda.synchronize()
+    rows, ratios = [], []
+    for b in range(xb.shape[0]):
+        o1, o2 = ps._launch(xb[b:b + 1], xb[b:b + 1], cb[b:b + 1])
+        rows.append(torch.equal(b1[b], o1[0]) and torch.equal(b2[b], o2[0]))
+        sel = live_off_diagonal(mb[b])
+        tol = ps.sum_tolerance(xb[b], xb[b], cb[b])[sel].double()
+        for k, r in ((b1[b], r1[b]), (b2[b], r2[b])):
+            e = (k[sel].double() - r[sel].double()).abs()
+            errs.append(e.max().item())
+            ratios.append((e / tol).max().item())
+    say("pairwise_batch", B=xb.shape[0], bucket=f"{tuple(xb.shape[1:])}",
+        rows_bit_identical=f"{sum(rows)}/{len(rows)}", max_err_over_tol=f"{max(ratios):.3e}")
+    check(all(rows), "a batched row of the square kernel differs from its one-dataset launch")
+    check(max(ratios) <= 1.0, "the batched square kernel disagrees with plain")
+    bsz, p_pad, n_pad = xb.shape
+    ms = time_ms(lambda: ps._launch(xb, xb, cb), reps=10)
+    wrapper_ms = time_ms(lambda: ps.pairwise_moments_batch(xb, cb), reps=5)
+    plain_ms = time_ms(lambda: ps.pairwise_moments_batch_ref(xb, cb), reps=2, warmup=1)
+    live = mb.sum(dim=1).double()
+    bound, by = square_bound_ms(float((live * live * nv.double()).sum()),
+                                float((4 * (live * nv.double() + 3 * live * live)).sum()))
+    padded, _ = square_bound_ms(bsz * p_pad * p_pad * n_pad, 4 * bsz * (p_pad * n_pad + 3 * p_pad ** 2))
+    timing["batch"] = (ms, wrapper_ms, plain_ms, bound, by, padded,
+                       f"B={bsz},bucket={p_pad}x{n_pad},p={int(live.min())}-{int(live.max())},"
+                       f"n={int(nv.min())}-{int(nv.max())}")
+    say("pairwise_batch_kernel_time", B=bsz, bucket=f"{(p_pad, n_pad)}", kernel_ms=f"{ms:.4f}",
+        wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+        bound_ms_padded_buffer=f"{padded:.4f}", kernel_fraction_of_bound=f"{bound / ms:.3f}",
+        gpu=f"'{gpu}'")
+    return max(errs), timing
+
+
+def dense_scores_along(x, order, it, dev):
+    """The dense scores (plain square path) and their tolerance at iteration
+    ``it`` of the updates along ``order``."""
+    from repro_torch.core.covariance import update_cov, update_data
+    from repro_torch.core.pairwise import dense_scores
+
+    xn, c = normalized(x, dev)
+    mask = torch.ones(xn.shape[0], dtype=torch.bool, device=dev)
+    for r in order[:it]:
+        xn, c = update_data(xn, c, r, mask), update_cov(c, r, mask)
+        mask[r] = False
+    s = dense_scores(xn, c, mask)[0]
+    return s, fs.score_tolerance(s, xn, c, mask)
+
+
+def hold_order(name, got, want, x, dev) -> bool:
+    """Equal orders, or a departure at an f32 near-tie: the two roots' dense
+    scores at the first differing iteration within their tolerances of each
+    other. Raises otherwise. Returns whether the orders are equal."""
+    if got == want:
+        return True
+    k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    s, tol = dense_scores_along(x, want, k, dev)
+    a, b = got[k], want[k]
+    gap, allowed = abs(s[a] - s[b]).item(), (tol[a] + tol[b]).item()
+    say("order_departure", case=name, iteration=k, root=a, reference_root=b,
+        dense_score_root=f"{s[a].item():.6e}", dense_score_reference=f"{s[b].item():.6e}",
+        gap=f"{gap:.3e}", allowed=f"{allowed:.3e}", near_tie=gap <= allowed)
+    check(gap <= allowed, f"{name}: orders depart at iteration {k} beyond an f32 near-tie")
+    return False
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_fit_hopper(dev, gpu, core):
+    """``fit(score_backend="hopper")`` at the E. coli core size: one square
+    launch per find-root, the orders of the other backends, B and noise
+    variances as the fused fit's. Returns its launches."""
+    x = core["x"]
+    p, n = x.shape
+    res_k, b_k, t_k = core["hopper_fused"]
+    res_p = core["torch"][0]
+    fit(x, ParaLiNGAMConfig(score_backend="hopper"), device=dev)  # warm-up
+    reset_counts()
+    (res, b), t = timed(lambda: fit(x, ParaLiNGAMConfig(score_backend="hopper"), device=dev))
+    launched = counts()
+    same_fused = hold_order("fit_hopper_vs_hopper_fused", res.order, res_k.order, x, dev)
+    same_torch = hold_order("fit_hopper_vs_torch", res.order, res_p.order, x, dev)
+    b_err = (b - b_k).abs().max().item()
+    nv_err = float(np.max(np.abs(res.noise_var / res_k.noise_var - 1)))
+    say("fit_hopper_ecoli", p=p, n=n, launches=launched["pairwise_moments"], find_roots=p - 1,
+        order_equals_hopper_fused=same_fused, order_equals_torch=same_torch,
+        b_max_abs_diff=b_err, noise_var_max_rel_diff=nv_err, fit_s_hopper=f"{t:.4f}",
+        fit_s_hopper_fused=f"{t_k:.4f}", gpu=f"'{gpu}'")
+    check(launched["pairwise_moments"] == p - 1 and launched["fused_score"] == 0,
+          f"{launched} launches for {p - 1} find-roots")
+    if same_fused:
+        check(b_err <= 1e-6 and nv_err <= 1e-6, "B or noise_var differ from the fused fit")
+    return launched["pairwise_moments"]
+
+
+def phase_causal_order_host(dev, gpu, core):
+    """The host driver (``causal_order``, ``order_backend="host"``) with the
+    square and the fused kernels: the orders of ``fit``."""
+    x = core["x"]
+    p, n = x.shape
+    fit_order = core["hopper_fused"][0].order
+    for backend in ("hopper", "hopper_fused"):
+        reset_counts()
+        res, t = timed(lambda: causal_order(x, ParaLiNGAMConfig(score_backend=backend), device=dev))
+        launched = counts()
+        key = "pairwise_moments" if backend == "hopper" else "fused_score"
+        same = hold_order(f"host_{backend}_vs_fit", res.order, fit_order, x, dev)
+        say("causal_order_host", backend=backend, p=p, n=n, launches=launched[key],
+            order_equals_fit=same, comparisons=res.comparisons, seconds=f"{t:.4f}",
+            fit_s=f"{core['hopper_fused'][2]:.4f}", gpu=f"'{gpu}'")
+        check(launched[key] == p - 1, f"{launched} launches for {p - 1} host find-roots")
+
+
+def count_reads(fn):
+    """Run ``fn`` counting the threshold loop's host reads."""
+    reads, orig = [0], paralingam._still_running
+
+    def spy(run):
+        reads[0] += 1
+        return orig(run)
+
+    paralingam._still_running = spy
+    try:
+        out = timed(fn)
+    finally:
+        paralingam._still_running = orig
+    return out, reads[0]
+
+
+def phase_threshold_ecoli(dev, gpu):
+    """The configuration of examples/causal_discovery_ecoli.py (p=85,
+    n=10000, seed 7, threshold, chunk 16) through ``fit`` (the scan) and
+    ``causal_order`` (the host driver), held to each other and to the dense
+    fused order; and a p=8 threshold fit held to the float64 oracle."""
+    p, n = ECOLI
+    data = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=7))
+    x = data["x"]
+    cfg = ParaLiNGAMConfig(threshold=True, chunk=16)
+    fit(x, ParaLiNGAMConfig(), device=dev)  # warm-up
+    (dense, _), t_dense = timed(lambda: fit(x, ParaLiNGAMConfig(), device=dev))
+    ((scan, b), t_scan), reads_scan = count_reads(lambda: fit(x, cfg, device=dev))
+    (host, t_host), reads_host = count_reads(lambda: causal_order(x, cfg, device=dev))
+    scan_host = hold_order("threshold_scan_vs_host", scan.order, host.order, x, dev)
+    scan_dense = hold_order("threshold_scan_vs_dense", scan.order, dense.order, x, dev)
+    host_dense = hold_order("threshold_host_vs_dense", host.order, dense.order, x, dev)
+    for name, r, t, reads in (("scan", scan, t_scan, reads_scan), ("host", host, t_host, reads_host)):
+        say("threshold_ecoli", driver=name, p=p, n=n, chunk=16, comparisons=r.comparisons,
+            comparisons_dense=r.comparisons_dense, saving_vs_serial=f"{r.saving_vs_serial:.4f}",
+            rounds=r.rounds, converged=r.converged, host_reads=reads,
+            valid_order=sem.is_valid_causal_order(r.order, data["b_true"]),
+            seconds=f"{t:.4f}", dense_fit_s=f"{t_dense:.4f}", gpu=f"'{gpu}'")
+        check(r.converged, f"threshold {name} did not converge")
+        check(0 < r.comparisons < r.comparisons_dense, f"threshold {name} counted no saving")
+    say("threshold_orders", scan_equals_host=scan_host, scan_equals_dense=scan_dense,
+        host_equals_dense=host_dense)
+    check(bool(torch.all(torch.isfinite(b))) and np.all(np.isfinite(scan.noise_var)),
+          "non-finite B or noise variances from the threshold fit")
+
+    small = sem.generate(sem.SemSpec(p=8, n=2500, density="sparse", seed=0))
+    res, _ = fit(small["x"], ParaLiNGAMConfig(threshold=True, min_bucket=8), device=dev)
+    oracle = direct_lingam.causal_order(small["x"])
+    say("threshold_small", p=8, n=2500, order_equals_f64_oracle=res.order == oracle,
+        comparisons=res.comparisons, rounds=res.rounds)
+    check(res.order == oracle, "threshold fit order differs from the float64 oracle at p=8")
+    return {"fit_s": t_scan, "host_s": t_host, "dense_fit_s": t_dense}
+
+
+def phase_threshold_batch(dev, gpu):
+    """``fit_batch(threshold=True)`` on the ragged E. coli bucket, against
+    each dataset's own one-dataset ``fit_batch`` on the same padded inputs;
+    then one served round of the same requests, each result bit-identical
+    to a replay of its dispatch."""
+    raw = ecoli_requests()
+    xs, mask, nv, _ = pack_bucket(raw, *ECOLI_BUCKET)
+    cfg = ParaLiNGAMConfig(threshold=True)
+    names = ("orders", "comparisons", "rounds", "converged")
+    (res, t_batch), reads = count_reads(
+        lambda: fit_batch(xs, cfg, n_valid=nv, mask=mask, device=dev))
+    got = {k: getattr(res, k).cpu().numpy() for k in names}
+    differ, t_ones = [], 0.0
+    for i, x in enumerate(raw):
+        p = x.shape[0]
+        one, t = timed(lambda: fit_batch(xs[i:i + 1], cfg, n_valid=nv[i:i + 1],
+                                         mask=mask[i:i + 1], device=dev))
+        t_ones += t
+        want = {k: getattr(one, k).cpu().numpy()[0] for k in names}
+        differ += [f"{i}:{k}@{int(np.flatnonzero(got[k][i, :p] != want[k][:p])[0])}"
+                   for k in names if list(got[k][i, :p]) != list(want[k][:p])]
+    same = len(raw) - len({d.split(":")[0] for d in differ})
+    comps = [int(got["comparisons"][i, :x.shape[0] - 1].sum()) for i, x in enumerate(raw)]
+    dense = [sum(r * (r - 1) // 2 for r in range(2, x.shape[0] + 1)) for x in raw]
+    say("threshold_batch", B=len(raw), bucket=f"{ECOLI_BUCKET}", seconds=f"{t_batch:.4f}",
+        one_dataset_fit_batch_s=f"{t_ones:.4f}", host_reads=reads,
+        equal_to_own_fit_batch=f"{same}/{len(raw)}", first_differences=",".join(differ) or "none",
+        saving_vs_serial=",".join(f"{1 - c / (2 * d):.3f}" for c, d in zip(comps, dense)),
+        converged=bool(res.converged.all()), gpu=f"'{gpu}'")
+    check(same == len(raw), "a dataset's threshold fit differs between its batch and its own")
+    check(bool(res.converged.all()), "a threshold fit in the bucket did not converge")
+
+    results, wall, st, served, _, launched, _ = engine_round(cfg, raw, dev)
+    replay_ok = replay_identical(served, cfg, dev)
+    say("threshold_engine", requests=len(raw), dispatches=st["dispatches"], wall_s=f"{wall:.4f}",
+        requests_per_s=f"{len(raw) / wall:.3f}",
+        results_bit_identical_to_replay=f"{replay_ok}/{len(raw)}",
+        launches=sum(launched.values()), gpu=f"'{gpu}'")
+    check(replay_ok == len(raw), "a served threshold result differs from the replay of its dispatch")
+    return t_batch
+
+
+def phase_threshold_slice(dev, gpu):
+    """A threshold fit at the iJR904 slice size (p=512, n=2000), for its
+    comparisons, rounds and time beside the dense fit's. Its orders mean
+    nothing: this SEM is degenerate in f32 (ROADMAP.md queue 3)."""
+    p, n = SLICE
+    x = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=1))["x"]
+    (dense, _), t_dense = timed(lambda: fit(x, ParaLiNGAMConfig(), device=dev))
+    ((res, _), t), reads = count_reads(
+        lambda: fit(x, ParaLiNGAMConfig(threshold=True, chunk=16), device=dev))
+    say("threshold_slice", p=p, n=n, chunk=16, comparisons=res.comparisons,
+        comparisons_dense=res.comparisons_dense, saving_vs_serial=f"{res.saving_vs_serial:.4f}",
+        rounds=res.rounds, converged=res.converged, host_reads=reads, seconds=f"{t:.4f}",
+        dense_fit_s=f"{t_dense:.4f}", order_equals_dense=res.order == dense.order, held=False,
+        gpu=f"'{gpu}'")
+    check(res.converged, "the p=512 threshold fit did not converge")
+
+
+def phase_fit_batch_hopper(dev, gpu, batch_orders):
+    """``fit_batch(score_backend="hopper")`` on the E. coli bucket: one
+    batched square launch per find-root, the fused backend's orders."""
+    raw = ecoli_requests()
+    xs, mask, nv, _ = pack_bucket(raw, *ECOLI_BUCKET)
+    cfg = ParaLiNGAMConfig(score_backend="hopper")
+    reset_counts()
+    res, t = timed(lambda: fit_batch(xs, cfg, n_valid=nv, mask=mask, device=dev))
+    launched = counts()
+    orders = res.orders.cpu().numpy()
+    same = sum(list(orders[i, :x.shape[0]]) == o for i, (x, o) in enumerate(zip(raw, batch_orders)))
+    say("fit_batch_hopper", B=len(raw), bucket=f"{ECOLI_BUCKET}", launches=launched["pairwise_moments_batch"],
+        find_roots=ECOLI_BUCKET[0] - 1, orders_equal_to_hopper_fused=f"{same}/{len(raw)}",
+        seconds=f"{t:.4f}", gpu=f"'{gpu}'")
+    check(launched["pairwise_moments_batch"] == ECOLI_BUCKET[0] - 1 and launched["pairwise_moments"] == 0,
+          f"{launched} launches for {ECOLI_BUCKET[0] - 1} find-roots")
+    for i, (x, o) in enumerate(zip(raw, batch_orders)):
+        if list(orders[i, :x.shape[0]]) != o:
+            hold_order(f"fit_batch_hopper[{i}]", list(orders[i, :x.shape[0]]), o, x, dev)
+    return launched["pairwise_moments_batch"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -636,14 +1083,26 @@ def main() -> int:
 
     err_kernel = phase_kernel(dev)
     phase_fit_small(dev)
-    err_core = phase_fit_core(dev, gpu)
+    err_core, core = phase_fit_core(dev, gpu)
+    err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
+    launches_sq = phase_fit_hopper(dev, gpu, core)
+    phase_causal_order_host(dev, gpu, core)
     launches, err_fit, ms, plain_ms, bound, wrapper_ms = phase_fit_slice(dev, gpu)
     err_b, ms_b, wrapper_b, plain_b, bound_b, padded_b, shape_b = phase_batch_kernel(dev, gpu)
     batch_orders = phase_fit_batch(dev, gpu)
+    launches_sqb = phase_fit_batch_hopper(dev, gpu, batch_orders)
     profile = "--profile" in sys.argv[1:]
     launches_b = phase_engine(dev, gpu, batch_orders, profile)
+    phase_threshold_ecoli(dev, gpu)
+    phase_threshold_batch(dev, gpu)
+    if time.perf_counter() - t_start < 500:  # well inside the 1200 s limit
+        phase_threshold_slice(dev, gpu)
+    else:
+        say("threshold_slice", skipped=True, elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     if profile:
         profile_fits(dev, gpu)
+    sq_ms, sq_wrapper, sq_plain, sq_bound, sq_by = sq["ecoli_stage"]
+    sqb_ms, sqb_wrapper, sqb_plain, sqb_bound, sqb_by, sqb_padded, sqb_shape = sq["batch"]
     print(json.dumps({"kernels": [{
         "name": "fused_score", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -657,6 +1116,19 @@ def main() -> int:
         "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": "operations",
         "library_ms": None, "wrapper_ms": wrapper_b, "bound_ms_padded_buffer": padded_b,
         "shape": shape_b, "gpu": gpu,
+    }, {
+        "name": "pairwise_moments", "route": "cuda", "source": SQUARE_SOURCE,
+        "replaces": SQUARE_REPLACES, "launches": launches_sq, "max_abs_err": err_sq,
+        "ms": sq_ms, "plain_ms": sq_plain, "bound_ms": sq_bound, "bound_by": sq_by,
+        "library_ms": None, "wrapper_ms": sq_wrapper, "shape": "m=128,n=10000",
+        "ms_m512_n2000": sq["slice"][0], "plain_ms_m512_n2000": sq["slice"][2],
+        "bound_ms_m512_n2000": sq["slice"][3], "gpu": gpu,
+    }, {
+        "name": "pairwise_moments_batch", "route": "cuda", "source": SQUARE_SOURCE,
+        "replaces": SQUARE_REPLACES, "launches": launches_sqb, "max_abs_err": err_sq,
+        "ms": sqb_ms, "plain_ms": sqb_plain, "bound_ms": sqb_bound, "bound_by": sqb_by,
+        "library_ms": None, "wrapper_ms": sqb_wrapper, "bound_ms_padded_buffer": sqb_padded,
+        "shape": sqb_shape, "gpu": gpu,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -151,9 +151,17 @@ def cov_matrix(xn, ddof: int = 1, n_valid=None):
     """Covariance matrix of row-variables ``xn: (..., p, n)`` (normalized
     rows -> correlation matrix with unit diagonal), at full float32
     precision. Zero-padded sample columns contribute nothing to the dot
-    products, so only the denominator needs the true count."""
+    products, so only the denominator needs the true count.
+
+    The Gram matrix is one GEMM per dataset, never a batched one: cuBLAS
+    picks its algorithm, and so the order of each n-term dot product, from
+    the batch count (measured on an H100: a batch of 8 and a batch of 1
+    round differently). Per-dataset products keep a dataset's correlations,
+    and with them its causal order, independent of the batch it rides in."""
+    flat = xn.reshape(-1, *xn.shape[-2:])
     with full_precision_matmul():
-        gram = xn @ xn.mT
+        gram = torch.stack([m @ m.mT for m in flat])
+    gram = gram.reshape(*xn.shape[:-1], xn.shape[-2])
     return gram / per_dataset(_sample_count(n_valid, xn.shape[-1], ddof), xn.ndim)
 
 

@@ -37,9 +37,20 @@ from repro_torch.core.entropy import entropy_from_moments, log_cosh, u_exp_momen
 CHUNK_ELEMS = 1 << 24
 
 
-def residual_entropy_block(xn, c_cols, xj, n_valid=None):
+def residual_entropy_block(xn, c_cols, xj, n_valid=None, backend: str = "torch"):
     """HR block for all rows of ``xn: (..., p, n)`` against ``xj: (..., bj, n)``
-    with correlations ``c_cols: (..., p, bj)``. Returns (..., p, bj)."""
+    with correlations ``c_cols: (..., p, bj)``. Returns (..., p, bj).
+
+    ``backend`` ``"hopper"``/``"hopper_fused"`` takes the raw moment sums of
+    one dataset (``xn: (p, n)``) from the square moments kernel
+    (``kernels.ops.pairwise_moments``) and runs the same finalize: the kernel
+    emits sums, so ``n_valid`` changes only the denominator."""
+    if backend in ("hopper", "hopper_fused"):
+        from repro_torch.kernels import ops as kops
+
+        m1_sum, m2_sum = kops.pairwise_moments(xn.contiguous(), xj.contiguous(),
+                                               c_cols.contiguous())
+        return finalize_moments(m1_sum, m2_sum, _sample_count(n_valid, xj.shape[-1]))
     denom = torch.sqrt(torch.clamp(1.0 - torch.square(c_cols), min=VAR_EPS))
     u = (xn[..., :, None, :] - c_cols[..., None] * xj[..., None, :, :]) / denom[..., None]
     return stream_entropy(u, n_valid=n_valid)
@@ -80,6 +91,23 @@ def residual_entropy_block_pair(xi, c_blk, xj, n_valid=None):
     xj4 = xj[..., None, :, :]
     u_f = (xi4 - c_blk[..., None] * xj4) * inv
     u_r = (xj4 - c_blk[..., None] * xi4) * inv
+    return stream_entropy(u_f, n_valid=n_valid), stream_entropy(u_r, n_valid=n_valid)
+
+
+def pair_moments(xn, c_vals, xj, n_valid=None):
+    """Both-direction residual entropies of *gathered* comparison chunks.
+
+    The threshold scheduler's per-round evaluation: worker rows ``xn:
+    (..., m, n)`` against their gathered chunk targets ``xj: (..., m, k, n)``
+    with correlations ``c_vals: (..., m, k)``. Returns ``(hr_fwd, hr_rev)``,
+    each (..., m, k), with ``hr_fwd[w, b] = H(r_{x_w}^{(x_jb)})``; both
+    directions come from one load of each stream (the messaging reuse).
+    ``n_valid`` is None, one count, or one per dataset of the leading axis."""
+    inv = torch.rsqrt(torch.clamp(1.0 - torch.square(c_vals), min=VAR_EPS))[..., None]
+    xi = xn[..., :, None, :]
+    cv = c_vals[..., None]
+    u_f = (xi - cv * xj) * inv
+    u_r = (xj - cv * xi) * inv
     return stream_entropy(u_f, n_valid=n_valid), stream_entropy(u_r, n_valid=n_valid)
 
 
@@ -219,10 +247,11 @@ def pair_stat_matrix(hx, hr):
 
 
 def scores_from_stats(stat, mask):
-    """S[i] = sum_j min(0, I_ij)^2 over live pairs; +inf for dead rows."""
-    eye = torch.eye(stat.shape[0], dtype=torch.bool, device=stat.device)
-    pair_mask = mask[:, None] & mask[None, :] & ~eye
-    s = torch.sum(_credits(stat, pair_mask)[0], dim=1)
+    """S[i] = sum_j min(0, I_ij)^2 over live pairs; +inf for dead rows.
+    Takes leading dataset axes: ``stat: (..., p, p)``, ``mask: (..., p)``."""
+    eye = torch.eye(stat.shape[-1], dtype=torch.bool, device=stat.device)
+    pair_mask = mask[..., :, None] & mask[..., None, :] & ~eye
+    s = torch.sum(_credits(stat, pair_mask)[0], dim=-1)
     return torch.where(mask, s, torch.inf)
 
 

@@ -1,30 +1,39 @@
-"""ParaLiNGAM (Algorithms 3 and 9-10 of the paper) in PyTorch: the dense
+"""ParaLiNGAM (Algorithms 3-6 and 9-10 of the paper) in PyTorch: the
 estimator end to end on one device, for one dataset (``fit``) or a bucket of
-datasets at once (``fit_batch``, what the serving engines call).
+datasets at once (``fit_batch``, what the serving engines call), and the
+causal-order drivers on their own (``causal_order``, ``causal_order_scan``).
 
-Both run the whole pipeline as device work with one host readback at the
-end: normalize -> covariance -> the staged causal-order scan (p find-root ->
-rank-1-update iterations on the power-of-two stage plan of
-``utils/schedule``) -> phase-2 adjacency by Cholesky. Each find-root is the
-one-shot dense evaluation with messaging folded in: every residual entropy
-is computed once and both workers of a pair are credited (Section 3.1).
+``fit`` and ``fit_batch`` run the whole pipeline as device work with one
+host readback at the end: normalize -> covariance -> the staged causal-order
+scan (p find-root -> rank-1-update iterations on the power-of-two stage plan
+of ``utils/schedule``) -> phase-2 adjacency by Cholesky. Each find-root is
+either the one-shot dense evaluation with messaging folded in (every
+residual entropy computed once, both workers of a pair credited; Section
+3.1) or, with ``threshold=True``, the paper's threshold state machine
+(Sections 3.2-3.3, Algorithms 4-6), which stops comparing a worker once its
+partial score exceeds the adaptive bound gamma.
 
-The driver works on a leading dataset axis throughout (``fit`` is a bucket
-of one), so a bucket of B datasets costs one set of torch ops and one kernel
-launch per find-root, not B. The rows still in U are compacted into
-power-of-two buffers at the <= log2 p stage transitions, per dataset, with a
-stable ``argsort`` of the dead-row mask (no ``nonzero``, which syncs to the
-host); the per-iteration counters stay on the device until they are read.
+The scan works on a leading dataset axis throughout (``fit`` is a bucket of
+one), so a bucket of B datasets costs one set of torch ops and one kernel
+launch per dense find-root, not B. The rows still in U are compacted into
+power-of-two buffers at the <= log2 p stage transitions, per dataset, with
+a stable ``argsort`` of the dead-row mask (no ``nonzero``, which syncs to
+the host); the per-iteration counters stay on the device until they are
+read. The dense scan never reads the host within a stage; the threshold
+state machine reads one flag every ``READ_EVERY`` rounds (torch has no
+device-side while loop).
 
-Not in this module yet (``ConfigError`` names the ROADMAP item that brings
-each): the threshold state machine (``threshold=True``), the messaging ring
-(``order_backend="ring"``) and the host driver.
+``causal_order`` with ``order_backend="host"`` is the paper's host driver:
+one ``int(root)`` read per iteration and buckets regathered from numpy
+indices. The messaging ring (``order_backend="ring"``) is not ported yet
+(``ConfigError`` names its ROADMAP item).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -34,6 +43,7 @@ from repro_torch.core.adjacency import adjacency_from_order, complete_order
 from repro_torch.core.covariance import cov_matrix, normalize, update_cov, update_data
 from repro_torch.core.pairwise import (
     fused_scores,
+    pair_moments,
     pair_stat_matrix,
     residual_entropy_matrix,
     row_entropies,
@@ -41,6 +51,7 @@ from repro_torch.core.pairwise import (
 )
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.schedule import make_schedule
+from repro_torch.utils.shapes import next_pow2
 
 
 class ConfigError(ValueError):
@@ -48,27 +59,35 @@ class ConfigError(ValueError):
     ported yet."""
 
 
-#: Order drivers the JAX package knows; ``host`` and ``scan`` both run the
-#: device-resident scan in ``fit`` (as they do there).
+#: Order drivers the JAX package knows: ``host`` (the host loop of
+#: ``causal_order``; ``fit`` runs the scan under it, as in the JAX package),
+#: ``scan`` (the device-resident staged scan) and ``ring`` (not ported yet).
 ORDER_BACKENDS = ("host", "scan", "ring")
 
-_NOT_PORTED = {
-    "threshold": "threshold=True (the threshold state machine) is not ported "
-                 "yet: ROADMAP.md queue 1 item 4",
-    "ring": "order_backend='ring' (the messaging ring) is not ported yet: "
-            "ROADMAP.md queue 1 item 8",
-}
+_RING_NOT_PORTED = ("order_backend='ring' (the messaging ring) is not ported "
+                    "yet: ROADMAP.md queue 1 item 8")
 
 
 @dataclass(frozen=True)
 class ParaLiNGAMConfig:
-    order_backend: str = "host"  # "host" | "scan": both run the
-    #   device-resident scan in ``fit``; "ring" is not ported yet
-    score_backend: str = "auto"  # "torch" | "torch_fused" | "hopper_fused"
-    #   | "auto" (``kernels.ops.SCORE_BACKENDS``); ``auto`` resolves to the
-    #   fused CUDA kernel on the card and the square plain path on the CPU
+    order_backend: str = "host"  # "host" | "scan" (``ORDER_BACKENDS``):
+    #   which loop ``causal_order`` runs; ``fit`` and ``fit_batch`` always run
+    #   the scan. "ring" is not ported yet.
+    score_backend: str = "auto"  # "torch" | "torch_fused" | "hopper" |
+    #   "hopper_fused" | "auto" (``kernels.ops.SCORE_BACKENDS``): the dense
+    #   evaluation; ``auto`` resolves to the fused CUDA kernel on the card and
+    #   the square plain path on the CPU
     block_j: int = 32  # block of the torch_fused sweep (min(block_j, m))
-    threshold: bool = False  # the threshold state machine (not ported yet)
+    # the threshold mechanism (paper Sections 3.2-3.3) in place of the dense
+    # evaluation, under every order driver
+    threshold: bool = False
+    chunk: int = 16  # comparison targets per worker per round
+    gamma0: float = 1e-5  # initial threshold (paper: "a small value")
+    gamma_growth: float = 2.0  # the constant c of Algorithm 6 line 16
+    max_rounds: int = 100_000
+    # bucketed compaction of the remaining set U (the host driver's buckets;
+    # the scan always compacts on the stage plan)
+    bucket: bool = True
     min_bucket: int = 32  # floor of the power-of-two stage buffers
 
     def __post_init__(self):
@@ -78,9 +97,7 @@ class ParaLiNGAMConfig:
                 f"{ORDER_BACKENDS}"
             )
         if self.order_backend == "ring":
-            raise ConfigError(_NOT_PORTED["ring"])
-        if self.threshold:
-            raise ConfigError(_NOT_PORTED["threshold"])
+            raise ConfigError(_RING_NOT_PORTED)
 
 
 #: The JAX package's score-backend names and their counterparts here.
@@ -142,9 +159,10 @@ def config_from_reference(d: dict) -> ParaLiNGAMConfig:
     ``repro.ParaLiNGAMConfig``, so the port never imports ``repro``.
 
     Backend names map ``xla`` -> ``torch``, ``xla_fused`` -> ``torch_fused``,
-    ``pallas_fused`` -> ``hopper_fused``; the deprecated flags map as the JAX
-    package maps them. Raises ``ConfigError`` for what this port does not
-    run (threshold, ring, a dtype other than float32)."""
+    ``pallas`` -> ``hopper``, ``pallas_fused`` -> ``hopper_fused``; the
+    deprecated flags map as the JAX package maps them. Raises
+    ``ConfigError`` for what this port does not run (the ring, a dtype other
+    than float32)."""
     backend = _legacy_score_backend(d)
     if backend not in _BACKEND_NAMES:
         raise kops.BackendUnavailable(
@@ -153,16 +171,20 @@ def config_from_reference(d: dict) -> ParaLiNGAMConfig:
         )
     order_backend, threshold = _legacy_order(d)
     if d.get("ring_topology") is not None or order_backend == "ring":
-        raise ConfigError(_NOT_PORTED["ring"])
-    if threshold:
-        raise ConfigError(_NOT_PORTED["threshold"])
+        raise ConfigError(_RING_NOT_PORTED)
     dtype = d.get("dtype", np.float32)
     if np.dtype(dtype) != np.float32:
         raise ConfigError(f"only float32 is ported, got dtype={dtype!r}")
-    return ParaLiNGAMConfig(order_backend=order_backend,
-                            score_backend=_BACKEND_NAMES[backend],
-                            block_j=int(d.get("block_j", 32)),
-                            min_bucket=int(d.get("min_bucket", 32)))
+    dflt = ParaLiNGAMConfig()
+    return ParaLiNGAMConfig(
+        order_backend=order_backend, score_backend=_BACKEND_NAMES[backend],
+        block_j=int(d.get("block_j", dflt.block_j)), threshold=threshold,
+        chunk=int(d.get("chunk", dflt.chunk)),
+        gamma0=float(d.get("gamma0", dflt.gamma0)),
+        gamma_growth=float(d.get("gamma_growth", dflt.gamma_growth)),
+        max_rounds=int(d.get("max_rounds", dflt.max_rounds)),
+        bucket=bool(d.get("bucket", dflt.bucket)),
+        min_bucket=int(d.get("min_bucket", dflt.min_bucket)))
 
 
 @dataclass
@@ -188,7 +210,7 @@ class ParaLiNGAMResult:
 
 
 # ---------------------------------------------------------------------------
-# dense find-root and the staged scan
+# dense find-root
 # ---------------------------------------------------------------------------
 
 
@@ -200,15 +222,25 @@ def _find_root_dense_impl(xb, cb, mask, block_j: int, backend: str,
     with ``roots`` (B,) device indices (each dataset's first minimum, as
     ``jnp.argmin``).
 
-    ``hopper_fused`` is one launch of the batched kernel per call; with
-    ``single`` (``fit``'s bucket of one) it is the one-dataset kernel entry
-    instead. The plain backends score each dataset on its own."""
+    ``hopper_fused`` and ``hopper`` are one launch of their batched kernel
+    per call (the fused triangular sweep; the square moments with the row
+    entropies, stat and scores as torch ops); with ``single`` (a bucket of
+    one) they launch the one-dataset kernel entry instead. The plain
+    backends score each dataset on its own."""
     if backend == "hopper_fused":
         if single:
             nv = None if n_valid is None else n_valid[0]
             s = kops.score_vector(xb[0], cb[0], mask[0], n_valid=nv)[None]
         else:
             s = kops.score_batch(xb, cb, mask, n_valid=n_valid)
+    elif backend == "hopper":
+        hx = row_entropies(xb, mask, n_valid=n_valid)
+        if single:
+            nv = None if n_valid is None else n_valid[0]
+            hr = kops.residual_entropy_matrix(xb[0], cb[0], n_valid=nv)[None]
+        else:
+            hr = kops.residual_entropy_matrix_batch(xb, cb, n_valid=n_valid)
+        s = scores_from_stats(pair_stat_matrix(hx, hr), mask)
     elif backend in ("torch", "torch_fused"):
         rows = []
         for i in range(xb.shape[0]):
@@ -224,6 +256,179 @@ def _find_root_dense_impl(xb, cb, mask, block_j: int, backend: str,
     else:
         raise kops.BackendUnavailable(f"no dense evaluation for {backend!r}")
     return torch.argmin(s, dim=-1), s
+
+
+def _operands(caller: str, device, xn, c, mask, n_valid=None):
+    """One dataset's find-root operands as float32/bool tensors on the
+    device: the given one, else that of a tensor ``xn``, else the card."""
+    if device is None and isinstance(xn, torch.Tensor):
+        device = xn.device
+    dev = _device(device, caller)
+    xn = torch.as_tensor(xn, dtype=torch.float32, device=dev).contiguous()
+    c = torch.as_tensor(c, dtype=torch.float32, device=dev).contiguous()
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
+    nv = None if n_valid is None else torch.as_tensor(n_valid, device=dev).reshape(1)
+    return xn[None], c[None], mask[None], nv
+
+
+def find_root_dense(xn, c, mask, block_j: int = 32, n_valid=None, *,
+                    score_backend: str = "auto", device=None):
+    """One-shot masked dense evaluation of one dataset. Returns ``(root,
+    scores)``: a 0-dim index tensor and the (p,) score vector (+inf on dead
+    rows).
+
+    ``xn: (p, n)`` normalized rows, ``c: (p, p)`` correlations, ``mask:
+    (p,)`` live rows, ``n_valid`` the valid sample count of zero-padded
+    data. ``score_backend`` selects the formulation
+    (``kernels.ops.SCORE_BACKENDS``): the square plain path (``torch``), the
+    fused triangular plain path (``torch_fused``) or the kernels
+    (``hopper``: the square moments kernel; ``hopper_fused``: the fused
+    triangular kernel). They run where the tensors lie (``device`` moves
+    them; numpy inputs go to the card)."""
+    xb, cb, mb, nv = _operands("find_root_dense", device, xn, c, mask, n_valid)
+    backend = kops.select_backend(score_backend, xb.device)
+    roots, s = _find_root_dense_impl(xb, cb, mb, block_j=min(block_j, xb.shape[1]),
+                                     backend=backend, n_valid=nv, single=True)
+    return roots[0], s[0]
+
+
+# ---------------------------------------------------------------------------
+# threshold find-root (paper Algorithms 4-6)
+# ---------------------------------------------------------------------------
+
+#: Rounds of the threshold state machine between two host reads of its
+#: "is any dataset still running" flag. Rounds past a dataset's end leave its
+#: state unchanged, so the value changes the host reads, never the result.
+READ_EVERY = 4
+
+
+def _still_running(run) -> bool:
+    """The threshold loop's host read: is any dataset still running?"""
+    return bool(run.any())
+
+
+def _terminal(s, d, gamma, mask):
+    """Algorithm 6's condition, per dataset: some below-threshold worker is
+    finished and no below-threshold worker is unfinished."""
+    below = (s < gamma[:, None]) & mask
+    fin = torch.all(d, dim=-1)
+    return torch.any(below & fin, dim=-1) & ~torch.any(below & ~fin, dim=-1)
+
+
+def _find_root_threshold_impl(xn, c, mask, gamma0: float, gamma_growth: float,
+                              chunk: int = 16, max_rounds: int = 100_000,
+                              n_valid=None, read_every: int = READ_EVERY):
+    """The threshold-mechanism find-root state machine over a bucket: ``xn:
+    (B, m, n)``, ``c: (B, m, m)``, ``mask: (B, m)``, ``n_valid`` None or
+    (B,). Returns ``(roots, scores, comparisons, rounds, converged)``, each
+    with a leading (B,) axis.
+
+    One round either (a) lets every *active* worker (score below gamma,
+    comparisons pending) process its next pending chunk of ``chunk``
+    comparison targets, crediting both ends of each pair (messaging) and
+    keeping only the lower index of two workers that propose the same pair
+    in one round (the paper's scheduler line 22), or (b) grows gamma by
+    ``gamma_growth`` when no worker is active (Algorithm 6 lines 15-17). A
+    dataset runs while ``~terminal & rounds < max_rounds & has_pairs`` holds;
+    ``converged`` is False iff ``max_rounds`` cut it off before Algorithm 6's
+    condition held (its scores may then be incomplete). A mask with fewer
+    than two live rows has no pairs: that dataset does no round and reports
+    converged with zero comparisons.
+
+    This is ``jax.vmap`` of the JAX package's ``lax.while_loop`` written
+    out: both branches are computed for every dataset and selected per
+    dataset, and a dataset's state freezes once its own condition is false.
+    The loop reads the batch's "any still running" flag on the host once
+    every ``read_every`` rounds (the dense scan reads nothing within a
+    stage); frozen datasets are unchanged by further rounds, so the counters
+    and scores do not depend on ``read_every``.
+
+    Three writes are kept free of run-to-run f32 drift: the reverse credits
+    go to unique (row, col) slots of a zeroed (B, m, m) buffer summed over
+    rows (no duplicate-index scatter-add, whose CUDA atomics reorder the
+    sum), and the proposal and done matrices are plain index writes at
+    unique positions."""
+    bsz, m, _ = xn.shape
+    dev = xn.device
+    # Round the chunk down to a divisor of m so rows reshape into whole
+    # chunks; worst case chunk=1, the paper's one-at-a-time worker.
+    chunk = max(1, min(chunk, m))
+    while m % chunk:
+        chunk -= 1
+    nc = m // chunk
+    idx = torch.arange(m, device=dev)
+    pair_valid = mask[:, :, None] & mask[:, None, :] & (idx[:, None] != idx[None, :])
+    has_pairs = torch.any(pair_valid.reshape(bsz, -1), dim=-1)
+    hx = row_entropies(xn, mask, n_valid=n_valid)
+    bi = torch.arange(bsz, device=dev)[:, None, None]
+    rows = idx[None, :, None].expand(bsz, m, chunk)
+    offs = torch.arange(chunk, device=dev)
+
+    s = torch.where(mask, 0.0, torch.inf).to(xn.dtype)
+    d = ~pair_valid  # done := not a live pair (diagonal, dead rows and cols)
+    gamma = torch.full((bsz,), gamma0, dtype=xn.dtype, device=dev)
+    comps = torch.zeros(bsz, dtype=torch.int64, device=dev)
+    rounds = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    terminal = torch.zeros(bsz, dtype=torch.bool, device=dev)
+
+    def running():
+        return ~terminal & (rounds < max_rounds) & has_pairs
+
+    while _still_running(running()):
+        for _ in range(read_every):
+            run = running()
+            fin = torch.all(d, dim=-1)
+            active = (s < gamma[:, None]) & ~fin & mask & run[:, None]
+            grow = run & ~torch.any(active, dim=-1)
+
+            pending = ~d & pair_valid
+            pend_chunk = torch.any(pending.reshape(bsz, m, nc, chunk), dim=-1)
+            ci = torch.argmax(pend_chunk.to(torch.int8), dim=-1)  # first pending
+            cols = ci[..., None] * chunk + offs  # (B, m, chunk)
+            hr_fwd, hr_rev = pair_moments(xn, torch.take_along_dim(c, cols, dim=2),
+                                          xn[bi, cols], n_valid=n_valid)
+            stat = (hx[bi, cols] - hx[..., None]) + (hr_fwd - hr_rev)
+
+            proc = active[..., None] & torch.take_along_dim(pending, cols, dim=2)
+            prop = torch.zeros_like(d).index_put((bi, rows, cols), proc)
+            partner = torch.take_along_dim(prop.transpose(1, 2), cols, dim=2)
+            keep = proc & (~partner | (rows < cols))
+
+            fwd = torch.where(keep, torch.square(torch.clamp(stat, max=0.0)), 0.0)
+            rev = torch.where(keep, torch.square(torch.clamp(-stat, max=0.0)), 0.0)
+            rev_at = torch.zeros((bsz, m, m), dtype=s.dtype, device=dev).index_put(
+                (bi, rows, cols), rev)
+            s = (s + torch.sum(fwd, dim=-1)) + torch.sum(rev_at, dim=-2)
+            d = d.index_put((bi, rows, cols), torch.take_along_dim(d, cols, dim=2) | keep)
+            d = d.index_put((bi, cols, rows), d[bi, cols, rows] | keep)
+            comps = comps + torch.sum(keep, dim=(1, 2))
+            gamma = torch.where(grow, gamma * gamma_growth, gamma)
+            rounds = rounds + run.to(torch.int32)
+            terminal = torch.where(run, _terminal(s, d, gamma, mask), terminal)
+
+    roots = torch.argmin(torch.where(mask, s, torch.inf), dim=-1)
+    return roots, s, comps, rounds, terminal | ~has_pairs
+
+
+def find_root_threshold(xn, c, mask, gamma0: float, gamma_growth: float,
+                        chunk: int = 16, max_rounds: int = 100_000,
+                        n_valid=None, *, device=None):
+    """Threshold-mechanism find-root of one dataset. Returns ``(root,
+    scores, comparisons, rounds, converged)`` as tensors (see
+    ``_find_root_threshold_impl`` for the rounds); ``converged`` is False
+    when ``max_rounds`` cut the loop off (Algorithm 6's condition never
+    held, so the winning score may be partial). Operands as in
+    :func:`find_root_dense`. The loop reads one flag on the host every
+    ``READ_EVERY`` rounds."""
+    xb, cb, mb, nv = _operands("find_root_threshold", device, xn, c, mask, n_valid)
+    out = _find_root_threshold_impl(xb, cb, mb, gamma0, gamma_growth, chunk=chunk,
+                                    max_rounds=max_rounds, n_valid=nv)
+    return tuple(t[0] for t in out)
+
+
+# ---------------------------------------------------------------------------
+# the staged scan (Algorithm 3 on the device)
+# ---------------------------------------------------------------------------
 
 
 def _compact(mloc, m: int):
@@ -243,9 +448,12 @@ def _rows(t, sel):
 
 def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
                      backend: str = "torch", min_bucket: int = 32,
-                     single: bool = False):
+                     single: bool = False, threshold: bool = False,
+                     chunk: int = 16, gamma0: float = 1e-5,
+                     gamma_growth: float = 2.0, max_rounds: int = 100_000):
     """Device-resident outer loop over a bucket: all p find-root -> update
-    iterations of every dataset, with no host round-trip.
+    iterations of every dataset, with no host round-trip (the threshold
+    evaluation reads one flag every ``READ_EVERY`` of its rounds).
 
     ``xn: (B, p, n)`` normalized rows and ``c: (B, p, p)`` correlations.
     ``mask0`` ((B, p) bool, None -> all live) marks each dataset's live
@@ -260,16 +468,22 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
     stage transitions compact each dataset's live rows with a device-side
     gather. Dead rows stay in the buffers (their content is never read
     unmasked), so ``argmin`` over the ``+inf`` dead scores resolves ties like
-    the JAX driver.
+    the JAX driver. ``threshold=True`` runs the threshold state machine
+    (``chunk``, ``gamma0``, ``gamma_growth``, ``max_rounds``) in place of the
+    dense evaluation.
 
-    Returns ``(order, comps_it)``: the (B, p) causal orders and the (B, p)
-    per-iteration comparison counts r(r-1)/2, both device tensors."""
+    Returns ``(order, comps_it, rounds_it, conv_it)``: the (B, p) causal
+    orders and the (B, p) per-iteration comparison counts, threshold rounds
+    and convergence flags, all device tensors (for the dense evaluation the
+    analytic r(r-1)/2, 0 and True)."""
     bsz, p = xn.shape[:2]
     dev = xn.device
     order = torch.zeros((bsz, p), dtype=torch.int64, device=dev)
     comps_it = torch.zeros((bsz, p), dtype=torch.int64, device=dev)
+    rounds_it = torch.zeros((bsz, p), dtype=torch.int32, device=dev)
+    conv_it = torch.ones((bsz, p), dtype=torch.bool, device=dev)
     if p == 1:
-        return order, comps_it
+        return order, comps_it, rounds_it, conv_it
 
     idx_g = torch.arange(p, device=dev).expand(bsz, p)  # local row -> variable id
     xb, cb = xn, c
@@ -287,12 +501,20 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
             m_cur = m
         ar = torch.arange(m, device=dev)
         for it in range(pos, pos + cnt):
-            roots, _ = _find_root_dense_impl(xb, cb, mloc, block_j=min(block_j, m),
-                                             backend=backend, n_valid=n_valid,
-                                             single=single)
-            r = torch.sum(mloc, dim=1)  # live rows this iteration
+            if threshold:
+                roots, _, comps, rounds, conv = _find_root_threshold_impl(
+                    xb, cb, mloc, gamma0, gamma_growth, chunk=min(chunk, m),
+                    max_rounds=max_rounds, n_valid=n_valid)
+                rounds_it[:, it] = rounds
+                conv_it[:, it] = conv
+            else:
+                roots, _ = _find_root_dense_impl(xb, cb, mloc, block_j=min(block_j, m),
+                                                 backend=backend, n_valid=n_valid,
+                                                 single=single)
+                r = torch.sum(mloc, dim=1)  # live rows this iteration
+                comps = r * (r - 1) // 2
             order[:, it] = torch.take_along_dim(idx_g, roots[:, None], dim=1)[:, 0]
-            comps_it[:, it] = r * (r - 1) // 2
+            comps_it[:, it] = comps
             xb = update_data(xb, cb, roots, mloc, n_valid=n_valid)
             cb = update_cov(cb, roots, mloc)
             mloc = mloc & (ar != roots[:, None])
@@ -302,27 +524,41 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
     # already-drained padded buffer writes garbage here, past its live prefix.
     last = torch.argmax(mloc.to(torch.int8), dim=1, keepdim=True)
     order[:, p - 1] = torch.take_along_dim(idx_g, last, dim=1)[:, 0]
-    return order, comps_it
+    return order, comps_it, rounds_it, conv_it
 
 
-def _result_from_counters(order, comps_it, p: int) -> ParaLiNGAMResult:
+def _iteration_records(comps, rounds, conv, p: int) -> list[dict]:
+    return [{"r": r, "comparisons": int(comps[i]), "rounds": int(rounds[i]),
+             "converged": bool(conv[i])}
+            for i, r in enumerate(range(p, 1, -1))]
+
+
+def _result_from_counters(order, comps_it, rounds_it, conv_it, p: int,
+                          max_rounds: int, stacklevel: int = 3) -> ParaLiNGAMResult:
     """Host-side ParaLiNGAMResult from the device counters of the scan (the
-    one host readback point)."""
-    order_np = order.cpu().numpy()
+    one host readback point). ``stacklevel`` points the ``max_rounds``
+    warning at the caller of the public entry point (3 = one public frame
+    above this helper)."""
     comps_np = comps_it.cpu().numpy()
-    per_iter = [
-        {"r": r, "comparisons": int(comps_np[i]), "rounds": 0, "converged": True}
-        for i, r in enumerate(range(p, 1, -1))
-    ]
+    rounds_np = rounds_it.cpu().numpy()
+    conv_np = conv_it.cpu().numpy()
+    converged = bool(conv_np.all())
+    if not converged:
+        warnings.warn(
+            f"find_root_threshold hit max_rounds={max_rounds} in "
+            f"{int(p - 1 - conv_np[: p - 1].sum())} of {p - 1} scan iterations; "
+            "scores may be incomplete (raise max_rounds or gamma_growth)",
+            stacklevel=stacklevel,
+        )
     comps_dense = sum(r * (r - 1) // 2 for r in range(2, p + 1))
     return ParaLiNGAMResult(
-        order=[int(v) for v in order_np],
+        order=[int(v) for v in order.cpu().numpy()],
         comparisons=int(comps_np.sum()),
         comparisons_dense=comps_dense,
         comparisons_serial=2 * comps_dense,
-        rounds=0,
-        per_iteration=per_iter,
-        converged=True,
+        rounds=int(rounds_np.sum()),
+        per_iteration=_iteration_records(comps_np, rounds_np, conv_np, p),
+        converged=converged,
     )
 
 
@@ -380,29 +616,35 @@ def _note_backend(cfg: ParaLiNGAMConfig, backend: str) -> None:
         _bump_stat("auto_downgrade")
 
 
+def _scan(xn, c, cfg: ParaLiNGAMConfig, backend: str, **kw):
+    """``_scan_order_impl`` with the config's driver settings."""
+    return _scan_order_impl(
+        xn, c, block_j=min(cfg.block_j, xn.shape[1]), backend=backend,
+        min_bucket=cfg.min_bucket, threshold=cfg.threshold, chunk=cfg.chunk,
+        gamma0=cfg.gamma0, gamma_growth=cfg.gamma_growth,
+        max_rounds=cfg.max_rounds, **kw)
+
+
 def _pipeline(x, cfg: ParaLiNGAMConfig, backend: str, *, adjacency: bool,
               n_valid=None, mask0=None, prune_below: float = 0.0,
               single: bool = False):
     """The whole estimator over a bucket ``x: (B, p, n)`` of raw samples:
     normalize -> covariance -> staged causal-order scan -> (optionally)
-    phase-2 adjacency, all device work. Returns ``(order, comps_it, b,
-    omega)`` (the last two ``None`` without ``adjacency``); phase 2 takes the
-    raw ``x`` and the completed order permutation, like the numpy oracle."""
+    phase-2 adjacency, all device work. Returns ``(order, comps_it,
+    rounds_it, conv_it, b, omega)`` (the last two ``None`` without
+    ``adjacency``); phase 2 takes the raw ``x`` and the completed order
+    permutation, like the numpy oracle."""
     xn = normalize(x, n_valid=n_valid)
     if mask0 is not None:
         xn = torch.where(mask0[..., None], xn, 0.0)  # dead rows exactly zero
     c = cov_matrix(xn, n_valid=n_valid)
-    p = x.shape[1]
-    order, comps_it = _scan_order_impl(
-        xn, c, mask0=mask0, n_valid=n_valid, block_j=min(cfg.block_j, p),
-        backend=backend, min_bucket=cfg.min_bucket, single=single,
-    )
+    counters = _scan(xn, c, cfg, backend, mask0=mask0, n_valid=n_valid, single=single)
     if not adjacency:
-        return order, comps_it, None, None
-    perm = order if mask0 is None else complete_order(order, mask0)
+        return (*counters, None, None)
+    perm = counters[0] if mask0 is None else complete_order(counters[0], mask0)
     b, omega = adjacency_from_order(x, perm, mask=mask0, n_valid=n_valid,
                                     prune_below=prune_below)
-    return order, comps_it, b, omega
+    return (*counters, b, omega)
 
 
 def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
@@ -416,6 +658,9 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
     CUDA device); ``"cpu"`` runs the plain torch path. Its float32 matmuls
     run at full precision (TF32 off, see ``covariance.full_precision_matmul``):
     the order depends on the correlations. The caller's setting is restored.
+    The order comes from the staged scan, with the dense or the threshold
+    evaluation per ``config.threshold``; :func:`causal_order` runs the host
+    driver.
 
     ``validate=True`` runs the :mod:`repro_torch.core.validate` admission
     checks first and raises a typed ``DatasetError`` before any device work;
@@ -432,12 +677,127 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
         diag = require_valid(x_host)
 
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    order, comps_it, b, omega = _pipeline(x[None], cfg, backend, adjacency=True,
-                                          prune_below=prune_below, single=True)
-    result = _result_from_counters(order[0], comps_it[0], x.shape[0])
+    order, comps, rounds, conv, b, omega = _pipeline(
+        x[None], cfg, backend, adjacency=True, prune_below=prune_below, single=True)
+    result = _result_from_counters(order[0], comps[0], rounds[0], conv[0], x.shape[0],
+                                   cfg.max_rounds)
     result.noise_var = omega[0].cpu().numpy()
     result.diagnostics = diag
     return result, b[0]
+
+
+# ---------------------------------------------------------------------------
+# the causal-order drivers on their own (phase 1)
+# ---------------------------------------------------------------------------
+
+
+def _normalized(x, caller: str, device):
+    dev = _device(device, caller)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    xn = normalize(x)[None]
+    return xn, cov_matrix(xn), dev
+
+
+def causal_order_scan(x, config: ParaLiNGAMConfig | None = None, *,
+                      device=None) -> ParaLiNGAMResult:
+    """Full causal order over ``x: (p, n)`` raw samples through the
+    device-resident staged scan: the bucketed work profile of the host
+    driver with no ``int(root)`` read per iteration. With
+    ``config.threshold`` the scan runs the threshold state machine per
+    iteration, and ``comparisons``/``rounds``/``per_iteration`` come from
+    its device counters. ``device`` as in :func:`fit`."""
+    cfg = config or ParaLiNGAMConfig()
+    xn, c, dev = _normalized(x, "causal_order_scan", device)
+    backend = kops.select_backend(cfg, dev)
+    order, comps, rounds, conv = _scan(xn, c, cfg, backend, single=True)
+    return _result_from_counters(order[0], comps[0], rounds[0], conv[0],
+                                 xn.shape[1], cfg.max_rounds)
+
+
+def _update_iteration(xn, c, root, mask):
+    """UpdateData + UpdateCovMat (Algorithms 7-8) of a bucket of one, and
+    the root dropped from U. ``root`` is a (1,) tensor."""
+    xn2 = update_data(xn, c, root, mask)
+    c2 = update_cov(c, root, mask)
+    mask2 = mask & (torch.arange(xn.shape[1], device=xn.device) != root[:, None])
+    return xn2, c2, mask2
+
+
+def causal_order(x, config: ParaLiNGAMConfig | None = None, *,
+                 device=None) -> ParaLiNGAMResult:
+    """ParaLiNGAM step 1: the full causal order over ``x: (p, n)`` raw
+    samples. ``order_backend="scan"`` runs :func:`causal_order_scan`;
+    ``"host"`` the host driver (Algorithm 3): one find-root per iteration
+    and one ``int(root)`` host read, the live rows regathered from numpy
+    indices into a power-of-two bucket (``bucket=True``, floor
+    ``min_bucket``) or the full masked buffer, then the rank-1 updates of
+    the full (p, n) state. Each find-root is the dense evaluation or, with
+    ``threshold=True``, the threshold state machine (which reads the host
+    every ``READ_EVERY`` rounds). Per-iteration counters are read once, at
+    the end. ``device`` as in :func:`fit`."""
+    cfg = config or ParaLiNGAMConfig()
+    if cfg.order_backend == "scan":
+        return causal_order_scan(x, cfg, device=device)
+    xn, c, dev = _normalized(x, "causal_order", device)
+    backend = kops.select_backend(cfg, dev)
+    p = xn.shape[1]
+    mask = torch.ones((1, p), dtype=torch.bool, device=dev)
+    mask_np = np.ones((p,), bool)
+    order: list[int] = []
+    counters = []  # per iteration: (comparisons, rounds, converged) on the device
+    for _ in range(p):
+        live = np.flatnonzero(mask_np)
+        r = len(live)
+        if r == 1:
+            order.append(int(live[0]))
+            break
+        if cfg.bucket:
+            m = min(max(cfg.min_bucket, next_pow2(r)), next_pow2(p))
+            idx_pad = np.full((m,), live[0], np.int64)
+            idx_pad[:r] = live
+            sel = torch.from_numpy(idx_pad).to(dev)
+            xb = xn[:, sel]
+            cb = c[:, sel][:, :, sel]
+            mb = (torch.arange(m, device=dev) < r)[None]
+        else:
+            idx_pad = np.arange(p)
+            xb, cb, mb = xn, c, mask
+        m = xb.shape[1]
+        if cfg.threshold:
+            roots, _, comps, rounds, conv = _find_root_threshold_impl(
+                xb, cb, mb, cfg.gamma0, cfg.gamma_growth, chunk=min(cfg.chunk, m),
+                max_rounds=cfg.max_rounds)
+            counters.append(torch.stack([comps[0], rounds[0].long(), conv[0].long()]))
+        else:
+            roots, _ = _find_root_dense_impl(xb, cb, mb, block_j=min(cfg.block_j, m),
+                                             backend=backend, single=True)
+        root = int(idx_pad[int(roots[0])])
+        order.append(root)
+        xn, c, mask = _update_iteration(xn, c, torch.tensor([root], device=dev), mask)
+        mask_np[root] = False
+
+    live_rows = np.arange(p, 1, -1)
+    if counters:
+        comps, rounds, conv = torch.stack(counters).cpu().numpy().T
+        conv = conv.astype(bool)
+    else:
+        comps = live_rows * (live_rows - 1) // 2
+        rounds, conv = np.zeros_like(comps), np.ones(comps.shape, bool)
+    for i in np.flatnonzero(~conv):
+        warnings.warn(
+            f"find_root_threshold hit max_rounds={cfg.max_rounds} at iteration "
+            f"{i} (r={live_rows[i]}); scores may be incomplete (raise max_rounds "
+            "or gamma_growth)", stacklevel=2)
+    comps_dense = sum(r * (r - 1) // 2 for r in range(2, p + 1))
+    return ParaLiNGAMResult(
+        order=order,
+        comparisons=int(comps.sum()),
+        comparisons_dense=comps_dense,
+        comparisons_serial=2 * comps_dense,
+        rounds=int(rounds.sum()),
+        per_iteration=_iteration_records(comps, rounds, conv, p),
+        converged=bool(conv.all()),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -485,13 +845,11 @@ def _run_batch(xs, config, n_valid, mask, device, caller: str, *,
     backend = kops.select_backend(cfg, dev)
     _note_backend(cfg, backend)
     xs, nv, mk = _coerce_batch(xs, n_valid, mask, caller, dev)
-    order, comps, b, omega = _pipeline(xs, cfg, backend, adjacency=adjacency,
-                                       n_valid=nv, mask0=mk, prune_below=prune_below)
-    return BatchFitResult(
-        orders=order, comparisons=comps,
-        rounds=torch.zeros(order.shape, dtype=torch.int32, device=dev),
-        converged=torch.ones(order.shape, dtype=torch.bool, device=dev),
-        b=b, noise_var=omega)
+    order, comps, rounds, conv, b, omega = _pipeline(
+        xs, cfg, backend, adjacency=adjacency, n_valid=nv, mask0=mk,
+        prune_below=prune_below)
+    return BatchFitResult(orders=order, comparisons=comps, rounds=rounds,
+                          converged=conv, b=b, noise_var=omega)
 
 
 def fit_batch(xs, config: ParaLiNGAMConfig | None = None, *, n_valid=None,
@@ -571,6 +929,7 @@ def aot_fit_batch(batch: int, p: int, n: int,
 
 __all__ = ["BatchFitResult", "CompiledFitBatch", "ConfigError",
            "ParaLiNGAMConfig", "ParaLiNGAMResult", "aot_fit_batch",
-           "causal_order_batch", "config_from_reference",
-           "dispatch_stats_snapshot", "fit", "fit_batch",
+           "causal_order", "causal_order_batch", "causal_order_scan",
+           "config_from_reference", "dispatch_stats_snapshot",
+           "find_root_dense", "find_root_threshold", "fit", "fit_batch",
            "reset_dispatch_stats"]

@@ -6,7 +6,9 @@ tensor it runs the kernel's plain torch version (the CPU tests' route).
 
 from __future__ import annotations
 
+from repro_torch.core.pairwise import pair_moments as _pair_moments
 from repro_torch.kernels import fused_score as _fused
+from repro_torch.kernels import pairwise_score as _pairwise
 
 #: The score-backend enum. ``torch``/``torch_fused`` are the plain torch
 #: formulations (square HR sweep / fused triangular sweep); ``hopper``/
@@ -28,21 +30,14 @@ def select_backend(cfg, device) -> str:
     ``cfg`` is either the backend name itself or anything with a
     ``score_backend`` attribute. ``auto`` resolves to ``hopper_fused`` for a
     CUDA device and to ``torch`` (the square plain path) otherwise. Explicit
-    requests are honored; ``hopper_fused`` on a CPU device runs the kernel's
-    plain version.
+    requests are honored; ``hopper`` or ``hopper_fused`` on a CPU device runs
+    the kernel's plain version.
 
-    Raises ``BackendUnavailable`` for names outside ``SCORE_BACKENDS`` and
-    for ``hopper``, whose square moments kernel is not ported yet."""
+    Raises ``BackendUnavailable`` for names outside ``SCORE_BACKENDS``."""
     backend = cfg if isinstance(cfg, str) else getattr(cfg, "score_backend", "auto")
     if backend not in SCORE_BACKENDS:
         raise BackendUnavailable(
             f"score_backend={backend!r} is not one of {SCORE_BACKENDS}"
-        )
-    if backend == "hopper":
-        raise BackendUnavailable(
-            "score_backend='hopper' needs the square moments kernel, which is "
-            "not ported yet (ROADMAP.md, queue 2 item 3); use 'hopper_fused', "
-            "'torch' or 'torch_fused'"
         )
     if backend != "auto":
         return backend
@@ -61,3 +56,42 @@ def score_batch(xb, cb, maskb, *, n_valid=None):
     or one valid sample count per dataset. Plain version:
     ``fused_score.fused_score_batch_ref``."""
     return _fused.fused_score_batch(xb, cb, maskb, block=8, n_valid=n_valid)
+
+
+def pairwise_moments(xi, xj, c):
+    """Raw moment sums (sum log cosh u, sum u exp(-u^2/2)) of every (i, j)
+    residual stream of one dataset via the square moments kernel: two
+    (pi, pj) tensors, no 1/n, no entropy (finish with
+    ``pairwise.finalize_moments``). Plain version:
+    ``pairwise_score.pairwise_moments_ref``."""
+    return _pairwise.pairwise_moments(xi, xj, c)
+
+
+def pairwise_moments_batch(xb, cb):
+    """The square raw sums of a bucket ``xb: (B, m, n)`` in one launch: two
+    (B, m, m) tensors. Plain version: ``pairwise_moments_batch_ref``."""
+    return _pairwise.pairwise_moments_batch(xb, cb)
+
+
+def residual_entropy_matrix(xn, c, *, n_valid=None):
+    """(p, p) HR matrix via the square moments kernel + torch entropy
+    epilogue (``n_valid`` only changes the epilogue's denominator)."""
+    return _pairwise.pairwise_score(xn, c, n_valid=n_valid)
+
+
+def residual_entropy_matrix_batch(xb, cb, *, n_valid=None):
+    """(B, m, m) HR matrices of a bucket via one launch of the square moments
+    kernel; ``n_valid`` None or one valid count per dataset."""
+    return _pairwise.pairwise_score_batch(xb, cb, n_valid=n_valid)
+
+
+def pair_moments(xn, c_vals, xj, n_valid=None):
+    """Both-direction residual entropies of the threshold scheduler's
+    gathered comparison chunks (see ``core.pairwise.pair_moments``).
+
+    The chunk layout is a gather over pending targets, not a dense tile, and
+    no kernel takes it: every backend runs the torch formulation, which the
+    scheduler calls directly (``core.paralingam._find_root_threshold_impl``).
+    This is the name reserved for a gather kernel, as in the JAX package; it
+    is not on the scheduler's call path."""
+    return _pair_moments(xn, c_vals, xj, n_valid=n_valid)

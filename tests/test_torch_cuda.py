@@ -1,6 +1,9 @@
-"""The port's CUDA kernels against their plain torch versions, on the card,
-through both entries: one dataset (``fused_score_vector``) and a bucket of
-datasets (``fused_score_batch``).
+"""The port's CUDA kernels against their plain torch versions, on the card:
+the fused triangular score kernel through both entries, one dataset
+(``fused_score_vector``) and a bucket of datasets (``fused_score_batch``);
+the square moments kernel through ``pairwise_moments`` and
+``pairwise_moments_batch``; and one threshold ``fit`` against the dense
+order.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports neither JAX nor ``repro``, so it runs on a
@@ -11,7 +14,10 @@ machine with only torch and the CUDA toolkit:
 Tolerance: ``fused_score.score_tolerance`` — float32 rounding of each
 entropy carried through I and S = sum min(0, I)^2. The kernel and the plain
 version take the same float32 formulas and differ only in the order of the
-sums.
+sums. The square kernel's raw sums are held to
+``pairwise_score.sum_tolerance`` (64 ulps of sum_k (|u| + 1) per entry) off
+the diagonal, whose sums are amplified rounding noise in every
+implementation (see ``kernels/pairwise_score.py``).
 """
 
 import numpy as np
@@ -19,8 +25,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import paralingam as tp  # noqa: E402
+from repro_torch.core import sem  # noqa: E402
 from repro_torch.core.covariance import cov_matrix, normalize  # noqa: E402
 from repro_torch.kernels import fused_score as fs  # noqa: E402
+from repro_torch.kernels import pairwise_score as ps  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +150,93 @@ def test_batch_kernel_is_deterministic(cuda):
     first = fs.fused_score_batch(xb, cb, mb, n_valid=nv)
     for _ in range(3):
         assert torch.equal(fs.fused_score_batch(xb, cb, mb, n_valid=nv), first)
+
+
+def _off_diagonal(t):
+    """Entries (i, j) with i != j: the (i, i) sums of a row against itself
+    are amplified rounding noise."""
+    pi, pj = t.shape[-2:]
+    keep = torch.arange(pi, device=t.device)[:, None] != torch.arange(pj, device=t.device)
+    return t[..., keep]
+
+
+@pytest.mark.parametrize("pi,pj,n", [(13, 13, 700), (128, 128, 2000), (37, 21, 1300)])
+def test_square_kernel_matches_plain(cuda, pi, pj, n):
+    """Ragged rows and samples, a non-square block, off-diagonal sums within
+    ``sum_tolerance``."""
+    xi, c = _setup(pi, n, pi, cuda)
+    xj = xi[:pj].contiguous()
+    c = c[:, :pj].contiguous()
+    before = ps.LAUNCHES
+    m1, m2 = ps.pairwise_moments(xi, xj, c)
+    torch.cuda.synchronize()
+    assert ps.LAUNCHES == before + 1
+    r1, r2 = ps.pairwise_moments_ref(xi, xj, c)
+    tol = ps.sum_tolerance(xi, xj, c)
+    for k, r in ((m1, r1), (m2, r2)):
+        assert torch.all(torch.isfinite(k))
+        assert torch.all(_off_diagonal((k - r).abs()) <= _off_diagonal(tol))
+
+
+def test_square_kernel_zero_padding_is_exact(cuda):
+    """Zero sample columns add exactly 0: the sums are bit-identical."""
+    xn, c = _setup(9, 300, 3, cuda)
+    for n_pad in (512, 1600):
+        xp = torch.zeros((9, n_pad), device=cuda)
+        xp[:, :300] = xn
+        for a, b in zip(ps.pairwise_moments(xn, xn, c), ps.pairwise_moments(xp, xp, c)):
+            assert torch.equal(a, b)
+
+
+def test_square_batch_row_is_batch_size_invariant(cuda):
+    """Row b of a batched launch is bit-identical to a one-dataset launch of
+    dataset b, and repeated launches agree."""
+    xb, cb, _, _ = _bucket([(40, 900)] * 5, 900, 13, cuda)
+    before = ps.BATCH_LAUNCHES
+    m1, m2 = ps.pairwise_moments_batch(xb, cb)
+    assert ps.BATCH_LAUNCHES == before + 1
+    for b in range(xb.shape[0]):
+        o1, o2 = ps.pairwise_moments(xb[b], xb[b], cb[b])
+        assert torch.equal(m1[b], o1) and torch.equal(m2[b], o2)
+    again = ps.pairwise_moments_batch(xb, cb)
+    assert torch.equal(again[0], m1) and torch.equal(again[1], m2)
+
+
+def test_threshold_fit_matches_dense_order(cuda):
+    """The threshold state machine returns the dense evaluation's root at
+    every iteration (paper Section 3.2), on the card, through both order
+    drivers; the square kernel's fit gives the same order."""
+    x = sem.generate(sem.SemSpec(p=24, n=3000, density="sparse", seed=5))["x"]
+    dense, _ = tp.fit(x, tp.ParaLiNGAMConfig(min_bucket=8), device=cuda)
+    square, _ = tp.fit(x, tp.ParaLiNGAMConfig(min_bucket=8, score_backend="hopper"),
+                       device=cuda)
+    thr, _ = tp.fit(x, tp.ParaLiNGAMConfig(min_bucket=8, threshold=True), device=cuda)
+    host = tp.causal_order(x, tp.ParaLiNGAMConfig(min_bucket=8, threshold=True),
+                           device=cuda)
+    assert square.order == dense.order
+    assert thr.order == dense.order and host.order == dense.order
+    assert thr.converged and 0 < thr.comparisons <= thr.comparisons_dense
+
+
+def test_fit_batch_rows_do_not_depend_on_the_batch(cuda):
+    """Each dataset's order and threshold counters in a padded bucket equal
+    those of its own one-dataset ``fit_batch`` on the same padded inputs
+    (the correlations are one GEMM per dataset: a batched GEMM rounds by
+    batch count)."""
+    rng = np.random.default_rng(21)
+    shapes = [(24, 2000), (20, 1500), (22, 1800), (17, 2000)]
+    xs = np.zeros((4, 24, 2048), np.float32)
+    mask = np.zeros((4, 24), bool)
+    for i, (p, n) in enumerate(shapes):
+        xs[i, :p, :n] = sem.generate(sem.SemSpec(p=p, n=n, density="sparse",
+                                                 seed=int(rng.integers(1000))))["x"]
+        mask[i, :p] = True
+    nv = np.array([n for _, n in shapes], np.int32)
+    for cfg in (tp.ParaLiNGAMConfig(min_bucket=8),
+                tp.ParaLiNGAMConfig(min_bucket=8, threshold=True)):
+        res = tp.fit_batch(xs, cfg, n_valid=nv, mask=mask, device=cuda)
+        for i in range(4):
+            one = tp.fit_batch(xs[i:i + 1], cfg, n_valid=nv[i:i + 1], mask=mask[i:i + 1],
+                               device=cuda)
+            for name in ("orders", "comparisons", "rounds", "converged"):
+                assert torch.equal(getattr(res, name)[i], getattr(one, name)[0]), (name, i)

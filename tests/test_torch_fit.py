@@ -106,27 +106,44 @@ def test_validate_rejects_nan():
 
 
 def test_unported_options_raise():
-    with pytest.raises(tp.ConfigError, match="queue 1 item 4"):
-        tp.ParaLiNGAMConfig(threshold=True)
+    """The ring still raises; the threshold machine builds, and maps from a
+    reference config with all its settings."""
     with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
         tp.ParaLiNGAMConfig(order_backend="ring")
-    with pytest.raises(tp.ConfigError, match="queue 1 item 4"):
-        tp.config_from_reference(dataclasses.asdict(repro.ParaLiNGAMConfig(threshold=True)))
     with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
         tp.config_from_reference(dataclasses.asdict(
             repro.ParaLiNGAMConfig(order_backend="ring")))
     with pytest.raises(tp.ConfigError):
         tp.ParaLiNGAMConfig(order_backend="bogus")
+    assert tp.ParaLiNGAMConfig(threshold=True).threshold
+    ref = repro.ParaLiNGAMConfig(threshold=True, chunk=4, gamma0=3e-6, gamma_growth=1.5,
+                                 max_rounds=77, bucket=False, min_bucket=8)
+    cfg = tp.config_from_reference(dataclasses.asdict(ref))
+    names = ("threshold", "chunk", "gamma0", "gamma_growth", "max_rounds", "bucket",
+             "min_bucket", "block_j")
+    assert [getattr(cfg, k) for k in names] == [getattr(ref, k) for k in names]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        legacy = tp.config_from_reference(dataclasses.asdict(
+            repro.ParaLiNGAMConfig(method="threshold")))
+    assert (legacy.order_backend, legacy.threshold) == ("host", True)
 
 
 def test_hopper_square_backend_unavailable():
-    with pytest.raises(ops.BackendUnavailable, match="ROADMAP.md"):
-        ops.select_backend("hopper", torch.device("cpu"))
+    """``hopper`` (the square moments kernel) resolves, maps from
+    ``pallas``, and fits on the CPU through the kernel's plain version with
+    the order of the square plain path."""
+    assert ops.select_backend("hopper", torch.device("cpu")) == "hopper"
+    assert ops.select_backend("hopper", torch.device("cuda")) == "hopper"
     cfg = tp.config_from_reference(dataclasses.asdict(
-        repro.ParaLiNGAMConfig(score_backend="pallas")))
+        repro.ParaLiNGAMConfig(score_backend="pallas", min_bucket=8)))
     assert cfg.score_backend == "hopper"
-    with pytest.raises(ops.BackendUnavailable, match="ROADMAP.md"):
-        repro_torch.fit(np.ones((3, 10)), cfg, device="cpu")
+    x = sem.generate(sem.SemSpec(p=9, n=700, density="sparse", seed=2))["x"]
+    res, b = repro_torch.fit(x, cfg, device="cpu")
+    plain, _ = repro_torch.fit(x, dataclasses.replace(cfg, score_backend="torch"),
+                               device="cpu")
+    assert res.order == plain.order
+    assert bool(torch.all(torch.isfinite(b)))
     with pytest.raises(ops.BackendUnavailable):
         ops.select_backend("xla", torch.device("cpu"))
 

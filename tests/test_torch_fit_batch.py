@@ -206,15 +206,21 @@ def test_fit_batch_rejects_wrong_rank():
 
 
 def test_batch_rejects_ring_and_threshold_configs():
+    """The ring still raises; a threshold config runs the batched threshold
+    machine, with real round counters."""
     xs = np.zeros((2, 4, 8))
     with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
         repro_torch.fit_batch(xs, tp.ParaLiNGAMConfig(order_backend="ring"), device="cpu")
-    with pytest.raises(tp.ConfigError, match="queue 1 item 4"):
-        repro_torch.causal_order_batch(xs, tp.ParaLiNGAMConfig(threshold=True), device="cpu")
     with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
         _cfg(order_backend="ring")
-    with pytest.raises(tp.ConfigError, match="queue 1 item 4"):
-        _cfg(threshold=True)
+    ref_cfg, cfg = _cfg(threshold=True, min_bucket=8)
+    assert cfg.threshold
+    xs = np.stack([_gen(6, 400, seed=s) for s in (1, 2)])
+    res = repro_torch.causal_order_batch(xs, cfg, device="cpu")
+    ref = j_causal_order_batch(xs, ref_cfg)
+    assert res.orders.tolist() == np.asarray(ref.orders).tolist()
+    assert res.rounds.tolist() == np.asarray(ref.rounds).tolist()
+    assert int(res.rounds.sum()) > 0 and bool(res.converged.all())
 
 
 @pytest.mark.parametrize("entry", ["fit_batch", "causal_order_batch", "aot_fit_batch"])

@@ -204,10 +204,25 @@ def test_engines_need_cuda_without_device(monkeypatch, engine):
 
 
 def test_engines_refuse_unported_configs():
+    """The ring still raises; both engines take a threshold config and serve
+    it through ``fit_batch``."""
     with pytest.raises(ValueError, match="ring"):
         LingamEngine(ParaLiNGAMConfig(order_backend="ring"), **CPU)
-    with pytest.raises(ValueError, match="threshold"):
-        AsyncLingamEngine(ParaLiNGAMConfig(threshold=True), start=False, **CPU)
+    cfg = ParaLiNGAMConfig(threshold=True, min_bucket=8)
+    x = _gen(6, 300, seed=4)
+    want, _ = fit(x, cfg, device="cpu")
+    got = LingamEngine(cfg, **CPU).fit_many([x])[0]
+    assert got.order == want.order and got.rounds == want.rounds
+    clock = FakeClock()
+    eng = AsyncLingamEngine(cfg, SCFG, batch_cfg=BatchingConfig(max_batch=4, flush_interval=1.0),
+                            clock=clock, start=False, **CPU)
+    ticket = eng.submit(x)
+    clock.advance(1.0)
+    assert eng.step() > 0
+    served = ticket.result(0)
+    assert served.order == want.order and served.rounds == want.rounds
+    assert served.converged and served.comparisons == want.comparisons
+    eng.close()
 
 
 # -- the async engine, deterministic (fake clock, manual pump) ----------------
