@@ -56,13 +56,32 @@ Phases, each printed on its own line:
     ``fit_batch(threshold=True)`` on the E. coli bucket against each
     dataset's own ``fit_batch``; one served round of those requests through
     ``AsyncLingamEngine(ParaLiNGAMConfig(threshold=True))``, replayed.
-11. With ``--profile``: where one fit's time goes (torch.profiler device
+11. The rank-1 update kernels (``update_data``, ``update_cov``, paper
+    Algorithms 7 and 8) against their plain versions at the CPU tests'
+    cases, p=85/n=10000 and p=512/n=2000, with times; then their own path:
+    84 updates along the E. coli fit's order through ``kernels.ops``, each
+    step held against the plain versions on the same inputs. (Run right
+    after phase 3, whose order they take.)
+12. The SSD decode kernel against its plain version at Mamba2-370M's decode
+    shape (B=4, H=32, P=64, N=128) and at ragged head counts, row b of a
+    B=4 launch bit-identical to a one-row launch, with times; then
+    Mamba2-370M at full width and depth (48 layers, vocab 50280, ~420M
+    float32 weights from a seeded generator) through ``Engine.generate``:
+    4 prompts of 32 tokens, 16 new tokens, 768 decode-kernel launches,
+    greedy tokens equal to a CPU run of the same weights (or departing only
+    at a near-tie of the CPU's top-2 logits, ``GAP_TOL``), prefill and
+    decode-step seconds; the kernel against plain on the inputs of layers 0
+    and 47 of a real decode step.
+13. With ``--profile``: where one fit's time goes (torch.profiler device
     time by kernel, and the device's busy share), at both fit sizes and for
-    the threshold fit, and the device's busy share while the engine serves
-    the same requests again.
-12. A ``{"kernels": [...]}`` line with each hand kernel's launches on the
-    main path, its error against the plain version, its time, the plain
+    the threshold fit, the device's busy share while the engine serves the
+    same requests again, and the same for one Mamba2 ``generate``.
+14. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
+    path, its error against the plain version, its time, the plain
     version's time and its bound.
+
+``fit_batch`` phases also hold each dataset's order, B and noise variances
+bit for bit against its own one-dataset ``fit_batch``.
 
 Every failed check raises, and the script exits non-zero without printing a
 result. It needs a CUDA device (it exits non-zero without one) and imports
@@ -95,13 +114,19 @@ from repro_torch.core.paralingam import (  # noqa: E402
     fit_batch,
 )
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import covupdate as cu  # noqa: E402
 from repro_torch.kernels import fused_score as fs  # noqa: E402
 from repro_torch.kernels import pairwise_score as ps  # noqa: E402
+from repro_torch.kernels import ssd_decode as sd  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AsyncLingamEngine,
     BatchingConfig,
     LingamServeConfig,
 )
+from repro_torch.serve.buckets import bucket_dim  # noqa: E402
 from repro_torch.serve.lingam_engine import pack_bucket  # noqa: E402
 
 # Kernel against plain: the same root, and per live row the error bound of
@@ -468,7 +493,35 @@ def phase_fit_batch(dev, gpu):
     check(launches == ECOLI_BUCKET[0] - 1,
           f"{launches} batched launches for {ECOLI_BUCKET[0] - 1} find-roots")
     check(finite, "non-finite B or noise variances in the E. coli bucket")
+    # Each dataset's order, B and noise variances equal, bit for bit, those
+    # of its own one-dataset fit_batch on the same padded inputs.
+    differ = batch_differences(rk, xs, mask, nv, ParaLiNGAMConfig(score_backend="hopper_fused"),
+                               p_live, ("orders",), dev)
+    say("fit_batch_rows", B=len(raw), equal_to_own_fit_batch=f"{len(raw) - len({d.split(':')[0] for d in differ})}/{len(raw)}",
+        first_differences=",".join(differ) or "none")
+    check(not differ, "a dataset's fit differs between its batch and its own")
     return [list(ok_[i, :p]) for i, p in enumerate(p_live)]
+
+
+def batch_differences(res, xs, mask, nv, cfg, p_live, names, dev):
+    """Where each dataset's results in the batched ``res`` differ from its
+    own one-dataset ``fit_batch`` on the same padded inputs: the per-
+    iteration ``names`` (first differing iteration), then B and the noise
+    variances on its live rows, bit for bit. Returns "i:field@index" items."""
+    got = {k: getattr(res, k).cpu().numpy() for k in names}
+    b, omega = res.b.cpu().numpy(), res.noise_var.cpu().numpy()
+    differ = []
+    for i, p in enumerate(p_live):
+        one = fit_batch(xs[i:i + 1], cfg, n_valid=nv[i:i + 1], mask=mask[i:i + 1], device=dev)
+        want = {k: getattr(one, k).cpu().numpy()[0] for k in names}
+        differ += [f"{i}:{k}@{int(np.flatnonzero(got[k][i, :p] != want[k][:p])[0])}"
+                   for k in names if list(got[k][i, :p]) != list(want[k][:p])]
+        b1, om1 = one.b.cpu().numpy()[0], one.noise_var.cpu().numpy()[0]
+        if not np.array_equal(b[i, :p, :p], b1[:p, :p]):
+            differ.append(f"{i}:b@{float(np.abs(b[i, :p, :p] - b1[:p, :p]).max()):.3e}")
+        if not np.array_equal(omega[i, :p], om1[:p]):
+            differ.append(f"{i}:noise_var@{float(np.abs(omega[i, :p] / om1[:p] - 1).max()):.3e}")
+    return differ
 
 
 def conserved(st) -> bool:
@@ -503,11 +556,14 @@ def serve_round(eng, requests, threads=3):
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
     fs.LAUNCHES = fs.BATCH_LAUNCHES = ps.LAUNCHES = ps.BATCH_LAUNCHES = 0
+    cu.DATA_LAUNCHES = cu.COV_LAUNCHES = sd.LAUNCHES = 0
 
 
 def counts() -> dict:
     return {"fused_score": fs.LAUNCHES, "fused_score_batch": fs.BATCH_LAUNCHES,
-            "pairwise_moments": ps.LAUNCHES, "pairwise_moments_batch": ps.BATCH_LAUNCHES}
+            "pairwise_moments": ps.LAUNCHES, "pairwise_moments_batch": ps.BATCH_LAUNCHES,
+            "update_data": cu.DATA_LAUNCHES, "update_cov": cu.COV_LAUNCHES,
+            "ssd_decode": sd.LAUNCHES}
 
 
 def engine_round(cfg, requests, dev, *, replicas=1, prewarm=None, profile=False):
@@ -992,15 +1048,8 @@ def phase_threshold_batch(dev, gpu):
     (res, t_batch), reads = count_reads(
         lambda: fit_batch(xs, cfg, n_valid=nv, mask=mask, device=dev))
     got = {k: getattr(res, k).cpu().numpy() for k in names}
-    differ, t_ones = [], 0.0
-    for i, x in enumerate(raw):
-        p = x.shape[0]
-        one, t = timed(lambda: fit_batch(xs[i:i + 1], cfg, n_valid=nv[i:i + 1],
-                                         mask=mask[i:i + 1], device=dev))
-        t_ones += t
-        want = {k: getattr(one, k).cpu().numpy()[0] for k in names}
-        differ += [f"{i}:{k}@{int(np.flatnonzero(got[k][i, :p] != want[k][:p])[0])}"
-                   for k in names if list(got[k][i, :p]) != list(want[k][:p])]
+    differ, t_ones = timed(lambda: batch_differences(res, xs, mask, nv, cfg,
+                                                     [x.shape[0] for x in raw], names, dev))
     same = len(raw) - len({d.split(":")[0] for d in differ})
     comps = [int(got["comparisons"][i, :x.shape[0] - 1].sum()) for i, x in enumerate(raw)]
     dense = [sum(r * (r - 1) // 2 for r in range(2, x.shape[0] + 1)) for x in raw]
@@ -1061,6 +1110,332 @@ def phase_fit_batch_hopper(dev, gpu, batch_orders):
     return launched["pairwise_moments_batch"]
 
 
+# -- slice 4: the rank-1 update kernels, the SSD decode kernel, Mamba2 serving
+
+COV_SOURCE = "src/repro_torch/kernels/csrc/covupdate.cu"
+DATA_REPLACES = "src/repro/kernels/covupdate.py:21"
+COV_REPLACES = "src/repro/kernels/covupdate.py:29"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_decode.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_decode.py:27"
+# Kernel against plain: the rtol/atol of tests/test_kernels.py, which holds
+# the Pallas kernels to the same formulas: 1e-5 (data, decode step; 1e-6
+# atol on the covariance). Both sides round each product and sum on its own;
+# only y's N-term sum of the decode step is taken in another order.
+RTOL, ATOL, COV_ATOL = 1e-5, 1e-5, 1e-6
+# Mamba2-370M serving at the shape of examples/serve_lm.py.
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 32, 16
+# A greedy token of the card may depart from the CPU's only at a near-tie:
+# where the CPU's top-2 logits lie within GAP_TOL of each other. The logits
+# are O(1) (unit-RMS hidden state after the final norm, a N(0, 1/d) head);
+# float32 sums taken in other orders on the card and on the CPU move them by
+# ~1e-5 after 48 layers (printed as prefill_logits_max_abs_diff), so a gap
+# of 1e-3 is 100 times what the rounding can flip.
+GAP_TOL = 1e-3
+
+
+def within(k, r, atol):
+    """max |k - r|, and whether every entry is within atol + RTOL |r|."""
+    e = (k.double() - r.double()).abs()
+    return e.max().item(), bool(torch.all(e <= atol + RTOL * r.double().abs()))
+
+
+def copy_rate(dev) -> float:
+    """Bytes read and written per second by a device-to-device copy of a
+    1 GiB float32 buffer (CUDA events)."""
+    src = torch.empty(1 << 28, device=dev)
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), reps=10)
+    return 2 * src.numel() * 4 / (ms / 1e3)
+
+
+def device_ms(fn, kernel: str, reps: int = 50) -> float:
+    """Device time per launch of the kernel whose name contains ``kernel``,
+    from torch.profiler over ``reps`` calls of ``fn``: the kernel's own
+    execution, without the host's launch gaps that back-to-back CUDA-event
+    timing of a microsecond kernel measures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in device_rows(prof) if kernel in r[1]]
+    check(len(rows) == 1, f"the profiler saw {len(rows)} kernels named like {kernel}")
+    return rows[0][0] / rows[0][2] / 1e3
+
+
+def covupdate_inputs(p, n, dev):
+    """Normalized Gaussian rows, their correlations, b = c[:, 0] with the
+    root zeroed, and the root's row, as tests/test_kernels.py builds them."""
+    xn, c = normalized(gauss_data(p, n, p), dev)
+    b = c[:, 0].clone()
+    b[0] = 0.0
+    return xn, c, b, xn[0].contiguous()
+
+
+def hold_covupdate(name, xn, c, b, xr):
+    """Both kernels against their plain versions on one input; returns the
+    max abs errors (data, covariance)."""
+    kx, kc = ops.update_data(xn, xr, b), ops.update_cov(c, b)
+    rx, rc = cu.update_data_ref(xn, xr, b), cu.update_cov_ref(c, b)
+    torch.cuda.synchronize()
+    ex, okx = within(kx, rx, ATOL)
+    ec, okc = within(kc, rc, COV_ATOL)
+    diag = bool(torch.all(torch.diagonal(kc) == 1))
+    say("covupdate_vs_plain", case=name, p=xn.shape[0], n=xn.shape[1], max_abs_data=f"{ex:.3e}",
+        max_abs_cov=f"{ec:.3e}", data_bit_equal=torch.equal(kx, rx),
+        cov_bit_equal=torch.equal(kc, rc), unit_diagonal=diag, ok=okx and okc and diag)
+    check(okx and okc and diag, f"{name}: a rank-1 update kernel disagrees with plain")
+    return ex, ec
+
+
+def phase_covupdate_kernel(dev, gpu, rate):
+    """Both rank-1 update kernels against their plain versions at the CPU
+    tests' cases, p=85/n=10000 and p=512/n=2000, with times per launch."""
+    errs = [hold_covupdate(f"gauss_p{p}_n{n}", *covupdate_inputs(p, n, dev))
+            for p, n in ((8, 512), (21, 1000), (64, 4096), (7, 130), ECOLI, SLICE)]
+    timing = {}
+    for p, n in (SLICE, (64, 4096), ECOLI):
+        xn, c, b, xr = covupdate_inputs(p, n, dev)
+        for name, kern, plain, nbytes, ops_ in (
+                ("update_data", lambda: cu.launch_data(xn, xr, b),
+                 lambda: cu.update_data_ref(xn, xr, b), 4 * (2 * p * n + n + p), 3 * p * n),
+                ("update_cov", lambda: cu.launch_cov(c, b), lambda: cu.update_cov_ref(c, b),
+                 4 * (2 * p * p + p), 3 * p * p)):
+            if name == "update_cov" and (p, n) != SLICE:
+                continue
+            ms = time_ms(kern, reps=200, warmup=5)
+            dev_ms = device_ms(kern, f"{name}_rows")
+            plain_ms = time_ms(plain, reps=50, warmup=2)
+            bound = max(nbytes / HBM_BPS, ops_ / FP32_FLOPS) * 1e3
+            shape = f"p={p},n={n}" if name == "update_data" else f"p={p}"
+            timing.setdefault(name, (ms, plain_ms, bound, shape, dev_ms))
+            say("covupdate_kernel_time", kernel=name, shape=shape, kernel_ms=f"{ms:.5f}",
+                device_ms=f"{dev_ms:.5f}", plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound:.5f}",
+                bound_by="bytes",
+                bound_ms_at_copy_rate=f"{nbytes / rate * 1e3:.5f}",
+                kernel_fraction_of_bound=f"{bound / ms:.3f}", gpu=f"'{gpu}'")
+    return max(e[0] for e in errs), max(e[1] for e in errs), timing
+
+
+def phase_covupdate_path(dev, gpu, x, order):
+    """The kernels' entry points on their own path: Algorithms 7 and 8 along
+    a causal order of the E. coli core data, one ``ops.update_data`` and one
+    ``ops.update_cov`` per iteration (b = c[:, root] with the root and the
+    earlier roots zeroed). Each step's kernel outputs are held against the
+    plain versions on the same inputs. Returns (launches, max errors)."""
+    xn, c = normalized(x, dev)
+    dead = torch.zeros(xn.shape[0], dtype=torch.bool, device=dev)
+    steps = []
+    reset_counts()
+    for r in order[:-1]:
+        b = torch.where(dead, 0.0, c[:, r])
+        b[r] = 0.0
+        xr = xn[r].contiguous()
+        nx, nc = ops.update_data(xn, xr, b), ops.update_cov(c, b)
+        steps.append((xn, c, b, xr, nx, nc))
+        xn, c = nx, nc
+        dead[r] = True
+    launched = counts()
+    ex = ec = 0.0
+    ok = True
+    for xn0, c0, b, xr, nx, nc in steps:
+        e1, ok1 = within(nx, cu.update_data_ref(xn0, xr, b), ATOL)
+        e2, ok2 = within(nc, cu.update_cov_ref(c0, b), COV_ATOL)
+        ex, ec, ok = max(ex, e1), max(ec, e2), ok and ok1 and ok2
+    finite = bool(torch.isfinite(xn).all() and torch.isfinite(c).all())
+    say("covupdate_path", p=x.shape[0], n=x.shape[1], iterations=len(steps),
+        launches_update_data=launched["update_data"], launches_update_cov=launched["update_cov"],
+        max_abs_data=f"{ex:.3e}", max_abs_cov=f"{ec:.3e}", finite=finite, ok=ok, gpu=f"'{gpu}'")
+    check(launched["update_data"] == launched["update_cov"] == len(steps),
+          f"{launched} launches for {len(steps)} rank-1 updates")
+    check(ok and finite, "a rank-1 update on the entry path disagrees with plain")
+    return launched, ex, ec
+
+
+def ssd_inputs(b, h, p, n, dev, seed):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, h, p, n)), rng.standard_normal((b, h, p)),
+              rng.uniform(0.01, 0.5, (b, h)), rng.standard_normal((b, n)),
+              rng.standard_normal((b, n)), -rng.uniform(0.5, 2.0, (h,)),
+              rng.standard_normal((h,))]
+    return [torch.as_tensor(a, dtype=torch.float32, device=dev) for a in arrays]
+
+
+def hold_ssd(name, args):
+    """The decode kernel against its plain version on one input; returns
+    the max abs error of y and of the new state."""
+    yk, sk = sd.ssd_decode(*args)
+    yr, sr = sd.ssd_decode_ref(*args)
+    torch.cuda.synchronize()
+    ey, oky = within(yk, yr, ATOL)
+    es, oks = within(sk, sr, ATOL)
+    say("ssd_decode_vs_plain", case=name, shape="x".join(map(str, args[0].shape)),
+        max_abs_y=f"{ey:.3e}", max_abs_state=f"{es:.3e}", state_bit_equal=torch.equal(sk, sr),
+        ok=oky and oks)
+    check(oky and oks, f"{name}: the decode kernel disagrees with plain")
+    return max(ey, es)
+
+
+def ssd_bytes(b, h, p, n):
+    """Bytes a decode step must move: the state read and the new state
+    written, x and y, dt, B and C, A and D, each once."""
+    return 4 * (2 * b * h * p * n + 2 * b * h * p + b * h + 2 * b * n + 2 * h)
+
+
+def phase_ssd_kernel(dev, gpu, rate):
+    """The decode kernel against its plain version at Mamba2-370M's decode
+    shape (B=4, H=32, P=64, N=128) and at ragged head counts; row b of a
+    B=4 launch bit-identical to a one-row launch; times per launch."""
+    cfg = configs.get("mamba2-370m")
+    full = (SERVE_B, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+    errs = [hold_ssd(f"random_{'x'.join(map(str, s))}", ssd_inputs(*s, dev, i))
+            for i, s in enumerate((full, (3, 12, 64, 128), (2, 5, 24, 40), (1, 33, 64, 128)))]
+    args = ssd_inputs(*full, dev, 9)
+    y, s = sd.launch(*args)
+    rows = []
+    for b in range(SERVE_B):
+        y1, s1 = sd.launch(*[t[b:b + 1].contiguous() for t in args[:5]], *args[5:])
+        rows.append(torch.equal(y1[0], y[b]) and torch.equal(s1[0], s[b]))
+    repeat = all(torch.equal(u, v) for u, v in zip(sd.launch(*args), (y, s)))
+    say("ssd_decode_rows", B=SERVE_B, rows_bit_identical=f"{sum(rows)}/{len(rows)}",
+        repeat_bit_identical=repeat)
+    check(all(rows) and repeat, "a row of the decode kernel depends on its batch or run")
+    ms = time_ms(lambda: sd.launch(*args), reps=200, warmup=5)
+    dev_ms = device_ms(lambda: sd.launch(*args), "ssd_decode_heads")
+    plain_ms = time_ms(lambda: sd.ssd_decode_ref(*args), reps=50, warmup=2)
+    nbytes = ssd_bytes(*full)
+    bound = max(nbytes / HBM_BPS, 5 * np.prod(full) / FP32_FLOPS) * 1e3
+    say("ssd_decode_kernel_time", shape="B={},H={},P={},N={}".format(*full), kernel_ms=f"{ms:.5f}",
+        device_ms=f"{dev_ms:.5f}", plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound:.5f}",
+        bound_by="bytes", bound_ms_at_copy_rate=f"{nbytes / rate * 1e3:.5f}",
+        kernel_fraction_of_bound=f"{bound / ms:.3f}",
+        device_fraction_of_bound=f"{bound / dev_ms:.3f}", gpu=f"'{gpu}'")
+    return max(errs), (ms, plain_ms, bound, "B={},H={},P={},N={}".format(*full), dev_ms)
+
+
+def capture_decode_inputs(params, cfg, tokens, dev):
+    """The ``ssd_decode`` inputs of every layer of one real decode step
+    after a prefill of ``tokens``, in layer order."""
+    calls, orig = [], ops.ssd_decode
+
+    def spy(*args):
+        calls.append([a.clone() for a in args])
+        return orig(*args)
+
+    logits, caches = lm.prefill(params, tokens, cfg)
+    ops.ssd_decode = spy
+    try:
+        lm.decode_step(params, torch.argmax(logits, dim=-1), caches,
+                       torch.full((tokens.shape[0],), tokens.shape[1], device=dev), cfg)
+    finally:
+        ops.ssd_decode = orig
+    return calls
+
+
+def cpu_top2_gap(params, cfg, prompts, tokens, step, row):
+    """The CPU run's top-2 logit gap of sequence ``row`` at decode step
+    ``step``, replaying its greedy loop (``tokens`` are its own)."""
+    s = prompts.shape[1]
+    padded = np.pad(prompts, ((0, 0), (0, bucket_dim(s) - s)))
+    logits, caches = lm.prefill(params, torch.as_tensor(padded, dtype=torch.int64), cfg)
+    for i in range(step):
+        tok = torch.as_tensor(tokens[:, i], dtype=torch.int64)
+        logits, caches = lm.decode_step(params, tok, caches, torch.full((len(tok),), s + i), cfg)
+    top = torch.topk(logits[row].double(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_mamba2_serve(dev, gpu, profile=False):
+    """Mamba2-370M at full width and depth (48 layers, vocab 50280) through
+    ``Engine.generate`` on the card: B=4 prompts of 32 tokens, 16 new tokens,
+    768 decode-kernel launches; greedy tokens against a CPU run of the same
+    weights; the kernel against plain on inputs of layers 0 and 47 of a
+    real decode step. Returns (launches, max error, prefill and decode times)."""
+    cfg = configs.get("mamba2-370m")
+    (params, init_s) = timed(lambda: lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev))
+    leaves = [t for g in params["groups"] for t in g["pos0"]["ssm"].values()]
+    leaves += [g["pos0"]["ln1"] for g in params["groups"]] + list(params["embed"].values())
+    n_params = sum(t.numel() for t in leaves) + params["final_norm"].numel()
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_B, SERVE_PROMPT)).astype(np.int32)
+    eng = Engine(params, cfg, ServeConfig(max_new_tokens=SERVE_NEW), device=dev)
+    eng.generate(prompts)  # warm-up: library handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, wall = timed(lambda: eng.generate(prompts))  # the main path
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.n_layers * SERVE_NEW
+    check(launched["ssd_decode"] == want and sum(launched.values()) == want,
+          f"{launched} launches; want {want} ssd_decode launches and no other")
+    check(out.shape == (SERVE_B, SERVE_NEW) and bool(np.all((out >= 0) & (out < cfg.vocab))),
+          f"tokens of shape {out.shape} outside the vocabulary")
+
+    # Where the time goes: prefill alone, then one decode step at a time.
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    (logits, caches), prefill_s = timed(lambda: lm.prefill(params, toks, cfg))
+    tok, step_s = torch.argmax(logits, dim=-1), []
+    for i in range(SERVE_NEW):
+        (logits, caches), t = timed(lambda: lm.decode_step(
+            params, tok, caches, torch.full((SERVE_B,), SERVE_PROMPT + i, device=dev), cfg))
+        step_s.append(t)
+        tok = torch.argmax(logits, dim=-1)
+
+    # The same weights on the CPU, the plain route.
+    cpu_params = {"embed": {k: v.cpu() for k, v in params["embed"].items()},
+                  "final_norm": params["final_norm"].cpu(),
+                  "groups": [{"pos0": {"ln1": g["pos0"]["ln1"].cpu(),
+                                       "ssm": {k: v.cpu() for k, v in g["pos0"]["ssm"].items()}}}
+                             for g in params["groups"]]}
+    before = sd.LAUNCHES
+    cpu_out, cpu_s = timed(lambda: Engine(cpu_params, cfg, ServeConfig(max_new_tokens=SERVE_NEW),
+                                          device="cpu").generate(prompts))
+    check(sd.LAUNCHES == before, "the CPU route launched the kernel")
+    cpu_logits, _ = lm.prefill(cpu_params, toks.cpu(), cfg)
+    gpu_logits, _ = lm.prefill(params, toks, cfg)
+    logit_diff = (gpu_logits.cpu().double() - cpu_logits.double()).abs().max().item()
+    same_rows = 0
+    for r in range(SERVE_B):
+        if np.array_equal(out[r], cpu_out[r]):
+            same_rows += 1
+            continue
+        k = int(np.flatnonzero(out[r] != cpu_out[r])[0])
+        gap = cpu_top2_gap(cpu_params, cfg, prompts, cpu_out, k, r)
+        say("token_departure", row=r, step=k, card_token=int(out[r, k]),
+            cpu_token=int(cpu_out[r, k]), cpu_top2_gap=f"{gap:.3e}", allowed=GAP_TOL,
+            near_tie=gap <= GAP_TOL)
+        check(gap <= GAP_TOL, f"sequence {r} departs from the CPU run at step {k} beyond a near-tie")
+    say("mamba2_serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_ssm_heads, state=f"{cfg.ssm_headdim}x{cfg.ssm_state}", vocab=cfg.vocab,
+        params_m=f"{n_params / 1e6:.1f}", init_s=f"{init_s:.3f}", batch=SERVE_B,
+        prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, ssd_decode_launches=launched["ssd_decode"],
+        generate_s=f"{wall:.4f}", tok_per_s=f"{SERVE_B * SERVE_NEW / wall:.1f}",
+        prefill_s=f"{prefill_s:.4f}", decode_step_s=f"{np.mean(step_s):.5f}",
+        decode_step_s_min=f"{min(step_s):.5f}", peak_gb=f"{peak_gb:.3f}",
+        rows_equal_to_cpu=f"{same_rows}/{SERVE_B}", prefill_logits_max_abs_diff=f"{logit_diff:.3e}",
+        cpu_generate_s=f"{cpu_s:.3f}", sample=",".join(map(str, out[0][:8])), gpu=f"'{gpu}'")
+
+    if profile:  # where one generate's time goes, by device kernel
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+        with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall2 = timed(lambda: eng.generate(prompts))
+        rows = device_rows(prof)
+        busy_us = sum(r[0] for r in rows)
+        say("profile", run="mamba2_generate", wall_s=f"{wall2:.4f}",
+            device_busy_s=f"{busy_us / 1e6:.4f}", device_busy_share=f"{busy_us / 1e6 / wall2:.3f}",
+            device_kernels=sum(r[2] for r in rows), gpu=f"'{gpu}'")
+        say_rows("mamba2_generate", rows, busy_us)
+
+    # The decode kernel on the inputs of layers 0 and 47 of a real step.
+    calls = capture_decode_inputs(params, cfg, toks, dev)
+    check(len(calls) == cfg.n_layers, f"{len(calls)} decode-kernel calls in one step")
+    err = max(hold_ssd(f"layer{i}", calls[i]) for i in (0, cfg.n_layers - 1))
+    return launched["ssd_decode"], err, (prefill_s, float(np.mean(step_s)), wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -1084,6 +1459,14 @@ def main() -> int:
     err_kernel = phase_kernel(dev)
     phase_fit_small(dev)
     err_core, core = phase_fit_core(dev, gpu)
+    rate = copy_rate(dev)
+    say("copy_rate", bytes_per_s=f"{rate:.4e}", published_bytes_per_s=f"{HBM_BPS:.4e}",
+        gpu=f"'{gpu}'")
+    err_data, err_cov, cov_timing = phase_covupdate_kernel(dev, gpu, rate)
+    cov_launched, path_ex, path_ec = phase_covupdate_path(
+        dev, gpu, core["x"], core["hopper_fused"][0].order)
+    err_ssd, ssd_timing = phase_ssd_kernel(dev, gpu, rate)
+    ssd_launches, err_serve, _ = phase_mamba2_serve(dev, gpu, "--profile" in sys.argv[1:])
     err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
     launches_sq = phase_fit_hopper(dev, gpu, core)
     phase_causal_order_host(dev, gpu, core)
@@ -1129,6 +1512,18 @@ def main() -> int:
         "ms": sqb_ms, "plain_ms": sqb_plain, "bound_ms": sqb_bound, "bound_by": sqb_by,
         "library_ms": None, "wrapper_ms": sqb_wrapper, "bound_ms_padded_buffer": sqb_padded,
         "shape": sqb_shape, "gpu": gpu,
+    }] + [{
+        "name": name, "route": "cuda", "source": COV_SOURCE, "replaces": replaces,
+        "launches": cov_launched[name], "max_abs_err": err, "ms": cov_timing[name][0],
+        "plain_ms": cov_timing[name][1], "bound_ms": cov_timing[name][2], "bound_by": "bytes",
+        "library_ms": None, "device_ms": cov_timing[name][4], "shape": cov_timing[name][3],
+        "gpu": gpu,
+    } for name, replaces, err in (("update_data", DATA_REPLACES, max(err_data, path_ex)),
+                                  ("update_cov", COV_REPLACES, max(err_cov, path_ec)))] + [{
+        "name": "ssd_decode", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+        "launches": ssd_launches, "max_abs_err": max(err_ssd, err_serve), "ms": ssd_timing[0],
+        "plain_ms": ssd_timing[1], "bound_ms": ssd_timing[2], "bound_by": "bytes",
+        "library_ms": None, "device_ms": ssd_timing[4], "shape": ssd_timing[3], "gpu": gpu,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,7 +30,12 @@ Padding contracts (the batched seam, shared with the scan driver):
 
 Both functions take a leading dataset axis as well (``x: (B, p, n)``,
 ``order``/``mask: (B, p)``, ``n_valid: (B,)``); every reduction and every
-escalation of the jitter ladder is per dataset.
+escalation of the jitter ladder is per dataset. The Gram product and the
+Cholesky factorizations run one dataset at a time (:func:`_each`): on an
+H100 cuBLAS and cuSOLVER round a batch of 8 otherwise than a batch of 1, so
+a batched call would make a dataset's B and noise variances depend on the
+bucket it rides in (measured; the triangular solve was batch-invariant and
+stays batched).
 """
 
 from __future__ import annotations
@@ -63,6 +68,18 @@ def complete_order(order, mask):
     return torch.where(valid_pos, order, torch.take_along_dim(missing, take, dim=-1))
 
 
+def _each(fn, *ts):
+    """``fn`` applied to each matrix of a leading dataset axis, the results
+    stacked (tuples of results stacked field by field); a plain call
+    without one. Keeps every dataset's rounding independent of its batch."""
+    if ts[0].ndim == 2:
+        return fn(*ts)
+    outs = [fn(*args) for args in zip(*ts)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(field) for field in zip(*outs))
+    return torch.stack(outs)
+
+
 def _cholesky_ladder(corr, base):
     """Cholesky of ``corr`` + ridge, escalating the ridge 1e-10 -> 1e-6 ->
     1e-4 (times ``base``) only where the factorization failed. All three
@@ -76,10 +93,10 @@ def _cholesky_ladder(corr, base):
     def failed_of(chol, info):
         return per_dataset((info != 0) | torch.isnan(chol).any(dim=(-2, -1)), corr.ndim)
 
-    chol, info = torch.linalg.cholesky_ex(corr + (JITTER_SCALE * base) * eye)
+    chol, info = _each(torch.linalg.cholesky_ex, corr + (JITTER_SCALE * base) * eye)
     failed = failed_of(chol, info)
     for scale in (1e-6, 1e-4):
-        retry, rinfo = torch.linalg.cholesky_ex(corr + (scale * base) * eye)
+        retry, rinfo = _each(torch.linalg.cholesky_ex, corr + (scale * base) * eye)
         chol = torch.where(failed, retry, chol)
         failed = torch.where(failed, failed_of(retry, rinfo), failed)
     return chol
@@ -109,7 +126,7 @@ def adjacency_from_order(x, order, mask=None, n_valid=None,
     std = torch.sqrt(torch.clamp(var, min=VAR_EPS))  # dead rows -> sqrt(VAR_EPS)
     xs = xc / std[..., None]
     with full_precision_matmul():
-        corr = (xs @ xs.mT) / per_dataset(cov_den, x.ndim)
+        corr = _each(lambda m: m @ m.mT, xs) / per_dataset(cov_den, x.ndim)
 
     trace = torch.diagonal(corr, dim1=-2, dim2=-1).sum(dim=-1)
     if mask is None:

@@ -7,8 +7,10 @@ tensor it runs the kernel's plain torch version (the CPU tests' route).
 from __future__ import annotations
 
 from repro_torch.core.pairwise import pair_moments as _pair_moments
+from repro_torch.kernels import covupdate as _covupdate
 from repro_torch.kernels import fused_score as _fused
 from repro_torch.kernels import pairwise_score as _pairwise
+from repro_torch.kernels import ssd_decode as _ssd
 
 #: The score-backend enum. ``torch``/``torch_fused`` are the plain torch
 #: formulations (square HR sweep / fused triangular sweep); ``hopper``/
@@ -95,3 +97,22 @@ def pair_moments(xn, c_vals, xj, n_valid=None):
     This is the name reserved for a gather kernel, as in the JAX package; it
     is not on the scheduler's call path."""
     return _pair_moments(xn, c_vals, xj, n_valid=n_valid)
+
+
+def update_data(x, x_root, b):
+    """Fused Algorithm 7 rank-1 data refresh via the update_data kernel.
+    Plain version: ``covupdate.update_data_ref``; oracle:
+    ``ref.update_data_cov_ref``."""
+    return _covupdate.update_data(x, x_root, b)
+
+
+def update_cov(c, b):
+    """Fused Algorithm 8 covariance refresh via the update_cov kernel.
+    Plain version: ``covupdate.update_cov_ref``."""
+    return _covupdate.update_cov(c, b)
+
+
+def ssd_decode(state, x, dt, b, c, a, d):
+    """Mamba2 SSD decode-step state update via the ssd_decode kernel:
+    returns ``(y, new_state)``. Plain version: ``ssd_decode.ssd_decode_ref``."""
+    return _ssd.ssd_decode(state, x, dt, b, c, a, d)

@@ -1,7 +1,7 @@
-"""The LiNGAM serving stack of the port: bucketing, the continuous-batching
-core, the replicated dispatcher pool, and the sync and async engines over
-the batched estimator on the card. (The JAX package's LM engine,
-``serve/engine.py``, is not ported yet: ROADMAP.md queue 1 item 10.)"""
+"""The serving stack of the port: bucketing, the continuous-batching core,
+the replicated dispatcher pool, and the sync and async LiNGAM engines over
+the batched estimator on the card; and the LM engine (``engine.Engine``,
+prefill + decode, the SSM family so far)."""
 
 from repro_torch.serve.batching import (
     BatchingConfig,
@@ -26,6 +26,7 @@ from repro_torch.serve.lingam_engine import (
     dispatch_bucket,
 )
 from repro_torch.serve.async_engine import AsyncLingamEngine
+from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.replica import (
     ChaosDispatcher,
     HungDispatch,

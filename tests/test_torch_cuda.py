@@ -2,8 +2,10 @@
 the fused triangular score kernel through both entries, one dataset
 (``fused_score_vector``) and a bucket of datasets (``fused_score_batch``);
 the square moments kernel through ``pairwise_moments`` and
-``pairwise_moments_batch``; and one threshold ``fit`` against the dense
-order.
+``pairwise_moments_batch``; the rank-1 update kernels (``update_data``,
+``update_cov``); the SSD decode kernel (``ssd_decode``); one threshold
+``fit`` against the dense order; and one ``Engine.generate`` of a
+full-width Mamba2 mixer against the CPU route.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports neither JAX nor ``repro``, so it runs on a
@@ -11,7 +13,9 @@ machine with only torch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: ``fused_score.score_tolerance`` — float32 rounding of each
+Tolerance: the rank-1 update and decode kernels against their plain
+versions at rtol 1e-5 and atol 1e-5 (1e-6 on the covariance), as
+``tests/test_kernels.py`` holds the Pallas kernels; ``fused_score.score_tolerance`` — float32 rounding of each
 entropy carried through I and S = sum min(0, I)^2. The kernel and the plain
 version take the same float32 formulas and differ only in the order of the
 sums. The square kernel's raw sums are held to
@@ -28,8 +32,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import paralingam as tp  # noqa: E402
 from repro_torch.core import sem  # noqa: E402
 from repro_torch.core.covariance import cov_matrix, normalize  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.kernels import covupdate as cu  # noqa: E402
 from repro_torch.kernels import fused_score as fs  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pairwise_score as ps  # noqa: E402
+from repro_torch.kernels import ssd_decode as sd  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -219,10 +229,10 @@ def test_threshold_fit_matches_dense_order(cuda):
 
 
 def test_fit_batch_rows_do_not_depend_on_the_batch(cuda):
-    """Each dataset's order and threshold counters in a padded bucket equal
-    those of its own one-dataset ``fit_batch`` on the same padded inputs
-    (the correlations are one GEMM per dataset: a batched GEMM rounds by
-    batch count)."""
+    """Each dataset's order, threshold counters, B and noise variances in a
+    padded bucket equal, bit for bit, those of its own one-dataset
+    ``fit_batch`` on the same padded inputs (the correlations are one GEMM
+    per dataset: a batched GEMM rounds by batch count)."""
     rng = np.random.default_rng(21)
     shapes = [(24, 2000), (20, 1500), (22, 1800), (17, 2000)]
     xs = np.zeros((4, 24, 2048), np.float32)
@@ -238,5 +248,81 @@ def test_fit_batch_rows_do_not_depend_on_the_batch(cuda):
         for i in range(4):
             one = tp.fit_batch(xs[i:i + 1], cfg, n_valid=nv[i:i + 1], mask=mask[i:i + 1],
                                device=cuda)
-            for name in ("orders", "comparisons", "rounds", "converged"):
+            for name in ("orders", "comparisons", "rounds", "converged", "b", "noise_var"):
                 assert torch.equal(getattr(res, name)[i], getattr(one, name)[0]), (name, i)
+
+
+RTOL = ATOL = 1e-5
+COV_ATOL = 1e-6
+
+
+def _close(k, r, atol=ATOL):
+    return bool(torch.all((k.double() - r.double()).abs() <= atol + RTOL * r.double().abs()))
+
+
+@pytest.mark.parametrize("p,n", [(8, 512), (21, 1000), (64, 4096), (7, 130), (85, 10000)])
+def test_covupdate_kernels_match_plain(cuda, p, n):
+    xn, c = _setup(p, n, p, cuda)
+    b = c[:, 0].clone()
+    b[0] = 0.0
+    xr = xn[0].contiguous()
+    before = (cu.DATA_LAUNCHES, cu.COV_LAUNCHES)
+    kx, kc = ops.update_data(xn, xr, b), ops.update_cov(c, b)
+    torch.cuda.synchronize()
+    assert (cu.DATA_LAUNCHES, cu.COV_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _close(kx, cu.update_data_ref(xn, xr, b))
+    assert _close(kc, cu.update_cov_ref(c, b), COV_ATOL)
+    assert torch.equal(torch.diagonal(kc), torch.ones(p, device=cuda))
+
+
+def _ssd_args(b, h, p, n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, h, p, n)), rng.standard_normal((b, h, p)),
+              rng.uniform(0.01, 0.5, (b, h)), rng.standard_normal((b, n)),
+              rng.standard_normal((b, n)), -rng.uniform(0.5, 2.0, (h,)),
+              rng.standard_normal((h,))]
+    return [torch.as_tensor(a, dtype=torch.float32, device=device) for a in arrays]
+
+
+@pytest.mark.parametrize("b,h,p,n", [(2, 16, 16, 16), (4, 32, 64, 128), (1, 8, 32, 64),
+                                     (3, 12, 16, 32), (2, 5, 24, 40)])
+def test_ssd_decode_kernel_matches_plain(cuda, b, h, p, n):
+    """The CPU tests' cases and head counts that are not multiples of 8."""
+    args = _ssd_args(b, h, p, n, cuda, seed=b * 100 + h)
+    before = sd.LAUNCHES
+    y, s = ops.ssd_decode(*args)
+    torch.cuda.synchronize()
+    assert sd.LAUNCHES == before + 1
+    yr, sr = sd.ssd_decode_ref(*args)
+    assert _close(y, yr) and _close(s, sr)
+
+
+def test_ssd_decode_rows_do_not_depend_on_the_batch(cuda):
+    """Row b of a launch is bit-identical to a one-row launch of row b, and
+    the input state is left as it was."""
+    args = _ssd_args(4, 32, 64, 128, cuda, seed=3)
+    keep = args[0].clone()
+    y, s = sd.ssd_decode(*args)
+    assert torch.equal(args[0], keep)
+    for b in range(4):
+        y1, s1 = sd.ssd_decode(*[t[b:b + 1].contiguous() for t in args[:5]], *args[5:])
+        assert torch.equal(y1[0], y[b]) and torch.equal(s1[0], s[b])
+
+
+def test_engine_full_width_mixer_matches_cpu(cuda):
+    """Greedy ``Engine.generate`` of a full-width Mamba2 mixer (1 layer,
+    vocab 512) on the card equals the CPU route on the same weights, with
+    one decode-kernel launch per layer and decode step."""
+    cfg = configs.get("mamba2-370m").with_overrides(n_layers=1, vocab=512)
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    cpu = {"embed": {k: v.cpu() for k, v in params["embed"].items()},
+           "final_norm": params["final_norm"].cpu(),
+           "groups": [{"pos0": {"ln1": g["pos0"]["ln1"].cpu(),
+                                "ssm": {k: v.cpu() for k, v in g["pos0"]["ssm"].items()}}}
+                      for g in params["groups"]]}
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    before = sd.LAUNCHES
+    got = Engine(params, cfg, ServeConfig(max_new_tokens=8), device=cuda).generate(prompts)
+    assert sd.LAUNCHES == before + 8 * cfg.n_layers
+    want = Engine(cpu, cfg, ServeConfig(max_new_tokens=8), device="cpu").generate(prompts)
+    np.testing.assert_array_equal(got, want)

@@ -189,7 +189,9 @@ def test_fit_without_device_needs_cuda(monkeypatch):
 
 def test_import_loads_no_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
-            "repro_torch.kernels._build, repro_torch.serve, repro_torch.utils.clock\n"
+            "repro_torch.kernels._build, repro_torch.serve, repro_torch.utils.clock, "
+            "repro_torch.kernels.ref, repro_torch.models.lm, repro_torch.models.convert, "
+            "repro_torch.launch.serve, repro_torch.configs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'repro')]\n"
             "print(bad)\n"
