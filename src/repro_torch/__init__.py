@@ -23,6 +23,8 @@ from repro_torch.core.paralingam import (
     fit,
     fit_batch,
 )
+from repro_torch.serve.async_engine import AsyncLingamEngine
 
-__all__ = ["BatchFitResult", "ParaLiNGAMConfig", "ParaLiNGAMResult",
-           "__version__", "causal_order_batch", "fit", "fit_batch"]
+__all__ = ["AsyncLingamEngine", "BatchFitResult", "ParaLiNGAMConfig",
+           "ParaLiNGAMResult", "__version__", "causal_order_batch", "fit",
+           "fit_batch"]

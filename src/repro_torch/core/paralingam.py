@@ -816,7 +816,7 @@ class BatchFitResult:
     threshold convergence (``all`` for the dataset verdict; the dense scan
     always converges). ``b``/``noise_var`` are None for order-only runs."""
 
-    orders: torch.Tensor  # (B, p) int64
+    orders: torch.Tensor  # (B, p) int32, as in repro
     comparisons: torch.Tensor  # (B, p) int64
     rounds: torch.Tensor  # (B, p) int32
     converged: torch.Tensor  # (B, p) bool
@@ -848,8 +848,8 @@ def _run_batch(xs, config, n_valid, mask, device, caller: str, *,
     order, comps, rounds, conv, b, omega = _pipeline(
         xs, cfg, backend, adjacency=adjacency, n_valid=nv, mask0=mk,
         prune_below=prune_below)
-    return BatchFitResult(orders=order, comparisons=comps, rounds=rounds,
-                          converged=conv, b=b, noise_var=omega)
+    return BatchFitResult(orders=order.to(torch.int32), comparisons=comps,
+                          rounds=rounds, converged=conv, b=b, noise_var=omega)
 
 
 def fit_batch(xs, config: ParaLiNGAMConfig | None = None, *, n_valid=None,

@@ -3,25 +3,30 @@
 Replaces the TPU kernel ``_fused_tri_kernel`` of
 ``src/repro/kernels/fused_score.py`` through both of its entries:
 ``fused_score_vector`` (one dataset) and ``fused_score_batch`` (a bucket of
-datasets on a (B, T) grid, one valid sample count per dataset). The
-kernel, ``csrc/fused_score.cu``, visits every unordered off-diagonal pair of
-row blocks once, streams the samples through shared memory, keeps the four
+datasets, one valid sample count per dataset), and the jnp prologue its
+wrapper runs (row entropies, diagonal tiles). The CUDA source,
+``csrc/fused_score.cu``, runs three kernels from one call: the row
+entropies; the sweep, which visits every pair of row blocks (i <= j) once,
+streams each dataset's valid samples through shared memory, keeps the four
 raw moment sums per row pair in registers, finalizes the entropies, the
 antisymmetric stat and the messaging credits in the block, and writes
-per-tile partial scores; a second kernel adds each row's partials in
-ascending tile order (no atomics, so the f32 sum order is fixed).
+per-tile partial scores; and an ordered reduce that adds each row's partials
+(its diagonal tile's, then the others in ascending row-block order; no
+atomics, so the f32 sum order is fixed).
 
-Bound on the card: about three transcendentals (exp, log1p, exp) per
-element of the (b, b, n) pair-sample cube per direction, so the sweep is
-bound by the special-function units and the FP32 pipes, not by memory (it
-reads each sample block a handful of times). The design keeps sample loads
-in shared memory and the sums in registers, and widens the thread block when
-the tile count is small so the late, small stages still fill the SMs.
+Bound on the card: three transcendentals (exp, log1p, exp) per direction for
+every (pair, sample), two libdevice ``expf`` and a polynomial ``log1p``: 64
+FP32 instructions (of 83 in all) and 4 MUFU per (pair, sample), so the sweep
+is bound by the FP32 pipe, then by the special-function units, not by
+memory. The sweep skips what no score needs: each dataset's sample loop
+stops at its own valid count, and a tile with no live pair returns before it
+stages a sample.
 
-The diagonal tiles and the row entropies stay torch ops
-(``core.pairwise.fused_layout``), as the JAX wrapper leaves them to jnp.
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+The wrapper checks its inputs, turns the valid counts into a (B,) int32
+device tensor and makes one ctypes call: the kernels read the caller's
+``xn``, ``c`` and ``mask`` as they are. ``core.pairwise.fused_layout`` is
+only the plain version's prologue. On a CPU tensor the wrapper runs the plain
+version; on a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -32,8 +37,7 @@ import threading
 
 import torch
 
-from repro_torch.core.covariance import _sample_count
-from repro_torch.core.pairwise import fused_layout, fused_scores
+from repro_torch.core.pairwise import fused_scores
 
 #: Kernel launches since the last reset, one per call on the card:
 #: ``LAUNCHES`` of ``fused_score_vector``, ``BATCH_LAUNCHES`` of
@@ -43,9 +47,12 @@ BATCH_LAUNCHES = 0
 _count_mu = threading.Lock()
 
 _MAX_BLOCK = 32  # b * b pairs must fit one thread block
-#: Samples per chunk staged in shared memory: 2 * 32 * 513 floats at the
-#: largest block, well inside the card's 227 KiB per thread block.
+#: Samples per summation chunk, counted from sample 0 (``kBlockN`` of the
+#: CUDA source): each thread adds its samples of a chunk, then the chunk sum.
 BLOCK_N = 512
+#: Shared row stride in floats of the CUDA source's staging buffers
+#: (``kLd``: 128 staged samples and 4 of padding; two buffers of 2 b rows).
+STAGE_LD = 132
 _FILL_THREADS = 132 * 2048  # resident threads of a full H100
 
 
@@ -116,12 +123,14 @@ def _check(xn, c, mask, block: int, batched: bool = False):
         raise ValueError(f"need 1 <= block <= {_MAX_BLOCK}, got block={block}")
 
 
-def _valid_count(n_valid, n: int, device):
-    """The finalize denominators on the card as float32 (one per dataset),
-    or ``None`` when every sample is valid (the kernel divides by n)."""
+def _valid_counts(n_valid, bsz: int, device):
+    """The valid sample counts on the card as a (B,) int32 tensor, or
+    ``None`` when every sample is valid (the kernels use n). A device tensor
+    is cast on the device: no host synchronization."""
     if n_valid is None:
         return None
-    return _sample_count(n_valid, n).reshape(-1).to(device)
+    nv = torch.as_tensor(n_valid, device=device).reshape(-1)
+    return nv.to(torch.int32).expand(bsz).contiguous()
 
 
 def _lanes(b: int, tiles: int) -> int:
@@ -134,46 +143,58 @@ def _lanes(b: int, tiles: int) -> int:
     return lanes
 
 
+def _smem_bytes(b: int, lanes: int) -> int:
+    """Dynamic shared memory of the tile kernel: the two staging buffers,
+    or the lane reduction's sums and credits, whichever is larger."""
+    return 4 * max(2 * 2 * b * STAGE_LD, 4 * b * b * lanes + 2 * b * b)
+
+
 def fused_score_vector(xn, c, mask, *, block: int = 8, n_valid=None):
     """Messaging-folded score vector S via the fused triangular kernel.
 
     ``xn: (p, n)`` normalized rows, ``c: (p, p)`` correlations, both float32
     and contiguous, ``mask: (p,)`` bool live rows. Returns (p,) float32
     scores (+inf on dead rows). ``n_valid`` is the valid sample count of
-    zero-padded data; it only changes the finalize denominator."""
+    zero-padded data: the kernels stop there, so the scores are those of
+    the unpadded data, bit for bit."""
     _check(xn, c, mask, block)
     if xn.device.type == "cpu":
         return fused_score_vector_ref(xn, c, mask, block=block, n_valid=n_valid)
     if xn.device.type != "cuda":
         raise ValueError(f"fused_score_vector runs on cuda or cpu, not {xn.device}")
-    _, _, _, hxb, mb, s_diag = fused_layout(xn, c, mask, block, n_valid=n_valid)
-    return launch(xn, c, hxb, mb, s_diag, _valid_count(n_valid, xn.shape[1], xn.device))
+    return launch(xn, c, mask, _valid_counts(n_valid, 1, xn.device), block=block)
 
 
 def fused_score_batch(xb, cb, maskb, *, block: int = 8, n_valid=None):
-    """Score vectors of a bucket of datasets in one launch of the fused
-    triangular kernel, on a (B, T) grid.
+    """Score vectors of a bucket of datasets in one call of the fused
+    triangular kernels, on a (T, B) grid.
 
     ``xb: (B, p, n)`` normalized rows, ``cb: (B, p, p)`` correlations, both
     float32 and contiguous, ``maskb: (B, p)`` bool live rows, ``n_valid``
     ``None`` or (B,) valid sample counts of zero-padded datasets. Returns
-    (B, p) float32 scores (+inf on dead rows). Row i is bit-identical to a
-    one-dataset launch on dataset i's prologue inputs: the thread layout is
-    chosen from the per-dataset tile count, never from B."""
+    (B, p) float32 scores (+inf on dead rows). Row i is bit-identical to
+    ``fused_score_vector`` on dataset i: the thread layout is chosen from the
+    per-dataset tile count, never from B or n."""
     _check(xb, cb, maskb, block, batched=True)
     if xb.device.type == "cpu":
         return fused_score_batch_ref(xb, cb, maskb, block=block, n_valid=n_valid)
     if xb.device.type != "cuda":
         raise ValueError(f"fused_score_batch runs on cuda or cpu, not {xb.device}")
-    _, _, _, hxb, mb, s_diag = fused_layout(xb, cb, maskb, block, n_valid=n_valid)
-    return launch_batch(xb, cb, hxb, mb, s_diag,
-                        _valid_count(n_valid, xb.shape[2], xb.device))
+    return launch_batch(xb, cb, maskb, _valid_counts(n_valid, xb.shape[0], xb.device),
+                        block=block)
+
+
+def tile_maps(nt: int) -> torch.Tensor:
+    """(2, T) int32 row-block pairs (i, j), i <= j, of the sweep's grid, with
+    T = nt (nt + 1) / 2, in row-major order: row block i's diagonal tile,
+    then its tiles with j > i. Tile t writes row block i's partial scores to
+    slot (i, j) and, off the diagonal, row block j's to slot (j, i)."""
+    return torch.triu_indices(nt, nt, 0, dtype=torch.int32)
 
 
 @functools.cache
-def _tile_maps(nt: int, device):
-    """(2, T) row-major (i < j) row-block pairs, made once per (nt, device)."""
-    return torch.triu_indices(nt, nt, 1, device=device)
+def _device_tile_maps(nt: int, device):
+    return tile_maps(nt).to(device)
 
 
 @functools.cache
@@ -181,50 +202,65 @@ def _entry():
     from repro_torch.kernels import _build
 
     fn = _build.load("fused_score").fused_score_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(xb, c, hxb, mb, s_diag, den):
-    """Both CUDA kernels (tiles, then the ordered per-row reduce) over a
-    (B, p, n) bucket; returns (B, p) scores."""
+def _launch(xb, cb, mb, nv, block: int):
+    """The three CUDA kernels over a (B, p, n) bucket; returns (B, p) scores."""
     bsz, p, n = xb.shape
-    nt, b = mb.shape[-2:]
-    tiles = nt * (nt - 1) // 2
-    lanes = _lanes(b, tiles)  # per-dataset tiles: independent of B
-    smem = 4 * max(2 * b * (BLOCK_N + 1), 4 * b * b * lanes + 2 * b * b)
-    ij = _tile_maps(nt, xb.device)
-    partial = torch.empty((bsz, tiles, 2, b), dtype=torch.float32, device=xb.device)
+    b = min(block, p)
+    nt = -(-p // b)
+    lanes = _lanes(b, nt * (nt - 1) // 2)  # per-dataset tiles: independent of B
+    ij = _device_tile_maps(nt, xb.device)
+    scratch = torch.empty(bsz * (p + nt * nt * b), dtype=torch.float32, device=xb.device)
     out = torch.empty((bsz, p), dtype=torch.float32, device=xb.device)
     rc = _entry()(
-        xb.data_ptr(), c.data_ptr(), hxb.data_ptr(), mb.data_ptr(),
-        s_diag.data_ptr(), None if den is None else den.data_ptr(),
-        ij[0].data_ptr(), ij[1].data_ptr(), partial.data_ptr(), out.data_ptr(),
-        bsz, p, n, nt * b, b, nt, BLOCK_N, lanes, smem,
+        xb.data_ptr(), cb.data_ptr(), mb.data_ptr(), None if nv is None else nv.data_ptr(),
+        ij[0].data_ptr(), ij[1].data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        bsz, p, n, b, nt, lanes, _smem_bytes(b, lanes),
         torch.cuda.current_stream(xb.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_score kernel launch failed with CUDA error {rc}")
     return out
 
 
-def launch(xn, c, hxb, mb, s_diag, den=None):
-    """The kernels for one dataset, on inputs the prologue has prepared:
-    ``hxb``, ``mb``, ``s_diag`` (nt, b) from ``fused_layout`` and ``den``
-    (1,) the valid count on the card, or ``None`` for all n samples."""
+def launch(xn, c, mask, nv=None, *, block: int = 8):
+    """The kernels for one dataset, on checked inputs: ``nv`` (1,) int32 the
+    valid count on the card, or ``None`` for all n samples."""
     global LAUNCHES
-    out = _launch(xn[None], c, hxb, mb, s_diag, den)[0]
+    out = _launch(xn[None], c[None], mask[None], nv, block)[0]
     with _count_mu:
         LAUNCHES += 1
     return out
 
 
-def launch_batch(xb, cb, hxb, mb, s_diag, den=None):
-    """The kernels for a bucket, on the batched prologue's inputs: ``hxb``,
-    ``mb``, ``s_diag`` (B, nt, b) and ``den`` (B,) valid counts on the card,
-    or ``None`` for all n samples of every dataset."""
+def launch_batch(xb, cb, maskb, nv=None, *, block: int = 8):
+    """The kernels for a bucket, on checked inputs: ``nv`` (B,) int32 valid
+    counts on the card, or ``None`` for all n samples of every dataset."""
     global BATCH_LAUNCHES
-    out = _launch(xb, cb, hxb, mb, s_diag, den)
+    out = _launch(xb, cb, maskb, nv, block)
     with _count_mu:
         BATCH_LAUNCHES += 1
+    return out
+
+
+def math_probe(u):
+    """The sweep's device functions on the card at float32 points ``u``
+    (CUDA, contiguous): a (4, numel) tensor of exp(-2|u|), ``log1p_unit``
+    of it, log cosh u and u exp(-u^2/2), to be measured against float64.
+    Not a launch of the sweep: uncounted."""
+    if u.device.type != "cuda" or u.dtype != torch.float32 or not u.is_contiguous():
+        raise ValueError("math_probe takes a contiguous float32 CUDA tensor")
+    from repro_torch.kernels import _build
+
+    fn = _build.load("fused_score").fused_math_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((4, u.numel()), dtype=torch.float32, device=u.device)
+    rc = fn(u.data_ptr(), out.data_ptr(), u.numel(),
+            torch.cuda.current_stream(u.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_math_probe launch failed with CUDA error {rc}")
     return out

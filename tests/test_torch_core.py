@@ -481,3 +481,49 @@ def test_copied_numpy_modules_agree():
     bad[4] = bad[1]
     assert (dataclasses.asdict(t_val.validate_dataset(bad))
             == dataclasses.asdict(j_val.validate_dataset(bad)))
+
+
+# ---------------------------------------------------------------------------
+# public surface
+# ---------------------------------------------------------------------------
+
+
+def _public_imports(path):
+    """Names a package ``__init__`` binds by import, leading underscore aside."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return sorted(alias.asname or alias.name for node in tree.body
+                  if isinstance(node, ast.ImportFrom) for alias in node.names
+                  if not (alias.asname or alias.name).startswith("_"))
+
+
+def test_public_surface_matches_reference():
+    """Every name of ``repro.__all__`` and every public name that
+    ``repro/core/__init__.py`` imports exists in the port, and the batched
+    orders have the reference's dtype."""
+    import repro
+    import repro.core
+    import repro_torch
+    import repro_torch.core
+
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    core_names = _public_imports(os.path.join(src, "repro", "core", "__init__.py"))
+    assert {"cov_matrix", "validate_dataset", "pairwise", "sem"} <= set(core_names)
+    assert [n for n in repro.__all__ if not hasattr(repro_torch, n)] == []
+    assert [n for n in core_names if not hasattr(repro_torch.core, n)] == []
+    assert set(core_names) <= set(repro_torch.core.__all__)
+    import types
+
+    for n in core_names:  # a module stays a module, a class a class
+        t, j = getattr(repro_torch.core, n), getattr(repro.core, n)
+        for kind in (types.ModuleType, type):
+            assert isinstance(t, kind) == isinstance(j, kind), n
+        assert callable(t) == callable(j), n
+
+    x = np.random.default_rng(5).standard_normal((2, 5, 300)).astype(np.float32)
+    got = repro_torch.fit_batch(x, device="cpu").orders
+    want = repro.fit_batch(jnp.asarray(x)).orders
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+    assert got.tolist() == np.asarray(want).tolist()

@@ -32,7 +32,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import paralingam as tp  # noqa: E402
 from repro_torch.core import sem  # noqa: E402
 from repro_torch.core.covariance import cov_matrix, normalize  # noqa: E402
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, measure  # noqa: E402
 from repro_torch.kernels import covupdate as cu  # noqa: E402
 from repro_torch.kernels import fused_score as fs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -85,18 +85,20 @@ def test_kernel_matches_plain(cuda, p, n, block):
 
 
 def test_kernel_n_valid_padding(cuda):
-    """Zero-padded sample columns add exactly 0 to the kernel's raw sums and
-    only the divide uses the valid count. The torch prologue (row entropies,
-    diagonal tiles) reduces 700 and 1024 columns in different orders, so the
-    scores agree to float32 rounding, not bit for bit."""
-    p, n, n_pad = 21, 700, 1024
-    xn, c = _setup(p, n, 9, cuda)
-    xp = torch.zeros((p, n_pad), device=cuda)
-    xp[:, :n] = xn
-    mask = torch.ones(p, dtype=torch.bool, device=cuda)
-    s_exact = fs.fused_score_vector(xn, c, mask)
-    s_pad = fs.fused_score_vector(xp, c, mask, n_valid=torch.tensor(n, device=cuda))
-    assert torch.all((s_pad - s_exact).abs() <= fs.score_tolerance(s_exact, xn, c, mask))
+    """Zero-padded sample columns with ``n_valid`` give the bits of the
+    unpadded launch: the kernels stop at the valid count, and the chunk
+    boundaries and lane stride depend on neither n nor B. n=700 rows are
+    16-byte aligned, n=1901 rows are not (4-byte staging)."""
+    for p, n, n_pad in ((21, 700, 1024), (19, 1901, 2048)):
+        xn, c = _setup(p, n, 9, cuda)
+        xp = torch.zeros((p, n_pad), device=cuda)
+        xp[:, :n] = xn
+        mask = torch.arange(p, device=cuda) % 7 != 3
+        s_exact = fs.fused_score_vector(xn, c, mask)
+        s_pad = fs.fused_score_vector(xp, c, mask, n_valid=torch.tensor(n, device=cuda))
+        assert torch.equal(s_pad, s_exact)
+        assert torch.all(torch.isinf(s_exact[~mask]))
+        assert torch.all(torch.isfinite(s_exact[mask]))
 
 
 def test_kernel_is_deterministic(cuda):
@@ -142,17 +144,54 @@ def test_batch_kernel_matches_plain(cuda):
 
 def test_batch_row_is_batch_size_invariant(cuda):
     """Row i of a batched launch is bit-identical to a launch of dataset i
-    alone on the same prologue inputs, whatever the batch size."""
+    alone on the same inputs, whatever the batch size."""
     xb, cb, mb, nv = _bucket([(24, 640)] * 6, 640, 7, cuda)
-    _, _, _, hxb, mbb, s_diag = fs.fused_layout(xb, cb, mb, 8, n_valid=nv)
-    den = nv.float()
-    full = fs.launch_batch(xb, cb, hxb, mbb, s_diag, den)
-    half = fs.launch_batch(xb[:3].contiguous(), cb[:3].contiguous(), hxb[:3].contiguous(),
-                           mbb[:3].contiguous(), s_diag[:3].contiguous(), den[:3].contiguous())
+    full = fs.launch_batch(xb, cb, mb, nv)
+    half = fs.launch_batch(xb[:3].contiguous(), cb[:3].contiguous(), mb[:3].contiguous(),
+                           nv[:3].contiguous())
     assert torch.equal(full[:3], half)
     for i in range(xb.shape[0]):
-        one = fs.launch(xb[i], cb[i], hxb[i], mbb[i], s_diag[i], den[i:i + 1])
+        one = fs.launch(xb[i], cb[i], mb[i], nv[i:i + 1])
         assert torch.equal(full[i], one)
+
+
+def test_batch_row_equals_vector_wrapper(cuda):
+    """With the prologue folded into the kernels, row i of
+    ``fused_score_batch`` on a ragged bucket is bit-identical to
+    ``fused_score_vector`` on dataset i with its valid count, and to the
+    vector wrapper on dataset i cut to its live rows and valid samples (the
+    cut has fewer row blocks, but the same lane count at these sizes)."""
+    shapes = [(37, 1300), (29, 901), (40, 1536), (8, 700)]
+    xb, cb, mb, nv = _bucket(shapes, 1536, 13, cuda)
+    s_b = fs.fused_score_batch(xb, cb, mb, n_valid=nv)
+    for i, (p, n) in enumerate(shapes):
+        nt, nt_cut = 5, -(-p // 8)
+        assert fs._lanes(8, nt * (nt - 1) // 2) == fs._lanes(8, nt_cut * (nt_cut - 1) // 2)
+        s_v = fs.fused_score_vector(xb[i], cb[i], mb[i], n_valid=nv[i])
+        assert torch.equal(s_b[i], s_v)
+        cut = fs.fused_score_vector(xb[i, :p, :n].contiguous(), cb[i, :p, :p].contiguous(),
+                                    mb[i, :p].contiguous())
+        assert torch.equal(s_b[i, :p], cut)
+
+
+def test_dead_launch_returns_inf_and_stages_nothing(cuda):
+    """A launch whose datasets are all dead returns +inf everywhere, and
+    every tile returns before it stages a sample: NaN data, NaN
+    correlations and a valid count past the buffer are never read."""
+    xb = torch.full((3, 40, 1024), torch.nan, device=cuda)
+    cb = torch.full((3, 40, 40), torch.nan, device=cuda)
+    mb = torch.zeros((3, 40), dtype=torch.bool, device=cuda)
+    assert int(measure.live_tiles(mb, 8).sum()) == 0
+    assert measure.sweep_chunks(mb, None, 1024, 8)[0] == 0
+    s = fs.fused_score_batch(xb, cb, mb, n_valid=torch.full((3,), 4096, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(s, torch.full_like(s, torch.inf))
+    # One live row per dataset: no live pair, so no tile sweeps; its score is 0.
+    mb[:, 5] = True
+    xb[:, 5] = 0.0
+    s = fs.fused_score_batch(xb, cb, mb)
+    assert torch.equal(s[:, 5], torch.zeros(3, device=cuda))
+    assert torch.all(torch.isinf(s[~mb]))
 
 
 def test_batch_kernel_is_deterministic(cuda):
