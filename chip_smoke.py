@@ -9,8 +9,10 @@ Phases, each printed on its own line:
    hand-written kernel from the sources in ``src/repro_torch/kernels/csrc``;
    ``[fused_sass]``: the SASS instruction, FP32 and MUFU counts per element
    of the fused sweep's sample loops (``cuobjdump -sass`` of the built
-   library); the FP32 and MUFU counts set the operation side of its bounds;
-   ``[fused_math_probe]``: the
+   library); the FP32 and MUFU counts set the operation side of its bounds,
+   and of the square kernel's (half of them per ordered pair);
+   ``[pairwise_sass]``: the same counts of the square kernel's own sample
+   loop (a diagnostic; it sets no bound); ``[fused_math_probe]``: the
    sample loop's device functions against float64 on 2,000,001 points
    (``expf`` and the polynomial ``log1p_unit`` within 2 ulp).
 2. Kernel against plain, on the card: the fused triangular score kernel
@@ -49,12 +51,18 @@ Phases, each printed on its own line:
    ``auto_downgrade`` are 0; requests/s, seconds per dispatch, and one
    ``fit`` per request for comparison are printed.
 8. The square moments kernel (``pairwise_moments``, ``score_backend=
-   "hopper"``) against its plain version: ragged p=13/n=700, a non-square
-   block, the E. coli fit's first stage (m=128, n=10000), Gaussian m=512
-   n=2000, off-diagonal live sums within ``pairwise_score.sum_tolerance``
-   and entropies within 1e-5; zero-padding of n bit-exact; row b of a B=8
-   launch at the (128, 16384) bucket bit-identical to a one-dataset launch;
-   times per launch.
+   "hopper"``) against its plain version, called as the pipeline calls it
+   (live-row masks, valid counts; dead rows 0, samples past the valid count
+   0): ragged p=13/n=700, a non-square block, masked p=37 with n_valid on a
+   padded buffer, a masked non-square block, the E. coli fit's first stage
+   (m=128, n=10000, the fit's mask), Gaussian m=512 n=2000; live
+   off-diagonal sums within ``pairwise_score.sum_tolerance``, dead pairs
+   exactly 0, entropies within 1e-5; zero-padding of n bit-exact, and a
+   padded launch with ``n_valid`` (zeros or NaN past it) bit-identical to
+   the unpadded launch; row b of a masked B=8 launch at the (128, 16384)
+   bucket bit-identical to a one-dataset launch; times per launch (masked,
+   unmasked, a no-math build) against the live work's bound, the padded
+   buffer's beside it, with the lane count and resident blocks per SM.
 9. ``fit(score_backend="hopper")`` at the E. coli core size (84 launches,
    the orders of ``hopper_fused`` and ``torch``), the host driver
    ``causal_order`` with both kernels (the order of ``fit``), and
@@ -75,8 +83,12 @@ Phases, each printed on its own line:
     step held against the plain versions on the same inputs. (Run right
     after phase 3, whose order they take.)
 12. The SSD decode kernel against its plain version at Mamba2-370M's decode
-    shape (B=4, H=32, P=64, N=128) and at ragged head counts, row b of a
-    B=4 launch bit-identical to a one-row launch, with times; then
+    shape (B=4, H=32, P=64, N=128) and at ragged head counts, P not a
+    multiple of the P-slice and N not a multiple of 4, new state bit-equal;
+    row b of a B=4 launch bit-identical to a one-row launch (also at N=37,
+    whose row views are not 16-byte aligned), a launch on inputs at a 4-byte
+    offset (the scalar path) bit-identical to the aligned one, with times
+    (kernel, wrapper, device); then
     Mamba2-370M at full width and depth (48 layers, vocab 50280, ~420M
     float32 weights from a seeded generator) through ``Engine.generate``:
     4 prompts of 32 tokens, 16 new tokens, 768 decode-kernel launches,
@@ -290,8 +302,10 @@ def phase_sass():
     library: the tile loop per (unordered pair, sample), both directions
     (4 libdevice ``expf`` = 4 MUFU.EX2 each), and the row-entropy loop per
     sample (2 EX2). Their FP32 arithmetic and MUFU counts set the operation
-    side of the kernels' bounds; loads, integer address arithmetic, moves
-    and loop control are printed, not counted."""
+    side of the kernels' bounds (the square kernel's too, at half the tile
+    loop's per ordered pair); loads, integer address arithmetic, moves and
+    loop control are printed, not counted. Then the square kernel's own
+    loop, per (ordered pair, sample)."""
     sass = measure.dump(_build.library_path("fused_score"))
     for key, kernel, ex2 in (("tiles", "fused_tri_tiles", 4), ("rows", "row_entropies", 2)):
         got = measure.sample_loop(sass, kernel, ex2)
@@ -300,6 +314,16 @@ def phase_sass():
         say("fused_sass", kernel=kernel, instructions_per_element=f"{got.instructions:g}",
             fp32_per_element=f"{got.fp32:g}", mufu_per_element=f"{got.mufu:g}",
             loop_instructions=len(got.loop.ops), ops=hist)
+    # The square kernel's sample loop per (ordered pair, sample): one
+    # direction of the fused loop's math (2 EX2). Printed, not counted.
+    got = measure.sample_loop(measure.dump(_build.library_path("pairwise_moments")),
+                              "pairwise_moments_tiles", 2)
+    hist = ",".join(f"{k}:{v}" for k, v in got.loop.histogram().most_common())
+    tf, tm = SWEEP_SASS["tiles"]
+    say("pairwise_sass", kernel="pairwise_moments_tiles",
+        instructions_per_element=f"{got.instructions:g}", fp32_per_element=f"{got.fp32:g}",
+        mufu_per_element=f"{got.mufu:g}", loop_instructions=len(got.loop.ops), ops=hist,
+        fused_fp32_per_direction=f"{tf / 2:g}", fused_mufu_per_direction=f"{tm / 2:g}")
 
 
 def sweep_bound_ms(pair_samples: float, row_samples: float, bytes_moved: float):
@@ -313,40 +337,46 @@ def sweep_bound_ms(pair_samples: float, row_samples: float, bytes_moved: float):
     return max(t_bytes, t_fp32, t_sfu), t_bytes, t_fp32, t_sfu
 
 
-# The sample loop's share of the sweep, measured: a build of the fused source
-# whose log cosh and u exp(-u^2/2) return their argument, written into the
-# git-ignored build directory by text substitution (the kernel's source has
-# no such variant). What it leaves is the staging, residuals, sums and reduce.
+# The sample loop's share of a kernel's time, measured: a build of a kernel
+# source whose log cosh and u exp(-u^2/2) return their argument, with a copy
+# of the shared header edited by text substitution, both written into the
+# git-ignored build directory (the sources have no such variant). What it
+# leaves is the staging, residuals, sums and reduce.
 NO_MATH = (("  return a + log1p_unit(expf(-2.f * a)) - kLn2;", "  return u;"),
            ("  return u * expf(-0.5f * (u * u));", "  return u;"))
+MATH_HEADER = "lingam_math.cuh"
 
 
 @functools.cache
-def no_math_entry():
-    src = (_build.CSRC / "fused_score.cu").read_text()
+def no_math_library(name: str):
+    """The no-math build of ``csrc/<name>.cu``, loaded."""
+    header = (_build.CSRC / MATH_HEADER).read_text()
     for old, new in NO_MATH:
-        check(old in src, f"no-math build: {old!r} is not in the source")
-        src = src.replace(old, new)
-    cu_path = _build.BUILD_DIR / "fused_score_no_math.cu"
-    lib = _build.BUILD_DIR / "libfused_score_no_math.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu_path.write_text(src)
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu_path)],
+        check(old in header, f"no-math build: {old!r} is not in {MATH_HEADER}")
+        header = header.replace(old, new)
+    out = _build.BUILD_DIR / "no_math"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / MATH_HEADER).write_text(header)  # found first: beside the source
+    (out / f"{name}.cu").write_text((_build.CSRC / f"{name}.cu").read_text())
+    lib = out / f"lib{name}_no_math.so"
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out / f"{name}.cu")],
                    check=True, capture_output=True, timeout=300)
-    fn = ctypes.CDLL(str(lib)).fused_score_launch
-    fn.argtypes, fn.restype = fs._entry().argtypes, ctypes.c_int
-    return fn
+    return ctypes.CDLL(str(lib))
 
 
-def no_math_ms(fn, reps: int) -> float:
-    """``fn``'s time per call with the no-math build in place of the
-    kernels' library (its scores are not read)."""
-    bare, entry = no_math_entry(), fs._entry
-    fs._entry = lambda: bare
+def no_math_ms(fn, reps: int, module=fs) -> float:
+    """``fn``'s time per call with the no-math build of ``module``'s kernel
+    library in place of the real one (its results are not read)."""
+    name, symbol = {fs: ("fused_score", "fused_score_launch"),
+                    ps: ("pairwise_moments", "pairwise_moments_launch")}[module]
+    real = module._entry
+    bare = getattr(no_math_library(name), symbol)
+    bare.argtypes, bare.restype = real().argtypes, ctypes.c_int
+    module._entry = lambda: bare
     try:
         return time_ms(fn, reps)
     finally:
-        fs._entry = entry
+        module._entry = real
 
 
 def ulps(got, want64):
@@ -958,41 +988,62 @@ def live_off_diagonal(mask_i, mask_j=None):
     return mask_i[:, None] & mask_j[None, :] & ~eye
 
 
-def hold_sums(name, xi, xj, c, sel):
-    """The square kernel against its plain version on one dataset: the raw
-    sums on the ``sel`` entries within ``sum_tolerance``, and the entropies
-    after ``finalize_moments`` within H_RTOL/H_ATOL. Returns the max abs
-    error of the sums."""
-    k1, k2 = ps.pairwise_moments(xi, xj, c)
-    r1, r2 = ps.pairwise_moments_ref(xi, xj, c)
+def hold_sums(name, xi, xj, c, sel, live_i=None, live_j=None, n_valid=None):
+    """The square kernel against its plain version on one dataset, called as
+    the pipeline calls it (live rows, valid count): the raw sums on the
+    ``sel`` entries within ``sum_tolerance``, every pair with a dead row
+    exactly 0, and the entropies after ``finalize_moments`` within
+    H_RTOL/H_ATOL. Returns the max abs error of the sums."""
+    kw = {"live_i": live_i, "live_j": live_j, "n_valid": n_valid}
+    k1, k2 = ps.pairwise_moments(xi, xj, c, **kw)
+    r1, r2 = ps.pairwise_moments_ref(xi, xj, c, **kw)
     torch.cuda.synchronize()
-    tol = ps.sum_tolerance(xi, xj, c)[sel].double()
+    tol = ps.sum_tolerance(xi, xj, c, n_valid)[sel].double()
     errs, ratios = [], []
     for k, r in ((k1, r1), (k2, r2)):
         check(bool(torch.all(torch.isfinite(k[sel]))), f"{name}: non-finite sums")
         e = (k[sel].double() - r[sel].double()).abs()
         errs.append(e.max().item())
         ratios.append((e / tol).max().item())
+    ones = torch.ones(max(xi.shape[0], xj.shape[0]), dtype=torch.bool, device=xi.device)
+    li = ones[:xi.shape[0]] if live_i is None else live_i
+    lj = ones[:xj.shape[0]] if live_j is None else live_j
+    dead = ~(li[:, None] & lj[None, :])
+    zero = bool(torch.all(k1[dead] == 0) and torch.all(k2[dead] == 0))
     n = xi.shape[-1]
-    hk, hr = ps.finalize(k1, k2, n)[sel].double(), ps.finalize(r1, r2, n)[sel].double()
+    hk = ps.finalize(k1, k2, n, n_valid)[sel].double()
+    hr = ps.finalize(r1, r2, n, n_valid)[sel].double()
     h_ok = bool(torch.all((hk - hr).abs() <= H_ATOL + H_RTOL * hr.abs()))
-    ok = max(ratios) <= 1.0 and h_ok
+    ok = max(ratios) <= 1.0 and h_ok and zero
     say("pairwise_vs_plain", case=name, pi=xi.shape[0], pj=xj.shape[0], n=n,
-        held_entries=int(sel.sum()), max_abs_m1=f"{errs[0]:.3e}", max_abs_m2=f"{errs[1]:.3e}",
-        max_err_over_tol=f"{max(ratios):.3e}",
+        n_valid="n" if n_valid is None else int(n_valid), held_entries=int(sel.sum()),
+        dead_pairs=int(dead.sum()), dead_pairs_zero=zero, max_abs_m1=f"{errs[0]:.3e}",
+        max_abs_m2=f"{errs[1]:.3e}", max_err_over_tol=f"{max(ratios):.3e}",
         max_rel_entropy=f"{((hk - hr).abs() / hr.abs().clamp(min=1e-30)).max().item():.3e}",
         entropies_ok=h_ok, ok=ok)
     check(ok, f"{name}: square kernel disagrees with plain")
     return max(errs)
 
 
-def square_bound_ms(pairs_x_samples: float, bytes_moved: float) -> tuple[float, str]:
-    """Least time of the square sums: 3 transcendentals (SFU) and ~10 FP32
-    operations per (ordered pair, sample), or the bytes once over HBM."""
-    t = {"bytes": bytes_moved / HBM_BPS, "sfu": 3 * pairs_x_samples / SFU_OPS,
-         "fp32": 10 * pairs_x_samples / FP32_FLOPS}
+def square_bound_ms(pair_samples: float, bytes_moved: float):
+    """(bound, bound_by, FP32 ms, SFU ms) of the square sums on this much
+    work: the (ordered pair, sample) elements that a score needs (live
+    off-diagonal pairs over valid samples), each counted at one direction of
+    the fused sweep's math, half its FP32 and MUFU instructions per
+    (unordered pair, sample) from this run's ``[fused_sass]``, whatever
+    implements it; or the bytes read and written once over HBM."""
+    tf, tm = SWEEP_SASS["tiles"]
+    t = {"bytes": bytes_moved / HBM_BPS, "fp32": tf / 2 * pair_samples / FP32_INSNS,
+         "sfu": tm / 2 * pair_samples / SFU_OPS}
     key = max(t, key=t.get)
-    return t[key] * 1e3, "bytes" if key == "bytes" else "operations"
+    return (t[key] * 1e3, "bytes" if key == "bytes" else "operations",
+            t["fp32"] * 1e3, t["sfu"] * 1e3)
+
+
+def square_bytes(live, n_valid, m):
+    """Bytes the square sums must move: the live rows' valid samples and
+    their correlations read once, the two (m, m) sums written once."""
+    return 4 * (live * n_valid + live * live + 2 * m * m)
 
 
 def capture_dense_inputs(x, backend, dev):
@@ -1013,10 +1064,25 @@ def capture_dense_inputs(x, backend, dev):
     return captured
 
 
+def masked_case(p, n, n_pad, seed, dev, fill=0.0):
+    """Normalized Gaussian rows with every fifth row dead, held at 0 in xn
+    and c as the pipeline holds them, zero-padded to ``n_pad`` samples (the
+    padding filled with ``fill``): (unpadded rows, padded rows, c, mask)."""
+    xn, c = normalized(gauss_data(p, n, seed), dev)
+    mask = torch.arange(p, device=dev) % 5 != 2
+    xn = torch.where(mask[:, None], xn, 0.0).contiguous()
+    c = torch.where(mask[:, None] & mask[None, :], c, 0.0).contiguous()
+    xp = torch.full((p, n_pad), fill, device=dev)
+    xp[:, :n] = xn
+    return xn, xp, c, mask
+
+
 def phase_pairwise_kernel(dev, gpu, ecoli_x):
-    """The square moments kernel against its plain version: ragged edges,
-    the E. coli fit's first stage (m=128, n=10000), m=512 n=2000, padding
-    exactness, batch-row identity at the (128, 16384) bucket, and times."""
+    """The square moments kernel against its plain version, called as the
+    pipeline calls it: ragged edges, live-row masks and valid counts on
+    padded buffers, the E. coli fit's first stage (m=128, n=10000) under the
+    fit's mask, m=512 n=2000, padding exactness, batch-row identity at the
+    (128, 16384) bucket under masks and valid counts, and times."""
     errs, timing = [], {}
     xn, c = normalized(np.random.default_rng(1).standard_normal((13, 700)), dev)
     full = torch.ones(13, dtype=torch.bool, device=dev)
@@ -1024,68 +1090,115 @@ def phase_pairwise_kernel(dev, gpu, ecoli_x):
     xi, cj = xn[:, :].contiguous(), c[:, :5].contiguous()
     errs.append(hold_sums("block_13x5_n700", xi, xn[:5].contiguous(), cj,
                           live_off_diagonal(full, full[:5])))
+    # Masks and a valid count, as the pipeline passes them: dead rows 0,
+    # samples past n_valid 0.
+    xm, xp, cm, mm = masked_case(37, 1300, 2048, 4, dev)
+    nv = torch.tensor(1300, device=dev)
+    errs.append(hold_sums("masked_p37_n1300_pad2048", xp, xp, cm, live_off_diagonal(mm),
+                          live_i=mm, live_j=mm, n_valid=nv))
+    errs.append(hold_sums("masked_block_37x21_n1300_pad2048", xp, xp[:21].contiguous(),
+                          cm[:, :21].contiguous(), live_off_diagonal(mm, mm[:21]),
+                          live_i=mm, live_j=mm[:21].contiguous(), n_valid=nv))
     # zero columns add exactly 0: bit-identical sums
     same = []
     for n_pad in (1024, 2048):
-        xp = torch.zeros((13, n_pad), device=dev)
-        xp[:, :700] = xn
+        xz = torch.zeros((13, n_pad), device=dev)
+        xz[:, :700] = xn
         same += [torch.equal(a, b) for a, b in zip(ps.pairwise_moments(xn, xn, c),
-                                                    ps.pairwise_moments(xp, xp, c))]
-    say("pairwise_padding", sums_bit_identical=f"{sum(same)}/{len(same)}")
+                                                    ps.pairwise_moments(xz, xz, c))]
+    # under n_valid the loops stop at the valid count: a padded launch gives
+    # the unpadded launch's bits, whatever the padding holds (n=700 rows
+    # 16-byte aligned, n=1901 rows not: the 4-byte staging path)
+    padded = []
+    for p, n, n_pad, seed in ((21, 700, 1024, 2), (19, 1901, 2048, 3)):
+        for fill in (0.0, torch.nan):
+            xm, xp, cm, mm = masked_case(p, n, n_pad, seed, dev, fill)
+            kw = {"live_i": mm, "live_j": mm}
+            padded += [torch.equal(a, b) for a, b in zip(
+                ps.pairwise_moments(xp, xp, cm, n_valid=torch.tensor(n, device=dev), **kw),
+                ps.pairwise_moments(xm, xm, cm, **kw))]
+    say("pairwise_padding", sums_bit_identical=f"{sum(same)}/{len(same)}",
+        n_valid_padded_vs_unpadded_bit_identical=f"{sum(padded)}/{len(padded)}",
+        cases="p21_n700_pad1024,p19_n1901_pad2048;fill=0,nan")
     check(all(same), "zero-padding n changed the square kernel's sums")
+    check(all(padded), "a padded launch with n_valid differs from the unpadded launch")
 
     stages = capture_dense_inputs(ecoli_x, "hopper", dev)
     xe, ce, me = stages[max(stages)]  # the first stage
-    errs.append(hold_sums(f"ecoli_fit_stage_m{xe.shape[0]}", xe, xe, ce, live_off_diagonal(me)))
+    errs.append(hold_sums(f"ecoli_fit_stage_m{xe.shape[0]}", xe, xe, ce, live_off_diagonal(me),
+                          live_i=me, live_j=me))
     xg, cg = normalized(gauss_data(*SLICE, 1), dev)
-    errs.append(hold_sums(f"gauss_m{SLICE[0]}_n{SLICE[1]}", xg, xg, cg,
-                          live_off_diagonal(torch.ones(SLICE[0], dtype=torch.bool, device=dev))))
+    mg = torch.ones(SLICE[0], dtype=torch.bool, device=dev)
+    errs.append(hold_sums(f"gauss_m{SLICE[0]}_n{SLICE[1]}", xg, xg, cg, live_off_diagonal(mg),
+                          live_i=mg, live_j=mg))
 
-    for name, (x_, c_) in (("ecoli_stage", (xe, ce)), ("slice", (xg, cg))):
+    for name, (x_, c_, m_) in (("ecoli_stage", (xe, ce, me)), ("slice", (xg, cg, mg))):
         m, n = x_.shape
-        ms = time_ms(lambda: ps._launch(x_[None], x_[None], c_[None]), reps=50)
-        wrapper_ms = time_ms(lambda: ps.pairwise_moments(x_, x_, c_), reps=20)
-        plain_ms = time_ms(lambda: ps.pairwise_moments_ref(x_, x_, c_), reps=3, warmup=1)
-        bound, by = square_bound_ms(m * m * n, 4 * (m * n + 3 * m * m))
+        args = (x_[None], x_[None], c_[None], m_[None], m_[None])
+        ms = time_ms(lambda: ps._launch(*args), reps=50)
+        unmasked_ms = time_ms(lambda: ps._launch(*args[:3]), reps=20)
+        bare_ms = no_math_ms(lambda: ps._launch(*args), reps=20, module=ps)
+        wrapper_ms = time_ms(lambda: ps.pairwise_moments(x_, x_, c_, live_i=m_, live_j=m_), reps=20)
+        plain_ms = time_ms(lambda: ps.pairwise_moments_ref(x_, x_, c_, live_i=m_, live_j=m_),
+                           reps=3, warmup=1)
+        live = int(m_.sum())
+        bound, by, t_fp32, t_sfu = square_bound_ms(live * (live - 1) * n, square_bytes(live, n, m))
+        padded_bound = square_bound_ms(m * m * n, square_bytes(m, n, m))[0]
+        lanes = ps._lanes(-(-m // ps.BLOCK_I) * -(-m // ps.BLOCK_J))
         timing[name] = (ms, wrapper_ms, plain_ms, bound, by)
-        say("pairwise_kernel_time", shape=f"m{m}_n{n}", kernel_ms=f"{ms:.4f}",
-            wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
-            bound_by=by, kernel_fraction_of_bound=f"{bound / ms:.3f}", gpu=f"'{gpu}'")
+        say("pairwise_kernel_time", shape=f"m{m}_n{n}", live_rows=live, kernel_ms=f"{ms:.4f}",
+            wrapper_ms=f"{wrapper_ms:.4f}", unmasked_kernel_ms=f"{unmasked_ms:.4f}",
+            no_math_kernel_ms=f"{bare_ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+            bound_ms=f"{bound:.4f}", bound_by=by, bound_ms_fp32=f"{t_fp32:.4f}",
+            bound_ms_sfu=f"{t_sfu:.4f}", bound_ms_padded_buffer=f"{padded_bound:.4f}",
+            kernel_fraction_of_bound=f"{bound / ms:.3f}", lanes=lanes,
+            threads_per_block=ps.MICRO_TILES * lanes, blocks_per_sm=ps.occupancy(lanes),
+            gpu=f"'{gpu}'")
 
-    # The batched entry on the E. coli bucket, dead rows exactly 0 as the
-    # pipeline gives them: per dataset against plain, and row b bit-identical
-    # to a one-dataset launch.
+    # The batched entry on the E. coli bucket, as the pipeline calls it (dead
+    # rows 0, each dataset's mask and valid count): per dataset against
+    # plain, and row b bit-identical to a one-dataset launch.
     xb, cb, mb, nv = bucket_inputs(ecoli_requests(), ECOLI_BUCKET, dev, dead=0.0)
-    b1, b2 = ps.pairwise_moments_batch(xb, cb)
-    r1, r2 = ps.pairwise_moments_batch_ref(xb, cb)
+    bsz, p_pad, n_pad = xb.shape
+    nv32 = fs._valid_counts(nv, bsz, dev)
+    b1, b2 = ps.pairwise_moments_batch(xb, cb, mask=mb, n_valid=nv)
+    r1, r2 = ps.pairwise_moments_batch_ref(xb, cb, mask=mb, n_valid=nv)
     torch.cuda.synchronize()
-    rows, ratios = [], []
-    for b in range(xb.shape[0]):
-        o1, o2 = ps._launch(xb[b:b + 1], xb[b:b + 1], cb[b:b + 1])
+    rows, ratios, zero = [], [], True
+    for b in range(bsz):
+        o1, o2 = ps._launch(xb[b:b + 1], xb[b:b + 1], cb[b:b + 1], mb[b:b + 1], mb[b:b + 1],
+                            nv32[b:b + 1])
         rows.append(torch.equal(b1[b], o1[0]) and torch.equal(b2[b], o2[0]))
         sel = live_off_diagonal(mb[b])
-        tol = ps.sum_tolerance(xb[b], xb[b], cb[b])[sel].double()
+        dead = ~(mb[b][:, None] & mb[b][None, :])
+        zero = zero and bool(torch.all(b1[b][dead] == 0) and torch.all(b2[b][dead] == 0))
+        tol = ps.sum_tolerance(xb[b], xb[b], cb[b], nv[b])[sel].double()
         for k, r in ((b1[b], r1[b]), (b2[b], r2[b])):
             e = (k[sel].double() - r[sel].double()).abs()
             errs.append(e.max().item())
             ratios.append((e / tol).max().item())
-    say("pairwise_batch", B=xb.shape[0], bucket=f"{tuple(xb.shape[1:])}",
-        rows_bit_identical=f"{sum(rows)}/{len(rows)}", max_err_over_tol=f"{max(ratios):.3e}")
+    say("pairwise_batch", B=bsz, bucket=f"{tuple(xb.shape[1:])}", masked=True, n_valid=True,
+        rows_bit_identical=f"{sum(rows)}/{len(rows)}", dead_pairs_zero=zero,
+        max_err_over_tol=f"{max(ratios):.3e}")
     check(all(rows), "a batched row of the square kernel differs from its one-dataset launch")
-    check(max(ratios) <= 1.0, "the batched square kernel disagrees with plain")
-    bsz, p_pad, n_pad = xb.shape
-    ms = time_ms(lambda: ps._launch(xb, xb, cb), reps=10)
-    wrapper_ms = time_ms(lambda: ps.pairwise_moments_batch(xb, cb), reps=5)
-    plain_ms = time_ms(lambda: ps.pairwise_moments_batch_ref(xb, cb), reps=2, warmup=1)
-    live = mb.sum(dim=1).double()
-    bound, by = square_bound_ms(float((live * live * nv.double()).sum()),
-                                float((4 * (live * nv.double() + 3 * live * live)).sum()))
-    padded, _ = square_bound_ms(bsz * p_pad * p_pad * n_pad, 4 * bsz * (p_pad * n_pad + 3 * p_pad ** 2))
+    check(max(ratios) <= 1.0 and zero, "the batched square kernel disagrees with plain")
+    ms = time_ms(lambda: ps._launch(xb, xb, cb, mb, mb, nv32), reps=10)
+    unmasked_ms = time_ms(lambda: ps._launch(xb, xb, cb), reps=5)
+    bare_ms = no_math_ms(lambda: ps._launch(xb, xb, cb, mb, mb, nv32), reps=10, module=ps)
+    wrapper_ms = time_ms(lambda: ps.pairwise_moments_batch(xb, cb, mask=mb, n_valid=nv), reps=5)
+    plain_ms = time_ms(lambda: ps.pairwise_moments_batch_ref(xb, cb, mask=mb, n_valid=nv),
+                       reps=2, warmup=1)
+    live, nvd = mb.sum(dim=1).double(), nv.double()
+    bound, by, t_fp32, t_sfu = square_bound_ms(float((live * (live - 1) * nvd).sum()),
+                                               float(square_bytes(live, nvd, p_pad).sum()))
+    padded = square_bound_ms(bsz * p_pad * p_pad * n_pad, bsz * square_bytes(p_pad, n_pad, p_pad))[0]
     timing["batch"] = (ms, wrapper_ms, plain_ms, bound, by, padded,
                        f"B={bsz},bucket={p_pad}x{n_pad},p={int(live.min())}-{int(live.max())},"
                        f"n={int(nv.min())}-{int(nv.max())}")
     say("pairwise_batch_kernel_time", B=bsz, bucket=f"{(p_pad, n_pad)}", kernel_ms=f"{ms:.4f}",
-        wrapper_ms=f"{wrapper_ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+        wrapper_ms=f"{wrapper_ms:.4f}", unmasked_kernel_ms=f"{unmasked_ms:.4f}",
+        no_math_kernel_ms=f"{bare_ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{bound:.4f}",
+        bound_by=by, bound_ms_fp32=f"{t_fp32:.4f}", bound_ms_sfu=f"{t_sfu:.4f}",
         bound_ms_padded_buffer=f"{padded:.4f}", kernel_fraction_of_bound=f"{bound / ms:.3f}",
         gpu=f"'{gpu}'")
     return max(errs), timing
@@ -1479,17 +1592,19 @@ def ssd_inputs(b, h, p, n, dev, seed):
 
 
 def hold_ssd(name, args):
-    """The decode kernel against its plain version on one input; returns
-    the max abs error of y and of the new state."""
+    """The decode kernel against its plain version on one input: the new
+    state bit-equal (both round each product and sum on its own), y within
+    ATOL/RTOL. Returns the max abs error of y and of the new state."""
     yk, sk = sd.ssd_decode(*args)
     yr, sr = sd.ssd_decode_ref(*args)
     torch.cuda.synchronize()
     ey, oky = within(yk, yr, ATOL)
     es, oks = within(sk, sr, ATOL)
+    same = torch.equal(sk, sr)
     say("ssd_decode_vs_plain", case=name, shape="x".join(map(str, args[0].shape)),
-        max_abs_y=f"{ey:.3e}", max_abs_state=f"{es:.3e}", state_bit_equal=torch.equal(sk, sr),
-        ok=oky and oks)
-    check(oky and oks, f"{name}: the decode kernel disagrees with plain")
+        max_abs_y=f"{ey:.3e}", max_abs_state=f"{es:.3e}", state_bit_equal=same,
+        ok=oky and oks and same)
+    check(oky and oks and same, f"{name}: the decode kernel disagrees with plain")
     return max(ey, es)
 
 
@@ -1499,35 +1614,64 @@ def ssd_bytes(b, h, p, n):
     return 4 * (2 * b * h * p * n + 2 * b * h * p + b * h + 2 * b * n + 2 * h)
 
 
-def phase_ssd_kernel(dev, gpu, rate):
-    """The decode kernel against its plain version at Mamba2-370M's decode
-    shape (B=4, H=32, P=64, N=128) and at ragged head counts; row b of a
-    B=4 launch bit-identical to a one-row launch; times per launch."""
-    cfg = configs.get("mamba2-370m")
-    full = (SERVE_B, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
-    errs = [hold_ssd(f"random_{'x'.join(map(str, s))}", ssd_inputs(*s, dev, i))
-            for i, s in enumerate((full, (3, 12, 64, 128), (2, 5, 24, 40), (1, 33, 64, 128)))]
-    args = ssd_inputs(*full, dev, 9)
+def offset_copies(args):
+    """Copies of ``args`` whose data start 4 bytes past a 16-byte boundary:
+    the kernel's scalar path, on the same values."""
+    out = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    return out
+
+
+def decode_rows(shape, dev, seed):
+    """Whether row b of a launch equals a one-row launch of the row's
+    contiguous views, for every b, and a repeat launch equals the first."""
+    args = ssd_inputs(*shape, dev, seed)
     y, s = sd.launch(*args)
     rows = []
-    for b in range(SERVE_B):
+    for b in range(shape[0]):
         y1, s1 = sd.launch(*[t[b:b + 1].contiguous() for t in args[:5]], *args[5:])
         rows.append(torch.equal(y1[0], y[b]) and torch.equal(s1[0], s[b]))
     repeat = all(torch.equal(u, v) for u, v in zip(sd.launch(*args), (y, s)))
+    return rows, repeat, args, (y, s)
+
+
+def phase_ssd_kernel(dev, gpu, rate):
+    """The decode kernel against its plain version at Mamba2-370M's decode
+    shape (B=4, H=32, P=64, N=128), at ragged head counts, P not a multiple
+    of the kernel's 16-row P-slice and N not a multiple of 4; row b of a B=4 launch
+    bit-identical to a one-row launch (N=128, and N=37 whose views are not
+    16-byte aligned); the scalar path on offset copies bit-identical to the
+    vector path; times per launch."""
+    cfg = configs.get("mamba2-370m")
+    full = (SERVE_B, cfg.n_ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+    errs = [hold_ssd(f"random_{'x'.join(map(str, s))}", ssd_inputs(*s, dev, i))
+            for i, s in enumerate((full, (3, 12, 64, 128), (2, 5, 24, 40), (1, 33, 64, 128),
+                                   (2, 5, 24, 37), (2, 3, 70, 130)))]
+    rows, repeat, args, (y, s) = decode_rows(full, dev, 9)
+    rows37, repeat37, _, _ = decode_rows((4, 5, 24, 37), dev, 10)
+    paths = all(torch.equal(u, v) for u, v in zip(sd.launch(*offset_copies(args)), (y, s)))
     say("ssd_decode_rows", B=SERVE_B, rows_bit_identical=f"{sum(rows)}/{len(rows)}",
-        repeat_bit_identical=repeat)
-    check(all(rows) and repeat, "a row of the decode kernel depends on its batch or run")
+        rows_bit_identical_n37=f"{sum(rows37)}/{len(rows37)}",
+        repeat_bit_identical=repeat and repeat37, scalar_path_bit_identical=paths)
+    check(all(rows) and all(rows37) and repeat and repeat37,
+          "a row of the decode kernel depends on its batch or run")
+    check(paths, "the decode kernel's scalar path differs from its vector path")
     ms = time_ms(lambda: sd.launch(*args), reps=200, warmup=5)
+    wrapper_ms = time_ms(lambda: sd.ssd_decode(*args), reps=200, warmup=5)
     dev_ms = device_ms(lambda: sd.launch(*args), "ssd_decode_heads")
     plain_ms = time_ms(lambda: sd.ssd_decode_ref(*args), reps=50, warmup=2)
     nbytes = ssd_bytes(*full)
     bound = max(nbytes / HBM_BPS, 5 * np.prod(full) / FP32_FLOPS) * 1e3
     say("ssd_decode_kernel_time", shape="B={},H={},P={},N={}".format(*full), kernel_ms=f"{ms:.5f}",
-        device_ms=f"{dev_ms:.5f}", plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound:.5f}",
-        bound_by="bytes", bound_ms_at_copy_rate=f"{nbytes / rate * 1e3:.5f}",
+        wrapper_ms=f"{wrapper_ms:.5f}", device_ms=f"{dev_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+        bound_ms=f"{bound:.5f}", bound_by="bytes", bound_ms_at_copy_rate=f"{nbytes / rate * 1e3:.5f}",
         kernel_fraction_of_bound=f"{bound / ms:.3f}",
         device_fraction_of_bound=f"{bound / dev_ms:.3f}", gpu=f"'{gpu}'")
-    return max(errs), (ms, plain_ms, bound, "B={},H={},P={},N={}".format(*full), dev_ms)
+    return max(errs), (ms, plain_ms, bound, "B={},H={},P={},N={}".format(*full), dev_ms, wrapper_ms)
 
 
 def capture_decode_inputs(params, cfg, tokens, dev):
@@ -1721,7 +1865,8 @@ def main() -> int:
         "name": "pairwise_moments", "route": "cuda", "source": SQUARE_SOURCE,
         "replaces": SQUARE_REPLACES, "launches": launches_sq, "max_abs_err": err_sq,
         "ms": sq_ms, "plain_ms": sq_plain, "bound_ms": sq_bound, "bound_by": sq_by,
-        "library_ms": None, "wrapper_ms": sq_wrapper, "shape": "m=128,n=10000",
+        "library_ms": None, "wrapper_ms": sq_wrapper,
+        "shape": "m=128,n=10000,the E. coli fit's first-stage mask",
         "ms_m512_n2000": sq["slice"][0], "plain_ms_m512_n2000": sq["slice"][2],
         "bound_ms_m512_n2000": sq["slice"][3], "gpu": gpu,
     }, {
@@ -1741,7 +1886,8 @@ def main() -> int:
         "name": "ssd_decode", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
         "launches": ssd_launches, "max_abs_err": max(err_ssd, err_serve), "ms": ssd_timing[0],
         "plain_ms": ssd_timing[1], "bound_ms": ssd_timing[2], "bound_by": "bytes",
-        "library_ms": None, "device_ms": ssd_timing[4], "shape": ssd_timing[3], "gpu": gpu,
+        "library_ms": None, "device_ms": ssd_timing[4], "wrapper_ms": ssd_timing[5],
+        "shape": ssd_timing[3], "gpu": gpu,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -223,9 +223,10 @@ def _find_root_dense_impl(xb, cb, mask, block_j: int, backend: str,
     ``jnp.argmin``).
 
     ``hopper_fused`` and ``hopper`` are one launch of their batched kernel
-    per call (the fused triangular sweep; the square moments with the row
-    entropies, stat and scores as torch ops); with ``single`` (a bucket of
-    one) they launch the one-dataset kernel entry instead. The plain
+    per call (the fused triangular sweep; the square moments over the live
+    pairs and valid samples, with the row entropies, stat and scores as
+    torch ops); with ``single`` (a bucket of one) they launch the
+    one-dataset kernel entry instead. The plain
     backends score each dataset on its own."""
     if backend == "hopper_fused":
         if single:
@@ -237,9 +238,11 @@ def _find_root_dense_impl(xb, cb, mask, block_j: int, backend: str,
         hx = row_entropies(xb, mask, n_valid=n_valid)
         if single:
             nv = None if n_valid is None else n_valid[0]
-            hr = kops.residual_entropy_matrix(xb[0], cb[0], n_valid=nv)[None]
+            hr = kops.residual_entropy_matrix(xb[0], cb[0], mask=mask[0], n_valid=nv)[None]
         else:
-            hr = kops.residual_entropy_matrix_batch(xb, cb, n_valid=n_valid)
+            hr = kops.residual_entropy_matrix_batch(xb, cb, mask=mask, n_valid=n_valid)
+        # Dead pairs' entries (the entropy of zero sums) reach no score:
+        # scores_from_stats drops them by select.
         s = scores_from_stats(pair_stat_matrix(hx, hr), mask)
     elif backend in ("torch", "torch_fused"):
         rows = []

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``.gitignore``), then loaded with ``ctypes``. Nothing here runs at import
 time: a kernel is built on its first use, from the sources in the checkout,
 or ahead of time by :func:`build_all`. The library name carries a hash of the
-source and the flags, so an edited source is rebuilt and a stale library is
-never loaded.
+source, of every header under ``csrc/`` (``*.cuh``, which the sources
+include) and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -48,9 +49,13 @@ def sources() -> list[str]:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu``'s library is built: named by a hash of the
+    source, the headers beside it and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> str:

@@ -60,31 +60,37 @@ def score_batch(xb, cb, maskb, *, n_valid=None):
     return _fused.fused_score_batch(xb, cb, maskb, block=8, n_valid=n_valid)
 
 
-def pairwise_moments(xi, xj, c):
+def pairwise_moments(xi, xj, c, *, live_i=None, live_j=None, n_valid=None):
     """Raw moment sums (sum log cosh u, sum u exp(-u^2/2)) of every (i, j)
     residual stream of one dataset via the square moments kernel: two
     (pi, pj) tensors, no 1/n, no entropy (finish with
-    ``pairwise.finalize_moments``). Plain version:
-    ``pairwise_score.pairwise_moments_ref``."""
-    return _pairwise.pairwise_moments(xi, xj, c)
+    ``pairwise.finalize_moments``). ``live_i``/``live_j`` bool live rows and
+    ``n_valid`` restrict the sums to live pairs (0 elsewhere) and valid
+    samples. Plain version: ``pairwise_score.pairwise_moments_ref``."""
+    return _pairwise.pairwise_moments(xi, xj, c, live_i=live_i, live_j=live_j,
+                                      n_valid=n_valid)
 
 
-def pairwise_moments_batch(xb, cb):
+def pairwise_moments_batch(xb, cb, *, mask=None, n_valid=None):
     """The square raw sums of a bucket ``xb: (B, m, n)`` in one launch: two
-    (B, m, m) tensors. Plain version: ``pairwise_moments_batch_ref``."""
-    return _pairwise.pairwise_moments_batch(xb, cb)
+    (B, m, m) tensors; ``mask: (B, m)`` and ``n_valid: (B,)`` as in
+    :func:`pairwise_moments`. Plain version: ``pairwise_moments_batch_ref``."""
+    return _pairwise.pairwise_moments_batch(xb, cb, mask=mask, n_valid=n_valid)
 
 
-def residual_entropy_matrix(xn, c, *, n_valid=None):
+def residual_entropy_matrix(xn, c, *, mask=None, n_valid=None):
     """(p, p) HR matrix via the square moments kernel + torch entropy
-    epilogue (``n_valid`` only changes the epilogue's denominator)."""
-    return _pairwise.pairwise_score(xn, c, n_valid=n_valid)
+    epilogue. The kernel sums the live pairs of ``mask`` (all rows when
+    None) over the first ``n_valid`` samples; ``n_valid`` is also the
+    epilogue's denominator."""
+    return _pairwise.pairwise_score(xn, c, mask=mask, n_valid=n_valid)
 
 
-def residual_entropy_matrix_batch(xb, cb, *, n_valid=None):
+def residual_entropy_matrix_batch(xb, cb, *, mask=None, n_valid=None):
     """(B, m, m) HR matrices of a bucket via one launch of the square moments
-    kernel; ``n_valid`` None or one valid count per dataset."""
-    return _pairwise.pairwise_score_batch(xb, cb, n_valid=n_valid)
+    kernel; ``mask`` None or (B, m) live rows, ``n_valid`` None or one valid
+    count per dataset."""
+    return _pairwise.pairwise_score_batch(xb, cb, mask=mask, n_valid=n_valid)
 
 
 def pair_moments(xn, c_vals, xj, n_valid=None):

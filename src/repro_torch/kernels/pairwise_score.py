@@ -7,18 +7,23 @@ bucket of datasets in one launch. The kernel, ``csrc/pairwise_moments.cu``,
 emits the raw sums sum_k log cosh u_ij[k] and sum_k u_ij[k] exp(-u_ij[k]^2/2)
 of every ordered pair, with u_ij = (x_i - c_ij x_j) / sqrt(max(1 - c_ij^2,
 1e-12)): no 1/n and no entropy. :func:`pairwise_score` adds the torch
-epilogue (``pairwise.finalize_moments``), which owns the ``n_valid``
-denominator.
+epilogue (``pairwise.finalize_moments``).
 
-Bound on the card: three transcendentals per (ordered pair, sample), so the
-kernel is bound by the special-function units; it reads each sample once per
-8-row tile and keeps both sums of a pair in registers (see the source).
+Optional live-row masks and valid sample counts restrict the work to what a
+score needs: the sums of a pair with a dead row are exactly 0 (a select),
+and the sums run over the first ``n_valid`` samples only, so a zero-padded
+buffer with ``n_valid`` gives the bits of the unpadded one. The kernel
+skips tiles with no live pair and stops each dataset at its valid count.
+
+Bound on the card: the FP32 pipe, at the math of one direction of the fused
+sweep per (ordered pair, sample); it reads each sample once per 8-row tile
+and keeps a thread's 2 x 2 pairs' sums in registers (see the source).
 
 The diagonal of the sums is noise: c_ii ~ 1 drives 1 / sqrt(max(1 - c^2,
 1e-12)) up to 1e6, so the (i, i) residual is rounding error amplified, and
 any two implementations disagree there. It never reaches a score
 (``pair_stat_matrix`` is exactly 0 on the diagonal and ``scores_from_stats``
-masks it), so comparisons hold the off-diagonal entries only.
+masks it), so comparisons hold the live off-diagonal entries only.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise.
@@ -36,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.core.covariance import VAR_EPS, _sample_count, per_dataset
 from repro_torch.core.entropy import log_cosh, u_exp_moment
 from repro_torch.core.pairwise import finalize_moments
+from repro_torch.kernels.fused_score import _valid_counts
 
 #: Kernel launches since the last reset, one per call on the card:
 #: ``LAUNCHES`` of ``pairwise_moments``, ``BATCH_LAUNCHES`` of
@@ -46,8 +52,11 @@ _count_mu = threading.Lock()
 
 #: Output tile of one thread block (rows of xi x rows of xj), as on the TPU.
 BLOCK_I = BLOCK_J = 8
-#: Samples per chunk staged in shared memory (2 * 8 * 513 floats); the plain
-#: version pads n to a multiple of it, as the TPU kernel does.
+#: A thread's pairs: a MICRO x MICRO micro-tile; 16 micro-tiles per tile.
+MICRO = 2
+MICRO_TILES = (BLOCK_I // MICRO) * (BLOCK_J // MICRO)
+#: Samples per summation chunk; the plain version pads n to a multiple of
+#: it, as the TPU kernel does.
 BLOCK_N = 512
 #: Element budget of one chunk of the plain version's (pi, cols, n) residuals.
 CHUNK_ELEMS = 1 << 24
@@ -57,14 +66,26 @@ _FILL_THREADS = 132 * 2048  # resident threads of a full H100
 #: A_ij = sum_k (|u_ij[k]| + 1): both integrands are at most |u| + log 2 in
 #: size and log cosh cancels against log 2 near 0, so every term carries an
 #: absolute error of a few ulps of (|u| + 1) and every partial sum is at most
-#: A. The two sides round each term alike (same f32 residual, libdevice vs
-#: torch transcendentals) and sum in different orders (per-thread chunks of
-#: 512 / lanes terms, ~n / 512 chunks and the lanes, against torch's tree
-#: sum): a few hundred roundings of partial sums, the largest of which are
-#: near A, whose errors mostly cancel. 64 ulps of A leaves room for that and
-#: still refuses a wrong pair, sample or chunk, which moves a sum by O(sqrt n)
-#: or more.
+#: A. The two sides round each term alike (same f32 residual, the kernel's
+#: polynomial log1p against torch's) and sum in different orders (per-thread
+#: chunks of 512 / lanes terms, ~n / 512 chunks and the lanes, against
+#: torch's tree sum): a few hundred roundings of partial sums, the largest of
+#: which are near A, whose errors mostly cancel. 64 ulps of A leaves room for
+#: that and still refuses a wrong pair, sample or chunk, which moves a sum by
+#: O(sqrt n) or more.
 SUM_TOL = 64 * torch.finfo(torch.float32).eps
+
+
+def _valid_samples(x, n_valid):
+    """``x: (..., p, n)`` with the samples at or past each dataset's valid
+    count set to 0 (a select: they may hold anything); ``n_valid`` None, one
+    count, or one per dataset of the leading axes."""
+    if n_valid is None:
+        return x
+    lead = x.shape[:-2]
+    nv = torch.as_tensor(n_valid, device=x.device).reshape(-1).expand(lead.numel())
+    keep = torch.arange(x.shape[-1], device=x.device) < nv.reshape(*lead, 1, 1)
+    return torch.where(keep, x, 0.0)
 
 
 def _residual_chunks(xi, xj, c):
@@ -94,32 +115,48 @@ def _chunked_sum(t):
     return out
 
 
-def pairwise_moments_ref(xi, xj, c):
+def pairwise_moments_ref(xi, xj, c, *, live_i=None, live_j=None, n_valid=None):
     """Plain version: the raw sums as torch ops, n zero-padded to a multiple
     of ``BLOCK_N`` and summed chunk by chunk (so zero-padding n leaves them
     bit for bit as they were). Takes any leading dataset axes: ``xi: (...,
-    pi, n)``, ``xj: (..., pj, n)``, ``c: (..., pi, pj)``. Returns
-    ``(m1_sum, m2_sum)``, each (..., pi, pj)."""
+    pi, n)``, ``xj: (..., pj, n)``, ``c: (..., pi, pj)``; ``live_i: (...,
+    pi)`` and ``live_j: (..., pj)`` bool live rows (None: all live), whose
+    dead pairs get exactly 0 by select; ``n_valid`` None, one count, or one
+    per dataset: samples from there on count as 0. Returns ``(m1_sum,
+    m2_sum)``, each (..., pi, pj)."""
+    xi, xj = _valid_samples(xi, n_valid), _valid_samples(xj, n_valid)
     m1, m2 = [], []
     for u in _residual_chunks(xi, xj, c):
         m1.append(_chunked_sum(log_cosh(u)))
         m2.append(_chunked_sum(u_exp_moment(u)))
-    return torch.cat(m1, dim=-1), torch.cat(m2, dim=-1)
+    m1, m2 = torch.cat(m1, dim=-1), torch.cat(m2, dim=-1)
+    if live_i is None and live_j is None:
+        return m1, m2
+    live = torch.ones(m1.shape, dtype=torch.bool, device=m1.device)
+    if live_i is not None:
+        live = live & live_i[..., :, None]
+    if live_j is not None:
+        live = live & live_j[..., None, :]
+    return torch.where(live, m1, 0.0), torch.where(live, m2, 0.0)
 
 
-def pairwise_moments_batch_ref(xb, cb):
+def pairwise_moments_batch_ref(xb, cb, *, mask=None, n_valid=None):
     """Plain version of the batched entry: the square sums of each dataset of
-    ``xb: (B, m, n)`` against itself, ``cb: (B, m, m)``."""
-    return pairwise_moments_ref(xb, xb, cb)
+    ``xb: (B, m, n)`` against itself, ``cb: (B, m, m)``, ``mask: (B, m)``
+    live rows or None, ``n_valid`` None or (B,)."""
+    return pairwise_moments_ref(xb, xb, cb, live_i=mask, live_j=mask, n_valid=n_valid)
 
 
-def sum_tolerance(xi, xj, c):
+def sum_tolerance(xi, xj, c, n_valid=None):
     """Per-entry tolerance ``SUM_TOL * sum_k (|u_ij[k]| + 1)`` of a kernel sum
-    against its plain version (see ``SUM_TOL``)."""
-    n = xi.shape[-1]
-    return SUM_TOL * torch.cat(
-        [torch.sum(torch.abs(u), dim=-1) + n for u in _residual_chunks(xi, xj, c)],
-        dim=-1)
+    against its plain version, over the valid samples (see ``SUM_TOL``)."""
+    count = per_dataset(_sample_count(n_valid, xi.shape[-1]), xi.ndim)
+    if isinstance(count, torch.Tensor):
+        count = count.to(xi.device)
+    xi, xj = _valid_samples(xi, n_valid), _valid_samples(xj, n_valid)
+    return SUM_TOL * (torch.cat(
+        [torch.sum(torch.abs(u), dim=-1) for u in _residual_chunks(xi, xj, c)],
+        dim=-1) + count)
 
 
 def _check(xi, xj, c, batched: bool):
@@ -144,15 +181,23 @@ def _check(xi, xj, c, batched: bool):
         raise ValueError(f"pairwise_moments runs on cuda or cpu, not {xi.device}")
 
 
+def _check_live(live, x, name: str):
+    if live is None:
+        return
+    if tuple(live.shape) != tuple(x.shape[:-1]):
+        raise ValueError(f"want {name} {tuple(x.shape[:-1])}, got {tuple(live.shape)}")
+    if live.dtype != torch.bool:
+        raise TypeError(f"{name} must be bool, got {live.dtype}")
+    if live.device != x.device or not live.is_contiguous():
+        raise ValueError(f"{name} must be contiguous and on {x.device}")
+
+
 def _lanes(tiles: int) -> int:
-    """Threads per pair: 256-thread blocks, widened up to 1024 threads while
-    the grid would leave the card's thread slots mostly empty. A function of
-    the per-dataset tile count only, so a dataset's sums never depend on the
-    batch it was launched in."""
-    lanes = 4
-    while 2 * lanes * BLOCK_I * BLOCK_J <= 1024 and tiles * lanes * BLOCK_I * BLOCK_J < _FILL_THREADS:
-        lanes *= 2
-    return lanes
+    """Threads per micro-tile: 32 (512-thread blocks), or 64 (1024 threads)
+    while the grid would leave the card's thread slots mostly empty. A
+    function of the per-dataset tile count only, so a dataset's sums never
+    depend on the batch it was launched in."""
+    return 64 if tiles * MICRO_TILES * 32 < _FILL_THREADS else 32
 
 
 @functools.cache
@@ -160,54 +205,82 @@ def _entry():
     from repro_torch.kernels import _build
 
     fn = _build.load("pairwise_moments").pairwise_moments_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(xi, xj, c):
-    """The CUDA kernel over (B, pi, n) x (B, pj, n); returns the two
-    (B, pi, pj) raw sums."""
+def _launch(xi, xj, c, live_i=None, live_j=None, nv=None):
+    """The CUDA kernel over (B, pi, n) x (B, pj, n), on checked inputs:
+    ``live_i``/``live_j`` (B, pi)/(B, pj) bool or None, ``nv`` (B,) int32 on
+    the card or None. Returns the two (B, pi, pj) raw sums."""
     bsz, pi, n = xi.shape
     pj = xj.shape[1]
     tiles = -(-pi // BLOCK_I) * -(-pj // BLOCK_J)
     m1 = torch.empty((bsz, pi, pj), dtype=torch.float32, device=xi.device)
     m2 = torch.empty_like(m1)
-    rc = _entry()(xi.data_ptr(), xj.data_ptr(), c.data_ptr(), m1.data_ptr(),
-                  m2.data_ptr(), bsz, pi, pj, n, _lanes(tiles),
+    rc = _entry()(xi.data_ptr(), xj.data_ptr(), c.data_ptr(),
+                  None if live_i is None else live_i.data_ptr(),
+                  None if live_j is None else live_j.data_ptr(),
+                  None if nv is None else nv.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+                  bsz, pi, pj, n, _lanes(tiles),
                   torch.cuda.current_stream(xi.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"pairwise_moments kernel launch failed with CUDA error {rc}")
     return m1, m2
 
 
-def pairwise_moments(xi, xj, c):
+def occupancy(lanes: int) -> int:
+    """Resident blocks per SM of the tile kernel at ``lanes`` threads per
+    micro-tile, as the built kernel's registers and shared memory allow."""
+    from repro_torch.kernels import _build
+
+    fn = _build.load("pairwise_moments").pairwise_moments_occupancy
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    blocks = ctypes.c_int(0)
+    rc = fn(lanes, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"pairwise_moments occupancy query failed with CUDA error {rc}")
+    return blocks.value
+
+
+def pairwise_moments(xi, xj, c, *, live_i=None, live_j=None, n_valid=None):
     """Raw moment sums of every (i, j) residual stream of one dataset.
 
     ``xi: (pi, n)`` and ``xj: (pj, n)`` normalized rows (``xi is xj`` for
     the square), ``c: (pi, pj)`` their correlations, all float32 and
-    contiguous. Returns ``(m1_sum, m2_sum)``, each (pi, pj) float32; finish
-    them with ``pairwise.finalize_moments``."""
+    contiguous; ``live_i: (pi,)``, ``live_j: (pj,)`` bool live rows or None
+    (all live); ``n_valid`` the valid sample count of zero-padded rows, or
+    None. Returns ``(m1_sum, m2_sum)``, each (pi, pj) float32, exactly 0 on
+    pairs with a dead row; finish them with ``pairwise.finalize_moments``."""
     global LAUNCHES
     _check(xi, xj, c, batched=False)
+    _check_live(live_i, xi, "live_i")
+    _check_live(live_j, xj, "live_j")
     if xi.device.type == "cpu":
-        return pairwise_moments_ref(xi, xj, c)
-    m1, m2 = _launch(xi[None], xj[None], c[None])
+        return pairwise_moments_ref(xi, xj, c, live_i=live_i, live_j=live_j, n_valid=n_valid)
+    m1, m2 = _launch(xi[None], xj[None], c[None],
+                     None if live_i is None else live_i[None],
+                     None if live_j is None else live_j[None],
+                     _valid_counts(n_valid, 1, xi.device))
     with _count_mu:
         LAUNCHES += 1
     return m1[0], m2[0]
 
 
-def pairwise_moments_batch(xb, cb):
+def pairwise_moments_batch(xb, cb, *, mask=None, n_valid=None):
     """The square raw sums of a bucket of datasets in one launch, on a
     (tiles_i, tiles_j, B) grid: ``xb: (B, m, n)`` normalized rows, ``cb:
-    (B, m, m)`` correlations. Returns two (B, m, m) float32 tensors. Row b is
-    bit-identical to a one-dataset launch on dataset b."""
+    (B, m, m)`` correlations, ``mask: (B, m)`` bool live rows or None,
+    ``n_valid`` None or (B,) valid sample counts. Returns two (B, m, m)
+    float32 tensors. Row b is bit-identical to a one-dataset launch on
+    dataset b."""
     global BATCH_LAUNCHES
     _check(xb, xb, cb, batched=True)
+    _check_live(mask, xb, "mask")
     if xb.device.type == "cpu":
-        return pairwise_moments_batch_ref(xb, cb)
-    out = _launch(xb, xb, cb)
+        return pairwise_moments_batch_ref(xb, cb, mask=mask, n_valid=n_valid)
+    out = _launch(xb, xb, cb, mask, mask, _valid_counts(n_valid, xb.shape[0], xb.device))
     with _count_mu:
         BATCH_LAUNCHES += 1
     return out
@@ -222,13 +295,18 @@ def finalize(m1_sum, m2_sum, n: int, n_valid=None):
     return finalize_moments(m1_sum, m2_sum, den)
 
 
-def pairwise_score(xn, c, *, n_valid=None):
+def pairwise_score(xn, c, *, mask=None, n_valid=None):
     """HR matrix of one dataset: the kernel's raw sums plus the torch entropy
-    epilogue. ``xn: (p, n)`` normalized rows, ``c: (p, p)``. Returns (p, p)."""
-    return finalize(*pairwise_moments(xn, xn, c), xn.shape[-1], n_valid)
+    epilogue. ``xn: (p, n)`` normalized rows, ``c: (p, p)``, ``mask: (p,)``
+    live rows or None. Returns (p, p); entries of dead pairs are the entropy
+    of zero sums, for ``scores_from_stats``' select to drop."""
+    return finalize(*pairwise_moments(xn, xn, c, live_i=mask, live_j=mask, n_valid=n_valid),
+                    xn.shape[-1], n_valid)
 
 
-def pairwise_score_batch(xb, cb, *, n_valid=None):
+def pairwise_score_batch(xb, cb, *, mask=None, n_valid=None):
     """HR matrices of a bucket in one launch: ``xb: (B, m, n)``, ``cb:
-    (B, m, m)``, ``n_valid`` None or (B,). Returns (B, m, m)."""
-    return finalize(*pairwise_moments_batch(xb, cb), xb.shape[-1], n_valid)
+    (B, m, m)``, ``mask: (B, m)`` or None, ``n_valid`` None or (B,).
+    Returns (B, m, m)."""
+    return finalize(*pairwise_moments_batch(xb, cb, mask=mask, n_valid=n_valid),
+                    xb.shape[-1], n_valid)

@@ -10,9 +10,11 @@ contracted with C,
 
 It is the inner update of every ``models.ssm.mamba2_decode``, so one decode
 step of Mamba2-370M launches it once per layer (48 times). The kernel,
-``csrc/ssd_decode.cu``, streams each (P, N) tile once (one block per
-(batch row, head)); it is bound by memory, at a size where a launch's fixed
-cost is of the same order (see the source).
+``csrc/ssd_decode.cu``, streams each (P, N) tile once, on a grid over
+(batch row x head, 16-row slices of P), with 16-byte loads of
+several state rows in flight per warp and a scalar path for rows that are
+not 16-byte aligned; it is bound by memory, at a size where a launch's
+fixed cost is of the same order (see the source).
 
 The new state is a fresh buffer, not the old one updated in place: the
 caller's cache stays valid and a step can be replayed from it, as with the

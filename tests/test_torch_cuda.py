@@ -2,7 +2,8 @@
 the fused triangular score kernel through both entries, one dataset
 (``fused_score_vector``) and a bucket of datasets (``fused_score_batch``);
 the square moments kernel through ``pairwise_moments`` and
-``pairwise_moments_batch``; the rank-1 update kernels (``update_data``,
+``pairwise_moments_batch``, with and without live-row masks and valid
+counts; the rank-1 update kernels (``update_data``,
 ``update_cov``); the SSD decode kernel (``ssd_decode``); one threshold
 ``fit`` against the dense order; and one ``Engine.generate`` of a
 full-width Mamba2 mixer against the CPU route.
@@ -251,6 +252,76 @@ def test_square_batch_row_is_batch_size_invariant(cuda):
     assert torch.equal(again[0], m1) and torch.equal(again[1], m2)
 
 
+def _masked(p, n, n_pad, seed, device, fill=0.0):
+    """Gaussian rows with every fifth row dead, held at 0 in xn and c as the
+    pipeline holds them, padded to ``n_pad`` samples with ``fill``: (rows,
+    padded rows, c, mask)."""
+    xn, c = _setup(p, n, seed, device)
+    mask = torch.arange(p, device=device) % 5 != 2
+    xn = torch.where(mask[:, None], xn, 0.0).contiguous()
+    c = torch.where(mask[:, None] & mask[None, :], c, 0.0).contiguous()
+    xp = torch.full((p, n_pad), fill, device=device)
+    xp[:, :n] = xn
+    return xn, xp, c, mask
+
+
+@pytest.mark.parametrize("p,pj,n,n_pad", [(37, 37, 1300, 2048), (21, 21, 700, 1024),
+                                          (37, 21, 1901, 2048)])
+def test_square_kernel_masked_n_valid_matches_plain(cuda, p, pj, n, n_pad):
+    """Live-row masks and a valid count, as the pipeline passes them: live
+    off-diagonal sums within ``sum_tolerance``, every pair with a dead row
+    exactly 0."""
+    _, xp, c, mask = _masked(p, n, n_pad, p + n, cuda)
+    xj, cj, mj = xp[:pj].contiguous(), c[:, :pj].contiguous(), mask[:pj].contiguous()
+    nv = torch.tensor(n, device=cuda)
+    kw = {"live_i": mask, "live_j": mj, "n_valid": nv}
+    m1, m2 = ps.pairwise_moments(xp, xj, cj, **kw)
+    r1, r2 = ps.pairwise_moments_ref(xp, xj, cj, **kw)
+    live = mask[:, None] & mj[None, :]
+    sel = live & (torch.arange(p, device=cuda)[:, None] != torch.arange(pj, device=cuda))
+    tol = ps.sum_tolerance(xp, xj, cj, nv)
+    for k, r in ((m1, r1), (m2, r2)):
+        assert torch.all(k[~live] == 0)
+        assert torch.all(torch.isfinite(k[sel]))
+        assert torch.all((k - r)[sel].abs() <= tol[sel])
+
+
+@pytest.mark.parametrize("fill", [0.0, float("nan")])
+def test_square_kernel_n_valid_padding_is_bit_exact(cuda, fill):
+    """A padded launch with ``n_valid`` gives the unpadded launch's bits,
+    whatever the padding holds: the loops stop at the valid count (n=700
+    rows 16-byte aligned, n=1901 not)."""
+    for p, n, n_pad in ((21, 700, 1024), (19, 1901, 2048)):
+        xn, xp, c, mask = _masked(p, n, n_pad, n, cuda, fill)
+        kw = {"live_i": mask, "live_j": mask}
+        padded = ps.pairwise_moments(xp, xp, c, n_valid=torch.tensor(n, device=cuda), **kw)
+        for a, b in zip(padded, ps.pairwise_moments(xn, xn, c, **kw)):
+            assert torch.equal(a, b)
+
+
+def test_square_batch_rows_under_masks(cuda):
+    """Under masks and valid counts, row b of a batched launch is
+    bit-identical to a one-dataset launch of dataset b, dead pairs are 0,
+    and live off-diagonal sums are within ``sum_tolerance`` of plain."""
+    xb, cb, mb, nv = _bucket([(37, 1300), (29, 900), (40, 1536), (8, 700)], 1536, 17, cuda)
+    xb = torch.where(mb[..., None], xb, 0.0).contiguous()
+    cb = torch.where(mb[:, :, None] & mb[:, None, :], cb, 0.0).contiguous()
+    before = ps.BATCH_LAUNCHES
+    m1, m2 = ps.pairwise_moments_batch(xb, cb, mask=mb, n_valid=nv)
+    assert ps.BATCH_LAUNCHES == before + 1
+    r1, r2 = ps.pairwise_moments_batch_ref(xb, cb, mask=mb, n_valid=nv)
+    for b in range(xb.shape[0]):
+        o1, o2 = ps.pairwise_moments(xb[b], xb[b], cb[b], live_i=mb[b], live_j=mb[b],
+                                     n_valid=nv[b])
+        assert torch.equal(m1[b], o1) and torch.equal(m2[b], o2)
+        live = mb[b][:, None] & mb[b][None, :]
+        sel = live & ~torch.eye(live.shape[0], dtype=torch.bool, device=cuda)
+        tol = ps.sum_tolerance(xb[b], xb[b], cb[b], nv[b])
+        for k, r in ((m1[b], r1[b]), (m2[b], r2[b])):
+            assert torch.all(k[~live] == 0)
+            assert torch.all((k - r)[sel].abs() <= tol[sel])
+
+
 def test_threshold_fit_matches_dense_order(cuda):
     """The threshold state machine returns the dense evaluation's root at
     every iteration (paper Section 3.2), on the card, through both order
@@ -346,6 +417,33 @@ def test_ssd_decode_rows_do_not_depend_on_the_batch(cuda):
     for b in range(4):
         y1, s1 = sd.ssd_decode(*[t[b:b + 1].contiguous() for t in args[:5]], *args[5:])
         assert torch.equal(y1[0], y[b]) and torch.equal(s1[0], s[b])
+
+
+def _offset(t):
+    """A copy of ``t`` whose data start 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("b,h,p,n", [(2, 5, 24, 37), (3, 3, 70, 130), (1, 2, 17, 4),
+                                     (2, 4, 33, 129), (4, 2, 16, 36)])
+def test_ssd_decode_ragged_shapes(cuda, b, h, p, n):
+    """P not a multiple of the kernel's P-slice, N not a multiple of 4 (the
+    scalar path) or of 128: the new state bit-equal to plain, y within
+    tolerance; row b of a launch bit-identical to a one-row launch of its
+    views (not 16-byte aligned when N is odd); inputs at a 4-byte offset
+    (the scalar path) give the aligned launch's bits."""
+    args = _ssd_args(b, h, p, n, cuda, seed=7 * n + p)
+    y, s = sd.ssd_decode(*args)
+    yr, sr = sd.ssd_decode_ref(*args)
+    assert torch.equal(s, sr) and _close(y, yr)
+    for i in range(b):
+        y1, s1 = sd.ssd_decode(*[t[i:i + 1].contiguous() for t in args[:5]], *args[5:])
+        assert torch.equal(y1[0], y[i]) and torch.equal(s1[0], s[i])
+    yo, so = sd.ssd_decode(*[_offset(t) for t in args])
+    assert torch.equal(yo, y) and torch.equal(so, s)
 
 
 def test_engine_full_width_mixer_matches_cpu(cuda):

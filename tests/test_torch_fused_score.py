@@ -347,12 +347,12 @@ def test_kernel_schedule_matches_plain_and_pallas(dead):
 
 
 def _log1p_unit_coefficients():
-    """The polynomial's coefficients as the CUDA source states them, from the
-    highest degree down."""
+    """The polynomial's coefficients as the CUDA sources state them (the
+    header both score kernels include), from the highest degree down."""
     import pathlib
     import re
 
-    src = (pathlib.Path(fs.__file__).parent / "csrc" / "fused_score.cu").read_text()
+    src = (pathlib.Path(fs.__file__).parent / "csrc" / "lingam_math.cuh").read_text()
     body = src[src.index("float log1p_unit(float e) {"):]
     body = body[:body.index("return e * r;")]
     first = re.search(r"fmaf\(([-0-9.e]+)f, e, ([-0-9.e]+)f\)", body)

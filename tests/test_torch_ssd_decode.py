@@ -64,7 +64,7 @@ def test_plain_matches_pallas_kernel(b, h, p, n, block_h):
         np.testing.assert_allclose(s_t, np.asarray(s_j), rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("b,h,p,n", CASES + [(3, 12, 16, 32), (2, 5, 8, 24)])
+@pytest.mark.parametrize("b,h,p,n", CASES + [(3, 12, 16, 32), (2, 5, 8, 24), (2, 5, 24, 37)])
 def test_plain_matches_reference_oracle(b, h, p, n):
     args = _inputs(b, h, p, n)
     y_j, s_j = j_ssd_decode_ref(*map(jnp.asarray, args))
