@@ -76,12 +76,23 @@ Phases, each printed on its own line:
     ``fit_batch(threshold=True)`` on the E. coli bucket against each
     dataset's own ``fit_batch``; one served round of those requests through
     ``AsyncLingamEngine(ParaLiNGAMConfig(threshold=True))``, replayed.
-11. The rank-1 update kernels (``update_data``, ``update_cov``, paper
-    Algorithms 7 and 8) against their plain versions at the CPU tests'
-    cases, p=85/n=10000 and p=512/n=2000, with times; then their own path:
-    84 updates along the E. coli fit's order through ``kernels.ops``, each
-    step held against the plain versions on the same inputs. (Run right
-    after phase 3, whose order they take.)
+11. The rank-1 update kernel (paper Algorithms 7 and 8). Its TPU mode
+    (``update_data``, ``update_cov``) against its plain versions at the CPU
+    tests' cases, p=85/n=10000 and p=512/n=2000, with times beside an empty
+    kernel's on the same grid; then that mode's own path: 84 updates along
+    the E. coli fit's order through ``kernels.ops``, each step held against
+    the plain versions on the same inputs. (Run right after phase 3, whose
+    order they take.) Its fit mode (``rank1_update``, one launch per scan
+    iteration, on the path of every fit): ``[rank1_scale_probe]`` (its
+    rsqrt against torch's, bit for bit), ``[rank1_update_vs_plain]`` on the
+    inputs the fits give it (the E. coli dispatch's stages m=128, 64, 32,
+    the E. coli and p=512 fits, |b| at and past 1): c' bit-equal, the
+    scale within ``covupdate.SCALE_ULP_TOL`` ulp, padded columns +0, in
+    place = out of place; ``[rank1_update_kernel_time]`` (device, event,
+    out-of-place and empty-kernel ms beside the live bytes' bound and the
+    plain composition). Every fit line, ``[fit_batch_ecoli]``, the host
+    driver and ``[engine]`` count its launches (p - 1 per fit, 127 per
+    E. coli dispatch).
 12. The SSD decode kernel against its plain version at Mamba2-370M's decode
     shape (B=4, H=32, P=64, N=128) and at ragged head counts, P not a
     multiple of the P-slice and N not a multiple of 4, new state bit-equal;
@@ -100,7 +111,9 @@ Phases, each printed on its own line:
     time by kernel, and the device's busy share), at both fit sizes and for
     the threshold fit; the torch ops and device kernels of one dense
     find-root of the E. coli bucket, and of ``fused_layout``, the plain
-    version's torch prologue that the kernels now do themselves; the
+    version's torch prologue that the kernels now do themselves; those of
+    the bucket's first update and of its whole scan per iteration, with the
+    plain updates and with the update kernel (``[profile_scan_iteration]``); the
     device's busy share while the engine serves the same requests again,
     and the same for one Mamba2 ``generate``.
 14. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
@@ -426,29 +439,32 @@ def fit_stage_inputs(x, dev):
 
     ops.score_vector = spy
     try:
-        res, _, seconds, _ = run_fit(x, "hopper_fused", dev)
+        res, _, seconds, _, _ = run_fit(x, "hopper_fused", dev)
     finally:
         ops.score_vector = orig
     return captured, res, seconds
 
 
 def run_fit(x, backend, dev, **kw):
-    fs.LAUNCHES = 0
+    """One ``fit``: (result, B, seconds, fused-kernel launches, update-kernel
+    launches), the counts set to 0 just before it."""
+    fs.LAUNCHES = cu.RANK1_LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res, b = fit(x, ParaLiNGAMConfig(score_backend=backend, **kw), device=dev)
     torch.cuda.synchronize()
-    return res, b, time.perf_counter() - t0, fs.LAUNCHES
+    return res, b, time.perf_counter() - t0, fs.LAUNCHES, cu.RANK1_LAUNCHES
 
 
 def phase_fit_small(dev):
     data = sem.generate(sem.SemSpec(p=8, n=2500, density="sparse", seed=0))
-    res, b, _, launches = run_fit(data["x"], "auto", dev, min_bucket=8)
+    res, b, _, launches, updates = run_fit(data["x"], "auto", dev, min_bucket=8)
     oracle = direct_lingam.causal_order(data["x"])
     say("fit_small", p=8, n=2500, order_equals_f64_oracle=res.order == oracle,
-        launches=launches)
+        launches=launches, update_launches=updates)
     check(res.order == oracle, "fit order differs from the float64 oracle at p=8")
-    check(launches == 7, "fit did not run the kernel once per find-root")
+    check(launches == 7 and updates == 7,
+          "fit did not run the score and update kernels once per iteration")
     check(bool(torch.all(torch.isfinite(b))) and tuple(b.shape) == (8, 8),
           "B is not a finite (8, 8) matrix")
 
@@ -457,19 +473,22 @@ def phase_fit_core(dev, gpu) -> float:
     p, n = ECOLI
     data = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=0))
     captured, warm, _ = fit_stage_inputs(data["x"], dev)
-    res_k, b_k, t_k, launches = run_fit(data["x"], "hopper_fused", dev)
-    res_p, b_p, t_p, _ = run_fit(data["x"], "torch", dev)
+    res_k, b_k, t_k, launches, updates = run_fit(data["x"], "hopper_fused", dev)
+    res_p, b_p, t_p, _, plain_updates = run_fit(data["x"], "torch", dev)
     same = res_k.order == res_p.order
     b_err = (b_k - b_p).abs().max().item()
     nv_err = float(np.max(np.abs(res_k.noise_var / res_p.noise_var - 1)))
     say("fit_ecoli_core", p=p, n=n, orders_equal=same, b_max_abs_diff=b_err,
         noise_var_max_rel_diff=nv_err, launches=launches, find_roots=p - 1,
+        update_launches=updates, update_launches_torch=plain_updates,
         valid_order=sem.is_valid_causal_order(res_k.order, data["b_true"]),
         fit_s_hopper_fused=f"{t_k:.3f}", fit_s_torch=f"{t_p:.3f}", gpu=f"'{gpu}'")
     check(same, "hopper_fused and torch orders differ at p=85")
     # Same order and same raw data: phase 2 sees identical inputs.
     check(b_err <= 1e-6 and nv_err <= 1e-6, "B or noise_var differ at p=85")
     check(launches == p - 1, f"{launches} kernel launches for {p - 1} find-roots")
+    check(updates == p - 1 and plain_updates == 0,
+          f"{updates} update launches for {p - 1} iterations ({plain_updates} on torch)")
     check(res_k.order == warm.order, "two fits of the same data gave different orders")
     check(bool(torch.all(torch.isfinite(b_k))) and np.all(np.isfinite(res_k.noise_var)),
           "non-finite B or noise variances")
@@ -482,11 +501,13 @@ def phase_fit_slice(dev, gpu):
     p, n = 512, 2000
     x = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=1))["x"]
     captured, warm, t_warm = fit_stage_inputs(x, dev)  # the warm-up fit
-    res, b, t_fit, launches = run_fit(x, "hopper_fused", dev)  # the main path
+    res, b, t_fit, launches, updates = run_fit(x, "hopper_fused", dev)  # the main path
     say("fit_ijr904_slice", p=p, n=n, launches=launches, find_roots=p - 1,
+        update_launches=updates,
         fit_s=f"{t_fit:.4f}", warmup_fit_s=f"{t_warm:.4f}",
         same_order_as_warmup=res.order == warm.order, gpu=f"'{gpu}'")
-    check(launches == p - 1, f"{launches} kernel launches for {p - 1} find-roots")
+    check(launches == p - 1 and updates == p - 1,
+          f"{launches} kernel and {updates} update launches for {p - 1} iterations")
     check(res.order == warm.order, "two fits of the same data gave different orders")
     check(bool(torch.all(torch.isfinite(b))), "non-finite B at p=512")
     # The fit's own find-root inputs are held at m=512 only: from the m=256
@@ -662,15 +683,17 @@ def phase_fit_batch(dev, gpu):
     xs, mask, nv, _ = pack_bucket(raw, *ECOLI_BUCKET)
     runs = {}
     for backend in ("hopper_fused", "torch"):
-        fs.BATCH_LAUNCHES = 0
+        fs.BATCH_LAUNCHES = cu.RANK1_LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = fit_batch(xs, ParaLiNGAMConfig(score_backend=backend), n_valid=nv,
                         mask=mask, device=dev)
         orders = res.orders.cpu().numpy()
         torch.cuda.synchronize()
-        runs[backend] = (res, orders, time.perf_counter() - t0, fs.BATCH_LAUNCHES)
-    (rk, ok_, tk, launches), (rp, op_, tp_, _) = runs["hopper_fused"], runs["torch"]
+        runs[backend] = (res, orders, time.perf_counter() - t0, fs.BATCH_LAUNCHES,
+                         cu.RANK1_LAUNCHES)
+    (rk, ok_, tk, launches, updates), (rp, op_, tp_, _, plain_updates) = (
+        runs["hopper_fused"], runs["torch"])
     p_live = [x.shape[0] for x in raw]
     same = [list(ok_[i, :p]) == list(op_[i, :p]) for i, p in enumerate(p_live)]
     b_err = (rk.b - rp.b).abs().max().item()
@@ -678,12 +701,16 @@ def phase_fit_batch(dev, gpu):
     finite = bool(torch.isfinite(rk.b).all() and torch.isfinite(rk.noise_var).all())
     say("fit_batch_ecoli", B=len(raw), bucket=f"{ECOLI_BUCKET}", orders_equal=f"{sum(same)}/{len(same)}",
         b_max_abs_diff=b_err, noise_var_max_rel_diff=nv_err, launches=launches,
-        find_roots=ECOLI_BUCKET[0] - 1, fit_batch_s_hopper_fused=f"{tk:.4f}",
+        find_roots=ECOLI_BUCKET[0] - 1, update_launches=updates,
+        update_launches_torch=plain_updates, fit_batch_s_hopper_fused=f"{tk:.4f}",
         fit_batch_s_torch=f"{tp_:.4f}", gpu=f"'{gpu}'")
     check(all(same), "hopper_fused and torch orders differ in the E. coli bucket")
     check(b_err <= 1e-6 and nv_err <= 1e-6, "B or noise_var differ between the backends")
     check(launches == ECOLI_BUCKET[0] - 1,
           f"{launches} batched launches for {ECOLI_BUCKET[0] - 1} find-roots")
+    check(updates == ECOLI_BUCKET[0] - 1 and plain_updates == 0,
+          f"{updates} update launches for {ECOLI_BUCKET[0] - 1} iterations "
+          f"({plain_updates} on torch)")
     check(finite, "non-finite B or noise variances in the E. coli bucket")
     # Each dataset's order, B and noise variances equal, bit for bit, those
     # of its own one-dataset fit_batch on the same padded inputs.
@@ -748,14 +775,14 @@ def serve_round(eng, requests, threads=3):
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
     fs.LAUNCHES = fs.BATCH_LAUNCHES = ps.LAUNCHES = ps.BATCH_LAUNCHES = 0
-    cu.DATA_LAUNCHES = cu.COV_LAUNCHES = sd.LAUNCHES = 0
+    cu.DATA_LAUNCHES = cu.COV_LAUNCHES = cu.RANK1_LAUNCHES = sd.LAUNCHES = 0
 
 
 def counts() -> dict:
     return {"fused_score": fs.LAUNCHES, "fused_score_batch": fs.BATCH_LAUNCHES,
             "pairwise_moments": ps.LAUNCHES, "pairwise_moments_batch": ps.BATCH_LAUNCHES,
             "update_data": cu.DATA_LAUNCHES, "update_cov": cu.COV_LAUNCHES,
-            "ssd_decode": sd.LAUNCHES}
+            "rank1_update": cu.RANK1_LAUNCHES, "ssd_decode": sd.LAUNCHES}
 
 
 def engine_round(cfg, requests, dev, *, replicas=1, prewarm=None, profile=False):
@@ -786,6 +813,7 @@ def engine_round(cfg, requests, dev, *, replicas=1, prewarm=None, profile=False)
         results, wall = serve_round(eng, requests)  # the main path
         launches = counts()
         st = eng.stats()
+        st["rank1_update"] = paralingam.dispatch_stats_snapshot()["rank1_update"]
         busy = None
         if profile:
             from torch.profiler import ProfilerActivity, profile as prof_ctx
@@ -830,15 +858,21 @@ def phase_engine(dev, gpu, batch_orders, profile: bool):
     results, wall, st, served, prewarm_s, launched, busy = engine_round(
         cfg, requests, dev, replicas=2, prewarm=[(85, 10_000), (512, 2000)], profile=profile)
     launches, vec_launches = launched["fused_score_batch"], launched["fused_score"]
+    updates = launched["rank1_update"]
     dispatch_s = [f"{r[0]}x{len(r[1])}:{r[3]:.4f}" for r in served]
     say("engine", requests=len(requests), dispatches=st["dispatches"], prewarm_s=f"{prewarm_s:.2f}",
         prewarm_buckets=st["prewarm"]["buckets"], wall_s=f"{wall:.4f}",
         requests_per_s=f"{len(requests) / wall:.3f}", seconds_per_dispatch=",".join(dispatch_s),
-        launches=launches, gpu=f"'{gpu}'")
+        launches=launches, update_launches=updates,
+        dispatch_stats_rank1_update=st["rank1_update"], kernel_bypass=st["kernel_bypass"],
+        gpu=f"'{gpu}'")
     check(st["auto_downgrade"] == 0, f"auto_downgrade={st['auto_downgrade']}")
     want = sum(r[0][0] - 1 for r in served)
     check(launches == want and vec_launches == 0,
           f"{launches} batched launches (want {want}), {vec_launches} one-dataset launches")
+    check(updates == want == st["rank1_update"],
+          f"{updates} update launches, {st['rank1_update']} counted by dispatch_stats "
+          f"(want {want})")
 
     # Each result is bit-identical to a replay of its recorded dispatch.
     replay_ok = replay_identical(served, cfg, dev)
@@ -877,7 +911,7 @@ def phase_engine(dev, gpu, batch_orders, profile: bool):
             device_busy_s=f"{busy_us / 1e6:.4f}", device_busy_share=f"{busy_us / 1e6 / wall2:.3f}",
             gpu=f"'{gpu}'")
         say_rows("engine", rows, busy_us)
-    return launches
+    return launches, updates
 
 
 def device_rows(prof):
@@ -895,12 +929,27 @@ def say_rows(run, rows, busy_us, top=12):
             calls=count, name=f"'{key[:90]}'")
 
 
+def scan_bucket(xb, cb, mb, nv, kernel_update: bool):
+    """The dense scan over a bucket with the update kernel, or with the
+    plain updates in its place (the parent's path)."""
+    saved = paralingam.UPDATE_KERNEL_BACKENDS
+    paralingam.UPDATE_KERNEL_BACKENDS = saved if kernel_update else ()
+    try:
+        return paralingam._scan_order_impl(xb, cb, mask0=mb, n_valid=nv, backend="hopper_fused")
+    finally:
+        paralingam.UPDATE_KERNEL_BACKENDS = saved
+
+
 def profile_find_root(dev, gpu):
     """``--profile``: the torch ops and device kernels of one dense find-root
     of the E. coli bucket's first stage, and of ``fused_layout``, the plain
     version's torch prologue (row entropies, diagonal tiles, padded layout),
-    whose work the kernels now do themselves."""
+    whose work the kernels now do themselves; then of that bucket's first
+    update, plain (``covariance.update_data`` + ``update_cov``) and through
+    the update kernel, and of its whole dense scan with each, per
+    iteration."""
     xb, cb, mb, nv = bucket_inputs(ecoli_requests(), ECOLI_BUCKET, dev, dead=0.0)
+    roots = paralingam._find_root_dense_impl(xb, cb, mb, 32, "hopper_fused", n_valid=nv)[0]
     # A session may drop device events, never add them: the fullest of five
     # one-call sessions is the count. Once other sessions have run in the
     # process, short ones were seen to lose all of them (a fresh process
@@ -909,22 +958,37 @@ def profile_find_root(dev, gpu):
     for what, fn in (
             ("find_root", lambda: paralingam._find_root_dense_impl(
                 xb, cb, mb, 32, "hopper_fused", n_valid=nv)),
-            ("torch_prologue", lambda: fused_layout(xb, cb, mb, 8, n_valid=nv))):
+            ("torch_prologue", lambda: fused_layout(xb, cb, mb, 8, n_valid=nv)),
+            ("update_plain", lambda: cu.rank1_update_ref(xb, cb, roots, mb, n_valid=nv)),
+            ("update_kernel", lambda: ops.rank1_update(xb, cb, roots, mb, nv)),
+            ("scan_plain_update", lambda: scan_bucket(xb, cb, mb, nv, False)),
+            ("scan_kernel_update", lambda: scan_bucket(xb, cb, mb, nv, True))):
         fn()
         torch.cuda.synchronize()
-        for _ in range(5):
+        for _ in range(5 if what in ("find_root", "torch_prologue") else 2):
             rows, events = profiled_rows(fn, 1, with_events=True)
             seen = (sum(e.count for e in events if e.key.startswith("aten::")),
                     sum(r[2] for r in rows), rows)
             counted[what] = max(counted.get(what, seen), seen, key=lambda c: c[1])
-    (ops, kernels, rows), (p_ops, p_kernels, _) = counted["find_root"], counted["torch_prologue"]
+    (fr_ops, kernels, rows), (p_ops, p_kernels, _) = counted["find_root"], counted["torch_prologue"]
     names = ",".join(
         f"{r[1].replace('(anonymous namespace)::', '').split('(')[0].split('<')[0].split('::')[-1]}"
         f":{r[2]}" for r in rows)
     say("profile_find_root", B=xb.shape[0], bucket=f"{tuple(xb.shape[1:])}",
-        aten_ops=ops, device_kernels=kernels, kernels=names,
+        aten_ops=fr_ops, device_kernels=kernels, kernels=names,
         torch_prologue_aten_ops=p_ops, torch_prologue_device_kernels=p_kernels,
         gpu=f"'{gpu}'")
+    its = ECOLI_BUCKET[0] - 1
+    (u_ops, u_kernels, _), (k_ops, k_kernels, _) = counted["update_plain"], counted["update_kernel"]
+    (sp_ops, sp_kernels, _), (sk_ops, sk_kernels, _) = (counted["scan_plain_update"],
+                                                        counted["scan_kernel_update"])
+    say("profile_scan_iteration", B=xb.shape[0], bucket=f"{tuple(xb.shape[1:])}", iterations=its,
+        update_aten_ops_plain=u_ops, update_device_kernels_plain=u_kernels,
+        update_aten_ops_kernel=k_ops, update_device_kernels_kernel=k_kernels,
+        aten_ops_per_iteration_plain_update=f"{sp_ops / its:.1f}",
+        aten_ops_per_iteration_kernel_update=f"{sk_ops / its:.1f}",
+        device_kernels_per_iteration_plain_update=f"{sp_kernels / its:.1f}",
+        device_kernels_per_iteration_kernel_update=f"{sk_kernels / its:.1f}", gpu=f"'{gpu}'")
 
 
 def profile_fits(dev, gpu):
@@ -936,7 +1000,7 @@ def profile_fits(dev, gpu):
         x = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=seed))["x"]
         run_fit(x, "hopper_fused", dev)  # warm-up
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, _, wall, _ = run_fit(x, "hopper_fused", dev)
+            _, _, wall, _, _ = run_fit(x, "hopper_fused", dev)
         rows = device_rows(prof)
         busy_us = sum(r[0] for r in rows)
         say("profile", p=p, n=n, wall_s=f"{wall:.4f}", device_busy_s=f"{busy_us / 1e6:.4f}",
@@ -1261,11 +1325,12 @@ def phase_fit_hopper(dev, gpu, core):
     b_err = (b - b_k).abs().max().item()
     nv_err = float(np.max(np.abs(res.noise_var / res_k.noise_var - 1)))
     say("fit_hopper_ecoli", p=p, n=n, launches=launched["pairwise_moments"], find_roots=p - 1,
+        update_launches=launched["rank1_update"],
         order_equals_hopper_fused=same_fused, order_equals_torch=same_torch,
         b_max_abs_diff=b_err, noise_var_max_rel_diff=nv_err, fit_s_hopper=f"{t:.4f}",
         fit_s_hopper_fused=f"{t_k:.4f}", gpu=f"'{gpu}'")
-    check(launched["pairwise_moments"] == p - 1 and launched["fused_score"] == 0,
-          f"{launched} launches for {p - 1} find-roots")
+    check(launched["pairwise_moments"] == p - 1 and launched["fused_score"] == 0
+          and launched["rank1_update"] == p - 1, f"{launched} launches for {p - 1} iterations")
     if same_fused:
         check(b_err <= 1e-6 and nv_err <= 1e-6, "B or noise_var differ from the fused fit")
     return launched["pairwise_moments"]
@@ -1284,9 +1349,11 @@ def phase_causal_order_host(dev, gpu, core):
         key = "pairwise_moments" if backend == "hopper" else "fused_score"
         same = hold_order(f"host_{backend}_vs_fit", res.order, fit_order, x, dev)
         say("causal_order_host", backend=backend, p=p, n=n, launches=launched[key],
+            update_launches=launched["rank1_update"],
             order_equals_fit=same, comparisons=res.comparisons, seconds=f"{t:.4f}",
             fit_s=f"{core['hopper_fused'][2]:.4f}", gpu=f"'{gpu}'")
-        check(launched[key] == p - 1, f"{launched} launches for {p - 1} host find-roots")
+        check(launched[key] == p - 1 and launched["rank1_update"] == p - 1,
+              f"{launched} launches for {p - 1} host iterations")
 
 
 def count_reads(fn):
@@ -1407,10 +1474,12 @@ def phase_fit_batch_hopper(dev, gpu, batch_orders):
     orders = res.orders.cpu().numpy()
     same = sum(list(orders[i, :x.shape[0]]) == o for i, (x, o) in enumerate(zip(raw, batch_orders)))
     say("fit_batch_hopper", B=len(raw), bucket=f"{ECOLI_BUCKET}", launches=launched["pairwise_moments_batch"],
+        update_launches=launched["rank1_update"],
         find_roots=ECOLI_BUCKET[0] - 1, orders_equal_to_hopper_fused=f"{same}/{len(raw)}",
         seconds=f"{t:.4f}", gpu=f"'{gpu}'")
-    check(launched["pairwise_moments_batch"] == ECOLI_BUCKET[0] - 1 and launched["pairwise_moments"] == 0,
-          f"{launched} launches for {ECOLI_BUCKET[0] - 1} find-roots")
+    check(launched["pairwise_moments_batch"] == ECOLI_BUCKET[0] - 1 and launched["pairwise_moments"] == 0
+          and launched["rank1_update"] == ECOLI_BUCKET[0] - 1,
+          f"{launched} launches for {ECOLI_BUCKET[0] - 1} iterations")
     for i, (x, o) in enumerate(zip(raw, batch_orders)):
         if list(orders[i, :x.shape[0]]) != o:
             hold_order(f"fit_batch_hopper[{i}]", list(orders[i, :x.shape[0]]), o, x, dev)
@@ -1518,32 +1587,44 @@ def hold_covupdate(name, xn, c, b, xr):
     return ex, ec
 
 
+def empty_times(mode, batch, m, n, dev):
+    """Event ms and device ms of an empty kernel on the grid of a ``mode``
+    launch of the update kernel: the launch floor beside its time."""
+    fn = lambda: cu.launch_empty(mode, batch, m, n, dev)  # noqa: E731
+    return time_ms(fn, reps=200, warmup=5), device_ms(fn, "rank1_update_empty")
+
+
 def phase_covupdate_kernel(dev, gpu, rate):
-    """Both rank-1 update kernels against their plain versions at the CPU
-    tests' cases, p=85/n=10000 and p=512/n=2000, with times per launch."""
+    """The update kernel's TPU mode (``update_data``, ``update_cov``)
+    against its plain versions at the CPU tests' cases, p=85/n=10000 and
+    p=512/n=2000, with times per launch beside an empty kernel's on the
+    same grid."""
     errs = [hold_covupdate(f"gauss_p{p}_n{n}", *covupdate_inputs(p, n, dev))
             for p, n in ((8, 512), (21, 1000), (64, 4096), (7, 130), ECOLI, SLICE)]
     timing = {}
     for p, n in (SLICE, (64, 4096), ECOLI):
         xn, c, b, xr = covupdate_inputs(p, n, dev)
-        for name, kern, plain, nbytes, ops_ in (
-                ("update_data", lambda: cu.launch_data(xn, xr, b),
+        for name, mode, kern, plain, nbytes, ops_ in (
+                ("update_data", cu.MODE_DATA, lambda: cu.launch_data(xn, xr, b),
                  lambda: cu.update_data_ref(xn, xr, b), 4 * (2 * p * n + n + p), 3 * p * n),
-                ("update_cov", lambda: cu.launch_cov(c, b), lambda: cu.update_cov_ref(c, b),
-                 4 * (2 * p * p + p), 3 * p * p)):
+                ("update_cov", cu.MODE_COV, lambda: cu.launch_cov(c, b),
+                 lambda: cu.update_cov_ref(c, b), 4 * (2 * p * p + p), 3 * p * p)):
             if name == "update_cov" and (p, n) != SLICE:
                 continue
             ms = time_ms(kern, reps=200, warmup=5)
-            dev_ms = device_ms(kern, f"{name}_rows")
+            dev_ms = device_ms(kern, "rank1_update_kernel")
+            empty_ms, empty_dev = empty_times(mode, 1, p, n, dev)
             plain_ms = time_ms(plain, reps=50, warmup=2)
             bound = max(nbytes / HBM_BPS, ops_ / FP32_FLOPS) * 1e3
             shape = f"p={p},n={n}" if name == "update_data" else f"p={p}"
-            timing.setdefault(name, (ms, plain_ms, bound, shape, dev_ms))
+            timing.setdefault(name, (ms, plain_ms, bound, shape, dev_ms, empty_dev))
             say("covupdate_kernel_time", kernel=name, shape=shape, kernel_ms=f"{ms:.5f}",
-                device_ms=f"{dev_ms:.5f}", plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound:.5f}",
-                bound_by="bytes",
+                device_ms=f"{dev_ms:.5f}", empty_kernel_ms=f"{empty_ms:.5f}",
+                empty_kernel_device_ms=f"{empty_dev:.5f}",
+                blocks=cu.blocks(mode, 1, p, n), plain_ms=f"{plain_ms:.5f}",
+                bound_ms=f"{bound:.5f}", bound_by="bytes",
                 bound_ms_at_copy_rate=f"{nbytes / rate * 1e3:.5f}",
-                kernel_fraction_of_bound=f"{bound / ms:.3f}", gpu=f"'{gpu}'")
+                device_fraction_of_bound=f"{bound / dev_ms:.3f}", gpu=f"'{gpu}'")
     return max(e[0] for e in errs), max(e[1] for e in errs), timing
 
 
@@ -1580,6 +1661,170 @@ def phase_covupdate_path(dev, gpu, x, order):
           f"{launched} launches for {len(steps)} rank-1 updates")
     check(ok and finite, "a rank-1 update on the entry path disagrees with plain")
     return launched, ex, ec
+
+
+# -- slice 7: the update kernel's fit mode, on the path of every fit
+
+RANK1_REPLACES = ("src/repro/kernels/covupdate.py:21,29; "
+                  "src/repro/core/covariance.py:98,128")
+
+
+def capture_updates(fn):
+    """Run ``fn`` with ``ops.rank1_update`` spied on: the inputs of its
+    first call at each buffer size m, copied before the call (the scan may
+    update in place)."""
+    captured, orig = {}, ops.rank1_update
+
+    def spy(xb, cb, roots, mloc, n_valid=None, *, inplace=False):
+        if xb.shape[1] not in captured:
+            captured[xb.shape[1]] = tuple(None if t is None else t.clone()
+                                          for t in (xb, cb, roots, mloc, n_valid))
+        return orig(xb, cb, roots, mloc, n_valid, inplace=inplace)
+
+    ops.rank1_update = spy
+    try:
+        fn()
+    finally:
+        ops.rank1_update = orig
+    return captured
+
+
+def rank1_live(xb, roots, mloc):
+    return mloc & (torch.arange(xb.shape[1], device=xb.device) != roots[:, None])
+
+
+def hold_rank1(name, xb, cb, roots, mloc, nv):
+    """The fit mode against its plain version on one launch's inputs: c'
+    and x' bit-equal, each live row's scale within ``cu.SCALE_ULP_TOL`` ulp, columns
+    past the valid count +0, dead rows unchanged, and the in-place launch
+    the bits of the out-of-place one. Returns the max abs error of x'."""
+    kx, kc = cu.launch_rank1(xb, cb, roots, mloc, nv)
+    rx, rc = cu.rank1_update_ref(xb, cb, roots, mloc, n_valid=nv)
+    own = xb.clone()
+    ix, ic = cu.launch_rank1(own, cb, roots, mloc, nv, inplace=True)
+    torch.cuda.synchronize()
+    live = rank1_live(xb, roots, mloc)
+    ulps = cu.scale_ulps(kx, rx, xb, cb, roots, mloc)
+    rows = torch.all(kx == rx, dim=-1)[live]
+    n = xb.shape[2]
+    past = torch.arange(n, device=xb.device) >= (n if nv is None else nv[:, None, None])
+    padded_zero = bool(torch.all(kx.masked_select(past.expand_as(kx)) == 0))
+    dead_same = torch.equal(kx[~live], xb[~live])
+    in_place = torch.equal(ix, kx) and torch.equal(ic, kc)
+    err = (kx.double() - rx.double()).abs().max().item()
+    ok = (torch.equal(kc, rc) and torch.equal(kx, rx) and float(ulps.max()) <= cu.SCALE_ULP_TOL
+          and padded_zero and dead_same and in_place)
+    say("rank1_update_vs_plain", case=name, B=xb.shape[0], m=xb.shape[1], n=n,
+        n_valid="none" if nv is None else f"{int(nv.min())}-{int(nv.max())}",
+        live_rows=int(live.sum()), cb_bit_equal=torch.equal(kc, rc), xb_bit_equal=torch.equal(kx, rx),
+        rows_bit_equal=f"{int(rows.sum())}/{rows.numel()}", scale_max_ulp=f"{float(ulps.max()):.3f}",
+        scale_ulp_tol=cu.SCALE_ULP_TOL, max_abs_x=f"{err:.3e}", padded_columns_zero=padded_zero,
+        dead_rows_unchanged=dead_same, in_place_bit_equal=in_place, ok=ok)
+    check(ok, f"{name}: the update kernel's fit mode disagrees with plain")
+    return err
+
+
+def rank1_bytes(xb, cb, roots, mloc, nv):
+    """The bytes one launch must move: each live row's valid samples read
+    and written, each dataset's root row read, c read and c' written."""
+    bsz, m, n = xb.shape
+    live = rank1_live(xb, roots, mloc).sum(dim=1).double()
+    nvd = torch.full((bsz,), float(n), dtype=torch.float64, device=xb.device) if nv is None \
+        else nv.double()
+    return float((live * nvd * 8 + nvd * 4 + m * m * 8).sum())
+
+
+def phase_rank1_update(dev, gpu, core):
+    """The update kernel's fit mode (``ops.rank1_update``) against its plain
+    version on the inputs the fits give it: the first update of each stage
+    of one E. coli dispatch (B=8, m=128, 64, 32, masks and valid counts),
+    of the E. coli core fit (its 128-row first stage) and of the p=512
+    slice fit, and the core fit's first update with |b| at and past 1
+    (clip and floor); then its time per launch at those shapes, in place as
+    the scan runs all but the first update (device and event ms), beside
+    the out-of-place launch, an empty kernel on the same grid, the plain
+    composition and the live bytes' bound. Returns (max abs err, timing of
+    the dispatch's m=128 update)."""
+    xs, mask, nv, _ = pack_bucket(ecoli_requests(), *ECOLI_BUCKET)
+    bucket = capture_updates(lambda: fit_batch(xs, ParaLiNGAMConfig(), n_valid=nv, mask=mask,
+                                               device=dev))
+    fit85 = capture_updates(lambda: fit(core["x"], ParaLiNGAMConfig(), device=dev))
+    x512 = sem.generate(sem.SemSpec(p=SLICE[0], n=SLICE[1], density="sparse", seed=1))["x"]
+    fit512 = capture_updates(lambda: fit(x512, ParaLiNGAMConfig(), device=dev))
+    cases = [(f"ecoli_bucket_m{m}", bucket[m]) for m in sorted(bucket, reverse=True)]
+    # each fit's first update, on its first stage's buffer (128 rows for p=85)
+    cases += [("ecoli_fit_p85_n10000", fit85[max(fit85)]),
+              ("ijr904_fit_p512_n2000", fit512[max(fit512)])]
+    errs = [hold_rank1(name, *args) for name, args in cases]
+    xb, cb, roots, mloc, _ = fit85[max(fit85)]
+    near = cb.clone()
+    r = int(roots[0])
+    rows = [int(i) for i in torch.nonzero(rank1_live(xb, roots, mloc)[0])[:6]]
+    near[0, rows, r] = torch.tensor([1.0000001, -1.0000001, 0.99999, -0.9999999, 1.0, -1.0],
+                                    device=dev)
+    errs.append(hold_rank1("clip_and_floor_p85", xb, near, roots, mloc, None))
+
+    timing = None
+    for name, (xb, cb, roots, mloc, nvb) in cases:
+        bsz, m, n = xb.shape
+        own = xb.clone()
+        fn = lambda: cu.launch_rank1(own, cb, roots, mloc, nvb, inplace=True)  # noqa: E731
+        ms = time_ms(fn, reps=200, warmup=5)
+        dev_ms = device_ms(fn, "rank1_update_kernel")
+        out_ms = device_ms(lambda: cu.launch_rank1(xb, cb, roots, mloc, nvb),
+                           "rank1_update_kernel")
+        empty_ms, empty_dev = empty_times(cu.MODE_FIT, bsz, m, n, dev)
+        plain_ms = time_ms(lambda: cu.rank1_update_ref(xb, cb, roots, mloc, n_valid=nvb),
+                           reps=20, warmup=2)
+        bound = rank1_bytes(xb, cb, roots, mloc, nvb) / HBM_BPS * 1e3
+        say("rank1_update_kernel_time", case=name, B=bsz, m=m, n=n,
+            live_rows=int(rank1_live(xb, roots, mloc).sum()), blocks=cu.blocks(cu.MODE_FIT, bsz, m, n),
+            kernel_ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", out_of_place_device_ms=f"{out_ms:.5f}",
+            empty_kernel_ms=f"{empty_ms:.5f}", empty_kernel_device_ms=f"{empty_dev:.5f}",
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound:.5f}", bound_by="bytes",
+            device_fraction_of_bound=f"{bound / dev_ms:.3f}", gpu=f"'{gpu}'")
+        if timing is None:
+            timing = (ms, plain_ms, bound, dev_ms, empty_dev,
+                      f"B={bsz},m={m},n={n},n_valid={int(nvb.min())}-{int(nvb.max())},in place")
+    return max(errs), timing
+
+
+# (rows, n) of torch.sum over the squares: the fit mode's shapes (the E. coli
+# dispatch's stages, the E. coli and p=512 fits) and one of each other shape
+# ATen takes (unaligned rows, fewer than 16 rows, scalar loads, a row split
+# across blocks).
+SUM_ORDER_SHAPES = ((1024, 16384), (512, 16384), (256, 16384), (128, 10_000), (512, 2000),
+                    (74, 1301), (8, 3000), (3, 100), (2, 300_000), (40, 131_072))
+
+
+def phase_rank1_sum_order(dev):
+    """The fit mode's sum of squares against torch.sum on the card, bit for
+    bit, at each of ``SUM_ORDER_SHAPES``."""
+    held = []
+    for rows, n in SUM_ORDER_SHAPES:
+        x = torch.from_numpy(np.random.default_rng(rows + n).standard_normal((rows, n))
+                             .astype(np.float32)).to(dev)
+        got, shape = cu.sum_probe(x)
+        held.append(torch.equal(got, torch.sum(torch.square(x), dim=-1)))
+        say("rank1_sum_order", rows=rows, n=n, torch_block=f"{shape[0]}x{shape[1]}",
+            rows_share_block=bool(shape[2]), blocks_per_row=shape[3], vectors=bool(shape[4]),
+            bits_equal=held[-1])
+    check(all(held), "the fit mode's sum of squares departs from torch.sum's order")
+
+
+def phase_rank1_scale_probe(dev):
+    """The kernel's scale function against torch's CUDA rsqrt (after the
+    1e-12 floor): the same bits on every float32 in [0.25, 4) and on 2^20
+    random magnitudes in [1e-14, 1e6]."""
+    lo, hi = np.float32(0.25).view(np.int32), np.float32(4.0).view(np.int32)
+    every = torch.arange(int(lo), int(hi), device=dev, dtype=torch.int32).view(torch.float32)
+    wide = torch.from_numpy((10.0 ** np.random.default_rng(0).uniform(-14, 6, 1 << 20))
+                            .astype(np.float32)).to(dev)
+    same = [torch.equal(cu.scale_probe(v).view(torch.int32),
+                        torch.rsqrt(torch.clamp(v, min=1e-12)).view(torch.int32))
+            for v in (every, wide)]
+    say("rank1_scale_probe", points=every.numel() + wide.numel(), bits_equal_to_torch_rsqrt=all(same))
+    check(all(same), "the kernel's rsqrt differs from torch's on the card")
 
 
 def ssd_inputs(b, h, p, n, dev, seed):
@@ -1816,6 +2061,8 @@ def main() -> int:
 
     phase_sass()
     phase_math_probe(dev)
+    phase_rank1_scale_probe(dev)
+    phase_rank1_sum_order(dev)
     profile = "--profile" in sys.argv[1:]
     if profile:
         profile_find_root(dev, gpu)
@@ -1828,6 +2075,7 @@ def main() -> int:
     err_data, err_cov, cov_timing = phase_covupdate_kernel(dev, gpu, rate)
     cov_launched, path_ex, path_ec = phase_covupdate_path(
         dev, gpu, core["x"], core["hopper_fused"][0].order)
+    err_rank1, rank1_timing = phase_rank1_update(dev, gpu, core)
     err_ssd, ssd_timing = phase_ssd_kernel(dev, gpu, rate)
     ssd_launches, err_serve, _ = phase_mamba2_serve(dev, gpu, profile)
     err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
@@ -1837,7 +2085,7 @@ def main() -> int:
     err_b, ms_b, wrapper_b, plain_b, bound_b, padded_b, shape_b = phase_batch_kernel(dev, gpu)
     batch_orders = phase_fit_batch(dev, gpu)
     launches_sqb = phase_fit_batch_hopper(dev, gpu, batch_orders)
-    launches_b = phase_engine(dev, gpu, batch_orders, profile)
+    launches_b, launches_upd = phase_engine(dev, gpu, batch_orders, profile)
     phase_threshold_ecoli(dev, gpu)
     phase_threshold_batch(dev, gpu)
     if time.perf_counter() - t_start < 500:  # well inside the 1200 s limit
@@ -1879,10 +2127,17 @@ def main() -> int:
         "name": name, "route": "cuda", "source": COV_SOURCE, "replaces": replaces,
         "launches": cov_launched[name], "max_abs_err": err, "ms": cov_timing[name][0],
         "plain_ms": cov_timing[name][1], "bound_ms": cov_timing[name][2], "bound_by": "bytes",
-        "library_ms": None, "device_ms": cov_timing[name][4], "shape": cov_timing[name][3],
+        "library_ms": None, "device_ms": cov_timing[name][4],
+        "empty_kernel_device_ms": cov_timing[name][5], "shape": cov_timing[name][3],
         "gpu": gpu,
     } for name, replaces, err in (("update_data", DATA_REPLACES, max(err_data, path_ex)),
                                   ("update_cov", COV_REPLACES, max(err_cov, path_ec)))] + [{
+        "name": "rank1_update", "route": "cuda", "source": COV_SOURCE,
+        "replaces": RANK1_REPLACES, "launches": launches_upd, "max_abs_err": err_rank1,
+        "ms": rank1_timing[0], "plain_ms": rank1_timing[1], "bound_ms": rank1_timing[2],
+        "bound_by": "bytes", "library_ms": None, "device_ms": rank1_timing[3],
+        "empty_kernel_device_ms": rank1_timing[4], "shape": rank1_timing[5], "gpu": gpu,
+    }] + [{
         "name": "ssd_decode", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
         "launches": ssd_launches, "max_abs_err": max(err_ssd, err_serve), "ms": ssd_timing[0],
         "plain_ms": ssd_timing[1], "bound_ms": ssd_timing[2], "bound_by": "bytes",

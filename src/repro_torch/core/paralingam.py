@@ -64,6 +64,11 @@ class ConfigError(ValueError):
 #: ``scan`` (the device-resident staged scan) and ``ring`` (not ported yet).
 ORDER_BACKENDS = ("host", "scan", "ring")
 
+#: Score backends whose scans also run the rank-1 updates through the
+#: update kernel (``kernels.ops.rank1_update``); ``torch``/``torch_fused``
+#: keep the plain ``covariance.update_data`` / ``update_cov``.
+UPDATE_KERNEL_BACKENDS = ("hopper", "hopper_fused")
+
 _RING_NOT_PORTED = ("order_backend='ring' (the messaging ring) is not ported "
                     "yet: ROADMAP.md queue 1 item 8")
 
@@ -473,7 +478,11 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
     unmasked), so ``argmin`` over the ``+inf`` dead scores resolves ties like
     the JAX driver. ``threshold=True`` runs the threshold state machine
     (``chunk``, ``gamma0``, ``gamma_growth``, ``max_rounds``) in place of the
-    dense evaluation.
+    dense evaluation. Under the kernel backends (``UPDATE_KERNEL_BACKENDS``)
+    each iteration's rank-1 updates are one launch of the update kernel for
+    the bucket, which writes x' over the scan's own buffer once an update
+    or a compaction has copied the caller's ``xn`` (never over ``xn``
+    itself); under the others, ``covariance.update_data`` / ``update_cov``.
 
     Returns ``(order, comps_it, rounds_it, conv_it)``: the (B, p) causal
     orders and the (B, p) per-iteration comparison counts, threshold rounds
@@ -490,6 +499,8 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
 
     idx_g = torch.arange(p, device=dev).expand(bsz, p)  # local row -> variable id
     xb, cb = xn, c
+    kernel_update = backend in UPDATE_KERNEL_BACKENDS
+    owned = False  # xb is the caller's xn until an update or a compaction copies it
     mloc = torch.ones((bsz, p), dtype=torch.bool, device=dev) if mask0 is None else mask0
     m_cur = p
     pos = 0
@@ -502,6 +513,7 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
             cb = torch.take_along_dim(_rows(cb, sel), sel[:, None, :], dim=2)
             mloc = torch.arange(m, device=dev) < live
             m_cur = m
+            owned = True  # the gathers are the scan's own
         ar = torch.arange(m, device=dev)
         for it in range(pos, pos + cnt):
             if threshold:
@@ -518,10 +530,16 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
                 comps = r * (r - 1) // 2
             order[:, it] = torch.take_along_dim(idx_g, roots[:, None], dim=1)[:, 0]
             comps_it[:, it] = comps
-            xb = update_data(xb, cb, roots, mloc, n_valid=n_valid)
-            cb = update_cov(cb, roots, mloc)
+            if kernel_update:  # one launch for the bucket; x' over the scan's own buffer
+                xb, cb = kops.rank1_update(xb, cb, roots, mloc, n_valid, inplace=owned)
+                owned = True
+            else:
+                xb = update_data(xb, cb, roots, mloc, n_valid=n_valid)
+                cb = update_cov(cb, roots, mloc)
             mloc = mloc & (ar != roots[:, None])
         pos += cnt
+    if kernel_update and dev.type == "cuda":
+        _bump_stat("rank1_update", p - 1)  # one launch per iteration
 
     # One live row remains (for a full buffer); no find-root needed. An
     # already-drained padded buffer writes garbage here, past its live prefix.
@@ -588,7 +606,11 @@ def _device(device, caller: str = "repro_torch.fit") -> torch.device:
 #     is not the card). Expected on the CPU; surfaced in
 #     ``AsyncLingamEngine.stats()`` so a deployment can tell "kernels were
 #     never requested" from "kernels silently unavailable".
-dispatch_stats: dict = {"kernel_bypass": 0, "auto_downgrade": 0}
+#   "rank1_update"   — launches of the update kernel (``kernels.ops.
+#     rank1_update``) by the scans and the host driver: one per iteration
+#     under a kernel backend on the card (p - 1 per ``fit``, p_pad - 1 per
+#     dispatch); 0 on the CPU, where the wrapper runs its plain version.
+dispatch_stats: dict = {"kernel_bypass": 0, "auto_downgrade": 0, "rank1_update": 0}
 # Submitter and dispatcher-replica threads all count through _bump_stat.
 _dispatch_stats_mu = threading.Lock()
 
@@ -717,11 +739,16 @@ def causal_order_scan(x, config: ParaLiNGAMConfig | None = None, *,
                                  xn.shape[1], cfg.max_rounds)
 
 
-def _update_iteration(xn, c, root, mask):
+def _update_iteration(xn, c, root, mask, backend: str):
     """UpdateData + UpdateCovMat (Algorithms 7-8) of a bucket of one, and
-    the root dropped from U. ``root`` is a (1,) tensor."""
-    xn2 = update_data(xn, c, root, mask)
-    c2 = update_cov(c, root, mask)
+    the root dropped from U. ``root`` is a (1,) tensor. Under the kernel
+    backends one launch of the update kernel, x' written over ``xn`` (the
+    driver's own normalized copy)."""
+    if backend in UPDATE_KERNEL_BACKENDS:
+        xn2, c2 = kops.rank1_update(xn, c, root, mask, inplace=True)
+    else:
+        xn2 = update_data(xn, c, root, mask)
+        c2 = update_cov(c, root, mask)
     mask2 = mask & (torch.arange(xn.shape[1], device=xn.device) != root[:, None])
     return xn2, c2, mask2
 
@@ -776,8 +803,11 @@ def causal_order(x, config: ParaLiNGAMConfig | None = None, *,
                                              backend=backend, single=True)
         root = int(idx_pad[int(roots[0])])
         order.append(root)
-        xn, c, mask = _update_iteration(xn, c, torch.tensor([root], device=dev), mask)
+        xn, c, mask = _update_iteration(xn, c, torch.tensor([root], device=dev), mask,
+                                        backend)
         mask_np[root] = False
+    if backend in UPDATE_KERNEL_BACKENDS and dev.type == "cuda":
+        _bump_stat("rank1_update", len(order) - 1)
 
     live_rows = np.arange(p, 1, -1)
     if counters:

@@ -1,22 +1,45 @@
-"""Rank-1 iteration updates (paper Algorithms 7 and 8): the CUDA kernels'
+"""Rank-1 iteration updates (paper Algorithms 7 and 8): the CUDA kernel's
 wrappers and their plain versions.
 
-Replace the TPU kernels ``_update_data_kernel`` and ``_update_cov_kernel``
-of ``src/repro/kernels/covupdate.py`` through their entries ``update_data``
-and ``update_cov``, for one dataset of any p and n (no padding copies):
+One kernel, ``csrc/covupdate.cu``, in two modes of one design.
+
+TPU-kernel mode replaces the TPU kernels ``_update_data_kernel``
+(``src/repro/kernels/covupdate.py:21``, called at ``:56``) and
+``_update_cov_kernel`` (``:29``, called at ``:86``) through
+:func:`update_data` and :func:`update_cov`, for one dataset of any p and n
+(no padding copies):
 
     update_data: (x - b x_root) * rsqrt(max(1 - b^2, 1e-12)), row by row
     update_cov:  (c - b b^T) * inv inv^T, the unit diagonal restored
 
 ``b`` is the regression coefficient of every row on the root (``c[:,
 root]``) with the root's own entry, and any dead row's, zeroed by the
-caller. The kernels, ``csrc/covupdate.cu``, are single memory-bound passes.
+caller: no clip, no floor but 1e-12, no renormalization.
 
-These are not the updates ``fit`` runs: ``core.covariance.update_data`` and
-``update_cov`` also clip b, floor 1 - b^2 at ``COLLINEAR_FLOOR`` and
-renormalize the live rows, which the TPU kernels do not. As in the JAX
-package, the kernels are reached through ``kernels.ops.update_data`` /
-``update_cov`` only.
+Fit mode, :func:`rank1_update`, is the update the scan runs on every
+iteration: ``core.covariance.update_data`` then ``update_cov`` (the JAX
+package's ``src/repro/core/covariance.py:87-141``: b gathered from ``c[:,
+root]`` and gated by ``rank1_gates``, the drift renormalization of the live
+rows, the clipped correlations), over a bucket ``(B, m, n)`` with one root,
+live-row mask and valid count per dataset, in one launch for the whole
+bucket. ``fit``, ``fit_batch``, the engines, the threshold fits,
+``causal_order_scan`` and the host driver take it under the ``hopper`` and
+``hopper_fused`` backends; ``torch`` and ``torch_fused`` keep the plain
+updates, the reference the kernel is held to. Its plain version is that
+composition itself.
+
+What bounds both modes: memory (each element read and written once, ~6 FP32
+operations), and at these sizes the launch itself: an empty kernel on the
+same grid is measured beside each time (``chip_smoke.py``). The correlation
+update is written to a second buffer (every block reads column ``root`` of
+c); x' may overwrite x (``inplace=True``) where the caller owns x, which
+the scan does after its first update: its first stage's buffers are the
+caller's tensors. Every rounding step follows the plain version's, the
+variance's float32 sum of squares included: the kernel replays the order in
+which torch.sum reduces the (B * m, n) squares on the card (ATen's reduce
+kernel: its block shape, vectors, accumulators and trees; see the source),
+so x' and c' are bit-equal to the plain version (``SCALE_ULP_TOL`` = 0;
+``sum_probe`` holds the order against torch.sum itself).
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise.
@@ -30,17 +53,26 @@ import threading
 
 import torch
 
-from repro_torch.core.covariance import VAR_EPS
+from repro_torch.core import covariance
 
 #: Kernel launches since the last reset, one per call on the card.
 DATA_LAUNCHES = 0
 COV_LAUNCHES = 0
+RANK1_LAUNCHES = 0
 _count_mu = threading.Lock()
+
+#: Fit mode on the card against its plain version: a live row's
+#: renormalization scale within this many float32 ulp. The kernel sums the
+#: squares in torch.sum's order, so the scales are the same bits.
+SCALE_ULP_TOL = 0
+
+#: Grid modes of the kernel (``blocks``, ``launch_empty``).
+MODE_DATA, MODE_COV, MODE_FIT = 0, 1, 2
 
 
 def _inv_scale(b):
     """1 / sqrt(max(1 - b^2, 1e-12)), as the kernels round it."""
-    return 1.0 / torch.sqrt(torch.clamp(1.0 - b * b, min=VAR_EPS))
+    return 1.0 / torch.sqrt(torch.clamp(1.0 - b * b, min=covariance.VAR_EPS))
 
 
 def update_data_ref(x, x_root, b):
@@ -56,6 +88,13 @@ def update_cov_ref(c, b):
     new = (c - b[:, None] * b[None, :]) * inv[:, None] * inv[None, :]
     eye = torch.eye(c.shape[0], dtype=torch.bool, device=c.device)
     return torch.where(eye, 1.0, new)
+
+
+def rank1_update_ref(xb, cb, roots, mloc, n_valid=None):
+    """Plain version of :func:`rank1_update`: the scan's own composition,
+    ``covariance.update_data`` then ``covariance.update_cov``."""
+    return (covariance.update_data(xb, cb, roots, mloc, n_valid=n_valid),
+            covariance.update_cov(cb, roots, mloc))
 
 
 def _check(name, *tensors):
@@ -78,11 +117,20 @@ def _entries():
     from repro_torch.kernels import _build
 
     lib = _build.load("covupdate")
-    data, cov = lib.update_data_launch, lib.update_cov_launch
-    data.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    cov.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-    data.restype = cov.restype = ctypes.c_int
-    return data, cov
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    sigs = {"update_data_launch": [ptr] * 4 + [num] * 2 + [ptr],
+            "update_cov_launch": [ptr] * 3 + [num, ptr],
+            "rank1_update_launch": [ptr] * 7 + [num] * 3 + [ptr],
+            "rank1_update_blocks": [num] * 4,
+            "rank1_update_empty_launch": [num] * 4 + [ptr],
+            "rank1_scale_probe": [ptr, ptr, num, ptr],
+            "rank1_sum_probe": [ptr, ptr, num, num, ctypes.POINTER(num), ptr]}
+    fns = {}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
 
 
 def _raise_on(rc, name):
@@ -90,12 +138,16 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {rc}")
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def launch_data(x, x_root, b):
     """The update_data kernel on checked CUDA tensors. Counts nothing."""
     p, n = x.shape
     out = torch.empty_like(x)
-    _raise_on(_entries()[0](x.data_ptr(), x_root.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            p, n, torch.cuda.current_stream(x.device).cuda_stream),
+    _raise_on(_entries()["update_data_launch"](x.data_ptr(), x_root.data_ptr(), b.data_ptr(),
+                                               out.data_ptr(), p, n, _stream(x)),
               "update_data")
     return out
 
@@ -103,10 +155,65 @@ def launch_data(x, x_root, b):
 def launch_cov(c, b):
     """The update_cov kernel on checked CUDA tensors. Counts nothing."""
     out = torch.empty_like(c)
-    _raise_on(_entries()[1](c.data_ptr(), b.data_ptr(), out.data_ptr(), c.shape[0],
-                            torch.cuda.current_stream(c.device).cuda_stream),
+    _raise_on(_entries()["update_cov_launch"](c.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                              c.shape[0], _stream(c)),
               "update_cov")
     return out
+
+
+def launch_rank1(xb, cb, roots, mloc, n_valid=None, inplace=False):
+    """The fit-mode kernel on checked CUDA tensors (``roots`` int64,
+    ``mloc`` bool, ``n_valid`` None or int32, all contiguous). Counts
+    nothing. With ``inplace`` x' is written over ``xb``."""
+    bsz, m, n = xb.shape
+    x_out = xb if inplace else torch.empty_like(xb)
+    c_out = torch.empty_like(cb)
+    _raise_on(_entries()["rank1_update_launch"](
+        xb.data_ptr(), x_out.data_ptr(), cb.data_ptr(), c_out.data_ptr(), roots.data_ptr(),
+        mloc.data_ptr(), None if n_valid is None else n_valid.data_ptr(), bsz, m, n,
+        _stream(xb)), "rank1_update")
+    return x_out, c_out
+
+
+def blocks(mode: int, batch: int, m: int, n: int) -> int:
+    """Blocks of 256 threads in a launch of ``mode`` (``MODE_DATA``:
+    update_data of a (m, n) dataset, ``MODE_COV``: update_cov of a (m, m)
+    one, ``MODE_FIT``: rank1_update of a (batch, m, n) bucket)."""
+    return _entries()["rank1_update_blocks"](mode, batch, m, n)
+
+
+def launch_empty(mode: int, batch: int, m: int, n: int, device):
+    """An empty kernel on the grid of a ``mode`` launch: the launch floor."""
+    _raise_on(_entries()["rank1_update_empty_launch"](
+        mode, batch, m, n, torch.cuda.current_stream(device).cuda_stream), "rank1_update_empty")
+
+
+def scale_probe(var):
+    """The kernel's renormalization scale ``rsqrt(max(var, 1e-12))`` of
+    every entry of a float32 CUDA tensor, computed on the card by the
+    kernel's own device function (held against ``torch.rsqrt``)."""
+    if var.dtype != torch.float32 or var.device.type != "cuda" or not var.is_contiguous():
+        raise ValueError("scale_probe takes a contiguous float32 CUDA tensor")
+    out = torch.empty_like(var)
+    _raise_on(_entries()["rank1_scale_probe"](var.data_ptr(), out.data_ptr(), var.numel(),
+                                              _stream(var)), "rank1_scale_probe")
+    return out
+
+
+def sum_probe(x):
+    """``torch.sum(x * x, -1)`` of a contiguous float32 CUDA tensor ``(rows,
+    n)`` in the order the fit mode replays torch's (its check against torch
+    itself), and torch's block shape for it: ``(sums, (bw, bh, split, ctas,
+    vectors))``."""
+    if (x.dtype != torch.float32 or x.device.type != "cuda" or not x.is_contiguous()
+            or x.ndim != 2):
+        raise ValueError("sum_probe takes a contiguous float32 (rows, n) CUDA tensor")
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    shape = (ctypes.c_int * 5)()
+    _raise_on(_entries()["rank1_sum_probe"](x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+                                            shape, _stream(x)),
+              "rank1_sum_probe")
+    return out, tuple(shape)
 
 
 def update_data(x, x_root, b):
@@ -142,3 +249,58 @@ def update_cov(c, b):
     with _count_mu:
         COV_LAUNCHES += 1
     return out
+
+
+def rank1_update(xb, cb, roots, mloc, n_valid=None, *, inplace=False):
+    """One scan iteration's Algorithms 7 and 8 over a bucket: ``xb: (B, m,
+    n)`` normalized rows, ``cb: (B, m, m)`` correlations, ``roots: (B,)``
+    one root per dataset, ``mloc: (B, m)`` bool rows still in U (the root
+    included), ``n_valid`` None or one valid sample count per dataset.
+    Returns ``(xb', cb')`` as ``covariance.update_data`` and ``update_cov``
+    give them. ``cb'`` is always a new tensor; with ``inplace`` x' is
+    written over ``xb`` (which the caller then no longer needs) and ``xb``
+    is returned."""
+    global RANK1_LAUNCHES
+    _check("rank1_update", xb, cb)
+    bsz, m, n = xb.shape if xb.ndim == 3 else (0, 0, 0)
+    if (xb.ndim != 3 or tuple(cb.shape) != (bsz, m, m) or tuple(roots.shape) != (bsz,)
+            or tuple(mloc.shape) != (bsz, m)
+            or (n_valid is not None and tuple(n_valid.shape) != (bsz,))):
+        raise ValueError(
+            f"want xb (B, m, n), cb (B, m, m), roots (B,), mloc (B, m), n_valid None or (B,); "
+            f"got {tuple(xb.shape)}, {tuple(cb.shape)}, {tuple(roots.shape)}, "
+            f"{tuple(mloc.shape)}, {None if n_valid is None else tuple(n_valid.shape)}")
+    if roots.dtype.is_floating_point or (n_valid is not None and n_valid.dtype.is_floating_point):
+        raise TypeError("rank1_update takes integer roots and valid counts")
+    if mloc.dtype != torch.bool:
+        raise TypeError(f"rank1_update takes a bool mask, got {mloc.dtype}")
+    if any(t.device != xb.device for t in (roots, mloc) + (() if n_valid is None else (n_valid,))):
+        raise ValueError("rank1_update: roots, mask and valid counts must lie on xb's device")
+    if xb.device.type == "cpu":
+        x2, c2 = rank1_update_ref(xb, cb, roots, mloc, n_valid=n_valid)
+        return (xb.copy_(x2) if inplace else x2), c2
+    nv = None if n_valid is None else n_valid.to(torch.int32).contiguous()
+    out = launch_rank1(xb, cb, roots.to(torch.int64).contiguous(), mloc.contiguous(), nv,
+                       inplace)
+    with _count_mu:
+        RANK1_LAUNCHES += 1
+    return out
+
+
+def scale_ulps(x_got, x_want, xb, cb, roots, mloc):
+    """How far the renormalization scale behind each live row of ``x_got``
+    lies from the one behind ``x_want`` (both updates of ``xb`` under
+    ``cb``, ``roots``, ``mloc``), in float32 ulp of the latter: each row's
+    scale recovered in float64 as its least-squares ratio to the row before
+    the scale, ``(x - b x_root) / s``. Returns a (B, m) float64 tensor, 0 on
+    dead rows; held to ``SCALE_ULP_TOL``."""
+    m = xb.shape[1]
+    live = mloc & (torch.arange(m, device=xb.device) != roots[:, None])
+    b, s = covariance.rank1_gates(covariance._col(cb, roots), live)
+    pre = ((xb - b[..., None] * covariance._row(xb, roots)) / s[..., None]).double()
+    den = torch.clamp((pre * pre).sum(-1), min=1e-300)
+    got = (x_got.double() * pre).sum(-1) / den
+    want = (x_want.double() * pre).sum(-1) / den
+    w32 = want.float()
+    spacing = (torch.nextafter(w32, torch.full_like(w32, torch.inf)) - w32).double()
+    return torch.where(live, (got - want).abs() / spacing, 0.0)

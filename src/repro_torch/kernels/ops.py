@@ -118,6 +118,17 @@ def update_cov(c, b):
     return _covupdate.update_cov(c, b)
 
 
+def rank1_update(xb, cb, roots, mloc, n_valid=None, *, inplace=False):
+    """One scan iteration's rank-1 updates (Algorithms 7 and 8, with the
+    fit's gates and drift renormalization) over a bucket ``xb: (B, m, n)``,
+    ``cb: (B, m, m)``, one root per dataset, live rows ``mloc: (B, m)`` and
+    ``n_valid`` None or (B,), in one launch of the update kernel's fit mode:
+    returns ``(xb', cb')``; ``inplace`` writes x' over ``xb``. Plain version:
+    ``covupdate.rank1_update_ref`` (``covariance.update_data`` then
+    ``update_cov``)."""
+    return _covupdate.rank1_update(xb, cb, roots, mloc, n_valid, inplace=inplace)
+
+
 def ssd_decode(state, x, dt, b, c, a, d):
     """Mamba2 SSD decode-step state update via the ssd_decode kernel:
     returns ``(y, new_state)``. Plain version: ``ssd_decode.ssd_decode_ref``."""

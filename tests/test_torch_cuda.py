@@ -3,8 +3,9 @@ the fused triangular score kernel through both entries, one dataset
 (``fused_score_vector``) and a bucket of datasets (``fused_score_batch``);
 the square moments kernel through ``pairwise_moments`` and
 ``pairwise_moments_batch``, with and without live-row masks and valid
-counts; the rank-1 update kernels (``update_data``,
-``update_cov``); the SSD decode kernel (``ssd_decode``); one threshold
+counts; the rank-1 update kernel in its TPU mode (``update_data``,
+``update_cov``) and its fit mode (``rank1_update``, and the orders of the
+fits that run it); the SSD decode kernel (``ssd_decode``); one threshold
 ``fit`` against the dense order; and one ``Engine.generate`` of a
 full-width Mamba2 mixer against the CPU route.
 
@@ -16,7 +17,10 @@ machine with only torch and the CUDA toolkit:
 
 Tolerance: the rank-1 update and decode kernels against their plain
 versions at rtol 1e-5 and atol 1e-5 (1e-6 on the covariance), as
-``tests/test_kernels.py`` holds the Pallas kernels; ``fused_score.score_tolerance`` — float32 rounding of each
+``tests/test_kernels.py`` holds the Pallas kernels, and bit-equal where both
+round each step alike: the update kernel's TPU mode, and its fit mode, whose
+sum of squares replays torch.sum's order on the card (its scale within
+``covupdate.SCALE_ULP_TOL`` = 0 ulp); ``fused_score.score_tolerance`` — float32 rounding of each
 entropy carried through I and S = sum min(0, I)^2. The kernel and the plain
 version take the same float32 formulas and differ only in the order of the
 sums. The square kernel's raw sums are held to
@@ -383,6 +387,176 @@ def test_covupdate_kernels_match_plain(cuda, p, n):
     assert _close(kx, cu.update_data_ref(xn, xr, b))
     assert _close(kc, cu.update_cov_ref(c, b), COV_ATOL)
     assert torch.equal(torch.diagonal(kc), torch.ones(p, device=cuda))
+
+
+@pytest.mark.parametrize("p,n", [(8, 512), (21, 1000), (64, 4096), (7, 130), (85, 10000),
+                                 (512, 2000)])
+def test_covupdate_tpu_mode_is_bit_equal(cuda, p, n):
+    """The TPU-kernel mode (no clip, floor 1e-12, no renormalization) gives
+    the plain versions' bits, on aligned rows and on views at a 4-byte
+    offset (the scalar path)."""
+    xn, c = _setup(p, n, p, cuda)
+    b = c[:, 0].clone()
+    b[0] = 0.0
+    xr = xn[0].contiguous()
+    assert torch.equal(ops.update_data(xn, xr, b), cu.update_data_ref(xn, xr, b))
+    assert torch.equal(ops.update_cov(c, b), cu.update_cov_ref(c, b))
+    xo = torch.empty(p * n + 1, device=cuda)[1:].view(p, n)
+    xo.copy_(xn)
+    co = torch.empty(p * p + 1, device=cuda)[1:].view(p, p)
+    co.copy_(c)
+    assert torch.equal(ops.update_data(xo, xr, b), cu.update_data_ref(xn, xr, b))
+    assert torch.equal(ops.update_cov(co, b), cu.update_cov_ref(c, b))
+
+
+def _rank1_bucket(shapes, m, n_pad, seed, device, retired=3):
+    """A bucket as the scan holds it: dataset i's p_i rows normalized over
+    its n_i valid samples (zeros past them), its correlations, ``retired``
+    earlier roots dead but still holding data, and one live root each."""
+    rng = np.random.default_rng(seed)
+    x = torch.zeros((len(shapes), m, n_pad), device=device)
+    mask = torch.zeros((len(shapes), m), dtype=torch.bool, device=device)
+    for i, (p, n) in enumerate(shapes):
+        x[i, :p, :n] = torch.from_numpy(rng.standard_normal((p, n)).astype(np.float32))
+        mask[i, :p] = True
+    nv = torch.tensor([n for _, n in shapes], dtype=torch.int32, device=device)
+    xn = torch.where(mask[..., None], normalize(x, n_valid=nv), 0.0).contiguous()
+    c = cov_matrix(xn, n_valid=nv).contiguous()
+    roots = []
+    for i, (p, _) in enumerate(shapes):
+        rows = rng.permutation(p)
+        mask[i, torch.from_numpy(rows[:retired]).to(device)] = False
+        roots.append(int(rows[retired]))
+    return xn, c, torch.tensor(roots, device=device), mask, nv
+
+
+def _hold_rank1(xb, cb, roots, mloc, nv):
+    """The fit mode against its plain version, out of place and in place:
+    c' bit-equal, each live row's scale within SCALE_ULP_TOL and x'
+    bit-equal (the sum of squares in torch.sum's order), columns
+    past the valid count +0, dead rows unchanged, the caller's tensors
+    unchanged out of place; one count per launch."""
+    x0, c0 = xb.clone(), cb.clone()
+    rx, rc = cu.rank1_update_ref(xb, cb, roots, mloc, n_valid=nv)
+    before = cu.RANK1_LAUNCHES
+    kx, kc = ops.rank1_update(xb, cb, roots, mloc, nv)
+    torch.cuda.synchronize()
+    assert cu.RANK1_LAUNCHES == before + 1
+    assert torch.equal(xb, x0) and torch.equal(cb, c0)
+    assert torch.equal(kc, rc)
+    assert float(cu.scale_ulps(kx, rx, xb, cb, roots, mloc).max()) <= cu.SCALE_ULP_TOL
+    assert torch.equal(kx, rx)
+    n = xb.shape[2]
+    cols = torch.arange(n, device=xb.device)
+    past = cols >= (n if nv is None else nv[:, None, None])
+    assert torch.all(kx.masked_select(past.expand_as(kx)) == 0)
+    live = mloc & (torch.arange(xb.shape[1], device=xb.device) != roots[:, None])
+    assert torch.equal(kx[~live], xb[~live])
+    own = xb.clone()
+    ix, ic = ops.rank1_update(own, cb, roots, mloc, nv, inplace=True)
+    assert ix.data_ptr() == own.data_ptr() and torch.equal(ix, kx) and torch.equal(ic, kc)
+    return kx, kc
+
+
+@pytest.mark.parametrize("shapes,m,n_pad", [
+    ([(30, 1000), (25, 777), (32, 513)], 32, 1024),  # 16-byte rows, ragged valid counts
+    ([(37, 1301), (20, 1000)], 37, 1301),  # odd m and n: the scalar paths
+    ([(85, 10_000)], 85, 10_000),  # the E. coli fit's first stage
+    ([(512, 2000)], 512, 2000),  # the iJR904 slice
+    ([(8, 13_001), (6, 12_500)], 8, 13_004),  # rows past the register tile
+])
+def test_rank1_update_matches_plain(cuda, shapes, m, n_pad):
+    xb, cb, roots, mloc, nv = _rank1_bucket(shapes, m, n_pad, m + n_pad, cuda)
+    _hold_rank1(xb, cb, roots, mloc, nv)
+    if len(shapes) == 1 and shapes[0] == (m, n_pad):  # the fit's call: no valid counts
+        _hold_rank1(xb, cb, roots, mloc, None)
+
+
+def test_rank1_update_clip_and_floor(cuda):
+    """|b| at and past 1: the clip to [-1, 1] and the 1e-4 floor of 1 - b^2
+    fire, and the card gives the plain version's c' and scales."""
+    xb, cb, roots, mloc, nv = _rank1_bucket([(16, 600), (12, 500)], 16, 600, 3, cuda, retired=1)
+    for d in range(2):
+        r = int(roots[d])
+        rows = [i for i in range(16) if bool(mloc[d, i]) and i != r][:6]
+        for i, v in zip(rows, (1.0000001, -1.0000001, 0.99999, -0.9999999, 1.0, -1.0)):
+            cb[d, i, r] = v
+    kx, kc = _hold_rank1(xb, cb, roots, mloc, nv)
+    assert torch.all(kc.abs() <= 1)
+
+
+def test_rank1_update_rows_do_not_depend_on_the_batch(cuda):
+    """Dataset i of a batched launch gives the bits of its own launch, and
+    a zero-padded launch with valid counts the bits of the unpadded one
+    (torch.sum, whose order the kernel replays, takes both rows alike here:
+    the same block shape for 64 rows and for 256, every n a multiple of 4
+    below 8,161)."""
+    shapes = [(60, 1900), (64, 2000), (41, 1024), (64, 1500)]
+    xb, cb, roots, mloc, nv = _rank1_bucket(shapes, 64, 2048, 17, cuda)
+    kx, kc = ops.rank1_update(xb, cb, roots, mloc, nv)
+    for i, (_, n) in enumerate(shapes):
+        sl = slice(i, i + 1)
+        ox, oc = ops.rank1_update(xb[sl], cb[sl], roots[sl], mloc[sl], nv[sl])
+        assert torch.equal(kx[i], ox[0]) and torch.equal(kc[i], oc[0])
+        cut = xb[sl, :, :n].contiguous()
+        ux, _ = ops.rank1_update(cut, cb[sl], roots[sl], mloc[sl], nv[sl])
+        assert torch.equal(kx[i, :, :n], ux[0])
+
+
+def test_rank1_scale_is_torch_rsqrt(cuda):
+    """The kernel's scale function gives torch's CUDA rsqrt bits (after the
+    1e-12 floor) on every float32 in [0.25, 4) and on random magnitudes."""
+    lo, hi = np.float32(0.25).view(np.int32), np.float32(4.0).view(np.int32)
+    var = torch.arange(int(lo), int(hi), device=cuda, dtype=torch.int32).view(torch.float32)
+    rng = np.random.default_rng(0)
+    wide = torch.from_numpy((10.0 ** rng.uniform(-14, 6, 1 << 20)).astype(np.float32)).to(cuda)
+    for v in (var, wide, torch.tensor([0.0, 1e-13, 1e-12, 1e30], device=cuda)):
+        want = torch.rsqrt(torch.clamp(v, min=1e-12))
+        assert torch.equal(cu.scale_probe(v).view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows,n", [
+    (1024, 16384), (128, 10_000), (512, 2000), (256, 16384), (74, 1301), (8, 3000),
+    (3, 100), (2, 300_000), (40, 131_072)])
+def test_rank1_sum_order_is_torch_sum(cuda, rows, n):
+    """The fit mode's sum of squares replays torch.sum's order on the card:
+    the same bits on row counts and lengths that take each of ATen's
+    shapes (one block per row, a warp per row, unaligned rows, scalar
+    loads, fewer than 16 rows, a row split across blocks)."""
+    x = torch.from_numpy(np.random.default_rng(rows + n).standard_normal((rows, n))
+                         .astype(np.float32)).to(cuda)
+    got, _ = cu.sum_probe(x)
+    assert torch.equal(got, torch.sum(torch.square(x), dim=-1))
+
+
+def test_kernel_update_orders_equal_plain(cuda):
+    """E. coli-size fits: the kernel backends (the update kernel on the
+    path, one launch per iteration) give the plain path's orders through
+    ``fit`` and ``fit_batch``."""
+    x = sem.generate(sem.SemSpec(p=85, n=10_000, density="sparse", seed=0))["x"]
+    tp.reset_dispatch_stats()
+    before = cu.RANK1_LAUNCHES
+    kern, _ = tp.fit(x, tp.ParaLiNGAMConfig(score_backend="hopper_fused"), device=cuda)
+    assert cu.RANK1_LAUNCHES == before + 84
+    assert tp.dispatch_stats_snapshot()["rank1_update"] == 84
+    plain, _ = tp.fit(x, tp.ParaLiNGAMConfig(score_backend="torch_fused"), device=cuda)
+    assert kern.order == plain.order
+    rng = np.random.default_rng(13)
+    shapes = [(int(rng.integers(70, 86)), int(rng.integers(8193, 10_001))) for _ in range(4)]
+    xs = np.zeros((4, 128, 16384), np.float32)
+    mask = np.zeros((4, 128), bool)
+    for i, (p, n) in enumerate(shapes):
+        xs[i, :p, :n] = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=100 + i))["x"]
+        mask[i, :p] = True
+    nv = np.array([n for _, n in shapes], np.int32)
+    before = cu.RANK1_LAUNCHES
+    kb = tp.fit_batch(xs, tp.ParaLiNGAMConfig(score_backend="hopper_fused"), n_valid=nv,
+                      mask=mask, device=cuda)
+    assert cu.RANK1_LAUNCHES == before + 127
+    pb = tp.fit_batch(xs, tp.ParaLiNGAMConfig(score_backend="torch_fused"), n_valid=nv,
+                      mask=mask, device=cuda)
+    for i, (p, _) in enumerate(shapes):
+        assert torch.equal(kb.orders[i, :p], pb.orders[i, :p])
 
 
 def _ssd_args(b, h, p, n, device, seed=0):

@@ -248,16 +248,19 @@ def test_aot_fit_batch_warms_and_matches_fit_batch():
 def test_auto_downgrade_counted_per_dispatch():
     """On the CPU ``auto`` resolves to the plain torch path: every dispatch
     counts one ``auto_downgrade``; an explicit kernel backend counts none,
-    and ``kernel_bypass`` stays 0."""
+    and ``kernel_bypass`` stays 0, as does ``rank1_update`` (the update
+    kernel's launches: on the CPU its wrapper runs the plain version)."""
     tp.reset_dispatch_stats()
     xs = np.stack([_gen(8, 128, seed=94 + i) for i in range(2)])
     repro_torch.fit_batch(xs, tp.ParaLiNGAMConfig(min_bucket=8), device="cpu")
     repro_torch.causal_order_batch(xs, tp.ParaLiNGAMConfig(min_bucket=8), device="cpu")
     repro_torch.fit_batch(xs, tp.ParaLiNGAMConfig(min_bucket=8, score_backend="hopper_fused"),
                           n_valid=np.array([128, 100]), device="cpu")
-    assert tp.dispatch_stats_snapshot() == {"kernel_bypass": 0, "auto_downgrade": 2}
+    assert tp.dispatch_stats_snapshot() == {"kernel_bypass": 0, "auto_downgrade": 2,
+                                            "rank1_update": 0}
     tp.reset_dispatch_stats()
-    assert tp.dispatch_stats_snapshot() == {"kernel_bypass": 0, "auto_downgrade": 0}
+    assert tp.dispatch_stats_snapshot() == {"kernel_bypass": 0, "auto_downgrade": 0,
+                                            "rank1_update": 0}
 
 
 def test_dispatch_stats_concurrent_updates_are_exact():
