@@ -116,9 +116,24 @@ Phases, each printed on its own line:
     plain updates and with the update kernel (``[profile_scan_iteration]``); the
     device's busy share while the engine serves the same requests again,
     and the same for one Mamba2 ``generate``.
-14. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
-    path, its error against the plain version, its time, the plain
-    version's time and its bound.
+14. The messaging ring (``dist/ring.py``, ``dist/ring_order.py``; one card
+    hosts one shard). ``[ring_block_kernel]``: the square kernel against its
+    plain version on the row blocks the ring passes it at R = 2, 4, 8 and
+    (P, R) = (2, 2), own against visiting rows and the reverse direction,
+    at the E. coli fit's m=128 stage under its mask and at the m=512,
+    n=2000 stage shape, on full n and on the two sample shards of n/2
+    (whose sums add up to the full-n sums). ``[ring_ecoli]``: the E. coli
+    core through ``causal_order_ring`` under an NCCL process group of one
+    rank, dense and with the threshold (chunk 16), under ``hopper_fused``:
+    the order of the scan with the same kernel (``hopper``), the run
+    without a process group bit-equal, 84 square launches per dense order,
+    ``wire`` all zero; ``[ring_fit]``: ``fit(order_backend="ring")`` with
+    the scan fit's B and noise variances; wall times beside the scan's
+    there and at the iJR904 slice (``[ring_slice]``, orders not held).
+15. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
+    path (the square kernel's ring launches beside them), its error
+    against the plain version, its time, the plain version's time and its
+    bound.
 
 ``fit_batch`` phases also hold each dataset's order, B and noise variances
 bit for bit against its own one-dataset ``fit_batch``.
@@ -170,6 +185,7 @@ from repro_torch.serve import (  # noqa: E402
     LingamServeConfig,
 )
 from repro_torch.serve.buckets import bucket_dim  # noqa: E402
+from repro_torch.dist.ring_order import causal_order_ring  # noqa: E402
 from repro_torch.serve.lingam_engine import pack_bucket  # noqa: E402
 
 # Kernel against plain: the same root, and per live row the error bound of
@@ -2039,6 +2055,194 @@ def phase_mamba2_serve(dev, gpu, profile=False):
     return launched["ssd_decode"], err, (prefill_s, float(np.mean(step_s)), wall)
 
 
+# ---------------------------------------------------------------------------
+# the messaging ring (dist/ring.py, dist/ring_order.py)
+# ---------------------------------------------------------------------------
+
+
+def ring_runs(x, dev, cfg_kw, mesh, warm: bool = True):
+    """One timed ``causal_order_ring`` of ``x``, after a warm-up unless
+    ``warm`` is False: (result, seconds, square-kernel launches of the timed
+    run)."""
+    cfg = ParaLiNGAMConfig(order_backend="ring", **cfg_kw)
+    if warm:
+        causal_order_ring(x, cfg, mesh=mesh, device=dev)
+    reset_counts()
+    res, t = timed(lambda: causal_order_ring(x, cfg, mesh=mesh, device=dev))
+    return res, t, counts()["pairwise_moments"]
+
+
+def phase_ring_ecoli(dev, gpu, t_start):
+    """The messaging ring on one card: one shard (R=1) under an NCCL process
+    group of one rank (``file://`` init), through ``causal_order_ring``, at
+    the E. coli core size, dense and with the threshold, under
+    ``hopper_fused`` (both ``hopper`` names run the square kernel in the
+    ring): the orders of the scan with the same kernel (``hopper``), the run
+    without a process group bit-equal (orders and every counter), 84 square
+    launches per dense order, ``wire`` all zero, ``fit(order_backend="ring")``
+    with the scan fit's B and noise variances; wall times beside the scan's,
+    here and at the iJR904 slice (where the orders mean nothing; its
+    threshold runs only while the script is inside 500 s). Returns (the
+    dense ring's square launches, its seconds)."""
+    import torch.distributed as dist
+
+    from repro_torch.core.paralingam import causal_order_scan
+    from repro_torch.launch.mesh import make_ring_mesh
+
+    p, n = ECOLI
+    data = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=0))
+    x = data["x"]
+    dense_kw = dict(score_backend="hopper_fused")
+    thr_kw = dict(score_backend="hopper_fused", threshold=True, chunk=16)
+    scan_cfg = ParaLiNGAMConfig(score_backend="hopper")
+    thr_scan_cfg = ParaLiNGAMConfig(score_backend="hopper", threshold=True, chunk=16)
+    causal_order_scan(x, scan_cfg, device=dev)  # warm-up
+    scan, t_scan = timed(lambda: causal_order_scan(x, scan_cfg, device=dev))
+    thr_scan, t_thr_scan = timed(lambda: causal_order_scan(x, thr_scan_cfg, device=dev))
+    alone = {k: ring_runs(x, dev, kw, None) for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
+
+    init = _build.BUILD_DIR / f"ring_init_{os.getpid()}"  # git-ignored
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        mesh = make_ring_mesh(1, 1, 1)
+        runs = {k: ring_runs(x, dev, kw, mesh) for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
+        (res_f, b_f), t_fit = timed(lambda: fit(
+            x, ParaLiNGAMConfig(order_backend="ring", **dense_kw), device=dev))
+        slice_x = sem.generate(sem.SemSpec(p=SLICE[0], n=SLICE[1], density="sparse", seed=1))["x"]
+        slice_runs = {"dense": ring_runs(slice_x, dev, dense_kw, mesh)[:2]}
+        causal_order_scan(slice_x, scan_cfg, device=dev)  # warm-up
+        slice_scans = {"dense": timed(lambda: causal_order_scan(slice_x, scan_cfg, device=dev))}
+        if time.perf_counter() - t_start < 500:  # well inside the 1200 s limit
+            # no warm-up: the dense runs built and loaded everything it uses
+            slice_runs["threshold"] = ring_runs(slice_x, dev, thr_kw, mesh, warm=False)[:2]
+            slice_scans["threshold"] = timed(
+                lambda: causal_order_scan(slice_x, thr_scan_cfg, device=dev))
+    finally:
+        dist.destroy_process_group()
+        init.unlink(missing_ok=True)
+    (res_s, b_s), _ = timed(lambda: fit(x, scan_cfg, device=dev))
+
+    zero_wire = {"pods": 1, "ring": 1, "hops_intra": 0, "hops_cross": 0, "hops_overlapped": 0,
+                 "seq_hops": 0, "seq_cross_hops": 0, "overlap_frac": 0.0}
+    for kind, scan_res, t_ref in (("dense", scan, t_scan), ("threshold", thr_scan, t_thr_scan)):
+        res, t, launches = runs[kind]
+        res0, t0, launches0 = alone[kind]
+        same = hold_order(f"ring_{kind}_vs_scan_hopper", res.order, scan.order, x, dev)
+        same_thr = hold_order(f"ring_{kind}_vs_scan_{kind}", res.order, scan_res.order, x, dev)
+        bit_equal = res == res0
+        say("ring_ecoli", run=kind, p=p, n=n, topology="1x1x1", backend="nccl",
+            order_equals_scan_hopper=same, order_equals_scan_same_evaluation=same_thr,
+            equal_without_process_group=bit_equal, square_launches=launches,
+            square_launches_without_process_group=launches0, comparisons=res.comparisons,
+            rounds=res.rounds, converged=res.converged, wire_zero=res.wire == zero_wire,
+            ring_s=f"{t:.4f}", ring_s_without_process_group=f"{t0:.4f}",
+            scan_s=f"{t_ref:.4f}", gpu=f"'{gpu}'")
+        check(bit_equal, f"ring {kind}: the run without a process group differs")
+        check(res.wire == zero_wire, f"ring {kind}: wire counters {res.wire} at one shard")
+        check(res.converged, f"ring {kind} did not converge")
+        if kind == "dense":
+            check(launches == launches0 == p - 1,
+                  f"{launches} square launches for {p - 1} dense find-roots")
+    same = res_f.order == res_s.order
+    b_err = (b_f - b_s).abs().max().item()
+    nv_err = float(np.max(np.abs(res_f.noise_var - res_s.noise_var)))
+    say("ring_fit", p=p, n=n, order_equals_scan_fit=same, b_max_abs_diff=b_err,
+        noise_var_max_abs_diff=nv_err, fit_s=f"{t_fit:.4f}", gpu=f"'{gpu}'")
+    check(same and b_err == 0.0 and nv_err == 0.0,
+          "fit(order_backend='ring') differs from the scan fit")
+    if "threshold" not in slice_runs:
+        say("ring_slice", run="threshold", skipped=True,
+            elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    for kind in slice_runs:
+        (res, t), (ref, t_ref) = slice_runs[kind], slice_scans[kind]
+        say("ring_slice", run=kind, p=SLICE[0], n=SLICE[1], ring_s=f"{t:.4f}",
+            scan_s=f"{t_ref:.4f}", comparisons=res.comparisons, rounds=res.rounds,
+            converged=res.converged, order_equals_scan=res.order == ref.order, held=False,
+            gpu=f"'{gpu}'")
+    return runs["dense"][2], runs["dense"][1]
+
+
+#: Ring topologies whose row blocks ``[ring_block_kernel]`` holds: (pods, ring).
+RING_TOPOLOGIES = ((1, 2), (1, 4), (1, 8), (2, 2))
+
+
+def ring_block_pairs(m: int, pods: int, ring: int):
+    """(own, visiting) row slices of block 0 against each block it visits
+    in ``make_hier_plan(pods, ring)``."""
+    from repro_torch.utils.schedule import make_hier_plan
+
+    m_l = m // (pods * ring)
+    plan = make_hier_plan(pods, ring)
+    return [(slice(0, m_l), slice(src * m_l, (src + 1) * m_l))
+            for src in (plan.src(e, t, 0, 0) for e, t, _ in plan.processed_offsets())]
+
+
+def phase_ring_block_kernel(dev, gpu, ecoli_x):
+    """The square kernel against its plain version on the blocks the ring
+    passes it at R = 2, 4, 8 and (P, R) = (2, 2): own rows against each
+    visiting block (each side with its own live mask) and the reverse
+    direction with the transposed correlation block, at the E. coli fit's
+    first stage (m=128, n=10000, the fit's mask) and at the p=512 stage
+    shape (m=512, n=2000, Gaussian rows: the SEM's near-collinear pairs
+    amplify rounding past any sum tolerance); and the same on the two
+    sample shards of n/2, whose sums add up to the full-n sums within the
+    tolerance. Live sums within ``sum_tolerance``, dead pairs exactly 0.
+    Returns the max abs error."""
+    stages = capture_dense_inputs(ecoli_x, "hopper", dev)
+    xe, ce, me = stages[max(stages)]
+    xg, cg = normalized(gauss_data(*SLICE, 1), dev)
+    mg = torch.ones(SLICE[0], dtype=torch.bool, device=dev)
+    worst = 0.0
+    for stage, (x_, c_, m_) in ((f"ecoli_m{xe.shape[0]}", (xe, ce, me)),
+                                (f"gauss_m{SLICE[0]}", (xg, cg, mg))):
+        n = x_.shape[1]
+        halves = (slice(0, n // 2), slice(n // 2, n))
+        for pods, ring in RING_TOPOLOGIES:
+            ratio, sum_ratio, errs, zero, calls = 0.0, 0.0, [], True, 0
+            for own, vis in ring_block_pairs(x_.shape[0], pods, ring):
+                for a, b, c_blk in ((own, vis, c_[own, vis]), (vis, own, c_[own, vis].T)):
+                    xi, xj, cb = x_[a].contiguous(), x_[b].contiguous(), c_blk.contiguous()
+                    li, lj = m_[a].contiguous(), m_[b].contiguous()
+                    sel = li[:, None] & lj[None, :]
+                    full = None
+                    parts = []
+                    for cols in (slice(0, n),) + halves:
+                        xs_i, xs_j = xi[:, cols].contiguous(), xj[:, cols].contiguous()
+                        k = ps.pairwise_moments(xs_i, xs_j, cb, live_i=li, live_j=lj)
+                        r = ps.pairwise_moments_ref(xs_i, xs_j, cb, live_i=li, live_j=lj)
+                        calls += 1
+                        tol = ps.sum_tolerance(xs_i, xs_j, cb)[sel].double()
+                        for kk, rr in zip(k, r):
+                            zero = zero and bool(torch.all(kk[~sel] == 0))
+                            if bool(sel.any()):
+                                e = (kk[sel].double() - rr[sel].double()).abs()
+                                errs.append(e.max().item())
+                                ratio = max(ratio, (e / tol).max().item())
+                        if full is None:
+                            full, full_tol = k, tol
+                        else:
+                            parts.append(k)
+                    if bool(sel.any()):
+                        for q in range(2):
+                            e = (parts[0][q][sel].double() + parts[1][q][sel].double()
+                                 - full[q][sel].double()).abs()
+                            sum_ratio = max(sum_ratio, (e / full_tol).max().item())
+            torch.cuda.synchronize()
+            ok = ratio <= 1.0 and sum_ratio <= 1.0 and zero
+            worst = max([worst] + errs)
+            say("ring_block_kernel", stage=stage, topology=f"{pods}x{ring}",
+                block_rows=x_.shape[0] // (pods * ring), launches=calls,
+                max_abs=f"{max(errs):.3e}", max_err_over_tol=f"{ratio:.3e}",
+                half_n_shards_sum_over_tol=f"{sum_ratio:.3e}", dead_pairs_zero=zero, ok=ok,
+                gpu=f"'{gpu}'")
+            check(ok, f"the square kernel disagrees on the ring's {stage} {pods}x{ring} blocks")
+    return worst
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -2092,6 +2296,8 @@ def main() -> int:
         phase_threshold_slice(dev, gpu)
     else:
         say("threshold_slice", skipped=True, elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    err_ring = phase_ring_block_kernel(dev, gpu, core["x"])
+    launches_ring, _ = phase_ring_ecoli(dev, gpu, t_start)
     if profile:
         profile_fits(dev, gpu)
     sq_ms, sq_wrapper, sq_plain, sq_bound, sq_by = sq["ecoli_stage"]
@@ -2111,7 +2317,8 @@ def main() -> int:
         "shape": shape_b, "gpu": gpu,
     }, {
         "name": "pairwise_moments", "route": "cuda", "source": SQUARE_SOURCE,
-        "replaces": SQUARE_REPLACES, "launches": launches_sq, "max_abs_err": err_sq,
+        "replaces": SQUARE_REPLACES, "launches": launches_sq,
+        "launches_ring": launches_ring, "max_abs_err": max(err_sq, err_ring),
         "ms": sq_ms, "plain_ms": sq_plain, "bound_ms": sq_bound, "bound_by": sq_by,
         "library_ms": None, "wrapper_ms": sq_wrapper,
         "shape": "m=128,n=10000,the E. coli fit's first-stage mask",

@@ -21,12 +21,20 @@ Every (rows, cols, n) residual intermediate is built in chunks of at most
 p=512 sweep is a handful of large tensor ops rather than a loop per tile.
 Masked rows may hold non-finite data: every mask is applied with a select
 (``torch.where``), never a multiply.
+
+The sample-shard seam of the messaging ring (``dist/ring_order.py``): with
+``group`` set, the rows hold only this rank's equal shard of the n samples,
+and the raw moment sums are summed across the ranks of that
+``torch.distributed`` group (one ``all_reduce``) before the one divide by
+the whole count and the nonlinear entropy epilogue. Without a group nothing
+changes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.covariance import VAR_EPS, _sample_count, per_dataset
@@ -37,45 +45,74 @@ from repro_torch.core.entropy import entropy_from_moments, log_cosh, u_exp_momen
 CHUNK_ELEMS = 1 << 24
 
 
-def residual_entropy_block(xn, c_cols, xj, n_valid=None, backend: str = "torch"):
+def _sum_across(m1_sum, m2_sum, group):
+    """The raw moment sums summed over the sample shards of ``group`` (one
+    ``all_reduce`` of both); unchanged without a group."""
+    if group is None:
+        return m1_sum, m2_sum
+    both = torch.stack([m1_sum, m2_sum])
+    dist.all_reduce(both, group=group)
+    return both[0], both[1]
+
+
+def _whole_count(n_valid, n: int, group):
+    """The denominator of the moments of rows holding ``n`` samples: the
+    valid count of zero-padded data, else ``n`` times the sample shards of
+    ``group`` (``covariance._sample_count`` of the whole sample axis)."""
+    return _sample_count(n_valid, n if group is None else n * dist.get_world_size(group))
+
+
+def residual_entropy_block(xn, c_cols, xj, n_valid=None, backend: str = "torch", *,
+                           live_i=None, live_j=None, group=None):
     """HR block for all rows of ``xn: (..., p, n)`` against ``xj: (..., bj, n)``
     with correlations ``c_cols: (..., p, bj)``. Returns (..., p, bj).
 
     ``backend`` ``"hopper"``/``"hopper_fused"`` takes the raw moment sums of
     one dataset (``xn: (p, n)``) from the square moments kernel
     (``kernels.ops.pairwise_moments``) and runs the same finalize: the kernel
-    emits sums, so ``n_valid`` changes only the denominator."""
+    emits sums, so ``n_valid`` changes only the denominator. The kernel sums
+    only the pairs of live rows (``live_i: (p,)``, ``live_j: (bj,)`` bool,
+    None: all) over the first ``n_valid`` samples; entries of a pair with a
+    dead row are then the entropy of zero sums, which no score reads (the
+    plain path computes every pair). ``group`` is the sample-shard seam (see
+    the module docstring); the kernel then sums every local sample."""
     if backend in ("hopper", "hopper_fused"):
         from repro_torch.kernels import ops as kops
 
-        m1_sum, m2_sum = kops.pairwise_moments(xn.contiguous(), xj.contiguous(),
-                                               c_cols.contiguous())
-        return finalize_moments(m1_sum, m2_sum, _sample_count(n_valid, xj.shape[-1]))
+        m1_sum, m2_sum = kops.pairwise_moments(
+            xn.contiguous(), xj.contiguous(), c_cols.contiguous(), live_i=live_i,
+            live_j=live_j, n_valid=n_valid if group is None else None)
+        return finalize_moments(m1_sum, m2_sum, _whole_count(n_valid, xj.shape[-1], group),
+                                group=group)
     denom = torch.sqrt(torch.clamp(1.0 - torch.square(c_cols), min=VAR_EPS))
     u = (xn[..., :, None, :] - c_cols[..., None] * xj[..., None, :, :]) / denom[..., None]
-    return stream_entropy(u, n_valid=n_valid)
+    return stream_entropy(u, n_valid=n_valid, group=group)
 
 
-def stream_moments(u, n_valid=None):
+def stream_moments(u, n_valid=None, group=None):
     """The two Hyvarinen moments of each length-n residual stream: per-stream
     means of ``log cosh u`` and ``u exp(-u^2/2)`` (reduce axis -1), taken as
     raw sums over the sample axis divided by the valid count. Zero-padded
     sample columns add exactly 0 to both sums, so ``n_valid`` only changes
     the denominator. A (B,) ``n_valid`` holds one count per entry of the
-    leading axis of ``u``."""
-    den = per_dataset(_sample_count(n_valid, u.shape[-1]), u.ndim - 1)
-    return torch.sum(log_cosh(u), dim=-1) / den, torch.sum(u_exp_moment(u), dim=-1) / den
+    leading axis of ``u``. ``group``: the sums of every sample shard."""
+    den = per_dataset(_whole_count(n_valid, u.shape[-1], group), u.ndim - 1)
+    m1, m2 = _sum_across(torch.sum(log_cosh(u), dim=-1), torch.sum(u_exp_moment(u), dim=-1),
+                         group)
+    return m1 / den, m2 / den
 
 
-def finalize_moments(m1_sum, m2_sum, den):
-    """Entropy epilogue over raw moment *sums*: divide by the valid count
-    ``den``, then apply the nonlinear Hyvarinen formula."""
+def finalize_moments(m1_sum, m2_sum, den, group=None):
+    """Entropy epilogue over raw moment *sums*: sum them across the sample
+    shards of ``group`` (if any), divide by the valid count ``den`` of the
+    whole sample axis, then apply the nonlinear Hyvarinen formula."""
+    m1_sum, m2_sum = _sum_across(m1_sum, m2_sum, group)
     return entropy_from_moments(m1_sum / den, m2_sum / den)
 
 
-def stream_entropy(u, n_valid=None):
+def stream_entropy(u, n_valid=None, group=None):
     """Hyvarinen entropy of each length-n residual stream (reduce axis -1)."""
-    m1, m2 = stream_moments(u, n_valid=n_valid)
+    m1, m2 = stream_moments(u, n_valid=n_valid, group=group)
     return entropy_from_moments(m1, m2)
 
 
@@ -94,7 +131,7 @@ def residual_entropy_block_pair(xi, c_blk, xj, n_valid=None):
     return stream_entropy(u_f, n_valid=n_valid), stream_entropy(u_r, n_valid=n_valid)
 
 
-def pair_moments(xn, c_vals, xj, n_valid=None):
+def pair_moments(xn, c_vals, xj, n_valid=None, group=None):
     """Both-direction residual entropies of *gathered* comparison chunks.
 
     The threshold scheduler's per-round evaluation: worker rows ``xn:
@@ -102,13 +139,15 @@ def pair_moments(xn, c_vals, xj, n_valid=None):
     with correlations ``c_vals: (..., m, k)``. Returns ``(hr_fwd, hr_rev)``,
     each (..., m, k), with ``hr_fwd[w, b] = H(r_{x_w}^{(x_jb)})``; both
     directions come from one load of each stream (the messaging reuse).
-    ``n_valid`` is None, one count, or one per dataset of the leading axis."""
+    ``n_valid`` is None, one count, or one per dataset of the leading axis;
+    ``group`` the sample-shard seam of the ring's threshold machine."""
     inv = torch.rsqrt(torch.clamp(1.0 - torch.square(c_vals), min=VAR_EPS))[..., None]
     xi = xn[..., :, None, :]
     cv = c_vals[..., None]
     u_f = (xi - cv * xj) * inv
     u_r = (xj - cv * xi) * inv
-    return stream_entropy(u_f, n_valid=n_valid), stream_entropy(u_r, n_valid=n_valid)
+    return (stream_entropy(u_f, n_valid=n_valid, group=group),
+            stream_entropy(u_r, n_valid=n_valid, group=group))
 
 
 def _credits(stat, pm):
@@ -255,9 +294,10 @@ def scores_from_stats(stat, mask):
     return torch.where(mask, s, torch.inf)
 
 
-def row_entropies(xn, mask, n_valid=None):
-    """H_hat of each (already normalized) row; 0 on dead rows."""
-    return torch.where(mask, stream_entropy(xn, n_valid=n_valid), 0.0)
+def row_entropies(xn, mask, n_valid=None, group=None):
+    """H_hat of each (already normalized) row; 0 on dead rows. ``group``:
+    the rows hold sample shards (see the module docstring)."""
+    return torch.where(mask, stream_entropy(xn, n_valid=n_valid, group=group), 0.0)
 
 
 def dense_scores(xn, c, mask, n_valid=None):

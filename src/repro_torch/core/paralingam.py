@@ -25,8 +25,9 @@ device-side while loop).
 
 ``causal_order`` with ``order_backend="host"`` is the paper's host driver:
 one ``int(root)`` read per iteration and buckets regathered from numpy
-indices. The messaging ring (``order_backend="ring"``) is not ported yet
-(``ConfigError`` names its ROADMAP item).
+indices. ``order_backend="ring"`` runs the messaging ring
+(``dist.ring_order.causal_order_ring``): one process per row shard over
+``torch.distributed``, one shard and no collective without a process group.
 """
 
 from __future__ import annotations
@@ -59,9 +60,9 @@ class ConfigError(ValueError):
     ported yet."""
 
 
-#: Order drivers the JAX package knows: ``host`` (the host loop of
-#: ``causal_order``; ``fit`` runs the scan under it, as in the JAX package),
-#: ``scan`` (the device-resident staged scan) and ``ring`` (not ported yet).
+#: Order drivers: ``host`` (the host loop of ``causal_order``; ``fit`` runs
+#: the scan under it, as in the JAX package), ``scan`` (the device-resident
+#: staged scan) and ``ring`` (the messaging ring, ``dist.ring_order``).
 ORDER_BACKENDS = ("host", "scan", "ring")
 
 #: Score backends whose scans also run the rank-1 updates through the
@@ -69,15 +70,18 @@ ORDER_BACKENDS = ("host", "scan", "ring")
 #: keep the plain ``covariance.update_data`` / ``update_cov``.
 UPDATE_KERNEL_BACKENDS = ("hopper", "hopper_fused")
 
-_RING_NOT_PORTED = ("order_backend='ring' (the messaging ring) is not ported "
-                    "yet: ROADMAP.md queue 1 item 8")
-
-
 @dataclass(frozen=True)
 class ParaLiNGAMConfig:
-    order_backend: str = "host"  # "host" | "scan" (``ORDER_BACKENDS``):
-    #   which loop ``causal_order`` runs; ``fit`` and ``fit_batch`` always run
-    #   the scan. "ring" is not ported yet.
+    order_backend: str = "host"  # "host" | "scan" | "ring"
+    #   (``ORDER_BACKENDS``): which loop ``causal_order`` runs. ``fit`` runs
+    #   the scan under "host" and "scan", the ring under "ring";
+    #   ``fit_batch`` has no ring form.
+    ring_topology: tuple | None = None  # (P, R) pod/ring split of the ring's
+    #   row shards (``order_backend="ring"`` only): P pods of R intra-pod
+    #   shards walk ``utils.schedule.make_hier_plan``. None takes the split
+    #   from the mesh (its ``pod`` dimension, else flat); (1, R) forces the
+    #   flat ring. Both factors are powers of two, and P*R must equal the
+    #   mesh's row-shard count at dispatch (``ConfigError`` otherwise).
     score_backend: str = "auto"  # "torch" | "torch_fused" | "hopper" |
     #   "hopper_fused" | "auto" (``kernels.ops.SCORE_BACKENDS``): the dense
     #   evaluation; ``auto`` resolves to the fused CUDA kernel on the card and
@@ -101,8 +105,18 @@ class ParaLiNGAMConfig:
                 f"order_backend={self.order_backend!r} is not one of "
                 f"{ORDER_BACKENDS}"
             )
-        if self.order_backend == "ring":
-            raise ConfigError(_RING_NOT_PORTED)
+        if self.ring_topology is not None:
+            topo = tuple(self.ring_topology)
+            if len(topo) != 2 or any(not isinstance(v, int) or v < 1 or v & (v - 1)
+                                     for v in topo):
+                raise ConfigError(
+                    f"ring_topology={self.ring_topology!r} must be a (pods, ring) "
+                    "pair of power-of-two positive ints")
+            if self.order_backend != "ring":
+                raise ConfigError(
+                    "ring_topology is only meaningful with order_backend='ring' "
+                    f"(got {self.order_backend!r})")
+            object.__setattr__(self, "ring_topology", topo)
 
 
 #: The JAX package's score-backend names and their counterparts here.
@@ -166,8 +180,8 @@ def config_from_reference(d: dict) -> ParaLiNGAMConfig:
     Backend names map ``xla`` -> ``torch``, ``xla_fused`` -> ``torch_fused``,
     ``pallas`` -> ``hopper``, ``pallas_fused`` -> ``hopper_fused``; the
     deprecated flags map as the JAX package maps them. Raises
-    ``ConfigError`` for what this port does not run (the ring, a dtype other
-    than float32)."""
+    ``ConfigError`` for what this port does not run (a dtype other than
+    float32)."""
     backend = _legacy_score_backend(d)
     if backend not in _BACKEND_NAMES:
         raise kops.BackendUnavailable(
@@ -175,14 +189,14 @@ def config_from_reference(d: dict) -> ParaLiNGAMConfig:
             f"{tuple(_BACKEND_NAMES)}"
         )
     order_backend, threshold = _legacy_order(d)
-    if d.get("ring_topology") is not None or order_backend == "ring":
-        raise ConfigError(_RING_NOT_PORTED)
+    topo = d.get("ring_topology")
     dtype = d.get("dtype", np.float32)
     if np.dtype(dtype) != np.float32:
         raise ConfigError(f"only float32 is ported, got dtype={dtype!r}")
     dflt = ParaLiNGAMConfig()
     return ParaLiNGAMConfig(
         order_backend=order_backend, score_backend=_BACKEND_NAMES[backend],
+        ring_topology=None if topo is None else tuple(topo),
         block_j=int(d.get("block_j", dflt.block_j)), threshold=threshold,
         chunk=int(d.get("chunk", dflt.chunk)),
         gamma0=float(d.get("gamma0", dflt.gamma0)),
@@ -204,6 +218,12 @@ class ParaLiNGAMResult:
     noise_var: np.ndarray | None = None  # Omega diagonal (set by ``fit``)
     diagnostics: object | None = None  # core.validate.DatasetDiagnostics
     #   when the fit ran with validate=True
+    wire: dict | None = None  # the ring only: its point-to-point shift
+    #   counters summed over the recovery, {"pods", "ring", "hops_intra",
+    #   "hops_cross", "hops_overlapped", "seq_hops", "seq_cross_hops",
+    #   "overlap_frac"} (``utils.schedule.HOP_*``; each iteration's equal
+    #   ``HierPlan.hop_counts``, times its rounds under the threshold). None
+    #   for the host and scan drivers.
 
     @property
     def saving_vs_serial(self) -> float:
@@ -548,21 +568,38 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
     return order, comps_it, rounds_it, conv_it
 
 
-def _iteration_records(comps, rounds, conv, p: int) -> list[dict]:
+def _iteration_records(comps, rounds, conv, p: int, hops=None) -> list[dict]:
     return [{"r": r, "comparisons": int(comps[i]), "rounds": int(rounds[i]),
-             "converged": bool(conv[i])}
+             "converged": bool(conv[i]),
+             **({} if hops is None else {"hops": tuple(int(v) for v in hops[i])})}
             for i, r in enumerate(range(p, 1, -1))]
 
 
+def _wire(hops, p: int, topology) -> dict:
+    """``ParaLiNGAMResult.wire`` from the (p, 4) per-iteration shift
+    counters of the ring (``utils.schedule.HOP_*``)."""
+    io, is_, co, cs = (int(v) for v in hops[: max(p - 1, 0)].sum(axis=0))
+    total = io + is_ + co + cs
+    return {"pods": int(topology[0]), "ring": int(topology[1]),
+            "hops_intra": io + is_, "hops_cross": co + cs, "hops_overlapped": io + co,
+            "seq_hops": is_ + cs, "seq_cross_hops": cs,
+            "overlap_frac": (io + co) / total if total else 0.0}
+
+
 def _result_from_counters(order, comps_it, rounds_it, conv_it, p: int,
-                          max_rounds: int, stacklevel: int = 3) -> ParaLiNGAMResult:
-    """Host-side ParaLiNGAMResult from the device counters of the scan (the
-    one host readback point). ``stacklevel`` points the ``max_rounds``
-    warning at the caller of the public entry point (3 = one public frame
-    above this helper)."""
+                          max_rounds: int, stacklevel: int = 3, hops_it=None,
+                          topology: tuple = (1, 1)) -> ParaLiNGAMResult:
+    """Host-side ParaLiNGAMResult from the device counters of the scan or
+    the ring (the one host readback point). ``stacklevel`` points the
+    ``max_rounds`` warning at the caller of the public entry point (3 = one
+    public frame above this helper). The ring also passes ``hops_it``, its
+    (p, 4) per-iteration shift counters, and its (pods, ring)
+    ``topology``: they ride each ``per_iteration`` record as ``hops`` and
+    sum into ``wire``."""
     comps_np = comps_it.cpu().numpy()
     rounds_np = rounds_it.cpu().numpy()
     conv_np = conv_it.cpu().numpy()
+    hops_np = None if hops_it is None else hops_it.cpu().numpy()
     converged = bool(conv_np.all())
     if not converged:
         warnings.warn(
@@ -578,8 +615,9 @@ def _result_from_counters(order, comps_it, rounds_it, conv_it, p: int,
         comparisons_dense=comps_dense,
         comparisons_serial=2 * comps_dense,
         rounds=int(rounds_np.sum()),
-        per_iteration=_iteration_records(comps_np, rounds_np, conv_np, p),
+        per_iteration=_iteration_records(comps_np, rounds_np, conv_np, p, hops_np),
         converged=converged,
+        wire=None if hops_np is None else _wire(hops_np, p, topology),
     )
 
 
@@ -685,7 +723,9 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
     the order depends on the correlations. The caller's setting is restored.
     The order comes from the staged scan, with the dense or the threshold
     evaluation per ``config.threshold``; :func:`causal_order` runs the host
-    driver.
+    driver. With ``order_backend="ring"`` the order comes from the messaging
+    ring (:func:`causal_order`, one shard per rank of the process group) and
+    phase 2 runs on it, as the scan fit's does.
 
     ``validate=True`` runs the :mod:`repro_torch.core.validate` admission
     checks first and raises a typed ``DatasetError`` before any device work;
@@ -702,6 +742,13 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
         diag = require_valid(x_host)
 
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    if cfg.order_backend == "ring":
+        result = causal_order(x, cfg, device=dev)
+        order = torch.as_tensor(result.order, device=dev)
+        b, omega = adjacency_from_order(x[None], order[None], prune_below=prune_below)
+        result.noise_var = omega[0].cpu().numpy()
+        result.diagnostics = diag
+        return result, b[0]
     order, comps, rounds, conv, b, omega = _pipeline(
         x[None], cfg, backend, adjacency=True, prune_below=prune_below, single=True)
     result = _result_from_counters(order[0], comps[0], rounds[0], conv[0], x.shape[0],
@@ -756,7 +803,9 @@ def _update_iteration(xn, c, root, mask, backend: str):
 def causal_order(x, config: ParaLiNGAMConfig | None = None, *,
                  device=None) -> ParaLiNGAMResult:
     """ParaLiNGAM step 1: the full causal order over ``x: (p, n)`` raw
-    samples. ``order_backend="scan"`` runs :func:`causal_order_scan`;
+    samples. ``order_backend="ring"`` runs the messaging ring
+    (``dist.ring_order.causal_order_ring`` over the process group, if any);
+    ``"scan"`` runs :func:`causal_order_scan`;
     ``"host"`` the host driver (Algorithm 3): one find-root per iteration
     and one ``int(root)`` host read, the live rows regathered from numpy
     indices into a power-of-two bucket (``bucket=True``, floor
@@ -766,6 +815,10 @@ def causal_order(x, config: ParaLiNGAMConfig | None = None, *,
     every ``READ_EVERY`` rounds). Per-iteration counters are read once, at
     the end. ``device`` as in :func:`fit`."""
     cfg = config or ParaLiNGAMConfig()
+    if cfg.order_backend == "ring":
+        from repro_torch.dist.ring_order import causal_order_ring
+
+        return causal_order_ring(x, cfg, device=device)
     if cfg.order_backend == "scan":
         return causal_order_scan(x, cfg, device=device)
     xn, c, dev = _normalized(x, "causal_order", device)
@@ -871,9 +924,18 @@ def _coerce_batch(xs, n_valid, mask, caller: str, dev):
     return xs, nv, mk
 
 
+def _reject_ring(cfg: ParaLiNGAMConfig, caller: str) -> None:
+    if cfg.order_backend == "ring":
+        raise ConfigError(
+            f"{caller} runs the batched scan pipeline; the ring driver has no "
+            "batched form: use order_backend='host'|'scan', or per-dataset "
+            "fit() for the ring")
+
+
 def _run_batch(xs, config, n_valid, mask, device, caller: str, *,
                adjacency: bool, prune_below: float = 0.0) -> BatchFitResult:
     cfg = config or ParaLiNGAMConfig()
+    _reject_ring(cfg, caller)
     dev = _device(device, caller)
     backend = kops.select_backend(cfg, dev)
     _note_backend(cfg, backend)
@@ -895,8 +957,8 @@ def fit_batch(xs, config: ParaLiNGAMConfig | None = None, *, n_valid=None,
     ``n_valid`` ((B,) or scalar) and ``mask`` ((B, p) bool) mark the valid
     sample columns / live variable rows of shape-padded datasets (zero-pad
     the data; see ``serve.buckets.pad_dataset``). ``device`` as in
-    :func:`fit`: ``None`` means ``cuda`` and raises without a card. There is
-    no mesh to shard the dataset axis over (ROADMAP.md queue 1 item 8)."""
+    :func:`fit`: ``None`` means ``cuda`` and raises without a card. A ring
+    config raises ``ConfigError``: the ring has no batched form."""
     return _run_batch(xs, config, n_valid, mask, device, "fit_batch",
                       adjacency=True, prune_below=prune_below)
 
@@ -949,6 +1011,7 @@ def aot_fit_batch(batch: int, p: int, n: int,
     engines call this over their bucket grid
     (``AsyncLingamEngine(prewarm=...)``)."""
     cfg = config or ParaLiNGAMConfig()
+    _reject_ring(cfg, "aot_fit_batch")
     dev = _device(device, "aot_fit_batch")
     backend = kops.select_backend(cfg, dev)
     t0 = time.perf_counter()

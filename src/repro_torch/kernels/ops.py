@@ -93,16 +93,18 @@ def residual_entropy_matrix_batch(xb, cb, *, mask=None, n_valid=None):
     return _pairwise.pairwise_score_batch(xb, cb, mask=mask, n_valid=n_valid)
 
 
-def pair_moments(xn, c_vals, xj, n_valid=None):
+def pair_moments(xn, c_vals, xj, n_valid=None, group=None):
     """Both-direction residual entropies of the threshold scheduler's
-    gathered comparison chunks (see ``core.pairwise.pair_moments``).
+    gathered comparison chunks (see ``core.pairwise.pair_moments``);
+    ``group`` is the ring's sample-shard seam (the raw sums summed across
+    its ranks before the entropy).
 
     The chunk layout is a gather over pending targets, not a dense tile, and
     no kernel takes it: every backend runs the torch formulation, which the
     scheduler calls directly (``core.paralingam._find_root_threshold_impl``).
     This is the name reserved for a gather kernel, as in the JAX package; it
     is not on the scheduler's call path."""
-    return _pair_moments(xn, c_vals, xj, n_valid=n_valid)
+    return _pair_moments(xn, c_vals, xj, n_valid=n_valid, group=group)
 
 
 def update_data(x, x_root, b):

@@ -1,7 +1,7 @@
-"""Command-line entry points of the port: ``serve`` (the LM engine) and, for now,
-``train.preset_config`` only.
+"""Command-line entry points of the port: ``serve`` (the LM engine), for
+now ``train.preset_config`` only, and ``mesh`` (the ``DeviceMesh`` of the
+messaging ring).
 
-``launch/dryrun.py`` (XLA lowering on 512 fake devices) and the mesh
-helpers (``mesh.py``, ``specs.py``) of the JAX package have no counterpart:
-the port runs on one card.
+``launch/dryrun.py`` (XLA lowering on 512 fake devices) and ``specs.py`` of
+the JAX package have no counterpart.
 """

@@ -75,6 +75,7 @@ from repro_torch.serve.lingam_engine import (
     LingamServeConfig,
     bucket_shape,
     check_dataset,
+    check_engine_config,
     dispatch_bucket,
 )
 from repro_torch.serve.replica import ReplicaPool, ReplicaPoolConfig
@@ -104,7 +105,7 @@ class AsyncLingamEngine:
                  dispatch=None, start: bool = True,
                  replicas: int = 1, pool_cfg: ReplicaPoolConfig | None = None,
                  prewarm=None, device=None):
-        self.config = config or ParaLiNGAMConfig()
+        self.config = check_engine_config(config)
         self.serve_cfg = serve_cfg or LingamServeConfig()
         self.device = _device(device, "AsyncLingamEngine")
         batch_cfg = batch_cfg or BatchingConfig(

@@ -65,6 +65,18 @@ class _Pending:
     x: np.ndarray  # (p, n) raw observations
 
 
+def check_engine_config(config: ParaLiNGAMConfig | None) -> ParaLiNGAMConfig:
+    """Shared construction-time config validation of the sync and async
+    engines: fail at construction, not at the first flush. ``fit_batch`` has
+    no ring form."""
+    config = config or ParaLiNGAMConfig()
+    if config.order_backend == "ring":
+        raise ValueError(
+            "the LiNGAM engines dispatch through fit_batch, which has no "
+            "ring form: use order_backend='host' or 'scan'")
+    return config
+
+
 def check_dataset(x, *, validate: bool = False) -> np.ndarray:
     """Coerce one request payload to a float64 (p, n) matrix (shared request
     validation of the sync and async engines). ``validate=True`` additionally
@@ -158,7 +170,7 @@ class LingamEngine:
 
     def __init__(self, config: ParaLiNGAMConfig | None = None,
                  serve_cfg: LingamServeConfig | None = None, *, device=None):
-        self.config = config or ParaLiNGAMConfig()
+        self.config = check_engine_config(config)
         self.serve_cfg = serve_cfg or LingamServeConfig()
         self.device = _device(device, "LingamEngine")
         self._queue: list[_Pending] = []

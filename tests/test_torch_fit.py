@@ -106,13 +106,14 @@ def test_validate_rejects_nan():
 
 
 def test_unported_options_raise():
-    """The ring still raises; the threshold machine builds, and maps from a
-    reference config with all its settings."""
-    with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
-        tp.ParaLiNGAMConfig(order_backend="ring")
-    with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
-        tp.config_from_reference(dataclasses.asdict(
-            repro.ParaLiNGAMConfig(order_backend="ring")))
+    """Since the ring's port nothing raises for being unported: a ring
+    config builds, and ``config_from_reference`` maps one (``ring_topology``
+    included); the threshold machine builds, and maps from a reference
+    config with all its settings. Unknown drivers still raise."""
+    assert tp.ParaLiNGAMConfig(order_backend="ring").order_backend == "ring"
+    ring = tp.config_from_reference(dataclasses.asdict(
+        repro.ParaLiNGAMConfig(order_backend="ring", ring_topology=(2, 2))))
+    assert (ring.order_backend, ring.ring_topology) == ("ring", (2, 2))
     with pytest.raises(tp.ConfigError):
         tp.ParaLiNGAMConfig(order_backend="bogus")
     assert tp.ParaLiNGAMConfig(threshold=True).threshold
@@ -172,8 +173,14 @@ def test_config_from_reference_maps_names(kw, want):
 
 
 def test_config_from_reference_refuses_legacy_ring_and_mixed_flags():
-    with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
-        tp.config_from_reference({"ring": True})
+    """The legacy ``ring`` flag maps to the ring as the reference maps it
+    (``ring=True`` with ``method="threshold"`` to the threshold ring); mixing
+    it with a contrary ``order_backend`` still raises."""
+    assert tp.config_from_reference({"ring": True}).order_backend == "ring"
+    both = tp.config_from_reference({"ring": True, "method": "threshold"})
+    assert (both.order_backend, both.threshold) == ("ring", True)
+    with pytest.raises(tp.ConfigError, match="not both"):
+        tp.config_from_reference({"ring": False, "order_backend": "ring"})
     with pytest.raises(tp.ConfigError, match="not both"):
         tp.config_from_reference({"use_kernel": True, "fused": True,
                                   "score_backend": "xla"})
@@ -191,7 +198,8 @@ def test_import_loads_no_jax_or_repro():
     code = ("import sys, repro_torch, repro_torch.kernels.ops, "
             "repro_torch.kernels._build, repro_torch.serve, repro_torch.utils.clock, "
             "repro_torch.kernels.ref, repro_torch.models.lm, repro_torch.models.convert, "
-            "repro_torch.launch.serve, repro_torch.configs\n"
+            "repro_torch.launch.serve, repro_torch.configs, repro_torch.dist.ring, "
+            "repro_torch.dist.ring_order, repro_torch.launch.mesh\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'repro')]\n"
             "print(bad)\n"

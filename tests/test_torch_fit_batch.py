@@ -206,13 +206,20 @@ def test_fit_batch_rejects_wrong_rank():
 
 
 def test_batch_rejects_ring_and_threshold_configs():
-    """The ring still raises; a threshold config runs the batched threshold
-    machine, with real round counters."""
+    """A ring config raises the reference's ``ConfigError`` in the batched
+    entries, as ``repro.fit_batch`` does (the ring has no batched form); a
+    threshold config runs the batched threshold machine, with real round
+    counters."""
     xs = np.zeros((2, 4, 8))
-    with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
-        repro_torch.fit_batch(xs, tp.ParaLiNGAMConfig(order_backend="ring"), device="cpu")
-    with pytest.raises(tp.ConfigError, match="queue 1 item 8"):
-        _cfg(order_backend="ring")
+    ring_ref, ring = _cfg(order_backend="ring")
+    with pytest.raises(repro.core.paralingam.ConfigError, match="no batched form"):
+        j_fit_batch(xs, ring_ref)
+    with pytest.raises(tp.ConfigError, match="no batched form"):
+        repro_torch.fit_batch(xs, ring, device="cpu")
+    with pytest.raises(tp.ConfigError, match="no batched form"):
+        repro_torch.causal_order_batch(xs, ring, device="cpu")
+    with pytest.raises(tp.ConfigError, match="no batched form"):
+        tp.aot_fit_batch(2, 4, 8, ring, device="cpu")
     ref_cfg, cfg = _cfg(threshold=True, min_bucket=8)
     assert cfg.threshold
     xs = np.stack([_gen(6, 400, seed=s) for s in (1, 2)])

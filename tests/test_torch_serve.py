@@ -204,10 +204,14 @@ def test_engines_need_cuda_without_device(monkeypatch, engine):
 
 
 def test_engines_refuse_unported_configs():
-    """The ring still raises; both engines take a threshold config and serve
-    it through ``fit_batch``."""
-    with pytest.raises(ValueError, match="ring"):
-        LingamEngine(ParaLiNGAMConfig(order_backend="ring"), **CPU)
+    """Both engines refuse a ring config at construction, as the reference's
+    do (they dispatch through ``fit_batch``, which has no ring form); both
+    take a threshold config and serve it through ``fit_batch``."""
+    ring = ParaLiNGAMConfig(order_backend="ring")
+    with pytest.raises(ValueError, match="no ring form"):
+        LingamEngine(ring, **CPU)
+    with pytest.raises(ValueError, match="no ring form"):
+        AsyncLingamEngine(ring, SCFG, start=False, **CPU)
     cfg = ParaLiNGAMConfig(threshold=True, min_bucket=8)
     x = _gen(6, 300, seed=4)
     want, _ = fit(x, cfg, device="cpu")
