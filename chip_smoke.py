@@ -128,8 +128,11 @@ Phases, each printed on its own line:
     the order of the scan with the same kernel (``hopper``), the run
     without a process group bit-equal, 84 square launches per dense order,
     ``wire`` all zero; ``[ring_fit]``: ``fit(order_backend="ring")`` with
-    the scan fit's B and noise variances; wall times beside the scan's
-    there and at the iJR904 slice (``[ring_slice]``, orders not held).
+    the scan fit's B and noise variances; ``[ring_find_root]``: the
+    degenerate one-shard ``ring_find_root`` through one square launch, at
+    the dense root; wall times beside the scan's there and at the iJR904
+    slice (``[ring_slice]``, orders not held; its threshold run only with
+    ``--profile``).
 15. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them), its error
     against the plain version, its time, the plain version's time and its
@@ -2072,21 +2075,26 @@ def ring_runs(x, dev, cfg_kw, mesh, warm: bool = True):
     return res, t, counts()["pairwise_moments"]
 
 
-def phase_ring_ecoli(dev, gpu, t_start):
+def phase_ring_ecoli(dev, gpu, profile: bool):
     """The messaging ring on one card: one shard (R=1) under an NCCL process
     group of one rank (``file://`` init), through ``causal_order_ring``, at
     the E. coli core size, dense and with the threshold, under
     ``hopper_fused`` (both ``hopper`` names run the square kernel in the
-    ring): the orders of the scan with the same kernel (``hopper``), the run
-    without a process group bit-equal (orders and every counter), 84 square
-    launches per dense order, ``wire`` all zero, ``fit(order_backend="ring")``
-    with the scan fit's B and noise variances; wall times beside the scan's,
-    here and at the iJR904 slice (where the orders mean nothing; its
-    threshold runs only while the script is inside 500 s). Returns (the
-    dense ring's square launches, its seconds)."""
+    ring): the orders of the scan with the same kernel (``hopper``), the runs
+    without a process group (one before the group exists, one after it is
+    gone: the wall times alternate none, NCCL, NCCL, none) bit-equal (orders
+    and every counter), 84 square launches per dense order, ``wire`` all
+    zero, ``fit(order_backend="ring")`` with the scan fit's B and noise
+    variances; ``ring_find_root`` on the degenerate one-shard ring runs the
+    square kernel once and gives the dense root; wall times beside the
+    scan's, here and at the iJR904 slice (where the orders mean nothing; its
+    threshold runs only with ``--profile``). Returns (the dense ring's
+    square launches, the degenerate find-root's)."""
     import torch.distributed as dist
 
+    from repro_torch.core.pairwise import dense_scores
     from repro_torch.core.paralingam import causal_order_scan
+    from repro_torch.dist.ring import ring_find_root
     from repro_torch.launch.mesh import make_ring_mesh
 
     p, n = ECOLI
@@ -2109,13 +2117,20 @@ def phase_ring_ecoli(dev, gpu, t_start):
     try:
         mesh = make_ring_mesh(1, 1, 1)
         runs = {k: ring_runs(x, dev, kw, mesh) for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
+        again = {k: ring_runs(x, dev, kw, mesh, warm=False)[1]
+                 for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
+        xn, c = normalized(x, dev)
+        mask = torch.ones(p, dtype=torch.bool, device=dev)
+        reset_counts()
+        root, s_ring = ring_find_root(xn, c, mask, mesh, score_backend="hopper_fused")
+        fr_launches = counts()["pairwise_moments"]
         (res_f, b_f), t_fit = timed(lambda: fit(
             x, ParaLiNGAMConfig(order_backend="ring", **dense_kw), device=dev))
         slice_x = sem.generate(sem.SemSpec(p=SLICE[0], n=SLICE[1], density="sparse", seed=1))["x"]
         slice_runs = {"dense": ring_runs(slice_x, dev, dense_kw, mesh)[:2]}
         causal_order_scan(slice_x, scan_cfg, device=dev)  # warm-up
         slice_scans = {"dense": timed(lambda: causal_order_scan(slice_x, scan_cfg, device=dev))}
-        if time.perf_counter() - t_start < 500:  # well inside the 1200 s limit
+        if profile:  # 50-70 s on the card, and nothing held
             # no warm-up: the dense runs built and loaded everything it uses
             slice_runs["threshold"] = ring_runs(slice_x, dev, thr_kw, mesh, warm=False)[:2]
             slice_scans["threshold"] = timed(
@@ -2123,6 +2138,8 @@ def phase_ring_ecoli(dev, gpu, t_start):
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
+    after = {k: ring_runs(x, dev, kw, None, warm=False)
+             for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
     (res_s, b_s), _ = timed(lambda: fit(x, scan_cfg, device=dev))
 
     zero_wire = {"pods": 1, "ring": 1, "hops_intra": 0, "hops_cross": 0, "hops_overlapped": 0,
@@ -2130,15 +2147,16 @@ def phase_ring_ecoli(dev, gpu, t_start):
     for kind, scan_res, t_ref in (("dense", scan, t_scan), ("threshold", thr_scan, t_thr_scan)):
         res, t, launches = runs[kind]
         res0, t0, launches0 = alone[kind]
+        res1, t1, _ = after[kind]
         same = hold_order(f"ring_{kind}_vs_scan_hopper", res.order, scan.order, x, dev)
         same_thr = hold_order(f"ring_{kind}_vs_scan_{kind}", res.order, scan_res.order, x, dev)
-        bit_equal = res == res0
+        bit_equal = res == res0 == res1
         say("ring_ecoli", run=kind, p=p, n=n, topology="1x1x1", backend="nccl",
             order_equals_scan_hopper=same, order_equals_scan_same_evaluation=same_thr,
             equal_without_process_group=bit_equal, square_launches=launches,
             square_launches_without_process_group=launches0, comparisons=res.comparisons,
             rounds=res.rounds, converged=res.converged, wire_zero=res.wire == zero_wire,
-            ring_s=f"{t:.4f}", ring_s_without_process_group=f"{t0:.4f}",
+            ring_s_none_nccl_nccl_none=f"{t0:.4f},{t:.4f},{again[kind]:.4f},{t1:.4f}",
             scan_s=f"{t_ref:.4f}", gpu=f"'{gpu}'")
         check(bit_equal, f"ring {kind}: the run without a process group differs")
         check(res.wire == zero_wire, f"ring {kind}: wire counters {res.wire} at one shard")
@@ -2146,6 +2164,15 @@ def phase_ring_ecoli(dev, gpu, t_start):
         if kind == "dense":
             check(launches == launches0 == p - 1,
                   f"{launches} square launches for {p - 1} dense find-roots")
+    s_dense = dense_scores(xn, c, mask)[0]
+    fr_err = (s_ring - s_dense).abs()
+    fr_ok = bool(torch.all(fr_err <= fs.score_tolerance(s_dense, xn, c, mask)))
+    say("ring_find_root", p=p, n=n, topology="1x1x1", backend="nccl", degenerate=True,
+        square_launches=fr_launches, root=int(root), dense_root=int(torch.argmin(s_dense)),
+        max_abs_err=f"{fr_err.max().item():.3e}", within_tolerance=fr_ok, gpu=f"'{gpu}'")
+    check(fr_launches == 1, f"the degenerate ring_find_root made {fr_launches} square launches")
+    check(int(root) == int(torch.argmin(s_dense)) and fr_ok,
+          "the degenerate ring_find_root disagrees with the plain dense evaluation")
     same = res_f.order == res_s.order
     b_err = (b_f - b_s).abs().max().item()
     nv_err = float(np.max(np.abs(res_f.noise_var - res_s.noise_var)))
@@ -2154,15 +2181,14 @@ def phase_ring_ecoli(dev, gpu, t_start):
     check(same and b_err == 0.0 and nv_err == 0.0,
           "fit(order_backend='ring') differs from the scan fit")
     if "threshold" not in slice_runs:
-        say("ring_slice", run="threshold", skipped=True,
-            elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+        say("ring_slice", run="threshold", skipped=True, reason="runs with --profile")
     for kind in slice_runs:
         (res, t), (ref, t_ref) = slice_runs[kind], slice_scans[kind]
         say("ring_slice", run=kind, p=SLICE[0], n=SLICE[1], ring_s=f"{t:.4f}",
             scan_s=f"{t_ref:.4f}", comparisons=res.comparisons, rounds=res.rounds,
             converged=res.converged, order_equals_scan=res.order == ref.order, held=False,
             gpu=f"'{gpu}'")
-    return runs["dense"][2], runs["dense"][1]
+    return runs["dense"][2], fr_launches
 
 
 #: Ring topologies whose row blocks ``[ring_block_kernel]`` holds: (pods, ring).
@@ -2297,7 +2323,7 @@ def main() -> int:
     else:
         say("threshold_slice", skipped=True, elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     err_ring = phase_ring_block_kernel(dev, gpu, core["x"])
-    launches_ring, _ = phase_ring_ecoli(dev, gpu, t_start)
+    launches_ring, launches_ring_find_root = phase_ring_ecoli(dev, gpu, profile)
     if profile:
         profile_fits(dev, gpu)
     sq_ms, sq_wrapper, sq_plain, sq_bound, sq_by = sq["ecoli_stage"]
@@ -2318,7 +2344,8 @@ def main() -> int:
     }, {
         "name": "pairwise_moments", "route": "cuda", "source": SQUARE_SOURCE,
         "replaces": SQUARE_REPLACES, "launches": launches_sq,
-        "launches_ring": launches_ring, "max_abs_err": max(err_sq, err_ring),
+        "launches_ring": launches_ring, "launches_ring_find_root": launches_ring_find_root,
+        "max_abs_err": max(err_sq, err_ring),
         "ms": sq_ms, "plain_ms": sq_plain, "bound_ms": sq_bound, "bound_by": sq_by,
         "library_ms": None, "wrapper_ms": sq_wrapper,
         "shape": "m=128,n=10000,the E. coli fit's first-stage mask",

@@ -52,7 +52,6 @@ import torch.distributed as dist
 
 from repro_torch.core.pairwise import (
     _credits,
-    dense_scores,
     pair_moments,
     pair_stat_matrix,
     residual_entropy_block,
@@ -565,8 +564,7 @@ def _world_device_type() -> str:
 
 
 def ring_find_root(xn, c, mask, mesh, row_axes: tuple | None = None,
-                   unroll: bool = False, sample_axis: str | None = None,
-                   score_backend: str = "auto"):
+                   sample_axis: str | None = None, score_backend: str = "auto"):
     """Distributed find-root. Returns ``(root, scores)``, the dense
     evaluation's, on every rank.
 
@@ -579,13 +577,13 @@ def ring_find_root(xn, c, mask, mesh, row_axes: tuple | None = None,
     the flat ring's). ``sample_axis`` optionally names a dimension to shard
     the samples over (moments summed across it; dropped when it is a row
     dimension, of size 1, or does not divide n). Dimensions in neither set
-    run the ring replicated. Falls back to the plain dense evaluation on a
-    degenerate ring (one shard, p not divisible by the shard count, or more
-    than two ring dimensions). ``unroll`` is accepted for the reference's
-    signature; the ring's walk is always a Python loop. ``score_backend``
-    selects the per-shard moments (``kernels.ops.SCORE_BACKENDS``): both
-    ``hopper`` names run the square moments kernel."""
-    del unroll
+    run the ring replicated. A degenerate ring (one shard, p not divisible
+    by the shard count, or more than two ring dimensions) runs on every rank
+    as one shard with no collective: the dense evaluation through the ring's
+    own hop-0 block, so a kernel backend still runs the square moments
+    kernel. ``score_backend`` selects the per-shard moments
+    (``kernels.ops.SCORE_BACKENDS``): both ``hopper`` names run the square
+    moments kernel."""
     from repro_torch.kernels import ops as kops
 
     backend = kops.select_backend(score_backend, xn.device)
@@ -599,8 +597,7 @@ def ring_find_root(xn, c, mask, mesh, row_axes: tuple | None = None,
     big_r = math.prod(sizes[a] for a in row_axes)
     p, n = xn.shape
     if big_r <= 1 or p % big_r or len(ring_axes) > 2:
-        s = dense_scores(xn, c, mask)[0]
-        return torch.argmin(s), s
+        return _find_root(xn, c, mask, Shards(None), backend)
     if sample_axis is not None and (sample_axis in row_axes or sizes.get(sample_axis, 1) <= 1
                                     or n % sizes[sample_axis]):
         sample_axis = None

@@ -23,13 +23,14 @@ What is held:
 * The shift counters of every iteration equal
   ``repro.utils.schedule.make_hier_plan(P, R).hop_counts()``.
 * ``ring_find_root`` gives ``repro``'s ``find_root_dense`` root on the same
-  numpy inputs, its scores within ``fused_score.score_tolerance`` of
-  ``repro``'s (float32 rounding of each entropy carried through I and S:
-  the two packages' entropies round differently, and on this Gaussian input
-  S ~ 1e-7 sits near that rounding, so ``repro``'s rtol of 2e-4 cannot hold
-  across packages; 1.3e-3 relative was measured), and within rtol 2e-4 of
-  the port's own dense evaluation (the reference's own tolerance for a ring
-  against its dense evaluation: the same formulas summed in another order).
+  numpy inputs, and its scores within rtol 2e-4 of ``repro``'s and of the
+  port's own dense evaluation (the reference's own tolerance for a ring
+  against its dense evaluation), sample-sharded grids included. The input
+  is the size of ``tests/test_distributed.py``'s find-root (p=32, n=1024,
+  seed 0) drawn from the SEM, where every score but the root's (exactly 0)
+  is far above the float32 rounding of the entropies: on Gaussian data
+  S ~ 1e-7 sits at that rounding and a relative tolerance across packages
+  tests nothing.
 * The sample-shard seam (``group=``) gives ``repro.core.pairwise``'s full-n
   values within rtol 1e-5, atol 1e-6 (float32 rounding of two moment sums
   of n/2 terms each, added, against one sum of n terms).
@@ -236,39 +237,34 @@ def hop_model(pods: int, ring: int):
     return (hc["intra_ovl"], hc["intra_seq"], hc["cross_ovl"], hc["cross_seq"])
 
 
-def find_root_problem(p=16, n=512, seed=0):
-    """The inputs of ``test_hier_ring._find_root_problem`` from the JAX
-    package's ``normalize`` and ``cov_matrix``, as numpy."""
+def find_root_problem(p=32, n=1024, seed=0):
+    """``(xn, c, mask)`` as numpy: the SEM's data of ``tests/test_distributed
+    .py``'s find-root size, normalized and correlated by the JAX package."""
     import jax.numpy as jnp
     from repro.core.covariance import cov_matrix, normalize
 
-    xn = normalize(jnp.asarray(np.random.default_rng(seed).standard_normal((p, n)), jnp.float32))
+    x = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=seed))["x"]
+    xn = normalize(jnp.asarray(x, jnp.float32))
     return np.array(xn), np.array(cov_matrix(xn)), np.ones((p,), bool)
 
 
-def hold_find_root(root, s, xn, c, mask, sample_sharded: bool = False):
+def hold_find_root(root, s, xn, c, mask):
     """A ring find-root's ``(root, scores)`` against ``repro``'s
-    ``find_root_dense`` and the port's own dense evaluation (module
-    docstring). With the samples sharded the moment sums themselves are
-    summed in another order, so the port's own scores too are held within
-    ``score_tolerance`` (rtol 2e-4 measured 6.4e-4 relative at S ~ 1e-7,
-    3.3e-10 absolute; the reference's own sample-sharded test adds an atol
-    of 1e-5, above every score here)."""
+    ``find_root_dense`` (the same root, rtol 2e-4) and the port's own dense
+    evaluation (rtol 2e-4). The comparison bites: every row but the root's
+    has a score above ``fused_score.score_tolerance``, the float32 rounding
+    of its entropies carried through I and S."""
     from repro.core.paralingam import find_root_dense
     from repro_torch.kernels.fused_score import score_tolerance
 
     root_d, s_d = find_root_dense(xn, c, mask, block_j=16)
     assert int(root) == int(root_d)
+    s_ref = np.array(s_d)
+    np.testing.assert_allclose(np.asarray(s), s_ref, rtol=2e-4)
     xt, ct, mt = torch.from_numpy(xn), torch.from_numpy(c), torch.from_numpy(mask)
-    s_ref = torch.from_numpy(np.array(s_d))
-    err = (torch.as_tensor(s) - s_ref).abs()
-    assert bool(torch.all(err <= score_tolerance(s_ref, xt, ct, mt))), err
-    own = tpw.dense_scores(xt, ct, mt)[0]
-    if sample_sharded:
-        assert bool(torch.all((torch.as_tensor(s) - own).abs()
-                              <= score_tolerance(own, xt, ct, mt)))
-    else:
-        np.testing.assert_allclose(np.asarray(s), own.numpy(), rtol=2e-4)
+    above = np.abs(s_ref) > score_tolerance(torch.from_numpy(s_ref), xt, ct, mt).numpy()
+    assert int(above.sum()) == xn.shape[0] - 1
+    np.testing.assert_allclose(np.asarray(s), tpw.dense_scores(xt, ct, mt)[0].numpy(), rtol=2e-4)
 
 
 def seam_problem():
@@ -378,10 +374,9 @@ def test_ring_find_root_over_named_axes(dense_grid):
     """``ring_find_root(row_axes=("ring",), sample_axis="model")``: the rows
     over ``ring``, the samples over ``model`` (dropped where it has one
     rank), ``pod`` replicated; the dense evaluation's scores."""
-    (_, _, msize), ranks = dense_grid
+    _, ranks = dense_grid
     for res in ranks:
-        hold_find_root(*res["find_root"]["axes"], *find_root_problem(),
-                       sample_sharded=msize > 1)
+        hold_find_root(*res["find_root"]["axes"], *find_root_problem())
 
 
 def test_pod1_topology_bit_identical_to_flat_ring(dense_grid):
@@ -512,11 +507,13 @@ def test_find_root_jit_rejects_bad_topology(world1):
         ring_find_root_jit(world1, topology=(2, 4))
 
 
-def test_ring_find_root_degenerate_ring_is_dense(world1):
-    """One shard: the dense evaluation, as the reference falls back."""
+@pytest.mark.parametrize("backend", ["torch", "hopper"])
+def test_ring_find_root_degenerate_ring_is_dense(world1, backend):
+    """One shard: the dense evaluation, as the reference falls back, through
+    the ring's own hop-0 block (the square kernel's plain version here)."""
     xn, c, mask = find_root_problem()
     root, s = ring_find_root(torch.from_numpy(xn), torch.from_numpy(c), torch.from_numpy(mask),
-                             world1, row_axes=("ring",))
+                             world1, row_axes=("ring",), score_backend=backend)
     hold_find_root(root, s, xn, c, mask)
 
 
@@ -591,6 +588,22 @@ def test_one_shard_ring_on_the_card_equals_scan(cuda, threshold):
     res = causal_order_ring(x, ParaLiNGAMConfig(order_backend="ring", **kw), device=cuda)
     assert ps.LAUNCHES - before == (0 if threshold else 16)
     assert res.order == scan.order
+
+
+@pytest.mark.cuda
+def test_degenerate_ring_find_root_on_the_card_runs_the_kernel(world1, cuda):
+    """A one-shard ``ring_find_root`` on the card launches the square kernel
+    once (the ring's hop-0 block), and gives the dense root and scores."""
+    from repro_torch.kernels import pairwise_score as ps
+    from repro_torch.kernels.fused_score import score_tolerance
+
+    xn, c, mask = (torch.from_numpy(a).to(cuda) for a in find_root_problem())
+    before = ps.LAUNCHES
+    root, s = ring_find_root(xn, c, mask, world1, score_backend="hopper")
+    assert ps.LAUNCHES - before == 1
+    s_d = tpw.dense_scores(xn, c, mask)[0]
+    assert int(root) == int(torch.argmin(s_d))
+    assert bool(torch.all((s - s_d).abs() <= score_tolerance(s_d, xn, c, mask)))
 
 
 # ---------------------------------------------------------------------------
