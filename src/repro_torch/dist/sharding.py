@@ -7,8 +7,8 @@ dimension sizes. Dimensions ``pod``, ``data`` and ``ring`` are batch
 the model families and the sample dimension of the messaging ring.
 
 The rules' ``spec`` and ``act`` (the PartitionSpecs and activation
-constraints of the model families' tensor parallelism) wait for the LM
-families' port (ROADMAP.md queue 1 item 4).
+constraints of the model families' tensor parallelism) wait for the
+first multi-card LM path (ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Batched LM serving from the command line.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --preset full --batch 4 --prompt-len 32 --new-tokens 16 [--device cpu]
 
 Runs on the card unless ``--device cpu``. The weights are random, drawn from
@@ -27,7 +27,7 @@ from repro_torch.serve.engine import Engine, ServeConfig
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-370m", choices=configs.ARCH_NAMES)
+    ap.add_argument("--arch", default="granite-3-2b", choices=configs.ARCH_NAMES)
     ap.add_argument("--preset", default="smoke", choices=("smoke", "100m", "full"))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -2,7 +2,7 @@
 
 Only :func:`preset_config` is ported so far: ``launch/serve.py`` shares it.
 The training loop (optimizer, checkpoints, the fault-tolerant trainer)
-comes with the training slice (ROADMAP.md queue 1 item 10).
+comes with the training slice (ROADMAP.md queue 1 item 4).
 
 Presets: ``smoke`` (reduced config), ``100m`` (~100M-param variant of the
 arch family), ``full`` (the published config).

@@ -1,10 +1,11 @@
-"""The LM substrate of the port: the Mamba2 (SSM) family so far.
+"""The LM substrate of the port: the dense attention, sliding-window, SSM
+(Mamba2) and hybrid (Zamba2) families.
 
-``lm`` assembles the model from ``layers`` and ``ssm``; ``convert`` carries
-the JAX package's parameters across. The attention, MLA, MoE, hybrid and
-encoder-decoder families are not ported yet (ROADMAP.md queue 1 item 10):
-``lm`` raises ``NotPorted`` for their layer kinds. ``attention.py`` and
-``moe.py`` have no counterpart here.
+``lm`` assembles the model from ``layers``, ``attention`` and ``ssm``;
+``convert`` carries the JAX package's parameters across. MLA and MoE
+(ROADMAP.md queue 1 item 2) and the encoder-decoder family (item 3) are not
+ported yet: ``lm`` raises ``NotPorted`` for their layer kinds, and
+``moe.py`` has no counterpart here.
 """
 
 from repro_torch.models.config import ArchConfig

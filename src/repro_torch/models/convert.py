@@ -4,8 +4,12 @@
 arrays (``jax.tree.map(np.asarray, repro.models.lm.init_params(...))``)
 and returns the port's: the same nested dicts with torch tensors, the
 leading group axis that ``jax.vmap(init_group)`` stacks
-(``src/repro/models/lm.py:127``) unstacked into a list of per-group dicts.
-Tests run both packages on the same weights through it.
+(``src/repro/models/lm.py:127``) unstacked into a list of per-group dicts,
+each with every position of the group (``pos0`` ... ``pos5`` for gemma3,
+``pos0`` ... ``pos6`` for zamba2) and its attention, MLP and SSM leaves;
+unstacked trees (``embed``, ``final_norm``, Zamba2's ``shared`` block) keep
+their shape. bfloat16 leaves go through float32 (exact). Tests run both
+packages on the same weights through it.
 """
 
 from __future__ import annotations

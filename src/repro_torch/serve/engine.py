@@ -1,16 +1,21 @@
 """Batched LM serving engine: prefill, then decode with greedy or
 temperature sampling, shape-bucketed prompts and per-sequence stopping.
 
-Port of ``src/repro/serve/engine.py`` over ``models.lm`` (the SSM family so
-far). It mirrors the reference step for step:
+Port of ``src/repro/serve/engine.py`` over ``models.lm`` (the dense
+attention, sliding-window, SSM and hybrid families). It mirrors the
+reference step for step:
 
-* prompts are right-padded with token 0 up to ``buckets.bucket_dim(S)``,
-  the serve-wide power-of-two grid, and the whole padded prompt is
-  prefilled. The first new token comes from the logits of the last *padded*
-  position, and with an SSM the pad tokens run through the recurrence and
-  fold into its state, exactly as in the reference (ROADMAP.md queue 3);
+* with ``bucket_prompts`` (the default) prompts are right-padded with token
+  0 up to ``buckets.bucket_dim(S)``, the serve-wide power-of-two grid, and
+  the whole padded prompt is prefilled. The first new token comes from the
+  logits of the last *padded* position; with an SSM the pad tokens run
+  through the recurrence and fold into its state, exactly as in the
+  reference (ROADMAP.md queue 3);
 * decode step i feeds the previous token at position ``S + i`` (the true
-  prompt length), and ``max_new_tokens`` steps run, as there;
+  prompt length): an attention layer writes its K/V there, over a pad
+  token's, and attends to positions ``t < S + i + 1``, so the K/V of the
+  pad tokens past that point stay masked, as in the reference;
+* ``max_new_tokens`` steps run, as there;
 * ``temperature == 0`` samples by argmax. ``temperature > 0`` samples by the
   Gumbel-max trick from an explicit ``torch.Generator`` seeded with
   ``seed``: the same distribution as ``jax.random.categorical``, not the
@@ -18,13 +23,14 @@ far). It mirrors the reference step for step:
 * ``eos_id >= 0``: once a sequence has emitted ``eos_id`` it emits only
   ``eos_id``.
 
-One difference, on purpose: nothing grows the caches after the prefill.
-The reference's ``_grow_seq`` pads the first cache axis whose size equals
-the padded prompt length; an SSM cache has no sequence axis, so it pads a
-head, state or batch axis instead whenever one of those sizes equals the
-padded prompt length, and fails (smoke 2 x 12, full width 4 x 32). Caches
-grow by layer kind, and an SSM layer's does not grow; the attention kinds,
-whose K/V do, come with their slice.
+One difference, on purpose: the caches grow by layer kind
+(``lm.prefill(..., max_seq=)``). Every attention
+layer's K/V grows to the padded prompt plus ``max_new_tokens``; an SSM
+layer's cache has no sequence axis and does not grow. The reference's
+``_grow_seq`` pads the first cache axis whose size equals the padded prompt
+length; an SSM cache has no sequence axis, so it pads a head, state or
+batch axis instead whenever one of those sizes equals the padded prompt
+length, and fails (mamba2 at smoke 2 x 12 and full width 4 x 32; zamba2).
 
 The engine runs on the card unless built with ``device="cpu"``; its
 parameters must already be there. Tokens stay on the device until the
@@ -48,6 +54,7 @@ class ServeConfig:
     max_new_tokens: int = 32
     temperature: float = 0.0  # 0 = greedy
     eos_id: int = -1  # -1: never stop early
+    bucket_prompts: bool = True
 
 
 class Engine:
@@ -77,9 +84,11 @@ class Engine:
         reference's encoder input comes with the encoder-decoder family.)"""
         scfg = self.serve_cfg
         b, s = prompts.shape
-        prompts = np.pad(prompts, ((0, 0), (0, bucket_dim(s) - s)), constant_values=0)
+        if scfg.bucket_prompts:
+            prompts = np.pad(prompts, ((0, 0), (0, bucket_dim(s) - s)), constant_values=0)
+        total = prompts.shape[1] + scfg.max_new_tokens
         tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
-        last_logits, caches = lm.prefill(self.params, tokens, self.cfg)
+        last_logits, caches = lm.prefill(self.params, tokens, self.cfg, max_seq=total)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         pos = torch.full((b,), s, dtype=torch.int64, device=self.device)  # true prompt length
         out = []

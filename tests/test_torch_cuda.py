@@ -637,3 +637,31 @@ def test_engine_full_width_mixer_matches_cpu(cuda):
     assert sd.LAUNCHES == before + 8 * cfg.n_layers
     want = Engine(cpu, cfg, ServeConfig(max_new_tokens=8), device="cpu").generate(prompts)
     np.testing.assert_array_equal(got, want)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.parametrize("arch,layers,launches_per_step", [("granite-3-2b", 1, 0),
+                                                           ("gemma3-12b", 6, 0),
+                                                           ("zamba2-2.7b", 6, 6)])
+def test_engine_attention_families_match_cpu(cuda, arch, layers, launches_per_step):
+    """Greedy ``Engine.generate`` at full width (granite 1 layer; gemma3 one
+    group, 5 windowed layers + 1 global; zamba2 one group, 6 Mamba2 layers
+    + the shared attention block; vocab 512) on the card equals the CPU
+    route on the same weights; the attention paths launch no hand kernel,
+    the SSM layers one decode kernel per layer and step."""
+    cfg = configs.get(arch).with_overrides(n_layers=layers, vocab=512)
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    before = sd.LAUNCHES
+    got = Engine(params, cfg, ServeConfig(max_new_tokens=8), device=cuda).generate(prompts)
+    assert sd.LAUNCHES == before + 8 * launches_per_step
+    want = Engine(_to_cpu(params), cfg, ServeConfig(max_new_tokens=8),
+                  device="cpu").generate(prompts)
+    np.testing.assert_array_equal(got, want)

@@ -334,10 +334,11 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
                       "--new-tokens", "1"])
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "deepseek-v2-lite-16b", "zamba2-2.7b",
-                                  "whisper-base", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "whisper-base",
+                                  "llama4-scout-17b-a16e"])
 def test_unported_families_raise(arch):
-    with pytest.raises(t_lm.NotPorted, match="queue 1 item 10"):
+    item = "item 3" if arch == "whisper-base" else "item 2"
+    with pytest.raises(t_lm.NotPorted, match=f"queue 1 {item}"):
         t_lm.init_params(t_configs.smoke(arch), device="cpu")
 
 
