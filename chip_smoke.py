@@ -1560,10 +1560,10 @@ SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 32, 16
 GAP_TOL = 1e-3
 
 
-def within(k, r, atol):
-    """max |k - r|, and whether every entry is within atol + RTOL |r|."""
+def within(k, r, atol, rtol=RTOL):
+    """max |k - r|, and whether every entry is within atol + rtol |r|."""
     e = (k.double() - r.double()).abs()
-    return e.max().item(), bool(torch.all(e <= atol + RTOL * r.double().abs()))
+    return e.max().item(), bool(torch.all(e <= atol + rtol * r.double().abs()))
 
 
 def copy_rate(dev) -> float:
@@ -1956,30 +1956,40 @@ def phase_ssd_kernel(dev, gpu, rate):
     check(all(rows) and all(rows37) and repeat and repeat37,
           "a row of the decode kernel depends on its batch or run")
     check(paths, "the decode kernel's scalar path differs from its vector path")
+    return max(errs), ssd_times(args, rate, gpu)
+
+
+def ssd_times(args, rate, gpu):
+    """The decode kernel's times on ``args`` (launch, wrapper, device,
+    plain) beside the bytes bound. Returns (ms, plain ms, bound ms, shape,
+    device ms, wrapper ms)."""
+    full = tuple(args[0].shape)
+    shape = "B={},H={},P={},N={}".format(*full)
     ms = time_ms(lambda: sd.launch(*args), reps=200, warmup=5)
     wrapper_ms = time_ms(lambda: sd.ssd_decode(*args), reps=200, warmup=5)
     dev_ms = device_ms(lambda: sd.launch(*args), "ssd_decode_heads")
     plain_ms = time_ms(lambda: sd.ssd_decode_ref(*args), reps=50, warmup=2)
     nbytes = ssd_bytes(*full)
     bound = max(nbytes / HBM_BPS, 5 * np.prod(full) / FP32_FLOPS) * 1e3
-    say("ssd_decode_kernel_time", shape="B={},H={},P={},N={}".format(*full), kernel_ms=f"{ms:.5f}",
+    say("ssd_decode_kernel_time", shape=shape, kernel_ms=f"{ms:.5f}",
         wrapper_ms=f"{wrapper_ms:.5f}", device_ms=f"{dev_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
         bound_ms=f"{bound:.5f}", bound_by="bytes", bound_ms_at_copy_rate=f"{nbytes / rate * 1e3:.5f}",
         kernel_fraction_of_bound=f"{bound / ms:.3f}",
         device_fraction_of_bound=f"{bound / dev_ms:.3f}", gpu=f"'{gpu}'")
-    return max(errs), (ms, plain_ms, bound, "B={},H={},P={},N={}".format(*full), dev_ms, wrapper_ms)
+    return ms, plain_ms, bound, shape, dev_ms, wrapper_ms
 
 
 def capture_decode_inputs(params, cfg, tokens, dev):
-    """The ``ssd_decode`` inputs of every layer of one real decode step
-    after a prefill of ``tokens``, in layer order."""
+    """The ``ssd_decode`` inputs of every SSM layer of one real decode step
+    after a prefill of ``tokens`` (attention K/V grown by the one new
+    position), in layer order."""
     calls, orig = [], ops.ssd_decode
 
     def spy(*args):
         calls.append([a.clone() for a in args])
         return orig(*args)
 
-    logits, caches = lm.prefill(params, tokens, cfg)
+    logits, caches = lm.prefill(params, tokens, cfg, max_seq=tokens.shape[1] + 1)
     ops.ssd_decode = spy
     try:
         lm.decode_step(params, torch.argmax(logits, dim=-1), caches,
@@ -2028,14 +2038,15 @@ def phase_mamba2_serve(dev, gpu, profile=False):
     params, init_s = timed(lambda: lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev))
     prompts = serve_prompts(cfg)
     want = cfg.n_layers * SERVE_NEW
-    out, wall, peak_gb = generate_on(params, cfg, prompts, dev, gpu, {"ssd_decode": want},
-                                     "mamba2 float32", "mamba2_generate" if profile else None)
+    out, wall, peak_gb, launched = generate_on(params, cfg, prompts, dev, gpu, {"ssd_decode": want},
+                                               "mamba2 float32", "mamba2_generate" if profile else None)
     prefill_s, step_s = step_times(params, cfg, prompts, dev)
     same_rows, logit_diff, cpu_s = hold_tokens_against_cpu("mamba2", cfg, params, prompts, dev)
     say("mamba2_serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         heads=cfg.n_ssm_heads, state=f"{cfg.ssm_headdim}x{cfg.ssm_state}", vocab=cfg.vocab,
         params_m=f"{tree_numel(params) / 1e6:.1f}", init_s=f"{init_s:.3f}", batch=SERVE_B,
-        prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, ssd_decode_launches=want,
+        prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        ssd_decode_launches=launched["ssd_decode"],
         generate_s=f"{wall:.4f}", tok_per_s=f"{SERVE_B * SERVE_NEW / wall:.1f}",
         prefill_s=f"{prefill_s:.4f}", decode_step_s=f"{np.mean(step_s):.5f}",
         decode_step_s_min=f"{min(step_s):.5f}", peak_gb=f"{peak_gb:.3f}",
@@ -2047,7 +2058,7 @@ def phase_mamba2_serve(dev, gpu, profile=False):
     calls = capture_decode_inputs(params, cfg, toks, dev)
     check(len(calls) == cfg.n_layers, f"{len(calls)} decode-kernel calls in one step")
     err = max(hold_ssd(f"layer{i}", calls[i]) for i in (0, cfg.n_layers - 1))
-    return want, err, (prefill_s, float(np.mean(step_s)), wall)
+    return launched["ssd_decode"], err, (prefill_s, float(np.mean(step_s)), wall)
 
 
 # ---------------------------------------------------------------------------
@@ -2097,13 +2108,6 @@ def free():
     torch.cuda.empty_cache()
 
 
-def close_to(got, want, rtol=ATTN_RTOL, atol=ATTN_ATOL):
-    """(ok, max abs diff) under ``|got - want| <= atol + rtol |want|``."""
-    g, w = got.double(), want.double()
-    diff = (g - w).abs()
-    return bool(torch.all(diff <= atol + rtol * w.abs())), diff.max().item()
-
-
 def serve_prompts(cfg, b=SERVE_B, s=SERVE_PROMPT, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
 
@@ -2113,7 +2117,7 @@ def generate_on(params, cfg, prompts, dev, gpu, want: dict, what: str, profile_r
     count set to 0 just before it and read just after; the counts must equal
     ``want`` (0 for every kernel it does not name). A second generate gives
     the same tokens; with ``profile_run`` a third runs under the profiler.
-    Returns (tokens, seconds, peak GB)."""
+    Returns (tokens, seconds, peak GB, the launches counted)."""
     eng = Engine(params, cfg, ServeConfig(max_new_tokens=SERVE_NEW), device=dev)
     eng.generate(prompts)  # warm-up: library handles, allocator
     torch.cuda.reset_peak_memory_stats()
@@ -2128,7 +2132,7 @@ def generate_on(params, cfg, prompts, dev, gpu, want: dict, what: str, profile_r
     check(np.array_equal(out, eng.generate(prompts)), f"{what}: two generates differ")
     if profile_run:
         profile_generate(profile_run, eng, prompts, gpu)
-    return out, wall, peak_gb
+    return out, wall, peak_gb, launched
 
 
 def step_times(params, cfg, prompts, dev):
@@ -2213,7 +2217,7 @@ def phase_granite_serve(dev, gpu, profile=False):
     cfg = configs.get("granite-3-2b")
     params, init_s = timed(lambda: lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev))
     prompts = serve_prompts(cfg)
-    out, wall, peak_gb = generate_on(params, cfg, prompts, dev, gpu, {}, "granite float32",
+    out, wall, peak_gb, _ = generate_on(params, cfg, prompts, dev, gpu, {}, "granite float32",
                                      "granite_generate" if profile else None)
     prefill_s, steps = step_times(params, cfg, prompts, dev)
 
@@ -2233,7 +2237,7 @@ def phase_granite_serve(dev, gpu, profile=False):
 
     # bfloat16: the same weights rounded, against the float32 run.
     p16 = to_bf16(params)
-    out16, wall16, peak16 = generate_on(p16, cfg, prompts, dev, gpu, {}, "granite bfloat16")
+    out16, wall16, peak16, _ = generate_on(p16, cfg, prompts, dev, gpu, {}, "granite bfloat16")
     prefill16_s, steps16 = step_times(p16, cfg, prompts, dev)
     toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
     l32 = lm.prefill(params, toks, cfg)[0][:, :cfg.vocab].double()
@@ -2255,7 +2259,7 @@ def phase_granite_serve(dev, gpu, profile=False):
 
     # The int8 KV cache: full width, and the reference test's smoke model.
     cfg_q = cfg.with_overrides(kv_quant="int8")
-    out8, wall8, peak8 = generate_on(params, cfg_q, prompts, dev, gpu, {}, "granite int8 KV")
+    out8, wall8, peak8, _ = generate_on(params, cfg_q, prompts, dev, gpu, {}, "granite int8 KV")
     _, steps8 = step_times(params, cfg_q, prompts, dev)
     err, scale8, same8, gap8 = int8_decode_error(params, cfg, 2, 16, dev, seed=1)
     check(err <= INT8_SHARE * scale8,
@@ -2305,7 +2309,7 @@ def phase_granite_prefill_long(dev, gpu, params, cfg):
     q, k, v, pos = layer0_qkv(params, cfg, toks)
     blocked = attn.blocked_attention(q, k, v, pos, pos, 0, chunk)
     full = attn.causal_attention(q, k, v, pos, pos)
-    ok, diff = close_to(blocked, full)
+    diff, ok = within(blocked, full, ATTN_ATOL, ATTN_RTOL)
     check(ok, f"blocked attention in {s // chunk} chunks disagrees with causal_attention: {diff:.3e}")
     blocked_ms = time_ms(lambda: attn.blocked_attention(q, k, v, pos, pos, 0, chunk), reps=10)
     full_ms = time_ms(lambda: attn.causal_attention(q, k, v, pos, pos), reps=10)
@@ -2341,7 +2345,7 @@ def phase_gemma3_window(dev, gpu):
     q, k, v, pos = layer0_qkv(params, cfg, toks)
     blocked = attn.blocked_attention(q, k, v, pos, pos, w)
     full = attn.causal_attention(q, k, v, pos, pos, w)
-    ok_b, diff_b = close_to(blocked, full)
+    diff_b, ok_b = within(blocked, full, ATTN_ATOL, ATTN_RTOL)
     check(ok_b, f"windowed blocked attention disagrees with the masked form: {diff_b:.3e}")
     blocked_ms = time_ms(lambda: attn.blocked_attention(q, k, v, pos, pos, w), reps=10)
     full_ms = time_ms(lambda: attn.causal_attention(q, k, v, pos, pos, w), reps=10)
@@ -2358,7 +2362,7 @@ def phase_gemma3_window(dev, gpu):
     kv_pos = torch.arange(kc.shape[1], device=dev)[None, :]
     dec = attn.decode_attention(qn, kc, vc, at + 1, w)
     masked = attn.causal_attention(qn, kc, vc, at[:, None], kv_pos, w)
-    ok_d, diff_d = close_to(dec, masked)
+    diff_d, ok_d = within(dec, masked, ATTN_ATOL, ATTN_RTOL)
     check(ok_d, f"decode_attention past the window disagrees with the masked form: {diff_d:.3e}")
     dec_ms = time_ms(lambda: attn.decode_attention(qn, kc, vc, at + 1, w), reps=50)
     masked_ms = time_ms(lambda: attn.causal_attention(qn, kc, vc, at[:, None], kv_pos, w), reps=50)
@@ -2372,18 +2376,21 @@ def phase_gemma3_window(dev, gpu):
         masked_decode_ms=f"{masked_ms:.4f}", rtol=ATTN_RTOL, atol=ATTN_ATOL, gpu=f"'{gpu}'")
 
 
-def phase_zamba2_serve(dev, gpu, profile=False):
+def phase_zamba2_serve(dev, gpu, rate, profile=False):
     """zamba2-2.7b at full width and depth (54 Mamba2 layers in 9 groups,
     each closed by the shared attention block) through ``Engine.generate``:
     one ``ssd_decode`` launch per SSM layer and step (864), nothing else;
-    the first group's tokens against a CPU run. Returns the launches."""
+    the first group's tokens against a CPU run; the kernel against plain
+    on the inputs of SSM layers 0 and 53 of a real decode step, and its
+    times at this path's shape. Returns (launches, max error, timing)."""
     cfg = configs.get("zamba2-2.7b")
     params, init_s = timed(lambda: lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev))
     prompts = serve_prompts(cfg)
     ssm_layers = cfg.n_groups * cfg.hybrid_attn_every
     want = ssm_layers * SERVE_NEW
-    out, wall, peak_gb = generate_on(params, cfg, prompts, dev, gpu, {"ssd_decode": want},
-                                     "zamba2 float32", "zamba2_generate" if profile else None)
+    out, wall, peak_gb, launched = generate_on(params, cfg, prompts, dev, gpu, {"ssd_decode": want},
+                                               "zamba2 float32",
+                                               "zamba2_generate" if profile else None)
     prefill_s, steps = step_times(params, cfg, prompts, dev)
     cut_cfg = cfg.with_overrides(n_layers=ZAMBA2_CUT)
     cut = {**params, "groups": params["groups"][:cut_cfg.n_groups]}
@@ -2391,14 +2398,21 @@ def phase_zamba2_serve(dev, gpu, profile=False):
     say("zamba2_serve", arch=cfg.name, ssm_layers=ssm_layers, shared_block_applications=cfg.n_groups,
         d_model=cfg.d_model, ssm_heads=cfg.n_ssm_heads, state=f"{cfg.ssm_headdim}x{cfg.ssm_state}",
         vocab=cfg.vocab, params_m=f"{tree_numel(params) / 1e6:.1f}", init_s=f"{init_s:.3f}",
-        batch=SERVE_B, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, ssd_decode_launches=want,
+        batch=SERVE_B, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        ssd_decode_launches=launched["ssd_decode"],
         generate_s=f"{wall:.4f}", tok_per_s=f"{SERVE_B * SERVE_NEW / wall:.1f}",
         prefill_s=f"{prefill_s:.4f}", decode_step_s=f"{np.mean(steps):.5f}",
         decode_step_s_min=f"{min(steps):.5f}", peak_gb=f"{peak_gb:.3f}",
         cut_layers=f"{ZAMBA2_CUT}+shared", cut_rows_equal_to_cpu=f"{same_rows}/{SERVE_B}",
         cut_prefill_logits_max_abs_diff=f"{logit_diff:.3e}", cpu_generate_s=f"{cpu_s:.3f}",
         sample=",".join(map(str, out[0][:8])), gpu=f"'{gpu}'")
-    return want
+
+    # The decode kernel on the inputs of SSM layers 0 and 53 of a real step.
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    calls = capture_decode_inputs(params, cfg, toks, dev)
+    check(len(calls) == ssm_layers, f"{len(calls)} decode-kernel calls in one zamba2 step")
+    err = max(hold_ssd(f"zamba2_layer{i}", calls[i]) for i in (0, ssm_layers - 1))
+    return launched["ssd_decode"], err, ssd_times(calls[0], rate, gpu)
 
 
 # ---------------------------------------------------------------------------
@@ -2428,7 +2442,7 @@ def phase_ica_lingam(dev, gpu):
         check(bool(torch.all(torch.isfinite(w_k))), f"{name}: non-finite unmixing matrix")
         order_k, b_k = ica.ica_lingam(x, w0=w0, device=dev)
         order_c, _ = ica.ica_lingam(x, w0=w0, device="cpu")
-        w_ok, w_diff = close_to(w_k.cpu(), w_c)
+        w_diff, w_ok = within(w_k.cpu(), w_c, ATTN_ATOL, ATTN_RTOL)
         if name == "easy_p5":
             check(it_k < 500 and it_c < 500, f"{name}: FastICA did not converge")
             check(w_ok and order_k == order_c, f"{name}: the card's W or order differs from the CPU's")
@@ -2725,7 +2739,7 @@ def main() -> int:
     free()
     phase_gemma3_window(dev, gpu)
     free()
-    ssd_launches_zamba2 = phase_zamba2_serve(dev, gpu, profile)
+    ssd_launches_zamba2, err_zamba2, zamba2_timing = phase_zamba2_serve(dev, gpu, rate, profile)
     free()
     err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
     launches_sq = phase_fit_hopper(dev, gpu, core)
@@ -2795,10 +2809,12 @@ def main() -> int:
     }] + [{
         "name": "ssd_decode", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
         "launches": ssd_launches, "launches_zamba2": ssd_launches_zamba2,
-        "max_abs_err": max(err_ssd, err_serve), "ms": ssd_timing[0],
+        "max_abs_err": max(err_ssd, err_serve, err_zamba2), "ms": ssd_timing[0],
         "plain_ms": ssd_timing[1], "bound_ms": ssd_timing[2], "bound_by": "bytes",
         "library_ms": None, "device_ms": ssd_timing[4], "wrapper_ms": ssd_timing[5],
-        "shape": ssd_timing[3], "gpu": gpu,
+        "shape": ssd_timing[3], "max_abs_err_zamba2": err_zamba2, "ms_zamba2": zamba2_timing[0],
+        "plain_ms_zamba2": zamba2_timing[1], "bound_ms_zamba2": zamba2_timing[2],
+        "device_ms_zamba2": zamba2_timing[4], "shape_zamba2": zamba2_timing[3], "gpu": gpu,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

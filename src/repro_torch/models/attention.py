@@ -180,7 +180,7 @@ def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
 
 
 def attention_block(params, x, cfg, positions, *, window: int, kv_cache=None,
-                    cache_pos=None):
+                    cache_pos=None, want_cache=True):
     """Full attention block: qkv -> (cached) attention -> output projection.
 
     With ``cache_pos`` ((B,) int, the position of the one new token) this is
@@ -190,7 +190,7 @@ def attention_block(params, x, cfg, positions, *, window: int, kv_cache=None,
     Otherwise (prefill, forward) it attends over the sequence itself.
     Returns (out, new_kv): the cache written, else the fresh (k, v), or
     their int8 form (values and bf16 scales) when ``cfg.kv_quant ==
-    "int8"``."""
+    "int8"``, or None when ``want_cache`` is False (``forward``)."""
     q, k, v = qkv(params, x, cfg, positions)
     if cache_pos is not None:
         if cfg.kv_quant == "int8":
@@ -210,7 +210,9 @@ def attention_block(params, x, cfg, positions, *, window: int, kv_cache=None,
     else:
         q_chunk = pick_q_chunk(x.shape[0], cfg.n_heads, x.shape[1])
         out = blocked_attention(q, k, v, positions, positions, window, q_chunk)
-        if cfg.kv_quant == "int8":
+        if not want_cache:
+            new_kv = None
+        elif cfg.kv_quant == "int8":
             kq, ks = quantize_kv(k)
             vq, vs = quantize_kv(v)
             new_kv = (kq, ks, vq, vs)

@@ -154,10 +154,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None):
 
 
 def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, cache=None,
-                 cache_pos=None):
+                 cache_pos=None, want_cache=True):
     """One layer. Returns (x, new_cache_entry). ``cache_pos`` set means a
     decode step over ``cache``; otherwise the layer runs the sequence and
-    returns the cache it builds."""
+    returns the cache it builds (an attention layer builds none unless
+    ``want_cache``)."""
     if kind == "ssm":
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if cache_pos is not None:
@@ -170,7 +171,8 @@ def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, cache=N
         h = torch.cat([x, emb0], dim=-1) @ lp["proj"]
         h = rmsnorm(h, shared["ln1"], cfg.norm_eps)
         out, new_kv = attn.attention_block(shared["attn"], h, cfg, positions, window=0,
-                                           kv_cache=cache, cache_pos=cache_pos)
+                                           kv_cache=cache, cache_pos=cache_pos,
+                                           want_cache=want_cache)
         x = x + out
         h2 = rmsnorm(x, shared["ln2"], cfg.norm_eps)
         return x + mlp(shared["mlp"], h2, cfg.act), new_kv
@@ -179,19 +181,22 @@ def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, cache=N
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     window = cfg.window if kind == "attn_w" else 0
     out, new_kv = attn.attention_block(lp["attn"], h, cfg, positions, window=window,
-                                       kv_cache=cache, cache_pos=cache_pos)
+                                       kv_cache=cache, cache_pos=cache_pos,
+                                       want_cache=want_cache)
     x = x + out
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(lp["mlp"], h2, cfg.act), new_kv
 
 
-def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None):
+def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None, want_cache=False):
     """Run the layers in order. Returns (x, new_caches), one entry per layer
     in the groups' layout. With ``cache_pos`` it is a decode step over
-    ``caches``; otherwise the sequence runs and its caches are built."""
+    ``caches``; otherwise the sequence runs and its caches are built if
+    ``want_cache`` (``prefill``), else new_caches is None (``forward``)."""
     layout = group_layout(cfg)
     emb0 = x if cfg.family == "hybrid" else None
     shared = params.get("shared")
+    want_cache = want_cache or cache_pos is not None
     new_groups = []
     for gi, gp in enumerate(params["groups"]):
         new_cache = {}
@@ -199,9 +204,9 @@ def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None):
             c = caches["groups"][gi][f"pos{i}"] if caches is not None else None
             x, new_cache[f"pos{i}"] = _apply_layer(
                 gp[f"pos{i}"], kind, x, cfg, positions, shared=shared, emb0=emb0,
-                cache=c, cache_pos=cache_pos)
+                cache=c, cache_pos=cache_pos, want_cache=want_cache)
         new_groups.append(new_cache)
-    return x, {"groups": new_groups}
+    return x, ({"groups": new_groups} if want_cache else None)
 
 
 def _positions(b: int, s: int, device):
@@ -292,7 +297,7 @@ def prefill(params, tokens, cfg: ArchConfig, max_seq: int | None = None):
     _check_ported(cfg)
     b, s = tokens.shape
     x = embed(params["embed"], tokens)
-    x, caches = _backbone(params, x, cfg, _positions(b, s, tokens.device))
+    x, caches = _backbone(params, x, cfg, _positions(b, s, tokens.device), want_cache=True)
     if max_seq is not None and max_seq != s:
         caches = _grow_caches(caches, cfg, max_seq)
     x = rmsnorm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)

@@ -115,6 +115,37 @@ def test_ica_lingam_recovers_easy_graph_with_its_own_generator():
     assert np.abs(b - data["b_true"])[strong].mean() < 0.25
 
 
+def test_fast_ica_at_ecoli_core_runs_to_max_iter_on_the_reference_too():
+    """At the E. coli core size (p=85, n=10000) FastICA does not converge,
+    in the reference as in the port: the covariance's condition number
+    exceeds what float32 resolves, the reference's own eigh returns a
+    negative eigenvalue that ``_whiten`` clamps to 1e-10, and the whitened
+    directions are rounding noise scaled by ~1e5. W then depends on the
+    rounding (two sums' orders part it), so the card and the CPU are held
+    equal only where FastICA converges. Run with ``-s`` to read the
+    numbers."""
+    x = j_sem.generate(j_sem.SemSpec(p=85, n=10000, density="sparse", seed=0))["x"]
+    xc = x - x.mean(axis=1, keepdims=True)
+    vals64 = np.linalg.eigvalsh(xc @ xc.T / (x.shape[1] - 1))
+    cov32 = (jnp.asarray(xc, jnp.float32) @ jnp.asarray(xc, jnp.float32).T) / (x.shape[1] - 1)
+    vals32 = np.asarray(jnp.linalg.eigh(cov32)[0])
+    cond = vals64[-1] / vals64[0]
+    assert cond > 2.0**24 and vals32[0] < 0 < vals64[0]
+
+    last, before = np.asarray(j_fast_ica(x)), np.asarray(j_fast_ica(x, max_iter=499))
+    assert not np.array_equal(last, before)  # the reference's loop ran all 500 iterations
+    w, iterations = t_ica._fast_ica(x, w0=_jax_draw(85), device="cpu")
+    assert iterations == 500
+    first_ref = np.asarray(j_fast_ica(x, max_iter=1))
+    first, _ = t_ica._fast_ica(x, w0=_jax_draw(85), max_iter=1, device="cpu")
+    print(f"\necoli_core cond64={cond:.3e} eig32_min={vals32[0]:.3e} eig64_min={vals64[0]:.3e} "
+          f"reference_iterations=500 port_iterations={iterations} "
+          f"reference_w_scale={np.abs(last).max():.3e} port_w_scale={w.abs().max().item():.3e} "
+          f"diff_at_500={np.abs(w.numpy() - last).max():.3e} "
+          f"diff_at_1={np.abs(first.numpy() - first_ref).max():.3e} "
+          f"w_scale_at_1={np.abs(first_ref).max():.3e}")
+
+
 def test_fast_ica_needs_a_device_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
