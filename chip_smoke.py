@@ -153,7 +153,26 @@ Phases, each printed on its own line:
     attention block 9 times), 864 decode-kernel launches and nothing else,
     the first group's tokens against a CPU run. With ``--profile``, the
     device's busy share of one granite and one zamba2 ``generate``.
-16. The baselines (``core/ica_lingam.py``, ``core/poly_scores.py``).
+16. MLA and MoE (``models/attention.py``'s ``mla_block``,
+    ``models/moe.py``; no hand kernel, the reference has none there).
+    ``[deepseek_serve]``: deepseek-v2-lite-16b at full width and depth (1
+    dense MLA prologue layer + 26 MLA+MoE layers, 64 experts top-6 + 2
+    shared, kv_lora 512), 15.71B bfloat16 weights from a seeded generator,
+    their count against ``param_count()``, through ``Engine.generate`` at
+    the serving shape: no kernel launched, two generates equal, the
+    capacity's drops at the prefill (T·k = 768 > 256); ``[deepseek_cut]``:
+    the prologue and the first 2 MoE groups upcast to float32, their routing
+    at the prefill held on the card against the CPU, then their tokens
+    against a CPU run, a departure allowed at a logit near-tie or at a
+    routing near-tie (``[routing_near_tie]``: the CPU's k-th and (k+1)-th
+    probabilities within ``ROUTE_TOL``); ``[llama4_serve]``:
+    llama4-scout-17b-a16e at full width cut to 8 of its 48 layers (listed as
+    ``reduced``), 19.69B bfloat16 weights, the same checks;
+    ``[llama4_moe_hold]``: its first layer's ``moe_ffn`` on the card against
+    the CPU on a decode step's hidden states, within ``MOE_BF16_ULPS`` bf16
+    ulps, when the host's RAM allows. With ``--profile``, the device's busy
+    share of one deepseek ``generate`` and the kernels of one decode step.
+17. The baselines (``core/ica_lingam.py``, ``core/poly_scores.py``).
     ``[ica_lingam]``: FastICA on the card against the CPU from the same
     start, at the E. coli core size (no convergence in 500 iterations:
     printed, not held) and on the easy p=5 SEM of the reference's test (W
@@ -161,7 +180,7 @@ Phases, each printed on its own line:
     polynomial scorer's times against ``find_root_dense`` under
     ``hopper_fused`` at E. coli core and the iJR904 slice, the hybrid root
     equal to the dense root.
-17. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
+18. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them, the decode
     kernel's zamba2 launches), its error against the plain version, its
     time, the plain version's time and its bound.
@@ -180,6 +199,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -212,6 +232,7 @@ from repro_torch.core import ica_lingam as ica  # noqa: E402
 from repro_torch.core import poly_scores as poly  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.layers import embed, rmsnorm  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
@@ -2014,17 +2035,24 @@ def profile_generate(run, eng, prompts, gpu):
     say_rows(run, rows, busy_us)
 
 
+def replay(params, cfg, prompts, tokens, step, dev="cpu"):
+    """The engine's greedy loop on ``dev`` up to decode step ``step``, fed
+    ``tokens``: the logits from which token ``step`` is drawn."""
+    s = prompts.shape[1]
+    padded = np.pad(prompts, ((0, 0), (0, bucket_dim(s) - s)))
+    logits, caches = lm.prefill(params, torch.as_tensor(padded, dtype=torch.int64, device=dev), cfg,
+                                max_seq=padded.shape[1] + step)
+    for i in range(step):
+        tok = torch.as_tensor(tokens[:, i], dtype=torch.int64, device=dev)
+        logits, caches = lm.decode_step(params, tok, caches,
+                                        torch.full((len(tok),), s + i, device=dev), cfg)
+    return logits
+
+
 def cpu_top2_gap(params, cfg, prompts, tokens, step, row):
     """The CPU run's top-2 logit gap of sequence ``row`` at decode step
     ``step``, replaying its greedy loop (``tokens`` are its own)."""
-    s = prompts.shape[1]
-    padded = np.pad(prompts, ((0, 0), (0, bucket_dim(s) - s)))
-    logits, caches = lm.prefill(params, torch.as_tensor(padded, dtype=torch.int64), cfg,
-                                max_seq=padded.shape[1] + step)
-    for i in range(step):
-        tok = torch.as_tensor(tokens[:, i], dtype=torch.int64)
-        logits, caches = lm.decode_step(params, tok, caches, torch.full((len(tok),), s + i), cfg)
-    top = torch.topk(logits[row].double(), 2).values
+    top = torch.topk(replay(params, cfg, prompts, tokens, step)[row].double(), 2).values
     return float(top[0] - top[1])
 
 
@@ -2152,8 +2180,10 @@ def step_times(params, cfg, prompts, dev):
 def hold_tokens_against_cpu(tag, cfg, params, prompts, dev):
     """Greedy tokens on the card against a CPU run of the same weights (the
     whole model, or a cut of it): equal, or departing only where the CPU's
-    top-2 logits lie within ``GAP_TOL``. Returns (rows equal, prefill logit
-    diff, CPU seconds)."""
+    top-2 logits lie within ``GAP_TOL``, or (an MoE model) where the two
+    runs, fed the CPU's tokens up to the departure, routed a token to other
+    experts at a routing near-tie (``routing_flips``). Returns (rows equal,
+    prefill logit diff, CPU seconds)."""
     cpu_params = tree_map(params, lambda t: t.cpu())
     scfg = ServeConfig(max_new_tokens=SERVE_NEW)
     out = Engine(params, cfg, scfg, device=dev).generate(prompts)
@@ -2172,11 +2202,15 @@ def hold_tokens_against_cpu(tag, cfg, params, prompts, dev):
             continue
         k = int(np.flatnonzero(out[r] != cpu_out[r])[0])
         gap = cpu_top2_gap(cpu_params, cfg, prompts, cpu_out, k, r)
+        routed = {}
+        if cfg.is_moe and gap > GAP_TOL:
+            flips = routing_flips(tag, params, cpu_params, cfg, prompts, cpu_out, k, dev)
+            routed = {"routing_flips": len(flips), "routing_near_tie": bool(flips)}
         say("token_departure", case=tag, row=r, step=k, card_token=int(out[r, k]),
             cpu_token=int(cpu_out[r, k]), cpu_top2_gap=f"{gap:.3e}", allowed=GAP_TOL,
-            near_tie=gap <= GAP_TOL)
-        check(gap <= GAP_TOL, f"{tag}: sequence {r} departs from the CPU run at step {k} "
-              "beyond a near-tie")
+            near_tie=gap <= GAP_TOL, **routed)
+        check(gap <= GAP_TOL or routed.get("routing_near_tie", False),
+              f"{tag}: sequence {r} departs from the CPU run at step {k} beyond a near-tie")
     return same_rows, logit_diff, cpu_s
 
 
@@ -2413,6 +2447,264 @@ def phase_zamba2_serve(dev, gpu, rate, profile=False):
     check(len(calls) == ssm_layers, f"{len(calls)} decode-kernel calls in one zamba2 step")
     err = max(hold_ssd(f"zamba2_layer{i}", calls[i]) for i in (0, ssm_layers - 1))
     return launched["ssd_decode"], err, ssd_times(calls[0], rate, gpu)
+
+
+# ---------------------------------------------------------------------------
+# MLA and MoE (models/attention.py's mla_block, models/moe.py)
+# ---------------------------------------------------------------------------
+
+# deepseek-v2-lite's cut run on the CPU beside the card: the dense MLA
+# prologue and the first 2 MLA+MoE groups, upcast to float32. llama4-scout
+# is served at full width cut to its first 8 of 48 layers: its 48 x 16
+# experts (~216 GB in bfloat16) do not fit one card.
+DEEPSEEK_CUT_GROUPS, LLAMA4_LAYERS = 2, 8
+# A routing near-tie, float32 on both sides: the CPU's k-th and (k+1)-th
+# router probabilities within this gap. The router is one (T, D) x (D, E)
+# float32 product and a softmax; the card and the CPU sum the product in
+# other orders, which moves a probability by ~1e-7 (D=2048, logits of
+# order 1), while the gap between neighbouring probabilities of 64 experts
+# is ~4e-3 on these random weights.
+ROUTE_TOL = 1e-5
+# llama4's first MoE layer on the card against the CPU, in bfloat16: within
+# this many bf16 ulps of the largest |out| (the rule of the CPU tests'
+# bfloat16 tolerance, tests/test_torch_moe.py).
+MOE_BF16_ULPS = 5
+# Host RAM (GB, /proc/meminfo's MemAvailable, the "available" column of
+# `free -g`) a CPU run needs per GB of the weights it copies: the copy,
+# the activations and the caller's own copies.
+HOST_RAM_FACTOR = 3
+
+
+def host_ram_gb() -> tuple[float, float]:
+    """(available, total) GB of host RAM, as ``free -g`` reads them."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            info[key] = int(value.split()[0]) * 1024 / 1e9
+    return info["MemAvailable"], info["MemTotal"]
+
+
+def capture_moe(fn):
+    """Run ``fn`` with the (router, layer input (T, D)) of every MoE layer
+    it runs recorded, in call order. Returns (fn's result, the calls)."""
+    calls, orig = [], moe._moe_local
+
+    def spy(params, x2d, cfg, *rest):
+        calls.append((params["router"], x2d))
+        return orig(params, x2d, cfg, *rest)
+
+    moe._moe_local = spy
+    try:
+        out = fn()
+    finally:
+        moe._moe_local = orig
+    return out, calls
+
+
+def routing_differences(router_a, xa, router_b, xb, k):
+    """The tokens whose expert set under ``router_a`` on ``xa`` differs from
+    that under ``router_b`` on ``xb``: (token, b's k-th minus (k+1)-th
+    probability, a's experts, b's experts)."""
+    _, _, ea = moe.route(router_a, xa, k)
+    pb, _, eb = moe.route(router_b, xb, k)
+    ea, eb = ea.sort(-1).values.cpu(), eb.sort(-1).values.cpu()
+    top = pb.sort(-1, descending=True).values.cpu().double()
+    return [(t, float(top[t, k - 1] - top[t, k]), ea[t].tolist(), eb[t].tolist())
+            for t in torch.nonzero((ea != eb).any(-1)).flatten().tolist()]
+
+
+def say_flip(tag, call, tok, gap, card_e, cpu_e):
+    say("routing_near_tie", case=tag, moe_call=call, token=tok, card_experts=card_e,
+        cpu_experts=cpu_e, cpu_gap=f"{gap:.3e}", allowed=ROUTE_TOL, near_tie=gap <= ROUTE_TOL)
+
+
+def routing_flips(tag, params, cpu_params, cfg, prompts, tokens, step, dev):
+    """Both runs fed the CPU's ``tokens`` through the prefill and ``step``
+    decode steps; each MoE call's routing on the card (its own input) and
+    on the CPU (its own input). Prints each token routed to other experts;
+    raises unless every one lies at a routing near-tie. Returns them."""
+    _, card = capture_moe(lambda: replay(params, cfg, prompts, tokens, step, dev))
+    _, cpu = capture_moe(lambda: replay(cpu_params, cfg, prompts, tokens, step))
+    flips = []
+    for i, ((rc, xc), (rp, xp)) in enumerate(zip(card, cpu)):
+        for tok, gap, card_e, cpu_e in routing_differences(rc, xc, rp, xp, cfg.top_k):
+            say_flip(tag, i, tok, gap, card_e, cpu_e)
+            check(gap <= ROUTE_TOL, f"{tag}: MoE call {i} token {tok} routed to {card_e} on the "
+                  f"card and {cpu_e} on the CPU beyond a near-tie ({gap:.3e})")
+            flips.append((i, tok))
+    return flips
+
+
+def hold_routing(tag, calls, k):
+    """Each recorded MoE layer input, captured on the card, through its
+    router on the card and on the CPU: equal expert sets or near-ties.
+    Returns (token-layers held, near-ties)."""
+    ties = 0
+    for i, (router, x2d) in enumerate(calls):
+        for tok, gap, card_e, cpu_e in routing_differences(router, x2d, router.cpu(), x2d.cpu(), k):
+            say_flip(tag, i, tok, gap, card_e, cpu_e)
+            check(gap <= ROUTE_TOL, f"{tag}: the router disagrees at layer call {i}, token {tok}, "
+                  f"beyond a near-tie ({gap:.3e})")
+            ties += 1
+    return sum(x.shape[0] for _, x in calls), ties
+
+
+def prefill_drops(params, cfg, prompts, dev):
+    """Assignments kept and dropped by the capacity at the prefill of
+    ``prompts``, summed over the MoE layers, and the capacity."""
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    _, calls = capture_moe(lambda: lm.prefill(params, toks, cfg))
+    kept = dropped = 0
+    for router, x2d in calls:
+        _, _, eids = moe.route(router, x2d, cfg.top_k)
+        cap = moe.capacity(x2d.shape[0], cfg)
+        n = int((moe.arrival(eids.reshape(-1), cfg.n_experts) < cap).sum())
+        kept, dropped = kept + n, dropped + eids.numel() - n
+    return kept, dropped, cap
+
+
+def mla_layers(cfg) -> int:
+    return sum(kind in lm.MLA_KINDS for kind in lm.prologue_layout(cfg) + lm.group_layout(cfg)
+               * cfg.n_groups)
+
+
+def serve_moe(tag, cfg, dev, gpu, profile_run=None):
+    """``cfg`` in bfloat16 (``cfg.dtype``) from a seeded generator through
+    ``Engine.generate`` at the serving shape: no hand kernel, two generates
+    equal, the parameter count against ``cfg.param_count()`` (which leaves
+    out ``final_norm`` and each MLA layer's ``kv_norm``). Returns the
+    parameters and the numbers the phase prints."""
+    params, init_s = timed(lambda: lm.init_params(cfg, seed=0, device=dev))
+    n = tree_numel(params)
+    unc = cfg.d_model + mla_layers(cfg) * cfg.kv_lora_rank
+    check(n - cfg.param_count() == unc,
+          f"{tag}: {n} parameters, param_count {cfg.param_count()}, want a difference of {unc}")
+    prompts = serve_prompts(cfg)
+    out, wall, peak_gb, _ = generate_on(params, cfg, prompts, dev, gpu, {}, f"{tag} bfloat16",
+                                        profile_run)
+    prefill_s, steps = step_times(params, cfg, prompts, dev)
+    kept, dropped, cap = prefill_drops(params, cfg, prompts, dev)
+    check(kept + dropped == SERVE_B * bucket_dim(SERVE_PROMPT) * cfg.top_k
+          * sum(kind in lm.MOE_KINDS for kind in lm.group_layout(cfg)) * cfg.n_groups,
+          f"{tag}: {kept} + {dropped} assignments at the prefill")
+    numbers = dict(
+        arch=cfg.name, d_model=cfg.d_model, experts=f"{cfg.n_experts}top{cfg.top_k}"
+        f"+{cfg.n_shared_experts}shared", d_ff_expert=cfg.d_ff_expert, vocab=cfg.vocab,
+        params_b=f"{n / 1e9:.3f}", param_count_b=f"{cfg.param_count() / 1e9:.3f}",
+        params_minus_param_count=n - cfg.param_count(), dtype=cfg.dtype, init_s=f"{init_s:.3f}",
+        batch=SERVE_B, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, kernel_launches=0,
+        generate_s=f"{wall:.4f}", tok_per_s=f"{SERVE_B * SERVE_NEW / wall:.1f}",
+        prefill_s=f"{prefill_s:.4f}", decode_step_s=f"{np.mean(steps):.5f}",
+        decode_step_s_min=f"{min(steps):.5f}", peak_gb=f"{peak_gb:.3f}",
+        prefill_capacity=cap, prefill_assignments_kept=kept, prefill_assignments_dropped=dropped,
+        sample=",".join(map(str, out[0][:8])), gpu=f"'{gpu}'")
+    return params, prompts, numbers
+
+
+def phase_deepseek_serve(dev, gpu, profile=False):
+    """deepseek-v2-lite-16b at full width and depth (1 dense MLA prologue
+    layer + 26 MLA+MoE layers, 64 experts top-6 + 2 shared, kv_lora 512,
+    vocab 102400), bfloat16 weights (15.71B) through ``Engine.generate``;
+    then ``[deepseek_cut]``: the prologue and the first 2 MoE groups of the
+    same weights, upcast to float32, against a CPU run, the routing of the
+    cut's prefill held first."""
+    cfg = configs.get("deepseek-v2-lite-16b")
+    params, prompts, numbers = serve_moe("deepseek", cfg, dev, gpu,
+                                         "deepseek_generate" if profile else None)
+    say("deepseek_serve", layers=f"{len(lm.prologue_layout(cfg))} mla + {cfg.n_groups} mla_moe",
+        heads=f"{cfg.n_heads}x(nope {cfg.nope_head_dim}+rope {cfg.rope_head_dim}, v {cfg.head_dim})",
+        kv_lora_rank=cfg.kv_lora_rank, **numbers)
+    if profile:
+        profile_decode_step("deepseek_decode_step", params, cfg, prompts, dev, gpu)
+
+    cut_cfg = cfg.with_overrides(n_layers=1 + DEEPSEEK_CUT_GROUPS)
+    cut = tree_map({k: v for k, v in params.items() if k != "groups"}
+                   | {"groups": params["groups"][:DEEPSEEK_CUT_GROUPS]}, lambda t: t.float())
+    del params
+    free()
+    avail, total = host_ram_gb()
+    cut_gb = tree_numel(cut) * 4 / 1e9
+    check(avail >= HOST_RAM_FACTOR * cut_gb,
+          f"deepseek_cut: {avail:.1f} GB of host RAM available, {HOST_RAM_FACTOR} x {cut_gb:.1f} wanted")
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    _, calls = capture_moe(lambda: lm.prefill(cut, toks, cut_cfg))
+    held, ties = hold_routing("deepseek_cut", calls, cfg.top_k)
+    same_rows, logit_diff, cpu_s = hold_tokens_against_cpu("deepseek_cut", cut_cfg, cut, prompts, dev)
+    say("deepseek_cut", layers=f"1 mla + {DEEPSEEK_CUT_GROUPS} mla_moe", dtype="float32",
+        params_b=f"{tree_numel(cut) / 1e9:.3f}", host_ram_available_gb=f"{avail:.1f}",
+        host_ram_total_gb=f"{total:.1f}", routing_tokens_held=held, routing_near_ties=ties,
+        route_tol=ROUTE_TOL, rows_equal_to_cpu=f"{same_rows}/{SERVE_B}",
+        prefill_logits_max_abs_diff=f"{logit_diff:.3e}", cpu_generate_s=f"{cpu_s:.3f}",
+        gpu=f"'{gpu}'")
+
+
+def profile_decode_step(run, params, cfg, prompts, dev, gpu):
+    """The device kernels of one decode step after the prompt's prefill,
+    and the device's busy share of its wall time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    b, s = prompts.shape
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    logits, caches = lm.prefill(params, toks, cfg, max_seq=s + 1)
+    tok, at = torch.argmax(logits, dim=-1), torch.full((b,), s, device=dev)
+    torch.cuda.synchronize()
+    with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: lm.decode_step(params, tok, caches, at, cfg))
+    rows = device_rows(prof)
+    busy_us = sum(r[0] for r in rows)
+    say("profile", run=run, wall_s=f"{wall:.4f}", device_busy_s=f"{busy_us / 1e6:.4f}",
+        device_busy_share=f"{busy_us / 1e6 / wall:.3f}",
+        device_kernels=sum(r[2] for r in rows), gpu=f"'{gpu}'")
+    say_rows(run, rows, busy_us)
+
+
+def phase_llama4_serve(dev, gpu):
+    """llama4-scout-17b-a16e at full width (d_model 5120, 40/8 heads, 16
+    experts top-1 + 1 shared of 8192, vocab 202048) cut to its first 8 of
+    48 layers (19.69B bfloat16 weights), through ``Engine.generate``; then
+    its first MoE layer's ``moe_ffn`` on the card against the CPU on the
+    hidden states of the first decode step, if the host's RAM allows."""
+    cfg = configs.get("llama4-scout-17b-a16e").with_overrides(n_layers=LLAMA4_LAYERS)
+    params, prompts, numbers = serve_moe("llama4", cfg, dev, gpu)
+    say("llama4_serve", layers=f"{cfg.n_layers} attn_moe",
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}",
+        reduced=f"n_layers {configs.get(cfg.name).n_layers}->{cfg.n_layers}", **numbers)
+
+    b, s = prompts.shape
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    logits, caches = lm.prefill(params, toks, cfg, max_seq=s + 1)
+    _, calls = capture_moe(lambda: lm.decode_step(
+        params, torch.argmax(logits, dim=-1), caches, torch.full((b,), s, device=dev), cfg))
+    check(len(calls) == cfg.n_layers, f"llama4: {len(calls)} MoE calls in one decode step")
+    lp = params["groups"][0]["pos0"]["moe"]
+    x = calls[0][1][:, None, :]  # (B, 1, D), the layer's input at the step
+    avail, total = host_ram_gb()
+    moe_gb = tree_numel(lp) * 2 / 1e9
+    if avail < HOST_RAM_FACTOR * moe_gb:
+        say("llama4_moe_hold", run="skipped", host_ram_available_gb=f"{avail:.1f}",
+            wanted_gb=f"{HOST_RAM_FACTOR * moe_gb:.1f}")
+        return
+    out, aux = moe.moe_ffn(lp, x, cfg)
+    cpu_lp = tree_map(lp, lambda t: t.cpu())
+    (cpu_out, cpu_aux), cpu_s = timed(lambda: moe.moe_ffn(cpu_lp, x.cpu(), cfg))
+    flips = routing_differences(lp["router"], x[:, 0], cpu_lp["router"], x[:, 0].cpu(), cfg.top_k)
+    for tok, gap, card_e, cpu_e in flips:
+        say_flip("llama4_layer0", 0, tok, gap, card_e, cpu_e)
+        check(gap <= ROUTE_TOL, f"llama4: layer 0 routes token {tok} otherwise beyond a near-tie")
+    keep = [t for t in range(b) if t not in {f[0] for f in flips}]
+    got, want = out[keep, 0].float().cpu().double(), cpu_out[keep, 0].float().double()
+    scale = want.abs().max().item()
+    atol = MOE_BF16_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    diff = (got - want).abs().max().item()
+    check(diff <= atol, f"llama4: layer 0 moe_ffn on the card {diff:.3e} from the CPU's, "
+          f"beyond {atol:.3e}")
+    say("llama4_moe_hold", run="decode_step_hidden_states", tokens=b, layer=0,
+        host_ram_available_gb=f"{avail:.1f}", host_ram_total_gb=f"{total:.1f}",
+        tokens_held=len(keep), routing_near_ties=len(flips), max_abs_diff=f"{diff:.4e}",
+        allowed=f"{atol:.4e}", out_scale=f"{scale:.4f}",
+        aux=f"{aux.item():.6f}", cpu_aux=f"{cpu_aux.item():.6f}", cpu_s=f"{cpu_s:.3f}",
+        gpu=f"'{gpu}'")
 
 
 # ---------------------------------------------------------------------------
@@ -2740,6 +3032,10 @@ def main() -> int:
     phase_gemma3_window(dev, gpu)
     free()
     ssd_launches_zamba2, err_zamba2, zamba2_timing = phase_zamba2_serve(dev, gpu, rate, profile)
+    free()
+    phase_deepseek_serve(dev, gpu, profile)
+    free()
+    phase_llama4_serve(dev, gpu)
     free()
     err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
     launches_sq = phase_fit_hopper(dev, gpu, core)

@@ -1,8 +1,8 @@
 """Attention: GQA/MQA, causal, blocked, sliding-window (banded) and
-split-KV decode, with an optional int8 KV cache.
+split-KV decode, with an optional int8 KV cache, and MLA (DeepSeek-V2's
+compressed KV cache with an absorbed decode).
 
-Port of ``src/repro/models/attention.py`` (all but MLA, which comes with
-the deepseek family: ROADMAP.md queue 1 item 2). All variants share the
+Port of ``src/repro/models/attention.py``. All variants but MLA share the
 convention q: (B, S, H, dh), k/v: (B, S, KV, dh), with H = KV * q_per_kv.
 Scores come from an einsum in the compute dtype, cast to float32; the
 softmax runs in float32 and the probabilities are cast to v's dtype.
@@ -254,3 +254,78 @@ def _cache_write_q(cache_q, cache_scale, new, pos):
     rows = torch.arange(b, device=cache_q.device)
     cache_q[rows, pos] = q[:, 0]
     cache_scale[rows, pos] = s[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed KV cache, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg, dtype):
+    d = cfg.d_model
+    r = cfg.kv_lora_rank
+    dn, dr, dh = cfg.nope_head_dim, cfg.rope_head_dim, cfg.head_dim
+    h = cfg.n_heads
+    return {
+        "wq": init_dense(gen, (d, h * (dn + dr)), d, dtype),
+        "w_dkv": init_dense(gen, (d, r + dr), d, dtype),
+        "w_uk": init_dense(gen, (r, h * dn), r, dtype),
+        "w_uv": init_dense(gen, (r, h * dh), r, dtype),
+        "wo": init_dense(gen, (h * dh, d), h * dh, dtype),
+        "kv_norm": init_rmsnorm(r, gen.device),
+    }
+
+
+def mla_block(params, x, cfg, positions, *, kv_cache=None, cache_pos=None, want_cache=True):
+    """MLA attention. Cache = (c_kv (B, S, r) after ``kv_norm``, k_rope
+    (B, S, dr) after RoPE); ``cfg.kv_quant`` does not apply to it.
+
+    With ``cache_pos`` ((B,) int) this is a decode step in the absorbed
+    form: the token's entry is written into the cache *in place*, the
+    scores are q_nope @ W_uk[h] against the compressed cache plus q_rope ·
+    k_rope over positions ``<= cache_pos``, and the output is re-projected
+    with W_uv; the cache stays r + dr wide. Otherwise (prefill, forward)
+    the materialized form: K_nope and V decompressed through W_uk and W_uv,
+    k_rope broadcast over the heads, then ``blocked_attention`` (v's head
+    dim, ``head_dim``, differs from q's and k's, nope + rope). Returns
+    (out, cache), the cache None when not ``want_cache``. The reference
+    takes the decode form when S == 1, which routes a one-token prompt
+    wrongly; the port takes it when ``cache_pos`` is given, as elsewhere."""
+    b, s, _ = x.shape
+    h, dn, dr, dh, r = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.head_dim,
+                        cfg.kv_lora_rank)
+    q = (x @ params["wq"]).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    dkv = x @ params["w_dkv"]  # (B, S, r + dr)
+    c_kv, k_rope = dkv[..., :r], dkv[..., r:]
+    c_kv = rmsnorm(c_kv, params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+
+    if cache_pos is not None:
+        c_cache, kr_cache = kv_cache
+        rows = torch.arange(b, device=x.device)
+        c_cache[rows, cache_pos] = c_kv[:, 0].to(c_cache.dtype)
+        kr_cache[rows, cache_pos] = k_rope[:, 0].to(kr_cache.dtype)
+        # absorbed scores: q_eff (B, H, r) = q_nope @ W_uk[h]
+        q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], params["w_uk"].reshape(r, h, dn))
+        scores = (torch.einsum("bhr,btr->bht", q_eff, c_cache)
+                  + torch.einsum("bhd,btd->bht", q_rope[:, 0], kr_cache)).float()
+        scores = scores / math.sqrt(dn + dr)
+        pos_t = torch.arange(c_cache.shape[1], device=x.device)[None, :]
+        valid = pos_t <= cache_pos[:, None]
+        scores = torch.where(valid[:, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        attn_c = torch.einsum("bht,btr->bhr", probs.to(c_cache.dtype), c_cache)
+        out = torch.einsum("bhr,rhd->bhd", attn_c, params["w_uv"].reshape(r, h, dh))[:, None]
+        new_cache = (c_cache, kr_cache)
+    else:
+        k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, dn)
+        v = (c_kv @ params["w_uv"]).reshape(b, s, h, dh)
+        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = blocked_attention(q_full, k_full, v, positions, positions,
+                                q_chunk=pick_q_chunk(b, h, s))
+        new_cache = (c_kv, k_rope) if want_cache else None
+    return out.reshape(b, s, h * dh) @ params["wo"], new_cache

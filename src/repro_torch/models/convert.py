@@ -6,9 +6,10 @@ and returns the port's: the same nested dicts with torch tensors, the
 leading group axis that ``jax.vmap(init_group)`` stacks
 (``src/repro/models/lm.py:127``) unstacked into a list of per-group dicts,
 each with every position of the group (``pos0`` ... ``pos5`` for gemma3,
-``pos0`` ... ``pos6`` for zamba2) and its attention, MLP and SSM leaves;
-unstacked trees (``embed``, ``final_norm``, Zamba2's ``shared`` block) keep
-their shape. bfloat16 leaves go through float32 (exact). Tests run both
+``pos0`` ... ``pos6`` for zamba2) and its attention, MLA, MLP, MoE (the
+(E, D, F) expert stacks, the router, the shared experts) and SSM leaves;
+unstacked trees (``embed``, ``final_norm``, Zamba2's ``shared`` block,
+deepseek's ``prologue0``) keep their shape. bfloat16 leaves go through float32 (exact). Tests run both
 packages on the same weights through it.
 """
 

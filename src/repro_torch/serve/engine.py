@@ -1,9 +1,9 @@
 """Batched LM serving engine: prefill, then decode with greedy or
 temperature sampling, shape-bucketed prompts and per-sequence stopping.
 
-Port of ``src/repro/serve/engine.py`` over ``models.lm`` (the dense
-attention, sliding-window, SSM and hybrid families). It mirrors the
-reference step for step:
+Port of ``src/repro/serve/engine.py`` over ``models.lm`` (the decoder-only
+families: dense attention, sliding-window, MLA and MoE, SSM and hybrid). It
+mirrors the reference step for step:
 
 * with ``bucket_prompts`` (the default) prompts are right-padded with token
   0 up to ``buckets.bucket_dim(S)``, the serve-wide power-of-two grid, and
@@ -12,8 +12,8 @@ reference step for step:
   through the recurrence and fold into its state, exactly as in the
   reference (ROADMAP.md queue 3);
 * decode step i feeds the previous token at position ``S + i`` (the true
-  prompt length): an attention layer writes its K/V there, over a pad
-  token's, and attends to positions ``t < S + i + 1``, so the K/V of the
+  prompt length): an attention layer writes its K/V (an MLA layer its
+  c_kv and k_rope) there, over a pad token's, and attends to positions ``t < S + i + 1``, so the K/V of the
   pad tokens past that point stay masked, as in the reference;
 * ``max_new_tokens`` steps run, as there;
 * ``temperature == 0`` samples by argmax. ``temperature > 0`` samples by the
@@ -25,12 +25,15 @@ reference step for step:
 
 One difference, on purpose: the caches grow by layer kind
 (``lm.prefill(..., max_seq=)``). Every attention
-layer's K/V grows to the padded prompt plus ``max_new_tokens``; an SSM
-layer's cache has no sequence axis and does not grow. The reference's
-``_grow_seq`` pads the first cache axis whose size equals the padded prompt
-length; an SSM cache has no sequence axis, so it pads a head, state or
-batch axis instead whenever one of those sizes equals the padded prompt
-length, and fails (mamba2 at smoke 2 x 12 and full width 4 x 32; zamba2).
+layer's K/V and every MLA layer's c_kv and k_rope, the prologue's too,
+grow to the padded prompt plus ``max_new_tokens``; an SSM layer's cache has
+no sequence axis and does not grow. The reference's ``_grow_seq`` pads the
+first cache axis whose size equals the padded prompt length; an SSM cache
+has no sequence axis, so it pads a head, state or batch axis instead
+whenever one of those sizes equals the padded prompt length, and fails
+(mamba2 at smoke 2 x 12 and full width 4 x 32; zamba2); a stacked MLA cache
+(G, B, S, r) has its batch axis first, so it pads that when B equals the
+padded prompt length.
 
 The engine runs on the card unless built with ``device="cpu"``; its
 parameters must already be there. Tokens stay on the device until the

@@ -500,9 +500,9 @@ def test_serve_cli_defaults_to_granite(capsys):
     assert re.search(r"serve_done arch=granite-3-2b batch=2 new_tokens=3 .*tok_per_s=", out)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "llama4-scout-17b-a16e",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["whisper-base"])
 def test_moe_mla_and_encoder_decoder_still_raise(arch):
-    item = "item 3" if arch == "whisper-base" else "item 2"
-    with pytest.raises(t_lm.NotPorted, match=f"queue 1 {item}"):
+    """Only the encoder-decoder family is still missing (MLA and MoE are
+    held by ``tests/test_torch_moe.py``)."""
+    with pytest.raises(t_lm.NotPorted, match="queue 1 item 3"):
         t_lm.forward({}, torch.zeros((1, 1), dtype=torch.long), t_configs.smoke(arch))

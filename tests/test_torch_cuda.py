@@ -6,8 +6,11 @@ the square moments kernel through ``pairwise_moments`` and
 counts; the rank-1 update kernel in its TPU mode (``update_data``,
 ``update_cov``) and its fit mode (``rank1_update``, and the orders of the
 fits that run it); the SSD decode kernel (``ssd_decode``); one threshold
-``fit`` against the dense order; and one ``Engine.generate`` of a
-full-width Mamba2 mixer against the CPU route.
+``fit`` against the dense order; one ``Engine.generate`` of a
+full-width Mamba2 mixer against the CPU route; and MoE and MLA
+(``models/moe.py``, ``mla_block``; torch ops, no hand kernel) on the card
+against the CPU on the same inputs, the MoE combine bit-equal from call to
+call.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports neither JAX nor ``repro``, so it runs on a
@@ -43,7 +46,9 @@ from repro_torch.kernels import fused_score as fs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import pairwise_score as ps  # noqa: E402
 from repro_torch.kernels import ssd_decode as sd  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -662,6 +667,111 @@ def test_engine_attention_families_match_cpu(cuda, arch, layers, launches_per_st
     before = sd.LAUNCHES
     got = Engine(params, cfg, ServeConfig(max_new_tokens=8), device=cuda).generate(prompts)
     assert sd.LAUNCHES == before + 8 * launches_per_step
+    want = Engine(_to_cpu(params), cfg, ServeConfig(max_new_tokens=8),
+                  device="cpu").generate(prompts)
+    np.testing.assert_array_equal(got, want)
+
+
+# -- MoE and MLA: torch ops on the card against the CPU ------------------------------
+
+# float32 on both sides, the CPU tests' tolerances; a routing near-tie is a
+# token whose CPU k-th and (k+1)-th router probabilities lie within
+# ROUTE_TOL (chip_smoke.py's rule), where the card may pick other experts.
+MOE_RTOL, MOE_ATOL, ROUTE_TOL = 1e-4, 1e-5, 1e-5
+
+
+def _moe_cfg(arch):
+    """Full width (d_model, d_ff_expert, top_k, shared experts), 8 experts
+    for deepseek and 4 for llama4, so that the CPU side stays small."""
+    return configs.get(arch).with_overrides(n_experts=8 if arch.startswith("deepseek") else 4)
+
+
+def _routing_flips(router, x2d, k):
+    """Tokens routed to other experts on the card than on the CPU, each
+    asserted to lie at a near-tie of the CPU's probabilities."""
+    _, _, card = moe.route(router, x2d, k)
+    probs, _, cpu = moe.route(router.cpu(), x2d.cpu(), k)
+    diff = (card.sort(-1).values.cpu() != cpu.sort(-1).values).any(-1)
+    top = probs.sort(-1, descending=True).values
+    for t in torch.nonzero(diff).flatten().tolist():
+        assert float(top[t, k - 1] - top[t, k]) <= ROUTE_TOL, t
+    return int(diff.sum())
+
+
+@pytest.mark.parametrize("arch,t", [("deepseek-v2-lite-16b", 4), ("deepseek-v2-lite-16b", 200),
+                                    ("llama4-scout-17b-a16e", 4), ("llama4-scout-17b-a16e", 96)])
+def test_moe_ffn_on_the_card_matches_cpu(cuda, arch, t):
+    """``moe_ffn`` (out and aux) at a decode step's 4 tokens and at a
+    prefill's (deepseek at T·k = 1200 drops by capacity), float32; two
+    calls on the card bit-equal."""
+    cfg = _moe_cfg(arch)
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, cfg, torch.float32)
+    x = torch.randn((1, t, cfg.d_model), generator=gen)
+    pc = {k: (v.to(cuda) if torch.is_tensor(v) else {n: w.to(cuda) for n, w in v.items()})
+          for k, v in p.items()}
+    out, aux = moe.moe_ffn(pc, x.to(cuda), cfg)
+    again, _ = moe.moe_ffn(pc, x.to(cuda), cfg)
+    assert torch.equal(out, again)
+    want, want_aux = moe.moe_ffn(p, x, cfg)
+    if _routing_flips(p["router"].to(cuda), x[0].to(cuda), cfg.top_k) == 0:
+        torch.testing.assert_close(out.cpu(), want, rtol=MOE_RTOL, atol=MOE_ATOL)
+        torch.testing.assert_close(aux.cpu(), want_aux, rtol=MOE_RTOL, atol=MOE_ATOL)
+
+
+def test_moe_combine_is_deterministic_in_bfloat16(cuda):
+    """deepseek's top-6 combine in bfloat16 at full width: ten calls on the
+    same inputs give the same bits (the k contributions are summed in k
+    order, with no atomics)."""
+    cfg = _moe_cfg("deepseek-v2-lite-16b")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = moe.init_moe(gen, cfg, torch.bfloat16)
+    x = torch.randn((4, 32, cfg.d_model), generator=gen, device=cuda).bfloat16()
+    first, _ = moe.moe_ffn(p, x, cfg)
+    for _ in range(9):
+        assert torch.equal(moe.moe_ffn(p, x, cfg)[0], first)
+
+
+def test_mla_block_on_the_card_matches_cpu(cuda):
+    """deepseek's MLA at full width (16 heads, kv_lora 512, rope 64, nope
+    128, v 128), float32: a prefill of 20 in the materialized form, then 4
+    absorbed decode steps written into the cache in place."""
+    cfg = configs.get("deepseek-v2-lite-16b")
+    gen = torch.Generator().manual_seed(2)
+    p = attn.init_mla(gen, cfg, torch.float32)
+    p["kv_norm"] = 0.1 * torch.randn(p["kv_norm"].shape, generator=gen)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    b, s, steps = 2, 20, 4
+    x = torch.randn((b, s + steps, cfg.d_model), generator=gen)
+    pos = torch.arange(s + steps)[None, :].expand(b, s + steps)
+
+    def run(params, dev):
+        out, cache = attn.mla_block(params, x[:, :s].to(dev), cfg, pos[:, :s].to(dev))
+        cache = tuple(torch.nn.functional.pad(c, (0, 0, 0, steps)) for c in cache)
+        outs = [out]
+        for i in range(steps):
+            at = torch.full((b,), s + i, device=dev)
+            o, _ = attn.mla_block(params, x[:, s + i:s + i + 1].to(dev), cfg, at[:, None],
+                                  kv_cache=cache, cache_pos=at)
+            outs.append(o)
+        return [o.cpu() for o in outs] + [c.cpu() for c in cache]
+
+    for got, want in zip(run(pc, cuda), run(p, "cpu")):
+        torch.testing.assert_close(got, want, rtol=MOE_RTOL, atol=MOE_ATOL)
+
+
+@pytest.mark.parametrize("arch,layers", [("deepseek-v2-lite-16b", 2), ("llama4-scout-17b-a16e", 1)])
+def test_engine_moe_families_match_cpu(cuda, arch, layers):
+    """Greedy ``Engine.generate`` at full width (deepseek: the MLA prologue
+    + 1 MLA+MoE layer, 8 experts; llama4: 1 layer, 4 experts; vocab 512) on
+    the card equals the CPU route on the same weights, no hand kernel
+    launched."""
+    cfg = _moe_cfg(arch).with_overrides(n_layers=layers, vocab=512)
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    before = sd.LAUNCHES
+    got = Engine(params, cfg, ServeConfig(max_new_tokens=8), device=cuda).generate(prompts)
+    assert sd.LAUNCHES == before
     want = Engine(_to_cpu(params), cfg, ServeConfig(max_new_tokens=8),
                   device="cpu").generate(prompts)
     np.testing.assert_array_equal(got, want)
