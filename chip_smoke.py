@@ -165,7 +165,9 @@ Phases, each printed on its own line:
     at the prefill held on the card against the CPU, then their tokens
     against a CPU run, a departure allowed at a logit near-tie or at a
     routing near-tie (``[routing_near_tie]``: the CPU's k-th and (k+1)-th
-    probabilities within ``ROUTE_TOL``); ``[llama4_serve]``:
+    probabilities within ``ROUTE_TOL``) that can reach the departing row (its
+    own token at a decode step; at the prefill its own tokens, or any where
+    capacity drops couple the rows); ``[llama4_serve]``:
     llama4-scout-17b-a16e at full width cut to 8 of its 48 layers (listed as
     ``reduced``), 19.69B bfloat16 weights, the same checks;
     ``[llama4_moe_hold]``: its first layer's ``moe_ffn`` on the card against
@@ -2182,8 +2184,8 @@ def hold_tokens_against_cpu(tag, cfg, params, prompts, dev):
     whole model, or a cut of it): equal, or departing only where the CPU's
     top-2 logits lie within ``GAP_TOL``, or (an MoE model) where the two
     runs, fed the CPU's tokens up to the departure, routed a token to other
-    experts at a routing near-tie (``routing_flips``). Returns (rows equal,
-    prefill logit diff, CPU seconds)."""
+    experts at a routing near-tie that can reach the departing row
+    (``flip_in_row``). Returns (rows equal, prefill logit diff, CPU seconds)."""
     cpu_params = tree_map(params, lambda t: t.cpu())
     scfg = ServeConfig(max_new_tokens=SERVE_NEW)
     out = Engine(params, cfg, scfg, device=dev).generate(prompts)
@@ -2202,14 +2204,18 @@ def hold_tokens_against_cpu(tag, cfg, params, prompts, dev):
             continue
         k = int(np.flatnonzero(out[r] != cpu_out[r])[0])
         gap = cpu_top2_gap(cpu_params, cfg, prompts, cpu_out, k, r)
-        routed = {}
+        routed, excuse = {}, None
         if cfg.is_moe and gap > GAP_TOL:
             flips = routing_flips(tag, params, cpu_params, cfg, prompts, cpu_out, k, dev)
-            routed = {"routing_flips": len(flips), "routing_near_tie": bool(flips)}
+            excuse = flip_in_row(flips, r, len(prompts), cfg)
+            routed = {"routing_flips": len(flips), "routing_near_tie": excuse is not None}
+            if excuse is not None:
+                routed.update(excused_by_moe_call=excuse[0], excused_by_token=excuse[1],
+                              excused_because=excuse[2])
         say("token_departure", case=tag, row=r, step=k, card_token=int(out[r, k]),
             cpu_token=int(cpu_out[r, k]), cpu_top2_gap=f"{gap:.3e}", allowed=GAP_TOL,
             near_tie=gap <= GAP_TOL, **routed)
-        check(gap <= GAP_TOL or routed.get("routing_near_tie", False),
+        check(gap <= GAP_TOL or excuse is not None,
               f"{tag}: sequence {r} departs from the CPU run at step {k} beyond a near-tie")
     return same_rows, logit_diff, cpu_s
 
@@ -2514,39 +2520,51 @@ def routing_differences(router_a, xa, router_b, xb, k):
             for t in torch.nonzero((ea != eb).any(-1)).flatten().tolist()]
 
 
-def say_flip(tag, call, tok, gap, card_e, cpu_e):
-    say("routing_near_tie", case=tag, moe_call=call, token=tok, card_experts=card_e,
-        cpu_experts=cpu_e, cpu_gap=f"{gap:.3e}", allowed=ROUTE_TOL, near_tie=gap <= ROUTE_TOL)
+def hold_flips(tag, call, diffs):
+    """Print each token of MoE call ``call`` that ``routing_differences``
+    found routed to other experts on the card than on the CPU; raise unless
+    every one lies at a routing near-tie. Returns their token indices."""
+    for tok, gap, card_e, cpu_e in diffs:
+        say("routing_near_tie", case=tag, moe_call=call, token=tok, card_experts=card_e,
+            cpu_experts=cpu_e, cpu_gap=f"{gap:.3e}", allowed=ROUTE_TOL, near_tie=gap <= ROUTE_TOL)
+        check(gap <= ROUTE_TOL, f"{tag}: MoE call {call} token {tok} routed to {card_e} on the "
+              f"card and {cpu_e} on the CPU beyond a near-tie ({gap:.3e})")
+    return [d[0] for d in diffs]
 
 
 def routing_flips(tag, params, cpu_params, cfg, prompts, tokens, step, dev):
     """Both runs fed the CPU's ``tokens`` through the prefill and ``step``
     decode steps; each MoE call's routing on the card (its own input) and
-    on the CPU (its own input). Prints each token routed to other experts;
-    raises unless every one lies at a routing near-tie. Returns them."""
+    on the CPU (its own input), held by ``hold_flips``. Returns the flips as
+    (MoE call, token, tokens in that call)."""
     _, card = capture_moe(lambda: replay(params, cfg, prompts, tokens, step, dev))
     _, cpu = capture_moe(lambda: replay(cpu_params, cfg, prompts, tokens, step))
-    flips = []
-    for i, ((rc, xc), (rp, xp)) in enumerate(zip(card, cpu)):
-        for tok, gap, card_e, cpu_e in routing_differences(rc, xc, rp, xp, cfg.top_k):
-            say_flip(tag, i, tok, gap, card_e, cpu_e)
-            check(gap <= ROUTE_TOL, f"{tag}: MoE call {i} token {tok} routed to {card_e} on the "
-                  f"card and {cpu_e} on the CPU beyond a near-tie ({gap:.3e})")
-            flips.append((i, tok))
-    return flips
+    return [(i, tok, xc.shape[0])
+            for i, ((rc, xc), (rp, xp)) in enumerate(zip(card, cpu))
+            for tok in hold_flips(tag, i, routing_differences(rc, xc, rp, xp, cfg.top_k))]
+
+
+def flip_in_row(flips, row, b, cfg):
+    """The first flip (``routing_flips``) that can move sequence ``row``,
+    with why: at a decode step (``b`` tokens, dropless) only the row's own
+    token; at a prefill of T tokens, the row's own T/b tokens, or any token
+    where capacity drops (T·k > 256) couple the rows. None if no flip can."""
+    for call, tok, t in flips:
+        if t == b and tok == row:
+            return call, tok, "decode_step_own_token"
+        if t != b and tok // (t // b) == row:
+            return call, tok, "prefill_own_token"
+        if t != b and t * cfg.top_k > 256:
+            return call, tok, "prefill_rows_coupled_by_capacity_drops"
+    return None
 
 
 def hold_routing(tag, calls, k):
     """Each recorded MoE layer input, captured on the card, through its
-    router on the card and on the CPU: equal expert sets or near-ties.
-    Returns (token-layers held, near-ties)."""
-    ties = 0
-    for i, (router, x2d) in enumerate(calls):
-        for tok, gap, card_e, cpu_e in routing_differences(router, x2d, router.cpu(), x2d.cpu(), k):
-            say_flip(tag, i, tok, gap, card_e, cpu_e)
-            check(gap <= ROUTE_TOL, f"{tag}: the router disagrees at layer call {i}, token {tok}, "
-                  f"beyond a near-tie ({gap:.3e})")
-            ties += 1
+    router on the card and on the CPU: equal expert sets or near-ties
+    (``hold_flips``). Returns (token-layers held, near-ties)."""
+    ties = sum(len(hold_flips(tag, i, routing_differences(router, x2d, router.cpu(), x2d.cpu(), k)))
+               for i, (router, x2d) in enumerate(calls))
     return sum(x.shape[0] for _, x in calls), ties
 
 
@@ -2688,11 +2706,9 @@ def phase_llama4_serve(dev, gpu):
     out, aux = moe.moe_ffn(lp, x, cfg)
     cpu_lp = tree_map(lp, lambda t: t.cpu())
     (cpu_out, cpu_aux), cpu_s = timed(lambda: moe.moe_ffn(cpu_lp, x.cpu(), cfg))
-    flips = routing_differences(lp["router"], x[:, 0], cpu_lp["router"], x[:, 0].cpu(), cfg.top_k)
-    for tok, gap, card_e, cpu_e in flips:
-        say_flip("llama4_layer0", 0, tok, gap, card_e, cpu_e)
-        check(gap <= ROUTE_TOL, f"llama4: layer 0 routes token {tok} otherwise beyond a near-tie")
-    keep = [t for t in range(b) if t not in {f[0] for f in flips}]
+    flips = hold_flips("llama4_layer0", 0, routing_differences(
+        lp["router"], x[:, 0], cpu_lp["router"], x[:, 0].cpu(), cfg.top_k))
+    keep = [t for t in range(b) if t not in flips]
     got, want = out[keep, 0].float().cpu().double(), cpu_out[keep, 0].float().double()
     scale = want.abs().max().item()
     atol = MOE_BF16_ULPS * 2.0 ** (math.floor(math.log2(scale)) - 7)

@@ -2,16 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
         --preset full --batch 4 --prompt-len 32 --new-tokens 16 [--device cpu]
-    PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch llama4-scout-17b-a16e --preset full --layers 3
 
 Runs on the card unless ``--device cpu``. The weights are random, drawn from
 a ``torch.Generator`` seeded with ``--seed`` on the device, in float32 (as
-the JAX package's ``launch/serve.py`` builds them); the prompts are drawn
-with numpy from the same seed. ``--layers N`` keeps the first N layers of
-the preset (its width kept): llama4-scout's 48 layers of 16 experts (~431
-GB in float32) do not fit one 80 GB card, its first 3 (~35 GB) do;
-deepseek-v2-lite's 27 take ~63 GB. Prints the JAX package's ``serve_done ...`` line, the
+the JAX package's ``launch/serve.py`` builds them); the prompts are drawn with numpy
+from the same seed. Prints the JAX package's ``serve_done ...`` line, the
 wall time from the first prompt on the device to the last token read back
 (the kernels' first-use build included, on the card).
 """
@@ -39,15 +34,11 @@ def main(argv=None):
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--layers", type=int, default=0,
-                    help="keep the first N layers of the preset (0: all of them)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs the plain path)")
     args = ap.parse_args(argv)
 
     cfg = preset_config(args.arch, args.preset)
-    if args.layers:
-        cfg = cfg.with_overrides(n_layers=args.layers)
     params = lm.init_params(cfg, seed=args.seed, dtype=torch.float32, device=args.device)
     engine = Engine(params, cfg, ServeConfig(
         max_new_tokens=args.new_tokens, temperature=args.temperature), device=args.device)

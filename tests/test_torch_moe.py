@@ -620,19 +620,13 @@ def test_engine_greedy_tokens_equal_reference(arch, b, s):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_serve_cli_runs_the_moe_families(arch, capsys):
-    assert t_serve.main(["--arch", arch, "--preset", "smoke", "--batch", "2", "--prompt-len", "12",
+@pytest.mark.parametrize("arch,preset", [(DEEPSEEK, "smoke"), (LLAMA4, "smoke"), (LLAMA4, "100m")],
+                         ids=[DEEPSEEK, LLAMA4, f"{LLAMA4}-100m"])
+def test_serve_cli_runs_the_moe_families(arch, preset, capsys):
+    """``--preset 100m`` (8 layers of 4 experts, d_model 512) is the preset
+    that serves llama4 on one card: ``--preset full`` does not fit."""
+    assert t_serve.main(["--arch", arch, "--preset", preset, "--batch", "2", "--prompt-len", "12",
                          "--new-tokens", "3", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert re.search(rf"serve_done arch={arch} batch=2 new_tokens=3 .*tok_per_s=", out)
 
-
-def test_serve_cli_cuts_layers(capsys, monkeypatch):
-    seen = []
-    orig = t_lm.init_params
-    monkeypatch.setattr(t_lm, "init_params", lambda cfg, **kw: seen.append(cfg) or orig(cfg, **kw))
-    assert t_serve.main(["--arch", DEEPSEEK, "--preset", "smoke", "--layers", "2", "--batch", "2",
-                         "--prompt-len", "5", "--new-tokens", "2", "--device", "cpu"]) == 0
-    assert seen[0].n_layers == 2 and seen[0].n_groups == 1
-    assert "serve_done arch=deepseek-v2-lite-16b" in capsys.readouterr().out
