@@ -182,7 +182,36 @@ Phases, each printed on its own line:
     polynomial scorer's times against ``find_root_dense`` under
     ``hopper_fused`` at E. coli core and the iJR904 slice, the hybrid root
     equal to the dense root.
-18. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
+18. The encoder-decoder family and training (``models/lm.py``'s
+    ``"xattn"`` kind and ``_encode``, ``train/``; torch ops, no hand
+    kernel, the reference has none there). ``[whisper_serve]``:
+    whisper-base at full width and depth (6 encoder and 6 decoder layers,
+    d_model 512, enc_len 1536, vocab 51865) in bfloat16 through
+    ``Engine.generate(enc=)``, frames (4, 1536, 512) drawn after the
+    prompts as ``launch.serve`` draws them: no kernel launched, two
+    generates equal, the prefill's seconds (the encoder included, and the
+    encoder alone), the decode step's, tokens/s, peak GB;
+    ``[whisper_hold]``: the same in float32 against a CPU run, tokens equal
+    or departing at a near-tie (``GAP_TOL``); ``[granite_train]``:
+    granite-3-2b at full width and depth (2,534.0M float32 masters, the
+    bfloat16 compute copy, remat in 5 superblocks of 8 groups) through
+    ``trainer.train`` for 4 steps at ``launch.train``'s ``--batch 8 --seq
+    128``: no kernel launched, finite losses, step 0 below
+    1.2·log(vocab_padded), the seconds of each step (the first apart),
+    tokens/s, peak GB, and the GB its forward keeps for the backward with
+    and without remat;
+    ``[granite_train_hold]``: full width cut to 2 layers and a batch of 2
+    (``reduced``), one step on the card against the CPU from the same
+    weights and tokens under the split hold (the loss and each leaf's
+    gradient within bfloat16 tolerances; ``adamw_update`` on the same
+    gradients within float32 rounding), the GB kept for the backward and
+    the peak, with and without remat;
+    ``[train_resume]``: granite ``--preset 100m`` stopped at step 3 and
+    resumed to 6 against an uninterrupted run: the checkpoint bit for bit,
+    the losses within ``RESUME_LOSS_RTOL``. With ``--profile``, the device
+    kernels and busy share of one whisper ``generate`` and of one granite
+    training step.
+19. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them, the decode
     kernel's zamba2 launches), its error against the plain version, its
     time, the plain version's time and its bound.
@@ -205,6 +234,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -245,6 +275,12 @@ from repro_torch.serve import (  # noqa: E402
 from repro_torch.serve.buckets import bucket_dim  # noqa: E402
 from repro_torch.dist.ring_order import causal_order_ring  # noqa: E402
 from repro_torch.serve.lingam_engine import pack_bucket  # noqa: E402
+from repro_torch.data.synthetic import TokenStream  # noqa: E402
+from repro_torch.launch.train import preset_config  # noqa: E402
+from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.train.optimizer import OptimizerConfig, adamw_update, init_opt_state  # noqa: E402
+from repro_torch.train.trainer import TrainerConfig, loss_and_grads, make_train_step, train  # noqa: E402
+from repro_torch.utils.tree import param_count, tree_leaves, tree_map, tree_unflatten  # noqa: E402
 
 # Kernel against plain: the same root, and per live row the error bound of
 # fused_score.score_tolerance — float32 rounding of each entropy carried
@@ -2022,13 +2058,14 @@ def capture_decode_inputs(params, cfg, tokens, dev):
     return calls
 
 
-def profile_generate(run, eng, prompts, gpu):
-    """Where one ``generate``'s time goes, by device kernel, and the
+def profile_call(run, fn, gpu):
+    """Where one call of ``fn``'s time goes, by device kernel, and the
     device's busy share of its wall time (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile as prof_ctx
 
+    torch.cuda.synchronize()
     with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: eng.generate(prompts))
+        _, wall = timed(fn)
     rows = device_rows(prof)
     busy_us = sum(r[0] for r in rows)
     say("profile", run=run, wall_s=f"{wall:.4f}", device_busy_s=f"{busy_us / 1e6:.4f}",
@@ -2037,13 +2074,14 @@ def profile_generate(run, eng, prompts, gpu):
     say_rows(run, rows, busy_us)
 
 
-def replay(params, cfg, prompts, tokens, step, dev="cpu"):
+def replay(params, cfg, prompts, tokens, step, dev="cpu", enc=None):
     """The engine's greedy loop on ``dev`` up to decode step ``step``, fed
-    ``tokens``: the logits from which token ``step`` is drawn."""
+    ``tokens``: the logits from which token ``step`` is drawn (``enc``: an
+    encoder-decoder model's frames)."""
     s = prompts.shape[1]
     padded = np.pad(prompts, ((0, 0), (0, bucket_dim(s) - s)))
     logits, caches = lm.prefill(params, torch.as_tensor(padded, dtype=torch.int64, device=dev), cfg,
-                                max_seq=padded.shape[1] + step)
+                                max_seq=padded.shape[1] + step, enc_in=enc_on(enc, dev))
     for i in range(step):
         tok = torch.as_tensor(tokens[:, i], dtype=torch.int64, device=dev)
         logits, caches = lm.decode_step(params, tok, caches,
@@ -2051,10 +2089,10 @@ def replay(params, cfg, prompts, tokens, step, dev="cpu"):
     return logits
 
 
-def cpu_top2_gap(params, cfg, prompts, tokens, step, row):
+def cpu_top2_gap(params, cfg, prompts, tokens, step, row, enc=None):
     """The CPU run's top-2 logit gap of sequence ``row`` at decode step
     ``step``, replaying its greedy loop (``tokens`` are its own)."""
-    top = torch.topk(replay(params, cfg, prompts, tokens, step)[row].double(), 2).values
+    top = torch.topk(replay(params, cfg, prompts, tokens, step, enc=enc)[row].double(), 2).values
     return float(top[0] - top[1])
 
 
@@ -2074,7 +2112,7 @@ def phase_mamba2_serve(dev, gpu, profile=False):
     same_rows, logit_diff, cpu_s = hold_tokens_against_cpu("mamba2", cfg, params, prompts, dev)
     say("mamba2_serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         heads=cfg.n_ssm_heads, state=f"{cfg.ssm_headdim}x{cfg.ssm_state}", vocab=cfg.vocab,
-        params_m=f"{tree_numel(params) / 1e6:.1f}", init_s=f"{init_s:.3f}", batch=SERVE_B,
+        params_m=f"{param_count(params) / 1e6:.1f}", init_s=f"{init_s:.3f}", batch=SERVE_B,
         prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
         ssd_decode_launches=launched["ssd_decode"],
         generate_s=f"{wall:.4f}", tok_per_s=f"{SERVE_B * SERVE_NEW / wall:.1f}",
@@ -2116,20 +2154,6 @@ BF16_SHARE = 0.1
 INT8_SHARE, INT8_SMOKE_ATOL = 0.05, 0.05
 
 
-def tree_map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: tree_map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(v, fn) for v in tree)
-    return fn(tree)
-
-
-def tree_numel(tree) -> int:
-    total = []
-    tree_map(tree, lambda t: total.append(t.numel()))
-    return sum(total)
-
-
 def free():
     """Return the allocator's cached blocks, so that the next phase loads
     its own weights into a free card (the previous phase's tensors are
@@ -2142,34 +2166,43 @@ def serve_prompts(cfg, b=SERVE_B, s=SERVE_PROMPT, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)).astype(np.int32)
 
 
-def generate_on(params, cfg, prompts, dev, gpu, want: dict, what: str, profile_run=None):
+def enc_on(enc, dev):
+    """An encoder-decoder model's frames (numpy) as a tensor on ``dev``."""
+    return None if enc is None else torch.as_tensor(enc, device=dev)
+
+
+def generate_on(params, cfg, prompts, dev, gpu, want: dict, what: str, profile_run=None,
+                enc=None):
     """The main path: ``Engine.generate`` after a warm-up, with every kernel
     count set to 0 just before it and read just after; the counts must equal
     ``want`` (0 for every kernel it does not name). A second generate gives
     the same tokens; with ``profile_run`` a third runs under the profiler.
-    Returns (tokens, seconds, peak GB, the launches counted)."""
+    ``enc``: an encoder-decoder model's frames. Returns (tokens, seconds,
+    peak GB, the launches counted)."""
     eng = Engine(params, cfg, ServeConfig(max_new_tokens=SERVE_NEW), device=dev)
-    eng.generate(prompts)  # warm-up: library handles, allocator
+    eng.generate(prompts, enc=enc)  # warm-up: library handles, allocator
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    out, wall = timed(lambda: eng.generate(prompts))
+    out, wall = timed(lambda: eng.generate(prompts, enc=enc))
     launched = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expect = {k: want.get(k, 0) for k in launched}
     check(launched == expect, f"{what}: launches {launched}, want {expect}")
     check(out.shape == (len(prompts), SERVE_NEW) and bool(np.all((out >= 0) & (out < cfg.vocab))),
           f"{what}: tokens of shape {out.shape} outside the vocabulary")
-    check(np.array_equal(out, eng.generate(prompts)), f"{what}: two generates differ")
+    check(np.array_equal(out, eng.generate(prompts, enc=enc)), f"{what}: two generates differ")
     if profile_run:
-        profile_generate(profile_run, eng, prompts, gpu)
+        profile_call(profile_run, lambda: eng.generate(prompts, enc=enc), gpu)
     return out, wall, peak_gb, launched
 
 
-def step_times(params, cfg, prompts, dev):
-    """The prefill's seconds and each decode step's, fed greedy tokens."""
+def step_times(params, cfg, prompts, dev, enc=None):
+    """The prefill's seconds (an encoder-decoder model's encoder included)
+    and each decode step's, fed greedy tokens."""
     b, s = prompts.shape
     toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
-    (logits, caches), prefill_s = timed(lambda: lm.prefill(params, toks, cfg, max_seq=s + SERVE_NEW))
+    (logits, caches), prefill_s = timed(lambda: lm.prefill(params, toks, cfg, max_seq=s + SERVE_NEW,
+                                                           enc_in=enc_on(enc, dev)))
     tok, steps = torch.argmax(logits, dim=-1), []
     for i in range(SERVE_NEW):
         (logits, caches), t = timed(lambda: lm.decode_step(
@@ -2179,22 +2212,23 @@ def step_times(params, cfg, prompts, dev):
     return prefill_s, steps
 
 
-def hold_tokens_against_cpu(tag, cfg, params, prompts, dev):
+def hold_tokens_against_cpu(tag, cfg, params, prompts, dev, enc=None):
     """Greedy tokens on the card against a CPU run of the same weights (the
     whole model, or a cut of it): equal, or departing only where the CPU's
     top-2 logits lie within ``GAP_TOL``, or (an MoE model) where the two
     runs, fed the CPU's tokens up to the departure, routed a token to other
     experts at a routing near-tie that can reach the departing row
     (``flip_in_row``). Returns (rows equal, prefill logit diff, CPU seconds)."""
-    cpu_params = tree_map(params, lambda t: t.cpu())
+    cpu_params = tree_map(lambda t: t.cpu(), params)
     scfg = ServeConfig(max_new_tokens=SERVE_NEW)
-    out = Engine(params, cfg, scfg, device=dev).generate(prompts)
+    out = Engine(params, cfg, scfg, device=dev).generate(prompts, enc=enc)
     before = sd.LAUNCHES
-    cpu_out, cpu_s = timed(lambda: Engine(cpu_params, cfg, scfg, device="cpu").generate(prompts))
+    cpu_out, cpu_s = timed(lambda: Engine(cpu_params, cfg, scfg, device="cpu").generate(
+        prompts, enc=enc))
     check(sd.LAUNCHES == before, f"{tag}: the CPU route launched the kernel")
     toks = torch.as_tensor(prompts, dtype=torch.int64)
-    cpu_logits, _ = lm.prefill(cpu_params, toks, cfg)
-    gpu_logits, _ = lm.prefill(params, toks.to(dev), cfg)
+    cpu_logits, _ = lm.prefill(cpu_params, toks, cfg, enc_in=enc_on(enc, "cpu"))
+    gpu_logits, _ = lm.prefill(params, toks.to(dev), cfg, enc_in=enc_on(enc, dev))
     v = cfg.vocab
     logit_diff = (gpu_logits[:, :v].cpu().double() - cpu_logits[:, :v].double()).abs().max().item()
     same_rows = 0
@@ -2203,7 +2237,7 @@ def hold_tokens_against_cpu(tag, cfg, params, prompts, dev):
             same_rows += 1
             continue
         k = int(np.flatnonzero(out[r] != cpu_out[r])[0])
-        gap = cpu_top2_gap(cpu_params, cfg, prompts, cpu_out, k, r)
+        gap = cpu_top2_gap(cpu_params, cfg, prompts, cpu_out, k, r, enc=enc)
         routed, excuse = {}, None
         if cfg.is_moe and gap > GAP_TOL:
             flips = routing_flips(tag, params, cpu_params, cfg, prompts, cpu_out, k, dev)
@@ -2223,7 +2257,7 @@ def hold_tokens_against_cpu(tag, cfg, params, prompts, dev):
 def to_bf16(params):
     """The float32 weights rounded to bfloat16, the norm scales kept in
     float32 (the layout ``init_params`` gives at ``cfg.dtype``)."""
-    return tree_map(params, lambda t: t.to(torch.bfloat16) if t.ndim >= 2 else t)
+    return tree_map(lambda t: t.to(torch.bfloat16) if t.ndim >= 2 else t, params)
 
 
 def int8_decode_error(params, cfg, b, s, dev, seed):
@@ -2234,7 +2268,7 @@ def int8_decode_error(params, cfg, b, s, dev, seed):
     cfg_q = cfg.with_overrides(kv_quant="int8")
     toks = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (b, s)),
                            device=dev)
-    full = lm.forward(params, toks, cfg)[:, s - 1, :cfg.vocab].double()
+    full = lm.forward(params, toks, cfg)[0][:, s - 1, :cfg.vocab].double()
     _, caches = lm.prefill(params, toks[:, : s - 1], cfg_q, max_seq=s)
     check(caches["groups"][0]["pos0"][0].dtype == torch.int8, "the int8 cache is not int8")
     dec, _ = lm.decode_step(params, toks[:, s - 1], caches, torch.full((b,), s - 1, device=dev),
@@ -2266,7 +2300,7 @@ def phase_granite_serve(dev, gpu, profile=False):
     same_rows, logit_diff, cpu_s = hold_tokens_against_cpu("granite_cut", cut_cfg, cut, prompts, dev)
     say("granite_serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}", vocab=cfg.vocab,
-        params_m=f"{tree_numel(params) / 1e6:.1f}", dtype="float32", init_s=f"{init_s:.3f}",
+        params_m=f"{param_count(params) / 1e6:.1f}", dtype="float32", init_s=f"{init_s:.3f}",
         batch=SERVE_B, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, kernel_launches=0,
         generate_s=f"{wall:.4f}", tok_per_s=f"{SERVE_B * SERVE_NEW / wall:.1f}",
         prefill_s=f"{prefill_s:.4f}", decode_step_s=f"{np.mean(steps):.5f}",
@@ -2408,7 +2442,7 @@ def phase_gemma3_window(dev, gpu):
     masked_ms = time_ms(lambda: attn.causal_attention(qn, kc, vc, at[:, None], kv_pos, w), reps=50)
     say("gemma3_window", arch=cfg.name, layers=f"{cfg.local_global_ratio}x attn_w(window={w}) + 1 attn",
         d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}",
-        params_m=f"{tree_numel(params) / 1e6:.1f}", init_s=f"{init_s:.3f}", prompt_len=s,
+        params_m=f"{param_count(params) / 1e6:.1f}", init_s=f"{init_s:.3f}", prompt_len=s,
         prefill_s=f"{prefill_s:.4f}", decode_step_s=f"{np.mean(steps):.5f}",
         layer0_windowed_blocked_vs_masked_max_abs=f"{diff_b:.3e}",
         blocked_ms=f"{blocked_ms:.4f}", masked_ms=f"{full_ms:.4f}", decode_pos=s,
@@ -2437,7 +2471,7 @@ def phase_zamba2_serve(dev, gpu, rate, profile=False):
     same_rows, logit_diff, cpu_s = hold_tokens_against_cpu("zamba2_cut", cut_cfg, cut, prompts, dev)
     say("zamba2_serve", arch=cfg.name, ssm_layers=ssm_layers, shared_block_applications=cfg.n_groups,
         d_model=cfg.d_model, ssm_heads=cfg.n_ssm_heads, state=f"{cfg.ssm_headdim}x{cfg.ssm_state}",
-        vocab=cfg.vocab, params_m=f"{tree_numel(params) / 1e6:.1f}", init_s=f"{init_s:.3f}",
+        vocab=cfg.vocab, params_m=f"{param_count(params) / 1e6:.1f}", init_s=f"{init_s:.3f}",
         batch=SERVE_B, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
         ssd_decode_launches=launched["ssd_decode"],
         generate_s=f"{wall:.4f}", tok_per_s=f"{SERVE_B * SERVE_NEW / wall:.1f}",
@@ -2594,7 +2628,7 @@ def serve_moe(tag, cfg, dev, gpu, profile_run=None):
     out ``final_norm`` and each MLA layer's ``kv_norm``). Returns the
     parameters and the numbers the phase prints."""
     params, init_s = timed(lambda: lm.init_params(cfg, seed=0, device=dev))
-    n = tree_numel(params)
+    n = param_count(params)
     unc = cfg.d_model + mla_layers(cfg) * cfg.kv_lora_rank
     check(n - cfg.param_count() == unc,
           f"{tag}: {n} parameters, param_count {cfg.param_count()}, want a difference of {unc}")
@@ -2637,12 +2671,12 @@ def phase_deepseek_serve(dev, gpu, profile=False):
         profile_decode_step("deepseek_decode_step", params, cfg, prompts, dev, gpu)
 
     cut_cfg = cfg.with_overrides(n_layers=1 + DEEPSEEK_CUT_GROUPS)
-    cut = tree_map({k: v for k, v in params.items() if k != "groups"}
-                   | {"groups": params["groups"][:DEEPSEEK_CUT_GROUPS]}, lambda t: t.float())
+    cut = tree_map(lambda t: t.float(), {k: v for k, v in params.items() if k != "groups"}
+                   | {"groups": params["groups"][:DEEPSEEK_CUT_GROUPS]})
     del params
     free()
     avail, total = host_ram_gb()
-    cut_gb = tree_numel(cut) * 4 / 1e9
+    cut_gb = param_count(cut) * 4 / 1e9
     check(avail >= HOST_RAM_FACTOR * cut_gb,
           f"deepseek_cut: {avail:.1f} GB of host RAM available, {HOST_RAM_FACTOR} x {cut_gb:.1f} wanted")
     toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
@@ -2650,7 +2684,7 @@ def phase_deepseek_serve(dev, gpu, profile=False):
     held, ties = hold_routing("deepseek_cut", calls, cfg.top_k)
     same_rows, logit_diff, cpu_s = hold_tokens_against_cpu("deepseek_cut", cut_cfg, cut, prompts, dev)
     say("deepseek_cut", layers=f"1 mla + {DEEPSEEK_CUT_GROUPS} mla_moe", dtype="float32",
-        params_b=f"{tree_numel(cut) / 1e9:.3f}", host_ram_available_gb=f"{avail:.1f}",
+        params_b=f"{param_count(cut) / 1e9:.3f}", host_ram_available_gb=f"{avail:.1f}",
         host_ram_total_gb=f"{total:.1f}", routing_tokens_held=held, routing_near_ties=ties,
         route_tol=ROUTE_TOL, rows_equal_to_cpu=f"{same_rows}/{SERVE_B}",
         prefill_logits_max_abs_diff=f"{logit_diff:.3e}", cpu_generate_s=f"{cpu_s:.3f}",
@@ -2660,21 +2694,11 @@ def phase_deepseek_serve(dev, gpu, profile=False):
 def profile_decode_step(run, params, cfg, prompts, dev, gpu):
     """The device kernels of one decode step after the prompt's prefill,
     and the device's busy share of its wall time (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile as prof_ctx
-
     b, s = prompts.shape
     toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
     logits, caches = lm.prefill(params, toks, cfg, max_seq=s + 1)
     tok, at = torch.argmax(logits, dim=-1), torch.full((b,), s, device=dev)
-    torch.cuda.synchronize()
-    with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: lm.decode_step(params, tok, caches, at, cfg))
-    rows = device_rows(prof)
-    busy_us = sum(r[0] for r in rows)
-    say("profile", run=run, wall_s=f"{wall:.4f}", device_busy_s=f"{busy_us / 1e6:.4f}",
-        device_busy_share=f"{busy_us / 1e6 / wall:.3f}",
-        device_kernels=sum(r[2] for r in rows), gpu=f"'{gpu}'")
-    say_rows(run, rows, busy_us)
+    profile_call(run, lambda: lm.decode_step(params, tok, caches, at, cfg), gpu)
 
 
 def phase_llama4_serve(dev, gpu):
@@ -2698,13 +2722,13 @@ def phase_llama4_serve(dev, gpu):
     lp = params["groups"][0]["pos0"]["moe"]
     x = calls[0][1][:, None, :]  # (B, 1, D), the layer's input at the step
     avail, total = host_ram_gb()
-    moe_gb = tree_numel(lp) * 2 / 1e9
+    moe_gb = param_count(lp) * 2 / 1e9
     if avail < HOST_RAM_FACTOR * moe_gb:
         say("llama4_moe_hold", run="skipped", host_ram_available_gb=f"{avail:.1f}",
             wanted_gb=f"{HOST_RAM_FACTOR * moe_gb:.1f}")
         return
     out, aux = moe.moe_ffn(lp, x, cfg)
-    cpu_lp = tree_map(lp, lambda t: t.cpu())
+    cpu_lp = tree_map(lambda t: t.cpu(), lp)
     (cpu_out, cpu_aux), cpu_s = timed(lambda: moe.moe_ffn(cpu_lp, x.cpu(), cfg))
     flips = hold_flips("llama4_layer0", 0, routing_differences(
         lp["router"], x[:, 0], cpu_lp["router"], x[:, 0].cpu(), cfg.top_k))
@@ -2720,6 +2744,249 @@ def phase_llama4_serve(dev, gpu):
         tokens_held=len(keep), routing_near_ties=len(flips), max_abs_diff=f"{diff:.4e}",
         allowed=f"{atol:.4e}", out_scale=f"{scale:.4f}",
         aux=f"{aux.item():.6f}", cpu_aux=f"{cpu_aux.item():.6f}", cpu_s=f"{cpu_s:.3f}",
+        gpu=f"'{gpu}'")
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family (whisper) and training (models/lm.py, train/)
+# ---------------------------------------------------------------------------
+
+# Training: launch.train's defaults (--batch 8 --seq 128, lr 3e-4 with 20
+# warmup steps, float32 masters, the trainer's bfloat16 compute copy,
+# cfg.remat) on granite-3-2b at full width and depth, 4 steps.
+TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = 8, 128, 4
+# The card against the CPU on one training step: granite-3-2b at full
+# width cut to 2 layers and a batch of 2, the same weights and tokens. The
+# hold is split (tests/test_torch_train.py): with the bfloat16 compute copy
+# the loss within BF16_LOSS_ATOL (a third of a bf16 ulp at the step-0
+# loss, ~10.8) and each leaf's gradient within BF16_GRAD_NORM_TOL of the
+# CPU's norm (the CPU tests measure 1.5% between the packages); then
+# adamw_update on the CPU's gradients on both devices within OPT_RTOL and
+# OPT_ATOL, float32 rounding of one step.
+TRAIN_CUT, TRAIN_CUT_B = 2, 2
+BF16_LOSS_ATOL, BF16_GRAD_NORM_TOL = 0.02, 0.05
+OPT_RTOL, OPT_ATOL = 1e-6, 1e-9
+# A run of granite-3-2b --preset 100m stopped after RESUME_AT steps and
+# resumed to RESUME_STEPS against an uninterrupted run: the checkpoint's
+# round trip bit for bit; the resumed losses within RESUME_LOSS_RTOL (the
+# embedding's gradient may sum in another order from run to run on the
+# card, and AdamW's first steps move a weight by ~lr * sign(g)).
+RESUME_AT, RESUME_STEPS, RESUME_LOSS_RTOL = 3, 6, 1e-4
+
+
+def serve_frames(cfg, b=SERVE_B, s=SERVE_PROMPT, seed=0):
+    """An encoder-decoder model's frames (B, enc_len, d_model), drawn after
+    the prompts from the same numpy generator, as ``launch.serve`` draws
+    them."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, cfg.vocab, (b, s))
+    return rng.standard_normal((b, cfg.enc_len, cfg.d_model)).astype(np.float32)
+
+
+def phase_whisper_serve(dev, gpu, profile=False):
+    """whisper-base at full width and depth (6 encoder and 6 decoder layers,
+    d_model 512, enc_len 1536, vocab 51865) in bfloat16 (``cfg.dtype``)
+    through ``Engine.generate(enc=)`` at the serving shape with frames of
+    (4, 1536, 512): no hand kernel, two generates equal; then
+    ``[whisper_hold]``: the same model in float32 on the card against the
+    CPU, greedy tokens equal or departing at a near-tie (``GAP_TOL``)."""
+    cfg = configs.get("whisper-base")
+    params, init_s = timed(lambda: lm.init_params(cfg, seed=0, device=dev))
+    prompts, enc = serve_prompts(cfg), serve_frames(cfg)
+    out, wall, peak_gb, _ = generate_on(params, cfg, prompts, dev, gpu, {}, "whisper bfloat16",
+                                        "whisper_generate" if profile else None, enc=enc)
+    prefill_s, steps = step_times(params, cfg, prompts, dev, enc=enc)
+    _, encoder_s = timed(lambda: lm._encode(params, enc_on(enc, dev), cfg))
+    say("whisper_serve", arch=cfg.name, layers=f"{cfg.n_enc_layers} enc + {cfg.n_layers} xattn",
+        d_model=cfg.d_model, heads=f"{cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim}",
+        enc_len=cfg.enc_len, vocab=cfg.vocab, params_m=f"{param_count(params) / 1e6:.1f}",
+        dtype=cfg.dtype, init_s=f"{init_s:.3f}", batch=SERVE_B, prompt_len=SERVE_PROMPT,
+        new_tokens=SERVE_NEW, frames=f"{SERVE_B}x{cfg.enc_len}x{cfg.d_model}", kernel_launches=0,
+        generate_s=f"{wall:.4f}", tok_per_s=f"{SERVE_B * SERVE_NEW / wall:.1f}",
+        prefill_s=f"{prefill_s:.4f}", encoder_s=f"{encoder_s:.4f}",
+        decode_step_s=f"{np.mean(steps):.5f}", decode_step_s_min=f"{min(steps):.5f}",
+        peak_gb=f"{peak_gb:.3f}", sample=",".join(map(str, out[0][:8])), gpu=f"'{gpu}'")
+    del params
+    free()
+    p32 = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    same_rows, logit_diff, cpu_s = hold_tokens_against_cpu("whisper", cfg, p32, prompts, dev,
+                                                           enc=enc)
+    say("whisper_hold", dtype="float32", layers=f"{cfg.n_enc_layers} enc + {cfg.n_layers} xattn",
+        rows_equal_to_cpu=f"{same_rows}/{SERVE_B}", gap_tol=GAP_TOL,
+        prefill_logits_max_abs_diff=f"{logit_diff:.3e}", cpu_generate_s=f"{cpu_s:.3f}",
+        gpu=f"'{gpu}'")
+
+
+def train_batches(cfg, dev, batch=TRAIN_B, seq=TRAIN_SEQ, seed=0):
+    """``launch.train``'s batches: ``TokenStream`` tokens on ``dev``."""
+    stream = TokenStream(vocab=cfg.vocab, batch=batch, seq_len=seq, seed=seed)
+    return lambda step: {"tokens": stream.tensor_batch_at(step, dev)}
+
+
+def remat_memory(cfg, params, batch):
+    """One ``loss_and_grads`` of ``cfg`` with and without remat: the GB the
+    forward keeps for the backward (allocated after the loss minus before
+    it, the bfloat16 compute copy made first) and the peak GB of each.
+    Returns {remat: (saved GB, peak GB)}."""
+    out = {}
+    for remat in (True, False):
+        c = cfg.with_overrides(remat=remat)
+        kept = []
+
+        def loss_fn(p, b):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            loss = lm.train_loss(p, b, c)
+            torch.cuda.synchronize()
+            kept.append(torch.cuda.memory_allocated() - before)
+            return loss
+
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        loss_and_grads(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        out[remat] = kept[0] / 1e9, torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def phase_granite_train(dev, gpu, profile=False):
+    """granite-3-2b at full width and depth (40 layers, 2,534.0M float32
+    masters) through ``trainer.train`` for 4 steps at ``launch.train``'s
+    defaults, with every kernel count set to 0 just before and read just
+    after (no hand kernel on this path): finite losses, step 0 below
+    1.2·log(vocab_padded); the seconds of each step, tokens/s after the
+    first, the peak GB with remat (5 superblocks of 8 groups); with
+    ``profile``, the device kernels of one more step; then the GB its
+    forward keeps for the backward with and without remat
+    (``remat_memory``)."""
+    cfg = configs.get("granite-3-2b")
+    params, init_s = timed(lambda: lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev))
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, log_every=TRAIN_STEPS, opt=opt)
+    batches = train_batches(cfg, dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (params, opt_state, history), wall = timed(lambda: train(
+        params, lambda p, b: lm.train_loss(p, b, cfg), batches, tcfg))
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(not any(launched.values()), f"granite_train: kernels launched {launched}")
+    losses, dts = [h["loss"] for h in history], [h["dt"] for h in history]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"granite_train: losses {losses}")
+    bound = 1.2 * math.log(cfg.vocab_padded)
+    check(losses[0] < bound, f"granite_train: step-0 loss {losses[0]:.4f} not below {bound:.4f}")
+    steady = sum(dts[1:]) / (len(dts) - 1)
+    tokens = TRAIN_B * TRAIN_SEQ
+    if profile:
+        step = make_train_step(lambda p, b: lm.train_loss(p, b, cfg), opt)
+        batch = batches(TRAIN_STEPS)
+        profile_call("granite_train_step", lambda: step(params, opt_state, batch), gpu)
+    del opt_state
+    mem = remat_memory(cfg, params, batches(TRAIN_STEPS))
+    n = param_count(params)
+    say("granite_train", arch=cfg.name, layers=cfg.n_layers, params_m=f"{n / 1e6:.1f}",
+        masters="float32", compute="bfloat16", remat=f"{cfg.remat_policy} "
+        f"{lm._best_outer(cfg.n_groups)}x{cfg.n_groups // lm._best_outer(cfg.n_groups)}",
+        init_s=f"{init_s:.3f}", batch=TRAIN_B, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        kernel_launches=0, first_step_s=f"{dts[0]:.4f}",
+        step_s=",".join(f"{d:.4f}" for d in dts[1:]), tok_per_s=f"{tokens / steady:.1f}",
+        model_tflop_per_s=f"{6 * n * tokens / steady / 1e12:.1f}", train_s=f"{wall:.3f}",
+        peak_gb=f"{peak_gb:.3f}", saved_gb_remat=f"{mem[True][0]:.3f}",
+        saved_gb_no_remat=f"{mem[False][0]:.3f}", grad_peak_gb_remat=f"{mem[True][1]:.3f}",
+        grad_peak_gb_no_remat=f"{mem[False][1]:.3f}",
+        losses=",".join(f"{v:.4f}" for v in losses), step0_bound=f"{bound:.4f}", gpu=f"'{gpu}'")
+
+
+def phase_granite_train_hold(dev, gpu):
+    """One training step of granite-3-2b at full width cut to 2 layers, on
+    the card and on the CPU from the same float32 weights and tokens (B=2,
+    S=128), under the split hold: with the bfloat16 compute copy the loss
+    and each leaf's gradient; then ``adamw_update`` on the CPU's gradients
+    on both devices. Prints what the card's forward keeps for the
+    backward, and its peak GB, with and without remat."""
+    full = configs.get("granite-3-2b")
+    cfg = full.with_overrides(n_layers=TRAIN_CUT)
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = TokenStream(vocab=cfg.vocab, batch=TRAIN_CUT_B, seq_len=TRAIN_SEQ, seed=0).batch_at(0)
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev)}
+    cpu_batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64)}
+    mem = remat_memory(cfg, params, batch)
+    fn = lambda p, b: lm.train_loss(p, b, cfg)  # noqa: E731
+    (loss, grads), card_s = timed(lambda: loss_and_grads(fn, params, batch))
+    (cpu_loss, cpu_grads), cpu_s = timed(lambda: loss_and_grads(fn, cpu_params, cpu_batch))
+    dloss = abs(float(loss) - float(cpu_loss))
+    ratios = [float((g.cpu().double() - c.double()).norm()) / max(float(c.double().norm()), 1e-30)
+              for g, c in zip(grads, cpu_grads)]
+    check(dloss <= BF16_LOSS_ATOL, f"granite_train_hold: loss {float(loss):.5f} on the card, "
+          f"{float(cpu_loss):.5f} on the CPU")
+    check(max(ratios) <= BF16_GRAD_NORM_TOL,
+          f"granite_train_hold: a gradient {max(ratios):.4f} of its norm from the CPU's")
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=0)
+    p_card, p_cpu = tree_map(torch.clone, params), tree_map(torch.clone, cpu_params)
+    s_card, s_cpu = init_opt_state(p_card), init_opt_state(p_cpu)
+    with torch.no_grad():
+        adamw_update(ocfg, p_card, tree_unflatten(params, [g.to(dev) for g in cpu_grads]), s_card)
+        adamw_update(ocfg, p_cpu, tree_unflatten(cpu_params, cpu_grads), s_cpu)
+    worst = 0.0
+    for name, got, want in zip(("params", "m", "v"), (p_card, s_card["m"], s_card["v"]),
+                               (p_cpu, s_cpu["m"], s_cpu["v"])):
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            a, b = a.cpu().double(), b.double()
+            excess = ((a - b).abs() - OPT_RTOL * b.abs() - OPT_ATOL).max().item()
+            worst = max(worst, (a - b).abs().max().item())
+            check(excess <= 0, f"granite_train_hold: adamw_update's {name} on the card beyond "
+                  f"rtol {OPT_RTOL}, atol {OPT_ATOL} of the CPU's")
+    say("granite_train_hold", arch=cfg.name, reduced=f"n_layers {full.n_layers}->{TRAIN_CUT}, "
+        f"batch {TRAIN_B}->{TRAIN_CUT_B}", params_m=f"{param_count(params) / 1e6:.1f}",
+        seq=TRAIN_SEQ, loss=f"{float(loss):.5f}", cpu_loss=f"{float(cpu_loss):.5f}",
+        loss_abs_diff=f"{dloss:.3e}", loss_allowed=BF16_LOSS_ATOL,
+        grad_norm_ratio_max=f"{max(ratios):.4e}", grad_allowed=BF16_GRAD_NORM_TOL,
+        adamw_max_abs_diff=f"{worst:.3e}", adamw_rtol=OPT_RTOL, adamw_atol=OPT_ATOL,
+        saved_gb_remat=f"{mem[True][0]:.3f}", saved_gb_no_remat=f"{mem[False][0]:.3f}",
+        peak_gb_remat=f"{mem[True][1]:.3f}", peak_gb_no_remat=f"{mem[False][1]:.3f}",
+        card_step_s=f"{card_s:.4f}", cpu_step_s=f"{cpu_s:.3f}", gpu=f"'{gpu}'")
+
+
+def phase_train_resume(dev, gpu):
+    """granite-3-2b ``--preset 100m`` through ``trainer.train``, checkpoints
+    in a temporary directory: a run stopped at step 3 and resumed to step
+    6 against an uninterrupted run of 6. The checkpoint of step 3 restores
+    bit for bit; the resumed losses within ``RESUME_LOSS_RTOL``."""
+    cfg = preset_config("granite-3-2b", "100m")
+    batches = train_batches(cfg, dev)
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=RESUME_STEPS)
+
+    def run(total, ckpt_dir):
+        params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+        tcfg = TrainerConfig(total_steps=total, ckpt_dir=ckpt_dir, ckpt_every=RESUME_AT,
+                             log_every=100, opt=opt)
+        return train(params, lambda p, b: lm.train_loss(p, b, cfg), batches, tcfg)
+
+    _, _, whole = run(RESUME_STEPS, "")
+    with tempfile.TemporaryDirectory() as tmp:
+        stop_p, stop_o, first = run(RESUME_AT, tmp)
+        state = ckpt_lib.restore(tmp, RESUME_AT, {"params": stop_p, "opt": stop_o}, device=dev)
+        pairs = list(zip(tree_leaves(state), tree_leaves({"params": stop_p, "opt": stop_o})))
+        round_trip = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+        check(round_trip, "train_resume: the checkpoint of step 3 does not restore bit for bit")
+        _, _, rest = run(RESUME_STEPS, tmp)
+        ckpt_steps = ckpt_lib.all_steps(tmp)
+    check([h["step"] for h in rest] == list(range(RESUME_AT, RESUME_STEPS)),
+          f"train_resume: resumed steps {[h['step'] for h in rest]}")
+    got = np.array([h["loss"] for h in first + rest])
+    want = np.array([h["loss"] for h in whole])
+    rel = np.abs(got - want) / np.abs(want)
+    check(bool(np.all(np.isfinite(got))) and float(rel.max()) <= RESUME_LOSS_RTOL,
+          f"train_resume: losses {got.tolist()} against {want.tolist()}")
+    say("train_resume", arch=cfg.name, preset="100m", params_m=f"{param_count(stop_p) / 1e6:.1f}",
+        steps=f"{RESUME_AT}+{RESUME_STEPS - RESUME_AT}", checkpoints=",".join(map(str, ckpt_steps)),
+        checkpoint_round_trip_bit_equal=round_trip, leaves=len(pairs),
+        resumed_losses_bit_equal=bool(np.array_equal(got, want)),
+        loss_max_rel_diff=f"{float(rel.max()):.3e}", allowed=RESUME_LOSS_RTOL,
+        deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
+        losses=",".join(f"{v:.5f}" for v in got), uninterrupted=",".join(f"{v:.5f}" for v in want),
         gpu=f"'{gpu}'")
 
 
@@ -3052,6 +3319,14 @@ def main() -> int:
     phase_deepseek_serve(dev, gpu, profile)
     free()
     phase_llama4_serve(dev, gpu)
+    free()
+    phase_whisper_serve(dev, gpu, profile)
+    free()
+    phase_granite_train(dev, gpu, profile)
+    free()
+    phase_granite_train_hold(dev, gpu)
+    free()
+    phase_train_resume(dev, gpu)
     free()
     err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
     launches_sq = phase_fit_hopper(dev, gpu, core)

@@ -1,6 +1,6 @@
-"""Command-line entry points of the port: ``serve`` (the LM engine), for
-now ``train.preset_config`` only, and ``mesh`` (the ``DeviceMesh`` of the
-messaging ring).
+"""Command-line entry points of the port: ``serve`` (the LM engine),
+``train`` (the fault-tolerant trainer) and ``mesh`` (the ``DeviceMesh`` of
+the messaging ring).
 
 ``launch/dryrun.py`` (XLA lowering on 512 fake devices) and ``specs.py`` of
 the JAX package have no counterpart.

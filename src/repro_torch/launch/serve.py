@@ -6,7 +6,8 @@
 Runs on the card unless ``--device cpu``. The weights are random, drawn from
 a ``torch.Generator`` seeded with ``--seed`` on the device, in float32 (as
 the JAX package's ``launch/serve.py`` builds them); the prompts are drawn with numpy
-from the same seed. Prints the JAX package's ``serve_done ...`` line, the
+from the same seed, and for an encoder-decoder model (whisper) the encoder's
+frame embeddings (B, enc_len, d_model) after them, as there. Prints the JAX package's ``serve_done ...`` line, the
 wall time from the first prompt on the device to the last token read back
 (the kernels' first-use build included, on the card).
 """
@@ -45,9 +46,12 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
+    enc = None
+    if cfg.enc_dec:
+        enc = rng.standard_normal((args.batch, cfg.enc_len, cfg.d_model)).astype(np.float32)
 
     t0 = time.time()
-    out = engine.generate(prompts, seed=args.seed)
+    out = engine.generate(prompts, enc=enc, seed=args.seed)
     dt = time.time() - t0
     toks = out.size
     print(f"serve_done arch={cfg.name} batch={args.batch} "

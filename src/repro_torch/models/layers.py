@@ -1,5 +1,5 @@
 """Shared layers of the LM substrate: init, RMSNorm, RoPE, the gated MLP,
-embedding, unembedding.
+embedding, unembedding, the cross-entropy.
 
 Port of ``src/repro/models/layers.py``. Parameters are plain nested dicts
 of tensors, as in the JAX package (no ``nn.Module``), so
@@ -8,8 +8,8 @@ draws from an explicit ``torch.Generator`` on the target device at the JAX
 package's scales; the numbers differ from ``jax.random``'s, so tests carry
 the JAX package's weights across instead.
 
-``softmax_xent`` comes with the training slice (ROADMAP.md queue 1 item 4).
-The JAX package's sharding specs and ``rules.act`` constraints have no
+``softmax_xent`` is the training loss's token cross-entropy. The JAX
+package's sharding specs and ``rules.act`` constraints have no
 counterpart: the port runs on one card.
 """
 
@@ -121,3 +121,12 @@ def unembed(params, x, vocab: int):
         pad_mask = torch.arange(v_pad, device=logits.device) >= vocab
         logits = torch.where(pad_mask, neg, logits.float()).to(logits.dtype)
     return logits
+
+
+def softmax_xent(logits, labels, vocab: int):
+    """Mean token cross-entropy; logits upcast to float32; labels < vocab
+    (the padded columns hold the float32 minimum and add nothing)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - gold)

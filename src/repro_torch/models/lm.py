@@ -1,11 +1,9 @@
-"""Model assembler of the port: every decoder-only family of the JAX
-package — dense attention, sliding-window, MLA, MoE, SSM (Mamba2) and
-hybrid (Zamba2).
+"""Model assembler of the port: every family of the JAX package — dense
+attention, sliding-window, MLA, MoE, SSM (Mamba2), hybrid (Zamba2) and
+encoder-decoder (whisper).
 
-Port of ``src/repro/models/lm.py`` for the layer kinds ``"attn"``,
-``"attn_w"``, ``"attn_moe"``, ``"mla"``, ``"mla_moe"``, ``"ssm"`` and
-``"hybrid_attn"``. Layers are organized into repeating *groups*, as in the
-JAX package:
+Port of ``src/repro/models/lm.py``. Layers are organized into repeating
+*groups*, as in the JAX package:
 
   dense (yi/granite/gemma-7b/chameleon):  group = [attn]
   gemma3:                                 group = [attn_w]*5 + [attn]
@@ -13,31 +11,38 @@ JAX package:
   deepseek-v2-lite:  prologue [mla],      group = [mla_moe]
   mamba2:                                 group = [ssm]
   zamba2:                                 group = [ssm]*6 + [hybrid_attn]
+  whisper:  encoder layers [enc],         group = [xattn]
 
 ``hybrid_attn`` (Zamba2) is a *shared-weight* attention+MLP block: its
 weights live once in ``params["shared"]``; each application has its own
 2d->d input projection (``proj``) of the hidden state concatenated with the
 embedding output. Leading dense layers (deepseek's first layer, a dense
 MLA layer) are the *prologue*: ``params["prologue{i}"]`` and
-``caches["prologue{i}"]``, run before the groups.
+``caches["prologue{i}"]``, run before the groups. Whisper's encoder
+(``_encode``: learned positions ``enc_pos``, bidirectional attention,
+``enc_norm``) runs over precomputed frame embeddings (B, enc_len, d_model);
+each ``xattn`` layer adds cross-attention over its output (``ln_x``,
+``xattn``), with no RoPE on the cross q/k.
 
 The JAX package scans over stacked group parameters; the port keeps the
-groups' structure but not the stack: ``params["groups"]`` is a list with
-one dict per group (``{"pos0": ..., "pos1": ...}``, one entry per layer of
-the group), and ``_backbone`` is a Python loop over it, with no scan and no
-rematerialization (the port has no compile whose size grows with depth, and
-no training yet). ``_backbone`` sums the MoE layers' load-balancing aux and
-returns it beside the caches; ``forward`` returns the logits only, and the
-aux waits for ``train_loss`` (ROADMAP.md queue 1 item 4).
+groups' structure but not the stack: ``params["groups"]`` (and whisper's
+``params["enc_groups"]``) is a list with one dict per group (per encoder
+layer), and ``_backbone`` is a Python loop over it. ``_backbone`` sums the
+MoE layers' load-balancing aux; ``forward`` returns ``(logits, aux)`` as the
+reference does, and ``train_loss`` adds ``aux_coef`` times the aux to the
+token cross-entropy. Under ``cfg.remat`` a training forward
+(``train=True``) recomputes activations in the backward
+(``torch.utils.checkpoint``), in the reference's two-level sqrt-L split
+(``_best_outer``) or per group. A training forward builds no caches: the
+decode steps write K/V in place, which must never happen under autograd.
 
-The kind "xattn" (whisper; ROADMAP.md queue 1 item 3) raises ``NotPorted``
-at the entry points. The JAX package's ``rules`` (mesh sharding of
-activations, params and caches: ``param_specs``, ``cache_specs``, MoE's
-``shard_map`` branch) have no counterpart: the port runs on one card.
+The JAX package's ``rules`` (mesh sharding of activations, params and
+caches: ``param_specs``, ``cache_specs``, MoE's ``shard_map`` branch) have
+no counterpart yet: the port runs on one card (ROADMAP.md queue 1 item 5).
 
-Entry points: ``init_params``, ``init_cache``, ``forward``, ``prefill``,
-``decode_step``. They run where the parameters are (``init_params`` puts
-them on the card unless asked for the CPU).
+Entry points: ``init_params``, ``init_cache``, ``forward``, ``train_loss``,
+``prefill``, ``decode_step``. They run where the parameters are
+(``init_params`` puts them on the card unless asked for the CPU).
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from repro_torch.models.layers import (
     init_rmsnorm,
     mlp,
     rmsnorm,
+    softmax_xent,
     unembed,
 )
 
@@ -70,18 +76,6 @@ ATTN_KINDS = ("attn", "attn_w", "attn_moe", "hybrid_attn")
 MLA_KINDS = ("mla", "mla_moe")
 #: Layer kinds with an MoE FFN in place of the MLP.
 MOE_KINDS = ("attn_moe", "mla_moe")
-#: ROADMAP.md queue 1 item of each kind that is not ported yet.
-_UNPORTED = {"xattn": "item 3: the encoder-decoder family"}
-
-
-class NotPorted(NotImplementedError):
-    """A layer kind or model family that the port does not have yet."""
-
-
-def _not_ported(kind: str) -> NotPorted:
-    return NotPorted(
-        f"layer kind {kind!r} is not ported to PyTorch yet (ROADMAP.md queue 1 "
-        f"{_UNPORTED[kind]}); the port serves the decoder-only families")
 
 
 # ---------------------------------------------------------------------------
@@ -109,13 +103,6 @@ def prologue_layout(cfg: ArchConfig) -> tuple[str, ...]:
     return ()
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotPorted`` for a layer kind the port does not have."""
-    for kind in group_layout(cfg):
-        if kind in _UNPORTED:
-            raise _not_ported(kind)
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -132,8 +119,11 @@ def _init_layer(gen, kind: str, cfg: ArchConfig, dtype):
         return params  # block weights are shared (params["shared"])
     if kind in MLA_KINDS:
         params["attn"] = attn.init_mla(gen, cfg, dtype)
-    else:
+    else:  # attn, attn_w, attn_moe, enc, xattn
         params["attn"] = attn.init_attention(gen, cfg, dtype)
+    if kind == "xattn":
+        params["ln_x"] = init_rmsnorm(d, gen.device)
+        params["xattn"] = attn.init_attention(gen, cfg, dtype)
     params["ln2"] = init_rmsnorm(d, gen.device)
     if kind in MOE_KINDS:
         params["moe"] = moe_mod.init_moe(gen, cfg, dtype)
@@ -146,7 +136,6 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None):
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     the target device (the card unless ``device="cpu"``), at the JAX
     package's scales. ``dtype`` defaults to ``cfg.dtype``."""
-    _check_ported(cfg)
     dev = _device(device, "repro_torch.models.lm.init_params")
     dtype = dtype or _DTYPES[cfg.dtype]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -164,6 +153,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None):
                             "attn": attn.init_attention(gen, cfg, dtype),
                             "ln2": init_rmsnorm(cfg.d_model, dev),
                             "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)}
+    if cfg.enc_dec:
+        params["enc_groups"] = [_init_layer(gen, "enc", cfg, dtype)
+                                for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = init_rmsnorm(cfg.d_model, dev)
+        params["enc_pos"] = (torch.randn((cfg.enc_len, cfg.d_model), generator=gen, device=dev)
+                             * 0.02).to(dtype)
     return params
 
 
@@ -172,8 +167,29 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, cache=None,
-                 cache_pos=None, want_cache=True):
+def _cross_attention(lp, hx, cfg, enc_out, cache, cache_pos):
+    """Cross-attention of an ``xattn`` layer: q from the decoder, K/V from
+    the encoder output, no RoPE on either. At a decode step (``cache_pos``
+    set) it reads the cached cross K/V (B, enc_len, KV, dh) through
+    ``decode_attention`` with every encoder position valid; otherwise it
+    projects ``enc_out`` and attends everywhere (``q_pos = enc_len``).
+    Returns (out before ``wo``, (ck, cv))."""
+    b, s, _ = hx.shape
+    q = attn._split_heads(hx @ lp["wq"], cfg.n_heads, cfg.head_dim)
+    if cache_pos is not None:
+        ck, cv = cache
+        enc_pos = torch.full((b,), ck.shape[1], dtype=torch.int64, device=hx.device)
+        return attn.decode_attention(q, ck, cv, enc_pos), (ck, cv)
+    ck = attn._split_heads(enc_out @ lp["wk"], cfg.n_kv_heads, cfg.head_dim)
+    cv = attn._split_heads(enc_out @ lp["wv"], cfg.n_kv_heads, cfg.head_dim)
+    t = ck.shape[1]
+    enc_positions = _positions(b, t, hx.device)
+    q_pos = torch.full((b, s), t, dtype=torch.int64, device=hx.device)  # attend everywhere
+    return attn.causal_attention(q, ck, cv, q_pos, enc_positions), (ck, cv)
+
+
+def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, enc_out=None,
+                 cache=None, cache_pos=None, want_cache=True):
     """One layer. Returns (x, new_cache_entry, aux), aux the MoE layer's
     load-balancing loss (None for other kinds). ``cache_pos`` set means a
     decode step over ``cache``; otherwise the layer runs the sequence and
@@ -197,6 +213,23 @@ def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, cache=N
         h2 = rmsnorm(x, shared["ln2"], cfg.norm_eps)
         return x + mlp(shared["mlp"], h2, cfg.act), new_kv, None
 
+    if kind == "xattn":
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        out, new_self = attn.attention_block(
+            lp["attn"], h, cfg, positions, window=0,
+            kv_cache=cache["self"] if cache is not None else None, cache_pos=cache_pos,
+            want_cache=want_cache)
+        x = x + out
+        hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
+        out_x, new_cross = _cross_attention(
+            lp["xattn"], hx, cfg, enc_out, cache["cross"] if cache is not None else None,
+            cache_pos)
+        x = x + out_x.reshape(*x.shape[:2], cfg.q_dim) @ lp["xattn"]["wo"]
+        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        x = x + mlp(lp["mlp"], h2, cfg.act)
+        new_cache = {"self": new_self, "cross": new_cross} if want_cache else None
+        return x, new_cache, None
+
     # attention (MLA or GQA) + (mlp | moe)
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if kind in MLA_KINDS:
@@ -215,18 +248,94 @@ def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, cache=N
     return x + mlp(lp["mlp"], h2, cfg.act), new_kv, None
 
 
-def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None, want_cache=False):
+def _encode(params, enc_in, cfg):
+    """Whisper's encoder over frame embeddings ``enc_in: (B, T, d_model)``:
+    learned positions ``enc_pos``, then per layer RoPE'd q/k through
+    ``qkv`` and bidirectional attention (every position attends everywhere:
+    ``q_pos = T``), the MLP, and ``enc_norm``. The frames are cast to the
+    weights' dtype first (the reference lets a float32 input promote
+    bfloat16 weights' products to float32; torch's products need one
+    dtype)."""
+    pos = params["enc_pos"]
+    x = enc_in.to(pos.dtype) + pos[None, : enc_in.shape[1], :]
+    b, t, _ = x.shape
+    positions = _positions(b, t, x.device)
+    q_pos = torch.full((b, t), t, dtype=torch.int64, device=x.device)
+    for lp in params["enc_groups"]:
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = attn.qkv(lp["attn"], h, cfg, positions)
+        out = attn.causal_attention(q, k, v, q_pos, positions)
+        x = x + out.reshape(b, t, cfg.q_dim) @ lp["attn"]["wo"]
+        h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        x = x + mlp(lp["mlp"], h2, cfg.act)
+    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _best_outer(g: int) -> int:
+    """Divisor of g minimizing n_outer + g / n_outer (sqrt-L remat split)."""
+    best, best_cost = 1, g + 1
+    for d in range(1, g + 1):
+        if g % d == 0:
+            cost = d + g // d
+            if cost < best_cost:
+                best, best_cost = d, cost
+    return best
+
+
+#: ``aten`` ops whose outputs the ``"dots"`` remat policy saves: the
+#: matrix products without batch dimensions, as
+#: ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` (``x @ W``
+#: reaches ``aten.mm``; the einsums of attention reach ``aten.bmm``).
+_DOTS = ("mm", "addmm")
+
+
+def _checkpoint(fn, policy: str):
+    """``fn`` rematerialized in the backward: nothing saved inside it under
+    the ``"nothing"`` and ``"default"`` policies, the no-batch matrix
+    products' outputs under ``"dots"``."""
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    if policy not in ("nothing", "dots", "default"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {}
+    if policy == "dots":
+        saved = tuple(getattr(torch.ops.aten, n).default for n in _DOTS)
+
+        def save_dots(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(save_dots)
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None, want_cache=False,
+              enc_out=None, train=False):
     """Run the prologue layers, then the groups' layers, in order. Returns
     (x, new_caches, aux): new_caches has one entry per layer
     (``"prologue{i}"`` and ``"groups"``, as ``init_cache``), aux the sum of
     the MoE layers' load-balancing losses (float32). With ``cache_pos`` it
     is a decode step over ``caches``; otherwise the sequence runs and its
     caches are built if ``want_cache`` (``prefill``), else new_caches is
-    None (``forward``)."""
+    None (``forward``). ``train`` with ``cfg.remat`` recomputes the groups
+    in the backward: superblocks of ``G / _best_outer(G)`` groups each when
+    ``cfg.scan_layers`` and ``_best_outer(G) > 1`` (the reference's
+    two-level split), else each group on its own; the prologue is not
+    recomputed, as in the reference."""
     layout = group_layout(cfg)
     emb0 = x if cfg.family == "hybrid" else None
     shared = params.get("shared")
     want_cache = want_cache or cache_pos is not None
+    if train and want_cache:
+        raise ValueError("a training forward builds no caches")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = {}
     for i, kind in enumerate(prologue_layout(cfg)):
@@ -237,18 +346,33 @@ def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None, want_ca
             want_cache=want_cache)
         if layer_aux is not None:
             aux = aux + layer_aux
-    new_groups = []
-    for gi, gp in enumerate(params["groups"]):
-        new_cache = {}
-        for i, kind in enumerate(layout):
-            c = caches["groups"][gi][f"pos{i}"] if caches is not None else None
-            x, new_cache[f"pos{i}"], layer_aux = _apply_layer(
-                gp[f"pos{i}"], kind, x, cfg, positions, shared=shared, emb0=emb0,
-                cache=c, cache_pos=cache_pos, want_cache=want_cache)
-            if layer_aux is not None:
-                aux = aux + layer_aux
-        new_groups.append(new_cache)
-    new_caches["groups"] = new_groups
+
+    def run_groups(x, aux, first, last):
+        """Groups ``first`` to ``last - 1``; returns (x, aux, their caches)."""
+        out = []
+        for gi in range(first, last):
+            new_cache = {}
+            for i, kind in enumerate(layout):
+                c = caches["groups"][gi][f"pos{i}"] if caches is not None else None
+                x, new_cache[f"pos{i}"], layer_aux = _apply_layer(
+                    params["groups"][gi][f"pos{i}"], kind, x, cfg, positions, shared=shared,
+                    emb0=emb0, enc_out=enc_out, cache=c, cache_pos=cache_pos,
+                    want_cache=want_cache)
+                if layer_aux is not None:
+                    aux = aux + layer_aux
+            out.append(new_cache)
+        return x, aux, out
+
+    n_groups = len(params["groups"])
+    if cfg.remat and train:
+        n_outer = _best_outer(n_groups)
+        n_inner = n_groups // n_outer if cfg.scan_layers and n_outer > 1 else 1
+        block = _checkpoint(lambda x, aux, first: run_groups(x, aux, first, first + n_inner)[:2],
+                            cfg.remat_policy)
+        for first in range(0, n_groups, n_inner):
+            x, aux = block(x, aux, first)
+        return x, None, aux
+    x, aux, new_caches["groups"] = run_groups(x, aux, 0, n_groups)
     return x, (new_caches if want_cache else None), aux
 
 
@@ -257,20 +381,41 @@ def _positions(b: int, s: int, device):
 
 
 # ---------------------------------------------------------------------------
-# full forward pass
+# full forward pass and the training loss
 # ---------------------------------------------------------------------------
 
 
-def forward(params, tokens, cfg: ArchConfig, positions=None):
-    """Full-sequence forward -> logits (B, S, vocab_padded)."""
-    _check_ported(cfg)
+def _enc_out(params, enc_in, cfg):
+    if not cfg.enc_dec:
+        return None
+    if enc_in is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: pass its encoder input "
+                         f"(B, {cfg.enc_len}, {cfg.d_model}) as enc_in")
+    return _encode(params, enc_in, cfg)
+
+
+def forward(params, tokens, cfg: ArchConfig, positions=None, enc_in=None, train=False):
+    """Full-sequence forward -> (logits (B, S, vocab_padded), aux), aux the
+    MoE layers' summed load-balancing loss (0 without MoE). ``enc_in``:
+    the encoder's frame embeddings of an encoder-decoder model. ``train``
+    turns on ``cfg.remat``'s recompute."""
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, tokens.device)
     x = embed(params["embed"], tokens)
-    x, _, _ = _backbone(params, x, cfg, positions)
+    enc_out = _enc_out(params, enc_in, cfg)
+    x, _, aux = _backbone(params, x, cfg, positions, enc_out=enc_out, train=train)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.vocab)
+    return unembed(params["embed"], x, cfg.vocab), aux
+
+
+def train_loss(params, batch, cfg: ArchConfig, aux_coef: float = 0.01):
+    """batch: {"tokens": (B, S+1)} (+ "enc": (B, enc_len, D) for enc-dec).
+    The mean next-token cross-entropy plus ``aux_coef`` times the MoE aux."""
+    tokens = batch["tokens"]
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = forward(params, inputs, cfg, enc_in=batch.get("enc"), train=True)
+    return softmax_xent(logits, labels, cfg.vocab) + aux_coef * aux
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +427,13 @@ def _layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int, dtype, de
     if kind in MLA_KINDS:
         return (torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dtype, device=device),
                 torch.zeros((batch, max_seq, cfg.rope_head_dim), dtype=dtype, device=device))
+    if kind == "xattn":
+        kv_shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        enc_kv = (batch, cfg.enc_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"self": (torch.zeros(kv_shape, dtype=dtype, device=device),
+                         torch.zeros(kv_shape, dtype=dtype, device=device)),
+                "cross": (torch.zeros(enc_kv, dtype=dtype, device=device),
+                          torch.zeros(enc_kv, dtype=dtype, device=device))}
     if kind in ATTN_KINDS:
         kv_shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         if cfg.kv_quant == "int8":
@@ -304,9 +456,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None, device=Non
     "int8"`` the four-tuple (K int8, K scales (B, max_seq, KV) bf16, V, V
     scales); an MLA layer's is (c_kv (B, max_seq, r), k_rope (B, max_seq,
     dr)) in ``dtype`` whatever ``kv_quant`` says; an SSM layer's is (state
-    (B, H, P, N) float32, conv tail (B, W-1, C)), with no sequence axis.
-    The prologue's layers have theirs under ``"prologue{i}"``."""
-    _check_ported(cfg)
+    (B, H, P, N) float32, conv tail (B, W-1, C)), with no sequence axis; an
+    ``xattn`` layer's is ``{"self": (k, v), "cross": (ck, cv)}``, the cross
+    K/V (B, enc_len, KV, dh). The prologue's layers have theirs under
+    ``"prologue{i}"``."""
     dev = _device(device, "repro_torch.models.lm.init_cache")
     dtype = dtype or _DTYPES[cfg.dtype]
     layout = group_layout(cfg)
@@ -318,18 +471,26 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None, device=Non
 
 
 def _grow_caches(caches, cfg: ArchConfig, max_seq: int):
-    """The caches with every attention layer's K/V (and int8 scales) and
-    every MLA layer's c_kv and k_rope, the prologue's too, padded with zeros
-    along the sequence axis (axis 1 of each) to ``max_seq``; an SSM layer's
-    cache has no sequence axis and stays as it is. (The reference pads
-    whichever axis has the prompt's length, which picks an SSM state axis
-    of equal size, or an MLA cache's batch axis when B equals S.)"""
+    """The caches with every attention layer's K/V (and int8 scales), every
+    MLA layer's c_kv and k_rope and every ``xattn`` layer's self K/V, the
+    prologue's too, padded with zeros along the sequence axis (axis 1 of
+    each) to ``max_seq``; an SSM layer's cache has no sequence axis and an
+    ``xattn`` layer's cross K/V spans the encoder's positions, and both
+    stay as they are. (The reference pads whichever axis has the prompt's
+    length, which picks an SSM state axis of equal size, an MLA cache's
+    batch axis when B equals S, or a cross K/V's batch, head or head-dim
+    axis.)"""
     layout = group_layout(cfg)
 
+    def pad(entry):
+        return tuple(F.pad(t, (0, 0) * (t.ndim - 2) + (0, max_seq - t.shape[1])) for t in entry)
+
     def grow(kind, entry):
+        if kind == "xattn":
+            return {"self": pad(entry["self"]), "cross": entry["cross"]}
         if kind not in ATTN_KINDS + MLA_KINDS:
             return entry
-        return tuple(F.pad(t, (0, 0) * (t.ndim - 2) + (0, max_seq - t.shape[1])) for t in entry)
+        return pad(entry)
 
     grown = {f"prologue{i}": grow(kind, caches[f"prologue{i}"])
              for i, kind in enumerate(prologue_layout(cfg))}
@@ -343,18 +504,21 @@ def _grow_caches(caches, cfg: ArchConfig, max_seq: int):
 # ---------------------------------------------------------------------------
 
 
-def prefill(params, tokens, cfg: ArchConfig, max_seq: int | None = None):
+def prefill(params, tokens, cfg: ArchConfig, max_seq: int | None = None, enc_in=None):
     """Run the prompt, build the cache. Returns (last_logits, caches).
 
     ``tokens: (B, S)``; the logits are those of the last position (B,
     vocab_padded). The attention layers' K/V and the MLA layers' c_kv and
     k_rope hold the prompt's S positions, grown to ``max_seq`` (default S)
     for the decode steps that follow; an SSM layer's cache serves any
-    number of decode steps as it is."""
-    _check_ported(cfg)
+    number of decode steps as it is. An encoder-decoder model runs its
+    encoder over ``enc_in`` first; its layers' cross K/V hold the encoder
+    output's projections for every decode step."""
     b, s = tokens.shape
     x = embed(params["embed"], tokens)
-    x, caches, _ = _backbone(params, x, cfg, _positions(b, s, tokens.device), want_cache=True)
+    enc_out = _enc_out(params, enc_in, cfg)
+    x, caches, _ = _backbone(params, x, cfg, _positions(b, s, tokens.device), want_cache=True,
+                             enc_out=enc_out)
     if max_seq is not None and max_seq != s:
         caches = _grow_caches(caches, cfg, max_seq)
     x = rmsnorm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
@@ -365,7 +529,8 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig):
     """One decode step. token: (B,) int; pos: (B,) int, the current length:
     the new token's position, where its K/V (MLA: c_kv and k_rope) are
     written (in place) and up to which it attends. An SSM layer carries its
-    position in its state.
+    position in its state; an ``xattn`` layer attends over its cached cross
+    K/V.
 
     Returns (logits (B, vocab_padded), new_caches)."""
     x = embed(params["embed"], token[:, None])

@@ -80,7 +80,9 @@ def route(router, x2d, k: int):
     """The float32 router over ``x2d: (T, D)``. Returns (probs (T, E),
     gates (T, k) normalized to sum 1, expert ids (T, k)), the ids in
     descending probability with ties to the lower index."""
-    probs = torch.softmax(x2d.float() @ router, dim=-1)
+    # float32 even when the trainer's compute copy holds a bfloat16 router:
+    # the reference's float32 input promotes it.
+    probs = torch.softmax(x2d.float() @ router.float(), dim=-1)
     top, eids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates = top[:, :k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)

@@ -1,9 +1,9 @@
 """Batched LM serving engine: prefill, then decode with greedy or
 temperature sampling, shape-bucketed prompts and per-sequence stopping.
 
-Port of ``src/repro/serve/engine.py`` over ``models.lm`` (the decoder-only
-families: dense attention, sliding-window, MLA and MoE, SSM and hybrid). It
-mirrors the reference step for step:
+Port of ``src/repro/serve/engine.py`` over ``models.lm`` (every family:
+dense attention, sliding-window, MLA and MoE, SSM, hybrid and
+encoder-decoder). It mirrors the reference step for step:
 
 * with ``bucket_prompts`` (the default) prompts are right-padded with token
   0 up to ``buckets.bucket_dim(S)``, the serve-wide power-of-two grid, and
@@ -21,19 +21,26 @@ mirrors the reference step for step:
   ``seed``: the same distribution as ``jax.random.categorical``, not the
   same draws (the two generators give different bits);
 * ``eos_id >= 0``: once a sequence has emitted ``eos_id`` it emits only
-  ``eos_id``.
+  ``eos_id``;
+* an encoder-decoder model (whisper) takes its encoder input ``enc`` (B,
+  enc_len, d_model) at the prefill, which runs the encoder once; every
+  decode step reads the cross K/V built there.
 
 One difference, on purpose: the caches grow by layer kind
 (``lm.prefill(..., max_seq=)``). Every attention
-layer's K/V and every MLA layer's c_kv and k_rope, the prologue's too,
+layer's K/V (an ``xattn`` layer's self K/V too) and every MLA layer's c_kv
+and k_rope, the prologue's too,
 grow to the padded prompt plus ``max_new_tokens``; an SSM layer's cache has
-no sequence axis and does not grow. The reference's ``_grow_seq`` pads the
+no sequence axis and does not grow, nor does an ``xattn`` layer's cross
+K/V, which spans the encoder's positions. The reference's ``_grow_seq`` pads the
 first cache axis whose size equals the padded prompt length; an SSM cache
 has no sequence axis, so it pads a head, state or batch axis instead
 whenever one of those sizes equals the padded prompt length, and fails
 (mamba2 at smoke 2 x 12 and full width 4 x 32; zamba2); a stacked MLA cache
 (G, B, S, r) has its batch axis first, so it pads that when B equals the
-padded prompt length.
+padded prompt length; a stacked cross K/V (G, B, enc_len, KV, dh) has its
+batch, head and head-dim axes after the first, so it pads one of those when
+B, KV or dh equals the padded prompt length.
 
 The engine runs on the card unless built with ``device="cpu"``; its
 parameters must already be there. Tokens stay on the device until the
@@ -62,7 +69,6 @@ class ServeConfig:
 
 class Engine:
     def __init__(self, params, cfg, serve_cfg: ServeConfig | None = None, device=None):
-        lm._check_ported(cfg)
         self.device = _device(device, "repro_torch.serve.engine.Engine")
         where = params["final_norm"].device
         if where.type != self.device.type:
@@ -81,17 +87,21 @@ class Engine:
         return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
 
     @torch.no_grad()
-    def generate(self, prompts: np.ndarray, seed: int = 0) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, enc=None, seed: int = 0) -> np.ndarray:
         """prompts: (B, S) int (right-padded with 0 is fine: bucketing pads S
-        up to a power of two). Returns (B, max_new_tokens) int32. (The
-        reference's encoder input comes with the encoder-decoder family.)"""
+        up to a power of two). ``enc``: an encoder-decoder model's frame
+        embeddings (B, enc_len, d_model), numpy or a tensor. Returns (B,
+        max_new_tokens) int32."""
         scfg = self.serve_cfg
         b, s = prompts.shape
         if scfg.bucket_prompts:
             prompts = np.pad(prompts, ((0, 0), (0, bucket_dim(s) - s)), constant_values=0)
         total = prompts.shape[1] + scfg.max_new_tokens
         tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
-        last_logits, caches = lm.prefill(self.params, tokens, self.cfg, max_seq=total)
+        if enc is not None:
+            enc = torch.as_tensor(enc, device=self.device)
+        last_logits, caches = lm.prefill(self.params, tokens, self.cfg, max_seq=total,
+                                         enc_in=enc)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         pos = torch.full((b,), s, dtype=torch.int64, device=self.device)  # true prompt length
         out = []

@@ -300,7 +300,8 @@ def test_forward_logits_match(arch, b, s):
     jcfg, tcfg, jp, tp = _model(arch)
     toks = _tokens(tcfg, b, s, 1)
     lj, _ = jax.jit(lambda p, t: j_lm.forward(p, t, jcfg))(jp, jnp.asarray(toks))
-    lt = t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg)
+    lt, aux = t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg)
+    assert float(aux) == 0.0
     assert lt.shape == (b, s, tcfg.vocab_padded)
     _close(lt, lj, LOGIT_ATOL)
 
@@ -352,7 +353,7 @@ def test_bf16_logits_within_stated_tolerance():
                                    rtol=0, atol=BF16_LOGIT_ATOL)
 
     lj, _ = jax.jit(lambda p, t: j_lm.forward(p, t, jcfg))(jp, jnp.asarray(toks))
-    close(t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg), lj)
+    close(t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg)[0], lj)
     lj, cj = jax.jit(lambda p, t: j_lm.prefill(p, t, jcfg, max_seq=18))(jp, jnp.asarray(toks))
     lt, ct = t_lm.prefill(tp, torch.from_numpy(toks).long(), tcfg, max_seq=18)
     close(lt, lj)
@@ -375,7 +376,7 @@ def test_int8_kv_cache_close_to_unquantized():
     b, s = 2, 16
     tokens = np.asarray(jax.random.randint(jax.random.PRNGKey(1), (b, s), 0, tcfg.vocab))
     tt = torch.from_numpy(tokens).long()
-    full = t_lm.forward(tp, tt, tcfg)
+    full, _ = t_lm.forward(tp, tt, tcfg)
     last, caches = t_lm.prefill(tp, tt[:, : s - 1], tq, max_seq=s)
     assert caches["groups"][0]["pos0"][0].dtype == torch.int8
     dec, caches = t_lm.decode_step(tp, tt[:, s - 1], caches, torch.full((b,), s - 1), tq)
@@ -498,11 +499,3 @@ def test_serve_cli_defaults_to_granite(capsys):
                          "--new-tokens", "3", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert re.search(r"serve_done arch=granite-3-2b batch=2 new_tokens=3 .*tok_per_s=", out)
-
-
-@pytest.mark.parametrize("arch", ["whisper-base"])
-def test_moe_mla_and_encoder_decoder_still_raise(arch):
-    """Only the encoder-decoder family is still missing (MLA and MoE are
-    held by ``tests/test_torch_moe.py``)."""
-    with pytest.raises(t_lm.NotPorted, match="queue 1 item 3"):
-        t_lm.forward({}, torch.zeros((1, 1), dtype=torch.long), t_configs.smoke(arch))

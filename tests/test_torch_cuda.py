@@ -10,7 +10,9 @@ fits that run it); the SSD decode kernel (``ssd_decode``); one threshold
 full-width Mamba2 mixer against the CPU route; and MoE and MLA
 (``models/moe.py``, ``mla_block``; torch ops, no hand kernel) on the card
 against the CPU on the same inputs, the MoE combine bit-equal from call to
-call.
+call; whisper's ``Engine.generate(enc=)`` against the CPU, ``launch.train``
+on the card (whisper-base at full width, granite-3-2b at ``--preset
+100m``), and the trainer's step in place on the card.
 
 Every test here needs a CUDA device and skips without one (the kernels have
 no CPU mode). The file imports neither JAX nor ``repro``, so it runs on a
@@ -784,3 +786,58 @@ def test_engine_moe_families_match_cpu(cuda, arch, layers):
     want = Engine(_to_cpu(params), cfg, ServeConfig(max_new_tokens=8),
                   device="cpu").generate(prompts)
     np.testing.assert_array_equal(got, want)
+
+
+# -- the encoder-decoder family and training: torch ops on the card ------------------
+
+
+def test_whisper_engine_matches_cpu(cuda):
+    """Greedy ``Engine.generate(enc=)`` of whisper-base at full width (1
+    encoder and 1 decoder layer, enc_len 1536, vocab 512) on the card
+    equals the CPU route on the same weights and frames; no hand kernel."""
+    cfg = configs.get("whisper-base").with_overrides(n_layers=1, n_enc_layers=1, vocab=512)
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    enc = rng.standard_normal((4, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    before = sd.LAUNCHES
+    got = Engine(params, cfg, ServeConfig(max_new_tokens=8), device=cuda).generate(prompts, enc=enc)
+    assert sd.LAUNCHES == before
+    want = Engine(_to_cpu(params), cfg, ServeConfig(max_new_tokens=8),
+                  device="cpu").generate(prompts, enc=enc)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch,preset,shape", [("whisper-base", "full", ("2", "32")),
+                                               ("granite-3-2b", "100m", ("8", "128"))])
+def test_launch_train_on_the_card(cuda, arch, preset, shape, capsys):
+    """``launch.train`` with no ``--device``: a few steps on the card, the
+    reference's ``train_done`` line with finite losses."""
+    import re
+
+    from repro_torch.launch import train as t_launch
+
+    assert t_launch.main(["--arch", arch, "--preset", preset, "--steps", "3", "--batch", shape[0],
+                          "--seq", shape[1]]) == 0
+    out = capsys.readouterr().out
+    m = re.search(rf"train_done arch={arch} steps=3 loss_first10=(\S+) loss_last10=(\S+)", out)
+    assert m and all(np.isfinite(float(v)) for v in m.groups())
+
+
+def test_train_step_runs_where_the_parameters_are(cuda):
+    """The trainer's step keeps the parameters and the optimizer state on
+    the card and updates them in place."""
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = configs.smoke("granite-3-2b")
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    ptrs = [params["embed"]["tok"].data_ptr(), params["groups"][0]["pos0"]["ln1"].data_ptr()]
+    state = init_opt_state(params)
+    toks = torch.randint(0, cfg.vocab, (2, 17), device=cuda)
+    step = make_train_step(lambda p, b: lm.train_loss(p, b, cfg), OptimizerConfig(lr=1e-3))
+    params, state, metrics = step(params, state, {"tokens": toks})
+    assert [params["embed"]["tok"].data_ptr(), params["groups"][0]["pos0"]["ln1"].data_ptr()] == ptrs
+    assert all(t.device.type == "cuda" for t in (metrics["loss"], state["step"],
+                                                 state["m"]["embed"]["tok"]))
+    assert np.isfinite(float(metrics["loss"]))

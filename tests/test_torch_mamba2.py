@@ -200,7 +200,8 @@ def test_forward_logits_match(name, b, s):
     jcfg, tcfg, jp, tp = _model(name)
     toks = _tokens(tcfg, b, s, 1)
     lj, _ = jax.jit(lambda p, t: j_lm.forward(p, t, jcfg))(jp, jnp.asarray(toks))
-    lt = t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg)
+    lt, aux = t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg)
+    assert float(aux) == 0.0
     assert lt.shape == (b, s, tcfg.vocab_padded)
     _close(lt, lj, LOGIT_ATOL)
 
@@ -332,12 +333,6 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         t_serve.main(["--arch", "mamba2-370m", "--batch", "1", "--prompt-len", "2",
                       "--new-tokens", "1"])
-
-
-@pytest.mark.parametrize("arch", ["whisper-base"])
-def test_unported_families_raise(arch):
-    with pytest.raises(t_lm.NotPorted, match="queue 1 item 3"):
-        t_lm.init_params(t_configs.smoke(arch), device="cpu")
 
 
 def test_serve_cli_prints_the_reference_line(capsys):

@@ -453,10 +453,11 @@ def test_forward_logits_match(arch, b, s):
     a one-token sequence takes the materialized form."""
     jcfg, tcfg, jp, tp = _model(arch)
     toks = _tokens(tcfg, b, s, 1)
-    lj, _ = jax.jit(lambda p, t: j_lm.forward(p, t, jcfg))(jp, jnp.asarray(toks))
-    lt = t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg)
+    lj, aux_j = jax.jit(lambda p, t: j_lm.forward(p, t, jcfg))(jp, jnp.asarray(toks))
+    lt, aux = t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg)
     assert lt.shape == (b, s, tcfg.vocab_padded)
     _close(lt, lj, LOGIT_ATOL)
+    _close(aux, aux_j)
 
 
 @pytest.mark.parametrize("arch,b,s", [(DEEPSEEK, 2, 12), (LLAMA4, 2, 12), (DEEPSEEK, 2, 80)])
@@ -514,7 +515,7 @@ def test_decode_after_forward_matches_forward_logits():
     _, tcfg, _, tp = _model(DEEPSEEK)
     b, s = 2, 14
     toks = torch.from_numpy(_tokens(tcfg, b, s + 1, 9)).long()
-    full = t_lm.forward(tp, toks, tcfg)
+    full, _ = t_lm.forward(tp, toks, tcfg)
     _, caches = t_lm.prefill(tp, toks[:, :s], tcfg, max_seq=s + 1)
     dec, _ = t_lm.decode_step(tp, toks[:, s], caches, torch.full((b,), s), tcfg)
     _close(dec, full[:, s], LOGIT_ATOL)
@@ -574,7 +575,7 @@ def test_bf16_logits_within_stated_tolerance(arch, monkeypatch):
         _bf16_close(got[held], np.asarray(want)[held])
 
     lj, _ = j_lm.forward(jp, jnp.asarray(toks), jcfg)
-    close(t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg), lj)
+    close(t_lm.forward(tp, torch.from_numpy(toks).long(), tcfg)[0], lj)
     flipped.clear()
     lj, cj = j_lm.prefill(jp, jnp.asarray(toks), jcfg, max_seq=s + 2)
     lt, ct = t_lm.prefill(tp, torch.from_numpy(toks).long(), tcfg, max_seq=s + 2)
