@@ -211,7 +211,32 @@ Phases, each printed on its own line:
     the losses within ``RESUME_LOSS_RTOL``. With ``--profile``, the device
     kernels and busy share of one whisper ``generate`` and of one granite
     training step.
-19. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
+19. Sharded training (``dist/sharding.py``, ``launch.train --data-shards
+    --model-shards``; torch ops and collectives, no hand kernel). Ranks are
+    processes started here (``spawn``), one set per grid running its jobs
+    in turn (``[sharded_ranks]``: the grid's seconds), one card each under
+    NCCL when the machine has a card per rank, else all on the one card
+    over gloo with CUDA tensors (``backend=``, ``cards=``); a rank that
+    fails or outlives ``RANK_TIMEOUT`` fails the phase. Under gloo each set
+    first checks that its ``all_reduce``, ``all_gather`` and ``broadcast``
+    take CUDA tensors (``[gloo_cuda_probe]``). ``[granite_train_tp]``:
+    granite-3-2b at full width and depth through ``launch.train.run`` with
+    ``--model-shards 2`` and its defaults (8 × 128, lr 3e-4, 20 warmup
+    steps), 4 steps: per-rank peak GB, seconds per step, tokens/s, the
+    seconds inside collectives, and the losses beside ``[granite_train]``'s
+    (the same weights and batches; each within ``BF16_LOSS_ATOL``).
+    ``[train_sharded_hold]``: granite at full width cut to 2 layers, 4 ×
+    128, float32, at (data, model) = (1, 2), (2, 1), (2, 2) with ZeRO-1
+    where data > 1: the loss, every gathered gradient and every parameter
+    after one AdamW step against the one-rank run on the card, within
+    ``SHARD_TOL`` of each leaf's norm. ``[deepseek_ep_hold]``: deepseek at
+    full width, the prologue and 2 MoE groups in float32, 4 × 128 (T·k =
+    3072: capacity drops), at (1, 2) (experts and MLA heads split) and (2,
+    1) (global routing): the routing of every MoE layer against the
+    one-rank run's (a flip only at a ``ROUTE_TOL`` near-tie,
+    ``[routing_near_tie]``), then the loss and every gathered gradient
+    within ``SHARD_TOL``. Each job prints its seconds (``job_s``).
+20. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them, the decode
     kernel's zamba2 launches), its error against the plain version, its
     time, the plain version's time and its bound.
@@ -231,12 +256,15 @@ import ctypes
 import functools
 import json
 import math
+import multiprocessing as mp
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -280,7 +308,13 @@ from repro_torch.launch.train import preset_config  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train.optimizer import OptimizerConfig, adamw_update, init_opt_state  # noqa: E402
 from repro_torch.train.trainer import TrainerConfig, loss_and_grads, make_train_step, train  # noqa: E402
-from repro_torch.utils.tree import param_count, tree_leaves, tree_map, tree_unflatten  # noqa: E402
+from repro_torch.utils.tree import (  # noqa: E402
+    param_count,
+    tree_flatten_with_names,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 # Kernel against plain: the same root, and per live row the error bound of
 # fused_score.score_tolerance — float32 rounding of each entropy carried
@@ -2530,9 +2564,9 @@ def capture_moe(fn):
     it runs recorded, in call order. Returns (fn's result, the calls)."""
     calls, orig = [], moe._moe_local
 
-    def spy(params, x2d, cfg, *rest):
+    def spy(params, x2d, cfg, *rest, **kw):
         calls.append((params["router"], x2d))
-        return orig(params, x2d, cfg, *rest)
+        return orig(params, x2d, cfg, *rest, **kw)
 
     moe._moe_local = spy
     try:
@@ -2896,6 +2930,7 @@ def phase_granite_train(dev, gpu, profile=False):
         saved_gb_no_remat=f"{mem[False][0]:.3f}", grad_peak_gb_remat=f"{mem[True][1]:.3f}",
         grad_peak_gb_no_remat=f"{mem[False][1]:.3f}",
         losses=",".join(f"{v:.4f}" for v in losses), step0_bound=f"{bound:.4f}", gpu=f"'{gpu}'")
+    return losses
 
 
 def phase_granite_train_hold(dev, gpu):
@@ -2988,6 +3023,425 @@ def phase_train_resume(dev, gpu):
         deterministic_algorithms=torch.are_deterministic_algorithms_enabled(),
         losses=",".join(f"{v:.5f}" for v in got), uninterrupted=",".join(f"{v:.5f}" for v in want),
         gpu=f"'{gpu}'")
+
+
+# ---------------------------------------------------------------------------
+# sharded training (dist/sharding.py, launch.train --data-shards/--model-shards)
+# ---------------------------------------------------------------------------
+
+# [granite_train_tp]: launch.train's defaults at --model-shards 2.
+TP_ARGV = ("--arch", "granite-3-2b", "--preset", "full", "--steps", str(TRAIN_STEPS),
+           "--model-shards", "2")
+# [train_sharded_hold]: granite at full width cut to SHARD_CUT layers, a
+# batch of SHARD_B x TRAIN_SEQ, float32 without the bfloat16 cast; the
+# sharded loss within rtol SHARD_TOL of the one-rank run's, each gathered
+# gradient and each parameter after one AdamW step within SHARD_TOL of the
+# one-rank leaf's norm (the CPU tests' float32 tolerance: the grids' sums
+# split over ranks round apart, tests/test_torch_tp.py).
+SHARD_CUT, SHARD_B, SHARD_TOL = 2, 4, 1e-5
+SHARD_GRIDS = ((1, 2), (2, 1), (2, 2))
+# [deepseek_ep_hold]: the prologue and DEEPSEEK_CUT_GROUPS MoE groups, a
+# batch of SHARD_B x TRAIN_SEQ, at these grids (the (2, 2) local-capacity
+# form is held on the CPU against the reference, tests/test_torch_tp.py).
+EP_GRIDS = ((1, 2), (2, 1))
+# Seconds a set of ranks may take before the phase fails.
+RANK_TIMEOUT = 600
+# The ranks' device.
+RANK_DEVICE = "cuda"
+
+
+def rank_main(rank, world, init, backend, jobs, out):
+    """One rank of the sharded phases (a ``spawn`` process): its card, the
+    process group, gloo's probe on CUDA tensors (under gloo), then each
+    ``(job, kwargs)`` of ``jobs`` in turn, timed; the results, or the
+    traceback, written under ``out``."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        if RANK_DEVICE == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        import torch.distributed as dist
+
+        dist.init_process_group(backend, init_method=init, rank=rank, world_size=world)
+        try:
+            results = [gloo_cuda_probe() if backend == "gloo" else None]
+            for job, kwargs in jobs:
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = RANK_JOBS[job](**kwargs)
+                res["job_s"] = time.perf_counter() - t0
+                results.append(res)
+                free()
+        finally:
+            dist.destroy_process_group()
+        with open(os.path.join(out, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    except BaseException:
+        with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_ranks(jobs: list, world: int, timeout: float = RANK_TIMEOUT):
+    """``jobs`` (``(job, kwargs)`` of ``RANK_JOBS``) on ``world`` rank
+    processes: NCCL with one card per rank when the machine has that many,
+    else gloo with every rank on the one card. Returns (each rank's
+    [probe, then one result per job], backend, cards used). A rank that
+    fails or outlives ``timeout`` fails the phase, and every rank still
+    running is stopped."""
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= world else "gloo"
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out:
+        init = "file://" + os.path.join(out, "init")
+        procs = [ctx.Process(target=rank_main, args=(r, world, init, backend, jobs, out))
+                 for r in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + timeout
+        for proc in procs:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+        errors = [open(os.path.join(out, f"rank{r}.err")).read() for r in range(world)
+                  if os.path.exists(os.path.join(out, f"rank{r}.err"))]
+        names = [job for job, _ in jobs]
+        check(not hung, f"{names}: ranks {hung} still running after {timeout} s")
+        check(not errors and all(p.exitcode == 0 for p in procs),
+              f"{names}: rank exit codes {[p.exitcode for p in procs]}\n" + "\n".join(errors))
+        results = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+    return results, backend, cards if backend == "nccl" else 1
+
+
+def gloo_cuda_probe() -> dict:
+    """gloo's ``all_reduce``, ``all_gather`` and ``broadcast`` on CUDA
+    tensors of this rank: each result where it belongs and right."""
+    import torch.distributed as dist
+
+    r, w = dist.get_rank(), dist.get_world_size()
+    x = torch.full((1024,), float(r + 1), device=RANK_DEVICE)
+    dist.all_reduce(x)
+    parts = [torch.empty(4, device=RANK_DEVICE) for _ in range(w)]
+    dist.all_gather(parts, torch.full((4,), float(r), device=RANK_DEVICE))
+    y = torch.full((8,), float(r + 7), device=RANK_DEVICE)
+    dist.broadcast(y, src=0)
+    on = lambda t: t.device.type == RANK_DEVICE  # noqa: E731
+    return {"all_reduce": bool((x == w * (w + 1) / 2).all()) and on(x),
+            "all_gather": all(bool((p == i).all()) and on(p) for i, p in enumerate(parts)),
+            "broadcast": bool((y == 7.0).all()) and on(y)}
+
+
+class CollectiveClock:
+    """Seconds inside ``torch.distributed``'s ``all_reduce`` and
+    ``all_gather`` while installed. Under gloo a collective returns when it
+    is done on the host, so the card is synchronized before each call (its
+    queued work is not the collective's) and the host clock read around
+    it; under NCCL CUDA events on the current stream time it."""
+
+    def __init__(self, backend: str):
+        self.backend, self.host_s, self.events, self.calls = backend, 0.0, [], 0
+        self.saved = {}
+
+    def wrap(self, fn):
+        def timed(*args, **kwargs):
+            self.calls += 1
+            if self.backend == "gloo":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.host_s += time.perf_counter() - t0
+                return out
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+        return timed
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        for name in ("all_reduce", "all_gather"):
+            self.saved[name] = getattr(dist, name)
+            setattr(dist, name, self.wrap(self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self.saved.items():
+            setattr(dist, name, fn)
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return self.host_s + sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+
+def rank_tp_train(argv):
+    """[granite_train_tp] on this rank: ``launch.train.run`` on ``argv``,
+    the collectives' seconds at the end of each step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as train_cli
+
+    backend = dist.get_backend()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    clock = CollectiveClock(backend)
+    at_step = []
+    with clock:
+        history, params, cfg, rank = train_cli.run(
+            train_cli.parser().parse_args(list(argv)),
+            hooks=[lambda step, p, m: at_step.append((clock.seconds(), clock.calls))])
+    return {"losses": [h["loss"] for h in history], "dts": [h["dt"] for h in history],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launched": counts(),
+            "params_m": param_count(params) / 1e6, "collective_s": at_step, "rank": rank}
+
+
+def hold_leaves(got, want, names) -> tuple[float, str]:
+    """The largest ||got - want|| / ||want|| over the leaves (float64), and
+    the leaf's name."""
+    worst = (0.0, "")
+    for g, w, name in zip(got, want, names):
+        w64 = w.double()
+        worst = max(worst, (float((g.double() - w64).norm()) / max(float(w64.norm()), 1e-30), name))
+    return worst
+
+
+def sharded_and_one_rank(cfg, batch_size: int, grid, with_step: bool):
+    """On this rank: ``cfg``'s float32 loss and gradients under ``make_rules``
+    on a ``(data, model) = grid`` mesh, the gradients gathered; then on rank
+    0 the one-rank run from the same weights and tokens, every MoE layer's
+    (router, input) recorded on both sides. With ``with_step``, the split
+    hold of the update: rank 0 broadcasts the one-rank gradients, and each
+    rank runs ``adamw_update`` on its shards of them from fresh parameter
+    shards, with ZeRO-1 over ``data``; the parameters gathered, beside the
+    one-rank update on the same gradients. Returns (sharded, one-rank) on
+    rank 0, (sharded, None) elsewhere."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import (
+        NO_SHARDING, P, average_over_batch_, gather_shard, local_shard, make_rules)
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device(RANK_DEVICE)
+    mesh = make_local_mesh(*grid, device_type=RANK_DEVICE)
+    rules = make_rules(cfg, mesh)
+    specs = lm.param_specs(cfg)
+    spec_leaves = tree_leaves(specs)
+    toks = TokenStream(vocab=cfg.vocab, batch=batch_size, seq_len=TRAIN_SEQ, seed=0).batch_at(0)
+    full_batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev)}
+    batch = {"tokens": local_shard(full_batch["tokens"], P(tuple(rules.batch_axes)), rules)}
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=0)
+    rank0 = dist.get_rank() == 0
+
+    def grads_of(rules_, batch_):
+        params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=rules_)
+        fn = lambda p, b: lm.train_loss(p, b, cfg, rules_)  # noqa: E731
+        (loss, grads), calls = capture_moe(lambda: loss_and_grads(fn, params, batch_, False))
+        average_over_batch_(grads, rules_)
+        return float(loss), grads, calls
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, calls = grads_of(rules, batch)
+    grads = [gather_shard(g, s, rules) for g, s in zip(grads, spec_leaves)]
+    torch.cuda.synchronize()
+    sharded = {"loss": loss, "grads": grads, "calls": calls,
+               "seconds": time.perf_counter() - t0, "rules": (rules.batch_axes, rules.model_axis),
+               "names": [name for name, _ in tree_flatten_with_names(specs)],
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    one = None
+    if rank0:
+        loss, one_grads, calls = grads_of(NO_SHARDING, full_batch)
+        one = {"loss": loss, "grads": one_grads, "calls": calls}
+    if with_step:
+        given = one["grads"] if rank0 else [torch.empty_like(g) for g in grads]
+        for g in given:
+            dist.broadcast(g, src=0)
+        params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=rules)
+        state = init_opt_state(params, specs, rules)
+        shards = [local_shard(g, s, rules) for g, s in zip(given, spec_leaves)]
+        with torch.no_grad():
+            adamw_update(opt, params, tree_unflatten(params, shards), state, specs=specs,
+                         rules=rules)
+        sharded["params"] = [gather_shard(p, s, rules)
+                             for p, s in zip(tree_leaves(params), spec_leaves)]
+        sharded["moments_sliced"] = sum(m.shape != p.shape for m, p in
+                                        zip(tree_leaves(state["m"]), tree_leaves(params)))
+        if rank0:
+            params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+            with torch.no_grad():
+                adamw_update(opt, params, tree_unflatten(params, given), init_opt_state(params))
+            one["params"] = tree_leaves(params)
+    if not rank0:
+        return {"loss": sharded["loss"]}, None
+    return sharded, one
+
+
+def rank_sharded_hold(grid):
+    """[train_sharded_hold] on this rank (the result on rank 0)."""
+    cfg = configs.get("granite-3-2b").with_overrides(n_layers=SHARD_CUT)
+    sharded, one = sharded_and_one_rank(cfg, SHARD_B, grid, with_step=True)
+    if one is None:
+        return sharded
+    excess = max(float(((a.double() - b.double()).abs() - OPT_RTOL * b.double().abs()
+                        - OPT_ATOL).max()) for a, b in zip(sharded["params"], one["params"]))
+    return {"loss": sharded["loss"], "one_loss": one["loss"],
+            "grad_ratio": hold_leaves(sharded["grads"], one["grads"], sharded["names"]),
+            "param_max_abs_diff": max(float((a - b).abs().max())
+                                      for a, b in zip(sharded["params"], one["params"])),
+            "param_excess": excess, "moments_sliced": sharded["moments_sliced"],
+            "leaves": len(one["grads"]), "params_m": param_count(one["params"]) / 1e6,
+            "seconds": sharded["seconds"], "peak_gb": sharded["peak_gb"], "rules": sharded["rules"]}
+
+
+def rank_ep_hold(grid):
+    """[deepseek_ep_hold] on this rank (the result on rank 0): the routing
+    of each MoE call against the one-rank run's, then the loss and the
+    gathered gradients."""
+    cfg = configs.get("deepseek-v2-lite-16b")
+    cfg = cfg.with_overrides(n_layers=cfg.first_dense_layers + DEEPSEEK_CUT_GROUPS,
+                             dtype="float32")
+    sharded, one = sharded_and_one_rank(cfg, SHARD_B, grid, with_step=False)
+    if one is None:
+        return sharded
+    flips = [(i, routing_differences(rs, xs, ro, xo, cfg.top_k))
+             for i, ((rs, xs), (ro, xo)) in enumerate(zip(sharded["calls"], one["calls"]))]
+    return {"loss": sharded["loss"], "one_loss": one["loss"],
+            "grad_ratio": hold_leaves(sharded["grads"], one["grads"], sharded["names"]),
+            "leaves": len(one["grads"]), "params_m": sum(g.numel() for g in one["grads"]) / 1e6,
+            "moe_calls": len(one["calls"]), "tokens": [x.shape[0] for _, x in one["calls"]],
+            "flips": flips, "seconds": sharded["seconds"], "peak_gb": sharded["peak_gb"],
+            "rules": sharded["rules"], "capacity": moe.capacity(one["calls"][0][1].shape[0], cfg)}
+
+
+RANK_JOBS = {"tp_train": rank_tp_train, "sharded_hold": rank_sharded_hold,
+             "ep_hold": rank_ep_hold}
+
+
+def report_granite_train_tp(gpu, grid, ranks, backend, cards, one_rank_losses):
+    """[granite_train_tp]: held against ``[granite_train]``'s losses."""
+    r0 = ranks[0]
+    for r in ranks:
+        check(not any(r["launched"].values()), f"granite_train_tp: kernels launched {r['launched']}")
+        check(r["losses"] == r0["losses"], "granite_train_tp: the ranks' losses differ")
+    losses, dts = r0["losses"], r0["dts"]
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"granite_train_tp: losses {losses}")
+    diffs = [abs(a - b) for a, b in zip(losses, one_rank_losses)]
+    check(max(diffs) <= BF16_LOSS_ATOL, f"granite_train_tp: losses {losses} against one rank's "
+          f"{one_rank_losses}")
+    steady = sum(dts[1:]) / (len(dts) - 1)
+    coll = r0["collective_s"]
+    coll_steady = (coll[-1][0] - coll[0][0]) / (len(coll) - 1)
+    tokens = TRAIN_B * TRAIN_SEQ
+    say("granite_train_tp", arch="granite-3-2b", preset="full", grid="x".join(map(str, grid)),
+        backend=backend, cards=cards, ranks=len(ranks), params_m_per_rank=f"{r0['params_m']:.1f}",
+        batch=TRAIN_B, seq=TRAIN_SEQ, steps=TRAIN_STEPS, kernel_launches=0,
+        first_step_s=f"{dts[0]:.4f}", step_s=",".join(f"{d:.4f}" for d in dts[1:]),
+        tok_per_s=f"{tokens / steady:.1f}",
+        peak_gb_per_rank=",".join(f"{r['peak_gb']:.3f}" for r in ranks),
+        collective_s_per_step=f"{coll_steady:.4f}",
+        collective_share=f"{coll_steady / steady:.3f}",
+        collective_calls_per_step=(coll[-1][1] - coll[0][1]) // (len(coll) - 1),
+        losses=",".join(f"{v:.4f}" for v in losses),
+        one_rank_losses=",".join(f"{v:.4f}" for v in one_rank_losses),
+        loss_max_abs_diff=f"{max(diffs):.3e}", allowed=BF16_LOSS_ATOL,
+        job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
+
+
+def report_train_sharded_hold(gpu, grid, ranks, backend, cards):
+    """[train_sharded_hold] at ``grid``: against the one-rank run on the card."""
+    full = configs.get("granite-3-2b")
+    r0 = ranks[0]
+    check(all(r["loss"] == r0["loss"] for r in ranks), "train_sharded_hold: ranks' losses differ")
+    dloss = abs(r0["loss"] - r0["one_loss"]) / abs(r0["one_loss"])
+    g_ratio, g_leaf = r0["grad_ratio"]
+    check(dloss <= SHARD_TOL, f"train_sharded_hold {grid}: loss {r0['loss']} against "
+          f"{r0['one_loss']}")
+    check(g_ratio <= SHARD_TOL, f"train_sharded_hold {grid}: gradients {g_ratio:.3e} "
+          f"({g_leaf}) of their norms from one rank's")
+    check(r0["param_excess"] <= 0, f"train_sharded_hold {grid}: adamw_update's parameters "
+          f"beyond rtol {OPT_RTOL}, atol {OPT_ATOL} of one rank's")
+    check((r0["moments_sliced"] > 0) == (grid[0] > 1),
+          f"train_sharded_hold {grid}: {r0['moments_sliced']} ZeRO-1 moment slices")
+    say("train_sharded_hold", arch=full.name, reduced=f"n_layers {full.n_layers}->{SHARD_CUT}, "
+        f"batch {TRAIN_B}->{SHARD_B}", grid="x".join(map(str, grid)), backend=backend,
+        cards=cards, zero1=grid[0] > 1, rules=r0["rules"], params_m=f"{r0['params_m']:.1f}",
+        seq=TRAIN_SEQ, dtype="float32", loss=f"{r0['loss']:.6f}",
+        one_rank_loss=f"{r0['one_loss']:.6f}", loss_rel_diff=f"{dloss:.3e}",
+        grad_norm_ratio_max=f"{g_ratio:.3e}", grad_worst_leaf=g_leaf, leaves=r0["leaves"],
+        allowed=SHARD_TOL, zero1_moment_slices=r0["moments_sliced"],
+        adamw_max_abs_diff=f"{r0['param_max_abs_diff']:.3e}", adamw_rtol=OPT_RTOL,
+        adamw_atol=OPT_ATOL, sharded_grads_s=f"{r0['seconds']:.3f}",
+        peak_gb_rank0=f"{r0['peak_gb']:.3f}", job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
+
+
+def report_deepseek_ep_hold(gpu, grid, ranks, backend, cards):
+    """[deepseek_ep_hold] at ``grid``: the routing, then the loss and the
+    gathered gradients, against the one-rank run on the card."""
+    full = configs.get("deepseek-v2-lite-16b")
+    r0 = ranks[0]
+    tag = f"deepseek_ep_hold_{grid[0]}x{grid[1]}"
+    ties = sum(len(hold_flips(tag, call, diffs)) for call, diffs in r0["flips"])
+    check(all(r["loss"] == r0["loss"] for r in ranks), "deepseek_ep_hold: ranks' losses differ")
+    dloss = abs(r0["loss"] - r0["one_loss"]) / abs(r0["one_loss"])
+    g_ratio, g_leaf = r0["grad_ratio"]
+    if not ties:  # the same routing: the same function, held in float32
+        check(dloss <= SHARD_TOL and g_ratio <= SHARD_TOL,
+              f"{tag}: loss {r0['loss']} against {r0['one_loss']}, gradients "
+              f"{g_ratio:.3e} ({g_leaf}) of their norms")
+    say("deepseek_ep_hold", arch=full.name,
+        reduced=f"n_layers {full.n_layers}->{full.first_dense_layers + DEEPSEEK_CUT_GROUPS}",
+        grid="x".join(map(str, grid)), backend=backend, cards=cards, rules=r0["rules"],
+        params_m=f"{r0['params_m']:.1f}", batch=SHARD_B, seq=TRAIN_SEQ, dtype="float32",
+        moe_calls=r0["moe_calls"], tokens_per_call=r0["tokens"][0], capacity=r0["capacity"],
+        routing_near_ties=ties, held=not ties, loss=f"{r0['loss']:.6f}",
+        one_rank_loss=f"{r0['one_loss']:.6f}", loss_rel_diff=f"{dloss:.3e}",
+        grad_norm_ratio_max=f"{g_ratio:.3e}", grad_worst_leaf=g_leaf, leaves=r0["leaves"],
+        allowed=SHARD_TOL, sharded_s=f"{r0['seconds']:.3f}",
+        peak_gb_rank0=f"{r0['peak_gb']:.3f}", job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
+
+
+def phase_sharded_training(gpu, one_rank_losses):
+    """The sharded-training phases: one set of ranks per grid runs its
+    jobs one after another (a rank process pays ~10 s of CUDA start-up on
+    its first products, so the jobs of a grid share it): at (1, 2)
+    ``[granite_train_tp]``, then ``[train_sharded_hold]`` and
+    ``[deepseek_ep_hold]``; at (2, 1) both holds; at (2, 2) the granite
+    hold."""
+    plan = {(1, 2): [("tp_train", {"argv": TP_ARGV})], (2, 1): [], (2, 2): []}
+    for grid in SHARD_GRIDS:
+        plan[grid].append(("sharded_hold", {"grid": grid}))
+    for grid in EP_GRIDS:
+        plan[grid].append(("ep_hold", {"grid": grid}))
+    for grid, jobs in plan.items():
+        t0 = time.perf_counter()
+        ranks, backend, cards = run_ranks(jobs, math.prod(grid))
+        seconds = time.perf_counter() - t0
+        probes = [r[0] for r in ranks]
+        if backend == "gloo":
+            check(all(all(p.values()) for p in probes), f"gloo_cuda_probe: {probes}")
+            say("gloo_cuda_probe", **probes[0], ranks=len(ranks), gpu=f"'{gpu}'")
+        for i, (job, _) in enumerate(jobs, 1):
+            results = [r[i] for r in ranks]
+            if job == "tp_train":
+                report_granite_train_tp(gpu, grid, results, backend, cards, one_rank_losses)
+            elif job == "sharded_hold":
+                report_train_sharded_hold(gpu, grid, results, backend, cards)
+            else:
+                report_deepseek_ep_hold(gpu, grid, results, backend, cards)
+        say("sharded_ranks", grid="x".join(map(str, grid)), ranks=len(ranks), backend=backend,
+            cards=cards, jobs=",".join(job for job, _ in jobs), phase_s=f"{seconds:.1f}",
+            gpu=f"'{gpu}'")
 
 
 # ---------------------------------------------------------------------------
@@ -3322,12 +3776,13 @@ def main() -> int:
     free()
     phase_whisper_serve(dev, gpu, profile)
     free()
-    phase_granite_train(dev, gpu, profile)
+    train_losses = phase_granite_train(dev, gpu, profile)
     free()
     phase_granite_train_hold(dev, gpu)
     free()
     phase_train_resume(dev, gpu)
     free()
+    phase_sharded_training(gpu, train_losses)
     err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
     launches_sq = phase_fit_hopper(dev, gpu, core)
     phase_causal_order_host(dev, gpu, core)

@@ -1,20 +1,65 @@
-"""Sharding rules: the mesh dimensions the batch and the samples shard over.
+"""Sharding rules: the mapping from (config, mesh) to the dimensions each
+tensor shards over, and the collectives of explicit tensor and data
+parallelism over ``torch.distributed``.
 
-The port's part of the JAX package's ``dist/sharding.py``: the axis
-assignment of ``ShardingRules`` and ``make_rules``, read from a mesh's
-dimension sizes. Dimensions ``pod``, ``data`` and ``ring`` are batch
-(data-parallel) dimensions; ``model`` is the tensor-parallel dimension of
-the model families and the sample dimension of the messaging ring.
+Port of the JAX package's ``dist/sharding.py``. Mesh dimensions ``pod``,
+``data`` and ``ring`` are batch (data-parallel) dimensions; ``model`` is
+the tensor-parallel dimension of the model families (and the sample
+dimension of the messaging ring). ``ShardingRules`` keeps the reference's
+fields and its ``spec`` verbatim: a spec (``P``) is a tuple with one entry
+per tensor dimension, each None, a dimension name or a tuple of names, and
+an axis that does not divide its dimension is dropped.
 
-The rules' ``spec`` and ``act`` (the PartitionSpecs and activation
-constraints of the model families' tensor parallelism) wait for the
-first multi-card LM path (ROADMAP.md queue 1 item 5).
+The JAX package hands the specs to GSPMD, which places the collectives.
+The port places them by hand on the rank's local shards, one process per
+rank:
+
+* ``local_shard`` slices a full tensor to this rank's part of a spec, and
+  ``gather_shard`` (checkpoints, tests) is its inverse;
+* a tensor-parallel region starts with ``copy_to_model`` (identity
+  forward, all-reduce over ``model`` backward) on each replicated tensor
+  that enters it, and ends with ``reduce_from_model`` (all-reduce forward,
+  identity backward) on its partial output. Everything outside a region
+  is replicated over ``model`` and computed alike on every model rank, so
+  its gradients are whole there and need no sum;
+* ``mean_over_batch`` is the mean over the batch dimensions of a value
+  that every batch rank then uses alike (the loss, MoE's router
+  statistics); its backward is the identity, and the trainer averages the
+  gradients over the batch dimensions after the backward;
+* ``gather_batch`` all-gathers this rank's rows over the batch dimensions
+  (MoE's routing over the global batch without a model axis).
+
+The explicit path supports the reference's defaults under a model axis
+(``shard_heads=True``, ``context_parallel=False``, ``fsdp_axes=()``, which
+is all that ``launch.train`` builds): ``check_explicit`` refuses any other.
+Collectives never run over a dimension of size 1. ``NO_SHARDING`` (no
+mesh) turns every helper into the identity, so the same model code runs
+on one device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any
+
+import torch
+import torch.distributed as dist
+
+#: The mesh dimensions a batch shards over, outermost first.
+BATCH_DIMS = ("pod", "data", "ring")
+
+
+class P(tuple):
+    """A PartitionSpec: one entry per tensor dimension, each None, a mesh
+    dimension name, or a tuple of names (the outer name first). A leaf of
+    the port's trees (``utils.tree``), and equal to the plain tuple of its
+    entries."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self):
+        return "P(" + ", ".join(map(repr, self)) + ")"
 
 
 def mesh_sizes(mesh) -> dict:
@@ -31,11 +76,16 @@ def mesh_sizes(mesh) -> dict:
 
 @dataclass(frozen=True)
 class ShardingRules:
-    """The batch and model dimensions of one (config, mesh) pair."""
+    """Per-tensor-kind sharding for one (config, mesh) pair."""
 
     mesh: Any = None
     batch_axes: tuple = ()
     model_axis: str | None = None
+    fsdp_axes: tuple = ()
+    context_parallel: bool = False
+    shard_heads: bool = True
+
+    # -- axis sizes ---------------------------------------------------------
 
     @property
     def model_size(self) -> int:
@@ -50,6 +100,57 @@ class ShardingRules:
         for a in self.batch_axes:
             n *= sizes.get(a, 1)
         return n
+
+    # -- activation specs ---------------------------------------------------
+
+    def spec(self, shape: tuple, kind: str) -> P:
+        """The spec of an activation of ``shape`` and ``kind``.
+
+        Kinds (see call sites in models/):
+          act       (B, S, D)      residual stream
+          ffn       (B, S, F)      gated-MLP hidden
+          logits    (B, S, V)      unembedded logits
+          heads     (B, S, H, dh)  post-RoPE q (and full-rank MLA q/k)
+          kv_heads  (B, S, KV, dh) post-RoPE k/v
+          mla_cache (B, S, r)      MLA latent cache rows
+        Axes that do not divide the corresponding dim are dropped."""
+        b = tuple(self.batch_axes) or None
+        m = self.model_axis
+        seq = m if self.context_parallel else None
+        heads = m if (self.shard_heads and not self.context_parallel) else None
+        table = {
+            "act": (b, seq, None),
+            "ffn": (b, seq, m if not self.context_parallel else None),
+            "logits": (b, seq, m if not self.context_parallel else None),
+            "heads": (b, seq, heads, None),
+            "kv_heads": (b, seq, heads, None),
+            "mla_cache": (b, seq, None),
+        }
+        parts = table.get(kind)
+        if parts is None or len(parts) != len(shape):
+            # Unknown kind / rank mismatch: constrain the batch dim only.
+            parts = (b,) + (None,) * (len(shape) - 1)
+        sizes = mesh_sizes(self.mesh)
+
+        def ok(dim: int, axes) -> bool:
+            if axes is None:
+                return False
+            names = axes if isinstance(axes, tuple) else (axes,)
+            total = 1
+            for a in names:
+                total *= sizes.get(a, 1)
+            return total > 1 and dim % total == 0
+
+        return P(*[a if ok(d, a) else None for d, a in zip(shape, parts)])
+
+    def act(self, x, kind: str):
+        """The identity. The reference constrains a global array's layout
+        here and lets GSPMD move the data; the port's model code already
+        holds this rank's local shard of every activation, laid out as
+        ``spec`` says, and places the collectives itself (the regions'
+        ``copy_to_model``/``reduce_from_model``), so there is nothing to
+        constrain."""
+        return x
 
 
 NO_SHARDING = ShardingRules()
@@ -68,9 +169,237 @@ def make_rules(cfg, mesh, batch_axes: tuple | None = None) -> ShardingRules:
       (expert parallelism needs ``n_experts % size == 0``)."""
     sizes = mesh_sizes(mesh)
     if batch_axes is None:
-        batch_axes = tuple(a for a in ("pod", "data", "ring") if sizes.get(a, 1) > 1)
+        batch_axes = tuple(a for a in BATCH_DIMS if sizes.get(a, 1) > 1)
     model_axis = "model" if sizes.get("model", 1) > 1 else None
     n_experts = getattr(cfg, "n_experts", 0) or 0
     if model_axis is not None and n_experts and n_experts % sizes["model"] != 0:
         model_axis = None
     return ShardingRules(mesh=mesh, batch_axes=tuple(batch_axes), model_axis=model_axis)
+
+
+def check_explicit(rules: ShardingRules):
+    """Refuse what the explicit path does not do: under a model axis only
+    the reference's defaults (heads sharded, no context parallelism, no
+    FSDP)."""
+    if rules.model_axis is None:
+        return
+    if not rules.shard_heads or rules.context_parallel or rules.fsdp_axes:
+        raise NotImplementedError(
+            "the explicit tensor-parallel path shards heads over the model dimension only: "
+            f"shard_heads={rules.shard_heads}, context_parallel={rules.context_parallel}, "
+            f"fsdp_axes={rules.fsdp_axes} are not supported")
+
+
+# ---------------------------------------------------------------------------
+# a rank's place on the mesh, and local shards of full tensors
+# ---------------------------------------------------------------------------
+
+
+def coordinate(rules: ShardingRules) -> dict:
+    """This rank's index along each mesh dimension ({} without a mesh)."""
+    if rules.mesh is None:
+        return {}
+    return dict(zip(rules.mesh.mesh_dim_names, rules.mesh.get_coordinate()))
+
+
+def model_index(rules: ShardingRules) -> int:
+    """This rank's index along the model dimension (0 without one)."""
+    if rules.model_axis is None:
+        return 0
+    return coordinate(rules)[rules.model_axis]
+
+
+def _names(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _active(rules: ShardingRules, entry) -> tuple:
+    """The names of a spec entry this rank's tensors are split over: mesh
+    dimensions of size > 1, and ``model`` only when it is the rules' model
+    axis (``make_rules`` drops it for a MoE config whose experts it does
+    not divide: the weights are then whole on every rank)."""
+    sizes = mesh_sizes(rules.mesh)
+    return tuple(n for n in _names(entry)
+                 if sizes.get(n, 1) > 1 and (n != "model" or rules.model_axis == n))
+
+
+def shard_bounds(rules: ShardingRules, entry, size: int) -> tuple[int, int]:
+    """(start, length) of this rank's block of a dimension of ``size``
+    under a spec entry: block index the mixed-radix index over its names,
+    the first name outermost."""
+    sizes, coord = mesh_sizes(rules.mesh), coordinate(rules)
+    index, count = 0, 1
+    for n in _active(rules, entry):
+        index, count = index * sizes[n] + coord[n], count * sizes[n]
+    if size % count:
+        raise ValueError(f"a dimension of {size} does not split over {count} shards ({entry})")
+    return index * (size // count), size // count
+
+
+def local_shard(t: torch.Tensor, spec, rules: ShardingRules) -> torch.Tensor:
+    """This rank's part of the full tensor ``t`` under ``spec``, as a tensor
+    of its own (a copy when it is a part, so the full tensor can go)."""
+    out = t
+    for dim, entry in enumerate(spec):
+        if _active(rules, entry):
+            start, length = shard_bounds(rules, entry, t.shape[dim])
+            out = out.narrow(dim, start, length)
+    return out if out is t else out.clone(memory_format=torch.contiguous_format)
+
+
+def _all_gather(t: torch.Tensor, dim: int, name: str, rules: ShardingRules) -> torch.Tensor:
+    group = rules.mesh.get_group(name)
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim)
+
+
+def gather_shard(t: torch.Tensor, spec, rules: ShardingRules) -> torch.Tensor:
+    """The full tensor from every rank's ``local_shard`` of it (a
+    collective: every rank of the mesh calls it)."""
+    for dim, entry in enumerate(spec):
+        for name in reversed(_active(rules, entry)):  # the innermost name first
+            t = _all_gather(t, dim, name, rules)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# the collectives of tensor and data parallelism
+# ---------------------------------------------------------------------------
+
+
+def _all_reduce(x: torch.Tensor, names: tuple, rules: ShardingRules, op=None) -> torch.Tensor:
+    """``x`` (a fresh contiguous copy) reduced over the mesh dimensions
+    ``names`` of size > 1, one after another."""
+    x = x.clone(memory_format=torch.contiguous_format)
+    for name in names:
+        if mesh_sizes(rules.mesh).get(name, 1) > 1:
+            dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=rules.mesh.get_group(name))
+    return x
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, (ctx.rules.model_axis,), ctx.rules), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over ``model`` forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, rules):
+        return _all_reduce(x, (rules.model_axis,), rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanOverBatch(torch.autograd.Function):
+    """Mean over the batch dimensions forward; the identity backward (each
+    batch rank differentiates its own part, and the trainer averages the
+    gradients)."""
+
+    @staticmethod
+    def forward(ctx, x, rules):
+        return _all_reduce(x, rules.batch_axes, rules) / rules.batch_shards
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherBatch(torch.autograd.Function):
+    """All-gather of this rank's rows (dim 0) over the batch dimensions,
+    in the order ``local_shard`` cuts them; the backward sums the gathered
+    gradient over the batch dimensions and keeps this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return gather_shard(x, P(tuple(rules.batch_axes)), rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        rules = ctx.rules
+        g = _all_reduce(g, rules.batch_axes, rules)
+        return local_shard(g, P(tuple(rules.batch_axes)), rules), None
+
+
+def copy_to_model(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """Enter a tensor-parallel region (the identity without a model axis)."""
+    return x if rules.model_axis is None else _CopyToModel.apply(x, rules)
+
+
+def reduce_from_model(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """Leave a tensor-parallel region: the sum of the model ranks' partial
+    outputs (the identity without a model axis)."""
+    return x if rules.model_axis is None else _ReduceFromModel.apply(x, rules)
+
+
+def max_over_model(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """The elementwise max over the model ranks, outside autograd."""
+    if rules.model_axis is None:
+        return x
+    return _all_reduce(x.detach(), (rules.model_axis,), rules, op=dist.ReduceOp.MAX)
+
+
+def sum_over_model(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """The sum over the model ranks, outside autograd."""
+    if rules.model_axis is None:
+        return x
+    return _all_reduce(x.detach(), (rules.model_axis,), rules)
+
+
+def mean_over_batch(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """The mean over the batch ranks (the identity without batch axes)."""
+    if rules.batch_shards == 1:
+        return x
+    return _MeanOverBatch.apply(x, rules)
+
+
+def gather_batch(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """Every batch rank's rows of ``x``, this rank's among them."""
+    if rules.batch_shards == 1:
+        return x
+    return _GatherBatch.apply(x, rules)
+
+
+#: Elements of one flat buffer that ``average_over_batch_`` all-reduces.
+FLAT_NUMEL = 1 << 26
+
+
+def average_over_batch_(tensors: list, rules: ShardingRules):
+    """Replace each tensor by its mean over the batch ranks, in place,
+    through all-reduces of flat float32 buffers of at most ``FLAT_NUMEL``
+    elements (a larger tensor alone)."""
+    if rules.batch_shards == 1:
+        return tensors
+    i = 0
+    while i < len(tensors):
+        j, size = i, 0
+        while j < len(tensors) and (j == i or size + tensors[j].numel() <= FLAT_NUMEL):
+            size += tensors[j].numel()
+            j += 1
+        flat = torch.cat([t.reshape(-1).float() for t in tensors[i:j]])
+        flat = _all_reduce(flat, rules.batch_axes, rules) / rules.batch_shards
+        for t, part in zip(tensors[i:j], flat.split([t.numel() for t in tensors[i:j]])):
+            t.copy_(part.view_as(t))
+        i = j
+    return tensors
+
+
+def spec_uses(spec, name: str) -> bool:
+    """Whether any entry of ``spec`` names ``name``."""
+    return any(name in _names(e) for e in spec)

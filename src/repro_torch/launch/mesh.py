@@ -9,9 +9,6 @@ rank (``torch.distributed.init_process_group``: ``nccl`` for CUDA ranks,
 ``gloo`` for CPU ranks, with an explicit ``init_method``, ``rank`` and
 ``world_size``); the mesh's size must equal the world size. Meshes are on
 ``cuda`` unless the caller asks for ``device_type="cpu"``.
-
-``make_production_mesh`` (the 256- and 512-chip TPU pods of the JAX
-package's dry run) has no counterpart: the port's dry run is not ported.
 """
 
 from __future__ import annotations
@@ -19,6 +16,15 @@ from __future__ import annotations
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch.dist.ring import RING_DIMS
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production layout: a ``("data", "model")`` mesh of
+    16 x 16 = 256 ranks, or ``("pod", "data", "model")`` of 2 x 16 x 16 =
+    512 with ``multi_pod``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_local_mesh(data: int = 1, model: int = 1, *, device_type: str = "cuda"):

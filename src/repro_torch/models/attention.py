@@ -12,8 +12,18 @@ gives a uniform row, not NaN.
 There is no TPU kernel behind any of these: the reference computes them
 with jnp ops, and so does the port, with torch ops (no
 ``scaled_dot_product_attention``). The reference's blocked scan is a Python
-loop over the q chunks; its sharding constraints have no counterpart on one
-card (``pick_q_chunk`` runs with one batch shard).
+loop over the q chunks.
+
+Under a model axis (``rules.model_axis``; ``dist.sharding``) the training
+forward is tensor-parallel, with the weights as ``attention_spec`` and
+``mla_spec`` shard them: each rank runs its block of the q heads (``wq``'s
+columns) and ``wo``'s matching rows, and the model ranks' outputs are
+summed. ``wk`` and ``wv`` are sharded only when ``n_kv_heads % 16 == 0``,
+as in the reference; otherwise every rank projects all KV heads and keeps
+those its q heads read under GQA. MLA's ``w_uk`` and ``w_uv`` are
+column-parallel and ``w_dkv`` and ``kv_norm`` replicated. The cached
+forms (prefill's caches, the decode steps) run without a model axis:
+sharded serving is ROADMAP.md queue 1 item 6.
 """
 
 from __future__ import annotations
@@ -22,7 +32,14 @@ import math
 
 import torch
 
-from repro_torch.models.layers import apply_rope, init_dense, init_rmsnorm, rmsnorm
+from repro_torch.dist.sharding import (
+    NO_SHARDING,
+    P,
+    copy_to_model,
+    model_index,
+    reduce_from_model,
+)
+from repro_torch.models.layers import NORM_SPEC, apply_rope, init_dense, init_rmsnorm, rmsnorm
 
 NEG_INF = -2.0**30
 
@@ -41,20 +58,70 @@ def init_attention(gen: torch.Generator, cfg, dtype):
     return params
 
 
+def kv_sharded(cfg) -> bool:
+    """Whether ``wk`` and ``wv`` shard over ``model`` (the reference's rule,
+    ``attention.py:37-38``: only when ``n_kv_heads % 16 == 0``)."""
+    return cfg.n_kv_heads % 16 == 0
+
+
+def attention_spec(cfg):
+    kv = P(None, "model") if kv_sharded(cfg) else P(None, None)
+    spec = {"wq": P(None, "model"), "wk": kv, "wv": kv, "wo": P("model", None)}
+    if cfg.qk_norm:
+        spec["q_norm"] = NORM_SPEC
+        spec["k_norm"] = NORM_SPEC
+    return spec
+
+
+def head_block(n_heads: int, rules=NO_SHARDING) -> tuple[int, int]:
+    """This rank's block ``(lo, hi)`` of ``n_heads`` heads (all of them
+    without a model axis)."""
+    m = rules.model_size
+    if n_heads % m:
+        raise ValueError(f"{n_heads} heads do not split over {m} model ranks")
+    lo = model_index(rules) * (n_heads // m)
+    return lo, lo + n_heads // m
+
+
+def head_blocks(cfg, rules=NO_SHARDING):
+    """This rank's q heads ``(lo, hi)`` and the KV heads ``(lo, hi)`` they
+    read under GQA. Each rank's block of q heads must cover whole KV
+    groups or lie within one."""
+    q_lo, q_hi = head_block(cfg.n_heads, rules)
+    g = cfg.n_heads // cfg.n_kv_heads
+    if (q_hi - q_lo) % g and g % (q_hi - q_lo):
+        raise ValueError(f"{q_hi - q_lo} q heads per rank cut across GQA groups of {g}")
+    return (q_lo, q_hi), (q_lo // g, (q_hi - 1) // g + 1)
+
+
 def _split_heads(x, n, dh):
     b, s, _ = x.shape
     return x.reshape(b, s, n, dh)
 
 
-def qkv(params, x, cfg, positions):
-    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
-    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
+def qkv(params, x, cfg, positions, rules=NO_SHARDING):
+    """q, k, v after the optional qk norms and RoPE. Under a model axis,
+    this rank's q heads and the KV heads they read."""
+    (q_lo, q_hi), (kv_lo, kv_hi) = head_blocks(cfg, rules)
+    xr = copy_to_model(x, rules)
+    dh = cfg.head_dim
+    q = _split_heads(xr @ params["wq"], q_hi - q_lo, dh)
+    whole_kv = rules.model_axis is None or not kv_sharded(cfg)
+    if whole_kv:  # every KV head, computed alike on every model rank
+        k = _split_heads(x @ params["wk"], cfg.n_kv_heads, dh)
+        v = _split_heads(x @ params["wv"], cfg.n_kv_heads, dh)
+    else:
+        k = _split_heads(xr @ params["wk"], kv_hi - kv_lo, dh)
+        v = _split_heads(xr @ params["wv"], kv_hi - kv_lo, dh)
     if cfg.qk_norm:
-        q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, copy_to_model(params["q_norm"], rules), cfg.norm_eps)
+        k_norm = params["k_norm"] if whole_kv else copy_to_model(params["k_norm"], rules)
+        k = rmsnorm(k, k_norm, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if whole_kv and rules.model_axis is not None:
+        k = copy_to_model(k, rules)[:, :, kv_lo:kv_hi]
+        v = copy_to_model(v, rules)[:, :, kv_lo:kv_hi]
     return q, k, v
 
 
@@ -179,8 +246,8 @@ def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     return out.reshape(b, 1, h, dh)
 
 
-def attention_block(params, x, cfg, positions, *, window: int, kv_cache=None,
-                    cache_pos=None, want_cache=True):
+def attention_block(params, x, cfg, positions, rules=NO_SHARDING, *, window: int,
+                    kv_cache=None, cache_pos=None, want_cache=True):
     """Full attention block: qkv -> (cached) attention -> output projection.
 
     With ``cache_pos`` ((B,) int, the position of the one new token) this is
@@ -190,8 +257,13 @@ def attention_block(params, x, cfg, positions, *, window: int, kv_cache=None,
     Otherwise (prefill, forward) it attends over the sequence itself.
     Returns (out, new_kv): the cache written, else the fresh (k, v), or
     their int8 form (values and bf16 scales) when ``cfg.kv_quant ==
-    "int8"``, or None when ``want_cache`` is False (``forward``)."""
-    q, k, v = qkv(params, x, cfg, positions)
+    "int8"``, or None when ``want_cache`` is False (``forward``). Under a
+    model axis (``forward`` only) the output is the sum over the model
+    ranks of their heads' part."""
+    if rules.model_axis is not None and (cache_pos is not None or want_cache):
+        raise NotImplementedError("sharded serving (the caches under a model axis) is "
+                                  "ROADMAP.md queue 1 item 6")
+    q, k, v = qkv(params, x, cfg, positions, rules)
     if cache_pos is not None:
         if cfg.kv_quant == "int8":
             kq, ks, vq, vs = kv_cache
@@ -208,7 +280,7 @@ def attention_block(params, x, cfg, positions, *, window: int, kv_cache=None,
             out = decode_attention(q, k_cache, v_cache, cache_pos + 1, window)
             new_kv = (k_cache, v_cache)
     else:
-        q_chunk = pick_q_chunk(x.shape[0], cfg.n_heads, x.shape[1])
+        q_chunk = pick_q_chunk(x.shape[0], q.shape[2], x.shape[1])
         out = blocked_attention(q, k, v, positions, positions, window, q_chunk)
         if not want_cache:
             new_kv = None
@@ -218,8 +290,8 @@ def attention_block(params, x, cfg, positions, *, window: int, kv_cache=None,
             new_kv = (kq, ks, vq, vs)
         else:
             new_kv = (k, v)
-    out = out.reshape(*x.shape[:2], cfg.q_dim)
-    return out @ params["wo"], new_kv
+    out = out.reshape(*x.shape[:2], q.shape[2] * cfg.head_dim)
+    return reduce_from_model(out @ params["wo"], rules), new_kv
 
 
 def _cache_write(cache, new, pos):
@@ -276,7 +348,13 @@ def init_mla(gen: torch.Generator, cfg, dtype):
     }
 
 
-def mla_block(params, x, cfg, positions, *, kv_cache=None, cache_pos=None, want_cache=True):
+def mla_spec():
+    return {"wq": P(None, "model"), "w_dkv": P(None, None), "w_uk": P(None, "model"),
+            "w_uv": P(None, "model"), "wo": P("model", None), "kv_norm": NORM_SPEC}
+
+
+def mla_block(params, x, cfg, positions, rules=NO_SHARDING, *, kv_cache=None, cache_pos=None,
+              want_cache=True):
     """MLA attention. Cache = (c_kv (B, S, r) after ``kv_norm``, k_rope
     (B, S, dr) after RoPE); ``cfg.kv_quant`` does not apply to it.
 
@@ -290,11 +368,18 @@ def mla_block(params, x, cfg, positions, *, kv_cache=None, cache_pos=None, want_
     dim, ``head_dim``, differs from q's and k's, nope + rope). Returns
     (out, cache), the cache None when not ``want_cache``. The reference
     takes the decode form when S == 1, which routes a one-token prompt
-    wrongly; the port takes it when ``cache_pos`` is given, as elsewhere."""
+    wrongly; the port takes it when ``cache_pos`` is given, as elsewhere.
+    Under a model axis (the materialized form only) this rank's heads:
+    ``c_kv`` and ``k_rope`` are computed alike on every model rank and
+    enter the heads' region."""
+    if rules.model_axis is not None and (cache_pos is not None or want_cache):
+        raise NotImplementedError("sharded serving (the caches under a model axis) is "
+                                  "ROADMAP.md queue 1 item 6")
     b, s, _ = x.shape
-    h, dn, dr, dh, r = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim, cfg.head_dim,
-                        cfg.kv_lora_rank)
-    q = (x @ params["wq"]).reshape(b, s, h, dn + dr)
+    dn, dr, dh, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.head_dim, cfg.kv_lora_rank
+    q_lo, q_hi = head_block(cfg.n_heads, rules)
+    h = q_hi - q_lo
+    q = (copy_to_model(x, rules) @ params["wq"]).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -321,11 +406,13 @@ def mla_block(params, x, cfg, positions, *, kv_cache=None, cache_pos=None, want_
         out = torch.einsum("bhr,rhd->bhd", attn_c, params["w_uv"].reshape(r, h, dh))[:, None]
         new_cache = (c_cache, kr_cache)
     else:
-        k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, dn)
-        v = (c_kv @ params["w_uv"]).reshape(b, s, h, dh)
-        k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        c_in = copy_to_model(c_kv, rules)
+        k_nope = (c_in @ params["w_uk"]).reshape(b, s, h, dn)
+        v = (c_in @ params["w_uv"]).reshape(b, s, h, dh)
+        k_r = copy_to_model(k_rope, rules)
+        k_full = torch.cat([k_nope, k_r[:, :, None, :].expand(b, s, h, dr)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         out = blocked_attention(q_full, k_full, v, positions, positions,
                                 q_chunk=pick_q_chunk(b, h, s))
         new_cache = (c_kv, k_rope) if want_cache else None
-    return out.reshape(b, s, h * dh) @ params["wo"], new_cache
+    return reduce_from_model(out.reshape(b, s, h * dh) @ params["wo"], rules), new_cache

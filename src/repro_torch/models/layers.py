@@ -8,9 +8,18 @@ draws from an explicit ``torch.Generator`` on the target device at the JAX
 package's scales; the numbers differ from ``jax.random``'s, so tests carry
 the JAX package's weights across instead.
 
-``softmax_xent`` is the training loss's token cross-entropy. The JAX
-package's sharding specs and ``rules.act`` constraints have no
-counterpart: the port runs on one card.
+``softmax_xent`` is the training loss's token cross-entropy.
+
+Under a model axis (``rules.model_axis``, explicit tensor parallelism;
+``dist.sharding``) each rank holds its shard of the weights as
+``*_spec`` says: ``mlp`` is column-parallel (``wi_gate``, ``wi_up``) then
+row-parallel (``wo``); ``embed`` is vocab-parallel on ``tok`` (its rows:
+the ids outside this rank's rows read zero, then a sum over the model
+ranks); ``unembed`` gives this rank's columns of the logits, through
+``head`` or through ``tok``'s rows when the embeddings are tied; and
+``softmax_xent`` is the vocab-parallel cross-entropy (the max, the sum of
+exponentials and the target logit reduced over the model ranks). Without
+a model axis every one is the single-device function.
 """
 
 from __future__ import annotations
@@ -19,6 +28,15 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist.sharding import (
+    NO_SHARDING,
+    P,
+    copy_to_model,
+    max_over_model,
+    model_index,
+    reduce_from_model,
+)
 
 
 def init_dense(gen: torch.Generator, shape, in_axis_size: int, dtype):
@@ -30,6 +48,10 @@ def init_dense(gen: torch.Generator, shape, in_axis_size: int, dtype):
 
 def init_rmsnorm(d: int, device):
     return torch.zeros((d,), dtype=torch.float32, device=device)
+
+
+#: The spec of a norm's scale (replicated).
+NORM_SPEC = P(None)
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -81,16 +103,23 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
     }
 
 
-def mlp(params, x, act: str):
+def mlp_spec():
+    return {"wi_gate": P(None, "model"), "wi_up": P(None, "model"), "wo": P("model", None)}
+
+
+def mlp(params, x, act: str, rules=NO_SHARDING):
     """SwiGLU, or GeGLU with the tanh form of GELU (``jax.nn.gelu``'s
-    default ``approximate=True``) when ``act == "geglu"``."""
-    gate = x @ params["wi_gate"]
-    up = x @ params["wi_up"]
+    default ``approximate=True``) when ``act == "geglu"``. Under a model
+    axis ``params`` hold this rank's columns of ``wi_*`` and rows of
+    ``wo``."""
+    xr = copy_to_model(x, rules)
+    gate = xr @ params["wi_gate"]
+    up = xr @ params["wi_up"]
     if act == "geglu":
         h = F.gelu(gate, approximate="tanh") * up
     else:
         h = F.silu(gate) * up
-    return h @ params["wo"]
+    return reduce_from_model(h @ params["wo"], rules)
 
 
 # ---------------------------------------------------------------------------
@@ -107,26 +136,61 @@ def init_embedding(gen: torch.Generator, vocab_padded: int, d_model: int, dtype,
     return params
 
 
-def embed(params, tokens):
-    return params["tok"][tokens]
+def embedding_spec(tie: bool):
+    spec = {"tok": P("model", None)}
+    if not tie:
+        spec["head"] = P(None, "model")
+    return spec
 
 
-def unembed(params, x, vocab: int):
+def _vocab_rows(ids, n_local: int, rules):
+    """(ids within this rank's block of the vocabulary, as local indices
+    clamped into it; the mask of the ids that lie in it)."""
+    local = ids - model_index(rules) * n_local
+    inside = (local >= 0) & (local < n_local)
+    return local.clamp(0, n_local - 1), inside
+
+
+def embed(params, tokens, rules=NO_SHARDING):
+    """The token embeddings. Under a model axis ``tok`` holds this rank's
+    rows of the vocabulary: the ids outside them read zero, and the sum
+    over the model ranks gives every row from the one rank that has it."""
+    tok = params["tok"]
+    if rules.model_axis is None:
+        return tok[tokens]
+    local, inside = _vocab_rows(tokens, tok.shape[0], rules)
+    rows = torch.where(inside[..., None], tok[local], 0)
+    return reduce_from_model(rows, rules)
+
+
+def unembed(params, x, vocab: int, rules=NO_SHARDING):
     """Logits over the padded vocabulary, the padding masked to the float32
-    minimum so that neither argmax nor a softmax ever picks it."""
-    logits = x @ params["head"] if "head" in params else x @ params["tok"].T
-    v_pad = logits.shape[-1]
-    if v_pad != vocab:
+    minimum so that neither argmax nor a softmax ever picks it. Under a
+    model axis, this rank's columns of them (``head``'s columns, or
+    ``tok``'s rows when the embeddings are tied), the padding masked by
+    its global column."""
+    xr = copy_to_model(x, rules)
+    logits = xr @ params["head"] if "head" in params else xr @ params["tok"].T
+    n_local = logits.shape[-1]
+    if n_local * rules.model_size != vocab:
         neg = torch.finfo(torch.float32).min
-        pad_mask = torch.arange(v_pad, device=logits.device) >= vocab
-        logits = torch.where(pad_mask, neg, logits.float()).to(logits.dtype)
+        cols = model_index(rules) * n_local + torch.arange(n_local, device=logits.device)
+        logits = torch.where(cols >= vocab, neg, logits.float()).to(logits.dtype)
     return logits
 
 
-def softmax_xent(logits, labels, vocab: int):
+def softmax_xent(logits, labels, vocab: int, rules=NO_SHARDING):
     """Mean token cross-entropy; logits upcast to float32; labels < vocab
-    (the padded columns hold the float32 minimum and add nothing)."""
+    (the padded columns hold the float32 minimum and add nothing). The
+    log-sum-exp is ``torch.logsumexp``'s (the max, then the log of the sum
+    of the shifted exponentials, plus the max). Under a model axis
+    ``logits`` are this rank's columns: the max, the sum of the
+    exponentials and the target logit are reduced over the model ranks."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    top = max_over_model(logits.detach().amax(dim=-1), rules)
+    sumexp = reduce_from_model(torch.exp(logits - top[..., None]).sum(dim=-1), rules)
+    lse = top + torch.log(sumexp)
+    local, inside = _vocab_rows(labels.long(), logits.shape[-1], rules)
+    gold = torch.gather(logits, -1, local[..., None])[..., 0]
+    gold = reduce_from_model(torch.where(inside, gold, 0.0), rules)
     return torch.mean(lse - gold)

@@ -36,13 +36,24 @@ token cross-entropy. Under ``cfg.remat`` a training forward
 (``_best_outer``) or per group. A training forward builds no caches: the
 decode steps write K/V in place, which must never happen under autograd.
 
-The JAX package's ``rules`` (mesh sharding of activations, params and
-caches: ``param_specs``, ``cache_specs``, MoE's ``shard_map`` branch) have
-no counterpart yet: the port runs on one card (ROADMAP.md queue 1 item 5).
+``param_specs`` and ``cache_specs`` give the reference's sharding specs
+leaf for leaf (``dist.sharding.P``), without its stack axis: the groups'
+specs are a list, as the groups are. ``forward`` and ``train_loss`` take
+the reference's ``rules``: each rank holds its rows of the batch and, under
+a model axis, its shard of the weights (``init_params(rules=)`` slices
+each layer as soon as it is drawn), and the layers run tensor-parallel
+(``layers``, ``attention``, ``moe``); ``train_loss`` is the mean over the
+batch ranks. Tensor parallelism covers the dense attention, MLA and MoE
+kinds; under a model axis the ``ssm``, ``hybrid_attn`` and
+encoder-decoder kinds raise (ROADMAP.md queue 1 item 7), and data
+parallelism (batch axes alone) runs every family. ``prefill`` and
+``decode_step`` run on one device: sharded serving with the caches laid
+out by ``cache_specs`` is ROADMAP.md queue 1 item 6.
 
-Entry points: ``init_params``, ``init_cache``, ``forward``, ``train_loss``,
-``prefill``, ``decode_step``. They run where the parameters are
-(``init_params`` puts them on the card unless asked for the CPU).
+Entry points: ``init_params``, ``param_specs``, ``init_cache``,
+``cache_specs``, ``forward``, ``train_loss``, ``prefill``,
+``decode_step``. They run where the parameters are (``init_params`` puts
+them on the card unless asked for the CPU).
 """
 
 from __future__ import annotations
@@ -51,21 +62,33 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.paralingam import _device
+from repro_torch.dist.sharding import (
+    NO_SHARDING,
+    P,
+    ShardingRules,
+    check_explicit,
+    local_shard,
+    mean_over_batch,
+)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (
+    NORM_SPEC,
     embed,
+    embedding_spec,
     init_dense,
     init_embedding,
     init_mlp,
     init_rmsnorm,
     mlp,
+    mlp_spec,
     rmsnorm,
     softmax_xent,
     unembed,
 )
+from repro_torch.utils.tree import tree_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -76,6 +99,8 @@ ATTN_KINDS = ("attn", "attn_w", "attn_moe", "hybrid_attn")
 MLA_KINDS = ("mla", "mla_moe")
 #: Layer kinds with an MoE FFN in place of the MLP.
 MOE_KINDS = ("attn_moe", "mla_moe")
+#: Layer kinds without tensor parallelism (ROADMAP.md queue 1 item 7).
+NO_TP_KINDS = ("ssm", "hybrid_attn", "enc", "xattn")
 
 
 # ---------------------------------------------------------------------------
@@ -132,34 +157,101 @@ def _init_layer(gen, kind: str, cfg: ArchConfig, dtype):
     return params
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None):
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
+                rules: ShardingRules = NO_SHARDING):
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     the target device (the card unless ``device="cpu"``), at the JAX
-    package's scales. ``dtype`` defaults to ``cfg.dtype``."""
+    package's scales. ``dtype`` defaults to ``cfg.dtype``. With a mesh in
+    ``rules`` every rank draws the same full weights, one layer at a time,
+    and keeps only its shard of each (``param_specs``): no rank holds the
+    whole tree."""
     dev = _device(device, "repro_torch.models.lm.init_params")
     dtype = dtype or _DTYPES[cfg.dtype]
     gen = torch.Generator(device=dev).manual_seed(seed)
     layout = group_layout(cfg)
+    specs = param_specs(cfg)
+
+    def keep(tree, spec):
+        if rules.mesh is None:
+            return tree
+        return tree_map(lambda t, sp: local_shard(t, sp, rules), tree, spec)
+
     params = {
-        "embed": init_embedding(gen, cfg.vocab_padded, cfg.d_model, dtype, cfg.tie_embeddings),
+        "embed": keep(init_embedding(gen, cfg.vocab_padded, cfg.d_model, dtype,
+                                     cfg.tie_embeddings), specs["embed"]),
         "final_norm": init_rmsnorm(cfg.d_model, dev),
-        "groups": [{f"pos{i}": _init_layer(gen, kind, cfg, dtype)
-                    for i, kind in enumerate(layout)} for _ in range(cfg.n_groups)],
+        "groups": [{f"pos{i}": keep(_init_layer(gen, kind, cfg, dtype), gs[f"pos{i}"])
+                    for i, kind in enumerate(layout)} for gs in specs["groups"]],
     }
     for i, kind in enumerate(prologue_layout(cfg)):
-        params[f"prologue{i}"] = _init_layer(gen, kind, cfg, dtype)
+        params[f"prologue{i}"] = keep(_init_layer(gen, kind, cfg, dtype), specs[f"prologue{i}"])
     if cfg.family == "hybrid":
-        params["shared"] = {"ln1": init_rmsnorm(cfg.d_model, dev),
-                            "attn": attn.init_attention(gen, cfg, dtype),
-                            "ln2": init_rmsnorm(cfg.d_model, dev),
-                            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)}
+        params["shared"] = keep({"ln1": init_rmsnorm(cfg.d_model, dev),
+                                 "attn": attn.init_attention(gen, cfg, dtype),
+                                 "ln2": init_rmsnorm(cfg.d_model, dev),
+                                 "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)},
+                                specs["shared"])
     if cfg.enc_dec:
-        params["enc_groups"] = [_init_layer(gen, "enc", cfg, dtype)
-                                for _ in range(cfg.n_enc_layers)]
+        params["enc_groups"] = [keep(_init_layer(gen, "enc", cfg, dtype), es)
+                                for es in specs["enc_groups"]]
         params["enc_norm"] = init_rmsnorm(cfg.d_model, dev)
         params["enc_pos"] = (torch.randn((cfg.enc_len, cfg.d_model), generator=gen, device=dev)
                              * 0.02).to(dtype)
     return params
+
+
+def _layer_spec(kind: str, cfg: ArchConfig):
+    spec = {"ln1": NORM_SPEC}
+    if kind == "ssm":
+        spec["ssm"] = ssm_mod.mamba2_spec()
+        return spec
+    if kind == "hybrid_attn":
+        spec["proj"] = P(None, None)
+        return spec
+    spec["attn"] = attn.mla_spec() if kind in MLA_KINDS else attn.attention_spec(cfg)
+    if kind == "xattn":
+        spec["ln_x"] = NORM_SPEC
+        spec["xattn"] = attn.attention_spec(cfg)
+    spec["ln2"] = NORM_SPEC
+    if kind in MOE_KINDS:
+        spec["moe"] = moe_mod.moe_spec(cfg)
+    else:
+        spec["mlp"] = mlp_spec()
+    return spec
+
+
+def param_specs(cfg: ArchConfig):
+    """The sharding spec of every leaf of ``init_params``' tree, in its
+    structure (the groups' specs a list): the reference's specs without
+    their stack axis."""
+    layout = group_layout(cfg)
+    specs = {"embed": embedding_spec(cfg.tie_embeddings), "final_norm": NORM_SPEC,
+             "groups": [{f"pos{i}": _layer_spec(kind, cfg) for i, kind in enumerate(layout)}
+                        for _ in range(cfg.n_groups)]}
+    for i, kind in enumerate(prologue_layout(cfg)):
+        specs[f"prologue{i}"] = _layer_spec(kind, cfg)
+    if cfg.family == "hybrid":
+        specs["shared"] = {"ln1": NORM_SPEC, "attn": attn.attention_spec(cfg), "ln2": NORM_SPEC,
+                           "mlp": mlp_spec()}
+    if cfg.enc_dec:
+        specs["enc_groups"] = [_layer_spec("enc", cfg) for _ in range(cfg.n_enc_layers)]
+        specs["enc_norm"] = NORM_SPEC
+        specs["enc_pos"] = P(None, None)
+    return specs
+
+
+def check_rules(cfg: ArchConfig, rules: ShardingRules):
+    """Refuse what the explicit path does not run: tensor parallelism over
+    the ``ssm``, ``hybrid_attn`` and encoder-decoder kinds (their specs'
+    ``"model"`` axis cuts across concatenated projections such as
+    ``w_zx``), and any rules but the reference's defaults under a model
+    axis."""
+    check_explicit(rules)
+    kinds = set(group_layout(cfg)) | set(prologue_layout(cfg)) | ({"enc"} if cfg.enc_dec else set())
+    if rules.model_axis is not None and kinds & set(NO_TP_KINDS):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over the {sorted(kinds & set(NO_TP_KINDS))} kinds "
+            "is ROADMAP.md queue 1 item 7; data parallelism (no model axis) runs them")
 
 
 # ---------------------------------------------------------------------------
@@ -188,8 +280,8 @@ def _cross_attention(lp, hx, cfg, enc_out, cache, cache_pos):
     return attn.causal_attention(q, ck, cv, q_pos, enc_positions), (ck, cv)
 
 
-def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, enc_out=None,
-                 cache=None, cache_pos=None, want_cache=True):
+def _apply_layer(lp, kind, x, cfg, positions, rules=NO_SHARDING, *, shared=None, emb0=None,
+                 enc_out=None, cache=None, cache_pos=None, want_cache=True):
     """One layer. Returns (x, new_cache_entry, aux), aux the MoE layer's
     load-balancing loss (None for other kinds). ``cache_pos`` set means a
     decode step over ``cache``; otherwise the layer runs the sequence and
@@ -233,19 +325,19 @@ def _apply_layer(lp, kind, x, cfg, positions, *, shared=None, emb0=None, enc_out
     # attention (MLA or GQA) + (mlp | moe)
     h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if kind in MLA_KINDS:
-        out, new_kv = attn.mla_block(lp["attn"], h, cfg, positions, kv_cache=cache,
+        out, new_kv = attn.mla_block(lp["attn"], h, cfg, positions, rules, kv_cache=cache,
                                      cache_pos=cache_pos, want_cache=want_cache)
     else:
         window = cfg.window if kind == "attn_w" else 0
-        out, new_kv = attn.attention_block(lp["attn"], h, cfg, positions, window=window,
+        out, new_kv = attn.attention_block(lp["attn"], h, cfg, positions, rules, window=window,
                                            kv_cache=cache, cache_pos=cache_pos,
                                            want_cache=want_cache)
     x = x + out
     h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     if kind in MOE_KINDS:
-        out2, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg)
+        out2, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg, rules)
         return x + out2, new_kv, aux
-    return x + mlp(lp["mlp"], h2, cfg.act), new_kv, None
+    return x + mlp(lp["mlp"], h2, cfg.act, rules), new_kv, None
 
 
 def _encode(params, enc_in, cfg):
@@ -317,8 +409,8 @@ def _checkpoint(fn, policy: str):
     return run
 
 
-def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None, want_cache=False,
-              enc_out=None, train=False):
+def _backbone(params, x, cfg, positions, rules=NO_SHARDING, *, caches=None, cache_pos=None,
+              want_cache=False, enc_out=None, train=False):
     """Run the prologue layers, then the groups' layers, in order. Returns
     (x, new_caches, aux): new_caches has one entry per layer
     (``"prologue{i}"`` and ``"groups"``, as ``init_cache``), aux the sum of
@@ -341,7 +433,7 @@ def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None, want_ca
     for i, kind in enumerate(prologue_layout(cfg)):
         name = f"prologue{i}"
         x, new_caches[name], layer_aux = _apply_layer(
-            params[name], kind, x, cfg, positions,
+            params[name], kind, x, cfg, positions, rules,
             cache=caches[name] if caches is not None else None, cache_pos=cache_pos,
             want_cache=want_cache)
         if layer_aux is not None:
@@ -355,7 +447,7 @@ def _backbone(params, x, cfg, positions, *, caches=None, cache_pos=None, want_ca
             for i, kind in enumerate(layout):
                 c = caches["groups"][gi][f"pos{i}"] if caches is not None else None
                 x, new_cache[f"pos{i}"], layer_aux = _apply_layer(
-                    params["groups"][gi][f"pos{i}"], kind, x, cfg, positions, shared=shared,
+                    params["groups"][gi][f"pos{i}"], kind, x, cfg, positions, rules, shared=shared,
                     emb0=emb0, enc_out=enc_out, cache=c, cache_pos=cache_pos,
                     want_cache=want_cache)
                 if layer_aux is not None:
@@ -394,28 +486,37 @@ def _enc_out(params, enc_in, cfg):
     return _encode(params, enc_in, cfg)
 
 
-def forward(params, tokens, cfg: ArchConfig, positions=None, enc_in=None, train=False):
+def forward(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING, positions=None,
+            enc_in=None, train=False):
     """Full-sequence forward -> (logits (B, S, vocab_padded), aux), aux the
     MoE layers' summed load-balancing loss (0 without MoE). ``enc_in``:
     the encoder's frame embeddings of an encoder-decoder model. ``train``
-    turns on ``cfg.remat``'s recompute."""
+    turns on ``cfg.remat``'s recompute. Under ``rules`` with a mesh,
+    ``tokens`` are this rank's rows, and under a model axis the logits are
+    this rank's columns of the vocabulary."""
+    check_rules(cfg, rules)
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, tokens.device)
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, rules)
     enc_out = _enc_out(params, enc_in, cfg)
-    x, _, aux = _backbone(params, x, cfg, positions, enc_out=enc_out, train=train)
+    x, _, aux = _backbone(params, x, cfg, positions, rules, enc_out=enc_out, train=train)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.vocab), aux
+    return unembed(params["embed"], x, cfg.vocab, rules), aux
 
 
-def train_loss(params, batch, cfg: ArchConfig, aux_coef: float = 0.01):
+def train_loss(params, batch, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
+               aux_coef: float = 0.01):
     """batch: {"tokens": (B, S+1)} (+ "enc": (B, enc_len, D) for enc-dec).
-    The mean next-token cross-entropy plus ``aux_coef`` times the MoE aux."""
+    The mean next-token cross-entropy plus ``aux_coef`` times the MoE aux.
+    Under ``rules`` with batch axes, ``batch`` is this rank's rows and the
+    loss is the mean over the batch ranks (whose gradient is this rank's
+    part: the trainer averages the gradients over the batch ranks)."""
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(params, inputs, cfg, enc_in=batch.get("enc"), train=True)
-    return softmax_xent(logits, labels, cfg.vocab) + aux_coef * aux
+    logits, aux = forward(params, inputs, cfg, rules, enc_in=batch.get("enc"), train=True)
+    loss = softmax_xent(logits, labels, cfg.vocab, rules) + aux_coef * aux
+    return mean_over_batch(loss, rules)
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +569,38 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype=None, device=Non
     caches["groups"] = [{f"pos{i}": _layer_cache(kind, cfg, batch, max_seq, dtype, dev)
                          for i, kind in enumerate(layout)} for _ in range(cfg.n_groups)]
     return caches
+
+
+def cache_specs(cfg: ArchConfig, rules: ShardingRules):
+    """The sharding spec of every leaf of ``init_cache``'s tree, in its
+    structure (split-KV: the sequence over the model axis), as the
+    reference's without its stack axis."""
+    b = tuple(rules.batch_axes) or None
+    m = rules.model_axis
+
+    def kind_spec(kind: str):
+        if kind in ATTN_KINDS:
+            s = P(b, m, None, None)
+            if cfg.kv_quant == "int8":
+                sc = P(b, m, None)
+                return (s, sc, s, sc)
+            return (s, s)
+        if kind in MLA_KINDS:
+            return (P(b, m, None), P(b, m, None))
+        if kind == "ssm":
+            return (P(b, m, None, None), P(b, None, m))
+        if kind == "xattn":
+            s = P(b, m, None, None)
+            c = P(b, None, None, None)
+            return {"self": (s, s), "cross": (c, c)}
+        raise ValueError(kind)
+
+    layout = group_layout(cfg)
+    specs = {"groups": [{f"pos{i}": kind_spec(kind) for i, kind in enumerate(layout)}
+                        for _ in range(cfg.n_groups)]}
+    for i, kind in enumerate(prologue_layout(cfg)):
+        specs[f"prologue{i}"] = kind_spec(kind)
+    return specs
 
 
 def _grow_caches(caches, cfg: ArchConfig, max_seq: int):

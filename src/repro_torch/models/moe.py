@@ -1,12 +1,26 @@
 """Mixture-of-Experts FFN: top-k routing, capacity dispatch, batched expert
 GEMMs, an ordered combine, and shared experts.
 
-Port of ``src/repro/models/moe.py``, the unsharded branch of ``moe_ffn``
-(``rules.model_axis is None``). The reference's ``shard_map`` branch, with
-experts sharded over the ``model`` axis, comes with the sharding specs
-(ROADMAP.md queue 1 item 5); ``_moe_local`` keeps its ``e_lo`` / ``e_loc``
-arguments so that branch can reuse it, and returns the partial output of
-experts ``[e_lo, e_lo + e_loc)`` that the branch would sum over shards.
+Port of ``src/repro/models/moe.py``, both branches of ``moe_ffn``:
+
+* under a model axis (the reference's ``shard_map`` branch, expert
+  parallelism) each model rank holds experts ``[e_lo, e_lo + E/M)`` and
+  its columns of the shared experts, routes the tokens it has (every
+  model rank alike), runs ``_moe_local`` on its experts, and the partial
+  outputs are summed over the model ranks. With batch dimensions too,
+  each batch rank routes its own rows, so the capacity comes from the
+  local token count, and the router statistics ``frac`` and ``pbar`` are
+  averaged over the batch ranks before their product;
+* without a model axis and with batch dimensions (GSPMD's global view in
+  the reference), each rank all-gathers the tokens over the batch ranks,
+  routes the global batch (capacity and arrival order global) and keeps
+  its own rows; without either, the single-device function.
+
+``_moe_local`` returns the partial output of experts ``[e_lo, e_lo +
+e_loc)`` and the router statistics before their product. The routing runs
+outside the tensor-parallel region (alike on every model rank), so the
+router's gradient is whole there; the dispatch's inputs (the tokens and
+their gates) enter the region.
 
 Points kept from the reference, in its order of operations:
 
@@ -40,6 +54,16 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import (
+    NO_SHARDING,
+    P,
+    copy_to_model,
+    gather_batch,
+    local_shard,
+    mean_over_batch,
+    model_index,
+    reduce_from_model,
+)
 from repro_torch.models.layers import init_dense
 
 
@@ -59,6 +83,15 @@ def init_moe(gen: torch.Generator, cfg, dtype):
             "wo": init_dense(gen, (fs, d), fs, dtype),
         }
     return params
+
+
+def moe_spec(cfg):
+    expert = P("model", None, None)
+    spec = {"router": P(None, None), "wi_gate": expert, "wi_up": expert, "wo": expert}
+    if cfg.n_shared_experts:
+        spec["shared"] = {"wi_gate": P(None, "model"), "wi_up": P(None, "model"),
+                          "wo": P("model", None)}
+    return spec
 
 
 def _act(gate, up, act: str):
@@ -97,12 +130,14 @@ def arrival(flat_e, e: int):
     return torch.gather(prior, 1, flat_e[:, None])[:, 0]
 
 
-def _moe_local(params, x2d, cfg, e_lo: int, e_loc: int, n_shards: int):
+def _moe_local(params, x2d, cfg, e_lo: int, e_loc: int, n_shards: int, enter=None):
     """Route + dispatch + expert GEMMs + combine for the local experts
     ``[e_lo, e_lo + e_loc)`` (``params``' expert weights hold those
     ``e_loc``; the router all ``E``). ``x2d: (T, D)``. Returns
     (partial_out, (frac, pbar)), the router statistics before their
-    product, so that a sharded caller can reduce them first."""
+    product, so that a sharded caller can reduce them first. ``enter``
+    (a tensor-parallel region's entry) is applied to the tokens and their
+    gates after the routing."""
     t, d = x2d.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity(t, cfg)
@@ -110,6 +145,8 @@ def _moe_local(params, x2d, cfg, e_lo: int, e_loc: int, n_shards: int):
 
     oh = F.one_hot(eids[:, 0], e).float()
     stats = (oh.mean(0), probs.mean(0))
+    if enter is not None:
+        x2d, gates = enter(x2d), enter(gates)
 
     flat_e = eids.reshape(-1)  # (T*K,), token-major
     flat_g = gates.reshape(-1)
@@ -144,8 +181,23 @@ def _aux_from_stats(frac, pbar, e):
     return e * torch.mean(frac * pbar)
 
 
-def moe_ffn(params, x, cfg):
-    """x: (B, S, D) -> (out, aux_loss), all experts on this device."""
+def moe_ffn(params, x, cfg, rules=NO_SHARDING):
+    """x: (B, S, D), this rank's rows -> (out, aux_loss). Without a model
+    axis all experts are here (routed over the global batch when the
+    batch is sharded); under one, this rank's block of them."""
     b, s, d = x.shape
-    out, (frac, pbar) = _moe_local(params, x.reshape(-1, d), cfg, 0, cfg.n_experts, 1)
-    return out.reshape(b, s, d), _aux_from_stats(frac, pbar, cfg.n_experts)
+    e = cfg.n_experts
+    x2d = x.reshape(-1, d)
+    if rules.model_axis is None:
+        out, (frac, pbar) = _moe_local(params, gather_batch(x2d, rules), cfg, 0, e, 1)
+        if rules.batch_shards > 1:  # this rank's rows of the global batch
+            out = local_shard(out, P(tuple(rules.batch_axes)), rules)
+        return out.reshape(b, s, d), _aux_from_stats(frac, pbar, e)
+    n = rules.model_size
+    e_loc = e // n
+    out, (frac, pbar) = _moe_local(params, x2d, cfg, model_index(rules) * e_loc, e_loc, n,
+                                   enter=lambda t: copy_to_model(t, rules))
+    out = reduce_from_model(out, rules)
+    # the router statistics over the batch ranks BEFORE their product
+    frac, pbar = mean_over_batch(frac, rules), mean_over_batch(pbar, rules)
+    return out.reshape(b, s, d), _aux_from_stats(frac, pbar, e)

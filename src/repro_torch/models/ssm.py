@@ -13,6 +13,11 @@ Parameters are a plain dict per layer, as in the JAX package. Matrix
 products run in the parameters' type; on the card a float32 product is
 full float32 only at the "highest" matmul precision (PyTorch's default,
 and what ``chip_smoke.py`` sets). ``ngroups == 1`` is assumed, as there.
+
+``mamba2_spec`` gives the reference's sharding specs of a layer's weights;
+tensor parallelism over them (``w_zx``'s ``"model"`` axis cuts across its
+concatenated z and x halves) is ROADMAP.md queue 1 item 7, and without a
+model axis the blocks run on each rank's rows.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import P
 from repro_torch.kernels import ops
 from repro_torch.models.layers import init_dense
 
@@ -42,6 +48,13 @@ def init_mamba2(gen: torch.Generator, cfg, dtype):
         "norm": torch.zeros((di,), **f32),
         "w_out": init_dense(gen, (di, d), di, dtype),
     }
+
+
+def mamba2_spec():
+    return {"w_zx": P(None, "model"), "w_bc": P(None, None), "w_dt": P(None, "model"),
+            "conv_w": P(None, None), "conv_b": P(None), "a_log": P("model"),
+            "d_skip": P("model"), "dt_bias": P("model"), "norm": P("model"),
+            "w_out": P("model", None)}
 
 
 def _softplus(v):

@@ -19,8 +19,16 @@ The contract of the trainer:
 
 numpy has no bfloat16, so a bfloat16 leaf is stored as its ``uint16`` bits
 with ``"bfloat16"`` as its dtype in ``meta.json``; ``restore`` gives it
-back bit for bit. The reference's mesh-agnostic placement (``shardings``)
-becomes ``device``: the port runs on one card.
+back bit for bit.
+
+Checkpoints do not depend on the mesh, as in the reference. Sharded
+(``specs``, a tree of ``dist.sharding.P`` of the tree's structure, and
+``rules`` with a mesh: one process per rank), ``save`` gathers each full
+leaf on every rank (a collective), rank 0 alone copies it to the host and
+writes the files, and the handle's ``join`` holds every rank until the
+write is done. ``restore`` reads the full leaves and keeps this rank's
+shard of each, so a run restores on another mesh, or on one device. The
+reference's ``shardings`` becomes ``device`` (and ``specs``/``rules``).
 """
 
 from __future__ import annotations
@@ -34,10 +42,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.paralingam import _device
+from repro_torch.dist.sharding import NO_SHARDING, gather_shard, local_shard
 from repro_torch.utils.log import get_logger
-from repro_torch.utils.tree import tree_flatten_with_names, tree_unflatten
+from repro_torch.utils.tree import tree_flatten_with_names, tree_leaves, tree_unflatten
 
 log = get_logger("repro_torch.checkpoint")
 
@@ -63,8 +73,36 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(ckpt_dir: str, step: int, tree, *, keep: int = 3, block: bool = False):
-    """Write the checkpoint of ``step``. Returns a join()-able thread."""
+class _Written:
+    """The handle of a sharded save: ``join`` waits for rank 0's writer,
+    then holds every rank of the mesh until it is done."""
+
+    def __init__(self, thread):
+        self.thread = thread
+
+    def join(self):
+        if self.thread is not None:
+            self.thread.join()
+        dist.barrier()
+
+
+def save(ckpt_dir: str, step: int, tree, *, keep: int = 3, block: bool = False, specs=None,
+         rules=NO_SHARDING):
+    """Write the checkpoint of ``step``. Returns a join()-able thread (a
+    handle whose ``join`` every rank calls, when sharded)."""
+    if rules.mesh is not None and specs is not None:
+        named = tree_flatten_with_names(tree)
+        full = [(name, gather_shard(leaf, spec, rules))
+                for (name, leaf), spec in zip(named, tree_leaves(specs))]
+        if dist.get_rank() != 0:
+            handle = _Written(None)
+            if block:
+                handle.join()
+            return handle
+        handle = _Written(save(ckpt_dir, step, dict(full), keep=keep))
+        if block:
+            handle.join()
+        return handle
     host = [(name, *_to_host(leaf)) for name, leaf in tree_flatten_with_names(tree)]
 
     def _write():
@@ -113,17 +151,25 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like, device=None):
+def restore(ckpt_dir: str, step: int, like, device=None, specs=None, rules=NO_SHARDING):
     """Load checkpoint ``step`` into the structure of ``like``, every leaf
-    on ``device`` (the card unless ``device="cpu"``) in its stored dtype."""
+    on ``device`` (the card unless ``device="cpu"``) in its stored dtype.
+    With ``specs`` and a mesh, this rank's shard of each leaf (``like``
+    holds the shards)."""
     dev = _device(device, "repro_torch.train.checkpoint.restore")
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "meta.json")) as f:
         dtypes = {leaf["name"]: leaf["dtype"] for leaf in json.load(f)["leaves"]}
+    named = tree_flatten_with_names(like)
+    spec_leaves = (tree_leaves(specs) if rules.mesh is not None and specs is not None
+                   else [None] * len(named))
     leaves = []
-    for name, ref in tree_flatten_with_names(like):
-        arr = np.load(os.path.join(path, _fname(name) + ".npy"))
-        if tuple(arr.shape) != tuple(ref.shape):
-            raise ValueError(f"{name}: stored {arr.shape}, wanted {tuple(ref.shape)}")
-        leaves.append(_from_host(arr, dtypes[name]).to(dev))
+    for (name, ref), spec in zip(named, spec_leaves):
+        t = _from_host(np.load(os.path.join(path, _fname(name) + ".npy")), dtypes[name])
+        if spec is not None:
+            t = local_shard(t, spec, rules)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"{name}: stored {tuple(t.shape)} (this rank's part), "
+                             f"wanted {tuple(ref.shape)}")
+        leaves.append(t.to(dev))
     return tree_unflatten(like, leaves)

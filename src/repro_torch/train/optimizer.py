@@ -22,9 +22,22 @@ of at most ``CHUNK_NUMEL`` elements, so that its float32 temporaries stay
 small beside the state. Every elementwise step rounds as the reference's
 does, one operation at a time.
 
-The reference's ZeRO-1 helpers (``zero1_spec_for``, ``zero1_specs``,
-``opt_state_specs``) map PartitionSpecs for ``launch/specs.py``; they come
-with the sharding specs (ROADMAP.md queue 1 item 5).
+Sharded (``rules`` with a mesh, ``specs`` the parameters' sharding
+specs, ``lm.param_specs``): the parameters and gradients are this rank's
+shards, and the gradients already averaged over the batch ranks.
+
+* The clipping norm is the full gradient's: the squared sums of the
+  leaves sharded over ``model`` are summed over the model ranks, and the
+  replicated leaves counted once.
+* ZeRO-1 (the reference's ``zero1_spec_for``, ``zero1_specs`` and
+  ``opt_state_specs``, ported verbatim): on a mesh with data-parallel
+  dimensions (``pod``, ``data``) of size > 1, ``m`` and ``v`` hold this
+  rank's slice of each leaf along the first dimension the spec leaves
+  whole and the data ranks divide (``zero1_layout``). Each rank updates
+  its slice of ``m``, ``v`` and the parameter, then all-gathers the
+  parameter over the data ranks.
+* Weight decay and the bfloat16 cast read the full leaf's stacked rank,
+  which a shard keeps.
 """
 
 from __future__ import annotations
@@ -34,7 +47,16 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.utils.tree import stacked_ndims, tree_leaves, tree_map
+from repro_torch.dist.sharding import (
+    NO_SHARDING,
+    P,
+    gather_shard,
+    mesh_sizes,
+    shard_bounds,
+    spec_uses,
+    sum_over_model,
+)
+from repro_torch.utils.tree import stacked_ndims, tree_leaves, tree_map, tree_unflatten
 
 #: Elements of the leaves one group of ``_foreach`` ops updates at a time.
 CHUNK_NUMEL = 1 << 28
@@ -63,21 +85,35 @@ def schedule(cfg: OptimizerConfig, step):
     return torch.where(step < cfg.warmup_steps, warm, cfg.lr * cos)
 
 
-def init_opt_state(params):
-    """float32 ``m`` and ``v`` of the parameters' shapes, and the step (int64)."""
+def init_opt_state(params, specs=None, rules=NO_SHARDING):
+    """float32 ``m`` and ``v`` (this rank's ZeRO-1 slice of each leaf when
+    ``zero1_layout`` gives one) and the step (int64)."""
     first = tree_leaves(params)[0]
-    return {
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                      params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                      params),
-        "step": torch.zeros((), dtype=torch.int64, device=first.device),
-    }
+    layout = zero1_layout(params, specs, rules)
+
+    def zeros():
+        return tree_unflatten(params, [
+            torch.zeros(_narrow(p, z, rules).shape, dtype=torch.float32, device=p.device)
+            for p, z in zip(tree_leaves(params), layout)])
+
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int64, device=first.device)}
 
 
-def global_norm(tree):
+def global_norm(tree, specs=None, rules=NO_SHARDING):
+    """The 2-norm of every leaf of ``tree`` together. Under a model axis the
+    leaves whose spec names it are shards: their squared sums are summed
+    over the model ranks, the replicated leaves' counted once."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    if rules.model_axis is None:
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    if specs is None:
+        raise ValueError("a norm under a model axis needs the leaves' specs")
+    sharded = [spec_uses(s, rules.model_axis) for s in tree_leaves(specs)]
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    part = sum((q for q, sh in zip(leaves, sharded) if sh), zero)
+    whole = sum((q for q, sh in zip(leaves, sharded) if not sh), zero)
+    return torch.sqrt(sum_over_model(part, rules) + whole)
 
 
 def _chunks(n_leaves, numel):
@@ -93,20 +129,25 @@ def _chunks(n_leaves, numel):
     return out + ([cur] if cur else [])
 
 
-def adamw_update(cfg: OptimizerConfig, params, grads, opt_state):
+def adamw_update(cfg: OptimizerConfig, params, grads, opt_state, *, specs=None,
+                 rules=NO_SHARDING):
     """One AdamW step. Updates ``params``, ``opt_state["m"]``, ``["v"]`` and
     ``["step"]`` in place and returns (params, opt_state, metrics), metrics
     ``{"grad_norm", "lr"}`` (device scalars). ``grads`` are read, not
-    written."""
+    written. Sharded: see the module's docstring; ``opt_state`` as
+    ``init_opt_state(params, specs, rules)`` made it."""
     step = opt_state["step"].add_(1)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, rules)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.float()
     bc1 = 1.0 - cfg.b1 ** stepf
     bc2 = 1.0 - cfg.b2 ** stepf
 
-    flat_p, flat_g = tree_leaves(params), tree_leaves(grads)
+    layout = zero1_layout(params, specs, rules)
+    # the parameters and gradients this rank updates: its ZeRO-1 slices
+    flat_p = [_narrow(p, z, rules) for p, z in zip(tree_leaves(params), layout)]
+    flat_g = [_narrow(g, z, rules) for g, z in zip(tree_leaves(grads), layout)]
     flat_m, flat_v = tree_leaves(opt_state["m"]), tree_leaves(opt_state["v"])
     ranks = stacked_ndims(params)
     for idx in _chunks(len(flat_p), [p.numel() for p in flat_p]):
@@ -136,4 +177,86 @@ def adamw_update(cfg: OptimizerConfig, params, grads, opt_state):
         for t, t32 in zip(p, p32):
             if t32 is not t:
                 t.copy_(t32)
+    for p, z in zip(tree_leaves(params), layout):
+        if z is not None:  # every data rank's slice
+            p.copy_(gather_shard(_narrow(p, z, rules), _only(z, p.ndim), rules))
     return params, opt_state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of moments
+# ---------------------------------------------------------------------------
+
+
+def zero1_spec_for(shape, spec, data_axes: tuple[str, ...], axis_sizes: dict) -> P:
+    """Add the data axes to the first unsharded, divisible dim of ``shape``."""
+    data_size = math.prod(axis_sizes[a] for a in data_axes)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            used.add(a)
+    if used & set(data_axes):
+        return spec  # already data-sharded (e.g. FSDP applied upstream)
+    for i, (dim, cur) in enumerate(zip(shape, entries)):
+        if cur is None and dim % data_size == 0 and dim > 0:
+            entries[i] = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
+            return P(*entries)
+    return spec  # nothing divisible: leave replicated
+
+
+def zero1_specs(param_shapes, param_specs, mesh, data_axes=("data",)):
+    """Moment-tensor specs with the extra data-parallel shard (ZeRO-1)."""
+    axis_sizes = mesh_sizes(mesh)
+    usable = tuple(a for a in data_axes if axis_sizes.get(a, 1) > 1)
+    if not usable:
+        return param_specs
+
+    def one(shape_leaf, spec_leaf):
+        return zero1_spec_for(shape_leaf.shape, spec_leaf, usable, axis_sizes)
+
+    return tree_map(one, param_shapes, param_specs)
+
+
+def opt_state_specs(param_shapes, param_specs, mesh=None, zero1: bool = True,
+                    data_axes=("pod", "data")):
+    """The specs of ``init_opt_state``'s tree: ``m`` and ``v`` under
+    ZeRO-1 (``zero1_specs``) when ``zero1`` and a mesh, the parameters'
+    specs otherwise; ``step`` replicated."""
+    moment = (
+        zero1_specs(param_shapes, param_specs, mesh, data_axes)
+        if (zero1 and mesh is not None)
+        else param_specs
+    )
+    return {"m": moment, "v": moment, "step": P()}
+
+
+def zero1_layout(params, specs, rules) -> list:
+    """Per leaf of ``params`` (``tree_leaves`` order): ``(dim, entry)``, the
+    dimension along which ZeRO-1 slices its moments and the data axes it
+    slices over, or None where the moments are whole. The parameters are
+    this rank's shards: ``zero1_spec_for`` only picks a dimension their
+    spec leaves whole, which a shard has at its full size."""
+    leaves = tree_leaves(params)
+    if rules.mesh is None or specs is None:
+        return [None] * len(leaves)
+    moments = opt_state_specs(params, specs, rules.mesh)["m"]
+    out = []
+    for p, ps, ms in zip(leaves, tree_leaves(specs), tree_leaves(moments)):
+        ps = tuple(ps) + (None,) * (p.ndim - len(ps))
+        ms = tuple(ms) + (None,) * (p.ndim - len(ms))
+        dims = [d for d in range(p.ndim) if ms[d] != ps[d]]
+        out.append((dims[0], ms[dims[0]]) if dims else None)
+    return out
+
+
+def _only(z, ndim: int) -> P:
+    """The spec that slices dimension ``z[0]`` over ``z[1]`` alone."""
+    return P(*[z[1] if d == z[0] else None for d in range(ndim)])
+
+
+def _narrow(t, z, rules):
+    if z is None:
+        return t
+    start, length = shard_bounds(rules, z[1], t.shape[z[0]])
+    return t.narrow(z[0], start, length)

@@ -18,9 +18,16 @@ moves them: the loss and its gradients by autograd, then
 ``optimizer.adamw_update`` in place under ``torch.no_grad()``. With
 ``cast_bf16`` the float32 matrices are cast to bfloat16 inside the graph,
 so their gradients land on the float32 masters; microbatched accumulation
-sums float32 gradients. The reference's ``param_specs`` (a sharding
-constraint on the compute copy) comes with the sharding specs (ROADMAP.md
-queue 1 item 5).
+sums float32 gradients.
+
+Sharded (``rules`` with a mesh; one process per rank, ``launch.train``):
+the parameters are this rank's shards as ``param_specs`` (the reference's
+argument, ``lm.param_specs``) lays them out, and the loss function takes
+this rank's rows of the batch (``lm.train_loss(..., rules)``). The step
+averages the gradients over the batch ranks, then ``adamw_update`` runs
+on the shards with ZeRO-1 over the data ranks (``optimizer``). Checkpoints
+hold full leaves whatever the mesh (``checkpoint``), so a run restarts on
+another mesh.
 """
 
 from __future__ import annotations
@@ -32,8 +39,14 @@ from typing import Callable
 
 import torch
 
+from repro_torch.dist.sharding import NO_SHARDING, average_over_batch_
 from repro_torch.train import checkpoint as ckpt_lib
-from repro_torch.train.optimizer import OptimizerConfig, adamw_update, init_opt_state
+from repro_torch.train.optimizer import (
+    OptimizerConfig,
+    adamw_update,
+    init_opt_state,
+    opt_state_specs,
+)
 from repro_torch.utils.log import get_logger
 from repro_torch.utils.tree import stacked_ndims, tree_leaves, tree_map, tree_unflatten
 
@@ -115,7 +128,7 @@ def loss_and_grads(loss_fn: Callable, params, batch, cast_bf16: bool = True):
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, cast_bf16: bool = True,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, param_specs=None, rules=NO_SHARDING):
     """``loss_fn(params, batch) -> scalar``. Returns ``step_fn(params,
     opt_state, batch) -> (params, opt_state, metrics)``, which updates
     ``params`` and ``opt_state`` in place; metrics ``{"loss", "grad_norm",
@@ -124,7 +137,14 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, cast_bf16: bool
     ``accum_steps > 1``: the batch is split on its leading dim into that
     many microbatches, run one after another; their float32 gradients and
     losses are summed and divided by ``accum_steps``, so the optimizer sees
-    the whole batch's mean with a microbatch's activations live."""
+    the whole batch's mean with a microbatch's activations live.
+
+    ``rules`` with a mesh: ``params`` are this rank's shards under
+    ``param_specs``, ``opt_state`` is ``init_opt_state(params,
+    param_specs, rules)``, and the gradients are averaged over the batch
+    ranks before the update."""
+    if rules.model_axis is not None and param_specs is None:
+        raise ValueError("a tensor-parallel step needs the parameters' specs (param_specs)")
 
     def step_fn(params, opt_state, batch):
         if accum_steps == 1:
@@ -144,23 +164,37 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, cast_bf16: bool
             grads = torch._foreach_div(grads, float(accum_steps))
             loss = loss / accum_steps
         with torch.no_grad():
+            average_over_batch_(grads, rules)
             params, opt_state, metrics = adamw_update(
-                opt_cfg, params, tree_unflatten(params, grads), opt_state)
+                opt_cfg, params, tree_unflatten(params, grads), opt_state, specs=param_specs,
+                rules=rules)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return step_fn
 
 
+def state_specs(params, param_specs, rules=NO_SHARDING):
+    """The specs of the trainer's state ``{"params", "opt"}``: the
+    parameters' and ``opt_state_specs``' (ZeRO-1 over the data ranks);
+    None without a mesh."""
+    if rules.mesh is None or param_specs is None:
+        return None
+    return {"params": param_specs, "opt": opt_state_specs(params, param_specs, rules.mesh)}
+
+
 def train(params, loss_fn: Callable, batch_fn: Callable, cfg: TrainerConfig, *,
-          opt_state=None, hooks: list[Callable] | None = None):
+          opt_state=None, hooks: list[Callable] | None = None, param_specs=None,
+          rules=NO_SHARDING):
     """Run the loop: ``batch_fn(step)`` gives each step's batch (a tree of
-    tensors where the parameters are). Returns (params, opt_state,
-    history), history one ``{"step", "loss", "dt"}`` per step run. A resume
-    restores the checkpoint onto the parameters' device."""
-    step_fn = make_train_step(loss_fn, cfg.opt)
+    tensors where the parameters are; this rank's rows under ``rules``).
+    Returns (params, opt_state, history), history one ``{"step", "loss",
+    "dt"}`` per step run. A resume restores the checkpoint onto the
+    parameters' device (and this rank's shards of it)."""
+    step_fn = make_train_step(loss_fn, cfg.opt, param_specs=param_specs, rules=rules)
     if opt_state is None:
-        opt_state = init_opt_state(params)
+        opt_state = init_opt_state(params, param_specs, rules)
+    specs = state_specs(params, param_specs, rules)
 
     start = 0
     if cfg.ckpt_dir:
@@ -168,7 +202,7 @@ def train(params, loss_fn: Callable, batch_fn: Callable, cfg: TrainerConfig, *,
         if latest is not None:
             device = tree_leaves(params)[0].device
             state = ckpt_lib.restore(cfg.ckpt_dir, latest, {"params": params, "opt": opt_state},
-                                     device=device)
+                                     device=device, specs=specs, rules=rules)
             params, opt_state = state["params"], state["opt"]
             start = latest
             log.info("resumed from checkpoint step %d", start)
@@ -196,7 +230,7 @@ def train(params, loss_fn: Callable, batch_fn: Callable, cfg: TrainerConfig, *,
                     pending_ckpt.join()
                 pending_ckpt = ckpt_lib.save(cfg.ckpt_dir, step + 1,
                                              {"params": params, "opt": opt_state},
-                                             keep=cfg.ckpt_keep)
+                                             keep=cfg.ckpt_keep, specs=specs, rules=rules)
             if guard.requested:
                 log.warning("exiting at step %d after preemption checkpoint", step + 1)
                 break

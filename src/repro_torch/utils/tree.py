@@ -9,6 +9,10 @@ where the JAX package, whose groups are stacked, gives
 ``groups/pos0/attn/wq``. ``stacked_ndims`` gives each leaf the rank it
 has in the JAX package's stacked tree, for the rules that read a leaf's
 rank there (weight decay and the bfloat16 compute cast on ``ndim >= 2``).
+
+Only plain tuples are nodes: a subclass of ``tuple`` (a sharding spec,
+``dist.sharding.P``, or a ``torch.Size``) is a leaf, so a tree of specs
+maps leaf for leaf onto the tree of tensors it describes.
 """
 
 from __future__ import annotations
@@ -20,8 +24,12 @@ def _children(tree):
     return [(str(i), v) for i, v in enumerate(tree)]
 
 
+def _is_seq(tree) -> bool:
+    return isinstance(tree, list) or type(tree) is tuple
+
+
 def _is_node(tree) -> bool:
-    return isinstance(tree, (dict, list, tuple))
+    return isinstance(tree, dict) or _is_seq(tree)
 
 
 def tree_flatten_with_names(tree, prefix: str = ""):
@@ -51,7 +59,7 @@ def stacked_ndims(tree) -> list[int]:
             return []
         if isinstance(t, dict):
             return [r for k in sorted(t) for r in walk(t[k], depth)]
-        if isinstance(t, (list, tuple)):
+        if _is_seq(t):
             inner = depth + isinstance(t, list)
             return [r for v in t for r in walk(v, inner)]
         return [t.ndim + depth]
@@ -69,7 +77,7 @@ def tree_unflatten(like, leaves):
             return None
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
+        if _is_seq(t):
             return type(t)(build(v) for v in t)
         return next(it)
 

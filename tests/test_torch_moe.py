@@ -182,7 +182,8 @@ def test_moe_local_matches(t, act, shared):
 @pytest.mark.parametrize("e_lo,e_loc", [(2, 4), (6, 2), (4, 4)])
 def test_moe_local_partial_experts_match(t, e_lo, e_loc):
     """``e_lo > 0`` and ``e_loc < E``: the partial output of a shard of the
-    experts, which the sharded branch (queue 1 item 5) sums over shards."""
+    experts, which the sharded branch of ``moe_ffn`` sums over the model
+    ranks (``tests/test_torch_tp.py``)."""
     jcfg, tcfg = _moe_cfgs(n_shared_experts=0)
     p = _moe_weights(tcfg, 3, shared=False)
     x = _tokens_in(t, tcfg.d_model, 4)

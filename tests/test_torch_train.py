@@ -5,10 +5,12 @@ included), rematerialization (``cfg.remat``), ``train.optimizer``
 (``schedule``, ``adamw_update``), ``train.trainer`` (``make_train_step``,
 ``train``, the watchdog, preemption), ``train.checkpoint``,
 ``train.compression`` over two gloo ranks, ``utils.tree`` and
-``launch.train``. The mirrors of ``tests/test_train.py`` keep its names
-with ``_port`` added; its ``test_zero1_specs`` waits for the sharding specs
-(ROADMAP.md queue 1 item 5). Of ``tests/test_elastic.py`` only the restore
-on a single device applies: the port has no meshes.
+``launch.train`` (on one device, and on spawned gloo ranks with
+``--data-shards``/``--model-shards``). The mirrors of
+``tests/test_train.py`` keep its names with ``_port`` added; its
+``test_zero1_specs`` is mirrored in ``tests/test_torch_sharding.py``, and
+``tests/test_elastic.py``'s restore on another mesh there too (here the
+restore on a single device).
 
 Tolerances, each measured on the CPU:
 
@@ -28,7 +30,10 @@ Tolerances, each measured on the CPU:
 * remat against no remat: loss and every gradient bit for bit (the
   recompute replays the forward, MoE routing included);
 * the compressed all-reduce against a numpy reckoning of both schemes:
-  bit for bit (two ranks: one float32 addition and a division by 2).
+  bit for bit (two ranks: one float32 addition and a division by 2);
+* ``launch.train`` on D × M gloo ranks against its one-device run: the
+  printed losses within ``BF16_LOSS_ATOL`` (the trainer's bfloat16
+  compute copy rounds the model ranks' partial sums apart).
 """
 
 import os
@@ -715,8 +720,59 @@ def test_train_cli_needs_cuda_without_device(monkeypatch):
         t_launch.main(["--steps", "1"])
 
 
-def test_train_cli_refuses_shards():
-    with pytest.raises(SystemExit, match="item 5"):
+_CLI = ["--arch", "granite-3-2b", "--preset", "smoke", "--steps", "3", "--batch", "4",
+        "--seq", "16", "--device", "cpu"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _train_done(text: str):
+    return re.findall(r"train_done arch=(\S+) steps=(\d+) loss_first10=(\S+) loss_last10=(\S+)",
+                      text)
+
+
+@pytest.mark.parametrize("model_shards", [1, 2])
+def test_train_cli_on_gloo_ranks(model_shards, capsys):
+    """``python -m repro_torch.launch.train --data-shards 2 --model-shards
+    M --device cpu`` on 2·M processes with the ``torchrun`` environment:
+    rank 0 alone prints ``train_done``, with the one-device losses."""
+    assert t_launch.main(_CLI) == 0
+    want = _train_done(capsys.readouterr().out)
+    world = 2 * model_shards
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *_CLI, "--data-shards", "2",
+         "--model-shards", str(model_shards)],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err[-3000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    got = [_train_done(out) for out in outs]
+    assert len(got[0]) == 1 and not any(got[1:]), outs
+    (arch, steps, first, last), = got[0]
+    assert (arch, steps) == want[0][:2]
+    for a, b in zip((first, last), want[0][2:]):
+        assert abs(float(a) - float(b)) <= BF16_LOSS_ATOL
+
+
+def test_train_cli_refuses_a_world_of_another_size(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(SystemExit, match="2 ranks, but the world has 3"):
         t_launch.main(["--data-shards", "2", "--device", "cpu"])
 
 
