@@ -27,7 +27,17 @@ rank:
   statistics); its backward is the identity, and the trainer averages the
   gradients over the batch dimensions after the backward;
 * ``gather_batch`` all-gathers this rank's rows over the batch dimensions
-  (MoE's routing over the global batch without a model axis).
+  (MoE's routing over the global batch without a model axis);
+* serving (no autograd): ``gather_over_model`` all-gathers along a
+  dimension, ``seq_slice`` is this rank's block of a split-KV cache's
+  sequence axis (``cache_specs``: the sequence over ``model``), and
+  ``batch_rows`` shards a batch's rows or replicates them.
+
+A leaf whose sharded dimension concatenates equal parts that each split
+by heads (Mamba2's ``w_zx``: z | x) is cut part by part: ``local_shard``
+and ``gather_shard`` take ``parts``, and ``SPLIT_PARTS`` names those
+leaves for every caller that shards or gathers a tree by its specs
+(``shard_tree``, ``gather_tree``, the checkpoints).
 
 The explicit path supports the reference's defaults under a model axis
 (``shard_heads=True``, ``context_parallel=False``, ``fsdp_axes=()``, which
@@ -39,11 +49,13 @@ on one device.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.utils.tree import tree_flatten_with_names, tree_leaves, tree_unflatten
 
 #: The mesh dimensions a batch shards over, outermost first.
 BATCH_DIMS = ("pod", "data", "ring")
@@ -238,14 +250,34 @@ def shard_bounds(rules: ShardingRules, entry, size: int) -> tuple[int, int]:
     return index * (size // count), size // count
 
 
-def local_shard(t: torch.Tensor, spec, rules: ShardingRules) -> torch.Tensor:
+#: Leaves (by their last key) whose sharded dimension concatenates equal
+#: parts that each split by heads, and the number of parts: Mamba2's
+#: ``w_zx`` is z | x along its columns, so a model rank holds its heads'
+#: columns of z and of x (``param_specs`` keeps the reference's plain
+#: ``P(None, "model")``, which GSPMD reshards and an even cut would get
+#: wrong: z to rank 0, x to rank 1).
+SPLIT_PARTS = {"w_zx": 2}
+
+
+def split_parts(name: str) -> int:
+    """The parts of the leaf named ``name`` (``utils.tree`` names, joined
+    by ``/``): ``SPLIT_PARTS`` of its last key, else 1."""
+    return SPLIT_PARTS.get(name.rsplit("/", 1)[-1], 1)
+
+
+def local_shard(t: torch.Tensor, spec, rules: ShardingRules, parts: int = 1) -> torch.Tensor:
     """This rank's part of the full tensor ``t`` under ``spec``, as a tensor
-    of its own (a copy when it is a part, so the full tensor can go)."""
+    of its own (a copy when it is a part, so the full tensor can go). With
+    ``parts`` > 1 each split dimension is ``parts`` equal blocks, each cut
+    alike, and this rank's pieces of them are concatenated in order (a
+    dimension split over ``model``; ZeRO-1's data slices are plain)."""
     out = t
     for dim, entry in enumerate(spec):
-        if _active(rules, entry):
-            start, length = shard_bounds(rules, entry, t.shape[dim])
-            out = out.narrow(dim, start, length)
+        names = _active(rules, entry)
+        if names:
+            k = parts if rules.model_axis in names else 1
+            start, length = shard_bounds(rules, entry, t.shape[dim] // k)
+            out = out.unflatten(dim, (k, -1)).narrow(dim + 1, start, length).flatten(dim, dim + 1)
     return out if out is t else out.clone(memory_format=torch.contiguous_format)
 
 
@@ -257,13 +289,35 @@ def _all_gather(t: torch.Tensor, dim: int, name: str, rules: ShardingRules) -> t
     return torch.cat(parts, dim)
 
 
-def gather_shard(t: torch.Tensor, spec, rules: ShardingRules) -> torch.Tensor:
-    """The full tensor from every rank's ``local_shard`` of it (a
-    collective: every rank of the mesh calls it)."""
+def gather_shard(t: torch.Tensor, spec, rules: ShardingRules, parts: int = 1) -> torch.Tensor:
+    """The full tensor from every rank's ``local_shard`` of it, with the
+    same ``parts`` (a collective: every rank of the mesh calls it)."""
     for dim, entry in enumerate(spec):
-        for name in reversed(_active(rules, entry)):  # the innermost name first
-            t = _all_gather(t, dim, name, rules)
+        names = _active(rules, entry)
+        if not names:
+            continue
+        t = t.unflatten(dim, (parts if rules.model_axis in names else 1, -1))
+        for name in reversed(names):  # the innermost name first
+            t = _all_gather(t, dim + 1, name, rules)
+        t = t.flatten(dim, dim + 1)
     return t
+
+
+def shard_tree(tree, specs, rules: ShardingRules):
+    """``local_shard`` of every leaf of ``tree`` under its spec in
+    ``specs`` (a tree of the same structure), split leaves by their parts;
+    the tree itself without a mesh."""
+    if rules.mesh is None:
+        return tree
+    return tree_unflatten(tree, [local_shard(t, s, rules, split_parts(name)) for (name, t), s in
+                                 zip(tree_flatten_with_names(tree), tree_leaves(specs))])
+
+
+def gather_tree(tree, specs, rules: ShardingRules) -> list:
+    """The full leaves of a tree of this rank's shards, in ``tree_leaves``
+    order (a collective)."""
+    return [gather_shard(t, s, rules, split_parts(name)) for (name, t), s in
+            zip(tree_flatten_with_names(tree), tree_leaves(specs))]
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +414,35 @@ def sum_over_model(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
     if rules.model_axis is None:
         return x
     return _all_reduce(x.detach(), (rules.model_axis,), rules)
+
+
+def gather_over_model(x: torch.Tensor, dim: int, rules: ShardingRules) -> torch.Tensor:
+    """The model ranks' blocks of ``x`` concatenated along ``dim`` in rank
+    order, outside autograd (serving)."""
+    if rules.model_axis is None:
+        return x
+    return _all_gather(x.detach(), dim, rules.model_axis, rules)
+
+
+def batch_rows(b: int, rules: ShardingRules) -> tuple[ShardingRules, P]:
+    """The rules a batch of ``b`` rows runs under and the spec of its rows:
+    the batch shards over the batch dimensions where ``b`` divides by
+    their ranks, else it is replicated (``batch_axes=()``), as the
+    reference's ``spec`` drops an axis that does not divide."""
+    if b % rules.batch_shards:
+        rules = replace(rules, batch_axes=())
+    return rules, P(tuple(rules.batch_axes))
+
+
+def seq_slice(max_seq: int, rules: ShardingRules) -> tuple[int, int]:
+    """``(start, length)`` of this rank's block of a split-KV cache's
+    sequence axis of ``max_seq`` positions: blocks of ``L = ceil(max_seq /
+    M)``, rank r owning positions ``[r L, min((r + 1) L, max_seq))``. Every
+    rank's block holds L positions; the last rank's positions from
+    ``max_seq`` on are never written and never read."""
+    m = rules.model_size
+    length = -(-max_seq // m)
+    return model_index(rules) * length, length
 
 
 def mean_over_batch(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:

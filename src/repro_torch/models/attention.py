@@ -21,9 +21,28 @@ columns) and ``wo``'s matching rows, and the model ranks' outputs are
 summed. ``wk`` and ``wv`` are sharded only when ``n_kv_heads % 16 == 0``,
 as in the reference; otherwise every rank projects all KV heads and keeps
 those its q heads read under GQA. MLA's ``w_uk`` and ``w_uv`` are
-column-parallel and ``w_dkv`` and ``kv_norm`` replicated. The cached
-forms (prefill's caches, the decode steps) run without a model axis:
-sharded serving is ROADMAP.md queue 1 item 6.
+column-parallel and ``w_dkv`` and ``kv_norm`` replicated.
+
+Serving under a model axis keeps the caches split-KV, as ``lm.cache_specs``
+lays them out: every KV head, the sequence over ``model`` (rank r holds
+positions ``dist.sharding.seq_slice``). The prefill attends with the rank's
+q heads as ``forward`` does and returns every KV head's K/V of the whole
+sequence (all-gathered over heads where ``wk``/``wv`` shard), which
+``lm.prefill`` cuts to the rank's positions. A decode step:
+
+1. computes the new token's K/V of every KV head (MLA: ``c_kv`` and
+   ``k_rope``, alike on every rank), and the rank that owns position
+   ``pos`` (per row) writes them in place;
+2. all-gathers q over ``model`` (MLA: the absorbed q and q_rope);
+3. each rank computes every head's partial softmax over its own positions:
+   the running max, the sum of exponentials and the weighted V (MLA: the
+   weighted ``c_kv``), in float32;
+4. all-gathers the partials, and combines them for the rank's own heads in
+   rank order;
+5. then ``wo``'s rows (MLA: ``w_uv``, then ``wo``'s rows) and the sum over
+   ``model``, as in ``forward``.
+
+Serving runs outside autograd: these collectives have no backward.
 """
 
 from __future__ import annotations
@@ -36,6 +55,7 @@ from repro_torch.dist.sharding import (
     NO_SHARDING,
     P,
     copy_to_model,
+    gather_over_model,
     model_index,
     reduce_from_model,
 )
@@ -99,9 +119,10 @@ def _split_heads(x, n, dh):
     return x.reshape(b, s, n, dh)
 
 
-def qkv(params, x, cfg, positions, rules=NO_SHARDING):
+def qkv(params, x, cfg, positions, rules=NO_SHARDING, all_kv=False):
     """q, k, v after the optional qk norms and RoPE. Under a model axis,
-    this rank's q heads and the KV heads they read."""
+    this rank's q heads and the KV heads they read; with ``all_kv`` (the
+    caches, outside autograd) k and v hold every KV head instead."""
     (q_lo, q_hi), (kv_lo, kv_hi) = head_blocks(cfg, rules)
     xr = copy_to_model(x, rules)
     dh = cfg.head_dim
@@ -119,10 +140,24 @@ def qkv(params, x, cfg, positions, rules=NO_SHARDING):
         k = rmsnorm(k, k_norm, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if whole_kv and rules.model_axis is not None:
+    if rules.model_axis is None:
+        return q, k, v
+    if all_kv:
+        if not whole_kv:
+            k, v = gather_over_model(k, 2, rules), gather_over_model(v, 2, rules)
+        return q, k, v
+    if whole_kv:
         k = copy_to_model(k, rules)[:, :, kv_lo:kv_hi]
         v = copy_to_model(v, rules)[:, :, kv_lo:kv_hi]
     return q, k, v
+
+
+def rank_kv(k, v, cfg, rules):
+    """The KV heads this rank's q heads read, of every head's k and v."""
+    if rules.model_axis is None:
+        return k, v
+    _, (kv_lo, kv_hi) = head_blocks(cfg, rules)
+    return k[:, :, kv_lo:kv_hi], v[:, :, kv_lo:kv_hi]
 
 
 def _gqa_scores(q, k):
@@ -236,14 +271,67 @@ def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     qg = q.reshape(b, kv, h // kv, dh)
     scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float()
     scores = scores / math.sqrt(dh)
-    t = torch.arange(s, device=q.device)[None, :]
-    valid = t < pos[:, None]
-    if window > 0:
-        valid &= t >= pos[:, None] - window
+    valid = _valid_from(0, s, pos, window, q.device)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", probs.to(v_cache.dtype), v_cache)
     return out.reshape(b, 1, h, dh)
+
+
+def _valid_from(start: int, length: int, pos, window: int, device):
+    """(B, length) mask of the cache positions ``start .. start + length -
+    1`` that a token at ``pos - 1`` attends to: ``t < pos`` and, with a
+    window, ``t >= pos - window`` (absolute positions)."""
+    t = start + torch.arange(length, device=device)[None, :]
+    valid = t < pos[:, None]
+    if window > 0:
+        valid &= t >= pos[:, None] - window
+    return valid
+
+
+def _partials(scores):
+    """Masked float32 scores (..., T) -> (running max (...), sum of
+    exponentials (...), the exponentials (..., T))."""
+    top = scores.amax(dim=-1)
+    e = torch.exp(scores - top[..., None])
+    return top, e.sum(dim=-1), e
+
+
+def combine_partials(top, total, weighted, rules):
+    """Every head's partial softmax over this rank's positions, ``top`` and
+    ``total`` (B, H), ``weighted`` (B, H, D) float32, all-gathered over
+    ``model`` and combined for this rank's heads in rank order: (B, H/M, D)
+    float32, the softmax-weighted sum over every position."""
+    lo, hi = head_block(top.shape[1], rules)
+    packed = torch.cat([top[..., None], total[..., None], weighted], dim=-1)
+    parts = gather_over_model(packed[None], 0, rules)[:, :, lo:hi]  # (M, B, H/M, D + 2)
+    peak = parts[..., 0].amax(dim=0)
+    scale = torch.exp(parts[..., 0] - peak)  # (M, B, H/M)
+    total = scale[0] * parts[0, ..., 1]
+    out = scale[0][..., None] * parts[0, ..., 2:]
+    for r in range(1, parts.shape[0]):
+        total = total + scale[r] * parts[r, ..., 1]
+        out = out + scale[r][..., None] * parts[r, ..., 2:]
+    return out / total[..., None]
+
+
+def split_decode_attention(q, k_cache, v_cache, pos, start, rules, window: int = 0):
+    """``decode_attention`` over a split-KV cache: this rank's q heads (B,
+    1, H/M, dh) against every KV head of its positions ``start ..`` of the
+    cache (B, L, KV, dh); valid positions < pos (per row, absolute).
+    Returns this rank's heads' (B, 1, H/M, dh)."""
+    b, _, _, dh = q.shape
+    kv, length = k_cache.shape[2], k_cache.shape[1]
+    q_all = gather_over_model(q, 2, rules)[:, 0]  # (B, H, dh)
+    h = q_all.shape[1]
+    qg = q_all.reshape(b, kv, h // kv, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float() / math.sqrt(dh)
+    valid = _valid_from(start, length, pos, window, q.device)
+    top, total, e = _partials(torch.where(valid[:, None, None, :], scores, NEG_INF))
+    weighted = torch.einsum("bkgt,btkd->bkgd", e, v_cache.float())
+    out = combine_partials(top.reshape(b, h), total.reshape(b, h), weighted.reshape(b, h, dh),
+                           rules)
+    return out.to(v_cache.dtype)[:, None]
 
 
 def attention_block(params, x, cfg, positions, rules=NO_SHARDING, *, window: int,
@@ -258,30 +346,31 @@ def attention_block(params, x, cfg, positions, rules=NO_SHARDING, *, window: int
     Returns (out, new_kv): the cache written, else the fresh (k, v), or
     their int8 form (values and bf16 scales) when ``cfg.kv_quant ==
     "int8"``, or None when ``want_cache`` is False (``forward``). Under a
-    model axis (``forward`` only) the output is the sum over the model
-    ranks of their heads' part."""
-    if rules.model_axis is not None and (cache_pos is not None or want_cache):
-        raise NotImplementedError("sharded serving (the caches under a model axis) is "
-                                  "ROADMAP.md queue 1 item 6")
-    q, k, v = qkv(params, x, cfg, positions, rules)
+    model axis the output is the sum over the model ranks of their heads'
+    part, the fresh K/V hold every KV head, and a decode step reads this
+    rank's block of a split-KV cache (the module's docstring)."""
+    split = rules.model_axis is not None and (cache_pos is not None or want_cache)
+    q, k, v = qkv(params, x, cfg, positions, rules, all_kv=split)
     if cache_pos is not None:
         if cfg.kv_quant == "int8":
             kq, ks, vq, vs = kv_cache
-            _cache_write_q(kq, ks, k, cache_pos)
-            _cache_write_q(vq, vs, v, cache_pos)
-            k_deq = dequantize_kv(kq, ks, k.dtype)
-            v_deq = dequantize_kv(vq, vs, v.dtype)
-            out = decode_attention(q, k_deq, v_deq, cache_pos + 1, window)
+            start = _cache_write_q(kq, ks, k, cache_pos, rules)
+            _cache_write_q(vq, vs, v, cache_pos, rules)
+            k_now, v_now = dequantize_kv(kq, ks, k.dtype), dequantize_kv(vq, vs, v.dtype)
             new_kv = (kq, ks, vq, vs)
         else:
-            k_cache, v_cache = kv_cache
-            _cache_write(k_cache, k, cache_pos)
-            _cache_write(v_cache, v, cache_pos)
-            out = decode_attention(q, k_cache, v_cache, cache_pos + 1, window)
-            new_kv = (k_cache, v_cache)
+            k_now, v_now = kv_cache
+            start = _cache_write(k_now, k, cache_pos, rules)
+            _cache_write(v_now, v, cache_pos, rules)
+            new_kv = (k_now, v_now)
+        if split:
+            out = split_decode_attention(q, k_now, v_now, cache_pos + 1, start, rules, window)
+        else:
+            out = decode_attention(q, k_now, v_now, cache_pos + 1, window)
     else:
+        k_att, v_att = rank_kv(k, v, cfg, rules) if split else (k, v)
         q_chunk = pick_q_chunk(x.shape[0], q.shape[2], x.shape[1])
-        out = blocked_attention(q, k, v, positions, positions, window, q_chunk)
+        out = blocked_attention(q, k_att, v_att, positions, positions, window, q_chunk)
         if not want_cache:
             new_kv = None
         elif cfg.kv_quant == "int8":
@@ -294,11 +383,37 @@ def attention_block(params, x, cfg, positions, rules=NO_SHARDING, *, window: int
     return reduce_from_model(out @ params["wo"], rules), new_kv
 
 
-def _cache_write(cache, new, pos):
+def _owner_rows(cache, pos, rules):
+    """(rows, this rank's local index of each row's ``pos`` clamped into
+    its block, whether this rank owns it, the block's start) for a write
+    into a (B, L, ...) cache; without a model axis the rank owns all."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    if rules.model_axis is None:
+        return rows, pos, None, 0
+    start, length = model_index(rules) * cache.shape[1], cache.shape[1]
+    local = pos - start
+    mine = (local >= 0) & (local < length)
+    return rows, local.clamp(0, length - 1), mine, start
+
+
+def _write(cache, rows, index, mine, new):
+    """``cache[rows, index] = new`` where ``mine`` (everywhere when None):
+    an indexed write of one token per row, in place, with no host sync."""
+    if mine is not None:
+        shape = (-1,) + (1,) * (new.ndim - 1)
+        new = torch.where(mine.reshape(shape), new, cache[rows, index])
+    cache[rows, index] = new
+
+
+def _cache_write(cache, new, pos, rules=NO_SHARDING):
     """Write one token (B, 1, KV, dh) into (B, S, KV, dh) at per-batch pos,
-    in place (an indexed write: O(new) bytes, not a pass over the cache)."""
-    b = cache.shape[0]
-    cache[torch.arange(b, device=cache.device), pos] = new[:, 0].to(cache.dtype)
+    in place (an indexed write: O(new) bytes, not a pass over the cache).
+    Under a model axis the cache is this rank's block of a split-KV cache
+    and only the rank that owns ``pos`` writes. Returns the block's first
+    position."""
+    rows, index, mine, start = _owner_rows(cache, pos, rules)
+    _write(cache, rows, index, mine, new[:, 0].to(cache.dtype))
+    return start
 
 
 # ---------------------------------------------------------------------------
@@ -319,13 +434,15 @@ def dequantize_kv(q, scale, dtype=torch.bfloat16):
     return (q.float() * scale.float()[..., None]).to(dtype)
 
 
-def _cache_write_q(cache_q, cache_scale, new, pos):
-    """Quantize one token and write it into the int8 cache, in place."""
-    b = cache_q.shape[0]
+def _cache_write_q(cache_q, cache_scale, new, pos, rules=NO_SHARDING):
+    """Quantize one token and write it into the int8 cache, in place (the
+    owner rank only, under a model axis). Returns the block's first
+    position."""
     q, s = quantize_kv(new)
-    rows = torch.arange(b, device=cache_q.device)
-    cache_q[rows, pos] = q[:, 0]
-    cache_scale[rows, pos] = s[:, 0]
+    rows, index, mine, start = _owner_rows(cache_q, pos, rules)
+    _write(cache_q, rows, index, mine, q[:, 0])
+    _write(cache_scale, rows, index, mine, s[:, 0])
+    return start
 
 
 # ---------------------------------------------------------------------------
@@ -369,12 +486,11 @@ def mla_block(params, x, cfg, positions, rules=NO_SHARDING, *, kv_cache=None, ca
     (out, cache), the cache None when not ``want_cache``. The reference
     takes the decode form when S == 1, which routes a one-token prompt
     wrongly; the port takes it when ``cache_pos`` is given, as elsewhere.
-    Under a model axis (the materialized form only) this rank's heads:
-    ``c_kv`` and ``k_rope`` are computed alike on every model rank and
-    enter the heads' region."""
-    if rules.model_axis is not None and (cache_pos is not None or want_cache):
-        raise NotImplementedError("sharded serving (the caches under a model axis) is "
-                                  "ROADMAP.md queue 1 item 6")
+    Under a model axis this rank's heads: ``c_kv`` and ``k_rope`` are
+    computed alike on every model rank and enter the heads' region; a
+    decode step reads this rank's block of a split-KV cache, the absorbed
+    q and q_rope all-gathered and the partials combined for the rank's
+    heads before ``W_uv`` (the module's docstring)."""
     b, s, _ = x.shape
     dn, dr, dh, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.head_dim, cfg.kv_lora_rank
     q_lo, q_hi = head_block(cfg.n_heads, rules)
@@ -390,19 +506,26 @@ def mla_block(params, x, cfg, positions, rules=NO_SHARDING, *, kv_cache=None, ca
 
     if cache_pos is not None:
         c_cache, kr_cache = kv_cache
-        rows = torch.arange(b, device=x.device)
-        c_cache[rows, cache_pos] = c_kv[:, 0].to(c_cache.dtype)
-        kr_cache[rows, cache_pos] = k_rope[:, 0].to(kr_cache.dtype)
+        rows, index, mine, start = _owner_rows(c_cache, cache_pos, rules)
+        _write(c_cache, rows, index, mine, c_kv[:, 0].to(c_cache.dtype))
+        _write(kr_cache, rows, index, mine, k_rope[:, 0].to(kr_cache.dtype))
         # absorbed scores: q_eff (B, H, r) = q_nope @ W_uk[h]
         q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], params["w_uk"].reshape(r, h, dn))
+        q_r = q_rope[:, 0]
+        if rules.model_axis is not None:
+            q_eff, q_r = gather_over_model(q_eff, 1, rules), gather_over_model(q_r, 1, rules)
         scores = (torch.einsum("bhr,btr->bht", q_eff, c_cache)
-                  + torch.einsum("bhd,btd->bht", q_rope[:, 0], kr_cache)).float()
+                  + torch.einsum("bhd,btd->bht", q_r, kr_cache)).float()
         scores = scores / math.sqrt(dn + dr)
-        pos_t = torch.arange(c_cache.shape[1], device=x.device)[None, :]
-        valid = pos_t <= cache_pos[:, None]
+        valid = _valid_from(start, c_cache.shape[1], cache_pos + 1, 0, x.device)
         scores = torch.where(valid[:, None, :], scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1)
-        attn_c = torch.einsum("bht,btr->bhr", probs.to(c_cache.dtype), c_cache)
+        if rules.model_axis is None:
+            probs = torch.softmax(scores, dim=-1)
+            attn_c = torch.einsum("bht,btr->bhr", probs.to(c_cache.dtype), c_cache)
+        else:
+            top, total, e = _partials(scores)
+            attn_c = combine_partials(top, total, torch.einsum("bht,btr->bhr", e, c_cache.float()),
+                                      rules).to(c_cache.dtype)
         out = torch.einsum("bhr,rhd->bhd", attn_c, params["w_uv"].reshape(r, h, dh))[:, None]
         new_cache = (c_cache, kr_cache)
     else:

@@ -38,22 +38,26 @@ decode steps write K/V in place, which must never happen under autograd.
 
 ``param_specs`` and ``cache_specs`` give the reference's sharding specs
 leaf for leaf (``dist.sharding.P``), without its stack axis: the groups'
-specs are a list, as the groups are. ``forward`` and ``train_loss`` take
-the reference's ``rules``: each rank holds its rows of the batch and, under
-a model axis, its shard of the weights (``init_params(rules=)`` slices
-each layer as soon as it is drawn), and the layers run tensor-parallel
-(``layers``, ``attention``, ``moe``); ``train_loss`` is the mean over the
-batch ranks. Tensor parallelism covers the dense attention, MLA and MoE
-kinds; under a model axis the ``ssm``, ``hybrid_attn`` and
-encoder-decoder kinds raise (ROADMAP.md queue 1 item 7), and data
-parallelism (batch axes alone) runs every family. ``prefill`` and
-``decode_step`` run on one device: sharded serving with the caches laid
-out by ``cache_specs`` is ROADMAP.md queue 1 item 6.
+specs are a list, as the groups are. Every entry point takes the
+reference's ``rules``: each rank holds its rows of the batch and, under a
+model axis, its shard of the weights (``init_params(rules=)`` slices each
+layer as soon as it is drawn, split leaves by their parts), and the layers
+run tensor-parallel over every kind (``layers``, ``attention``, ``moe``,
+``ssm``, the encoder and the cross-attention here); ``train_loss`` is the
+mean over the batch ranks. ``prefill`` and ``decode_step`` keep the
+caches as ``cache_specs`` lays them out, split-KV: an attention or MLA
+layer's cache holds every KV head of the rank's block of the sequence
+(``dist.sharding.seq_slice``), an SSM layer's its heads' state and its
+channels' conv tail, an ``xattn`` layer's cross K/V every KV head of every
+encoder position; the logits are the rank's columns of the vocabulary.
+``local_caches`` and ``gather_caches`` map a one-rank cache tree to a
+rank's and back.
 
 Entry points: ``init_params``, ``param_specs``, ``init_cache``,
-``cache_specs``, ``forward``, ``train_loss``, ``prefill``,
-``decode_step``. They run where the parameters are (``init_params`` puts
-them on the card unless asked for the CPU).
+``cache_specs``, ``local_caches``, ``gather_caches``, ``forward``,
+``train_loss``, ``prefill``, ``decode_step``. They run where the
+parameters are (``init_params`` puts them on the card unless asked for the
+CPU).
 """
 
 from __future__ import annotations
@@ -67,8 +71,14 @@ from repro_torch.dist.sharding import (
     P,
     ShardingRules,
     check_explicit,
+    copy_to_model,
+    gather_over_model,
+    gather_shard,
     local_shard,
     mean_over_batch,
+    reduce_from_model,
+    seq_slice,
+    shard_tree,
 )
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -99,8 +109,6 @@ ATTN_KINDS = ("attn", "attn_w", "attn_moe", "hybrid_attn")
 MLA_KINDS = ("mla", "mla_moe")
 #: Layer kinds with an MoE FFN in place of the MLP.
 MOE_KINDS = ("attn_moe", "mla_moe")
-#: Layer kinds without tensor parallelism (ROADMAP.md queue 1 item 7).
-NO_TP_KINDS = ("ssm", "hybrid_attn", "enc", "xattn")
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +180,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
     specs = param_specs(cfg)
 
     def keep(tree, spec):
-        if rules.mesh is None:
-            return tree
-        return tree_map(lambda t, sp: local_shard(t, sp, rules), tree, spec)
+        return shard_tree(tree, spec, rules)
 
     params = {
         "embed": keep(init_embedding(gen, cfg.vocab_padded, cfg.d_model, dtype,
@@ -240,44 +246,45 @@ def param_specs(cfg: ArchConfig):
     return specs
 
 
-def check_rules(cfg: ArchConfig, rules: ShardingRules):
-    """Refuse what the explicit path does not run: tensor parallelism over
-    the ``ssm``, ``hybrid_attn`` and encoder-decoder kinds (their specs'
-    ``"model"`` axis cuts across concatenated projections such as
-    ``w_zx``), and any rules but the reference's defaults under a model
-    axis."""
-    check_explicit(rules)
-    kinds = set(group_layout(cfg)) | set(prologue_layout(cfg)) | ({"enc"} if cfg.enc_dec else set())
-    if rules.model_axis is not None and kinds & set(NO_TP_KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over the {sorted(kinds & set(NO_TP_KINDS))} kinds "
-            "is ROADMAP.md queue 1 item 7; data parallelism (no model axis) runs them")
-
-
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
 
 
-def _cross_attention(lp, hx, cfg, enc_out, cache, cache_pos):
+def _cross_attention(lp, hx, cfg, enc_out, cache, cache_pos, rules=NO_SHARDING,
+                     want_cache=True):
     """Cross-attention of an ``xattn`` layer: q from the decoder, K/V from
     the encoder output, no RoPE on either. At a decode step (``cache_pos``
     set) it reads the cached cross K/V (B, enc_len, KV, dh) through
     ``decode_attention`` with every encoder position valid; otherwise it
     projects ``enc_out`` and attends everywhere (``q_pos = enc_len``).
-    Returns (out before ``wo``, (ck, cv))."""
+    Under a model axis the rank's q heads against the KV heads they read;
+    the cross K/V (the cache) hold every KV head, replicated over
+    ``model``. Returns (out before ``wo``, (ck, cv))."""
     b, s, _ = hx.shape
-    q = attn._split_heads(hx @ lp["wq"], cfg.n_heads, cfg.head_dim)
+    (q_lo, q_hi), (kv_lo, kv_hi) = attn.head_blocks(cfg, rules)
+    q = attn._split_heads(copy_to_model(hx, rules) @ lp["wq"], q_hi - q_lo, cfg.head_dim)
     if cache_pos is not None:
         ck, cv = cache
+        k, v = attn.rank_kv(ck, cv, cfg, rules)
         enc_pos = torch.full((b,), ck.shape[1], dtype=torch.int64, device=hx.device)
-        return attn.decode_attention(q, ck, cv, enc_pos), (ck, cv)
-    ck = attn._split_heads(enc_out @ lp["wk"], cfg.n_kv_heads, cfg.head_dim)
-    cv = attn._split_heads(enc_out @ lp["wv"], cfg.n_kv_heads, cfg.head_dim)
+        return attn.decode_attention(q, k, v, enc_pos), (ck, cv)
+    whole = rules.model_axis is None or not attn.kv_sharded(cfg)
+    src = enc_out if whole else copy_to_model(enc_out, rules)
+    n_kv = cfg.n_kv_heads if whole else kv_hi - kv_lo
+    ck = attn._split_heads(src @ lp["wk"], n_kv, cfg.head_dim)
+    cv = attn._split_heads(src @ lp["wv"], n_kv, cfg.head_dim)
+    if whole:  # every KV head alike on every model rank; the rank reads its own
+        k = copy_to_model(ck, rules)[:, :, kv_lo:kv_hi]
+        v = copy_to_model(cv, rules)[:, :, kv_lo:kv_hi]
+    else:
+        k, v = ck, cv
+        if want_cache:
+            ck, cv = gather_over_model(ck, 2, rules), gather_over_model(cv, 2, rules)
     t = ck.shape[1]
     enc_positions = _positions(b, t, hx.device)
     q_pos = torch.full((b, s), t, dtype=torch.int64, device=hx.device)  # attend everywhere
-    return attn.causal_attention(q, ck, cv, q_pos, enc_positions), (ck, cv)
+    return attn.causal_attention(q, k, v, q_pos, enc_positions), (ck, cv)
 
 
 def _apply_layer(lp, kind, x, cfg, positions, rules=NO_SHARDING, *, shared=None, emb0=None,
@@ -290,35 +297,36 @@ def _apply_layer(lp, kind, x, cfg, positions, rules=NO_SHARDING, *, shared=None,
     if kind == "ssm":
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if cache_pos is not None:
-            out, new_state = ssm_mod.mamba2_decode(lp["ssm"], h, cfg, cache)
+            out, new_state = ssm_mod.mamba2_decode(lp["ssm"], h, cfg, rules, cache)
         else:
-            out, new_state = ssm_mod.mamba2_forward(lp["ssm"], h, cfg)
+            out, new_state = ssm_mod.mamba2_forward(lp["ssm"], h, cfg, rules)
         return x + out, new_state, None
 
     if kind == "hybrid_attn":
         h = torch.cat([x, emb0], dim=-1) @ lp["proj"]
         h = rmsnorm(h, shared["ln1"], cfg.norm_eps)
-        out, new_kv = attn.attention_block(shared["attn"], h, cfg, positions, window=0,
+        out, new_kv = attn.attention_block(shared["attn"], h, cfg, positions, rules, window=0,
                                            kv_cache=cache, cache_pos=cache_pos,
                                            want_cache=want_cache)
         x = x + out
         h2 = rmsnorm(x, shared["ln2"], cfg.norm_eps)
-        return x + mlp(shared["mlp"], h2, cfg.act), new_kv, None
+        return x + mlp(shared["mlp"], h2, cfg.act, rules), new_kv, None
 
     if kind == "xattn":
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         out, new_self = attn.attention_block(
-            lp["attn"], h, cfg, positions, window=0,
+            lp["attn"], h, cfg, positions, rules, window=0,
             kv_cache=cache["self"] if cache is not None else None, cache_pos=cache_pos,
             want_cache=want_cache)
         x = x + out
         hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
         out_x, new_cross = _cross_attention(
             lp["xattn"], hx, cfg, enc_out, cache["cross"] if cache is not None else None,
-            cache_pos)
-        x = x + out_x.reshape(*x.shape[:2], cfg.q_dim) @ lp["xattn"]["wo"]
+            cache_pos, rules, want_cache)
+        out_x = out_x.reshape(*x.shape[:2], out_x.shape[2] * cfg.head_dim)
+        x = x + reduce_from_model(out_x @ lp["xattn"]["wo"], rules)
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h2, cfg.act)
+        x = x + mlp(lp["mlp"], h2, cfg.act, rules)
         new_cache = {"self": new_self, "cross": new_cross} if want_cache else None
         return x, new_cache, None
 
@@ -340,14 +348,15 @@ def _apply_layer(lp, kind, x, cfg, positions, rules=NO_SHARDING, *, shared=None,
     return x + mlp(lp["mlp"], h2, cfg.act, rules), new_kv, None
 
 
-def _encode(params, enc_in, cfg):
+def _encode(params, enc_in, cfg, rules=NO_SHARDING):
     """Whisper's encoder over frame embeddings ``enc_in: (B, T, d_model)``:
     learned positions ``enc_pos``, then per layer RoPE'd q/k through
     ``qkv`` and bidirectional attention (every position attends everywhere:
-    ``q_pos = T``), the MLP, and ``enc_norm``. The frames are cast to the
-    weights' dtype first (the reference lets a float32 input promote
-    bfloat16 weights' products to float32; torch's products need one
-    dtype)."""
+    ``q_pos = T``), the MLP, and ``enc_norm``. Under a model axis each
+    layer runs the rank's heads and the MLP's columns, and their outputs
+    are summed over ``model``. The frames are cast to the weights' dtype
+    first (the reference lets a float32 input promote bfloat16 weights'
+    products to float32; torch's products need one dtype)."""
     pos = params["enc_pos"]
     x = enc_in.to(pos.dtype) + pos[None, : enc_in.shape[1], :]
     b, t, _ = x.shape
@@ -355,11 +364,12 @@ def _encode(params, enc_in, cfg):
     q_pos = torch.full((b, t), t, dtype=torch.int64, device=x.device)
     for lp in params["enc_groups"]:
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv(lp["attn"], h, cfg, positions)
+        q, k, v = attn.qkv(lp["attn"], h, cfg, positions, rules)
         out = attn.causal_attention(q, k, v, q_pos, positions)
-        x = x + out.reshape(b, t, cfg.q_dim) @ lp["attn"]["wo"]
+        out = out.reshape(b, t, q.shape[2] * cfg.head_dim) @ lp["attn"]["wo"]
+        x = x + reduce_from_model(out, rules)
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h2, cfg.act)
+        x = x + mlp(lp["mlp"], h2, cfg.act, rules)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -477,13 +487,13 @@ def _positions(b: int, s: int, device):
 # ---------------------------------------------------------------------------
 
 
-def _enc_out(params, enc_in, cfg):
+def _enc_out(params, enc_in, cfg, rules=NO_SHARDING):
     if not cfg.enc_dec:
         return None
     if enc_in is None:
         raise ValueError(f"{cfg.name} is an encoder-decoder model: pass its encoder input "
                          f"(B, {cfg.enc_len}, {cfg.d_model}) as enc_in")
-    return _encode(params, enc_in, cfg)
+    return _encode(params, enc_in, cfg, rules)
 
 
 def forward(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING, positions=None,
@@ -494,12 +504,12 @@ def forward(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
     turns on ``cfg.remat``'s recompute. Under ``rules`` with a mesh,
     ``tokens`` are this rank's rows, and under a model axis the logits are
     this rank's columns of the vocabulary."""
-    check_rules(cfg, rules)
+    check_explicit(rules)
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, tokens.device)
     x = embed(params["embed"], tokens, rules)
-    enc_out = _enc_out(params, enc_in, cfg)
+    enc_out = _enc_out(params, enc_in, cfg, rules)
     x, _, aux = _backbone(params, x, cfg, positions, rules, enc_out=enc_out, train=train)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params["embed"], x, cfg.vocab, rules), aux
@@ -603,33 +613,94 @@ def cache_specs(cfg: ArchConfig, rules: ShardingRules):
     return specs
 
 
-def _grow_caches(caches, cfg: ArchConfig, max_seq: int):
+def _map_layers(caches, cfg: ArchConfig, fn):
+    """``fn(kind, entry)`` over every layer's cache entry, in
+    ``init_cache``'s structure."""
+    layout = group_layout(cfg)
+    out = {f"prologue{i}": fn(kind, caches[f"prologue{i}"])
+           for i, kind in enumerate(prologue_layout(cfg))}
+    out["groups"] = [{f"pos{i}": fn(kind, g[f"pos{i}"]) for i, kind in enumerate(layout)}
+                     for g in caches["groups"]]
+    return out
+
+
+def _seq_block(t, max_seq: int, rules: ShardingRules):
+    """A (B, S, ...) cache leaf of the whole sequence (S <= ``max_seq``) as
+    this rank's block of a split-KV cache of ``max_seq`` positions, zeros
+    past S; the whole, padded to ``max_seq``, without a model axis."""
+    start, length = seq_slice(max_seq, rules)
+    t = F.pad(t, (0, 0) * (t.ndim - 2) + (0, max(start + length - t.shape[1], 0)))
+    return t if (start, length) == (0, t.shape[1]) else t[:, start:start + length].contiguous()
+
+
+def _grow_caches(caches, cfg: ArchConfig, max_seq: int, rules: ShardingRules = NO_SHARDING):
     """The caches with every attention layer's K/V (and int8 scales), every
     MLA layer's c_kv and k_rope and every ``xattn`` layer's self K/V, the
-    prologue's too, padded with zeros along the sequence axis (axis 1 of
-    each) to ``max_seq``; an SSM layer's cache has no sequence axis and an
+    prologue's too, grown with zeros along the sequence axis (axis 1 of
+    each) to ``max_seq``, and under a model axis cut to this rank's block
+    of it (split-KV); an SSM layer's cache has no sequence axis and an
     ``xattn`` layer's cross K/V spans the encoder's positions, and both
     stay as they are. (The reference pads whichever axis has the prompt's
     length, which picks an SSM state axis of equal size, an MLA cache's
     batch axis when B equals S, or a cross K/V's batch, head or head-dim
     axis.)"""
-    layout = group_layout(cfg)
-
-    def pad(entry):
-        return tuple(F.pad(t, (0, 0) * (t.ndim - 2) + (0, max_seq - t.shape[1])) for t in entry)
 
     def grow(kind, entry):
         if kind == "xattn":
-            return {"self": pad(entry["self"]), "cross": entry["cross"]}
+            return {"self": grow("attn", entry["self"]), "cross": entry["cross"]}
         if kind not in ATTN_KINDS + MLA_KINDS:
             return entry
-        return pad(entry)
+        return tuple(_seq_block(t, max_seq, rules) for t in entry)
 
-    grown = {f"prologue{i}": grow(kind, caches[f"prologue{i}"])
-             for i, kind in enumerate(prologue_layout(cfg))}
-    grown["groups"] = [{f"pos{i}": grow(kind, g[f"pos{i}"]) for i, kind in enumerate(layout)}
-                       for g in caches["groups"]]
-    return grown
+    return _map_layers(caches, cfg, grow)
+
+
+def local_caches(full, cfg: ArchConfig, rules: ShardingRules):
+    """This rank's caches from a one-rank cache tree ``full`` (all rows,
+    all heads, ``max_seq`` positions): its rows; an attention or MLA
+    layer's block of the sequence (``seq_slice``: the last block is padded
+    with zeros past ``max_seq``); an SSM layer's heads of the state and its
+    channels of the conv tail (x's of its heads, then the whole B and C);
+    an ``xattn`` layer's cross K/V whole."""
+    rows = P(tuple(rules.batch_axes))
+
+    def blocks(entry):
+        return tuple(_seq_block(t, t.shape[1], rules) for t in entry)
+
+    def cut(kind, entry):
+        entry = tree_map(lambda t: local_shard(t, rows, rules), entry)
+        if kind == "xattn":
+            return {"self": blocks(entry["self"]), "cross": entry["cross"]}
+        if kind == "ssm":
+            state, tail = entry
+            h_lo, h_hi = attn.head_block(cfg.n_ssm_heads, rules)
+            return (state[:, h_lo:h_hi].contiguous(),
+                    ssm_mod._rank_channels(tail, cfg, rules).contiguous())
+        return blocks(entry)
+
+    return _map_layers(full, cfg, cut)
+
+
+def gather_caches(local, cfg: ArchConfig, rules: ShardingRules, max_seq: int | None = None):
+    """The one-rank cache tree from every rank's ``local_caches`` (or the
+    caches its ``prefill`` and ``decode_step`` keep): a collective, every
+    rank of the mesh calls it. A split-KV leaf's sequence comes back as the
+    blocks' M·L positions, cut to ``max_seq`` when it is given."""
+    rows = P(tuple(rules.batch_axes))
+
+    def join(kind, entry):
+        if kind == "xattn":
+            return {"self": join("attn", entry["self"]), "cross": join("cross", entry["cross"])}
+        if kind == "ssm":
+            state, tail = entry
+            di = tail.shape[2] - 2 * cfg.ssm_ngroups * cfg.ssm_state
+            entry = (gather_over_model(state, 1, rules),
+                     torch.cat([gather_over_model(tail[:, :, :di], 2, rules), tail[:, :, di:]], 2))
+        elif kind != "cross":
+            entry = tuple(gather_over_model(t, 1, rules)[:, :max_seq] for t in entry)
+        return tuple(gather_shard(t, rows, rules) for t in entry)
+
+    return _map_layers(local, cfg, join)
 
 
 # ---------------------------------------------------------------------------
@@ -637,36 +708,45 @@ def _grow_caches(caches, cfg: ArchConfig, max_seq: int):
 # ---------------------------------------------------------------------------
 
 
-def prefill(params, tokens, cfg: ArchConfig, max_seq: int | None = None, enc_in=None):
+def prefill(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
+            max_seq: int | None = None, enc_in=None):
     """Run the prompt, build the cache. Returns (last_logits, caches).
 
-    ``tokens: (B, S)``; the logits are those of the last position (B,
-    vocab_padded). The attention layers' K/V and the MLA layers' c_kv and
+    ``tokens: (B, S)``, this rank's rows; the logits are those of the last
+    position (B, vocab_padded), under a model axis the rank's columns of
+    the vocabulary. The attention layers' K/V and the MLA layers' c_kv and
     k_rope hold the prompt's S positions, grown to ``max_seq`` (default S)
-    for the decode steps that follow; an SSM layer's cache serves any
-    number of decode steps as it is. An encoder-decoder model runs its
-    encoder over ``enc_in`` first; its layers' cross K/V hold the encoder
-    output's projections for every decode step."""
+    for the decode steps that follow, and under a model axis cut to this
+    rank's block of them (split-KV); an SSM layer's cache serves any number
+    of decode steps as it is. An encoder-decoder model runs its encoder
+    over ``enc_in`` first; its layers' cross K/V hold the encoder output's
+    projections for every decode step."""
+    check_explicit(rules)
     b, s = tokens.shape
-    x = embed(params["embed"], tokens)
-    enc_out = _enc_out(params, enc_in, cfg)
-    x, caches, _ = _backbone(params, x, cfg, _positions(b, s, tokens.device), want_cache=True,
-                             enc_out=enc_out)
-    if max_seq is not None and max_seq != s:
-        caches = _grow_caches(caches, cfg, max_seq)
+    max_seq = max_seq or s
+    x = embed(params["embed"], tokens, rules)
+    enc_out = _enc_out(params, enc_in, cfg, rules)
+    x, caches, _ = _backbone(params, x, cfg, _positions(b, s, tokens.device), rules,
+                             want_cache=True, enc_out=enc_out)
+    if max_seq != s or rules.model_axis is not None:
+        caches = _grow_caches(caches, cfg, max_seq, rules)
     x = rmsnorm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.vocab)[:, 0], caches
+    return unembed(params["embed"], x, cfg.vocab, rules)[:, 0], caches
 
 
-def decode_step(params, token, caches, pos, cfg: ArchConfig):
+def decode_step(params, token, caches, pos, cfg: ArchConfig,
+                rules: ShardingRules = NO_SHARDING):
     """One decode step. token: (B,) int; pos: (B,) int, the current length:
     the new token's position, where its K/V (MLA: c_kv and k_rope) are
-    written (in place) and up to which it attends. An SSM layer carries its
-    position in its state; an ``xattn`` layer attends over its cached cross
-    K/V.
+    written (in place; under a model axis by the rank whose block holds
+    it) and up to which it attends. An SSM layer carries its position in
+    its state; an ``xattn`` layer attends over its cached cross K/V.
 
-    Returns (logits (B, vocab_padded), new_caches)."""
-    x = embed(params["embed"], token[:, None])
-    x, new_caches, _ = _backbone(params, x, cfg, pos[:, None], caches=caches, cache_pos=pos)
+    Returns (logits (B, vocab_padded), new_caches); under a model axis the
+    logits are the rank's columns."""
+    check_explicit(rules)
+    x = embed(params["embed"], token[:, None], rules)
+    x, new_caches, _ = _backbone(params, x, cfg, pos[:, None], rules, caches=caches,
+                                 cache_pos=pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.vocab)[:, 0], new_caches
+    return unembed(params["embed"], x, cfg.vocab, rules)[:, 0], new_caches

@@ -14,10 +14,32 @@ products run in the parameters' type; on the card a float32 product is
 full float32 only at the "highest" matmul precision (PyTorch's default,
 and what ``chip_smoke.py`` sets). ``ngroups == 1`` is assumed, as there.
 
-``mamba2_spec`` gives the reference's sharding specs of a layer's weights;
-tensor parallelism over them (``w_zx``'s ``"model"`` axis cuts across its
-concatenated z and x halves) is ROADMAP.md queue 1 item 7, and without a
-model axis the blocks run on each rank's rows.
+``mamba2_spec`` gives the reference's sharding specs of a layer's weights.
+Under a model axis (``rules.model_axis``; ``dist.sharding``) each rank runs
+its block of the H heads, H/M of them, and the inner channels that belong
+to them:
+
+* ``w_zx`` holds the rank's columns of z and of x (a split leaf:
+  ``dist.sharding.SPLIT_PARTS``); ``w_dt``, ``dt_bias``, ``a_log``,
+  ``d_skip``, the gated norm's scale and ``w_out``'s rows are the rank's
+  heads';
+* the (g=1, N) B and C stay whole: ``w_bc`` is replicated, and its output
+  enters the heads' region through ``copy_to_model``, as do the replicated
+  ``conv_w`` and ``conv_b`` before the rank takes its channels of them
+  (x's of its heads, then all of B's and C's), so that their gradients
+  are summed over ``model``;
+* the gated RMSNorm's mean is over all of ``d_inner``: the rank's sum of
+  squares is summed over ``model`` forward and backward;
+* ``w_out``'s rows give a partial output, summed over ``model``
+  (``reduce_from_model``);
+* the chunked SSD and the decode kernel run on the rank's H/M heads.
+
+The rank's decode state is its heads' (B, H/M, P, N) SSM state, as
+``cache_specs`` cuts it, and a conv tail of its own channels, (B, W-1,
+d_inner/M + 2N): x's channels of its heads, then the whole B and C. That
+is not ``local_shard`` of the one-rank tail under its spec ``P(b, None,
+m)``, which would cut the (x | B | C) channels evenly;
+``models.lm.local_caches`` and ``gather_caches`` map between the two.
 """
 
 from __future__ import annotations
@@ -25,8 +47,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import P
+from repro_torch.dist.sharding import NO_SHARDING, P, copy_to_model, reduce_from_model
 from repro_torch.kernels import ops
+from repro_torch.models.attention import head_block
 from repro_torch.models.layers import init_dense
 
 
@@ -63,10 +86,18 @@ def _softplus(v):
     return torch.clamp(v, min=0.0) + torch.log1p(torch.exp(-torch.abs(v)))
 
 
-def _gated_rmsnorm(y, z, scale, eps):
+def _gated_rmsnorm(y, z, scale, eps, rules=NO_SHARDING, width=None):
+    """The gated RMSNorm over the last axis. Under a model axis ``y`` and
+    ``z`` are the rank's channels and the mean is over all ``width`` of
+    them: the rank's sum of squares summed over ``model`` forward and
+    backward (``reduce_from_model``, then ``copy_to_model``)."""
     y = y * F.silu(z.float()).to(y.dtype)
     yf = y.float()
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    if rules.model_axis is None:
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    else:
+        ss = torch.sum(torch.square(yf), dim=-1, keepdim=True)
+        var = copy_to_model(reduce_from_model(ss, rules), rules) / width
     return (yf * torch.rsqrt(var + eps) * (1.0 + scale)).to(y.dtype)
 
 
@@ -88,26 +119,57 @@ def _segsum(dta):
     return torch.where(mask, diff, -torch.inf)
 
 
-def _projections(params, x, cfg):
-    zx = x @ params["w_zx"]
+def _rank_channels(t, cfg, rules):
+    """The rank's conv channels of a (..., d_inner + 2N) tensor: x's
+    channels of its heads, then the whole B and C (all of it without a
+    model axis)."""
+    if rules.model_axis is None:
+        return t
+    lo, hi = head_block(cfg.n_ssm_heads, rules)
+    p = cfg.ssm_headdim
+    return torch.cat([t[..., lo * p:hi * p], t[..., cfg.d_inner:]], dim=-1)
+
+
+def _projections(params, x, cfg, rules=NO_SHARDING):
+    """z and x of the rank's heads, the conv input ``x | B | C`` (B and C
+    whole, entered into the region) and dt of the rank's heads."""
+    xr = copy_to_model(x, rules)
+    zx = xr @ params["w_zx"]
     z, xin = torch.chunk(zx, 2, dim=-1)
-    bc = x @ params["w_bc"]
-    dt = _softplus((x @ params["w_dt"]).float() + params["dt_bias"])
+    bc = copy_to_model(x @ params["w_bc"], rules)
+    dt = _softplus((xr @ params["w_dt"]).float() + params["dt_bias"])
     return z, torch.cat([xin, bc], dim=-1), dt
 
 
-def _split_conv(conv_out, cfg):
-    di, n = cfg.d_inner, cfg.ssm_state
+def _conv_params(params, cfg, rules):
+    """``conv_w`` and ``conv_b`` at the rank's channels, entered into the
+    heads' region."""
+    return (_rank_channels(copy_to_model(params["conv_w"], rules), cfg, rules),
+            _rank_channels(copy_to_model(params["conv_b"], rules), cfg, rules))
+
+
+def _split_conv(conv_out, cfg, di):
+    """(x of ``di`` channels, B, C) of a conv output."""
+    n = cfg.ssm_state
     return conv_out[..., :di], conv_out[..., di:di + n], conv_out[..., di + n:]
 
 
-def mamba2_forward(params, x, cfg, initial_state=None):
+def _reduce_out(params, y, z, cfg, rules):
+    """The gated norm, then ``w_out``'s rows, summed over ``model``."""
+    y = _gated_rmsnorm(y, z, params["norm"], cfg.norm_eps, rules, cfg.d_inner)
+    return reduce_from_model(y @ params["w_out"], rules)
+
+
+def mamba2_forward(params, x, cfg, rules=NO_SHARDING, initial_state=None):
     """Chunked SSD over a full sequence. x: (B, S, D).
 
     Returns (out, (ssm_state, conv_tail)), the final states for the decode
-    handoff."""
+    handoff (under a model axis the rank's heads and channels)."""
     b, s_true, _ = x.shape
-    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_headdim
+    n, p = cfg.ssm_state, cfg.ssm_headdim
+    h_lo, h_hi = head_block(cfg.n_ssm_heads, rules)
+    h = h_hi - h_lo
+    di = h * p
     q = min(cfg.ssm_chunk, s_true)
     # Pad the sequence to a chunk multiple; padded positions get dt = 0 so
     # they neither update the state (dt*B*x = 0) nor decay it (exp(0*A) = 1).
@@ -116,12 +178,12 @@ def mamba2_forward(params, x, cfg, initial_state=None):
         x = F.pad(x, (0, 0, 0, s - s_true))
     nc = s // q
 
-    z, conv_in, dt = _projections(params, x, cfg)  # dt: (B, S, H)
+    z, conv_in, dt = _projections(params, x, cfg, rules)  # dt: (B, S, H)
     if s != s_true:
         valid = (torch.arange(s, device=x.device) < s_true)[None, :, None]
         dt = dt * valid
-    conv_out = F.silu(_causal_conv(conv_in, params["conv_w"], params["conv_b"]))
-    xin, b_in, c_in = _split_conv(conv_out, cfg)
+    conv_out = F.silu(_causal_conv(conv_in, *_conv_params(params, cfg, rules)))
+    xin, b_in, c_in = _split_conv(conv_out, cfg, di)
 
     xc = xin.reshape(b, nc, q, h, p)
     bc_ = b_in.reshape(b, nc, q, n)
@@ -165,9 +227,7 @@ def mamba2_forward(params, x, cfg, initial_state=None):
     if s != s_true:
         y = y[:, :s_true]
         z = z[:, :s_true]
-
-    y = _gated_rmsnorm(y, z, params["norm"], cfg.norm_eps)
-    out = y @ params["w_out"]
+    out = _reduce_out(params, y, z, cfg, rules)
 
     # The last W-1 conv inputs; a prompt shorter than that is left-padded
     # with the zeros the causal conv assumed (the reference's negative slice
@@ -178,26 +238,28 @@ def mamba2_forward(params, x, cfg, initial_state=None):
     return out, (state, conv_tail)
 
 
-def mamba2_decode(params, x, cfg, state):
-    """One-token recurrent step. x: (B, 1, D); state = (ssm, conv_tail).
+def mamba2_decode(params, x, cfg, rules, state):
+    """One-token recurrent step. x: (B, 1, D); state = (ssm, conv_tail),
+    under a model axis the rank's.
 
     The state update is one launch of the ``ssd_decode`` kernel on the card
-    (its plain version on the CPU); the new state is a fresh tensor."""
+    (its plain version on the CPU), on the rank's heads; the new state is a
+    fresh tensor."""
     b = x.shape[0]
-    di, h, p = cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_headdim
+    p = cfg.ssm_headdim
+    h_lo, h_hi = head_block(cfg.n_ssm_heads, rules)
+    h = h_hi - h_lo
     ssm_state, conv_tail = state  # (B, H, P, N), (B, W-1, C)
 
-    z, conv_in, dt = _projections(params, x, cfg)
+    z, conv_in, dt = _projections(params, x, cfg, rules)
     dt = dt[:, 0]  # (B, H)
     window = torch.cat([conv_tail, conv_in], dim=1)  # (B, W, C)
-    conv_out = F.silu(torch.sum(window * params["conv_w"][None], dim=1)
-                      + params["conv_b"][None])  # (B, C)
-    xin, b_t, c_t = _split_conv(conv_out, cfg)
+    conv_w, conv_b = _conv_params(params, cfg, rules)
+    conv_out = F.silu(torch.sum(window * conv_w[None], dim=1) + conv_b[None])  # (B, C)
+    xin, b_t, c_t = _split_conv(conv_out, cfg, h * p)
     xh = xin.reshape(b, h, p).float()
 
     a = -torch.exp(params["a_log"])
     y, ssm_state = ops.ssd_decode(ssm_state, xh, dt, b_t, c_t, a, params["d_skip"])
-    y = y.reshape(b, 1, di).to(x.dtype)
-    y = _gated_rmsnorm(y, z, params["norm"], cfg.norm_eps)
-    out = y @ params["w_out"]
-    return out, (ssm_state, window[:, 1:, :])
+    y = y.reshape(b, 1, h * p).to(x.dtype)
+    return _reduce_out(params, y, z, cfg, rules), (ssm_state, window[:, 1:, :])

@@ -45,6 +45,22 @@ B, KV or dh equals the padded prompt length.
 The engine runs on the card unless built with ``device="cpu"``; its
 parameters must already be there. Tokens stay on the device until the
 last step and are read back once.
+
+``Engine(..., rules=)`` serves over the ranks of ``rules.mesh``, one
+process per rank, each holding its shard of the weights
+(``lm.init_params(..., rules=rules)``) and of the caches (split-KV,
+``lm.prefill``), as the reference's ``Engine(rules=)`` does under a mesh:
+
+* each batch rank takes its rows of the prompts (and frames); where B does
+  not divide by the batch ranks, every rank takes them all, as the
+  reference's ``spec`` drops an axis that does not divide;
+* the logits are all-gathered over ``model`` (they are vocab-parallel)
+  before sampling;
+* temperature sampling draws the whole batch's noise from the one seeded
+  generator and takes the rank's rows, so a sharded run samples what one
+  rank samples;
+* the tokens are all-gathered over the batch ranks at the end: every rank
+  returns the whole (B, max_new_tokens).
 """
 
 from __future__ import annotations
@@ -55,6 +71,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.paralingam import _device
+from repro_torch.dist.sharding import (
+    NO_SHARDING,
+    P,
+    batch_rows,
+    check_explicit,
+    gather_over_model,
+    gather_shard,
+    local_shard,
+)
 from repro_torch.models import lm
 from repro_torch.serve.buckets import bucket_dim
 
@@ -68,21 +93,27 @@ class ServeConfig:
 
 
 class Engine:
-    def __init__(self, params, cfg, serve_cfg: ServeConfig | None = None, device=None):
+    def __init__(self, params, cfg, serve_cfg: ServeConfig | None = None, device=None,
+                 rules=NO_SHARDING):
         self.device = _device(device, "repro_torch.serve.engine.Engine")
         where = params["final_norm"].device
         if where.type != self.device.type:
             raise ValueError(f"the parameters are on {where}, the engine on {self.device}: "
                              "build them there (lm.init_params(..., device=...))")
+        check_explicit(rules)
         self.params = params
         self.cfg = cfg
         self.serve_cfg = serve_cfg or ServeConfig()
+        self.rules = rules
 
-    def _sample(self, logits, gen):
+    def _sample(self, logits, gen, rows, rules):
+        """The next token of this rank's rows from its (B_rank, V) logits
+        (all columns); the noise is drawn for the whole batch."""
         if self.serve_cfg.temperature <= 0.0:
             return torch.argmax(logits, dim=-1)
         scaled = logits.float() / self.serve_cfg.temperature
-        u = torch.rand(scaled.shape, generator=gen, device=scaled.device)
+        u = torch.rand((rows,) + tuple(scaled.shape[1:]), generator=gen, device=scaled.device)
+        u = local_shard(u, P(tuple(rules.batch_axes)), rules)
         u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
         return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
 
@@ -91,28 +122,32 @@ class Engine:
         """prompts: (B, S) int (right-padded with 0 is fine: bucketing pads S
         up to a power of two). ``enc``: an encoder-decoder model's frame
         embeddings (B, enc_len, d_model), numpy or a tensor. Returns (B,
-        max_new_tokens) int32."""
+        max_new_tokens) int32, the whole batch on every rank."""
         scfg = self.serve_cfg
         b, s = prompts.shape
+        rules, rows = batch_rows(b, self.rules)
         if scfg.bucket_prompts:
             prompts = np.pad(prompts, ((0, 0), (0, bucket_dim(s) - s)), constant_values=0)
         total = prompts.shape[1] + scfg.max_new_tokens
         tokens = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
+        tokens = local_shard(tokens, rows, rules)
         if enc is not None:
-            enc = torch.as_tensor(enc, device=self.device)
-        last_logits, caches = lm.prefill(self.params, tokens, self.cfg, max_seq=total,
+            enc = local_shard(torch.as_tensor(enc, device=self.device), rows, rules)
+        last_logits, caches = lm.prefill(self.params, tokens, self.cfg, rules, max_seq=total,
                                          enc_in=enc)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        pos = torch.full((b,), s, dtype=torch.int64, device=self.device)  # true prompt length
+        b_rank = tokens.shape[0]
+        pos = torch.full((b_rank,), s, dtype=torch.int64, device=self.device)  # true length
         out = []
-        tok = self._sample(last_logits, gen)
-        finished = torch.zeros((b,), dtype=torch.bool, device=self.device)
+        tok = self._sample(gather_over_model(last_logits, 1, rules), gen, b, rules)
+        finished = torch.zeros((b_rank,), dtype=torch.bool, device=self.device)
         for i in range(scfg.max_new_tokens):
             out.append(tok)
-            logits, caches = lm.decode_step(self.params, tok, caches, pos + i, self.cfg)
-            nxt = self._sample(logits, gen)
+            logits, caches = lm.decode_step(self.params, tok, caches, pos + i, self.cfg, rules)
+            nxt = self._sample(gather_over_model(logits, 1, rules), gen, b, rules)
             if scfg.eos_id >= 0:
                 finished = finished | (tok == scfg.eos_id)
                 nxt = torch.where(finished, scfg.eos_id, nxt)
             tok = nxt
-        return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+        out = gather_shard(torch.stack(out, dim=1), rows, rules)
+        return out.to(torch.int32).cpu().numpy()

@@ -27,7 +27,9 @@ Checkpoints do not depend on the mesh, as in the reference. Sharded
 leaf on every rank (a collective), rank 0 alone copies it to the host and
 writes the files, and the handle's ``join`` holds every rank until the
 write is done. ``restore`` reads the full leaves and keeps this rank's
-shard of each, so a run restores on another mesh, or on one device. The
+shard of each, so a run restores on another mesh, or on one device. A
+split leaf (``dist.sharding.SPLIT_PARTS``, by its name) is gathered and
+cut part by part, so the files hold the one-rank layout. The
 reference's ``shardings`` becomes ``device`` (and ``specs``/``rules``).
 """
 
@@ -45,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.paralingam import _device
-from repro_torch.dist.sharding import NO_SHARDING, gather_shard, local_shard
+from repro_torch.dist.sharding import NO_SHARDING, gather_shard, local_shard, split_parts
 from repro_torch.utils.log import get_logger
 from repro_torch.utils.tree import tree_flatten_with_names, tree_leaves, tree_unflatten
 
@@ -92,7 +94,7 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3, block: bool = False, 
     handle whose ``join`` every rank calls, when sharded)."""
     if rules.mesh is not None and specs is not None:
         named = tree_flatten_with_names(tree)
-        full = [(name, gather_shard(leaf, spec, rules))
+        full = [(name, gather_shard(leaf, spec, rules, split_parts(name)))
                 for (name, leaf), spec in zip(named, tree_leaves(specs))]
         if dist.get_rank() != 0:
             handle = _Written(None)
@@ -167,7 +169,7 @@ def restore(ckpt_dir: str, step: int, like, device=None, specs=None, rules=NO_SH
     for (name, ref), spec in zip(named, spec_leaves):
         t = _from_host(np.load(os.path.join(path, _fname(name) + ".npy")), dtypes[name])
         if spec is not None:
-            t = local_shard(t, spec, rules)
+            t = local_shard(t, spec, rules, split_parts(name))
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{name}: stored {tuple(t.shape)} (this rank's part), "
                              f"wanted {tuple(ref.shape)}")

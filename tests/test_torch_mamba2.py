@@ -35,6 +35,7 @@ from repro.models import ssm as j_ssm  # noqa: E402
 from repro.serve.engine import Engine as JEngine  # noqa: E402
 from repro.serve.engine import ServeConfig as JServeConfig  # noqa: E402
 from repro_torch import configs as t_configs  # noqa: E402
+from repro_torch.dist import sharding as t_sharding  # noqa: E402
 from repro_torch.kernels import ssd_decode as t_ssd  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import lm as t_lm  # noqa: E402
@@ -184,7 +185,7 @@ def test_mamba2_decode_matches(name):
             lp_j, jnp.asarray(x), (jnp.asarray(st), jnp.asarray(tail)))
     before = t_ssd.LAUNCHES
     out_t, (st_t, tail_t) = t_ssm.mamba2_decode(
-        tp["groups"][0]["pos0"]["ssm"], torch.from_numpy(x), tcfg,
+        tp["groups"][0]["pos0"]["ssm"], torch.from_numpy(x), tcfg, t_sharding.NO_SHARDING,
         (torch.from_numpy(st), torch.from_numpy(tail)))
     assert t_ssd.LAUNCHES == before  # the CPU route runs the plain version
     _close(out_t, out_j)

@@ -1,7 +1,8 @@
 """The sharding specs of ``repro_torch`` against the JAX package's, and the
 parts of sharded training that are not the grids of ``test_torch_tp.py``:
-the collectives' gradients, the families that refuse a model axis, data
-parallelism over them, and checkpoints that move between meshes.
+the collectives' gradients, the split leaves' shards, data parallelism
+over the SSM and encoder-decoder families, and checkpoints that move
+between meshes.
 
 * ``ShardingRules.spec`` on the stub meshes of ``tests/test_dist_unit.py``
   (every kind, non-dividing axes, context parallelism, heads unsharded,
@@ -16,9 +17,13 @@ parallelism over them, and checkpoints that move between meshes.
 * Data parallelism over the mamba2 and whisper smoke configs on a (2, 1)
   grid against one rank: the loss within rtol 1e-5 and each gradient
   within 1e-5 of its norm (float32 rounding of a mean split over ranks).
+* ``local_shard``/``gather_shard`` of a split leaf (Mamba2's ``w_zx``,
+  z | x) on a (1, 2) grid: each rank holds its heads' columns of z and of
+  x, and the gather gives the leaf back: exact.
 * A checkpoint written at (1, 2) restores at (2, 1), ZeRO-1 slices and
   all, and on one device: bit for bit (the port's counterpart of
-  ``tests/test_elastic.py``).
+  ``tests/test_elastic.py``), for granite and for mamba2, whose ``w_zx``
+  comes back in the one-rank column order.
 
 The ranks run jobs of ``test_torch_tp.py`` (its ``run_grid``), which
 imports no JAX.
@@ -43,8 +48,16 @@ from repro_torch.launch import mesh as t_mesh
 from repro_torch.models import lm
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train import optimizer as t_opt
-from repro_torch.utils.tree import tree_leaves
-from test_torch_tp import dp_run, job_dp, job_regions, job_restore, job_save, run_grid
+from repro_torch.utils.tree import tree_flatten_with_names, tree_leaves
+from test_torch_tp import (
+    dp_run,
+    job_dp,
+    job_regions,
+    job_restore,
+    job_save,
+    job_split_leaf,
+    run_grid,
+)
 
 LOSS_RTOL, GRAD_NORM_TOL = 1e-5, 1e-5
 
@@ -221,19 +234,14 @@ def test_make_production_mesh_shapes_and_names(monkeypatch):
                      ("cpu", (2, 16, 16), ("pod", "data", "model"))]
 
 
-# -- the model families under a model axis ----------------------------------------------
+# -- the split leaves ---------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b", "whisper-base"])
-def test_tensor_parallel_refuses_ssm_hybrid_and_encoder_decoder(arch):
-    cfg = configs.smoke(arch)
-    params = lm.init_params(cfg, device="cpu", dtype=torch.float32)
-    rules = ShardingRules(mesh=_stub_mesh(data=1, model=2), model_axis="model")
-    batch = {"tokens": torch.zeros((2, 5), dtype=torch.long)}
-    if cfg.enc_dec:
-        batch["enc"] = torch.zeros((2, cfg.enc_len, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        lm.train_loss(params, batch, cfg, rules)
+def test_split_leaf_table_names_w_zx():
+    specs = dict(tree_flatten_with_names(lm.param_specs(configs.smoke("zamba2-2.7b"))))
+    split = sorted({n.rsplit("/", 1)[-1] for n in specs if sharding.split_parts(n) > 1})
+    assert split == ["w_zx"]
+    assert specs["groups/0/pos0/ssm/w_zx"] == (None, "model")  # the reference's spec, verbatim
 
 
 # -- on gloo ranks -----------------------------------------------------------------------
@@ -273,22 +281,46 @@ def test_data_parallel_over_ssm_and_encoder_decoder_equals_one_rank(tmp_path):
                 assert diff <= GRAD_NORM_TOL * float(np.linalg.norm(w)) + 1e-30, (arch, i)
 
 
+def test_split_leaf_shards_by_parts(tmp_path):
+    """w_zx (d, 2 di) = z | x over 2 model ranks: rank r holds z's and x's
+    columns of its heads, and gathers the whole leaf back."""
+    ranks = run_grid((1, 2), [("s", job_split_leaf, {})], tmp_path)
+    full = np.arange(24.0).reshape(2, 12)  # z: columns 0-5, x: columns 6-11
+    for r, res in enumerate(ranks):
+        part, back = res["s"]
+        want = np.concatenate([full[:, 3 * r:3 * r + 3], full[:, 6 + 3 * r:9 + 3 * r]], axis=1)
+        np.testing.assert_array_equal(part, want)
+        np.testing.assert_array_equal(back, full)
+
+
 def test_checkpoint_moves_between_meshes_bit_for_bit(tmp_path):
     """Written at (1, 2) after two steps; restored at (2, 1), where the
-    moments are ZeRO-1 slices, and on one device."""
-    arch, ckpt_dir = "granite-3-2b", str(tmp_path / "ckpt")
-    saved = run_grid((1, 2), [("s", job_save, {"arch": arch, "ckpt_dir": ckpt_dir})],
-                     tmp_path / "save")[0]["s"]
-    moved = run_grid((2, 1), [("r", job_restore, {"arch": arch, "ckpt_dir": ckpt_dir})],
-                     tmp_path / "restore")[0]["r"]
-    assert len(saved) == len(moved)
-    for a, b in zip(saved, moved):
-        assert a.dtype == b.dtype
-        np.testing.assert_array_equal(a, b)
-    cfg = configs.smoke(arch)
-    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
-    like = {"params": params, "opt": t_opt.init_opt_state(params)}
-    one = ckpt_lib.restore(ckpt_dir, 2, like, device="cpu")
-    for a, b in zip(saved, tree_leaves(one)):
-        np.testing.assert_array_equal(a, b.numpy())
-    assert int(one["opt"]["step"]) == 2
+    moments are ZeRO-1 slices, and on one device. granite-3-2b and
+    mamba2-370m (a split leaf: its ``w_zx`` restores in the one-rank
+    column order, near its initial value and far from the order an even
+    cut gathered by parts would give)."""
+    archs, ckpt = ("granite-3-2b", "mamba2-370m"), lambda a: str(tmp_path / "ckpt" / a)
+    saved = run_grid((1, 2), [(a, job_save, {"arch": a, "ckpt_dir": ckpt(a)}) for a in archs],
+                     tmp_path / "save")[0]
+    moved = run_grid((2, 1), [(a, job_restore, {"arch": a, "ckpt_dir": ckpt(a)}) for a in archs],
+                     tmp_path / "restore")[0]
+    for arch in archs:
+        assert len(saved[arch]) == len(moved[arch])
+        for a, b in zip(saved[arch], moved[arch]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        cfg = configs.smoke(arch)
+        params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+        like = {"params": params, "opt": t_opt.init_opt_state(params)}
+        one = ckpt_lib.restore(ckpt(arch), 2, like, device="cpu")
+        for a, b in zip(saved[arch], tree_leaves(one)):
+            np.testing.assert_array_equal(a, b.numpy())
+        assert int(one["opt"]["step"]) == 2
+        if arch == "mamba2-370m":
+            w0 = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+            w0 = w0["groups"][0]["pos0"]["ssm"]["w_zx"].numpy()
+            w2 = one["params"]["groups"][0]["pos0"]["ssm"]["w_zx"].numpy()
+            z0, z1, x0, x1 = np.split(w0, 4, axis=1)
+            mixed = np.concatenate([z0, x0, z1, x1], axis=1)
+            assert np.linalg.norm(w2 - w0) < 0.1 * np.linalg.norm(w0)
+            assert np.linalg.norm(w2 - mixed) > 0.5 * np.linalg.norm(w0)

@@ -737,19 +737,18 @@ def _train_done(text: str):
                       text)
 
 
-@pytest.mark.parametrize("model_shards", [1, 2])
-def test_train_cli_on_gloo_ranks(model_shards, capsys):
-    """``python -m repro_torch.launch.train --data-shards 2 --model-shards
-    M --device cpu`` on 2·M processes with the ``torchrun`` environment:
-    rank 0 alone prints ``train_done``, with the one-device losses."""
-    assert t_launch.main(_CLI) == 0
+def _cli_on_ranks(cli, data_shards, model_shards, capsys):
+    """``launch.train`` on ``data_shards`` · ``model_shards`` processes with
+    the ``torchrun`` environment, against its one-device run: rank 0 alone
+    prints ``train_done``, with the one-device losses."""
+    assert t_launch.main(cli) == 0
     want = _train_done(capsys.readouterr().out)
-    world = 2 * model_shards
+    world = data_shards * model_shards
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train", *_CLI, "--data-shards", "2",
-         "--model-shards", str(model_shards)],
+        [sys.executable, "-m", "repro_torch.launch.train", *cli, "--data-shards",
+         str(data_shards), "--model-shards", str(model_shards)],
         env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(world)]
     outs = []
@@ -768,6 +767,21 @@ def test_train_cli_on_gloo_ranks(model_shards, capsys):
     assert (arch, steps) == want[0][:2]
     for a, b in zip((first, last), want[0][2:]):
         assert abs(float(a) - float(b)) <= BF16_LOSS_ATOL
+
+
+@pytest.mark.parametrize("model_shards", [1, 2])
+def test_train_cli_on_gloo_ranks(model_shards, capsys):
+    """``python -m repro_torch.launch.train --data-shards 2 --model-shards
+    M --device cpu`` on 2·M processes with the ``torchrun`` environment:
+    rank 0 alone prints ``train_done``, with the one-device losses."""
+    _cli_on_ranks(_CLI, 2, model_shards, capsys)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b", "whisper-base"])
+def test_train_cli_model_shards_over_ssm_hybrid_and_encoder_decoder(arch, capsys):
+    """``--model-shards 2`` on the SSM, hybrid and encoder-decoder smoke
+    presets (2 processes): the one-device losses."""
+    _cli_on_ranks([*_CLI[:1], arch, *_CLI[2:]], 1, 2, capsys)
 
 
 def test_train_cli_refuses_a_world_of_another_size(monkeypatch):
