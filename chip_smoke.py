@@ -266,7 +266,25 @@ Phases, each printed on its own line:
     device time at the per-rank shape, from a torch.profiler session in a
     process of its own (a session in a process that ran ranks, or in a
     rank, left later sessions of the main process without device events).
-22. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
+22. ``[dryrun_hold]``, after every timed phase: the production dry run
+    (``launch/dryrun.py``: one rank's cell on fake tensors over a fake
+    process group, nothing allocated) of the cells this run measured, at
+    their own shapes and meshes, each rank traced as itself in a pool of
+    ``DRYRUN_WORKERS`` processes, held against the measurements:
+    ``[granite_train]`` (one rank), ``[granite_train_tp]`` (both ranks of
+    (1, 2)) and ``[granite_serve_tp]``/``[zamba2_serve_tp]`` (both ranks;
+    the prefill and a decode step with its logits' gather): collectives per
+    step equal to a ``CollectiveLedger``'s count (``CollectiveClock`` on
+    the ranks), argument bytes equal to the real tensors'
+    (``StepArguments``), each predicted peak within ``PEAK_TOL`` of the
+    rank's ``max_memory_allocated``, the predicted temporaries (peak less
+    arguments) within ``TEMP_TOL`` of the measured ones (less the bytes
+    held beside the run, ``Beside``), kernel #6's launches per step equal
+    to the counted ones; then ``[dryrun_production]``, yi-34b/train_4k on
+    the 16 x 16 mesh as rank 0, and its record (``[dryrun_record]``: the
+    port refuses it, its 56 heads do not split over 16 model ranks). The
+    phase's seconds stay under ``DRYRUN_HOLD_S``.
+23. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them, the decode
     kernel's zamba2 launches, one rank's and two ranks'), its error
     against the plain version, its time, the plain version's time and
@@ -336,6 +354,13 @@ from repro_torch.dist.ring_order import causal_order_ring  # noqa: E402
 from repro_torch.serve.lingam_engine import pack_bucket  # noqa: E402
 from repro_torch.data.synthetic import TokenStream  # noqa: E402
 from repro_torch.launch.train import preset_config  # noqa: E402
+from repro_torch.configs.shapes import SHAPES, ShapeSpec  # noqa: E402
+from repro_torch.dist.sharding import gather_over_model  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import specs as cell_specs  # noqa: E402
+from repro_torch.launch.mesh import fake_world, production_shape  # noqa: E402
+from repro_torch.train import trainer as trainer_mod  # noqa: E402
+from repro_torch.utils.collectives import CollectiveLedger  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train.optimizer import OptimizerConfig, adamw_update, init_opt_state  # noqa: E402
 from repro_torch.train.trainer import TrainerConfig, loss_and_grads, make_train_step, train  # noqa: E402
@@ -2928,18 +2953,24 @@ def phase_granite_train(dev, gpu, profile=False):
     first, the peak GB with remat (5 superblocks of 8 groups); with
     ``profile``, the device kernels of one more step; then the GB its
     forward keeps for the backward with and without remat
-    (``remat_memory``)."""
+    (``remat_memory``). Returns the losses, and for ``[dryrun_hold]`` the
+    peak GB, a step's argument bytes, the bytes held beside the run
+    (``Beside``) and the collectives per step (a ``CollectiveLedger``
+    around ``train``)."""
     cfg = configs.get("granite-3-2b")
     params, init_s = timed(lambda: lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev))
     opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
     tcfg = TrainerConfig(total_steps=TRAIN_STEPS, log_every=TRAIN_STEPS, opt=opt)
     batches = train_batches(cfg, dev)
+    beside = Beside(dryrun.argument_bytes(params))
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    (params, opt_state, history), wall = timed(lambda: train(
-        params, lambda p, b: lm.train_loss(p, b, cfg), batches, tcfg))
+    with StepArguments() as step_args, CollectiveLedger() as ledger:
+        (params, opt_state, history), wall = timed(lambda: train(
+            params, lambda p, b: lm.train_loss(p, b, cfg), batches, tcfg))
     launched = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    beside.stop()
     check(not any(launched.values()), f"granite_train: kernels launched {launched}")
     losses, dts = [h["loss"] for h in history], [h["dt"] for h in history]
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
@@ -2966,7 +2997,8 @@ def phase_granite_train(dev, gpu, profile=False):
         saved_gb_no_remat=f"{mem[False][0]:.3f}", grad_peak_gb_remat=f"{mem[True][1]:.3f}",
         grad_peak_gb_no_remat=f"{mem[False][1]:.3f}",
         losses=",".join(f"{v:.4f}" for v in losses), step0_bound=f"{bound:.4f}", gpu=f"'{gpu}'")
-    return losses
+    return losses, {"peak_gb": peak_gb, "arg_bytes": step_args.bytes, "beside": beside.bytes,
+                    "collectives_per_step": ledger.calls / TRAIN_STEPS}
 
 
 def phase_granite_train_hold(dev, gpu):
@@ -3185,72 +3217,118 @@ def gloo_cuda_probe() -> dict:
             "broadcast": bool((y == 7.0).all()) and on(y)}
 
 
-class CollectiveClock:
-    """Seconds inside ``torch.distributed``'s ``all_reduce`` and
-    ``all_gather`` while installed. Under gloo a collective returns when it
-    is done on the host, so the card is synchronized before each call (its
-    queued work is not the collective's) and the host clock read around
-    it; under NCCL CUDA events on the current stream time it."""
+class CollectiveClock(CollectiveLedger):
+    """Seconds inside ``torch.distributed``'s collectives while installed,
+    each counted by the port's ``CollectiveLedger`` (``calls``: its
+    records; on these paths every one is an ``all_reduce`` or an
+    ``all_gather``). Under gloo a collective returns when it is done on the
+    host, so the card is synchronized before each call (its queued work is
+    not the collective's) and the host clock read around it; under NCCL
+    CUDA events on the current stream time it."""
 
     def __init__(self, backend: str):
-        self.backend, self.host_s, self.events, self.calls = backend, 0.0, [], 0
-        self.saved = {}
+        super().__init__()
+        self.backend, self.host_s, self.events = backend, 0.0, []
 
-    def wrap(self, fn):
-        def timed(*args, **kwargs):
-            self.calls += 1
-            if self.backend == "gloo":
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = fn(*args, **kwargs)
-                self.host_s += time.perf_counter() - t0
-                return out
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
+    def call(self, fn, args, kwargs):
+        if self.backend == "gloo":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            end.record()
-            self.events.append((start, end))
+            self.host_s += time.perf_counter() - t0
             return out
-        return timed
-
-    def __enter__(self):
-        import torch.distributed as dist
-
-        for name in ("all_reduce", "all_gather"):
-            self.saved[name] = getattr(dist, name)
-            setattr(dist, name, self.wrap(self.saved[name]))
-        return self
-
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-
-        for name, fn in self.saved.items():
-            setattr(dist, name, fn)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        self.events.append((start, end))
+        return out
 
     def seconds(self) -> float:
         torch.cuda.synchronize()
         return self.host_s + sum(s.elapsed_time(e) for s, e in self.events) / 1e3
 
 
+def cublas_workspace_bytes() -> int:
+    """The bytes cuBLAS's workspaces hold in the caching allocator now,
+    released here (the next product allocates them again)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    return held - torch.cuda.memory_allocated()
+
+
+class Beside:
+    """The bytes the caching allocator holds beside a measured run that
+    the run's cell does not: what is allocated at the start other than the
+    cell's arguments alive then (``alive_bytes``), plus cuBLAS's
+    workspaces, released at the start and read at the end (``stop``, after
+    ``max_memory_allocated`` is read). Start it before
+    ``reset_peak_memory_stats``."""
+
+    def __init__(self, alive_bytes: int = 0):
+        cublas_workspace_bytes()
+        self.before = torch.cuda.memory_allocated() - alive_bytes
+        self.bytes = None
+
+    def stop(self) -> int:
+        self.bytes = self.before + cublas_workspace_bytes()
+        return self.bytes
+
+
+class StepArguments:
+    """While installed, the first call of a step that
+    ``trainer.make_train_step`` builds records the bytes of its arguments
+    (``params``, ``opt_state``, ``batch``: the distinct storages of the
+    real tensors on this rank, ``dryrun.argument_bytes``) in ``bytes``;
+    every later step's are the same."""
+
+    def __init__(self):
+        self.bytes, self.saved = None, None
+
+    def __enter__(self):
+        self.saved = made = trainer_mod.make_train_step
+
+        def make(*args, **kwargs):
+            step = made(*args, **kwargs)
+
+            def counted(params, opt_state, batch):
+                if self.bytes is None:
+                    self.bytes = dryrun.argument_bytes((params, opt_state, batch))
+                return step(params, opt_state, batch)
+
+            return counted
+
+        trainer_mod.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        trainer_mod.make_train_step = self.saved
+
+
 def rank_tp_train(argv):
     """[granite_train_tp] on this rank: ``launch.train.run`` on ``argv``,
-    the collectives' seconds at the end of each step."""
+    the collectives' seconds at the end of each step, a step's argument
+    bytes, the bytes held beside the run (``Beside``)."""
     import torch.distributed as dist
 
     from repro_torch.launch import train as train_cli
 
     backend = dist.get_backend()
+    beside = Beside()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     clock = CollectiveClock(backend)
     at_step = []
-    with clock:
+    with clock, StepArguments() as step_args:
         history, params, cfg, rank = train_cli.run(
             train_cli.parser().parse_args(list(argv)),
             hooks=[lambda step, p, m: at_step.append((clock.seconds(), clock.calls))])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     return {"losses": [h["loss"] for h in history], "dts": [h["dt"] for h in history],
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launched": counts(),
-            "params_m": param_count(params) / 1e6, "collective_s": at_step, "rank": rank}
+            "peak_gb": peak_gb, "beside": beside.stop(), "launched": counts(),
+            "params_m": param_count(params) / 1e6, "collective_s": at_step, "rank": rank,
+            "arg_bytes": step_args.bytes}
 
 
 def hold_leaves(got, want, names) -> tuple[float, str]:
@@ -3555,9 +3633,10 @@ def rank_serve_tp(arch):
     ``Engine(rules=).generate`` at the serving shape after a warm-up, with
     every kernel count set to 0 just before it and read just after (and
     the decode kernel's head counts); then a prefill and each decode step
-    timed by hand, the collectives' calls and seconds counted; on rank 0
-    of zamba2 one real decode step's ``ssd_decode`` inputs (the rank's
-    heads)."""
+    timed by hand, the collectives' calls and seconds counted, the prefill's
+    and the first decode step's argument bytes, the bytes held beside the
+    ``generate`` (``Beside``); on rank 0 of zamba2 one
+    real decode step's ``ssd_decode`` inputs (the rank's heads)."""
     import torch.distributed as dist
 
     from repro_torch.dist.sharding import make_rules
@@ -3577,6 +3656,7 @@ def rank_serve_tp(arch):
         heads.append(state.shape[1])
         return orig(state, *args)
 
+    beside = Beside(dryrun.argument_bytes(params))
     torch.cuda.reset_peak_memory_stats()
     ops.ssd_decode = spy
     try:
@@ -3586,11 +3666,12 @@ def rank_serve_tp(arch):
     finally:
         ops.ssd_decode = orig
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    beside.stop()
 
     clock = CollectiveClock(dist.get_backend())
     b, s = prompts.shape
     toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
-    from repro_torch.dist.sharding import gather_over_model
+    arg_bytes = {"prefill": dryrun.argument_bytes((params, toks))}
 
     with torch.no_grad(), clock:
         (logits, caches), prefill_s = timed(lambda: lm.prefill(params, toks, cfg, rules,
@@ -3598,8 +3679,11 @@ def rank_serve_tp(arch):
         tok, steps, coll = torch.argmax(gather_over_model(logits, 1, rules), -1), [], []
         for i in range(SERVE_NEW):
             before = (clock.seconds(), clock.calls)
-            (logits, caches), t = timed(lambda: lm.decode_step(
-                params, tok, caches, torch.full((b,), s + i, device=dev), cfg, rules))
+            pos = torch.full((b,), s + i, device=dev)
+            if i == 0:
+                arg_bytes["decode"] = dryrun.argument_bytes((params, tok, caches, pos))
+            (logits, caches), t = timed(lambda: lm.decode_step(params, tok, caches, pos, cfg,
+                                                               rules))
             tok = torch.argmax(gather_over_model(logits, 1, rules), -1)
             after = (clock.seconds(), clock.calls)
             steps.append(t)
@@ -3622,9 +3706,9 @@ def rank_serve_tp(arch):
             ops.ssd_decode = orig
         inputs = [a.cpu() for a in calls[0]] if dist.get_rank() == 0 else None
     return {"tokens": out, "wall": wall, "launched": launched, "heads": sorted(set(heads)),
-            "peak_gb": peak_gb, "init_s": init_s, "params_m": param_count(params) / 1e6,
-            "prefill_s": prefill_s, "steps": steps, "collectives": coll, "ssd_inputs": inputs,
-            "rank": dist.get_rank()}
+            "peak_gb": peak_gb, "beside": beside.bytes, "init_s": init_s,
+            "params_m": param_count(params) / 1e6, "prefill_s": prefill_s, "steps": steps, "collectives": coll, "ssd_inputs": inputs,
+            "rank": dist.get_rank(), "arg_bytes": arg_bytes}
 
 
 def rank_ssd_device(inputs):
@@ -3837,7 +3921,9 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
     kernel against its plain version on the inputs of a zamba2 step of
     model rank 0 (H/2 = 40 heads), and its times at that shape. Returns
     (its launches per rank in the zamba2 ``generate``, its error, its
-    timing without the device time, its inputs on the CPU)."""
+    timing without the device time, its inputs on the CPU, and each rank's
+    results of ``[granite_train_tp]``, ``[granite_serve_tp]`` and
+    ``[zamba2_serve_tp]`` for ``[dryrun_hold]``, by tag)."""
     plan = {(1, 2): [("tp_train", {"argv": TP_ARGV}), ("serve_tp", {"arch": "granite-3-2b"}),
                      ("serve_tp", {"arch": "zamba2-2.7b"})], (2, 1): [], (2, 2): []}
     for grid in SHARD_GRIDS:
@@ -3847,7 +3933,7 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
         plan[grid].append(("ep_hold", {"grid": grid}))
     for grid in SHARD_GRIDS:
         plan[grid].append(("serve_hold", {"grid": grid}))
-    zamba2 = None
+    zamba2, held = None, {}
     for grid, jobs in plan.items():
         t0 = time.perf_counter()
         ranks, backend, cards = run_ranks(jobs, math.prod(grid))
@@ -3860,10 +3946,12 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
             results = [r[i] for r in ranks]
             if job == "tp_train":
                 report_granite_train_tp(gpu, grid, results, backend, cards, one_rank_losses)
+                held["granite_train_tp"] = results
             elif job == "serve_tp":
                 r0 = report_serve_tp(gpu, kwargs["arch"], results, backend, cards,
                                      one_rank_tokens[kwargs["arch"]], dev)
                 zamba2 = r0 if kwargs["arch"] == "zamba2-2.7b" else zamba2
+                held[kwargs["arch"].split("-")[0] + "_serve_tp"] = results
             elif job == "sharded_hold":
                 report_train_sharded_hold(gpu, grid, results, backend, cards)
             elif job == "ep_hold":
@@ -3876,7 +3964,7 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
     args = [a.to(dev) for a in zamba2["ssd_inputs"]]
     err = hold_ssd("zamba2_tp_rank0_layer0", args)
     return (zamba2["launched"]["ssd_decode"], err, ssd_times(args, rate, gpu, profile=False),
-            zamba2["ssd_inputs"])
+            zamba2["ssd_inputs"], held)
 
 
 def phase_ssd_device_tp(gpu, inputs, timing):
@@ -4171,6 +4259,196 @@ def phase_ring_block_kernel(dev, gpu, ecoli_x):
 
 
 
+# ---------------------------------------------------------------------------
+# the production dry run (launch/dryrun.py) held against this run
+# ---------------------------------------------------------------------------
+
+# [dryrun_hold]: each predicted per-rank peak within PEAK_TOL of the
+# rank's max_memory_allocated, and the predicted temporaries (peak less
+# arguments) within TEMP_TOL of the measured ones (peak less the measured
+# arguments and the bytes held beside the run, ``Beside``); the phase
+# within DRYRUN_HOLD_S seconds.
+PEAK_TOL = 0.10
+TEMP_TOL = 0.05
+DRYRUN_HOLD_S = 60
+# The production cell the phase prints: (arch, shape) on the 16 x 16 mesh
+# as rank 0. yi-34b's 56 heads do not split over 16 model ranks, so the
+# record is the port's refusal; the sweep's records of the cells that run
+# come from ``python -m repro_torch.launch.dryrun --all``.
+PRODUCTION_CELL = ("yi-34b", "train_4k")
+# The (data, model) grid of the sharded cells held, and the serving ones'
+# tags and archs.
+HELD_GRID = (1, 2)
+SERVE_TP_ARCHS = {"granite_serve_tp": "granite-3-2b", "zamba2_serve_tp": "zamba2-2.7b"}
+# The processes that trace the held cells.
+DRYRUN_WORKERS = 4
+
+
+def dry_record(cfg, shape, grid, rank: int = 0, then=None, **kw) -> dict:
+    """The dry run's record of ``cfg`` at ``shape`` on the card's path, as
+    rank ``rank`` of a fake world of the (data, model) ``grid`` (None: one
+    rank, no mesh); ``then(rules)`` gives a function of the cell's outputs
+    traced with it."""
+    if grid is None:
+        return dryrun.trace_cell(cell_specs.make_cell(cfg, shape, None, **kw), None,
+                                 verbose=False)
+    with fake_world(grid, ("data", "model"), rank=rank) as mesh:
+        cell = cell_specs.make_cell(cfg, shape, mesh, **kw)
+        return dryrun.trace_cell(cell, mesh, rank=rank, verbose=False,
+                                 then=None if then is None else then(cell.rules))
+
+
+def logits_gathered(rules):
+    """A serving step's tail after ``decode_step``: the logits gathered
+    over ``model`` and the next token (``Engine.generate``'s)."""
+    return lambda out: (torch.argmax(gather_over_model(out[0], 1, rules), -1), out[1])
+
+
+def dry_task(task) -> dict:
+    """One held cell's record, ``task`` = (tag, rank, kind): a worker of
+    ``dryrun_predictions``."""
+    torch.set_num_threads(1)
+    tag, rank, kind = task
+    if tag.startswith("granite_train"):
+        opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+        return dry_record(configs.get("granite-3-2b"), ShapeSpec("train", "train", TRAIN_SEQ,
+                                                                  TRAIN_B),
+                          None if tag == "granite_train" else HELD_GRID, rank, opt_cfg=opt,
+                          accum_steps=1)
+    cfg32 = configs.get(SERVE_TP_ARCHS[tag]).with_overrides(dtype="float32")
+    total = bucket_dim(SERVE_PROMPT) + SERVE_NEW
+    if kind == "prefill":
+        return dry_record(cfg32, ShapeSpec("prefill", "prefill", bucket_dim(SERVE_PROMPT),
+                                           SERVE_B), HELD_GRID, rank, max_seq=total)
+    return dry_record(cfg32, ShapeSpec("decode", "decode", total, SERVE_B), HELD_GRID, rank,
+                      then=logits_gathered)
+
+
+def dryrun_predictions() -> dict:
+    """The dry run of every cell ``[dryrun_hold]`` holds, at the shapes and
+    meshes the phases ran them (each rank of a grid as itself), on the
+    card's path; traced in ``DRYRUN_WORKERS`` spawned processes (one CPU
+    thread each, a fake process group each), the longest cells first."""
+    tasks = [("granite_train", 0, "train")] + [("granite_train_tp", r, "train")
+                                              for r in range(2)]
+    tasks += [(tag, r, kind) for tag in SERVE_TP_ARCHS for r in range(2)
+              for kind in ("prefill", "decode")]
+    with mp.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
+        recs = dict(zip(tasks, pool.map(dry_task, tasks, chunksize=1)))
+    out = {"granite_train": recs["granite_train", 0, "train"],
+           "granite_train_tp": [recs["granite_train_tp", r, "train"] for r in range(2)]}
+    for tag in SERVE_TP_ARCHS:
+        out[tag] = [{kind: recs[tag, r, kind] for kind in ("prefill", "decode")}
+                    for r in range(2)]
+    return out
+
+
+class Holds:
+    """Each prediction printed beside its measurement; ``check`` fails the
+    run on any miss, after every pair is printed."""
+
+    def __init__(self):
+        self.misses = []
+
+    def pair(self, case: str, rank: int, what: str, predicted, measured, ok: bool, **kw):
+        say("dryrun_hold", case=case, rank=rank, what=what, predicted=predicted,
+            measured=measured, held=ok, **kw)
+        if not ok:
+            self.misses.append(f"{case} rank {rank}: {what} predicted {predicted}, "
+                               f"measured {measured}")
+
+    def exact(self, case, rank, what, predicted, measured):
+        self.pair(case, rank, what, predicted, measured, predicted == measured)
+
+    def peak(self, case, rank, predicted_bytes, measured_gb):
+        pred = predicted_bytes / 1e9
+        rel = abs(pred - measured_gb) / measured_gb
+        self.pair(case, rank, "peak_gb", f"{pred:.3f}", f"{measured_gb:.3f}", rel <= PEAK_TOL,
+                  rel_diff=f"{rel:.4f}", allowed=PEAK_TOL)
+
+    def temp(self, case, rank, rec, measured_gb, arg_bytes, beside):
+        """The cell's temporaries: predicted peak less predicted arguments,
+        against the measured peak less the measured arguments and the bytes
+        held beside the run."""
+        pred = (rec["peak_bytes"] - rec["memory"]["argument_size_in_bytes"]) / 1e9
+        meas = measured_gb - (arg_bytes + beside) / 1e9
+        rel = abs(pred - meas) / meas
+        self.pair(case, rank, "temp_gb", f"{pred:.4f}", f"{meas:.4f}", rel <= TEMP_TOL,
+                  rel_diff=f"{rel:.4f}", allowed=TEMP_TOL, beside_gb=f"{beside / 1e9:.4f}")
+
+    def check(self):
+        check(not self.misses, "dryrun_hold: " + "; ".join(self.misses))
+
+
+def phase_dryrun_hold(gpu, train_held, sharded):
+    """[dryrun_hold], after the last timed phase: the dry run
+    (``dryrun_predictions``: each cell traced on fake tensors over a fake
+    process group, each rank as itself) held against this run's
+    measurements of the same cells: collectives per step equal to the
+    count of a ``CollectiveLedger`` (``CollectiveClock`` on the ranks),
+    argument bytes equal to the real tensors' (``StepArguments``,
+    ``rank_serve_tp``), each predicted peak within ``PEAK_TOL`` of the
+    rank's ``max_memory_allocated`` and its temporaries within
+    ``TEMP_TOL`` of the measured ones, kernel #6's launches per step equal
+    to the counted ones. Then ``PRODUCTION_CELL``'s record. Prints each
+    pair and the phase's seconds (at most ``DRYRUN_HOLD_S``)."""
+    t0 = time.perf_counter()
+    pred = dryrun_predictions()
+    trace_s = time.perf_counter() - t0
+    holds = Holds()
+    rec = pred["granite_train"]
+    holds.exact("granite_train", 0, "collectives_per_step", rec["n_collective_ops"],
+                train_held["collectives_per_step"])
+    holds.exact("granite_train", 0, "argument_bytes", rec["memory"]["argument_size_in_bytes"],
+                train_held["arg_bytes"])
+    holds.peak("granite_train", 0, rec["peak_bytes"], train_held["peak_gb"])
+    holds.temp("granite_train", 0, rec, train_held["peak_gb"], train_held["arg_bytes"],
+               train_held["beside"])
+    for r in sharded["granite_train_tp"]:
+        rec, coll = pred["granite_train_tp"][r["rank"]], r["collective_s"]
+        holds.exact("granite_train_tp", r["rank"], "collectives_per_step",
+                    rec["n_collective_ops"], (coll[-1][1] - coll[0][1]) // (len(coll) - 1))
+        holds.exact("granite_train_tp", r["rank"], "argument_bytes",
+                    rec["memory"]["argument_size_in_bytes"], r["arg_bytes"])
+        holds.peak("granite_train_tp", r["rank"], rec["peak_bytes"], r["peak_gb"])
+        holds.temp("granite_train_tp", r["rank"], rec, r["peak_gb"], r["arg_bytes"],
+                   r["beside"])
+    for tag in SERVE_TP_ARCHS:
+        for r in sharded[tag]:
+            cells = pred[tag][r["rank"]]
+            pre, dec = cells["prefill"], cells["decode"]
+            holds.exact(tag, r["rank"], "collectives_per_step", [dec["n_collective_ops"]],
+                        sorted({c[1] for c in r["collectives"]}))
+            holds.exact(tag, r["rank"], "prefill_argument_bytes",
+                        pre["memory"]["argument_size_in_bytes"], r["arg_bytes"]["prefill"])
+            holds.exact(tag, r["rank"], "decode_argument_bytes",
+                        dec["memory"]["argument_size_in_bytes"], r["arg_bytes"]["decode"])
+            top = max(cells, key=lambda k: cells[k]["peak_bytes"])
+            holds.peak(tag, r["rank"], cells[top]["peak_bytes"], r["peak_gb"])
+            holds.temp(f"{tag}_{top}", r["rank"], cells[top], r["peak_gb"], r["arg_bytes"][top],
+                       r["beside"])
+            holds.exact(tag, r["rank"], "ssd_decode_launches_per_step",
+                        dec["kernels"].get("ssd_decode", 0),
+                        r["launched"]["ssd_decode"] // SERVE_NEW)
+    arch, shape = PRODUCTION_CELL
+    t1 = time.perf_counter()
+    with fake_world(*production_shape(False), rank=0) as mesh:
+        prod = dryrun.cell_record(configs.get(arch), SHAPES[shape], mesh, rank=0, device="cuda",
+                                  verbose=False)
+    say("dryrun_production", cell=prod["cell"], mesh=prod["mesh"], rank=0,
+        status=prod["status"], reason=f"'{prod.get('reason', '')}'",
+        seconds=f"{time.perf_counter() - t1:.3f}", gpu=f"'{gpu}'")
+    print("[dryrun_record] " + json.dumps(prod, sort_keys=True), flush=True)
+    held = [pred["granite_train"], *pred["granite_train_tp"],
+            *(rec for tag in SERVE_TP_ARCHS for pair in pred[tag] for rec in pair.values())]
+    phase_s = time.perf_counter() - t0
+    say("dryrun_hold_phase", phase_s=f"{phase_s:.1f}", allowed_s=DRYRUN_HOLD_S,
+        held_cells=len(held), held_cells_trace_s=f"{sum(r['trace_s'] for r in held):.1f}",
+        predictions_s=f"{trace_s:.1f}", gpu=f"'{gpu}'")
+    holds.check()
+    check(phase_s <= DRYRUN_HOLD_S, f"dryrun_hold took {phase_s:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -4226,13 +4504,13 @@ def main() -> int:
     free()
     phase_whisper_serve(dev, gpu, profile)
     free()
-    train_losses = phase_granite_train(dev, gpu, profile)
+    train_losses, train_held = phase_granite_train(dev, gpu, profile)
     free()
     phase_granite_train_hold(dev, gpu)
     free()
     phase_train_resume(dev, gpu)
     free()
-    launches_tp, err_tp, tp_timing, tp_inputs = phase_sharded_training(
+    launches_tp, err_tp, tp_timing, tp_inputs, sharded_held = phase_sharded_training(
         dev, gpu, rate, train_losses, {"granite-3-2b": granite_tokens, "zamba2-2.7b": zamba2_tokens})
     err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
     launches_sq = phase_fit_hopper(dev, gpu, core)
@@ -4255,6 +4533,7 @@ def main() -> int:
     if profile:
         profile_fits(dev, gpu)
     tp_timing = phase_ssd_device_tp(gpu, tp_inputs, tp_timing)
+    phase_dryrun_hold(gpu, train_held, sharded_held)
     sq_ms, sq_wrapper, sq_plain, sq_bound, sq_by = sq["ecoli_stage"]
     sqb_ms, sqb_wrapper, sqb_plain, sqb_bound, sqb_by, sqb_padded, sqb_shape = sq["batch"]
     print(json.dumps({"kernels": [{

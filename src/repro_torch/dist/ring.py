@@ -129,6 +129,7 @@ class Shards:
             self.coord = {}
             return
         names = mesh.mesh_dim_names
+        self._ranks = mesh.mesh.tolist()  # the rank table, read without torch ops
         self.coord = dict(zip(names, mesh.get_coordinate()))
         self._dim = {d: names.index(d) for d in RING_DIMS}
         self._groups = {d: mesh.get_group(d) for d in RING_DIMS}
@@ -165,7 +166,10 @@ class Shards:
     def _rank_at(self, dim: str, coord: int) -> int:
         where = [self.coord[k] for k in self.mesh.mesh_dim_names]
         where[self._dim[dim]] = coord
-        return int(self.mesh.mesh[tuple(where)])
+        rank = self._ranks
+        for i in where:
+            rank = rank[i]
+        return rank
 
     def shift(self, packet, s: int, dim: str) -> _Pending:
         """Shift a packet (a dict of tensors, or a pending one) ``s`` hops
@@ -587,6 +591,15 @@ def ring_find_root(xn, c, mask, mesh, row_axes: tuple | None = None,
     from repro_torch.kernels import ops as kops
 
     backend = kops.select_backend(score_backend, xn.device)
+    return _find_root(xn, c, mask, ring_shards(mesh, *xn.shape, row_axes, sample_axis), backend)
+
+
+def ring_shards(mesh, p: int, n: int, row_axes: tuple | None = None,
+                sample_axis: str | None = None) -> Shards:
+    """The shards ``ring_find_root`` runs a (p, n) problem on over
+    ``mesh`` (its arguments' rules): ``Shards(None)`` for a degenerate
+    ring. Builds the ring's mesh from ``mesh``'s rank tensor (a collective
+    call the first time)."""
     sizes = mesh_sizes(mesh)
     if row_axes is None:
         row_axes = tuple(a for a in ("pod", "data") if a in sizes)
@@ -595,9 +608,8 @@ def ring_find_root(xn, c, mask, mesh, row_axes: tuple | None = None,
     if len(row_axes) >= 2 and row_axes[0] == "pod":
         pod_axes, ring_axes = row_axes[:1], row_axes[1:]
     big_r = math.prod(sizes[a] for a in row_axes)
-    p, n = xn.shape
     if big_r <= 1 or p % big_r or len(ring_axes) > 2:
-        return _find_root(xn, c, mask, Shards(None), backend)
+        return Shards(None)
     if sample_axis is not None and (sample_axis in row_axes or sizes.get(sample_axis, 1) <= 1
                                     or n % sizes[sample_axis]):
         sample_axis = None
@@ -610,9 +622,8 @@ def ring_find_root(xn, c, mask, mesh, row_axes: tuple | None = None,
     names = RING_DIMS
     if rest:
         shape, names = (math.prod(sizes[a] for a in rest),) + shape, ("replica",) + RING_DIMS
-    shards = Shards(ring_mesh(mesh, ranks.reshape(shape), names),
-                    sample_sharded=sample_axis is not None)
-    return _find_root(xn, c, mask, shards, backend)
+    return Shards(ring_mesh(mesh, ranks.reshape(shape), names),
+                  sample_sharded=sample_axis is not None)
 
 
 def _find_root(xn, c, mask, shards: Shards, backend: str):

@@ -42,7 +42,9 @@ so x' and c' are bit-equal to the plain version (``SCALE_ULP_TOL`` = 0;
 ``sum_probe`` holds the order against torch.sum itself).
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise.
+launch the kernel or raise; on a fake CUDA tensor (the dry run's) they
+allocate what the launch writes (x' over ``xb`` in place) and note its
+``flops`` (``kernels/_fake.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import threading
 import torch
 
 from repro_torch.core import covariance
+from repro_torch.kernels import _fake
 
 #: Kernel launches since the last reset, one per call on the card.
 DATA_LAUNCHES = 0
@@ -68,6 +71,15 @@ SCALE_ULP_TOL = 0
 
 #: Grid modes of the kernel (``blocks``, ``launch_empty``).
 MODE_DATA, MODE_COV, MODE_FIT = 0, 1, 2
+
+#: FP32 operations per element updated (x or c), as the bound counts them.
+FP32_PER_ELEMENT = 6
+
+
+def flops(x_elems: int, c_elems: int) -> float:
+    """The FP32 operations of one launch that updates ``x_elems`` elements
+    of the rows and ``c_elems`` of the correlations, every row live."""
+    return float(FP32_PER_ELEMENT * (x_elems + c_elems))
 
 
 def _inv_scale(b):
@@ -161,13 +173,18 @@ def launch_cov(c, b):
     return out
 
 
+def _rank1_outputs(xb, cb, inplace: bool):
+    """What a fit-mode launch writes: x' (``xb`` itself with ``inplace``)
+    and a new c'."""
+    return (xb if inplace else torch.empty_like(xb)), torch.empty_like(cb)
+
+
 def launch_rank1(xb, cb, roots, mloc, n_valid=None, inplace=False):
     """The fit-mode kernel on checked CUDA tensors (``roots`` int64,
     ``mloc`` bool, ``n_valid`` None or int32, all contiguous). Counts
     nothing. With ``inplace`` x' is written over ``xb``."""
     bsz, m, n = xb.shape
-    x_out = xb if inplace else torch.empty_like(xb)
-    c_out = torch.empty_like(cb)
+    x_out, c_out = _rank1_outputs(xb, cb, inplace)
     _raise_on(_entries()["rank1_update_launch"](
         xb.data_ptr(), x_out.data_ptr(), cb.data_ptr(), c_out.data_ptr(), roots.data_ptr(),
         mloc.data_ptr(), None if n_valid is None else n_valid.data_ptr(), bsz, m, n,
@@ -226,6 +243,9 @@ def update_data(x, x_root, b):
     if x.ndim != 2 or tuple(x_root.shape) != (n,) or tuple(b.shape) != (p,):
         raise ValueError(f"want x (p, n), x_root (n,), b (p,); got {tuple(x.shape)}, "
                          f"{tuple(x_root.shape)}, {tuple(b.shape)}")
+    if _fake.on_card(x):
+        _fake.note("update_data", flops(x.numel(), 0))
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return update_data_ref(x, x_root, b)
     out = launch_data(x, x_root, b)
@@ -243,6 +263,9 @@ def update_cov(c, b):
     p = c.shape[0]
     if c.ndim != 2 or tuple(c.shape) != (p, p) or tuple(b.shape) != (p,):
         raise ValueError(f"want c (p, p), b (p,); got {tuple(c.shape)}, {tuple(b.shape)}")
+    if _fake.on_card(c):
+        _fake.note("update_cov", flops(0, c.numel()))
+        return torch.empty_like(c)
     if c.device.type == "cpu":
         return update_cov_ref(c, b)
     out = launch_cov(c, b)
@@ -276,12 +299,15 @@ def rank1_update(xb, cb, roots, mloc, n_valid=None, *, inplace=False):
         raise TypeError(f"rank1_update takes a bool mask, got {mloc.dtype}")
     if any(t.device != xb.device for t in (roots, mloc) + (() if n_valid is None else (n_valid,))):
         raise ValueError("rank1_update: roots, mask and valid counts must lie on xb's device")
-    if xb.device.type == "cpu":
+    if xb.device.type == "cpu" and not _fake.on_card(xb):
         x2, c2 = rank1_update_ref(xb, cb, roots, mloc, n_valid=n_valid)
         return (xb.copy_(x2) if inplace else x2), c2
     nv = None if n_valid is None else n_valid.to(torch.int32).contiguous()
-    out = launch_rank1(xb, cb, roots.to(torch.int64).contiguous(), mloc.contiguous(), nv,
-                       inplace)
+    roots, mloc = roots.to(torch.int64).contiguous(), mloc.contiguous()
+    if _fake.on_card(xb):
+        _fake.note("rank1_update", flops(xb.numel(), cb.numel()))
+        return _rank1_outputs(xb, cb, inplace)
+    out = launch_rank1(xb, cb, roots, mloc, nv, inplace)
     with _count_mu:
         RANK1_LAUNCHES += 1
     return out

@@ -26,7 +26,9 @@ The wrapper checks its inputs, turns the valid counts into a (B,) int32
 device tensor and makes one ctypes call: the kernels read the caller's
 ``xn``, ``c`` and ``mask`` as they are. ``core.pairwise.fused_layout`` is
 only the plain version's prologue. On a CPU tensor the wrapper runs the plain
-version; on a CUDA tensor it launches the kernels or raises.
+version; on a CUDA tensor it launches the kernels or raises; on a fake CUDA
+tensor (the dry run's) it allocates what the launch writes and notes its
+``flops`` (``kernels/_fake.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import threading
 import torch
 
 from repro_torch.core.pairwise import fused_scores
+from repro_torch.kernels import _fake
 
 #: Kernel launches since the last reset, one per call on the card:
 #: ``LAUNCHES`` of ``fused_score_vector``, ``BATCH_LAUNCHES`` of
@@ -54,6 +57,19 @@ BLOCK_N = 512
 #: (``kLd``: 128 staged samples and 4 of padding; two buffers of 2 b rows).
 STAGE_LD = 132
 _FILL_THREADS = 132 * 2048  # resident threads of a full H100
+#: FP32 arithmetic instructions per (unordered pair, sample) of the sweep's
+#: tile loop and per (row, sample) of the row-entropy loop, as
+#: ``cuobjdump -sass`` of the built library counts them (``chip_smoke.py``'s
+#: ``[fused_sass]``: 64 of 83 and 29 of 36.5 instructions).
+FP32_PER_PAIR_SAMPLE = 64
+FP32_PER_ROW_SAMPLE = 29
+
+
+def flops(p: int, n: int, batch: int = 1) -> float:
+    """The FP32 operations of one call on ``batch`` datasets of (p, n),
+    every pair and sample live: the sweep's and the row entropies' FP32
+    instructions, one operation each (the issue rate the bound counts)."""
+    return float(batch * n * (FP32_PER_PAIR_SAMPLE * p * (p - 1) // 2 + FP32_PER_ROW_SAMPLE * p))
 
 
 def fused_score_vector_ref(xn, c, mask, *, block: int = 8, n_valid=None):
@@ -158,6 +174,9 @@ def fused_score_vector(xn, c, mask, *, block: int = 8, n_valid=None):
     zero-padded data: the kernels stop there, so the scores are those of
     the unpadded data, bit for bit."""
     _check(xn, c, mask, block)
+    if _fake.on_card(xn):
+        _fake.note("fused_score", flops(*xn.shape))
+        return _buffers(xn[None], block)[1][0]
     if xn.device.type == "cpu":
         return fused_score_vector_ref(xn, c, mask, block=block, n_valid=n_valid)
     if xn.device.type != "cuda":
@@ -176,6 +195,9 @@ def fused_score_batch(xb, cb, maskb, *, block: int = 8, n_valid=None):
     ``fused_score_vector`` on dataset i: the thread layout is chosen from the
     per-dataset tile count, never from B or n."""
     _check(xb, cb, maskb, block, batched=True)
+    if _fake.on_card(xb):
+        _fake.note("fused_score_batch", flops(xb.shape[1], xb.shape[2], xb.shape[0]))
+        return _buffers(xb, block)[1]
     if xb.device.type == "cpu":
         return fused_score_batch_ref(xb, cb, maskb, block=block, n_valid=n_valid)
     if xb.device.type != "cuda":
@@ -207,6 +229,16 @@ def _entry():
     return fn
 
 
+def _buffers(xb, block: int):
+    """The scratch (row entropies and per-tile partials) and the (B, p)
+    scores a launch over the (B, p, n) bucket ``xb`` writes."""
+    bsz, p, _ = xb.shape
+    b = min(block, p)
+    nt = -(-p // b)
+    scratch = torch.empty(bsz * (p + nt * nt * b), dtype=torch.float32, device=xb.device)
+    return scratch, torch.empty((bsz, p), dtype=torch.float32, device=xb.device)
+
+
 def _launch(xb, cb, mb, nv, block: int):
     """The three CUDA kernels over a (B, p, n) bucket; returns (B, p) scores."""
     bsz, p, n = xb.shape
@@ -214,8 +246,7 @@ def _launch(xb, cb, mb, nv, block: int):
     nt = -(-p // b)
     lanes = _lanes(b, nt * (nt - 1) // 2)  # per-dataset tiles: independent of B
     ij = _device_tile_maps(nt, xb.device)
-    scratch = torch.empty(bsz * (p + nt * nt * b), dtype=torch.float32, device=xb.device)
-    out = torch.empty((bsz, p), dtype=torch.float32, device=xb.device)
+    scratch, out = _buffers(xb, block)
     rc = _entry()(
         xb.data_ptr(), cb.data_ptr(), mb.data_ptr(), None if nv is None else nv.data_ptr(),
         ij[0].data_ptr(), ij[1].data_ptr(), scratch.data_ptr(), out.data_ptr(),

@@ -26,7 +26,9 @@ any two implementations disagree there. It never reaches a score
 masks it), so comparisons hold the live off-diagonal entries only.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise.
+launch the kernel or raise; on a fake CUDA tensor (the dry run's) they
+allocate what the launch writes and note its ``flops``
+(``kernels/_fake.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ import torch.nn.functional as F
 from repro_torch.core.covariance import VAR_EPS, _sample_count, per_dataset
 from repro_torch.core.entropy import log_cosh, u_exp_moment
 from repro_torch.core.pairwise import finalize_moments
-from repro_torch.kernels.fused_score import _valid_counts
+from repro_torch.kernels import _fake
+from repro_torch.kernels.fused_score import FP32_PER_PAIR_SAMPLE, _valid_counts
 
 #: Kernel launches since the last reset, one per call on the card:
 #: ``LAUNCHES`` of ``pairwise_moments``, ``BATCH_LAUNCHES`` of
@@ -58,6 +61,15 @@ MICRO_TILES = (BLOCK_I // MICRO) * (BLOCK_J // MICRO)
 #: Samples per summation chunk; the plain version pads n to a multiple of
 #: it, as the TPU kernel does.
 BLOCK_N = 512
+
+
+def flops(pi: int, pj: int, n: int, batch: int = 1) -> float:
+    """The FP32 operations of one launch over ``batch`` datasets of (pi, pj)
+    ordered pairs and n samples, every pair and sample live: one direction
+    of the fused sweep's math per (ordered pair, sample), half its FP32
+    instructions (``fused_score.FP32_PER_PAIR_SAMPLE``), as the bound
+    counts them."""
+    return float(batch * pi * pj * n * FP32_PER_PAIR_SAMPLE // 2)
 #: Element budget of one chunk of the plain version's (pi, cols, n) residuals.
 CHUNK_ELEMS = 1 << 24
 _FILL_THREADS = 132 * 2048  # resident threads of a full H100
@@ -210,6 +222,14 @@ def _entry():
     return fn
 
 
+def _sums(xi, xj):
+    """The two (B, pi, pj) float32 sums a launch over (B, pi, n) x (B, pj,
+    n) writes."""
+    m1 = torch.empty((xi.shape[0], xi.shape[1], xj.shape[1]), dtype=torch.float32,
+                     device=xi.device)
+    return m1, torch.empty_like(m1)
+
+
 def _launch(xi, xj, c, live_i=None, live_j=None, nv=None):
     """The CUDA kernel over (B, pi, n) x (B, pj, n), on checked inputs:
     ``live_i``/``live_j`` (B, pi)/(B, pj) bool or None, ``nv`` (B,) int32 on
@@ -217,8 +237,7 @@ def _launch(xi, xj, c, live_i=None, live_j=None, nv=None):
     bsz, pi, n = xi.shape
     pj = xj.shape[1]
     tiles = -(-pi // BLOCK_I) * -(-pj // BLOCK_J)
-    m1 = torch.empty((bsz, pi, pj), dtype=torch.float32, device=xi.device)
-    m2 = torch.empty_like(m1)
+    m1, m2 = _sums(xi, xj)
     rc = _entry()(xi.data_ptr(), xj.data_ptr(), c.data_ptr(),
                   None if live_i is None else live_i.data_ptr(),
                   None if live_j is None else live_j.data_ptr(),
@@ -257,6 +276,10 @@ def pairwise_moments(xi, xj, c, *, live_i=None, live_j=None, n_valid=None):
     _check(xi, xj, c, batched=False)
     _check_live(live_i, xi, "live_i")
     _check_live(live_j, xj, "live_j")
+    if _fake.on_card(xi):
+        _fake.note("pairwise_moments", flops(xi.shape[0], xj.shape[0], xi.shape[1]))
+        m1, m2 = _sums(xi[None], xj[None])
+        return m1[0], m2[0]
     if xi.device.type == "cpu":
         return pairwise_moments_ref(xi, xj, c, live_i=live_i, live_j=live_j, n_valid=n_valid)
     m1, m2 = _launch(xi[None], xj[None], c[None],
@@ -278,6 +301,10 @@ def pairwise_moments_batch(xb, cb, *, mask=None, n_valid=None):
     global BATCH_LAUNCHES
     _check(xb, xb, cb, batched=True)
     _check_live(mask, xb, "mask")
+    if _fake.on_card(xb):
+        _fake.note("pairwise_moments_batch", flops(xb.shape[1], xb.shape[1], xb.shape[2],
+                                                   xb.shape[0]))
+        return _sums(xb, xb)
     if xb.device.type == "cpu":
         return pairwise_moments_batch_ref(xb, cb, mask=mask, n_valid=n_valid)
     out = _launch(xb, xb, cb, mask, mask, _valid_counts(n_valid, xb.shape[0], xb.device))

@@ -21,7 +21,9 @@ caller's cache stays valid and a step can be replayed from it, as with the
 JAX package's immutable arrays.
 
 On a CPU tensor :func:`ssd_decode` runs the plain version; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises; on a fake CUDA tensor (the dry run's) it
+allocates what the launch writes and notes its ``flops``
+(``kernels/_fake.py``).
 """
 
 from __future__ import annotations
@@ -32,9 +34,18 @@ import threading
 
 import torch
 
+from repro_torch.kernels import _fake
+
 #: Kernel launches since the last reset, one per call on the card.
 LAUNCHES = 0
 _count_mu = threading.Lock()
+
+
+def flops(b: int, h: int, p: int, n: int) -> float:
+    """The FP32 operations of one launch on a (B, H, P, N) state, counted
+    as the contraction y = state' @ C: a multiply and an add per state
+    element, 2 P N per head and token."""
+    return float(2 * b * h * p * n)
 
 
 def ssd_decode_ref(state, x, dt, b, c, a, d):
@@ -76,12 +87,18 @@ def _entry():
     return fn
 
 
+def _outputs(state):
+    """What a launch on the float32 (B, H, P, N) ``state`` writes: y (B, H,
+    P) and a new state."""
+    return (torch.empty(state.shape[:3], dtype=torch.float32, device=state.device),
+            torch.empty_like(state))
+
+
 def launch(state, x, dt, b, c, a, d):
     """The CUDA kernel on float32 contiguous CUDA tensors; returns
     ``(y, new_state)``. Counts nothing (see :func:`ssd_decode`)."""
     bsz, h, p, n = state.shape
-    new_state = torch.empty_like(state)
-    y = torch.empty((bsz, h, p), dtype=torch.float32, device=state.device)
+    y, new_state = _outputs(state)
     rc = _entry()(state.data_ptr(), x.data_ptr(), dt.data_ptr(), b.data_ptr(),
                   c.data_ptr(), a.data_ptr(), d.data_ptr(), new_state.data_ptr(),
                   y.data_ptr(), bsz, h, p, n,
@@ -100,9 +117,12 @@ def ssd_decode(state, x, dt, b, c, a, d):
     float32."""
     global LAUNCHES
     _check(state, x, dt, b, c, a, d)
-    if state.device.type == "cpu":
+    if state.device.type == "cpu" and not _fake.on_card(state):
         return ssd_decode_ref(state, x, dt, b, c, a.float(), d.float())
     args = [t.float().contiguous() for t in (state, x, dt, b, c, a, d)]
+    if _fake.on_card(state):
+        _fake.note("ssd_decode", flops(*state.shape))
+        return _outputs(args[0])
     out = launch(*args)
     with _count_mu:
         LAUNCHES += 1

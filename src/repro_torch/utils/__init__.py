@@ -1,10 +1,8 @@
 """Helpers of the port: trees of tensors (``tree``), logging (``log``), the
 clocks (``clock``), shapes and the stage schedule (``shapes``,
-``schedule``).
-
-``src/repro/utils/hlo.py`` (reading XLA's lowered HLO) has no counterpart:
-nothing in the port lowers to XLA, as ``launch/__init__`` says of the dry
-run.
+``schedule``), and the collective ledger (``collectives``, the counterpart
+of ``src/repro/utils/hlo.py``: the port counts its collectives where it
+issues them instead of reading them out of lowered HLO).
 """
 
 from repro_torch.utils.clock import Clock, FakeClock, MonotonicClock
