@@ -218,8 +218,9 @@ Phases, each printed on its own line:
     NCCL when the machine has a card per rank, else all on the one card
     over gloo with CUDA tensors (``backend=``, ``cards=``); a rank that
     fails or outlives ``RANK_TIMEOUT`` fails the phase. Under gloo each set
-    first checks that its ``all_reduce``, ``all_gather`` and ``broadcast``
-    take CUDA tensors (``[gloo_cuda_probe]``). ``[granite_train_tp]``:
+    first checks that its ``all_reduce``, ``all_gather``, ``broadcast`` and
+    ``reduce_scatter`` take CUDA tensors (``[gloo_cuda_probe]``).
+    ``[granite_train_tp]``:
     granite-3-2b at full width and depth through ``launch.train.run`` with
     ``--model-shards 2`` and its defaults (8 × 128, lr 3e-4, 20 warmup
     steps), 4 steps: per-rank peak GB, seconds per step, tokens/s, the
@@ -240,7 +241,24 @@ Phases, each printed on its own line:
     group) and whisper-base (whole) at full width at (1, 2) and (2, 2),
     each gradient within ``SHARD_TOL`` of its norm or within
     ``REORDER_FACTOR`` times its float32 floor (the one-rank gradient
-    summed in another order), whichever is larger.
+    summed in another order), whichever is larger. FSDP (the reference's
+    train cell: every leaf the data ranks divide cut over ``data`` too,
+    gathered where the model reads it, its gradient reduce-scattered;
+    ``fsdp_rules``): ``[granite_train_fsdp]``, granite-3-2b at full width
+    and depth through ``trainer.train`` at (data, model) = ``FSDP_GRID`` =
+    (2, 1), ``[granite_train]``'s weights, batches and optimizer,
+    ``FSDP_STEPS`` steps: per rank the argument and peak GB beside
+    ``[granite_train_tp]``'s, seconds per step, tokens/s, the collectives
+    per step by op and their seconds, the losses within ``BF16_LOSS_ATOL``
+    of ``[granite_train]``'s; ``[train_fsdp_hold]``, granite cut to
+    ``SHARD_CUT`` layers and deepseek to its prologue and 2 MoE groups, in
+    float32 at (2, 1) and (2, 2): the loss equal bit for bit to the same
+    grid's without FSDP, every gradient and every parameter after one
+    AdamW step (in place on the FSDP shards, no ZeRO-1 slice) within
+    ``SHARD_TOL`` of the one-rank leaf's norm, the one-rank leaves
+    broadcast and each rank's pieces held (``fsdp_and_one_rank``: no full
+    leaf gathered; at (2, 2) deepseek's one-rank run routes each batch
+    shard alone, ``moe_local_capacity``).
 20. Sharded serving (``Engine(rules=)``, split-KV caches, the SSM's heads
     over ``model``; the decode kernel on each rank's heads) in the same
     sets of ranks. ``[granite_serve_tp]`` and ``[zamba2_serve_tp]``: the
@@ -272,10 +290,13 @@ Phases, each printed on its own line:
     their own shapes and meshes, each rank traced as itself in a pool of
     ``DRYRUN_WORKERS`` processes, held against the measurements:
     ``[granite_train]`` (one rank), ``[granite_train_tp]`` (both ranks of
-    (1, 2)) and ``[granite_serve_tp]``/``[zamba2_serve_tp]`` (both ranks;
-    the prefill and a decode step with its logits' gather): collectives per
-    step equal to a ``CollectiveLedger``'s count (``CollectiveClock`` on
-    the ranks), argument bytes equal to the real tensors'
+    (1, 2)), ``[granite_train_fsdp]`` (rank 0 of (2, 1),
+    ``FSDP_TRACED_RANKS``: its ``fsdp_axes`` and its collectives per step
+    by op too) and
+    ``[granite_serve_tp]``/``[zamba2_serve_tp]`` (both ranks; the prefill
+    and a decode step with its logits' gather): collectives per step equal
+    to a ``CollectiveLedger``'s count (``CollectiveClock`` on the ranks),
+    argument bytes equal to the real tensors'
     (``StepArguments``), each predicted peak within ``PEAK_TOL`` of the
     rank's ``max_memory_allocated``, the predicted temporaries (peak less
     arguments) within ``TEMP_TOL`` of the measured ones (less the bytes
@@ -3149,6 +3170,17 @@ EP_GRIDS = ((1, 2), (2, 1))
 # (``hold_config``), at these grids.
 SSM_HOLD_ARCHS = ("mamba2-370m", "zamba2-2.7b", "whisper-base")
 SSM_HOLD_GRIDS = ((1, 2), (2, 2))
+# [train_fsdp_hold]: FSDP, the train cell's rules (``fsdp_rules``), on
+# these configs (``fsdp_hold_config``: float32, full width, cut) and grids,
+# a batch of SHARD_B x TRAIN_SEQ: the loss equal bit for bit to the same
+# grid's without FSDP, the gradients and the parameters after one AdamW
+# step within SHARD_TOL of each one-rank leaf's norm.
+FSDP_HOLD_ARCHS = ("granite-3-2b", "deepseek-v2-lite-16b")
+FSDP_HOLD_GRIDS = ((2, 1), (2, 2))
+# [granite_train_fsdp]: granite-3-2b at full width and depth under FSDP at
+# this (data, model) grid for FSDP_STEPS steps, its losses within
+# BF16_LOSS_ATOL of [granite_train]'s first FSDP_STEPS.
+FSDP_GRID, FSDP_STEPS = (2, 1), 3
 # Their gradients are held within SHARD_TOL of each leaf's norm, or within
 # REORDER_FACTOR times the leaf's float32 rounding floor where that is
 # larger: the one-rank gradients summed in another order (two half
@@ -3233,8 +3265,9 @@ def run_ranks(jobs: list, world: int, timeout: float = RANK_TIMEOUT):
 
 
 def gloo_cuda_probe() -> dict:
-    """gloo's ``all_reduce``, ``all_gather`` and ``broadcast`` on CUDA
-    tensors of this rank: each result where it belongs and right."""
+    """gloo's ``all_reduce``, ``all_gather``, ``broadcast`` and
+    ``reduce_scatter`` (FSDP's backward) on CUDA tensors of this rank: each
+    result where it belongs and right."""
     import torch.distributed as dist
 
     r, w = dist.get_rank(), dist.get_world_size()
@@ -3244,42 +3277,58 @@ def gloo_cuda_probe() -> dict:
     dist.all_gather(parts, torch.full((4,), float(r), device=RANK_DEVICE))
     y = torch.full((8,), float(r + 7), device=RANK_DEVICE)
     dist.broadcast(y, src=0)
+    # rank q sends block i as 10 q + i: rank r receives the sum over q of 10 q + r
+    blocks = [torch.full((6,), float(10 * r + i), device=RANK_DEVICE) for i in range(w)]
+    z = torch.empty(6, device=RANK_DEVICE)
+    dist.reduce_scatter(z, blocks)
     on = lambda t: t.device.type == RANK_DEVICE  # noqa: E731
     return {"all_reduce": bool((x == w * (w + 1) / 2).all()) and on(x),
             "all_gather": all(bool((p == i).all()) and on(p) for i, p in enumerate(parts)),
-            "broadcast": bool((y == 7.0).all()) and on(y)}
+            "broadcast": bool((y == 7.0).all()) and on(y),
+            "reduce_scatter": bool((z == 5 * w * (w - 1) + w * r).all()) and on(z)}
 
 
 class CollectiveClock(CollectiveLedger):
     """Seconds inside ``torch.distributed``'s collectives while installed,
     each counted by the port's ``CollectiveLedger`` (``calls``: its
-    records; on these paths every one is an ``all_reduce`` or an
-    ``all_gather``). Under gloo a collective returns when it is done on the
-    host, so the card is synchronized before each call (its queued work is
-    not the collective's) and the host clock read around it; under NCCL
-    CUDA events on the current stream time it."""
+    records; on these paths an ``all_reduce``, an ``all_gather`` or, under
+    FSDP, a ``reduce_scatter``), in all and by op. Under gloo a collective
+    returns when it is done on the host, so the card is synchronized
+    before each call (its queued work is not the collective's) and the host
+    clock read around it; under NCCL CUDA events on the current stream time
+    it."""
 
     def __init__(self, backend: str):
         super().__init__()
-        self.backend, self.host_s, self.events = backend, 0.0, []
+        self.backend, self.host_s, self.events = backend, {}, []
 
     def call(self, fn, args, kwargs):
+        op = self.records[-1]["op"]  # the ledger records the call before it runs
         if self.backend == "gloo":
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            self.host_s += time.perf_counter() - t0
+            self.host_s[op] = self.host_s.get(op, 0.0) + time.perf_counter() - t0
             return out
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = fn(*args, **kwargs)
         end.record()
-        self.events.append((start, end))
+        self.events.append((op, start, end))
         return out
 
-    def seconds(self) -> float:
+    def by_op(self) -> dict:
+        """op -> (calls, seconds) so far."""
         torch.cuda.synchronize()
-        return self.host_s + sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+        out = {op: [0, s] for op, s in self.host_s.items()}
+        for op, s, e in self.events:
+            out.setdefault(op, [0, 0.0])[1] += s.elapsed_time(e) / 1e3
+        for r in self.records:
+            out.setdefault(r["op"], [0, 0.0])[0] += 1
+        return {op: tuple(v) for op, v in out.items()}
+
+    def seconds(self) -> float:
+        return sum(s for _, s in self.by_op().values())
 
 
 def cublas_workspace_bytes() -> int:
@@ -3384,6 +3433,137 @@ def train_batch(cfg, batch_size: int, dev) -> dict:
     if cfg.enc_dec:
         batch["enc"] = enc_frames(cfg, batch_size, 0, 0, dev)
     return batch
+
+
+def fsdp_rules(rules, mesh):
+    """``rules`` with the reference's train-cell FSDP axes
+    (``launch/specs.py:103-110`` there): the data dimensions of size > 1."""
+    from dataclasses import replace
+
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    return replace(rules, fsdp_axes=tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1))
+
+
+def moe_local_capacity(shards: int):
+    """``moe_ffn`` of a (shards, M) grid on one rank: each of ``shards``
+    blocks of the batch routed alone (capacity from its own token count),
+    the router statistics averaged over the blocks before their product,
+    as the sharded branch routes each batch rank's rows."""
+
+    def ffn(params, x, cfg, rules):
+        outs, fracs, pbars = [], [], []
+        for part in x.chunk(shards, 0):
+            out, (frac, pbar) = moe._moe_local(params, part.reshape(-1, x.shape[-1]), cfg, 0,
+                                               cfg.n_experts, 1)
+            outs.append(out.reshape(part.shape))
+            fracs.append(frac)
+            pbars.append(pbar)
+        return (torch.cat(outs),
+                moe._aux_from_stats(sum(fracs) / shards, sum(pbars) / shards, cfg.n_experts))
+
+    return ffn
+
+
+def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
+    """[train_fsdp_hold]'s recipe on this rank, under the train cell's FSDP
+    rules (``fsdp_rules``) on a ``(data, model) = grid`` mesh, in float32:
+    the FSDP loss and gradients (this rank's shards) and the same grid's
+    loss without FSDP; on rank 0 the one-rank run from the same weights
+    and batch (a MoE config with data > 1 and model > 1 routes each batch
+    shard alone there, ``moe_local_capacity``, as the sharded run does),
+    every MoE layer's (router, input) recorded on both sides. Then each
+    leaf of the one-rank gradients is broadcast and cut to this rank's
+    piece, the FSDP gradient shard held against it, and ``adamw_update``
+    runs on the pieces from fresh FSDP shards (in place: no ZeRO-1 slice,
+    no gather); each leaf of the one-rank update of the same gradients is
+    broadcast and held against the updated shard likewise. A hold is
+    ||got - want|| / ||want|| of the whole leaf, the squares summed over
+    every rank's piece: the mesh holds each piece of a leaf on as many
+    ranks, so the ratio is the whole leaf's, with no full leaf gathered.
+    Returns the result on rank 0, the two losses elsewhere."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import (
+        NO_SHARDING, P, average_over_batch_, local_shard, make_rules, split_parts)
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device(RANK_DEVICE)
+    mesh = make_local_mesh(*grid, device_type=RANK_DEVICE)
+    plain = make_rules(cfg, mesh)
+    rules = fsdp_rules(plain, mesh)
+    specs = lm.param_specs(cfg, rules)
+    names, spec_leaves = [n for n, _ in tree_flatten_with_names(specs)], tree_leaves(specs)
+    shapes = tree_leaves(lm.param_shapes(cfg))
+    full_batch = train_batch(cfg, batch_size, dev)
+    batch = {k: local_shard(v, P(tuple(rules.batch_axes)), rules) for k, v in full_batch.items()}
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=0)
+    rank0 = dist.get_rank() == 0
+
+    def run(rules_, batch_, specs_=None):
+        params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=rules_)
+        fn = lambda p, b: lm.train_loss(p, b, cfg, rules_)  # noqa: E731
+        return capture_moe(lambda: loss_and_grads(fn, params, batch_, False, specs_, rules_))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (loss, grads), calls = run(rules, batch, specs)
+    average_over_batch_(grads, rules, specs)
+    torch.cuda.synchronize()
+    out = {"loss": float(loss), "seconds": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    out["plain_loss"] = float(run(plain, batch)[0][0])  # its gradients are not averaged
+    local = grid[0] if (cfg.is_moe and grid[0] > 1 and grid[1] > 1) else 1
+    if rank0:
+        saved = moe.moe_ffn
+        if local > 1:
+            moe.moe_ffn = moe_local_capacity(local)
+        try:
+            (one_loss, one_grads), one_calls = run(NO_SHARDING, full_batch)
+        finally:
+            moe.moe_ffn = saved
+
+    def piece(full, i):
+        """Leaf ``i`` of rank 0's list ``full``, broadcast, cut to this rank."""
+        t = full[i] if rank0 else torch.empty(shapes[i], device=dev)
+        dist.broadcast(t, src=0)
+        return local_shard(t, spec_leaves[i], rules, split_parts(names[i]))
+
+    squares = torch.zeros((4, len(names)), dtype=torch.float64, device=dev)
+    given = []
+    for i, g in enumerate(grads):
+        want = piece(one_grads if rank0 else None, i).double()
+        squares[0, i], squares[1, i] = (g.double() - want).square().sum(), want.square().sum()
+        given.append(want.float())
+    del grads
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=rules)
+    state = init_opt_state(params, specs, rules)
+    with torch.no_grad():
+        adamw_update(opt, params, tree_unflatten(specs, given), state, specs=specs, rules=rules)
+    del given
+    sliced = sum(m.shape != p.shape for m, p in zip(tree_leaves(state["m"]), tree_leaves(params)))
+    one_params = None
+    if rank0:
+        one_params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            adamw_update(opt, one_params, tree_unflatten(one_params, one_grads),
+                         init_opt_state(one_params))
+        one_params = tree_leaves(one_params)
+    for i, p in enumerate(tree_leaves(params)):
+        want = piece(one_params, i).double()
+        squares[2, i], squares[3, i] = (p.double() - want).square().sum(), want.square().sum()
+    dist.all_reduce(squares)
+    if not rank0:
+        return {"loss": out["loss"], "plain_loss": out["plain_loss"]}
+    ratios = (squares[[0, 2]] / squares[[1, 3]].clamp(min=1e-60)).sqrt().cpu()
+    worst = [max(zip(r.tolist(), names)) for r in ratios]
+    flips = sum(len(routing_differences(rs, xs, ro, xo, cfg.top_k))  # rank 0's batch shard:
+                for (rs, xs), (ro, xo) in zip(calls, one_calls[::local])) if cfg.is_moe else 0
+    return {**out, "one_loss": float(one_loss), "grad_ratio": worst[0], "param_ratio": worst[1],
+            "moments_sliced": sliced, "leaves": len(names),
+            "fsdp_leaves": sum(s != f for s, f in zip(tree_leaves(lm.param_specs(cfg)),
+                                                      spec_leaves)),
+            "params_m": sum(math.prod(s) for s in shapes) / 1e6, "local_capacity": local,
+            "routing_flips": flips, "rules": (rules.batch_axes, rules.model_axis)}
 
 
 def sharded_and_one_rank(cfg, batch_size: int, grid, with_step: bool, reorder: bool = False):
@@ -3519,6 +3699,64 @@ def rank_ep_hold(grid):
             "moe_calls": len(one["calls"]), "tokens": [x.shape[0] for _, x in one["calls"]],
             "flips": flips, "seconds": sharded["seconds"], "peak_gb": sharded["peak_gb"],
             "rules": sharded["rules"], "capacity": moe.capacity(one["calls"][0][1].shape[0], cfg)}
+
+
+def fsdp_hold_config(arch: str):
+    """``[train_fsdp_hold]``'s float32 config: granite-3-2b at full width
+    cut to ``SHARD_CUT`` layers, deepseek-v2-lite-16b to its prologue and
+    ``DEEPSEEK_CUT_GROUPS`` MoE groups."""
+    cfg = configs.get(arch)
+    layers = (cfg.first_dense_layers + DEEPSEEK_CUT_GROUPS if arch.startswith("deepseek")
+              else SHARD_CUT)
+    return cfg.with_overrides(n_layers=layers, dtype="float32")
+
+
+def rank_fsdp_hold(grid, arch):
+    """[train_fsdp_hold] on this rank (the result on rank 0)."""
+    cfg = fsdp_hold_config(arch)
+    return {**fsdp_and_one_rank(cfg, SHARD_B, grid), "arch": arch, "layers": cfg.n_layers}
+
+
+def rank_fsdp_train():
+    """[granite_train_fsdp] on this rank: granite-3-2b at full width and
+    depth through ``trainer.train`` (``make_train_step``) under FSDP over
+    ``FSDP_GRID`` = (data, model), ``[granite_train]``'s weights, batches
+    and optimizer (seed 0, ``TRAIN_B`` x ``TRAIN_SEQ``, lr 3e-4 after 20
+    warmup steps), ``FSDP_STEPS`` steps: the losses, each step's seconds,
+    the collectives' calls and seconds by op at the end of each step
+    (``CollectiveClock``), a step's argument bytes (``StepArguments``),
+    the peak and the bytes held beside the run (``Beside``)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import P, local_shard, make_rules
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device(RANK_DEVICE)
+    cfg = configs.get("granite-3-2b")
+    mesh = make_local_mesh(*FSDP_GRID, device_type=RANK_DEVICE)
+    rules = fsdp_rules(make_rules(cfg, mesh), mesh)
+    specs = lm.param_specs(cfg, rules)
+    beside = Beside()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=rules)
+    rows = P(tuple(rules.batch_axes))
+    batches = train_batches(cfg, dev, TRAIN_B, TRAIN_SEQ)
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+    tcfg = TrainerConfig(total_steps=FSDP_STEPS, log_every=FSDP_STEPS, opt=opt)
+    clock = CollectiveClock(dist.get_backend())
+    at_step = []
+    with clock, StepArguments() as step_args:
+        params, _, history = train(
+            params, lambda p, b: lm.train_loss(p, b, cfg, rules),
+            lambda step: {k: local_shard(v, rows, rules) for k, v in batches(step).items()},
+            tcfg, hooks=[lambda step, p, m: at_step.append(clock.by_op())], param_specs=specs,
+            rules=rules)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return {"losses": [h["loss"] for h in history], "dts": [h["dt"] for h in history],
+            "peak_gb": peak_gb, "beside": beside.stop(), "launched": counts(),
+            "params_m": param_count(params) / 1e6, "by_op": at_step, "rank": dist.get_rank(),
+            "arg_bytes": step_args.bytes, "fsdp_axes": rules.fsdp_axes}
 
 
 # ---------------------------------------------------------------------------
@@ -3753,7 +3991,8 @@ def rank_ssd_device(inputs):
 
 RANK_JOBS = {"tp_train": rank_tp_train, "sharded_hold": rank_sharded_hold,
              "ep_hold": rank_ep_hold, "serve_hold": rank_serve_hold, "serve_tp": rank_serve_tp,
-             "ssd_device": rank_ssd_device}
+             "ssd_device": rank_ssd_device, "fsdp_hold": rank_fsdp_hold,
+             "fsdp_train": rank_fsdp_train}
 
 
 def report_granite_train_tp(gpu, grid, ranks, backend, cards, one_rank_losses):
@@ -3785,6 +4024,76 @@ def report_granite_train_tp(gpu, grid, ranks, backend, cards, one_rank_losses):
         one_rank_losses=",".join(f"{v:.4f}" for v in one_rank_losses),
         loss_max_abs_diff=f"{max(diffs):.3e}", allowed=BF16_LOSS_ATOL,
         job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
+
+
+def report_granite_train_fsdp(gpu, ranks, backend, cards, one_rank_losses, tp_ranks):
+    """[granite_train_fsdp]: held against ``[granite_train]``'s losses; the
+    GB per rank beside ``[granite_train_tp]``'s."""
+    r0 = ranks[0]
+    for r in ranks:
+        check(not any(r["launched"].values()),
+              f"granite_train_fsdp: kernels launched {r['launched']}")
+        check(r["losses"] == r0["losses"], "granite_train_fsdp: the ranks' losses differ")
+    losses, dts = r0["losses"], r0["dts"]
+    check(len(losses) == FSDP_STEPS and all(math.isfinite(v) for v in losses),
+          f"granite_train_fsdp: losses {losses}")
+    diffs = [abs(a - b) for a, b in zip(losses, one_rank_losses)]
+    check(max(diffs) <= BF16_LOSS_ATOL, f"granite_train_fsdp: losses {losses} against one "
+          f"rank's {one_rank_losses[:FSDP_STEPS]}")
+    steady = sum(dts[1:]) / (len(dts) - 1)
+    first, last = r0["by_op"][0], r0["by_op"][-1]
+    per_step = {op: ((last[op][0] - first.get(op, (0, 0.0))[0]) // (len(dts) - 1),
+                     (last[op][1] - first.get(op, (0, 0.0))[1]) / (len(dts) - 1)) for op in last}
+    coll_s = sum(t for _, t in per_step.values())
+    say("granite_train_fsdp", arch="granite-3-2b", preset="full",
+        grid="x".join(map(str, FSDP_GRID)), fsdp_axes=",".join(r0["fsdp_axes"]),
+        backend=backend, cards=cards, ranks=len(ranks), params_m_per_rank=f"{r0['params_m']:.1f}",
+        batch=TRAIN_B, seq=TRAIN_SEQ, steps=FSDP_STEPS, kernel_launches=0,
+        first_step_s=f"{dts[0]:.4f}", step_s=",".join(f"{d:.4f}" for d in dts[1:]),
+        tok_per_s=f"{TRAIN_B * TRAIN_SEQ / steady:.1f}",
+        arg_gb_per_rank=",".join(f"{r['arg_bytes'] / 1e9:.3f}" for r in ranks),
+        peak_gb_per_rank=",".join(f"{r['peak_gb']:.3f}" for r in ranks),
+        tp_peak_gb_per_rank=",".join(f"{r['peak_gb']:.3f}" for r in tp_ranks),
+        tp_arg_gb_per_rank=",".join(f"{r['arg_bytes'] / 1e9:.3f}" for r in tp_ranks),
+        collective_calls_per_step=sum(n for n, _ in per_step.values()),
+        collective_s_per_step=f"{coll_s:.4f}", collective_share=f"{coll_s / steady:.3f}",
+        by_op_per_step=";".join(f"{op}:{n}:{t:.4f}s" for op, (n, t) in sorted(per_step.items())),
+        losses=",".join(f"{v:.4f}" for v in losses),
+        one_rank_losses=",".join(f"{v:.4f}" for v in one_rank_losses[:FSDP_STEPS]),
+        loss_max_abs_diff=f"{max(diffs):.3e}", allowed=BF16_LOSS_ATOL,
+        job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
+
+
+def report_train_fsdp_hold(gpu, grid, ranks, backend, cards):
+    """[train_fsdp_hold] at ``grid``: the loss against the same grid's
+    without FSDP, then against the one-rank run on the card."""
+    r0 = ranks[0]
+    arch = r0["arch"]
+    tag = f"train_fsdp_hold {arch} {grid}"
+    check(all(r["loss"] == r0["loss"] for r in ranks), f"{tag}: the ranks' losses differ")
+    check(all(r["loss"] == r["plain_loss"] for r in ranks),
+          f"{tag}: losses {[r['loss'] for r in ranks]} against the grid's without FSDP "
+          f"{[r['plain_loss'] for r in ranks]}")
+    dloss = abs(r0["loss"] - r0["one_loss"]) / abs(r0["one_loss"])
+    g_ratio, g_leaf = r0["grad_ratio"]
+    p_ratio, p_leaf = r0["param_ratio"]
+    check(dloss <= SHARD_TOL, f"{tag}: loss {r0['loss']} against one rank's {r0['one_loss']}")
+    check(g_ratio <= SHARD_TOL, f"{tag}: gradient of {g_leaf} {g_ratio:.3e} of its norm")
+    check(p_ratio <= SHARD_TOL, f"{tag}: parameter {p_leaf} {p_ratio:.3e} of its norm")
+    check(r0["fsdp_leaves"] > 0 and r0["moments_sliced"] == 0,
+          f"{tag}: {r0['fsdp_leaves']} FSDP leaves, {r0['moments_sliced']} ZeRO-1 slices")
+    full = configs.get(arch)
+    say("train_fsdp_hold", arch=full.name, reduced=f"n_layers {full.n_layers}->{r0['layers']}, "
+        f"batch {TRAIN_B}->{SHARD_B}", grid="x".join(map(str, grid)), backend=backend,
+        cards=cards, rules=r0["rules"], fsdp_leaves=r0["fsdp_leaves"],
+        zero1_moment_slices=r0["moments_sliced"], params_m=f"{r0['params_m']:.1f}",
+        seq=TRAIN_SEQ, dtype="float32", loss=f"{r0['loss']:.6f}",
+        plain_loss_equal=r0["loss"] == r0["plain_loss"], one_rank_loss=f"{r0['one_loss']:.6f}",
+        loss_rel_diff=f"{dloss:.3e}", grad_norm_ratio_max=f"{g_ratio:.3e}",
+        grad_worst_leaf=g_leaf, param_norm_ratio_max=f"{p_ratio:.3e}", param_worst_leaf=p_leaf,
+        allowed=SHARD_TOL, leaves=r0["leaves"], one_rank_local_capacity=r0["local_capacity"],
+        routing_flips=r0["routing_flips"], sharded_grads_s=f"{r0['seconds']:.3f}",
+        peak_gb_rank0=f"{r0['peak_gb']:.3f}", job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
 
 
 def report_train_sharded_hold(gpu, grid, ranks, backend, cards):
@@ -3948,22 +4257,28 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
     products, so the jobs of a grid share it): at (1, 2)
     ``[granite_train_tp]``, ``[granite_serve_tp]``, ``[zamba2_serve_tp]``,
     then ``[train_sharded_hold]`` (granite, mamba2, zamba2, whisper),
-    ``[deepseek_ep_hold]`` and ``[sharded_serve_hold]``; at (2, 1) the
-    granite hold, ``[deepseek_ep_hold]`` and ``[sharded_serve_hold]``; at (2,
-    2) the four training holds and ``[sharded_serve_hold]``. Then the decode
+    ``[deepseek_ep_hold]`` and ``[sharded_serve_hold]``; at (2, 1)
+    ``[granite_train_fsdp]`` first, then the granite hold,
+    ``[deepseek_ep_hold]``, ``[train_fsdp_hold]`` (granite, deepseek) and
+    ``[sharded_serve_hold]``; at (2, 2) the four training holds,
+    ``[train_fsdp_hold]`` and ``[sharded_serve_hold]``. Then the decode
     kernel against its plain version on the inputs of a zamba2 step of
     model rank 0 (H/2 = 40 heads), and its times at that shape. Returns
     (its launches per rank in the zamba2 ``generate``, its error, its
     timing without the device time, its inputs on the CPU, and each rank's
-    results of ``[granite_train_tp]``, ``[granite_serve_tp]`` and
-    ``[zamba2_serve_tp]`` for ``[dryrun_hold]``, by tag)."""
+    results of ``[granite_train_tp]``, ``[granite_train_fsdp]``,
+    ``[granite_serve_tp]`` and ``[zamba2_serve_tp]`` for ``[dryrun_hold]``,
+    by tag)."""
     plan = {(1, 2): [("tp_train", {"argv": TP_ARGV}), ("serve_tp", {"arch": "granite-3-2b"}),
                      ("serve_tp", {"arch": "zamba2-2.7b"})], (2, 1): [], (2, 2): []}
+    plan[FSDP_GRID].append(("fsdp_train", {}))
     for grid in SHARD_GRIDS:
         archs = ("granite-3-2b",) + (SSM_HOLD_ARCHS if grid in SSM_HOLD_GRIDS else ())
         plan[grid] += [("sharded_hold", {"grid": grid, "arch": a}) for a in archs]
     for grid in EP_GRIDS:
         plan[grid].append(("ep_hold", {"grid": grid}))
+    for grid in FSDP_HOLD_GRIDS:
+        plan[grid] += [("fsdp_hold", {"grid": grid, "arch": a}) for a in FSDP_HOLD_ARCHS]
     for grid in SHARD_GRIDS:
         plan[grid].append(("serve_hold", {"grid": grid}))
     zamba2, held = None, {}
@@ -3989,6 +4304,12 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
                 report_train_sharded_hold(gpu, grid, results, backend, cards)
             elif job == "ep_hold":
                 report_deepseek_ep_hold(gpu, grid, results, backend, cards)
+            elif job == "fsdp_hold":
+                report_train_fsdp_hold(gpu, grid, results, backend, cards)
+            elif job == "fsdp_train":
+                report_granite_train_fsdp(gpu, results, backend, cards, one_rank_losses,
+                                          held["granite_train_tp"])
+                held["granite_train_fsdp"] = results
             else:
                 report_serve_hold(gpu, grid, results, backend, cards)
         say("sharded_ranks", grid="x".join(map(str, grid)), ranks=len(ranks), backend=backend,
@@ -4313,8 +4634,13 @@ PRODUCTION_CELL = ("yi-34b", "train_4k")
 # tags and archs.
 HELD_GRID = (1, 2)
 SERVE_TP_ARCHS = {"granite_serve_tp": "granite-3-2b", "zamba2_serve_tp": "zamba2-2.7b"}
-# The processes that trace the held cells.
-DRYRUN_WORKERS = 4
+# The processes that trace the held cells (the card's machine has 8 cores;
+# the main process waits meanwhile).
+DRYRUN_WORKERS = 6
+# [granite_train_fsdp]'s ranks traced and held: rank 0 alone, to keep the
+# phase inside DRYRUN_HOLD_S (its cell traces ~12 s; the two data ranks of
+# (2, 1) hold cells of the same shapes).
+FSDP_TRACED_RANKS = 1
 
 
 def dry_record(cfg, shape, grid, rank: int = 0, then=None, **kw) -> dict:
@@ -4344,10 +4670,11 @@ def dry_task(task) -> dict:
     tag, rank, kind = task
     if tag.startswith("granite_train"):
         opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+        grid = {"granite_train": None, "granite_train_tp": HELD_GRID,
+                "granite_train_fsdp": FSDP_GRID}[tag]
         return dry_record(configs.get("granite-3-2b"), ShapeSpec("train", "train", TRAIN_SEQ,
                                                                   TRAIN_B),
-                          None if tag == "granite_train" else HELD_GRID, rank, opt_cfg=opt,
-                          accum_steps=1)
+                          grid, rank, opt_cfg=opt, accum_steps=1)
     cfg32 = configs.get(SERVE_TP_ARCHS[tag]).with_overrides(dtype="float32")
     total = bucket_dim(SERVE_PROMPT) + SERVE_NEW
     if kind == "prefill":
@@ -4362,14 +4689,15 @@ def dryrun_predictions() -> dict:
     meshes the phases ran them (each rank of a grid as itself), on the
     card's path; traced in ``DRYRUN_WORKERS`` spawned processes (one CPU
     thread each, a fake process group each), the longest cells first."""
-    tasks = [("granite_train", 0, "train")] + [("granite_train_tp", r, "train")
-                                              for r in range(2)]
+    tasks = [("granite_train", 0, "train"), ("granite_train_fsdp", 0, "train")]
+    tasks += [("granite_train_tp", r, "train") for r in range(2)]
     tasks += [(tag, r, kind) for tag in SERVE_TP_ARCHS for r in range(2)
               for kind in ("prefill", "decode")]
     with mp.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
         recs = dict(zip(tasks, pool.map(dry_task, tasks, chunksize=1)))
     out = {"granite_train": recs["granite_train", 0, "train"],
-           "granite_train_tp": [recs["granite_train_tp", r, "train"] for r in range(2)]}
+           "granite_train_tp": [recs["granite_train_tp", r, "train"] for r in range(2)],
+           "granite_train_fsdp": [recs["granite_train_fsdp", 0, "train"]]}
     for tag in SERVE_TP_ARCHS:
         out[tag] = [{kind: recs[tag, r, kind] for kind in ("prefill", "decode")}
                     for r in range(2)]
@@ -4446,6 +4774,20 @@ def phase_dryrun_hold(gpu, train_held, sharded):
         holds.peak("granite_train_tp", r["rank"], rec["peak_bytes"], r["peak_gb"])
         holds.temp("granite_train_tp", r["rank"], rec, r["peak_gb"], r["arg_bytes"],
                    r["beside"])
+    for r in sharded["granite_train_fsdp"][:FSDP_TRACED_RANKS]:
+        rec, first, last = pred["granite_train_fsdp"][r["rank"]], r["by_op"][0], r["by_op"][-1]
+        steps = len(r["by_op"]) - 1
+        measured = {op: (n - first.get(op, (0, 0.0))[0]) // steps for op, (n, _) in last.items()}
+        holds.exact("granite_train_fsdp", r["rank"], "fsdp_axes", rec["fsdp_axes"],
+                    list(r["fsdp_axes"]))
+        holds.exact("granite_train_fsdp", r["rank"], "collectives_per_step_by_op",
+                    {op: a["count"] for op, a in sorted(rec["collectives"]["by_op"].items())},
+                    dict(sorted(measured.items())))
+        holds.exact("granite_train_fsdp", r["rank"], "argument_bytes",
+                    rec["memory"]["argument_size_in_bytes"], r["arg_bytes"])
+        holds.peak("granite_train_fsdp", r["rank"], rec["peak_bytes"], r["peak_gb"])
+        holds.temp("granite_train_fsdp", r["rank"], rec, r["peak_gb"], r["arg_bytes"],
+                   r["beside"])
     for tag in SERVE_TP_ARCHS:
         for r in sharded[tag]:
             cells = pred[tag][r["rank"]]
@@ -4472,7 +4814,7 @@ def phase_dryrun_hold(gpu, train_held, sharded):
         status=prod["status"], reason=f"'{prod.get('reason', '')}'",
         seconds=f"{time.perf_counter() - t1:.3f}", gpu=f"'{gpu}'")
     print("[dryrun_record] " + json.dumps(prod, sort_keys=True), flush=True)
-    held = [pred["granite_train"], *pred["granite_train_tp"],
+    held = [pred["granite_train"], *pred["granite_train_tp"], *pred["granite_train_fsdp"],
             *(rec for tag in SERVE_TP_ARCHS for pair in pred[tag] for rec in pair.values())]
     phase_s = time.perf_counter() - t0
     say("dryrun_hold_phase", phase_s=f"{phase_s:.1f}", allowed_s=DRYRUN_HOLD_S,

@@ -39,23 +39,34 @@ and ``gather_shard`` take ``parts``, and ``SPLIT_PARTS`` names those
 leaves for every caller that shards or gathers a tree by its specs
 (``shard_tree``, ``gather_tree``, the checkpoints).
 
+FSDP (``rules.fsdp_axes`` set, as the reference's train cell sets it):
+a training leaf is sharded over ``data`` as well, along the first
+dimension its spec leaves whole and the data ranks divide
+(``fsdp_specs``: the reference's ``zero1_specs`` with its default
+``data_axes=("data",)``; a leaf no data size divides stays replicated over
+``data``). Its float32 master shard enters the model as an ``FsdpShard``
+(``trainer.loss_and_grads`` wraps it), and the model gathers it where the
+layer that reads it runs (``gather_at_use``): the shard is cast to the
+compute dtype and all-gathered over ``data``; the backward reduce-scatters
+the gradient in float32 and hands this rank's slice to the master.
+
 The explicit path supports the reference's defaults under a model axis
-(``shard_heads=True``, ``context_parallel=False``, ``fsdp_axes=()``, which
-is all that ``launch.train`` builds): ``check_explicit`` refuses any other.
-Collectives never run over a dimension of size 1. ``NO_SHARDING`` (no
-mesh) turns every helper into the identity, so the same model code runs
-on one device.
+(``shard_heads=True``, ``context_parallel=False``), with or without FSDP:
+``check_explicit`` refuses the other two settings. Collectives never run
+over a dimension of size 1. ``NO_SHARDING`` (no mesh) turns every helper
+into the identity, so the same model code runs on one device.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.utils.tree import tree_flatten_with_names, tree_leaves, tree_unflatten
+from repro_torch.utils.tree import tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten
 
 #: The mesh dimensions a batch shards over, outermost first.
 BATCH_DIMS = ("pod", "data", "ring")
@@ -191,15 +202,15 @@ def make_rules(cfg, mesh, batch_axes: tuple | None = None) -> ShardingRules:
 
 def check_explicit(rules: ShardingRules):
     """Refuse what the explicit path does not do: under a model axis only
-    the reference's defaults (heads sharded, no context parallelism, no
-    FSDP)."""
+    the reference's defaults (heads sharded, no context parallelism), with
+    or without FSDP (``fsdp_axes``)."""
     if rules.model_axis is None:
         return
-    if not rules.shard_heads or rules.context_parallel or rules.fsdp_axes:
+    if not rules.shard_heads or rules.context_parallel:
         raise NotImplementedError(
             "the explicit tensor-parallel path shards heads over the model dimension only: "
-            f"shard_heads={rules.shard_heads}, context_parallel={rules.context_parallel}, "
-            f"fsdp_axes={rules.fsdp_axes} are not supported")
+            f"shard_heads={rules.shard_heads}, context_parallel={rules.context_parallel} "
+            "are not supported")
 
 
 # ---------------------------------------------------------------------------
@@ -463,12 +474,14 @@ def gather_batch(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
 FLAT_NUMEL = 1 << 26
 
 
-def average_over_batch_(tensors: list, rules: ShardingRules):
-    """Replace each tensor by its mean over the batch ranks, in place,
-    through all-reduces of flat float32 buffers of at most ``FLAT_NUMEL``
-    elements (a larger tensor alone)."""
-    if rules.batch_shards == 1:
-        return tensors
+def _average_(tensors: list, axes: tuple, rules: ShardingRules):
+    """Each tensor replaced by its mean over the ranks of the mesh
+    dimensions ``axes``, in place, through all-reduces of flat float32
+    buffers of at most ``FLAT_NUMEL`` elements (a larger tensor alone)."""
+    sizes = mesh_sizes(rules.mesh)
+    count = math.prod(sizes.get(a, 1) for a in axes)
+    if count == 1:
+        return
     i = 0
     while i < len(tensors):
         j, size = i, 0
@@ -476,11 +489,164 @@ def average_over_batch_(tensors: list, rules: ShardingRules):
             size += tensors[j].numel()
             j += 1
         flat = torch.cat([t.reshape(-1).float() for t in tensors[i:j]])
-        flat = _all_reduce(flat, rules.batch_axes, rules) / rules.batch_shards
+        flat = _all_reduce(flat, axes, rules) / count
         for t, part in zip(tensors[i:j], flat.split([t.numel() for t in tensors[i:j]])):
             t.copy_(part.view_as(t))
         i = j
+
+
+def average_over_batch_(tensors: list, rules: ShardingRules, specs=None):
+    """Replace each gradient by its mean over the batch ranks, in place, in
+    float32. With ``specs`` (the leaves' specs, in their order) an FSDP
+    leaf's gradient is the sum over its data ranks already (the
+    reduce-scatter of ``gather_at_use``'s backward): it is divided by
+    their count and averaged over the other batch dimensions only (over
+    none when the batch is replicated, ``batch_rows``, where every data
+    rank summed the same gradient)."""
+    cuts = fsdp_cuts(specs, rules) if specs is not None else [None] * len(tensors)
+    sizes = mesh_sizes(rules.mesh)
+    groups: dict = {}
+    for t, cut in zip(tensors, cuts):
+        names = _active(rules, cut[1]) if cut is not None else ()
+        if names:
+            t.div_(math.prod(sizes[n] for n in names))
+        rest = tuple(a for a in rules.batch_axes if a not in names)
+        groups.setdefault(rest, []).append(t)
+    for axes, group in groups.items():
+        _average_(group, axes, rules)
     return tensors
+
+
+# ---------------------------------------------------------------------------
+# FSDP: training leaves sharded over the data ranks, gathered at use
+# ---------------------------------------------------------------------------
+
+
+def zero1_spec_for(shape, spec, data_axes: tuple[str, ...], axis_sizes: dict) -> P:
+    """Add the data axes to the first unsharded, divisible dim of ``shape``."""
+    data_size = math.prod(axis_sizes[a] for a in data_axes)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    used = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            used.add(a)
+    if used & set(data_axes):
+        return spec  # already data-sharded (e.g. FSDP applied upstream)
+    for i, (dim, cur) in enumerate(zip(shape, entries)):
+        if cur is None and dim % data_size == 0 and dim > 0:
+            entries[i] = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
+            return P(*entries)
+    return spec  # nothing divisible: leave replicated
+
+
+def zero1_specs(param_shapes, param_specs, mesh, data_axes=("data",)):
+    """Moment-tensor specs with the extra data-parallel shard (ZeRO-1).
+    ``param_shapes``' leaves are tensors or ``torch.Size``s."""
+    axis_sizes = mesh_sizes(mesh)
+    usable = tuple(a for a in data_axes if axis_sizes.get(a, 1) > 1)
+    if not usable:
+        return param_specs
+
+    def one(shape_leaf, spec_leaf):
+        return zero1_spec_for(getattr(shape_leaf, "shape", shape_leaf), spec_leaf, usable,
+                              axis_sizes)
+
+    return tree_map(one, param_shapes, param_specs)
+
+
+def fsdp_specs(shapes, specs, rules: ShardingRules):
+    """The FSDP specs of a tree of training leaves from their full (or
+    model-sharded) ``shapes`` and their ``specs`` (``lm.param_specs``): the
+    reference's ``zero1_specs(shapes, specs, mesh)`` with its default
+    ``data_axes=("data",)`` (``launch/specs.py:92-110`` there), so that on
+    a ``pod`` x ``data`` x ``model`` mesh the pods still replicate the
+    leaves; a leaf that no data size divides stays replicated. ``specs``
+    themselves where ``rules.fsdp_axes`` is empty."""
+    if not rules.fsdp_axes:
+        return specs
+    return zero1_specs(shapes, specs, rules.mesh)
+
+
+def fsdp_cut(spec, rules: ShardingRules):
+    """``(dim, entry)``: the dimension of a leaf that ``spec`` cuts over
+    the FSDP dimensions (``rules.fsdp_axes`` of size > 1) and its entry, or
+    None for a leaf they do not cut."""
+    if not rules.fsdp_axes or spec is None:
+        return None
+    for dim, entry in enumerate(spec):
+        if set(_active(rules, entry)) & set(rules.fsdp_axes):
+            return dim, entry
+    return None
+
+
+def fsdp_cuts(specs, rules: ShardingRules) -> list:
+    """``fsdp_cut`` of each leaf spec of ``specs``, in ``tree_leaves``
+    order."""
+    return [fsdp_cut(s, rules) for s in tree_leaves(specs)]
+
+
+class FsdpShard:
+    """A training leaf's FSDP shard on its way into the model: the float32
+    master ``shard`` (which autograd differentiates), the dimension
+    ``dim`` and spec ``entry`` that cut it, and the ``dtype`` the model
+    computes in (``trainer.loss_and_grads``' rule). ``gather_at_use``
+    turns it into the full leaf where its layer runs."""
+
+    __slots__ = ("shard", "dim", "entry", "dtype")
+
+    def __init__(self, shard: torch.Tensor, dim: int, entry, dtype):
+        self.shard, self.dim, self.entry, self.dtype = shard, dim, entry, dtype
+
+
+def _reduce_scatter(g: torch.Tensor, dim: int, entry, rules: ShardingRules) -> torch.Tensor:
+    """This rank's block of ``dim`` of the sum of ``g`` over the ranks of
+    ``entry``'s dimensions, in ``local_shard``'s block order (the
+    outermost name first), in float32."""
+    for name in _active(rules, entry):
+        group = rules.mesh.get_group(name)
+        parts = [p.float().contiguous() for p in g.chunk(dist.get_world_size(group), dim)]
+        g = torch.empty_like(parts[0])
+        dist.reduce_scatter(g, parts, group=group)
+    return g
+
+
+class _GatherAtUse(torch.autograd.Function):
+    """A leaf's FSDP shard cast to the compute dtype and all-gathered over
+    its data dimensions along its cut, in ``local_shard``'s block order:
+    the wire carries the compute dtype (bfloat16 under the cast), as the
+    reference's constraint on its bfloat16 copy does. The backward takes
+    the full gradient to float32 and reduce-scatters it over the same
+    dimensions: this rank's slice of the sum over its data ranks, the
+    master's gradient (the trainer divides it by their count). The sum is
+    taken in float32, as ``average_over_batch_`` takes its mean, so it
+    rounds as the path without FSDP does."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, entry, dtype, rules):
+        ctx.dim, ctx.entry, ctx.rules = dim, entry, rules
+        t = shard.to(dtype)
+        for name in reversed(_active(rules, entry)):  # the innermost name first
+            t = _all_gather(t, dim, name, rules)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.entry, ctx.rules), None, None, None, None
+
+
+def gather_at_use(tree, rules: ShardingRules):
+    """``tree`` with each ``FsdpShard`` leaf gathered whole (a collective
+    on every rank of its data dimensions, in the order the model reads its
+    layers), the other leaves as they are; ``tree`` itself without FSDP."""
+    if not rules.fsdp_axes or tree is None:
+        return tree
+
+    def one(x):
+        if isinstance(x, FsdpShard):
+            return _GatherAtUse.apply(x.shard, x.dim, x.entry, x.dtype, rules)
+        return x
+
+    return tree_map(one, tree)
 
 
 def spec_uses(spec, name: str) -> bool:

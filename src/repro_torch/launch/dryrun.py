@@ -18,7 +18,8 @@ once under
   storage adds its bytes when an op first returns it and subtracts them
   when the last tensor on it dies, a view or an in-place result counted
   once, so the peak is this rank's peak allocation on top of its
-  arguments;
+  arguments; the live bytes at the peak are kept by the op that made each
+  storage (``temp_by_op_at_peak``);
 * ``utils.collectives.CollectiveLedger``: every collective the rank issues;
 * ``kernels._fake.recording``: each hand kernel's fake calls and their
   FLOPs (``flops`` beside each wrapper), which no dispatch mode sees.
@@ -29,11 +30,13 @@ parameters, optimizer state, caches and batch on this rank;
 arguments; ``alias_size_in_bytes``: outputs written over arguments, in
 place; ``generated_code_size_in_bytes``: 0), ``flops_per_device``,
 ``bytes_per_device``, ``collectives``, ``n_collective_ops``,
-``mesh_kind``; and adds ``trace_s`` (in place of ``lower_s`` and
-``compile_s``), ``peak_bytes``, ``rank``, ``fsdp_axes`` (always empty: the
-port keeps no FSDP), ``kernels`` (each hand kernel's launches) and the
-path traced. Every number is a prediction for one H100 rank of such a
-cluster, not a measurement.
+``mesh_kind``, ``fsdp_axes`` (the cell's: a train cell's data dimensions
+of size > 1, empty for prefill and decode); and adds ``trace_s`` (in place
+of ``lower_s`` and ``compile_s``), ``peak_bytes``, ``rank``, ``kernels``
+(each hand kernel's launches) and the path traced. Under FSDP each
+gathered copy of a leaf and each reduce-scatter's output is a new
+storage, counted as a temporary while it lives. Every number is a
+prediction for one H100 rank of such a cluster, not a measurement.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b \\
@@ -116,10 +119,12 @@ class _Tracer(TorchDispatchMode):
         self.known = set(known)
         self.flops = 0.0
         self.bytes = 0
-        self.live: dict = {}  # storage key -> [tensors alive on it, bytes]
+        self.live: dict = {}  # storage key -> [tensors alive on it, bytes, op]
         self.objs: set = set()  # ids of the tracked tensors alive
         self.total = 0
         self.peak = 0
+        self.op_bytes: dict = {}  # op -> bytes of the live storages it made
+        self.peak_by_op: dict = {}  # ``op_bytes`` at the peak
 
     def _release(self, obj_id: int, key: int):
         self.objs.discard(obj_id)
@@ -127,9 +132,10 @@ class _Tracer(TorchDispatchMode):
         entry[0] -= 1
         if entry[0] == 0:
             self.total -= entry[1]
+            self.op_bytes[entry[2]] -= entry[1]
             del self.live[key]
 
-    def _track(self, t: torch.Tensor):
+    def _track(self, t: torch.Tensor, op: str):
         if id(t) in self.objs:
             return
         key = _storage_key(t)
@@ -137,9 +143,12 @@ class _Tracer(TorchDispatchMode):
             return
         entry = self.live.get(key)
         if entry is None:
-            entry = self.live[key] = [0, t.untyped_storage().nbytes()]
+            entry = self.live[key] = [0, t.untyped_storage().nbytes(), op]
             self.total += entry[1]
-            self.peak = max(self.peak, self.total)
+            self.op_bytes[op] = self.op_bytes.get(op, 0) + entry[1]
+            if self.total > self.peak:
+                self.peak = self.total
+                self.peak_by_op = dict(self.op_bytes)
         entry[0] += 1
         self.objs.add(id(t))
         weakref.finalize(t, self._release, id(t), key)
@@ -157,7 +166,7 @@ class _Tracer(TorchDispatchMode):
             ins = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
             self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         for t in outs:
-            self._track(t)
+            self._track(t, packet.__name__)
         return out
 
 
@@ -182,9 +191,8 @@ def run_traced(fn, args, mode, *, stand_in: bool):
 
 
 def record(name: str, mesh, args, out, tracer, colls, calls, seconds, *, rank: int,
-           device: str, traced_on: str) -> dict:
-    """The dry run's record of one traced call (``fsdp_axes`` empty: the
-    port shards no parameter over the data axes)."""
+           device: str, traced_on: str, fsdp_axes: tuple = ()) -> dict:
+    """The dry run's record of one traced call."""
     arg_st, out_st = storages(args), storages(out)
     arguments = sum(arg_st.values())
     kernels: dict = {}
@@ -203,13 +211,15 @@ def record(name: str, mesh, args, out, tracer, colls, calls, seconds, *, rank: i
             "generated_code_size_in_bytes": 0,
         },
         "peak_bytes": arguments + tracer.peak,
+        "temp_by_op_at_peak": {op: n for op, n in sorted(tracer.peak_by_op.items(),
+                                                         key=lambda kv: -kv[1]) if n > 0},
         "flops_per_device": float(tracer.flops) + sum(f for _, f in calls),
         "bytes_per_device": float(tracer.bytes),
         "collectives": summarize_collectives(colls),
         "n_collective_ops": len(colls),
         "kernels": kernels,
         "rank": rank,
-        "fsdp_axes": [],
+        "fsdp_axes": list(fsdp_axes),
         "device": device,
         "traced_on": traced_on,
     }
@@ -223,7 +233,7 @@ def trace_cell(cell: Cell, mesh, *, rank: int = 0, verbose: bool = True, then=No
     fn = cell.fn if then is None else (lambda *args: then(cell.fn(*args)))
     out, tracer, colls, calls, seconds = run_traced(fn, cell.args, cell.mode, stand_in=stand_in)
     rec = record(cell.name, mesh, cell.args, out, tracer, colls, calls, seconds, rank=rank,
-                 device=cell.device, traced_on=cell.traced_on)
+                 device=cell.device, traced_on=cell.traced_on, fsdp_axes=cell.rules.fsdp_axes)
     rec.update(cell.info)
     if verbose:
         mm = rec["memory"]

@@ -10,12 +10,15 @@ memory. The dry run (``launch/dryrun.py``) runs the function once on them.
 
 The three kinds are the reference's, each the port's own path:
 
-* ``train``: the step ``launch.train`` builds, ``trainer.make_train_step(
-  ..., accum_steps, param_specs, rules)`` over float32 masters, with the
-  bfloat16 compute copy and ZeRO-1 moments over the data ranks
-  (``optimizer.init_opt_state``). The port keeps no FSDP: the parameters
-  shard over ``model`` alone (``fsdp_axes`` empty; the reference's train
-  cell also shards them over the data axes, ``specs.py:95-110`` there);
+* ``train``: ``trainer.make_train_step(..., accum_steps, param_specs,
+  rules)`` over float32 masters with the bfloat16 compute copy, sharded as
+  the reference's train cell shards them (``specs.py:92-110`` there):
+  FSDP over the data dimensions of size > 1 (``rules.fsdp_axes``), each
+  leaf cut over ``data`` by ``dist.sharding.fsdp_specs`` (the reference's
+  ``zero1_specs``) as well as over ``model``, gathered where the model
+  reads it; the parameters and ``optimizer.init_opt_state``'s moments
+  stood up as those shards (an FSDP leaf's moments are its shard; ZeRO-1
+  slices only a leaf that FSDP leaves whole);
 * ``prefill``: ``lm.prefill(..., rules)``, the caches split-KV;
 * ``decode``: ``lm.decode_step(..., rules)`` over ``lm.init_cache``'s
   caches cut to this rank by ``lm.local_caches`` (``lm.cache_specs``).
@@ -148,6 +151,11 @@ def make_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, opt_cfg: OptimizerConfig 
                   info={"batch_rows_per_rank": b_rank, "model_axis": rules.model_axis})
 
     if shape.kind == "train":
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None else {}
+        rules = replace(rules, fsdp_axes=tuple(a for a in ("pod", "data")
+                                               if sizes.get(a, 1) > 1))
+        common["rules"] = rules
+        specs = lm.param_specs(cfg, rules)
         params = param_shapes(cfg, torch.float32, rules, mode, dev)
         with mode:
             opt_state = init_opt_state(params, specs, rules)

@@ -51,7 +51,11 @@ layer's cache holds every KV head of the rank's block of the sequence
 channels' conv tail, an ``xattn`` layer's cross K/V every KV head of every
 encoder position; the logits are the rank's columns of the vocabulary.
 ``local_caches`` and ``gather_caches`` map a one-rank cache tree to a
-rank's and back.
+rank's and back. Under FSDP (``rules.fsdp_axes``, training only) a leaf is
+also cut over ``data`` (``param_specs(cfg, rules)``) and reaches the model
+as a ``dist.sharding.FsdpShard``: each layer gathers its own where it runs
+(``_backbone``, ``_encode``), and the embedding, the final norm and
+whisper's ``enc_pos`` and ``enc_norm`` where they are read.
 
 Entry points: ``init_params``, ``param_specs``, ``init_cache``,
 ``cache_specs``, ``local_caches``, ``gather_caches``, ``forward``,
@@ -72,6 +76,8 @@ from repro_torch.dist.sharding import (
     ShardingRules,
     check_explicit,
     copy_to_model,
+    fsdp_specs,
+    gather_at_use,
     gather_over_model,
     gather_shard,
     local_shard,
@@ -171,7 +177,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
     the target device (the card unless ``device="cpu"``), at the JAX
     package's scales. ``dtype`` defaults to ``cfg.dtype``. With a mesh in
     ``rules`` every rank draws the same full weights, one layer at a time,
-    and keeps only its shard of each (``param_specs``): no rank holds the
+    and keeps only its shard of each (``param_specs(cfg, rules)``: under
+    FSDP each leaf's FSDP spec, from its full shape): no rank holds the
     whole tree."""
     dev = _device(device, "repro_torch.models.lm.init_params")
     dtype = dtype or _DTYPES[cfg.dtype]
@@ -180,12 +187,12 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
     specs = param_specs(cfg)
 
     def keep(tree, spec):
-        return shard_tree(tree, spec, rules)
+        return shard_tree(tree, fsdp_specs(tree, spec, rules), rules)
 
     params = {
         "embed": keep(init_embedding(gen, cfg.vocab_padded, cfg.d_model, dtype,
                                      cfg.tie_embeddings), specs["embed"]),
-        "final_norm": init_rmsnorm(cfg.d_model, dev),
+        "final_norm": keep(init_rmsnorm(cfg.d_model, dev), specs["final_norm"]),
         "groups": [{f"pos{i}": keep(_init_layer(gen, kind, cfg, dtype), gs[f"pos{i}"])
                     for i, kind in enumerate(layout)} for gs in specs["groups"]],
     }
@@ -200,9 +207,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
     if cfg.enc_dec:
         params["enc_groups"] = [keep(_init_layer(gen, "enc", cfg, dtype), es)
                                 for es in specs["enc_groups"]]
-        params["enc_norm"] = init_rmsnorm(cfg.d_model, dev)
-        params["enc_pos"] = (torch.randn((cfg.enc_len, cfg.d_model), generator=gen, device=dev)
-                             * 0.02).to(dtype)
+        params["enc_norm"] = keep(init_rmsnorm(cfg.d_model, dev), specs["enc_norm"])
+        params["enc_pos"] = keep((torch.randn((cfg.enc_len, cfg.d_model), generator=gen,
+                                              device=dev) * 0.02).to(dtype), specs["enc_pos"])
     return params
 
 
@@ -226,10 +233,25 @@ def _layer_spec(kind: str, cfg: ArchConfig):
     return spec
 
 
-def param_specs(cfg: ArchConfig):
+def param_shapes(cfg: ArchConfig):
+    """The full shape (``torch.Size``) of every leaf of ``init_params``'
+    tree, from a draw on fake tensors (nothing allocated)."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with detect_fake_mode() or FakeTensorMode():
+        params = init_params(cfg, dtype=torch.float32, device="cpu")
+    return tree_map(lambda t: t.shape, params)
+
+
+def param_specs(cfg: ArchConfig, rules: ShardingRules = NO_SHARDING):
     """The sharding spec of every leaf of ``init_params``' tree, in its
     structure (the groups' specs a list): the reference's specs without
-    their stack axis."""
+    their stack axis. Under FSDP (``rules.fsdp_axes``) the FSDP specs
+    (``dist.sharding.fsdp_specs`` over ``param_shapes``), as the
+    reference's train cell builds them."""
+    if rules.fsdp_axes:
+        return fsdp_specs(param_shapes(cfg), param_specs(cfg), rules)
     layout = group_layout(cfg)
     specs = {"embed": embedding_spec(cfg.tie_embeddings), "final_norm": NORM_SPEC,
              "groups": [{f"pos{i}": _layer_spec(kind, cfg) for i, kind in enumerate(layout)}
@@ -357,12 +379,13 @@ def _encode(params, enc_in, cfg, rules=NO_SHARDING):
     are summed over ``model``. The frames are cast to the weights' dtype
     first (the reference lets a float32 input promote bfloat16 weights'
     products to float32; torch's products need one dtype)."""
-    pos = params["enc_pos"]
+    pos = gather_at_use(params["enc_pos"], rules)
     x = enc_in.to(pos.dtype) + pos[None, : enc_in.shape[1], :]
     b, t, _ = x.shape
     positions = _positions(b, t, x.device)
     q_pos = torch.full((b, t), t, dtype=torch.int64, device=x.device)
     for lp in params["enc_groups"]:
+        lp = gather_at_use(lp, rules)
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv(lp["attn"], h, cfg, positions, rules)
         out = attn.causal_attention(q, k, v, q_pos, positions)
@@ -370,7 +393,7 @@ def _encode(params, enc_in, cfg, rules=NO_SHARDING):
         x = x + reduce_from_model(out, rules)
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = x + mlp(lp["mlp"], h2, cfg.act, rules)
-    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    return rmsnorm(x, gather_at_use(params["enc_norm"], rules), cfg.norm_eps)
 
 
 def _best_outer(g: int) -> int:
@@ -431,7 +454,13 @@ def _backbone(params, x, cfg, positions, rules=NO_SHARDING, *, caches=None, cach
     in the backward: superblocks of ``G / _best_outer(G)`` groups each when
     ``cfg.scan_layers`` and ``_best_outer(G) > 1`` (the reference's
     two-level split), else each group on its own; the prologue is not
-    recomputed, as in the reference."""
+    recomputed, as in the reference.
+
+    Under FSDP each layer's parameters (the shared block's at each of its
+    applications) are gathered where the layer runs (``gather_at_use``):
+    inside a recomputed superblock, so that the gathered copies live for
+    its forward and are gathered again for its backward, as every rank
+    does in the same order."""
     layout = group_layout(cfg)
     emb0 = x if cfg.family == "hybrid" else None
     shared = params.get("shared")
@@ -443,7 +472,7 @@ def _backbone(params, x, cfg, positions, rules=NO_SHARDING, *, caches=None, cach
     for i, kind in enumerate(prologue_layout(cfg)):
         name = f"prologue{i}"
         x, new_caches[name], layer_aux = _apply_layer(
-            params[name], kind, x, cfg, positions, rules,
+            gather_at_use(params[name], rules), kind, x, cfg, positions, rules,
             cache=caches[name] if caches is not None else None, cache_pos=cache_pos,
             want_cache=want_cache)
         if layer_aux is not None:
@@ -457,7 +486,9 @@ def _backbone(params, x, cfg, positions, rules=NO_SHARDING, *, caches=None, cach
             for i, kind in enumerate(layout):
                 c = caches["groups"][gi][f"pos{i}"] if caches is not None else None
                 x, new_cache[f"pos{i}"], layer_aux = _apply_layer(
-                    params["groups"][gi][f"pos{i}"], kind, x, cfg, positions, rules, shared=shared,
+                    gather_at_use(params["groups"][gi][f"pos{i}"], rules), kind, x, cfg,
+                    positions, rules,
+                    shared=gather_at_use(shared, rules) if kind == "hybrid_attn" else None,
                     emb0=emb0, enc_out=enc_out, cache=c, cache_pos=cache_pos,
                     want_cache=want_cache)
                 if layer_aux is not None:
@@ -496,6 +527,14 @@ def _enc_out(params, enc_in, cfg, rules=NO_SHARDING):
     return _encode(params, enc_in, cfg, rules)
 
 
+def _table(params, name: str, rules: ShardingRules) -> dict:
+    """``{name: the embedding's leaf}`` gathered at use (FSDP): the
+    embedding reads ``tok``, the unembedding ``head`` or, tied, ``tok``
+    again, gathered a second time rather than kept through the
+    backbone."""
+    return {name: gather_at_use(params["embed"][name], rules)}
+
+
 def forward(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING, positions=None,
             enc_in=None, train=False):
     """Full-sequence forward -> (logits (B, S, vocab_padded), aux), aux the
@@ -503,16 +542,19 @@ def forward(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
     the encoder's frame embeddings of an encoder-decoder model. ``train``
     turns on ``cfg.remat``'s recompute. Under ``rules`` with a mesh,
     ``tokens`` are this rank's rows, and under a model axis the logits are
-    this rank's columns of the vocabulary."""
+    this rank's columns of the vocabulary. Under FSDP the leaves that
+    ``trainer.loss_and_grads`` hands in as ``FsdpShard``s are gathered
+    where they are read."""
     check_explicit(rules)
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, tokens.device)
-    x = embed(params["embed"], tokens, rules)
+    x = embed(_table(params, "tok", rules), tokens, rules)
     enc_out = _enc_out(params, enc_in, cfg, rules)
     x, _, aux = _backbone(params, x, cfg, positions, rules, enc_out=enc_out, train=train)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.vocab, rules), aux
+    x = rmsnorm(x, gather_at_use(params["final_norm"], rules), cfg.norm_eps)
+    return unembed(_table(params, "head" if "head" in params["embed"] else "tok", rules), x,
+                   cfg.vocab, rules), aux
 
 
 def train_loss(params, batch, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,

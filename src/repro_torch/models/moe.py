@@ -16,6 +16,18 @@ Port of ``src/repro/models/moe.py``, both branches of ``moe_ffn``:
   routes the global batch (capacity and arrival order global) and keeps
   its own rows; without either, the single-device function.
 
+Under FSDP the weights arrive gathered with their layer (``lm._backbone``
+gathers each layer's leaves over ``data`` where the layer runs:
+``dist.sharding.gather_at_use``). ``fsdp_specs`` cuts an expert stack
+(E, D, F) or (E, F, D), whose spec splits E over ``model``, along its
+dimension 1, and the shared experts along the dimension ``model`` leaves
+whole: the layout of the reference's explicit gather
+(``src/repro/models/moe.py:136-161``, ``expert_spec = P("model", fsdp,
+None)``). The gather's backward reduce-scatters their gradients inside
+the layer's backward, so they leave it as this rank's shards and are
+never materialised whole outside it, the failure the reference's comment
+there records.
+
 ``_moe_local`` returns the partial output of experts ``[e_lo, e_lo +
 e_loc)`` and the router statistics before their product. The routing runs
 outside the tensor-parallel region (alike on every model rank), so the

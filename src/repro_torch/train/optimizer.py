@@ -30,12 +30,17 @@ shards, and the gradients already averaged over the batch ranks.
   leaves sharded over ``model`` are summed over the model ranks, and the
   replicated leaves counted once.
 * ZeRO-1 (the reference's ``zero1_spec_for``, ``zero1_specs`` and
-  ``opt_state_specs``, ported verbatim): on a mesh with data-parallel
-  dimensions (``pod``, ``data``) of size > 1, ``m`` and ``v`` hold this
-  rank's slice of each leaf along the first dimension the spec leaves
-  whole and the data ranks divide (``zero1_layout``). Each rank updates
-  its slice of ``m``, ``v`` and the parameter, then all-gathers the
-  parameter over the data ranks.
+  ``opt_state_specs``, ported verbatim; the first two live in
+  ``dist.sharding``, which FSDP shares them with): on a mesh with
+  data-parallel dimensions (``pod``, ``data``) of size > 1, ``m`` and
+  ``v`` hold this rank's slice of each leaf along the first dimension the
+  spec leaves whole and the data ranks divide (``zero1_layout``). Each
+  rank updates its slice of ``m``, ``v`` and the parameter, then
+  all-gathers the parameter over the data ranks.
+* FSDP (``specs`` the FSDP specs, ``dist.sharding.fsdp_specs``): a leaf
+  sharded over ``data`` is its own ZeRO-1 slice. Its ``m`` and ``v`` take
+  its spec unchanged (``zero1_spec_for`` returns a spec that names
+  ``data`` as it is), it is updated in place, and nothing gathers it.
 * Weight decay and the bfloat16 cast read the full leaf's stacked rank,
   which a shard keeps.
 """
@@ -50,13 +55,16 @@ import torch
 from repro_torch.dist.sharding import (
     NO_SHARDING,
     P,
+    _active,
+    _all_reduce,
+    fsdp_cut,
     gather_shard,
-    mesh_sizes,
     shard_bounds,
     spec_uses,
-    sum_over_model,
+    zero1_specs,
 )
-from repro_torch.utils.tree import stacked_ndims, tree_leaves, tree_map, tree_unflatten
+from repro_torch.dist.sharding import zero1_spec_for  # noqa: F401 -- the reference's name here
+from repro_torch.utils.tree import stacked_ndims, tree_leaves, tree_unflatten
 
 #: Elements of the leaves one group of ``_foreach`` ops updates at a time.
 CHUNK_NUMEL = 1 << 28
@@ -101,19 +109,31 @@ def init_opt_state(params, specs=None, rules=NO_SHARDING):
 
 
 def global_norm(tree, specs=None, rules=NO_SHARDING):
-    """The 2-norm of every leaf of ``tree`` together. Under a model axis the
-    leaves whose spec names it are shards: their squared sums are summed
-    over the model ranks, the replicated leaves' counted once."""
+    """The 2-norm of every leaf of ``tree`` together. A leaf whose spec
+    names the model axis, or FSDP's data dimensions (``fsdp_cut``), is a
+    shard: its squared sum is summed over the ranks of those dimensions
+    (the model ranks, the data ranks, or both), and a replicated leaf's is
+    counted once."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    if rules.model_axis is None:
-        return torch.sqrt(torch.sum(torch.stack(leaves)))
     if specs is None:
-        raise ValueError("a norm under a model axis needs the leaves' specs")
-    sharded = [spec_uses(s, rules.model_axis) for s in tree_leaves(specs)]
+        if rules.model_axis is not None:
+            raise ValueError("a norm under a model axis needs the leaves' specs")
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    over = []
+    for s in tree_leaves(specs):
+        cut = fsdp_cut(s, rules)
+        names = _active(rules, cut[1]) if cut is not None else ()
+        if rules.model_axis is not None and spec_uses(s, rules.model_axis):
+            names += (rules.model_axis,)
+        over.append(names)
+    if not any(over):
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
     zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    part = sum((q for q, sh in zip(leaves, sharded) if sh), zero)
-    whole = sum((q for q, sh in zip(leaves, sharded) if not sh), zero)
-    return torch.sqrt(sum_over_model(part, rules) + whole)
+    total = sum((q for q, names in zip(leaves, over) if not names), zero)
+    for names in sorted(set(over) - {()}):
+        part = sum((q for q, n in zip(leaves, over) if n == names), zero)
+        total = _all_reduce(part.detach(), names, rules) + total
+    return torch.sqrt(total)
 
 
 def _chunks(n_leaves, numel):
@@ -188,36 +208,6 @@ def adamw_update(cfg: OptimizerConfig, params, grads, opt_state, *, specs=None,
 # ---------------------------------------------------------------------------
 
 
-def zero1_spec_for(shape, spec, data_axes: tuple[str, ...], axis_sizes: dict) -> P:
-    """Add the data axes to the first unsharded, divisible dim of ``shape``."""
-    data_size = math.prod(axis_sizes[a] for a in data_axes)
-    entries = list(spec) + [None] * (len(shape) - len(spec))
-    used = set()
-    for e in entries:
-        for a in (e if isinstance(e, tuple) else (e,)):
-            used.add(a)
-    if used & set(data_axes):
-        return spec  # already data-sharded (e.g. FSDP applied upstream)
-    for i, (dim, cur) in enumerate(zip(shape, entries)):
-        if cur is None and dim % data_size == 0 and dim > 0:
-            entries[i] = tuple(data_axes) if len(data_axes) > 1 else data_axes[0]
-            return P(*entries)
-    return spec  # nothing divisible: leave replicated
-
-
-def zero1_specs(param_shapes, param_specs, mesh, data_axes=("data",)):
-    """Moment-tensor specs with the extra data-parallel shard (ZeRO-1)."""
-    axis_sizes = mesh_sizes(mesh)
-    usable = tuple(a for a in data_axes if axis_sizes.get(a, 1) > 1)
-    if not usable:
-        return param_specs
-
-    def one(shape_leaf, spec_leaf):
-        return zero1_spec_for(shape_leaf.shape, spec_leaf, usable, axis_sizes)
-
-    return tree_map(one, param_shapes, param_specs)
-
-
 def opt_state_specs(param_shapes, param_specs, mesh=None, zero1: bool = True,
                     data_axes=("pod", "data")):
     """The specs of ``init_opt_state``'s tree: ``m`` and ``v`` under
@@ -234,9 +224,10 @@ def opt_state_specs(param_shapes, param_specs, mesh=None, zero1: bool = True,
 def zero1_layout(params, specs, rules) -> list:
     """Per leaf of ``params`` (``tree_leaves`` order): ``(dim, entry)``, the
     dimension along which ZeRO-1 slices its moments and the data axes it
-    slices over, or None where the moments are whole. The parameters are
-    this rank's shards: ``zero1_spec_for`` only picks a dimension their
-    spec leaves whole, which a shard has at its full size."""
+    slices over, or None where the moments are whole, and for an FSDP
+    leaf, whose moments are its shard. The parameters are this rank's
+    shards: ``zero1_spec_for`` only picks a dimension their spec leaves
+    whole, which a shard has at its full size."""
     leaves = tree_leaves(params)
     if rules.mesh is None or specs is None:
         return [None] * len(leaves)

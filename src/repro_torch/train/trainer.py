@@ -25,7 +25,9 @@ the parameters are this rank's shards as ``param_specs`` (the reference's
 argument, ``lm.param_specs``) lays them out, and the loss function takes
 this rank's rows of the batch (``lm.train_loss(..., rules)``). The step
 averages the gradients over the batch ranks, then ``adamw_update`` runs
-on the shards with ZeRO-1 over the data ranks (``optimizer``). Checkpoints
+on the shards with ZeRO-1 over the data ranks (``optimizer``). Under FSDP
+(``rules.fsdp_axes``) the parameters are sharded over the data ranks too,
+gathered where the model reads them (``make_train_step``). Checkpoints
 hold full leaves whatever the mesh (``checkpoint``), so a run restarts on
 another mesh.
 """
@@ -39,7 +41,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.dist.sharding import NO_SHARDING, average_over_batch_
+from repro_torch.dist.sharding import NO_SHARDING, FsdpShard, average_over_batch_, fsdp_cuts
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import (
     OptimizerConfig,
@@ -108,7 +110,8 @@ class Watchdog:
         return slow
 
 
-def loss_and_grads(loss_fn: Callable, params, batch, cast_bf16: bool = True):
+def loss_and_grads(loss_fn: Callable, params, batch, cast_bf16: bool = True, specs=None,
+                   rules=NO_SHARDING):
     """``loss_fn(params, batch)`` and its gradient with respect to every
     leaf of ``params`` (a list in ``tree_leaves`` order; zeros for a leaf
     the loss does not use). With ``cast_bf16`` the float32 matrices enter
@@ -116,12 +119,20 @@ def loss_and_grads(loss_fn: Callable, params, batch, cast_bf16: bool = True):
     are the float32 masters'. A matrix is a leaf of rank 2 or more in the
     reference's stacked tree (``utils.tree.stacked_ndims``): a group's
     norm scale is one, and is cast as the reference casts it. ``params``
-    are not written."""
+    are not written.
+
+    FSDP (``rules.fsdp_axes``, ``specs`` the FSDP specs): a leaf that its
+    spec cuts over ``data`` enters the loss uncast, as a
+    ``dist.sharding.FsdpShard`` that the model gathers where it runs
+    (``gather_at_use``, which casts it by the same rule first), and its
+    gradient comes back as this rank's slice of the sum over its data
+    ranks (``make_train_step`` averages it)."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
-    compute = leaves
-    if cast_bf16:
-        compute = [w.to(torch.bfloat16) if w.dtype == torch.float32 and r >= 2 else w
-                   for w, r in zip(leaves, stacked_ndims(params))]
+    dtypes = [torch.bfloat16 if cast_bf16 and w.dtype == torch.float32 and r >= 2 else w.dtype
+              for w, r in zip(leaves, stacked_ndims(params))]
+    cuts = fsdp_cuts(specs, rules) if specs is not None else [None] * len(leaves)
+    compute = [FsdpShard(w, *cut, dt) if cut is not None else w.to(dt)
+               for w, dt, cut in zip(leaves, dtypes, cuts)]
     loss = loss_fn(tree_unflatten(params, compute), batch)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     return loss.detach(), [torch.zeros_like(w) if g is None else g for w, g in zip(leaves, grads)]
@@ -142,19 +153,31 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, cast_bf16: bool
     ``rules`` with a mesh: ``params`` are this rank's shards under
     ``param_specs``, ``opt_state`` is ``init_opt_state(params,
     param_specs, rules)``, and the gradients are averaged over the batch
-    ranks before the update."""
+    ranks before the update.
+
+    FSDP (``rules.fsdp_axes``; ``param_specs`` the FSDP specs,
+    ``dist.sharding.fsdp_specs``): the leaves cut over ``data`` are
+    gathered where the model reads them and their gradients
+    reduce-scattered (``loss_and_grads``); each is divided by its data
+    ranks' count and averaged over the other batch dimensions only
+    (``average_over_batch_``), and the optimizer updates the shard in
+    place. With ``accum_steps > 1`` every microbatch gathers the leaves
+    and reduce-scatters their gradients again: the reference hoists its
+    gradient reduction out of the microbatch loop, which here would mean
+    holding every leaf's full gradient between microbatches."""
     if rules.model_axis is not None and param_specs is None:
         raise ValueError("a tensor-parallel step needs the parameters' specs (param_specs)")
 
     def step_fn(params, opt_state, batch):
         if accum_steps == 1:
-            loss, grads = loss_and_grads(loss_fn, params, batch, cast_bf16)
+            loss, grads = loss_and_grads(loss_fn, params, batch, cast_bf16, param_specs, rules)
         else:
             micro = tree_map(lambda x: x.reshape(accum_steps, x.shape[0] // accum_steps,
                                                  *x.shape[1:]), batch)
             loss, grads = None, None
             for i in range(accum_steps):
-                l, g = loss_and_grads(loss_fn, params, tree_map(lambda x: x[i], micro), cast_bf16)
+                l, g = loss_and_grads(loss_fn, params, tree_map(lambda x: x[i], micro), cast_bf16,
+                                      param_specs, rules)
                 g = [t.float() for t in g]
                 if grads is None:
                     loss, grads = l, g
@@ -164,7 +187,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, cast_bf16: bool
             grads = torch._foreach_div(grads, float(accum_steps))
             loss = loss / accum_steps
         with torch.no_grad():
-            average_over_batch_(grads, rules)
+            average_over_batch_(grads, rules, param_specs)
             params, opt_state, metrics = adamw_update(
                 opt_cfg, params, tree_unflatten(params, grads), opt_state, specs=param_specs,
                 rules=rules)
@@ -176,8 +199,10 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig, cast_bf16: bool
 
 def state_specs(params, param_specs, rules=NO_SHARDING):
     """The specs of the trainer's state ``{"params", "opt"}``: the
-    parameters' and ``opt_state_specs``' (ZeRO-1 over the data ranks);
-    None without a mesh."""
+    parameters' (under FSDP the FSDP specs the step runs on, so that a
+    checkpoint gathers full leaves) and ``opt_state_specs``' (ZeRO-1 over
+    the data ranks; an FSDP leaf's moments take its spec); None without a
+    mesh."""
     if rules.mesh is None or param_specs is None:
         return None
     return {"params": param_specs, "opt": opt_state_specs(params, param_specs, rules.mesh)}

@@ -118,3 +118,31 @@ def test_fake_world_plays_one_rank_and_leaves_no_group(multi_pod):
             with fake_world((2,), ("w",)):
                 pass
     assert not dist.is_initialized()
+
+
+def test_fsdp_gather_and_its_reduce_scatter_are_recorded_by_their_conventions():
+    """FSDP's gather at use (``dist.sharding.gather_at_use``) on a fake
+    world of (data, model) = (4, 2): the forward's all-gather over the 4
+    data ranks of a (64, 32) leaf cut on dimension 1 and cast to bfloat16,
+    and the backward's reduce-scatter of its float32 gradient (the list
+    form, ``reduce_scatter``), each one record by the conventions of
+    ``utils/collectives.py``: an all-gather's operand is a 4th of its
+    result, a reduce-scatter's 4 times its result."""
+    from repro_torch.dist.sharding import FsdpShard, P, ShardingRules, fsdp_cut, gather_at_use
+
+    with fake_world((4, 2), ("data", "model")) as mesh:
+        rules = ShardingRules(mesh=mesh, batch_axes=("data",), model_axis="model",
+                              fsdp_axes=("data",))
+        cut = fsdp_cut(P("model", "data"), rules)
+        assert cut == (1, "data")
+        shard = torch.zeros((64, 8), requires_grad=True)
+        with CollectiveLedger() as ledger:
+            full = gather_at_use(FsdpShard(shard, *cut, torch.bfloat16), rules)
+            assert full.shape == (64, 32) and full.dtype == torch.bfloat16
+            full.float().sum().backward()
+    assert shard.grad.shape == (64, 8) and shard.grad.dtype == torch.float32
+    ag, rs = ledger.records
+    assert (ag["op"], ag["group_size"], ag["out_bytes"]) == ("all-gather", 4, 64 * 32 * 2)
+    assert (ag["operand_bytes"], ag["wire_bytes"]) == (64 * 8 * 2, 64 * 32 * 2 * 3 / 4)
+    assert (rs["op"], rs["group_size"], rs["out_bytes"]) == ("reduce-scatter", 4, 64 * 8 * 4)
+    assert (rs["operand_bytes"], rs["wire_bytes"]) == (64 * 32 * 4, 64 * 8 * 4 * 3)

@@ -5,22 +5,27 @@ held against real runs and against the JAX package.
 * Collectives and argument bytes per rank: at (data, model) = (1, 2), (2,
   1), (2, 2), the smoke configs of granite-3-2b (dense), deepseek-v2-
   lite-16b (MLA and MoE) and zamba2-2.7b (SSM and the shared attention)
-  run one training step (float32 masters, ZeRO-1 where data > 1) and one
-  decode step (after a real prefill, the caches split-KV) for real on
-  spawned gloo ranks (``test_torch_tp.run_grid``) under a
-  ``CollectiveLedger``; the dry run of the same steps, rank by rank in
-  fake worlds of that grid, counts the same collectives and the same
-  argument bytes, exactly, on the plain path and on the card's.
+  run one training step (float32 masters; where data > 1 sharded as the
+  train cell shards them, FSDP over ``data``, each leaf gathered where it
+  is read and its gradient reduce-scattered) and one decode step (after a
+  real prefill, the caches split-KV) for real on spawned gloo ranks
+  (``test_torch_tp.run_grid``) under a ``CollectiveLedger``; the dry run
+  of the same steps, rank by rank in fake worlds of that grid, counts the
+  same collectives (by op) and the same argument bytes, exactly, on the
+  plain path and on the card's.
 * Shard shapes: every leaf of this rank's parameters, caches and ZeRO-1
   moments in the dry run's cells at (2, 2) equals the JAX package's shard
   of its own specs (``lm.param_specs``, ``lm.cache_specs``,
   ``optimizer.opt_state_specs(zero1=True)``) on a (2, 2) mesh of 4 fake
   XLA devices (a subprocess), the reference's stack axis dropped (an odd
-  group count, so that ZeRO-1 picks the same dimension in both trees).
-  Two differences are stated, not held: the reference's train cell adds
-  FSDP over the data axes (the port keeps none), and an SSM layer's conv
-  tail, whose channels the reference cuts evenly, while the port keeps each
-  model rank's x channels and the whole B and C (``lm.local_caches``).
+  group count, so that ZeRO-1 and FSDP pick the same dimension in both
+  trees). The train cell's parameters and moments are the reference's
+  FSDP shards (its train cell's ``zero1_specs(p_shapes, param_specs,
+  mesh)``, and ``opt_state_specs`` over them), the decode cell's
+  parameters its plain ones. One difference is stated, not held: an SSM
+  layer's conv tail, whose channels the reference cuts evenly, while the
+  port keeps each model rank's x channels and the whole B and C
+  (``lm.local_caches``).
 * FLOPs: a smoke training step's ``flops_per_device`` equals
   ``FlopCounterMode`` on the same step run for real; granite-3-2b's
   forward at full width lies within 5% of 2·N·T.
@@ -54,7 +59,7 @@ from repro_torch.kernels import fused_score as fs
 from repro_torch.kernels import pairwise_score as ps
 from repro_torch.kernels import ssd_decode as sd
 from repro_torch.launch import dryrun, specs
-from repro_torch.launch.mesh import fake_world
+from repro_torch.launch.mesh import fake_world, production_shape
 from repro_torch.models import attention, lm
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.trainer import make_train_step
@@ -84,11 +89,14 @@ def tokens_of(cfg) -> torch.Tensor:
 
 
 def job_counts(mesh, arch: str):
-    """On this rank: a training step and a decode step of ``arch`` for
-    real, each under a ledger: the collectives and the arguments' bytes."""
+    """On this rank: a training step (FSDP over ``data`` where it is > 1,
+    as the train cell builds it) and a decode step of ``arch`` for real,
+    each under a ledger: the collectives, by op, and the arguments'
+    bytes."""
     cfg = cfg_of(arch)
-    rules, rows = batch_rows(B, make_rules(cfg, mesh))
-    pspecs = lm.param_specs(cfg)
+    plain, rows = batch_rows(B, make_rules(cfg, mesh))
+    rules = dataclasses.replace(plain, fsdp_axes=("data",) if mesh.shape[0] > 1 else ())
+    pspecs = lm.param_specs(cfg, rules)
     batch = {"tokens": local_shard(tokens_of(cfg), rows, rules)}
     params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", rules=rules)
     opt = init_opt_state(params, pspecs, rules)
@@ -98,6 +106,9 @@ def job_counts(mesh, arch: str):
     with CollectiveLedger() as ledger:
         step(params, opt, batch)
     out["train_calls"] = ledger.calls
+    out["train_ops"] = ops_of(ledger.records)
+    rules = plain
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", rules=rules)
     with torch.no_grad():
         toks = batch["tokens"][:, :S]
         _, caches = lm.prefill(params, toks, cfg, rules, max_seq=S + NEW)
@@ -107,6 +118,14 @@ def job_counts(mesh, arch: str):
         with CollectiveLedger() as ledger:
             lm.decode_step(params, tok, caches, pos, cfg, rules)
         out["decode_calls"] = ledger.calls
+    return out
+
+
+def ops_of(records) -> dict:
+    """A ledger's count of each op."""
+    out: dict = {}
+    for r in records:
+        out[r["op"]] = out.get(r["op"], 0) + 1
     return out
 
 
@@ -126,6 +145,7 @@ def dry_counts(arch: str, grid, rank: int, device: str) -> dict:
                                                    mesh, device=device),
                                    mesh, rank=rank, verbose=False)
     return {"train_calls": train["n_collective_ops"],
+            "train_ops": {op: a["count"] for op, a in train["collectives"]["by_op"].items()},
             "train_bytes": train["memory"]["argument_size_in_bytes"],
             "decode_calls": decode["n_collective_ops"],
             "decode_bytes": decode["memory"]["argument_size_in_bytes"]}
@@ -143,6 +163,8 @@ def test_dry_run_counts_the_collectives_and_arguments_of_a_real_run(grid, arch, 
     for rank in range(math.prod(grid)):
         want = real[rank][arch]
         assert want["train_calls"] > 0 and (want["decode_calls"] > 0 or grid[1] == 1)
+        # FSDP where data > 1: the backward's reduce-scatters are on the ledger
+        assert ("reduce-scatter" in want["train_ops"]) == (grid[0] > 1), want["train_ops"]
         for device in ("cpu", "cuda"):
             assert dry_counts(arch, grid, rank, device) == want, (grid, rank, device)
 
@@ -165,7 +187,7 @@ from repro import configs
 from repro.dist.sharding import make_rules
 from repro.launch.mesh import make_local_mesh
 from repro.models import lm
-from repro.train.optimizer import opt_state_specs
+from repro.train.optimizer import opt_state_specs, zero1_specs
 
 
 def named(tree, spec_tree, mesh):
@@ -187,8 +209,10 @@ for arch, layers in LAYERS.items():
                        jax.random.PRNGKey(0))
     pspecs = lm.param_specs(cfg)
     caches = jax.eval_shape(functools.partial(lm.init_cache, cfg, B, SEQ, jnp.float32))
+    fsdp = zero1_specs(p, pspecs, mesh)  # the train cell's parameter specs
     out[arch] = {"params": named(p, pspecs, mesh),
-                 "m": named(p, opt_state_specs(p, pspecs, mesh, zero1=True)["m"], mesh),
+                 "fsdp": named(p, fsdp, mesh),
+                 "fsdp_m": named(p, opt_state_specs(p, fsdp, mesh, zero1=True)["m"], mesh),
                  "caches": named(caches, lm.cache_specs(cfg, rules), mesh)}
 print(json.dumps(out))
 """
@@ -242,8 +266,11 @@ def test_shard_shapes_equal_the_reference_specs_on_four_devices(arch):
             decode = specs.make_cell(cfg, ShapeSpec("d", "decode", S + NEW, B), mesh)
         params, opt, _ = train.args
         leaves = lambda t: {n: tuple(x.shape) for n, x in tree_flatten_with_names(t)}  # noqa: E731
-        _against(leaves(params), ref["params"])
-        _against(leaves(opt["m"]), ref["m"])
+        assert train.rules.fsdp_axes == ("data",) and decode.rules.fsdp_axes == ()
+        _against(leaves(params), ref["fsdp"])
+        _against(leaves(opt["m"]), ref["fsdp_m"])
+        _against(leaves(opt["v"]), ref["fsdp_m"])
+        _against(leaves(decode.args[0]), ref["params"])
         _against(leaves(decode.args[2]), ref["caches"], skip=tail)
         # the stated difference: the conv tail keeps each rank's x channels
         # and the whole B and C
@@ -324,10 +351,12 @@ def test_tracer_counts_each_storage_once_and_frees_it():
 
     out, tracer, _, _, _ = dryrun.run_traced(fn, (known,), mode, stand_in=False)
     assert tracer.peak == 4000 + 1024
+    assert tracer.peak_by_op == {"empty": 4000, "mul": 1024}
     assert tracer.total == 1024 + 40
     rec = dryrun.record("x", None, (known,), out, tracer, [], [], 0.0, rank=0, device="cpu",
                         traced_on="cpu")
     assert rec["memory"]["argument_size_in_bytes"] == 1024
+    assert rec["temp_by_op_at_peak"] == {"empty": 4000, "mul": 1024}
     assert rec["memory"]["output_size_in_bytes"] == 1024 + 40 + 1024
     assert rec["memory"]["alias_size_in_bytes"] == 1024
     # the in-place add read and wrote a, the product x and b; allocations none
@@ -491,3 +520,30 @@ def test_command_line_writes_the_reference_file_names(tmp_path):
                                   "generated_code_size_in_bytes"}
     assert rec["kernels"] == {"ssd_decode": 48}
     assert rec["peak_bytes"] >= rec["memory"]["argument_size_in_bytes"] > 0
+
+
+@pytest.mark.parametrize("multi", (False, True), ids=("16x16", "2x16x16"))
+def test_train_records_carry_the_reference_fsdp_axes(multi):
+    """A train cell on the production meshes shards its parameters and
+    moments over ``data`` (FSDP, ``["data"]`` on 16 × 16 and ``["pod",
+    "data"]`` on 2 × 16 × 16, the pods replicating them as the reference's
+    ``zero1_specs`` default leaves them): every leaf of granite-3-2b cut to
+    one layer divides by 16 data ranks, so the parameters' and moments'
+    bytes are 1/16 of the same cell's without FSDP, and the backward's
+    reduce-scatters are on the ledger. A prefill record keeps ``[]``."""
+    cfg = configs.get("granite-3-2b").with_overrides(n_layers=1)
+    with fake_world(*production_shape(multi), rank=0) as mesh:
+        cell = specs.make_cell(cfg, ShapeSpec("t", "train", 16, 64), mesh, accum_steps=1)
+        rec = dryrun.trace_cell(cell, mesh, verbose=False)
+        pre = dryrun.trace_cell(specs.make_cell(cfg, ShapeSpec("p", "prefill", 16, 64), mesh),
+                                mesh, verbose=False)
+        plain = dataclasses.replace(cell.rules, fsdp_axes=())
+        with cell.mode:
+            whole = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", rules=plain)
+    assert rec["fsdp_axes"] == (["pod", "data"] if multi else ["data"])
+    assert pre["fsdp_axes"] == []
+    assert "reduce-scatter" in rec["collectives"]["by_op"]
+    params, opt, _ = cell.args
+    state = dryrun.argument_bytes((params, opt["m"], opt["v"]))
+    assert state * 16 == 3 * dryrun.argument_bytes(whole)
+    assert rec["memory"]["argument_size_in_bytes"] == dryrun.argument_bytes(cell.args)
