@@ -212,9 +212,13 @@ Phases, each printed on its own line:
     kernels and busy share of one whisper ``generate`` and of one granite
     training step.
 19. Sharded training (``dist/sharding.py``, ``launch.train --data-shards
-    --model-shards``; torch ops and collectives, no hand kernel). Ranks are
-    processes started here (``spawn``), one set per grid running its jobs
-    in turn (``[sharded_ranks]``: the grid's seconds), one card each under
+    --model-shards``; torch ops and collectives, no hand kernel), after
+    the threshold fits (item 10), so that the slice's fit starts inside
+    its elapsed-time gate. Ranks are processes started here (``spawn``),
+    one set per world size running its jobs in turn, each job on its own
+    grid's mesh (two ranks: the (1, 2) jobs, then the (2, 1) ones; four:
+    the (2, 2) ones; ``[sharded_ranks]``: the set's grids, its seconds and
+    the script's elapsed seconds), one card each under
     NCCL when the machine has a card per rank, else all on the one card
     over gloo with CUDA tensors (``backend=``, ``cards=``); a rank that
     fails or outlives ``RANK_TIMEOUT`` fails the phase. Under gloo each set
@@ -244,9 +248,9 @@ Phases, each printed on its own line:
     summed in another order), whichever is larger. FSDP (the reference's
     train cell: every leaf the data ranks divide cut over ``data`` too,
     gathered where the model reads it, its gradient reduce-scattered;
-    ``fsdp_rules``): ``[granite_train_fsdp]``, granite-3-2b at full width
-    and depth through ``trainer.train`` at (data, model) = ``FSDP_GRID`` =
-    (2, 1), ``[granite_train]``'s weights, batches and optimizer,
+    ``dist.sharding.with_fsdp``): ``[granite_train_fsdp]``, granite-3-2b
+    at full width and depth through ``trainer.train`` at (data, model) =
+    ``FSDP_GRID`` = (2, 1), ``[granite_train]``'s weights, batches and optimizer,
     ``FSDP_STEPS`` steps: per rank the argument and peak GB beside
     ``[granite_train_tp]``'s, seconds per step, tokens/s, the collectives
     per step by op and their seconds, the losses within ``BF16_LOSS_ATOL``
@@ -255,10 +259,11 @@ Phases, each printed on its own line:
     float32 at (2, 1) and (2, 2): the loss equal bit for bit to the same
     grid's without FSDP, every gradient and every parameter after one
     AdamW step (in place on the FSDP shards, no ZeRO-1 slice) within
-    ``SHARD_TOL`` of the one-rank leaf's norm, the one-rank leaves
-    broadcast and each rank's pieces held (``fsdp_and_one_rank``: no full
-    leaf gathered; at (2, 2) deepseek's one-rank run routes each batch
-    shard alone, ``moe_local_capacity``).
+    ``SHARD_TOL`` of the one-rank leaf's norm, each rank running the
+    one-rank step in turn and holding its own pieces
+    (``fsdp_and_one_rank``: no full leaf on the wire; at (2, 2)
+    deepseek's one-rank run routes each batch shard alone,
+    ``moe_local_capacity``).
 20. Sharded serving (``Engine(rules=)``, split-KV caches, the SSM's heads
     over ``model``; the decode kernel on each rank's heads) in the same
     sets of ranks. ``[granite_serve_tp]`` and ``[zamba2_serve_tp]``: the
@@ -305,7 +310,8 @@ Phases, each printed on its own line:
     the 16 x 16 mesh as rank 0, and its record (``[dryrun_record]``: the
     port refuses it, its 56 heads do not split over 16 model ranks). The
     phase's seconds stay under ``DRYRUN_HOLD_S``.
-23. A ``{"kernels": [...]}`` line with each hand kernel's launches on its
+23. ``[smoke_wall]``: the script's seconds so far. Then a
+    ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them, the decode
     kernel's zamba2 launches, one rank's and two ranks'), its error
     against the plain version, its time, the plain version's time and
@@ -376,7 +382,7 @@ from repro_torch.serve.lingam_engine import pack_bucket  # noqa: E402
 from repro_torch.data.synthetic import TokenStream  # noqa: E402
 from repro_torch.launch.train import preset_config  # noqa: E402
 from repro_torch.configs.shapes import SHAPES, ShapeSpec  # noqa: E402
-from repro_torch.dist.sharding import gather_over_model  # noqa: E402
+from repro_torch.dist.sharding import gather_over_model, with_fsdp  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import specs as cell_specs  # noqa: E402
 from repro_torch.launch.mesh import fake_world, production_shape  # noqa: E402
@@ -3170,7 +3176,7 @@ EP_GRIDS = ((1, 2), (2, 1))
 # (``hold_config``), at these grids.
 SSM_HOLD_ARCHS = ("mamba2-370m", "zamba2-2.7b", "whisper-base")
 SSM_HOLD_GRIDS = ((1, 2), (2, 2))
-# [train_fsdp_hold]: FSDP, the train cell's rules (``fsdp_rules``), on
+# [train_fsdp_hold]: FSDP, the train cell's rules (``with_fsdp``), on
 # these configs (``fsdp_hold_config``: float32, full width, cut) and grids,
 # a batch of SHARD_B x TRAIN_SEQ: the loss equal bit for bit to the same
 # grid's without FSDP, the gradients and the parameters after one AdamW
@@ -3179,8 +3185,10 @@ FSDP_HOLD_ARCHS = ("granite-3-2b", "deepseek-v2-lite-16b")
 FSDP_HOLD_GRIDS = ((2, 1), (2, 2))
 # [granite_train_fsdp]: granite-3-2b at full width and depth under FSDP at
 # this (data, model) grid for FSDP_STEPS steps, its losses within
-# BF16_LOSS_ATOL of [granite_train]'s first FSDP_STEPS.
-FSDP_GRID, FSDP_STEPS = (2, 1), 3
+# BF16_LOSS_ATOL of [granite_train]'s first FSDP_STEPS: the first step and
+# one steady one (each ~21 s, nearly all of it gloo's transfers between
+# the two ranks on one card).
+FSDP_GRID, FSDP_STEPS = (2, 1), 2
 # Their gradients are held within SHARD_TOL of each leaf's norm, or within
 # REORDER_FACTOR times the leaf's float32 rounding floor where that is
 # larger: the one-rank gradients summed in another order (two half
@@ -3435,15 +3443,6 @@ def train_batch(cfg, batch_size: int, dev) -> dict:
     return batch
 
 
-def fsdp_rules(rules, mesh):
-    """``rules`` with the reference's train-cell FSDP axes
-    (``launch/specs.py:103-110`` there): the data dimensions of size > 1."""
-    from dataclasses import replace
-
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    return replace(rules, fsdp_axes=tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1))
-
-
 def moe_local_capacity(shards: int):
     """``moe_ffn`` of a (shards, M) grid on one rank: each of ``shards``
     blocks of the batch routed alone (capacity from its own token count),
@@ -3466,20 +3465,21 @@ def moe_local_capacity(shards: int):
 
 def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
     """[train_fsdp_hold]'s recipe on this rank, under the train cell's FSDP
-    rules (``fsdp_rules``) on a ``(data, model) = grid`` mesh, in float32:
+    rules (``with_fsdp``) on a ``(data, model) = grid`` mesh, in float32:
     the FSDP loss and gradients (this rank's shards) and the same grid's
-    loss without FSDP; on rank 0 the one-rank run from the same weights
-    and batch (a MoE config with data > 1 and model > 1 routes each batch
-    shard alone there, ``moe_local_capacity``, as the sharded run does),
-    every MoE layer's (router, input) recorded on both sides. Then each
-    leaf of the one-rank gradients is broadcast and cut to this rank's
-    piece, the FSDP gradient shard held against it, and ``adamw_update``
-    runs on the pieces from fresh FSDP shards (in place: no ZeRO-1 slice,
-    no gather); each leaf of the one-rank update of the same gradients is
-    broadcast and held against the updated shard likewise. A hold is
-    ||got - want|| / ||want|| of the whole leaf, the squares summed over
-    every rank's piece: the mesh holds each piece of a leaf on as many
-    ranks, so the ratio is the whole leaf's, with no full leaf gathered.
+    loss without FSDP. Then the one-rank run from the same weights and
+    batch (a MoE config with data > 1 and model > 1 routes each batch
+    shard alone there, ``moe_local_capacity``, as the sharded run does)
+    and its ``adamw_update``, on each rank in turn (one full tree on the
+    card at a time, and no full leaf on the wire): each rank keeps its
+    pieces of the one-rank gradients and updated parameters, cut as its
+    FSDP shards are, and rank 0 every MoE layer's (router, input) on both
+    sides. The FSDP gradient shard is held against its piece, and
+    ``adamw_update`` runs on the gradient pieces from fresh FSDP shards
+    (in place: no ZeRO-1 slice, no gather), held against the updated
+    pieces likewise. A hold is ||got - want|| / ||want|| of the whole
+    leaf, the squares summed over every rank's piece: the mesh holds each
+    piece of a leaf on as many ranks, so the ratio is the whole leaf's.
     Returns the result on rank 0, the two losses elsewhere."""
     import torch.distributed as dist
 
@@ -3490,19 +3490,23 @@ def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
     dev = torch.device(RANK_DEVICE)
     mesh = make_local_mesh(*grid, device_type=RANK_DEVICE)
     plain = make_rules(cfg, mesh)
-    rules = fsdp_rules(plain, mesh)
+    rules = with_fsdp(plain)
     specs = lm.param_specs(cfg, rules)
     names, spec_leaves = [n for n, _ in tree_flatten_with_names(specs)], tree_leaves(specs)
     shapes = tree_leaves(lm.param_shapes(cfg))
     full_batch = train_batch(cfg, batch_size, dev)
     batch = {k: local_shard(v, P(tuple(rules.batch_axes)), rules) for k, v in full_batch.items()}
     opt = OptimizerConfig(lr=3e-4, warmup_steps=0)
-    rank0 = dist.get_rank() == 0
+    rank = dist.get_rank()
 
     def run(rules_, batch_, specs_=None):
         params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=rules_)
         fn = lambda p, b: lm.train_loss(p, b, cfg, rules_)  # noqa: E731
         return capture_moe(lambda: loss_and_grads(fn, params, batch_, False, specs_, rules_))
+
+    def pieces(leaves):
+        return [local_shard(t, s, rules, split_parts(n))
+                for t, s, n in zip(leaves, spec_leaves, names)]
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3513,46 +3517,42 @@ def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     out["plain_loss"] = float(run(plain, batch)[0][0])  # its gradients are not averaged
     local = grid[0] if (cfg.is_moe and grid[0] > 1 and grid[1] > 1) else 1
-    if rank0:
-        saved = moe.moe_ffn
-        if local > 1:
-            moe.moe_ffn = moe_local_capacity(local)
-        try:
-            (one_loss, one_grads), one_calls = run(NO_SHARDING, full_batch)
-        finally:
-            moe.moe_ffn = saved
-
-    def piece(full, i):
-        """Leaf ``i`` of rank 0's list ``full``, broadcast, cut to this rank."""
-        t = full[i] if rank0 else torch.empty(shapes[i], device=dev)
-        dist.broadcast(t, src=0)
-        return local_shard(t, spec_leaves[i], rules, split_parts(names[i]))
+    for turn in range(dist.get_world_size()):
+        if turn == rank:
+            saved = moe.moe_ffn
+            if local > 1:
+                moe.moe_ffn = moe_local_capacity(local)
+            try:
+                (one_loss, one_grads), one_calls = run(NO_SHARDING, full_batch)
+            finally:
+                moe.moe_ffn = saved
+            want_grads = pieces(one_grads)
+            one_params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+            with torch.no_grad():
+                adamw_update(opt, one_params, tree_unflatten(one_params, one_grads),
+                             init_opt_state(one_params))
+            want_params = pieces(tree_leaves(one_params))
+            del one_grads, one_params
+            free()
+        dist.barrier()
 
     squares = torch.zeros((4, len(names)), dtype=torch.float64, device=dev)
-    given = []
-    for i, g in enumerate(grads):
-        want = piece(one_grads if rank0 else None, i).double()
+    for i, (g, want) in enumerate(zip(grads, want_grads)):
+        want = want.double()
         squares[0, i], squares[1, i] = (g.double() - want).square().sum(), want.square().sum()
-        given.append(want.float())
     del grads
     params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=rules)
     state = init_opt_state(params, specs, rules)
     with torch.no_grad():
-        adamw_update(opt, params, tree_unflatten(specs, given), state, specs=specs, rules=rules)
-    del given
+        adamw_update(opt, params, tree_unflatten(specs, want_grads), state, specs=specs,
+                     rules=rules)
+    del want_grads
     sliced = sum(m.shape != p.shape for m, p in zip(tree_leaves(state["m"]), tree_leaves(params)))
-    one_params = None
-    if rank0:
-        one_params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            adamw_update(opt, one_params, tree_unflatten(one_params, one_grads),
-                         init_opt_state(one_params))
-        one_params = tree_leaves(one_params)
-    for i, p in enumerate(tree_leaves(params)):
-        want = piece(one_params, i).double()
+    for i, (p, want) in enumerate(zip(tree_leaves(params), want_params)):
+        want = want.double()
         squares[2, i], squares[3, i] = (p.double() - want).square().sum(), want.square().sum()
     dist.all_reduce(squares)
-    if not rank0:
+    if rank != 0:
         return {"loss": out["loss"], "plain_loss": out["plain_loss"]}
     ratios = (squares[[0, 2]] / squares[[1, 3]].clamp(min=1e-60)).sqrt().cpu()
     worst = [max(zip(r.tolist(), names)) for r in ratios]
@@ -3734,7 +3734,7 @@ def rank_fsdp_train():
     dev = torch.device(RANK_DEVICE)
     cfg = configs.get("granite-3-2b")
     mesh = make_local_mesh(*FSDP_GRID, device_type=RANK_DEVICE)
-    rules = fsdp_rules(make_rules(cfg, mesh), mesh)
+    rules = with_fsdp(make_rules(cfg, mesh))
     specs = lm.param_specs(cfg, rules)
     beside = Beside()
     torch.cuda.reset_peak_memory_stats()
@@ -4251,26 +4251,29 @@ def report_serve_tp(gpu, arch, ranks, backend, cards, want_tokens, dev):
     return r0
 
 
-def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
-    """The sharded phases: one set of ranks per grid runs its jobs one
-    after another (a rank process pays ~10 s of CUDA start-up on its first
-    products, so the jobs of a grid share it): at (1, 2)
-    ``[granite_train_tp]``, ``[granite_serve_tp]``, ``[zamba2_serve_tp]``,
-    then ``[train_sharded_hold]`` (granite, mamba2, zamba2, whisper),
+def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_start):
+    """The sharded phases: one set of ranks per world size runs its jobs
+    one after another, each job on the mesh of its own grid (a rank
+    process pays ~10 s of CUDA start-up on its first products, so the
+    jobs share it). Two ranks: at (1, 2) ``[granite_train_tp]``,
+    ``[granite_serve_tp]``, ``[zamba2_serve_tp]``, then
+    ``[train_sharded_hold]`` (granite, mamba2, zamba2, whisper),
     ``[deepseek_ep_hold]`` and ``[sharded_serve_hold]``; at (2, 1)
-    ``[granite_train_fsdp]`` first, then the granite hold,
+    ``[granite_train_fsdp]``, then the granite hold,
     ``[deepseek_ep_hold]``, ``[train_fsdp_hold]`` (granite, deepseek) and
-    ``[sharded_serve_hold]``; at (2, 2) the four training holds,
-    ``[train_fsdp_hold]`` and ``[sharded_serve_hold]``. Then the decode
-    kernel against its plain version on the inputs of a zamba2 step of
-    model rank 0 (H/2 = 40 heads), and its times at that shape. Returns
-    (its launches per rank in the zamba2 ``generate``, its error, its
-    timing without the device time, its inputs on the CPU, and each rank's
-    results of ``[granite_train_tp]``, ``[granite_train_fsdp]``,
-    ``[granite_serve_tp]`` and ``[zamba2_serve_tp]`` for ``[dryrun_hold]``,
-    by tag)."""
-    plan = {(1, 2): [("tp_train", {"argv": TP_ARGV}), ("serve_tp", {"arch": "granite-3-2b"}),
-                     ("serve_tp", {"arch": "zamba2-2.7b"})], (2, 1): [], (2, 2): []}
+    ``[sharded_serve_hold]``. Four ranks, at (2, 2): the four training
+    holds, ``[train_fsdp_hold]`` and ``[sharded_serve_hold]``. Then the
+    decode kernel against its plain version on the inputs of a zamba2
+    step of model rank 0 (H/2 = 40 heads), and its times at that shape.
+    Returns (its launches per rank in the zamba2 ``generate``, its error,
+    its timing without the device time, its inputs on the CPU, and each
+    rank's results of ``[granite_train_tp]``, ``[granite_train_fsdp]``,
+    ``[granite_serve_tp]`` and ``[zamba2_serve_tp]`` for
+    ``[dryrun_hold]``, by tag). ``t_start`` is the script's start, for the
+    elapsed seconds each set of ranks prints."""
+    plan = {grid: [] for grid in SHARD_GRIDS}
+    plan[HELD_GRID] += [("tp_train", {"argv": TP_ARGV}), ("serve_tp", {"arch": "granite-3-2b"}),
+                        ("serve_tp", {"arch": "zamba2-2.7b"})]
     plan[FSDP_GRID].append(("fsdp_train", {}))
     for grid in SHARD_GRIDS:
         archs = ("granite-3-2b",) + (SSM_HOLD_ARCHS if grid in SSM_HOLD_GRIDS else ())
@@ -4281,16 +4284,20 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
         plan[grid] += [("fsdp_hold", {"grid": grid, "arch": a}) for a in FSDP_HOLD_ARCHS]
     for grid in SHARD_GRIDS:
         plan[grid].append(("serve_hold", {"grid": grid}))
-    zamba2, held = None, {}
+    worlds: dict = {}
     for grid, jobs in plan.items():
+        worlds.setdefault(math.prod(grid), []).extend((grid, job, kw) for job, kw in jobs)
+    zamba2, held = None, {}
+    for world, planned in worlds.items():
+        jobs = [(job, kw) for _, job, kw in planned]
         t0 = time.perf_counter()
-        ranks, backend, cards = run_ranks(jobs, math.prod(grid))
+        ranks, backend, cards = run_ranks(jobs, world)
         seconds = time.perf_counter() - t0
         probes = [r[0] for r in ranks]
         if backend == "gloo":
             check(all(all(p.values()) for p in probes), f"gloo_cuda_probe: {probes}")
             say("gloo_cuda_probe", **probes[0], ranks=len(ranks), gpu=f"'{gpu}'")
-        for i, (job, kwargs) in enumerate(jobs, 1):
+        for i, (grid, job, kwargs) in enumerate(planned, 1):
             results = [r[i] for r in ranks]
             if job == "tp_train":
                 report_granite_train_tp(gpu, grid, results, backend, cards, one_rank_losses)
@@ -4312,9 +4319,11 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens):
                 held["granite_train_fsdp"] = results
             else:
                 report_serve_hold(gpu, grid, results, backend, cards)
-        say("sharded_ranks", grid="x".join(map(str, grid)), ranks=len(ranks), backend=backend,
-            cards=cards, jobs=",".join(job for job, _ in jobs), phase_s=f"{seconds:.1f}",
-            gpu=f"'{gpu}'")
+        grids = dict.fromkeys(grid for grid, _, _ in planned)
+        say("sharded_ranks", grids=",".join("x".join(map(str, g)) for g in grids),
+            ranks=len(ranks), backend=backend, cards=cards,
+            jobs=",".join(job for _, job, _ in planned), phase_s=f"{seconds:.1f}",
+            elapsed_s=f"{time.perf_counter() - t_start:.1f}", gpu=f"'{gpu}'")
     args = [a.to(dev) for a in zamba2["ssd_inputs"]]
     err = hold_ssd("zamba2_tp_rank0_layer0", args)
     return (zamba2["launched"]["ssd_decode"], err, ssd_times(args, rate, gpu, profile=False),
@@ -4885,8 +4894,6 @@ def main() -> int:
     free()
     phase_train_resume(dev, gpu)
     free()
-    launches_tp, err_tp, tp_timing, tp_inputs, sharded_held = phase_sharded_training(
-        dev, gpu, rate, train_losses, {"granite-3-2b": granite_tokens, "zamba2-2.7b": zamba2_tokens})
     err_sq, sq = phase_pairwise_kernel(dev, gpu, core["x"])
     launches_sq = phase_fit_hopper(dev, gpu, core)
     phase_causal_order_host(dev, gpu, core)
@@ -4901,6 +4908,10 @@ def main() -> int:
         phase_threshold_slice(dev, gpu)
     else:
         say("threshold_slice", skipped=True, elapsed_s=f"{time.perf_counter() - t_start:.1f}")
+    free()
+    launches_tp, err_tp, tp_timing, tp_inputs, sharded_held = phase_sharded_training(
+        dev, gpu, rate, train_losses, {"granite-3-2b": granite_tokens, "zamba2-2.7b": zamba2_tokens},
+        t_start)
     err_ring = phase_ring_block_kernel(dev, gpu, core["x"])
     launches_ring, launches_ring_find_root = phase_ring_ecoli(dev, gpu, profile)
     phase_ica_lingam(dev, gpu)
@@ -4911,6 +4922,7 @@ def main() -> int:
     phase_dryrun_hold(gpu, train_held, sharded_held)
     sq_ms, sq_wrapper, sq_plain, sq_bound, sq_by = sq["ecoli_stage"]
     sqb_ms, sqb_wrapper, sqb_plain, sqb_bound, sqb_by, sqb_padded, sqb_shape = sq["batch"]
+    say("smoke_wall", seconds=f"{time.perf_counter() - t_start:.1f}", gpu=f"'{gpu}'")
     print(json.dumps({"kernels": [{
         "name": "fused_score", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,

@@ -567,6 +567,14 @@ def fsdp_specs(shapes, specs, rules: ShardingRules):
     return zero1_specs(shapes, specs, rules.mesh)
 
 
+def with_fsdp(rules: ShardingRules) -> ShardingRules:
+    """``rules`` with the reference's train-cell FSDP axes
+    (``launch/specs.py:103-110`` there): the ``pod`` and ``data``
+    dimensions of size > 1 (none without a mesh)."""
+    sizes = mesh_sizes(rules.mesh)
+    return replace(rules, fsdp_axes=tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1))
+
+
 def fsdp_cut(spec, rules: ShardingRules):
     """``(dim, entry)``: the dimension of a leaf that ``spec`` cuts over
     the FSDP dimensions (``rules.fsdp_axes`` of size > 1) and its entry, or
@@ -647,6 +655,24 @@ def gather_at_use(tree, rules: ShardingRules):
         return x
 
     return tree_map(one, tree)
+
+
+def shard_axes(spec, rules: ShardingRules) -> tuple:
+    """The mesh dimensions over which a leaf under ``spec`` is split into
+    this rank's shard, those a sum over the whole leaf adds its shards'
+    sums over: the data dimensions of its FSDP cut (``fsdp_cut``), then
+    the model axis where the spec names it."""
+    cut = fsdp_cut(spec, rules)
+    names = _active(rules, cut[1]) if cut is not None else ()
+    if rules.model_axis is not None and spec_uses(spec, rules.model_axis):
+        names += (rules.model_axis,)
+    return names
+
+
+def sum_over(x: torch.Tensor, names: tuple, rules: ShardingRules) -> torch.Tensor:
+    """``x`` summed over the ranks of the mesh dimensions ``names`` (a
+    fresh copy, outside autograd; a collective on those ranks)."""
+    return _all_reduce(x.detach(), names, rules)
 
 
 def spec_uses(spec, name: str) -> bool:

@@ -51,7 +51,8 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.shapes import ShapeSpec
-from repro_torch.dist.sharding import ShardingRules, batch_rows, check_explicit, make_rules
+from repro_torch.dist.sharding import (
+    ShardingRules, batch_rows, check_explicit, make_rules, with_fsdp)
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.models.config import ArchConfig
@@ -121,12 +122,15 @@ def check_heads(cfg: ArchConfig, rules: ShardingRules):
 
 
 def make_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, opt_cfg: OptimizerConfig | None = None,
-              accum_steps: int = 4, device: str = "cuda", max_seq: int | None = None) -> Cell:
+              accum_steps: int = 4, device: str = "cuda", max_seq: int | None = None,
+              fsdp: bool = True) -> Cell:
     """The (``cfg``, ``shape``) cell of this process's rank of ``mesh``
     (a ``DeviceMesh`` over the process group, ``launch.mesh.fake_world``'s
     in the dry run; None for one rank). A prefill grows its caches to
     ``max_seq`` (default the prompt's length), as a serving engine asks.
-    Raises ``Unsupported`` for what the explicit path refuses."""
+    ``fsdp=False`` builds a train cell on the plain specs with ZeRO-1
+    moments, as ``launch.train`` trains. Raises ``Unsupported`` for what
+    the explicit path refuses."""
     rules = make_rules(cfg, mesh) if mesh is not None else ShardingRules()
     b, s = shape.global_batch, shape.seq_len
     rules, _ = batch_rows(b, rules)
@@ -151,9 +155,8 @@ def make_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, opt_cfg: OptimizerConfig 
                   info={"batch_rows_per_rank": b_rank, "model_axis": rules.model_axis})
 
     if shape.kind == "train":
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None else {}
-        rules = replace(rules, fsdp_axes=tuple(a for a in ("pod", "data")
-                                               if sizes.get(a, 1) > 1))
+        if fsdp:
+            rules = with_fsdp(rules)
         common["rules"] = rules
         specs = lm.param_specs(cfg, rules)
         params = param_shapes(cfg, torch.float32, rules, mode, dev)

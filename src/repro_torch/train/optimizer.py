@@ -55,15 +55,12 @@ import torch
 from repro_torch.dist.sharding import (
     NO_SHARDING,
     P,
-    _active,
-    _all_reduce,
-    fsdp_cut,
     gather_shard,
+    shard_axes,
     shard_bounds,
-    spec_uses,
+    sum_over,
     zero1_specs,
 )
-from repro_torch.dist.sharding import zero1_spec_for  # noqa: F401 -- the reference's name here
 from repro_torch.utils.tree import stacked_ndims, tree_leaves, tree_unflatten
 
 #: Elements of the leaves one group of ``_foreach`` ops updates at a time.
@@ -110,29 +107,23 @@ def init_opt_state(params, specs=None, rules=NO_SHARDING):
 
 def global_norm(tree, specs=None, rules=NO_SHARDING):
     """The 2-norm of every leaf of ``tree`` together. A leaf whose spec
-    names the model axis, or FSDP's data dimensions (``fsdp_cut``), is a
-    shard: its squared sum is summed over the ranks of those dimensions
-    (the model ranks, the data ranks, or both), and a replicated leaf's is
-    counted once."""
+    names the model axis, or FSDP's data dimensions, is a shard: its
+    squared sum is summed over the ranks of those dimensions
+    (``shard_axes``: the model ranks, the data ranks, or both), and a
+    replicated leaf's is counted once."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
     if specs is None:
         if rules.model_axis is not None:
             raise ValueError("a norm under a model axis needs the leaves' specs")
         return torch.sqrt(torch.sum(torch.stack(leaves)))
-    over = []
-    for s in tree_leaves(specs):
-        cut = fsdp_cut(s, rules)
-        names = _active(rules, cut[1]) if cut is not None else ()
-        if rules.model_axis is not None and spec_uses(s, rules.model_axis):
-            names += (rules.model_axis,)
-        over.append(names)
+    over = [shard_axes(s, rules) for s in tree_leaves(specs)]
     if not any(over):
         return torch.sqrt(torch.sum(torch.stack(leaves)))
     zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     total = sum((q for q, names in zip(leaves, over) if not names), zero)
     for names in sorted(set(over) - {()}):
         part = sum((q for q, n in zip(leaves, over) if n == names), zero)
-        total = _all_reduce(part.detach(), names, rules) + total
+        total = sum_over(part, names, rules) + total
     return torch.sqrt(total)
 
 

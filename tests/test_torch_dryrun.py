@@ -5,10 +5,11 @@ held against real runs and against the JAX package.
 * Collectives and argument bytes per rank: at (data, model) = (1, 2), (2,
   1), (2, 2), the smoke configs of granite-3-2b (dense), deepseek-v2-
   lite-16b (MLA and MoE) and zamba2-2.7b (SSM and the shared attention)
-  run one training step (float32 masters; where data > 1 sharded as the
-  train cell shards them, FSDP over ``data``, each leaf gathered where it
-  is read and its gradient reduce-scattered) and one decode step (after a
-  real prefill, the caches split-KV) for real on spawned gloo ranks
+  run two training steps (float32 masters: ZeRO-1 on the plain specs, as
+  ``launch.train`` trains, and FSDP as the train cell shards it, over
+  ``data`` where it is > 1, each leaf gathered where it is read and its
+  gradient reduce-scattered) and one decode step (after a real prefill,
+  the caches split-KV) for real on spawned gloo ranks
   (``test_torch_tp.run_grid``) under a ``CollectiveLedger``; the dry run
   of the same steps, rank by rank in fake worlds of that grid, counts the
   same collectives (by op) and the same argument bytes, exactly, on the
@@ -52,7 +53,8 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES, ShapeSpec
-from repro_torch.dist.sharding import ShardingRules, batch_rows, local_shard, make_rules
+from repro_torch.dist.sharding import (
+    ShardingRules, batch_rows, local_shard, make_rules, with_fsdp)
 from repro_torch.kernels import _fake
 from repro_torch.kernels import covupdate as cu
 from repro_torch.kernels import fused_score as fs
@@ -89,24 +91,26 @@ def tokens_of(cfg) -> torch.Tensor:
 
 
 def job_counts(mesh, arch: str):
-    """On this rank: a training step (FSDP over ``data`` where it is > 1,
-    as the train cell builds it) and a decode step of ``arch`` for real,
-    each under a ledger: the collectives, by op, and the arguments'
-    bytes."""
+    """On this rank: a training step under ZeRO-1 on the plain specs (as
+    ``launch.train`` trains) and one under FSDP (``with_fsdp``: over
+    ``data`` where it is > 1, as the train cell builds it), then a decode
+    step of ``arch``, each for real under a ledger: the collectives, by
+    op, and the arguments' bytes."""
     cfg = cfg_of(arch)
     plain, rows = batch_rows(B, make_rules(cfg, mesh))
-    rules = dataclasses.replace(plain, fsdp_axes=("data",) if mesh.shape[0] > 1 else ())
-    pspecs = lm.param_specs(cfg, rules)
-    batch = {"tokens": local_shard(tokens_of(cfg), rows, rules)}
-    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", rules=rules)
-    opt = init_opt_state(params, pspecs, rules)
-    step = make_train_step(lambda p, b: lm.train_loss(p, b, cfg, rules), OPT, accum_steps=1,
-                           param_specs=pspecs, rules=rules)
-    out = {"train_bytes": dryrun.argument_bytes((params, opt, batch))}
-    with CollectiveLedger() as ledger:
-        step(params, opt, batch)
-    out["train_calls"] = ledger.calls
-    out["train_ops"] = ops_of(ledger.records)
+    batch = {"tokens": local_shard(tokens_of(cfg), rows, plain)}
+    out = {}
+    for key, rules in (("train", plain), ("fsdp", with_fsdp(plain))):
+        pspecs = lm.param_specs(cfg, rules)
+        params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", rules=rules)
+        opt = init_opt_state(params, pspecs, rules)
+        step = make_train_step(lambda p, b, rules=rules: lm.train_loss(p, b, cfg, rules), OPT,
+                               accum_steps=1, param_specs=pspecs, rules=rules)
+        out[f"{key}_bytes"] = dryrun.argument_bytes((params, opt, batch))
+        with CollectiveLedger() as ledger:
+            step(params, opt, batch)
+        out[f"{key}_calls"] = ledger.calls
+        out[f"{key}_ops"] = ops_of(ledger.records)
     rules = plain
     params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", rules=rules)
     with torch.no_grad():
@@ -137,18 +141,23 @@ def real_counts(grid, tmp: str) -> list:
 
 def dry_counts(arch: str, grid, rank: int, device: str) -> dict:
     cfg = cfg_of(arch)
+    out = {}
     with fake_world(grid, NAMES, rank=rank) as mesh:
-        train = dryrun.trace_cell(specs.make_cell(cfg, ShapeSpec("t", "train", S, B), mesh,
-                                                  opt_cfg=OPT, accum_steps=1, device=device),
-                                  mesh, rank=rank, verbose=False)
+        for key, fsdp in (("train", False), ("fsdp", True)):
+            train = dryrun.trace_cell(
+                specs.make_cell(cfg, ShapeSpec("t", "train", S, B), mesh, opt_cfg=OPT,
+                                accum_steps=1, device=device, fsdp=fsdp),
+                mesh, rank=rank, verbose=False)
+            out[f"{key}_calls"] = train["n_collective_ops"]
+            out[f"{key}_ops"] = {op: a["count"]
+                                 for op, a in train["collectives"]["by_op"].items()}
+            out[f"{key}_bytes"] = train["memory"]["argument_size_in_bytes"]
         decode = dryrun.trace_cell(specs.make_cell(cfg, ShapeSpec("d", "decode", S + NEW, B),
                                                    mesh, device=device),
                                    mesh, rank=rank, verbose=False)
-    return {"train_calls": train["n_collective_ops"],
-            "train_ops": {op: a["count"] for op, a in train["collectives"]["by_op"].items()},
-            "train_bytes": train["memory"]["argument_size_in_bytes"],
-            "decode_calls": decode["n_collective_ops"],
-            "decode_bytes": decode["memory"]["argument_size_in_bytes"]}
+    out["decode_calls"] = decode["n_collective_ops"]
+    out["decode_bytes"] = decode["memory"]["argument_size_in_bytes"]
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -163,8 +172,9 @@ def test_dry_run_counts_the_collectives_and_arguments_of_a_real_run(grid, arch, 
     for rank in range(math.prod(grid)):
         want = real[rank][arch]
         assert want["train_calls"] > 0 and (want["decode_calls"] > 0 or grid[1] == 1)
-        # FSDP where data > 1: the backward's reduce-scatters are on the ledger
-        assert ("reduce-scatter" in want["train_ops"]) == (grid[0] > 1), want["train_ops"]
+        # ZeRO-1 reduce-scatters nothing; FSDP's backward does where data > 1
+        assert "reduce-scatter" not in want["train_ops"], want["train_ops"]
+        assert ("reduce-scatter" in want["fsdp_ops"]) == (grid[0] > 1), want["fsdp_ops"]
         for device in ("cpu", "cuda"):
             assert dry_counts(arch, grid, rank, device) == want, (grid, rank, device)
 

@@ -9,7 +9,7 @@ and the JAX package's FSDP train step.
 Grids ``(data, model)`` = (2, 2) and (2, 1), one spawn of D × M ranks per
 grid running every case (``test_torch_tp.run_grid``), the FSDP rules built
 as the reference's ``launch/specs.py:103-110`` builds them
-(``dataclasses.replace(rules, fsdp_axes=("data",))``). The smoke configs
+(``dist.sharding.with_fsdp``: ``fsdp_axes=("data",)``). The smoke configs
 of granite-3-2b (dense, tied embeddings), llama4-scout-17b-a16e (MoE with
 a shared expert), deepseek-v2-lite-16b (MLA, MoE, a dense prologue) and
 zamba2-2.7b (the shared block, ``w_zx`` cut part by part over ``model``
@@ -18,6 +18,12 @@ and plainly over ``data``) run in float32 on the reference's weights, B=8
 
 * the loss equal, bit for bit, to the same grid's loss without FSDP (the
   gathered leaves are the leaves, and the forward runs the same ops);
+* under the bfloat16 compute cast (``make_train_step``'s default, which
+  FSDP applies before its gather), the loss equal bit for bit to the
+  same grid's without FSDP, and every averaged gradient too, but a leaf's
+  that the model reads more than once: there the path without FSDP sums
+  the uses' gradients in bfloat16, and the two lie within bfloat16's
+  rounding (2^-8 of the leaf's norm);
 * the loss and every leaf's gradient gathered from the ranks against the
   port's one-rank run (``test_torch_tp.baseline``: at (2, 2) a MoE config
   routes each batch shard alone, ``local_capacity``), the loss within rtol
@@ -50,7 +56,6 @@ and plainly over ``data``) run in float32 on the reference's weights, B=8
   leaves, bit for bit.
 """
 
-import dataclasses
 import math
 import os
 import subprocess
@@ -73,6 +78,7 @@ from repro_torch.dist.sharding import (
     make_rules,
     shard_tree,
     split_parts,
+    with_fsdp,
 )
 from repro_torch.models import lm
 from repro_torch.train import checkpoint as ckpt_lib
@@ -102,14 +108,11 @@ TOL = 1e-5
 #: ``m`` against the JAX package's: the two packages' float32 gradients.
 REFERENCE_M_TOL = 1e-4
 CKPT_ARCH = "zamba2-2.7b"
-
-
-def fsdp_rules(rules, mesh):
-    """``rules`` with the reference's train-cell FSDP axes: the data
-    dimensions of size > 1."""
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    return dataclasses.replace(rules, fsdp_axes=tuple(a for a in ("pod", "data")
-                                                      if sizes.get(a, 1) > 1))
+#: A gradient under the bfloat16 cast of a leaf the model reads more than
+#: once (granite's tied embedding, zamba2's shared block) against the path
+#: without FSDP, of its norm: that path sums the uses' bfloat16 gradients
+#: in bfloat16, FSDP each use's reduce-scattered slice in float32.
+BF16_ROUNDING = 2.0 ** -8
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +128,7 @@ def job_fsdp(mesh, arch: str, leaves: dict, batch: dict, given: list):
     one its FSDP spec cuts."""
     cfg = configs.smoke(arch)
     plain = make_rules(cfg, mesh)
-    rules = fsdp_rules(plain, mesh)
+    rules = with_fsdp(plain)
     specs = lm.param_specs(cfg)
     full = tp.full_params(cfg, leaves)
     fspecs = fsdp_specs(full, specs, rules)
@@ -139,6 +142,7 @@ def job_fsdp(mesh, arch: str, leaves: dict, batch: dict, given: list):
         loss, grads = loss_and_grads(fn, params, batch, False, fspecs, rules)
     average_over_batch_(grads, rules, fspecs)
     out = {"loss": float(loss), "plain_loss": float(plain_loss),
+           "cast": cast_against_plain(cfg, full, batch, specs, fspecs, plain, rules),
            "reduce_scatters": [r for r in ledger.records if r["op"] == "reduce-scatter"],
            "specs_equal": lm.param_specs(cfg, rules) == fspecs,
            "grads": tp._numpy(gather_tree(tree_unflatten(params, grads), fspecs, rules))}
@@ -168,14 +172,34 @@ def job_fsdp(mesh, arch: str, leaves: dict, batch: dict, given: list):
                      rules=rules)
     out["adamw_ops"] = sorted({r["op"] for r in ledger.records})
     out["params_given"] = tp._numpy(gather_tree(params, fspecs, rules))
-    keep = ("loss", "plain_loss", "specs_equal", "want_shapes", "shapes", "adamw_ops",
+    keep = ("loss", "plain_loss", "cast", "specs_equal", "want_shapes", "shapes", "adamw_ops",
             "reduce_scatters")
     return out if dist.get_rank() == 0 else {k: out[k] for k in keep}
 
 
+def cast_against_plain(cfg, full, batch, specs, fspecs, plain, rules) -> dict:
+    """Under the bfloat16 compute cast (``make_train_step``'s default),
+    the same grid's loss without FSDP and with it (each rank's), and on
+    rank 0 each leaf's averaged gradient, gathered, as
+    ``||fsdp - plain|| / ||plain||``, by name."""
+    out, gathered = {}, {}
+    for key, r, s in (("plain", plain, specs), ("fsdp", rules, fspecs)):
+        params = shard_tree(full, s, r)
+        loss, grads = loss_and_grads(lambda p, b, r=r: lm.train_loss(p, b, cfg, r), params,
+                                     batch, True, s, r)
+        average_over_batch_(grads, r, s)
+        out[f"{key}_loss"] = float(loss)
+        gathered[key] = tp._numpy(gather_tree(tree_unflatten(params, grads), s, r))
+    out["grad_ratios"] = {
+        name: float(np.linalg.norm(f.astype(np.float64) - g) / max(np.linalg.norm(g), 1e-30))
+        for (name, _), f, g in zip(tree_flatten_with_names(full), gathered["fsdp"],
+                                   gathered["plain"])}
+    return out
+
+
 def _ckpt_state(mesh):
     cfg = configs.smoke(CKPT_ARCH)
-    rules = fsdp_rules(make_rules(cfg, mesh), mesh)
+    rules = with_fsdp(make_rules(cfg, mesh))
     fspecs = lm.param_specs(cfg, rules)
     params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", rules=rules)
     state = {"params": params, "opt": init_opt_state(params, fspecs, rules)}
@@ -345,6 +369,25 @@ def test_fsdp_loss_equals_the_grid_without_fsdp(runs, grid, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("grid", GRIDS, ids=tp.grid_id)
+def test_fsdp_under_the_bf16_cast_equals_the_grid_without_fsdp(runs, grid, arch):
+    ranks = runs["grids"][grid]
+    for r in ranks:
+        cast = r[arch]["cast"]
+        assert cast["fsdp_loss"] == cast["plain_loss"], cast
+    cfg = configs.smoke(arch)
+    ratios = ranks[0][arch]["cast"]["grad_ratios"]
+    reused = {n for n in ratios if n.startswith("shared/")
+              or (n == "embed/tok" and cfg.tie_embeddings)}
+    for name, ratio in ratios.items():
+        if name in reused:
+            assert ratio <= BF16_ROUNDING, (name, ratio)
+        else:
+            assert ratio == 0.0, (name, ratio)
+    assert reused or not (cfg.tie_embeddings or cfg.family == "hybrid")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("grid", GRIDS, ids=tp.grid_id)
 def test_fsdp_gradients_equal_one_rank(runs, grid, arch):
     got, want = runs["grids"][grid][0][arch], tp.baseline(arch, grid)
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=TOL)
@@ -431,7 +474,7 @@ def test_fsdp_cuts_the_experts_as_the_reference_gathers_them(arch):
 
     mesh = types.SimpleNamespace(shape={"data": 2, "model": 2})
     cfg = configs.smoke(arch)
-    rules = dataclasses.replace(make_rules(cfg, mesh), fsdp_axes=("data",))
+    rules = with_fsdp(make_rules(cfg, mesh))
     specs = lm.param_specs(cfg, rules)
     layer = specs["groups"][0]["pos0"]["moe"]
     for name in ("wi_gate", "wi_up", "wo"):

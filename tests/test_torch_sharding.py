@@ -212,13 +212,13 @@ def test_zero1_spec_for_matches_reference():
     cases = (((4096, 1024), (None, "model")), ((4096, 1024), ("data", "model")), ((7,), (None,)),
              ((32, 48), (None, None)), ((5, 32), ("model", None)), ((16, 16, 16), ("model",)))
     for shape, entries in cases:
-        got = t_opt.zero1_spec_for(shape, P(*entries), ("data",), sizes)
+        got = sharding.zero1_spec_for(shape, P(*entries), ("data",), sizes)
         want = j_opt.zero1_spec_for(shape, JP(*entries), ("data",), sizes)
         assert tuple(got) == tuple(want), (shape, entries)
-    assert t_opt.zero1_spec_for((4096, 1024), P(None, "model"), ("data",), sizes) == \
+    assert sharding.zero1_spec_for((4096, 1024), P(None, "model"), ("data",), sizes) == \
         ("data", "model")
     two = {"pod": 2, "data": 4, "model": 2}
-    assert tuple(t_opt.zero1_spec_for((16, 8), P(None, "model"), ("pod", "data"), two)) == \
+    assert tuple(sharding.zero1_spec_for((16, 8), P(None, "model"), ("pod", "data"), two)) == \
         tuple(j_opt.zero1_spec_for((16, 8), JP(None, "model"), ("pod", "data"), two))
 
 
