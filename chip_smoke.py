@@ -217,7 +217,8 @@ Phases, each printed on its own line:
     its elapsed-time gate. Ranks are processes started here (``spawn``),
     one set per world size running its jobs in turn, each job on its own
     grid's mesh (two ranks: the (1, 2) jobs, then the (2, 1) ones; four:
-    the (2, 2) ones; ``[sharded_ranks]``: the set's grids, its seconds and
+    the (2, 2) ones; three: the (1, 3) ones, item 20;
+    ``[sharded_ranks]``: the set's grids, its seconds and
     the script's elapsed seconds), one card each under
     NCCL when the machine has a card per rank, else all on the one card
     over gloo with CUDA tensors (``backend=``, ``cards=``); a rank that
@@ -284,7 +285,17 @@ Phases, each printed on its own line:
     which excuse the logits from their step on. Then the decode kernel
     against its plain version on a zamba2 step's inputs of model rank 0
     (B=4, H=40, P=64, N=64) and its times at that shape; its device time
-    there is taken last (item 21).
+    there is taken last (item 21). Three ranks at (data, model) =
+    ``UNEVEN_GRID`` = (1, 3), whose model ranks hold balanced, uneven
+    blocks of the heads (``attention.head_block``), the MLP's columns and
+    the padded vocabulary: ``[granite_serve_uneven]`` (granite-3-2b at full
+    width and depth, heads 11/11/10, blocks that cut across its GQA groups
+    of 4) and ``[whisper_serve_uneven]`` (whisper-base, heads 3/3/2) as
+    ``[granite_serve_tp]`` runs, each rank's block checked, the tokens
+    against ``[granite_serve]``'s and against whisper-base's float32
+    one-rank tokens on the card (``[whisper_hold]``'s model) by the same
+    near-tie rule; then ``[train_sharded_hold]`` at (1, 3) for granite
+    (2 layers) and whisper-base (whole).
 21. After every other phase, ``[ssd_decode_device_time]``: kernel #6's
     device time at the per-rank shape, from a torch.profiler session in a
     process of its own (a session in a process that ran ranks, or in a
@@ -299,17 +310,19 @@ Phases, each printed on its own line:
     ``FSDP_TRACED_RANKS``: its ``fsdp_axes`` and its collectives per step
     by op too) and
     ``[granite_serve_tp]``/``[zamba2_serve_tp]`` (both ranks; the prefill
-    and a decode step with its logits' gather): collectives per step equal
+    and a decode step with its logits' gather) and ``[granite_serve_uneven]``
+    (ranks 0 and 2 of (1, 3), 11 and 10 heads; each record's head block
+    equal to the rank's): collectives per step equal
     to a ``CollectiveLedger``'s count (``CollectiveClock`` on the ranks),
     argument bytes equal to the real tensors'
     (``StepArguments``), each predicted peak within ``PEAK_TOL`` of the
     rank's ``max_memory_allocated``, the predicted temporaries (peak less
     arguments) within ``TEMP_TOL`` of the measured ones (less the bytes
     held beside the run, ``Beside``), kernel #6's launches per step equal
-    to the counted ones; then ``[dryrun_production]``, yi-34b/train_4k on
-    the 16 x 16 mesh as rank 0, and its record (``[dryrun_record]``: the
-    port refuses it, its 56 heads do not split over 16 model ranks). The
-    phase's seconds stay under ``DRYRUN_HOLD_S``.
+    to the counted ones; and ``[dryrun_production]``, yi-34b/decode_32k on
+    the 16 x 16 mesh as rank 1 (q heads 4-7 of 56, across two GQA groups),
+    traced in the same pool, and its record (``[dryrun_record]``, which
+    must be ``ok``). The phase's seconds stay under ``DRYRUN_HOLD_S``.
 23. ``[smoke_wall]``: the script's seconds so far. Then a
     ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them, the decode
@@ -2944,7 +2957,9 @@ def phase_whisper_serve(dev, gpu, profile=False):
     through ``Engine.generate(enc=)`` at the serving shape with frames of
     (4, 1536, 512): no hand kernel, two generates equal; then
     ``[whisper_hold]``: the same model in float32 on the card against the
-    CPU, greedy tokens equal or departing at a near-tie (``GAP_TOL``)."""
+    CPU, greedy tokens equal or departing at a near-tie (``GAP_TOL``).
+    Returns the float32 model's tokens on the card (one rank), which
+    ``[whisper_serve_uneven]`` is held against."""
     cfg = configs.get("whisper-base")
     params, init_s = timed(lambda: lm.init_params(cfg, seed=0, device=dev))
     prompts, enc = serve_prompts(cfg), serve_frames(cfg)
@@ -2964,12 +2979,15 @@ def phase_whisper_serve(dev, gpu, profile=False):
     del params
     free()
     p32 = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    tokens32 = Engine(p32, cfg, ServeConfig(max_new_tokens=SERVE_NEW), device=dev).generate(
+        prompts, enc=enc)
     same_rows, logit_diff, cpu_s = hold_tokens_against_cpu("whisper", cfg, p32, prompts, dev,
                                                            enc=enc)
     say("whisper_hold", dtype="float32", layers=f"{cfg.n_enc_layers} enc + {cfg.n_layers} xattn",
         rows_equal_to_cpu=f"{same_rows}/{SERVE_B}", gap_tol=GAP_TOL,
         prefill_logits_max_abs_diff=f"{logit_diff:.3e}", cpu_generate_s=f"{cpu_s:.3f}",
         gpu=f"'{gpu}'")
+    return tokens32
 
 
 def train_batches(cfg, dev, batch=TRAIN_B, seq=TRAIN_SEQ, seed=0):
@@ -3183,6 +3201,15 @@ SSM_HOLD_GRIDS = ((1, 2), (2, 2))
 # step within SHARD_TOL of each one-rank leaf's norm.
 FSDP_HOLD_ARCHS = ("granite-3-2b", "deepseek-v2-lite-16b")
 FSDP_HOLD_GRIDS = ((2, 1), (2, 2))
+# The set of three ranks: (data, model) = UNEVEN_GRID, whose model ranks
+# split the heads unevenly (granite-3-2b's 32 as 11/11/10, whisper-base's
+# 8 as 3/3/2) and with them the MLP's columns and the padded vocabulary:
+# ``[granite_serve_uneven]`` and ``[whisper_serve_uneven]`` (full width and
+# depth, float32; tokens against the one-rank run's), then
+# ``[train_sharded_hold]`` on UNEVEN_HOLD_ARCHS.
+UNEVEN_GRID = (1, 3)
+UNEVEN_SERVE = {"granite_serve_uneven": "granite-3-2b", "whisper_serve_uneven": "whisper-base"}
+UNEVEN_HOLD_ARCHS = ("granite-3-2b", "whisper-base")
 # [granite_train_fsdp]: granite-3-2b at full width and depth under FSDP at
 # this (data, model) grid for FSDP_STEPS steps, its losses within
 # BF16_LOSS_ATOL of [granite_train]'s first FSDP_STEPS: the first step and
@@ -3814,7 +3841,8 @@ def serve_steps(params, cfg, rules, prompts, enc, new, feed=None):
     enc_l = None if enc is None else local_shard(torch.as_tensor(enc, device=dev), rows, rules)
 
     def gathered(logits):  # the vocabulary's columns, not the padding's float32 minimum
-        return gather_shard(gather_over_model(logits, 1, rules), rows, rules)[:, :cfg.vocab]
+        return gather_shard(gather_over_model(logits, 1, rules, cfg.vocab_padded), rows,
+                            rules)[:, :cfg.vocab]
 
     with torch.no_grad():
         (logits, caches), calls = capture_moe(
@@ -3898,10 +3926,13 @@ def rank_serve_hold(grid):
     return out if rank0 else {}
 
 
-def rank_serve_tp(arch):
-    """[granite_serve_tp] / [zamba2_serve_tp] on this rank: ``cfg`` at full
-    width and depth in float32 from seed 0, this rank's shard, through
-    ``Engine(rules=).generate`` at the serving shape after a warm-up, with
+def rank_serve_tp(arch, grid):
+    """[granite_serve_tp] / [zamba2_serve_tp] (at the (1, 2) grid) and
+    [granite_serve_uneven] / [whisper_serve_uneven] (at ``UNEVEN_GRID``) on
+    this rank: ``cfg`` at full width and depth in float32 from seed 0, this
+    rank's shard (and its block of the heads), through
+    ``Engine(rules=).generate`` at the serving shape (an encoder-decoder
+    model with ``serve_frames``' frames) after a warm-up, with
     every kernel count set to 0 just before it and read just after (and
     the decode kernel's head counts); then a prefill and each decode step
     timed by hand, the collectives' calls and seconds counted, the prefill's
@@ -3913,13 +3944,18 @@ def rank_serve_tp(arch):
     from repro_torch.dist.sharding import make_rules
     from repro_torch.launch.mesh import make_local_mesh
 
+    from repro_torch.models.attention import head_block
+
     dev = torch.device(RANK_DEVICE)
     cfg = configs.get(arch)
-    rules = make_rules(cfg, make_local_mesh(1, 2, device_type=RANK_DEVICE))
+    rules = make_rules(cfg, make_local_mesh(*grid, device_type=RANK_DEVICE))
     params, init_s = timed(lambda: lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev,
                                                   rules=rules))
     prompts = serve_prompts(cfg)
-    Engine(params, cfg, ServeConfig(max_new_tokens=2), device=dev, rules=rules).generate(prompts)
+    frames = serve_frames(cfg) if cfg.enc_dec else None
+    enc = enc_on(frames, dev)
+    Engine(params, cfg, ServeConfig(max_new_tokens=2), device=dev, rules=rules).generate(
+        prompts, enc=frames)
     eng = Engine(params, cfg, ServeConfig(max_new_tokens=SERVE_NEW), device=dev, rules=rules)
     heads, orig = [], ops.ssd_decode
 
@@ -3932,7 +3968,7 @@ def rank_serve_tp(arch):
     ops.ssd_decode = spy
     try:
         reset_counts()
-        out, wall = timed(lambda: eng.generate(prompts))
+        out, wall = timed(lambda: eng.generate(prompts, enc=frames))
         launched = counts()
     finally:
         ops.ssd_decode = orig
@@ -3942,12 +3978,13 @@ def rank_serve_tp(arch):
     clock = CollectiveClock(dist.get_backend())
     b, s = prompts.shape
     toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
-    arg_bytes = {"prefill": dryrun.argument_bytes((params, toks))}
+    arg_bytes = {"prefill": dryrun.argument_bytes((params, toks, enc))}
+    vp = cfg.vocab_padded
 
     with torch.no_grad(), clock:
         (logits, caches), prefill_s = timed(lambda: lm.prefill(params, toks, cfg, rules,
-                                                                max_seq=s + SERVE_NEW))
-        tok, steps, coll = torch.argmax(gather_over_model(logits, 1, rules), -1), [], []
+                                                                max_seq=s + SERVE_NEW, enc_in=enc))
+        tok, steps, coll = torch.argmax(gather_over_model(logits, 1, rules, vp), -1), [], []
         for i in range(SERVE_NEW):
             before = (clock.seconds(), clock.calls)
             pos = torch.full((b,), s + i, device=dev)
@@ -3955,7 +3992,7 @@ def rank_serve_tp(arch):
                 arg_bytes["decode"] = dryrun.argument_bytes((params, tok, caches, pos))
             (logits, caches), t = timed(lambda: lm.decode_step(params, tok, caches, pos, cfg,
                                                                rules))
-            tok = torch.argmax(gather_over_model(logits, 1, rules), -1)
+            tok = torch.argmax(gather_over_model(logits, 1, rules, vp), -1)
             after = (clock.seconds(), clock.calls)
             steps.append(t)
             coll.append((after[0] - before[0], after[1] - before[1]))
@@ -3971,15 +4008,16 @@ def rank_serve_tp(arch):
         try:
             with torch.no_grad():
                 logits, caches = lm.prefill(params, toks, cfg, rules, max_seq=s + 1)
-                lm.decode_step(params, torch.argmax(gather_over_model(logits, 1, rules), -1),
+                lm.decode_step(params, torch.argmax(gather_over_model(logits, 1, rules, vp), -1),
                                caches, torch.full((b,), s, device=dev), cfg, rules)
         finally:
             ops.ssd_decode = orig
         inputs = [a.cpu() for a in calls[0]] if dist.get_rank() == 0 else None
     return {"tokens": out, "wall": wall, "launched": launched, "heads": sorted(set(heads)),
             "peak_gb": peak_gb, "beside": beside.bytes, "init_s": init_s,
-            "params_m": param_count(params) / 1e6, "prefill_s": prefill_s, "steps": steps, "collectives": coll, "ssd_inputs": inputs,
-            "rank": dist.get_rank(), "arg_bytes": arg_bytes}
+            "params_m": param_count(params) / 1e6, "prefill_s": prefill_s, "steps": steps,
+            "collectives": coll, "ssd_inputs": inputs, "rank": dist.get_rank(),
+            "arg_bytes": arg_bytes, "head_block": head_block(cfg.n_heads, rules)}
 
 
 def rank_ssd_device(inputs):
@@ -4190,41 +4228,57 @@ def report_serve_hold(gpu, grid, ranks, backend, cards):
             gpu=f"'{gpu}'")
 
 
-def card_top2_gap(cfg, prompts, tokens, step, row, dev):
+def card_top2_gap(cfg, prompts, tokens, step, row, dev, enc=None):
     """The one-rank card run's top-2 logit gap of sequence ``row`` at decode
-    step ``step``, replaying its greedy loop (``tokens`` are its own)."""
+    step ``step``, replaying its greedy loop (``tokens`` are its own;
+    ``enc`` an encoder-decoder model's frames)."""
     params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
     with torch.no_grad():
-        top = torch.topk(replay(params, cfg, prompts, tokens, step, dev)[row].double(), 2).values
+        top = torch.topk(replay(params, cfg, prompts, tokens, step, dev, enc)[row].double(),
+                         2).values
     del params
     free()
     return float(top[0] - top[1])
 
 
-def report_serve_tp(gpu, arch, ranks, backend, cards, want_tokens, dev):
-    """[granite_serve_tp] / [zamba2_serve_tp]: every rank's tokens equal,
-    and equal to the one-rank run's (``[granite_serve]``,
-    ``[zamba2_serve]``) or departing at a near-tie (``GAP_TOL``)."""
+def serve_tag(arch: str, grid) -> str:
+    """The phase tag of ``arch``'s sharded serving at ``grid``."""
+    return next(t for t, a in (UNEVEN_SERVE if grid == UNEVEN_GRID else SERVE_TP_ARCHS).items()
+                if a == arch)
+
+
+def report_serve_tp(gpu, arch, grid, ranks, backend, cards, want_tokens, dev):
+    """[granite_serve_tp] / [zamba2_serve_tp] at (1, 2), and
+    [granite_serve_uneven] / [whisper_serve_uneven] at ``UNEVEN_GRID``:
+    every rank's tokens equal, and equal to the one-rank run's
+    (``[granite_serve]``, ``[zamba2_serve]``, whisper-base's float32
+    one-rank tokens of ``[whisper_hold]``) or departing at a near-tie
+    (``GAP_TOL``); each rank on its block of the heads."""
+    from repro_torch.dist.sharding import split_block
+
     cfg = configs.get(arch)
-    tag = "granite_serve_tp" if arch.startswith("granite") else "zamba2_serve_tp"
+    tag = serve_tag(arch, grid)
     r0 = ranks[0]
     ssm = cfg.n_groups * cfg.hybrid_attn_every if cfg.family == "hybrid" else 0
-    for r in ranks:
+    for i, r in enumerate(ranks):
         check(np.array_equal(r["tokens"], r0["tokens"]), f"{tag}: the ranks' tokens differ")
         check(r["launched"] == {k: (ssm * SERVE_NEW if k == "ssd_decode" else 0)
                                 for k in r["launched"]}, f"{tag}: launches {r['launched']}")
-        check(r["heads"] == ([cfg.n_ssm_heads // 2] if ssm else []),
+        check(r["heads"] == ([cfg.n_ssm_heads // grid[1]] if ssm else []),
               f"{tag}: the decode kernel ran at heads {r['heads']}")
+        check(tuple(r["head_block"]) == split_block(cfg.n_heads, grid[1], i % grid[1]),
+              f"{tag}: rank {i} ran heads {r['head_block']}")
     out = r0["tokens"]
     check(out.shape == (SERVE_B, SERVE_NEW), f"{tag}: tokens of shape {out.shape}")
     prompts = serve_prompts(cfg)
+    frames = serve_frames(cfg) if cfg.enc_dec else None
     same = 0
     for row in range(SERVE_B):
         if np.array_equal(out[row], want_tokens[row]):
             same += 1
             continue
         k = int(np.flatnonzero(out[row] != want_tokens[row])[0])
-        gap = card_top2_gap(cfg, prompts, want_tokens, k, row, dev)
+        gap = card_top2_gap(cfg, prompts, want_tokens, k, row, dev, frames)
         say("token_departure", case=tag, row=row, step=k, sharded_token=int(out[row, k]),
             one_rank_token=int(want_tokens[row, k]), one_rank_top2_gap=f"{gap:.3e}",
             allowed=GAP_TOL, near_tie=gap <= GAP_TOL)
@@ -4236,8 +4290,11 @@ def report_serve_tp(gpu, arch, ranks, backend, cards, want_tokens, dev):
     extra = {"ssd_decode_launches_per_rank": r0["launched"]["ssd_decode"],
              "ssd_decode_launches_per_step": r0["launched"]["ssd_decode"] // SERVE_NEW,
              "ssd_decode_heads": ",".join(map(str, r0["heads"]))} if ssm else {"kernel_launches": 0}
-    say(tag, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model, grid="1x2",
-        backend=backend, cards=cards, ranks=len(ranks), dtype="float32",
+    say(tag, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        grid="x".join(map(str, grid)), backend=backend, cards=cards, ranks=len(ranks),
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+        head_blocks=",".join(f"{lo}-{hi}" for lo, hi in (r["head_block"] for r in ranks)),
+        dtype="float32",
         params_m_per_rank=f"{r0['params_m']:.1f}", init_s=f"{r0['init_s']:.3f}", batch=SERVE_B,
         prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, generate_s=f"{r0['wall']:.4f}",
         tok_per_s=f"{SERVE_B * SERVE_NEW / r0['wall']:.1f}", prefill_s=f"{r0['prefill_s']:.4f}",
@@ -4262,18 +4319,23 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
     ``[granite_train_fsdp]``, then the granite hold,
     ``[deepseek_ep_hold]``, ``[train_fsdp_hold]`` (granite, deepseek) and
     ``[sharded_serve_hold]``. Four ranks, at (2, 2): the four training
-    holds, ``[train_fsdp_hold]`` and ``[sharded_serve_hold]``. Then the
+    holds, ``[train_fsdp_hold]`` and ``[sharded_serve_hold]``. Three ranks,
+    at ``UNEVEN_GRID`` (the heads split unevenly): ``[granite_serve_uneven]``,
+    ``[whisper_serve_uneven]``, then ``[train_sharded_hold]`` on
+    ``UNEVEN_HOLD_ARCHS``. Then the
     decode kernel against its plain version on the inputs of a zamba2
     step of model rank 0 (H/2 = 40 heads), and its times at that shape.
     Returns (its launches per rank in the zamba2 ``generate``, its error,
     its timing without the device time, its inputs on the CPU, and each
     rank's results of ``[granite_train_tp]``, ``[granite_train_fsdp]``,
-    ``[granite_serve_tp]`` and ``[zamba2_serve_tp]`` for
-    ``[dryrun_hold]``, by tag). ``t_start`` is the script's start, for the
-    elapsed seconds each set of ranks prints."""
+    ``[granite_serve_tp]``, ``[zamba2_serve_tp]``, ``[granite_serve_uneven]``
+    and ``[whisper_serve_uneven]`` for ``[dryrun_hold]``, by tag).
+    ``one_rank_tokens``: each served arch's one-rank float32 tokens.
+    ``t_start`` is the script's start, for the elapsed seconds each set of
+    ranks prints."""
     plan = {grid: [] for grid in SHARD_GRIDS}
-    plan[HELD_GRID] += [("tp_train", {"argv": TP_ARGV}), ("serve_tp", {"arch": "granite-3-2b"}),
-                        ("serve_tp", {"arch": "zamba2-2.7b"})]
+    plan[HELD_GRID] += [("tp_train", {"argv": TP_ARGV})] + [
+        ("serve_tp", {"arch": a, "grid": HELD_GRID}) for a in SERVE_TP_ARCHS.values()]
     plan[FSDP_GRID].append(("fsdp_train", {}))
     for grid in SHARD_GRIDS:
         archs = ("granite-3-2b",) + (SSM_HOLD_ARCHS if grid in SSM_HOLD_GRIDS else ())
@@ -4284,6 +4346,10 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
         plan[grid] += [("fsdp_hold", {"grid": grid, "arch": a}) for a in FSDP_HOLD_ARCHS]
     for grid in SHARD_GRIDS:
         plan[grid].append(("serve_hold", {"grid": grid}))
+    plan[UNEVEN_GRID] = [("serve_tp", {"arch": a, "grid": UNEVEN_GRID})
+                         for a in UNEVEN_SERVE.values()]
+    plan[UNEVEN_GRID] += [("sharded_hold", {"grid": UNEVEN_GRID, "arch": a})
+                          for a in UNEVEN_HOLD_ARCHS]
     worlds: dict = {}
     for grid, jobs in plan.items():
         worlds.setdefault(math.prod(grid), []).extend((grid, job, kw) for job, kw in jobs)
@@ -4303,10 +4369,10 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
                 report_granite_train_tp(gpu, grid, results, backend, cards, one_rank_losses)
                 held["granite_train_tp"] = results
             elif job == "serve_tp":
-                r0 = report_serve_tp(gpu, kwargs["arch"], results, backend, cards,
+                r0 = report_serve_tp(gpu, kwargs["arch"], grid, results, backend, cards,
                                      one_rank_tokens[kwargs["arch"]], dev)
                 zamba2 = r0 if kwargs["arch"] == "zamba2-2.7b" else zamba2
-                held[kwargs["arch"].split("-")[0] + "_serve_tp"] = results
+                held[serve_tag(kwargs["arch"], grid)] = results
             elif job == "sharded_hold":
                 report_train_sharded_hold(gpu, grid, results, backend, cards)
             elif job == "ep_hold":
@@ -4635,17 +4701,22 @@ PEAK_TOL = 0.10
 TEMP_TOL = 0.05
 DRYRUN_HOLD_S = 60
 # The production cell the phase prints: (arch, shape) on the 16 x 16 mesh
-# as rank 0. yi-34b's 56 heads do not split over 16 model ranks, so the
-# record is the port's refusal; the sweep's records of the cells that run
-# come from ``python -m repro_torch.launch.dryrun --all``.
-PRODUCTION_CELL = ("yi-34b", "train_4k")
+# as rank PRODUCTION_RANK, traced beside the held cells: yi-34b's rank 1
+# holds q heads 4-7 of its 56, which cut across its GQA groups of 7 (the
+# sweep's records of every cell come from ``python -m
+# repro_torch.launch.dryrun --all``).
+PRODUCTION_CELL, PRODUCTION_RANK = ("yi-34b", "decode_32k"), 1
 # The (data, model) grid of the sharded cells held, and the serving ones'
 # tags and archs.
 HELD_GRID = (1, 2)
 SERVE_TP_ARCHS = {"granite_serve_tp": "granite-3-2b", "zamba2_serve_tp": "zamba2-2.7b"}
+# The uneven serving cells held (``UNEVEN_GRID``), and the ranks traced:
+# rank 0 (11 of granite's 32 heads) and rank 2 (10).
+UNEVEN_HELD = {"granite_serve_uneven": "granite-3-2b"}
+UNEVEN_TRACED_RANKS = (0, 2)
 # The processes that trace the held cells (the card's machine has 8 cores;
 # the main process waits meanwhile).
-DRYRUN_WORKERS = 6
+DRYRUN_WORKERS = 7
 # [granite_train_fsdp]'s ranks traced and held: rank 0 alone, to keep the
 # phase inside DRYRUN_HOLD_S (its cell traces ~12 s; the two data ranks of
 # (2, 1) hold cells of the same shapes).
@@ -4666,10 +4737,12 @@ def dry_record(cfg, shape, grid, rank: int = 0, then=None, **kw) -> dict:
                                  then=None if then is None else then(cell.rules))
 
 
-def logits_gathered(rules):
-    """A serving step's tail after ``decode_step``: the logits gathered
-    over ``model`` and the next token (``Engine.generate``'s)."""
-    return lambda out: (torch.argmax(gather_over_model(out[0], 1, rules), -1), out[1])
+def logits_gathered(cfg):
+    """``rules`` -> a serving step's tail after ``decode_step``: the logits
+    gathered over ``model`` (the padded vocabulary's blocks) and the next
+    token (``Engine.generate``'s)."""
+    return lambda rules: lambda out: (
+        torch.argmax(gather_over_model(out[0], 1, rules, cfg.vocab_padded), -1), out[1])
 
 
 def dry_task(task) -> dict:
@@ -4677,6 +4750,13 @@ def dry_task(task) -> dict:
     ``dryrun_predictions``."""
     torch.set_num_threads(1)
     tag, rank, kind = task
+    if tag == "production":
+        arch, shape = PRODUCTION_CELL
+        t0 = time.perf_counter()
+        with fake_world(*production_shape(False), rank=rank) as mesh:
+            rec = dryrun.cell_record(configs.get(arch), SHAPES[shape], mesh, rank=rank,
+                                     device="cuda", verbose=False)
+        return {**rec, "record_s": time.perf_counter() - t0}
     if tag.startswith("granite_train"):
         opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
         grid = {"granite_train": None, "granite_train_tp": HELD_GRID,
@@ -4684,13 +4764,14 @@ def dry_task(task) -> dict:
         return dry_record(configs.get("granite-3-2b"), ShapeSpec("train", "train", TRAIN_SEQ,
                                                                   TRAIN_B),
                           grid, rank, opt_cfg=opt, accum_steps=1)
-    cfg32 = configs.get(SERVE_TP_ARCHS[tag]).with_overrides(dtype="float32")
+    grid = UNEVEN_GRID if tag in UNEVEN_HELD else HELD_GRID
+    cfg32 = configs.get({**SERVE_TP_ARCHS, **UNEVEN_HELD}[tag]).with_overrides(dtype="float32")
     total = bucket_dim(SERVE_PROMPT) + SERVE_NEW
     if kind == "prefill":
         return dry_record(cfg32, ShapeSpec("prefill", "prefill", bucket_dim(SERVE_PROMPT),
-                                           SERVE_B), HELD_GRID, rank, max_seq=total)
-    return dry_record(cfg32, ShapeSpec("decode", "decode", total, SERVE_B), HELD_GRID, rank,
-                      then=logits_gathered)
+                                           SERVE_B), grid, rank, max_seq=total)
+    return dry_record(cfg32, ShapeSpec("decode", "decode", total, SERVE_B), grid, rank,
+                      then=logits_gathered(cfg32))
 
 
 def dryrun_predictions() -> dict:
@@ -4698,18 +4779,25 @@ def dryrun_predictions() -> dict:
     meshes the phases ran them (each rank of a grid as itself), on the
     card's path; traced in ``DRYRUN_WORKERS`` spawned processes (one CPU
     thread each, a fake process group each), the longest cells first."""
-    tasks = [("granite_train", 0, "train"), ("granite_train_fsdp", 0, "train")]
+    tasks = [("granite_train", 0, "train"), ("granite_train_fsdp", 0, "train"),
+             ("production", PRODUCTION_RANK, "production")]
     tasks += [("granite_train_tp", r, "train") for r in range(2)]
     tasks += [(tag, r, kind) for tag in SERVE_TP_ARCHS for r in range(2)
+              for kind in ("prefill", "decode")]
+    tasks += [(tag, r, kind) for tag in UNEVEN_HELD for r in UNEVEN_TRACED_RANKS
               for kind in ("prefill", "decode")]
     with mp.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
         recs = dict(zip(tasks, pool.map(dry_task, tasks, chunksize=1)))
     out = {"granite_train": recs["granite_train", 0, "train"],
            "granite_train_tp": [recs["granite_train_tp", r, "train"] for r in range(2)],
-           "granite_train_fsdp": [recs["granite_train_fsdp", 0, "train"]]}
+           "granite_train_fsdp": [recs["granite_train_fsdp", 0, "train"]],
+           "production": recs["production", PRODUCTION_RANK, "production"]}
     for tag in SERVE_TP_ARCHS:
         out[tag] = [{kind: recs[tag, r, kind] for kind in ("prefill", "decode")}
                     for r in range(2)]
+    for tag in UNEVEN_HELD:
+        out[tag] = {r: {kind: recs[tag, r, kind] for kind in ("prefill", "decode")}
+                    for r in UNEVEN_TRACED_RANKS}
     return out
 
 
@@ -4760,8 +4848,10 @@ def phase_dryrun_hold(gpu, train_held, sharded):
     ``rank_serve_tp``), each predicted peak within ``PEAK_TOL`` of the
     rank's ``max_memory_allocated`` and its temporaries within
     ``TEMP_TOL`` of the measured ones, kernel #6's launches per step equal
-    to the counted ones. Then ``PRODUCTION_CELL``'s record. Prints each
-    pair and the phase's seconds (at most ``DRYRUN_HOLD_S``)."""
+    to the counted ones, each serving record's head block equal to the
+    rank's. Then ``PRODUCTION_CELL``'s record (traced in the pool as rank
+    ``PRODUCTION_RANK``), which must be ``ok``. Prints each pair and the
+    phase's seconds (at most ``DRYRUN_HOLD_S``)."""
     t0 = time.perf_counter()
     pred = dryrun_predictions()
     trace_s = time.perf_counter() - t0
@@ -4797,34 +4887,38 @@ def phase_dryrun_hold(gpu, train_held, sharded):
         holds.peak("granite_train_fsdp", r["rank"], rec["peak_bytes"], r["peak_gb"])
         holds.temp("granite_train_fsdp", r["rank"], rec, r["peak_gb"], r["arg_bytes"],
                    r["beside"])
-    for tag in SERVE_TP_ARCHS:
-        for r in sharded[tag]:
-            cells = pred[tag][r["rank"]]
-            pre, dec = cells["prefill"], cells["decode"]
-            holds.exact(tag, r["rank"], "collectives_per_step", [dec["n_collective_ops"]],
-                        sorted({c[1] for c in r["collectives"]}))
-            holds.exact(tag, r["rank"], "prefill_argument_bytes",
-                        pre["memory"]["argument_size_in_bytes"], r["arg_bytes"]["prefill"])
-            holds.exact(tag, r["rank"], "decode_argument_bytes",
-                        dec["memory"]["argument_size_in_bytes"], r["arg_bytes"]["decode"])
-            top = max(cells, key=lambda k: cells[k]["peak_bytes"])
-            holds.peak(tag, r["rank"], cells[top]["peak_bytes"], r["peak_gb"])
-            holds.temp(f"{tag}_{top}", r["rank"], cells[top], r["peak_gb"], r["arg_bytes"][top],
-                       r["beside"])
-            holds.exact(tag, r["rank"], "ssd_decode_launches_per_step",
-                        dec["kernels"].get("ssd_decode", 0),
-                        r["launched"]["ssd_decode"] // SERVE_NEW)
-    arch, shape = PRODUCTION_CELL
-    t1 = time.perf_counter()
-    with fake_world(*production_shape(False), rank=0) as mesh:
-        prod = dryrun.cell_record(configs.get(arch), SHAPES[shape], mesh, rank=0, device="cuda",
-                                  verbose=False)
-    say("dryrun_production", cell=prod["cell"], mesh=prod["mesh"], rank=0,
+    serve_held = [(tag, r, pred[tag][r["rank"]]) for tag in SERVE_TP_ARCHS for r in sharded[tag]]
+    serve_held += [(tag, r, pred[tag][r["rank"]]) for tag in UNEVEN_HELD for r in sharded[tag]
+                   if r["rank"] in UNEVEN_TRACED_RANKS]
+    for tag, r, cells in serve_held:
+        pre, dec = cells["prefill"], cells["decode"]
+        for kind, rec in cells.items():
+            holds.exact(tag, r["rank"], f"{kind}_head_block", rec["head_block"],
+                        list(r["head_block"]))
+        holds.exact(tag, r["rank"], "collectives_per_step", [dec["n_collective_ops"]],
+                    sorted({c[1] for c in r["collectives"]}))
+        holds.exact(tag, r["rank"], "prefill_argument_bytes",
+                    pre["memory"]["argument_size_in_bytes"], r["arg_bytes"]["prefill"])
+        holds.exact(tag, r["rank"], "decode_argument_bytes",
+                    dec["memory"]["argument_size_in_bytes"], r["arg_bytes"]["decode"])
+        top = max(cells, key=lambda k: cells[k]["peak_bytes"])
+        holds.peak(tag, r["rank"], cells[top]["peak_bytes"], r["peak_gb"])
+        holds.temp(f"{tag}_{top}", r["rank"], cells[top], r["peak_gb"], r["arg_bytes"][top],
+                   r["beside"])
+        holds.exact(tag, r["rank"], "ssd_decode_launches_per_step",
+                    dec["kernels"].get("ssd_decode", 0),
+                    r["launched"]["ssd_decode"] // SERVE_NEW)
+    prod = pred["production"]
+    say("dryrun_production", cell=prod["cell"], mesh=prod["mesh"], rank=PRODUCTION_RANK,
         status=prod["status"], reason=f"'{prod.get('reason', '')}'",
-        seconds=f"{time.perf_counter() - t1:.3f}", gpu=f"'{gpu}'")
+        head_block=",".join(map(str, prod.get("head_block", []))),
+        peak_gb=f"{prod.get('peak_bytes', 0) / 1e9:.3f}",
+        collectives=prod.get("n_collective_ops"), seconds=f"{prod['record_s']:.3f}",
+        gpu=f"'{gpu}'")
     print("[dryrun_record] " + json.dumps(prod, sort_keys=True), flush=True)
+    check(prod["status"] == "ok", f"dryrun_production: {prod['cell']} {prod['status']}")
     held = [pred["granite_train"], *pred["granite_train_tp"], *pred["granite_train_fsdp"],
-            *(rec for tag in SERVE_TP_ARCHS for pair in pred[tag] for rec in pair.values())]
+            *(rec for _, _, cells in serve_held for rec in cells.values())]
     phase_s = time.perf_counter() - t0
     say("dryrun_hold_phase", phase_s=f"{phase_s:.1f}", allowed_s=DRYRUN_HOLD_S,
         held_cells=len(held), held_cells_trace_s=f"{sum(r['trace_s'] for r in held):.1f}",
@@ -4886,7 +4980,7 @@ def main() -> int:
     free()
     phase_llama4_serve(dev, gpu)
     free()
-    phase_whisper_serve(dev, gpu, profile)
+    whisper_tokens = phase_whisper_serve(dev, gpu, profile)
     free()
     train_losses, train_held = phase_granite_train(dev, gpu, profile)
     free()
@@ -4910,8 +5004,9 @@ def main() -> int:
         say("threshold_slice", skipped=True, elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     free()
     launches_tp, err_tp, tp_timing, tp_inputs, sharded_held = phase_sharded_training(
-        dev, gpu, rate, train_losses, {"granite-3-2b": granite_tokens, "zamba2-2.7b": zamba2_tokens},
-        t_start)
+        dev, gpu, rate, train_losses,
+        {"granite-3-2b": granite_tokens, "zamba2-2.7b": zamba2_tokens,
+         "whisper-base": whisper_tokens}, t_start)
     err_ring = phase_ring_block_kernel(dev, gpu, core["x"])
     launches_ring, launches_ring_find_root = phase_ring_ecoli(dev, gpu, profile)
     phase_ica_lingam(dev, gpu)

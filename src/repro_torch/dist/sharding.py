@@ -33,6 +33,18 @@ rank:
   sequence axis (``cache_specs``: the sequence over ``model``), and
   ``batch_rows`` shards a batch's rows or replicates them.
 
+A dimension that the model ranks need not split evenly (attention
+heads, the MLP's columns, the vocabulary) carries a ``Blocks`` entry in
+its spec: the name ``model`` (equal to the plain name, so the specs equal
+the reference's) with the count of units the dimension holds and their
+width. The model ranks then hold balanced blocks of whole units, as
+``numpy.array_split`` cuts them (``split_block``: the first ``count % M``
+ranks one unit more, a block empty where ``count < M``), which is the
+even cut wherever ``M`` divides ``count``. ``local_shard`` cuts such a
+leaf, and ``gather_shard`` and ``gather_over_model(count=)`` gather
+blocks of unequal length in one ``all_gather``: each block padded to the
+largest, then trimmed.
+
 A leaf whose sharded dimension concatenates equal parts that each split
 by heads (Mamba2's ``w_zx``: z | x) is cut part by part: ``local_shard``
 and ``gather_shard`` take ``parts``, and ``SPLIT_PARTS`` names those
@@ -232,6 +244,47 @@ def model_index(rules: ShardingRules) -> int:
     return coordinate(rules)[rules.model_axis]
 
 
+def split_block(count: int, parts: int, index: int) -> tuple[int, int]:
+    """``(lo, hi)``: block ``index`` of ``count`` units cut into ``parts``
+    balanced blocks as ``numpy.array_split`` cuts them, the first ``count %
+    parts`` blocks one unit longer (so block 0 is a largest one); equal
+    blocks where ``parts`` divides ``count``, and empty ones past ``count``
+    where ``count < parts``."""
+    base, extra = divmod(count, parts)
+    lo = index * base + min(index, extra)
+    return lo, lo + base + (index < extra)
+
+
+def block_sizes(count: int, parts: int) -> list[int]:
+    """The length of each of ``split_block``'s blocks, in block order."""
+    return [hi - lo for lo, hi in (split_block(count, parts, i) for i in range(parts))]
+
+
+def model_block(count: int, rules: ShardingRules) -> tuple[int, int]:
+    """This rank's ``split_block`` of ``count`` units over the model ranks
+    (all of them without a model axis)."""
+    return split_block(count, rules.model_size, model_index(rules))
+
+
+class Blocks(str):
+    """A spec entry: the mesh dimension ``name`` (a ``str`` equal to the
+    plain name) over whose ranks a tensor dimension of ``count`` units of
+    ``width`` entries each (attention heads of their head width, the
+    MLP's columns or the vocabulary's rows of width 1) is cut into
+    ``split_block``'s balanced blocks of whole units."""
+
+    def __new__(cls, name: str, count: int, width: int = 1):
+        entry = super().__new__(cls, name)
+        entry.count, entry.width = count, width
+        return entry
+
+    def __reduce__(self):
+        return Blocks, (str(self), self.count, self.width)
+
+    def __repr__(self):
+        return f"Blocks({str(self)!r}, {self.count}, {self.width})"
+
+
 def _names(entry) -> tuple:
     if entry is None:
         return ()
@@ -251,10 +304,17 @@ def _active(rules: ShardingRules, entry) -> tuple:
 def shard_bounds(rules: ShardingRules, entry, size: int) -> tuple[int, int]:
     """(start, length) of this rank's block of a dimension of ``size``
     under a spec entry: block index the mixed-radix index over its names,
-    the first name outermost."""
+    the first name outermost; a ``Blocks`` entry's ``split_block`` of its
+    units."""
     sizes, coord = mesh_sizes(rules.mesh), coordinate(rules)
+    names = _active(rules, entry)
+    if isinstance(entry, Blocks) and names:
+        if size != entry.count * entry.width:
+            raise ValueError(f"a dimension of {size} is not {entry!r}")
+        lo, hi = split_block(entry.count, sizes[names[0]], coord[names[0]])
+        return lo * entry.width, (hi - lo) * entry.width
     index, count = 0, 1
-    for n in _active(rules, entry):
+    for n in names:
         index, count = index * sizes[n] + coord[n], count * sizes[n]
     if size % count:
         raise ValueError(f"a dimension of {size} does not split over {count} shards ({entry})")
@@ -292,11 +352,23 @@ def local_shard(t: torch.Tensor, spec, rules: ShardingRules, parts: int = 1) -> 
     return out if out is t else out.clone(memory_format=torch.contiguous_format)
 
 
-def _all_gather(t: torch.Tensor, dim: int, name: str, rules: ShardingRules) -> torch.Tensor:
+def _all_gather(t: torch.Tensor, dim: int, name: str, rules: ShardingRules,
+                lengths: list | None = None) -> torch.Tensor:
+    """The ranks' blocks of ``t`` along ``dim`` over the mesh dimension
+    ``name``, concatenated in rank order: one ``all_gather``. With
+    ``lengths`` (each rank's length along ``dim``) unequal blocks are
+    padded to the largest first and trimmed after."""
     group = rules.mesh.get_group(name)
+    top = max(lengths) if lengths else t.shape[dim]
+    if top > t.shape[dim]:
+        pad = list(t.shape)
+        pad[dim] = top - t.shape[dim]
+        t = torch.cat([t, t.new_zeros(pad)], dim)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
+    if lengths and min(lengths) < top:
+        parts = [p.narrow(dim, 0, n) for p, n in zip(parts, lengths)]
     return torch.cat(parts, dim)
 
 
@@ -306,6 +378,11 @@ def gather_shard(t: torch.Tensor, spec, rules: ShardingRules, parts: int = 1) ->
     for dim, entry in enumerate(spec):
         names = _active(rules, entry)
         if not names:
+            continue
+        if isinstance(entry, Blocks):
+            m = mesh_sizes(rules.mesh)[names[0]]
+            t = _all_gather(t, dim, names[0], rules,
+                            [n * entry.width for n in block_sizes(entry.count, m)])
             continue
         t = t.unflatten(dim, (parts if rules.model_axis in names else 1, -1))
         for name in reversed(names):  # the innermost name first
@@ -427,12 +504,17 @@ def sum_over_model(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
     return _all_reduce(x.detach(), (rules.model_axis,), rules)
 
 
-def gather_over_model(x: torch.Tensor, dim: int, rules: ShardingRules) -> torch.Tensor:
+def gather_over_model(x: torch.Tensor, dim: int, rules: ShardingRules,
+                      count: int | None = None) -> torch.Tensor:
     """The model ranks' blocks of ``x`` concatenated along ``dim`` in rank
-    order, outside autograd (serving)."""
+    order, outside autograd (serving). With ``count`` the blocks are
+    ``model_block``'s of ``count`` entries (heads, or the padded
+    vocabulary's columns), uneven where the model ranks do not divide it;
+    without, equal blocks."""
     if rules.model_axis is None:
         return x
-    return _all_gather(x.detach(), dim, rules.model_axis, rules)
+    lengths = None if count is None else block_sizes(count, rules.model_size)
+    return _all_gather(x.detach(), dim, rules.model_axis, rules, lengths)
 
 
 def batch_rows(b: int, rules: ShardingRules) -> tuple[ShardingRules, P]:

@@ -28,10 +28,12 @@ replicated where they do not (``dist.sharding.batch_rows``: the reference's
 ``long_500k`` rule). ``REPRO_OPT`` is honoured as the reference honours it:
 ``kv_int8`` decodes over the int8 KV cache; ``cp_seq`` asks for context
 parallelism, which the explicit path refuses (``Unsupported``, with
-``check_explicit``'s reason). A config whose heads the model ranks do not
-split is refused as the real path refuses it (``check_heads``: the port's
-tensor-parallel regions hold whole heads; the reference splits such heads'
-projections by columns and leaves GSPMD to gather them).
+``check_explicit``'s reason). The model ranks hold balanced blocks of the
+attention heads, uneven where they do not divide them (yi-34b's 56, llama4's
+40 and whisper's 8 heads over 16 ranks: ``attention.head_block``), and the
+record names the traced rank's block (``head_block``); a config whose SSM
+heads they do not split evenly is refused as the real path refuses it
+(``check_heads``).
 
 The parameters are drawn on fake CPU tensors (``lm.init_params(...,
 rules=)``: this rank's shards) and stood up on the cell's device as empty
@@ -55,6 +57,7 @@ from repro_torch.dist.sharding import (
     ShardingRules, batch_rows, check_explicit, make_rules, with_fsdp)
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ArchConfig
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.trainer import make_train_step
@@ -106,19 +109,27 @@ def on_device(tree, device: str):
 
 def check_heads(cfg: ArchConfig, rules: ShardingRules):
     """Raise ``Unsupported`` where the model ranks of ``rules`` do not split
-    ``cfg``'s heads as the real path needs: its attention's q heads evenly,
-    each rank's block covering whole KV groups or lying within one, and its
-    SSM heads evenly, with the reason ``attention.head_block`` and
-    ``head_blocks`` raise there."""
+    ``cfg``'s heads as the real path needs: its SSM heads evenly, and
+    sharded KV heads as their q heads, with the reason
+    ``ssm.ssm_head_block`` and ``attention.head_blocks`` raise there. The
+    attention's q heads split over any number of ranks."""
     if rules.model_axis is None:
         return
     try:
         if cfg.family != "ssm":
             attn.head_blocks(cfg, rules)
         if cfg.family in ("ssm", "hybrid"):
-            attn.head_block(cfg.n_ssm_heads, rules)
+            ssm_mod.ssm_head_block(cfg, rules)
     except ValueError as e:
         raise Unsupported(str(e)) from None
+
+
+def head_info(cfg: ArchConfig, rules: ShardingRules) -> dict:
+    """The traced rank's block of the attention heads, ``[lo, hi)`` of
+    ``n_heads`` (an SSM config's none)."""
+    if cfg.family == "ssm":
+        return {}
+    return {"head_block": list(attn.head_block(cfg.n_heads, rules)), "n_heads": cfg.n_heads}
 
 
 def make_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, opt_cfg: OptimizerConfig | None = None,
@@ -152,7 +163,8 @@ def make_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, opt_cfg: OptimizerConfig 
     name = f"{cfg.name}/{shape.name}"
     specs = lm.param_specs(cfg)
     common = dict(mode=mode, rules=rules, device=device, traced_on=dev,
-                  info={"batch_rows_per_rank": b_rank, "model_axis": rules.model_axis})
+                  info={"batch_rows_per_rank": b_rank, "model_axis": rules.model_axis,
+                        **head_info(cfg, rules)})
 
     if shape.kind == "train":
         if fsdp:

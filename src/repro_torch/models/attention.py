@@ -18,10 +18,18 @@ Under a model axis (``rules.model_axis``; ``dist.sharding``) the training
 forward is tensor-parallel, with the weights as ``attention_spec`` and
 ``mla_spec`` shard them: each rank runs its block of the q heads (``wq``'s
 columns) and ``wo``'s matching rows, and the model ranks' outputs are
-summed. ``wk`` and ``wv`` are sharded only when ``n_kv_heads % 16 == 0``,
-as in the reference; otherwise every rank projects all KV heads and keeps
-those its q heads read under GQA. MLA's ``w_uk`` and ``w_uv`` are
-column-parallel and ``w_dkv`` and ``kv_norm`` replicated.
+summed. The blocks are ``head_block``'s: balanced, the first ``H % M``
+ranks one head more, empty past H where ``H < M`` (the even cut where M
+divides H; ``dist.sharding.Blocks`` cuts the leaves at those head
+boundaries). ``wk`` and ``wv`` are sharded only when ``n_kv_heads % 16
+== 0``, as in the reference; otherwise every rank projects all KV heads
+and keeps those its q heads read under GQA. A rank's block may cut across
+GQA groups (yi-34b's rank 1 of 16 holds q heads 4-7 of groups 7 wide):
+``kv_runs`` splits it into runs that each read their KV heads alike, the
+attention runs once per run on its slice of q and of the KV heads
+(``by_runs``, no K/V repeated per q head), and the runs' outputs are
+concatenated. MLA's ``w_uk`` and ``w_uv`` are column-parallel and
+``w_dkv`` and ``kv_norm`` replicated.
 
 Serving under a model axis keeps the caches split-KV, as ``lm.cache_specs``
 lays them out: every KV head, the sequence over ``model`` (rank r holds
@@ -33,7 +41,8 @@ sequence (all-gathered over heads where ``wk``/``wv`` shard), which
 1. computes the new token's K/V of every KV head (MLA: ``c_kv`` and
    ``k_rope``, alike on every rank), and the rank that owns position
    ``pos`` (per row) writes them in place;
-2. all-gathers q over ``model`` (MLA: the absorbed q and q_rope);
+2. all-gathers q over ``model`` (MLA: the absorbed q and q_rope), the
+   blocks padded to the largest and trimmed where they are uneven;
 3. each rank computes every head's partial softmax over its own positions:
    the running max, the sum of exponentials and the weighted V (MLA: the
    weighted ``c_kv``), in float32;
@@ -53,9 +62,11 @@ import torch
 
 from repro_torch.dist.sharding import (
     NO_SHARDING,
+    Blocks,
     P,
     copy_to_model,
     gather_over_model,
+    model_block,
     model_index,
     reduce_from_model,
 )
@@ -85,8 +96,9 @@ def kv_sharded(cfg) -> bool:
 
 
 def attention_spec(cfg):
-    kv = P(None, "model") if kv_sharded(cfg) else P(None, None)
-    spec = {"wq": P(None, "model"), "wk": kv, "wv": kv, "wo": P("model", None)}
+    heads, kv_heads = (Blocks("model", n, cfg.head_dim) for n in (cfg.n_heads, cfg.n_kv_heads))
+    kv = P(None, kv_heads) if kv_sharded(cfg) else P(None, None)
+    spec = {"wq": P(None, heads), "wk": kv, "wv": kv, "wo": P(heads, None)}
     if cfg.qk_norm:
         spec["q_norm"] = NORM_SPEC
         spec["k_norm"] = NORM_SPEC
@@ -95,23 +107,60 @@ def attention_spec(cfg):
 
 def head_block(n_heads: int, rules=NO_SHARDING) -> tuple[int, int]:
     """This rank's block ``(lo, hi)`` of ``n_heads`` heads (all of them
-    without a model axis)."""
-    m = rules.model_size
-    if n_heads % m:
-        raise ValueError(f"{n_heads} heads do not split over {m} model ranks")
-    lo = model_index(rules) * (n_heads // m)
-    return lo, lo + n_heads // m
+    without a model axis): ``dist.sharding.model_block``, balanced, the
+    first ``n_heads % M`` ranks one head more, empty where ``n_heads < M``
+    and this rank is past them."""
+    return model_block(n_heads, rules)
 
 
 def head_blocks(cfg, rules=NO_SHARDING):
     """This rank's q heads ``(lo, hi)`` and the KV heads ``(lo, hi)`` they
-    read under GQA. Each rank's block of q heads must cover whole KV
-    groups or lie within one."""
+    read under GQA (none for an empty block). Where ``wk`` and ``wv``
+    shard, the rank's KV shard must be those KV heads: the model ranks
+    split the KV heads evenly, or each KV head serves one q head."""
     q_lo, q_hi = head_block(cfg.n_heads, rules)
     g = cfg.n_heads // cfg.n_kv_heads
-    if (q_hi - q_lo) % g and g % (q_hi - q_lo):
-        raise ValueError(f"{q_hi - q_lo} q heads per rank cut across GQA groups of {g}")
-    return (q_lo, q_hi), (q_lo // g, (q_hi - 1) // g + 1)
+    kv = (q_lo // g, -(-q_hi // g) if q_hi > q_lo else q_lo // g)
+    sharded = rules.model_axis is not None and kv_sharded(cfg)
+    if sharded and kv != head_block(cfg.n_kv_heads, rules):
+        raise ValueError(f"{cfg.n_kv_heads} sharded KV heads do not split over "
+                         f"{rules.model_size} model ranks as their {cfg.n_heads} q heads do")
+    return (q_lo, q_hi), kv
+
+
+def kv_runs(cfg, rules=NO_SHARDING) -> list[tuple[int, int, int, int]]:
+    """This rank's q heads cut into runs that read their KV heads alike:
+    ``(q_start, q_stop, kv_start, kv_stop)`` offsets into the rank's q
+    heads and into the KV heads they read (``head_blocks``), each run the
+    longest stretch of KV heads from which the rank holds the same number
+    of q heads. One run where the block covers whole groups or lies within
+    one (every block under an even split), up to three where it cuts
+    across groups; none for an empty block."""
+    (q_lo, q_hi), (kv_lo, kv_hi) = head_blocks(cfg, rules)
+    g = cfg.n_heads // cfg.n_kv_heads
+    runs: list = []
+    q = 0
+    for j in range(kv_hi - kv_lo):
+        kv = kv_lo + j
+        n = min(q_hi, (kv + 1) * g) - max(q_lo, kv * g)
+        if runs and runs[-1][1] - runs[-1][0] == n * (runs[-1][3] - runs[-1][2]):
+            runs[-1] = (runs[-1][0], q + n, runs[-1][2], j + 1)
+        else:
+            runs.append((q, q + n, j, j + 1))
+        q += n
+    return runs
+
+
+def by_runs(fn, q, k, v, runs, *args, **kwargs):
+    """``fn`` (a GQA attention of this module, ``fn(q, k, v, ...)``) over
+    the rank's q heads and the KV heads they read, run by run
+    (``kv_runs``): each run's slice of q against its slice of k and v,
+    the outputs concatenated over the heads; ``fn`` itself on the whole
+    for one run or none."""
+    if len(runs) <= 1:
+        return fn(q, k, v, *args, **kwargs)
+    return torch.cat([fn(q[:, :, qa:qb], k[:, :, ka:kb], v[:, :, ka:kb], *args, **kwargs)
+                      for qa, qb, ka, kb in runs], dim=2)
 
 
 def _split_heads(x, n, dh):
@@ -144,7 +193,8 @@ def qkv(params, x, cfg, positions, rules=NO_SHARDING, all_kv=False):
         return q, k, v
     if all_kv:
         if not whole_kv:
-            k, v = gather_over_model(k, 2, rules), gather_over_model(v, 2, rules)
+            k = gather_over_model(k, 2, rules, cfg.n_kv_heads)
+            v = gather_over_model(v, 2, rules, cfg.n_kv_heads)
         return q, k, v
     if whole_kv:
         k = copy_to_model(k, rules)[:, :, kv_lo:kv_hi]
@@ -164,7 +214,7 @@ def _gqa_scores(q, k):
     """(B,S,H,dh) x (B,T,KV,dh) -> (B, KV, qpk, S, T) f32 scores."""
     b, s, h, dh = q.shape
     kv = k.shape[2]
-    qg = q.reshape(b, s, kv, h // kv, dh)
+    qg = q.reshape(b, s, kv, h // max(kv, 1), dh)  # an empty block: no heads, no KV heads
     scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
     return scores / math.sqrt(dh)
 
@@ -248,7 +298,7 @@ def banded_attention(q, k, v, positions, window: int):
     pad_v = torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], dim=1)
     k2 = torch.cat([pad_k, kc], dim=2)  # (b, nc, 2w, kv, dh)
     v2 = torch.cat([pad_v, vc], dim=2)
-    qg = qc.reshape(b, nc, w, kv, h // kv, dh)
+    qg = qc.reshape(b, nc, w, kv, h // max(kv, 1), dh)
     scores = torch.einsum("bcskgd,bctkd->bckgst", qg, k2).float()
     scores = scores / math.sqrt(dh)
     pos_q = positions.reshape(b, nc, w)
@@ -268,7 +318,7 @@ def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     b, _, h, dh = q.shape
     kv = k_cache.shape[2]
     s = k_cache.shape[1]
-    qg = q.reshape(b, kv, h // kv, dh)
+    qg = q.reshape(b, kv, h // max(kv, 1), dh)
     scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float()
     scores = scores / math.sqrt(dh)
     valid = _valid_from(0, s, pos, window, q.device)
@@ -300,13 +350,14 @@ def _partials(scores):
 def combine_partials(top, total, weighted, rules):
     """Every head's partial softmax over this rank's positions, ``top`` and
     ``total`` (B, H), ``weighted`` (B, H, D) float32, all-gathered over
-    ``model`` and combined for this rank's heads in rank order: (B, H/M, D)
-    float32, the softmax-weighted sum over every position."""
+    ``model`` and combined for this rank's heads (``head_block``) in rank
+    order: (B, h, D) float32, the softmax-weighted sum over every
+    position."""
     lo, hi = head_block(top.shape[1], rules)
     packed = torch.cat([top[..., None], total[..., None], weighted], dim=-1)
-    parts = gather_over_model(packed[None], 0, rules)[:, :, lo:hi]  # (M, B, H/M, D + 2)
+    parts = gather_over_model(packed[None], 0, rules)[:, :, lo:hi]  # (M, B, h, D + 2)
     peak = parts[..., 0].amax(dim=0)
-    scale = torch.exp(parts[..., 0] - peak)  # (M, B, H/M)
+    scale = torch.exp(parts[..., 0] - peak)  # (M, B, h)
     total = scale[0] * parts[0, ..., 1]
     out = scale[0][..., None] * parts[0, ..., 2:]
     for r in range(1, parts.shape[0]):
@@ -315,14 +366,15 @@ def combine_partials(top, total, weighted, rules):
     return out / total[..., None]
 
 
-def split_decode_attention(q, k_cache, v_cache, pos, start, rules, window: int = 0):
-    """``decode_attention`` over a split-KV cache: this rank's q heads (B,
-    1, H/M, dh) against every KV head of its positions ``start ..`` of the
-    cache (B, L, KV, dh); valid positions < pos (per row, absolute).
-    Returns this rank's heads' (B, 1, H/M, dh)."""
+def split_decode_attention(q, k_cache, v_cache, pos, start, rules, window: int = 0, *,
+                           n_heads: int):
+    """``decode_attention`` over a split-KV cache: this rank's block of the
+    ``n_heads`` q heads (B, 1, h, dh) against every KV head of its
+    positions ``start ..`` of the cache (B, L, KV, dh); valid positions <
+    pos (per row, absolute). Returns this rank's heads' (B, 1, h, dh)."""
     b, _, _, dh = q.shape
     kv, length = k_cache.shape[2], k_cache.shape[1]
-    q_all = gather_over_model(q, 2, rules)[:, 0]  # (B, H, dh)
+    q_all = gather_over_model(q, 2, rules, n_heads)[:, 0]  # (B, H, dh)
     h = q_all.shape[1]
     qg = q_all.reshape(b, kv, h // kv, dh)
     scores = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float() / math.sqrt(dh)
@@ -364,13 +416,15 @@ def attention_block(params, x, cfg, positions, rules=NO_SHARDING, *, window: int
             _cache_write(v_now, v, cache_pos, rules)
             new_kv = (k_now, v_now)
         if split:
-            out = split_decode_attention(q, k_now, v_now, cache_pos + 1, start, rules, window)
+            out = split_decode_attention(q, k_now, v_now, cache_pos + 1, start, rules, window,
+                                         n_heads=cfg.n_heads)
         else:
             out = decode_attention(q, k_now, v_now, cache_pos + 1, window)
     else:
         k_att, v_att = rank_kv(k, v, cfg, rules) if split else (k, v)
         q_chunk = pick_q_chunk(x.shape[0], q.shape[2], x.shape[1])
-        out = blocked_attention(q, k_att, v_att, positions, positions, window, q_chunk)
+        out = by_runs(blocked_attention, q, k_att, v_att, kv_runs(cfg, rules), positions,
+                      positions, window, q_chunk)
         if not want_cache:
             new_kv = None
         elif cfg.kv_quant == "int8":
@@ -465,9 +519,12 @@ def init_mla(gen: torch.Generator, cfg, dtype):
     }
 
 
-def mla_spec():
-    return {"wq": P(None, "model"), "w_dkv": P(None, None), "w_uk": P(None, "model"),
-            "w_uv": P(None, "model"), "wo": P("model", None), "kv_norm": NORM_SPEC}
+def mla_spec(cfg):
+    h = cfg.n_heads
+    return {"wq": P(None, Blocks("model", h, cfg.nope_head_dim + cfg.rope_head_dim)),
+            "w_dkv": P(None, None), "w_uk": P(None, Blocks("model", h, cfg.nope_head_dim)),
+            "w_uv": P(None, Blocks("model", h, cfg.head_dim)),
+            "wo": P(Blocks("model", h, cfg.head_dim), None), "kv_norm": NORM_SPEC}
 
 
 def mla_block(params, x, cfg, positions, rules=NO_SHARDING, *, kv_cache=None, cache_pos=None,
@@ -513,7 +570,8 @@ def mla_block(params, x, cfg, positions, rules=NO_SHARDING, *, kv_cache=None, ca
         q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], params["w_uk"].reshape(r, h, dn))
         q_r = q_rope[:, 0]
         if rules.model_axis is not None:
-            q_eff, q_r = gather_over_model(q_eff, 1, rules), gather_over_model(q_r, 1, rules)
+            q_eff = gather_over_model(q_eff, 1, rules, cfg.n_heads)
+            q_r = gather_over_model(q_r, 1, rules, cfg.n_heads)
         scores = (torch.einsum("bhr,btr->bht", q_eff, c_cache)
                   + torch.einsum("bhd,btd->bht", q_r, kr_cache)).float()
         scores = scores / math.sqrt(dn + dr)

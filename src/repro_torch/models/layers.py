@@ -18,8 +18,12 @@ the ids outside this rank's rows read zero, then a sum over the model
 ranks); ``unembed`` gives this rank's columns of the logits, through
 ``head`` or through ``tok``'s rows when the embeddings are tied; and
 ``softmax_xent`` is the vocab-parallel cross-entropy (the max, the sum of
-exponentials and the target logit reduced over the model ranks). Without
-a model axis every one is the single-device function.
+exponentials and the target logit reduced over the model ranks). The
+MLP's columns and the padded vocabulary are cut into balanced blocks
+(``dist.sharding.Blocks``): uneven where the model ranks do not divide
+them, so the vocabulary's functions take ``vocab_padded`` to place this
+rank's block (``model_block``). Without a model axis every one is the
+single-device function.
 """
 
 from __future__ import annotations
@@ -31,10 +35,11 @@ import torch.nn.functional as F
 
 from repro_torch.dist.sharding import (
     NO_SHARDING,
+    Blocks,
     P,
     copy_to_model,
     max_over_model,
-    model_index,
+    model_block,
     reduce_from_model,
 )
 
@@ -103,8 +108,9 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
     }
 
 
-def mlp_spec():
-    return {"wi_gate": P(None, "model"), "wi_up": P(None, "model"), "wo": P("model", None)}
+def mlp_spec(d_ff: int):
+    cols = Blocks("model", d_ff)
+    return {"wi_gate": P(None, cols), "wi_up": P(None, cols), "wo": P(cols, None)}
 
 
 def mlp(params, x, act: str, rules=NO_SHARDING):
@@ -136,50 +142,64 @@ def init_embedding(gen: torch.Generator, vocab_padded: int, d_model: int, dtype,
     return params
 
 
-def embedding_spec(tie: bool):
-    spec = {"tok": P("model", None)}
+def embedding_spec(tie: bool, vocab_padded: int):
+    rows = Blocks("model", vocab_padded)
+    spec = {"tok": P(rows, None)}
     if not tie:
-        spec["head"] = P(None, "model")
+        spec["head"] = P(None, rows)
     return spec
 
 
-def _vocab_rows(ids, n_local: int, rules):
+def _vocab_start(n_local: int, vocab_padded: int | None, rules) -> int:
+    """The first vocabulary row of this rank's ``n_local`` rows:
+    ``model_block`` of ``vocab_padded`` (0 without a model axis)."""
+    if rules.model_axis is None:
+        return 0
+    lo, hi = model_block(vocab_padded, rules)
+    if hi - lo != n_local:
+        raise ValueError(f"{n_local} vocabulary rows are not this rank's block of {vocab_padded}")
+    return lo
+
+
+def _vocab_rows(ids, n_local: int, vocab_padded: int | None, rules):
     """(ids within this rank's block of the vocabulary, as local indices
     clamped into it; the mask of the ids that lie in it)."""
-    local = ids - model_index(rules) * n_local
+    local = ids - _vocab_start(n_local, vocab_padded, rules)
     inside = (local >= 0) & (local < n_local)
     return local.clamp(0, n_local - 1), inside
 
 
-def embed(params, tokens, rules=NO_SHARDING):
+def embed(params, tokens, rules=NO_SHARDING, vocab_padded: int | None = None):
     """The token embeddings. Under a model axis ``tok`` holds this rank's
-    rows of the vocabulary: the ids outside them read zero, and the sum
-    over the model ranks gives every row from the one rank that has it."""
+    rows of the vocabulary (its block of ``vocab_padded``): the ids
+    outside them read zero, and the sum over the model ranks gives every
+    row from the one rank that has it."""
     tok = params["tok"]
     if rules.model_axis is None:
         return tok[tokens]
-    local, inside = _vocab_rows(tokens, tok.shape[0], rules)
+    local, inside = _vocab_rows(tokens, tok.shape[0], vocab_padded, rules)
     rows = torch.where(inside[..., None], tok[local], 0)
     return reduce_from_model(rows, rules)
 
 
-def unembed(params, x, vocab: int, rules=NO_SHARDING):
+def unembed(params, x, vocab: int, rules=NO_SHARDING, vocab_padded: int | None = None):
     """Logits over the padded vocabulary, the padding masked to the float32
     minimum so that neither argmax nor a softmax ever picks it. Under a
     model axis, this rank's columns of them (``head``'s columns, or
-    ``tok``'s rows when the embeddings are tied), the padding masked by
-    its global column."""
+    ``tok``'s rows when the embeddings are tied: its block of
+    ``vocab_padded``), the padding masked by its global column."""
     xr = copy_to_model(x, rules)
     logits = xr @ params["head"] if "head" in params else xr @ params["tok"].T
     n_local = logits.shape[-1]
-    if n_local * rules.model_size != vocab:
+    start = _vocab_start(n_local, vocab_padded, rules)
+    if (n_local if rules.model_axis is None else vocab_padded) != vocab:
         neg = torch.finfo(torch.float32).min
-        cols = model_index(rules) * n_local + torch.arange(n_local, device=logits.device)
+        cols = start + torch.arange(n_local, device=logits.device)
         logits = torch.where(cols >= vocab, neg, logits.float()).to(logits.dtype)
     return logits
 
 
-def softmax_xent(logits, labels, vocab: int, rules=NO_SHARDING):
+def softmax_xent(logits, labels, vocab: int, rules=NO_SHARDING, vocab_padded: int | None = None):
     """Mean token cross-entropy; logits upcast to float32; labels < vocab
     (the padded columns hold the float32 minimum and add nothing). The
     log-sum-exp is ``torch.logsumexp``'s (the max, then the log of the sum
@@ -190,7 +210,7 @@ def softmax_xent(logits, labels, vocab: int, rules=NO_SHARDING):
     top = max_over_model(logits.detach().amax(dim=-1), rules)
     sumexp = reduce_from_model(torch.exp(logits - top[..., None]).sum(dim=-1), rules)
     lse = top + torch.log(sumexp)
-    local, inside = _vocab_rows(labels.long(), logits.shape[-1], rules)
+    local, inside = _vocab_rows(labels.long(), logits.shape[-1], vocab_padded, rules)
     gold = torch.gather(logits, -1, local[..., None])[..., 0]
     gold = reduce_from_model(torch.where(inside, gold, 0.0), rules)
     return torch.mean(lse - gold)

@@ -221,7 +221,7 @@ def _layer_spec(kind: str, cfg: ArchConfig):
     if kind == "hybrid_attn":
         spec["proj"] = P(None, None)
         return spec
-    spec["attn"] = attn.mla_spec() if kind in MLA_KINDS else attn.attention_spec(cfg)
+    spec["attn"] = attn.mla_spec(cfg) if kind in MLA_KINDS else attn.attention_spec(cfg)
     if kind == "xattn":
         spec["ln_x"] = NORM_SPEC
         spec["xattn"] = attn.attention_spec(cfg)
@@ -229,7 +229,7 @@ def _layer_spec(kind: str, cfg: ArchConfig):
     if kind in MOE_KINDS:
         spec["moe"] = moe_mod.moe_spec(cfg)
     else:
-        spec["mlp"] = mlp_spec()
+        spec["mlp"] = mlp_spec(cfg.d_ff)
     return spec
 
 
@@ -253,14 +253,15 @@ def param_specs(cfg: ArchConfig, rules: ShardingRules = NO_SHARDING):
     if rules.fsdp_axes:
         return fsdp_specs(param_shapes(cfg), param_specs(cfg), rules)
     layout = group_layout(cfg)
-    specs = {"embed": embedding_spec(cfg.tie_embeddings), "final_norm": NORM_SPEC,
+    specs = {"embed": embedding_spec(cfg.tie_embeddings, cfg.vocab_padded),
+             "final_norm": NORM_SPEC,
              "groups": [{f"pos{i}": _layer_spec(kind, cfg) for i, kind in enumerate(layout)}
                         for _ in range(cfg.n_groups)]}
     for i, kind in enumerate(prologue_layout(cfg)):
         specs[f"prologue{i}"] = _layer_spec(kind, cfg)
     if cfg.family == "hybrid":
         specs["shared"] = {"ln1": NORM_SPEC, "attn": attn.attention_spec(cfg), "ln2": NORM_SPEC,
-                           "mlp": mlp_spec()}
+                           "mlp": mlp_spec(cfg.d_ff)}
     if cfg.enc_dec:
         specs["enc_groups"] = [_layer_spec("enc", cfg) for _ in range(cfg.n_enc_layers)]
         specs["enc_norm"] = NORM_SPEC
@@ -286,11 +287,12 @@ def _cross_attention(lp, hx, cfg, enc_out, cache, cache_pos, rules=NO_SHARDING,
     b, s, _ = hx.shape
     (q_lo, q_hi), (kv_lo, kv_hi) = attn.head_blocks(cfg, rules)
     q = attn._split_heads(copy_to_model(hx, rules) @ lp["wq"], q_hi - q_lo, cfg.head_dim)
+    runs = attn.kv_runs(cfg, rules)
     if cache_pos is not None:
         ck, cv = cache
         k, v = attn.rank_kv(ck, cv, cfg, rules)
         enc_pos = torch.full((b,), ck.shape[1], dtype=torch.int64, device=hx.device)
-        return attn.decode_attention(q, k, v, enc_pos), (ck, cv)
+        return attn.by_runs(attn.decode_attention, q, k, v, runs, enc_pos), (ck, cv)
     whole = rules.model_axis is None or not attn.kv_sharded(cfg)
     src = enc_out if whole else copy_to_model(enc_out, rules)
     n_kv = cfg.n_kv_heads if whole else kv_hi - kv_lo
@@ -302,11 +304,12 @@ def _cross_attention(lp, hx, cfg, enc_out, cache, cache_pos, rules=NO_SHARDING,
     else:
         k, v = ck, cv
         if want_cache:
-            ck, cv = gather_over_model(ck, 2, rules), gather_over_model(cv, 2, rules)
+            ck = gather_over_model(ck, 2, rules, cfg.n_kv_heads)
+            cv = gather_over_model(cv, 2, rules, cfg.n_kv_heads)
     t = ck.shape[1]
     enc_positions = _positions(b, t, hx.device)
     q_pos = torch.full((b, s), t, dtype=torch.int64, device=hx.device)  # attend everywhere
-    return attn.causal_attention(q, k, v, q_pos, enc_positions), (ck, cv)
+    return attn.by_runs(attn.causal_attention, q, k, v, runs, q_pos, enc_positions), (ck, cv)
 
 
 def _apply_layer(lp, kind, x, cfg, positions, rules=NO_SHARDING, *, shared=None, emb0=None,
@@ -388,7 +391,8 @@ def _encode(params, enc_in, cfg, rules=NO_SHARDING):
         lp = gather_at_use(lp, rules)
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = attn.qkv(lp["attn"], h, cfg, positions, rules)
-        out = attn.causal_attention(q, k, v, q_pos, positions)
+        out = attn.by_runs(attn.causal_attention, q, k, v, attn.kv_runs(cfg, rules), q_pos,
+                           positions)
         out = out.reshape(b, t, q.shape[2] * cfg.head_dim) @ lp["attn"]["wo"]
         x = x + reduce_from_model(out, rules)
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
@@ -549,12 +553,12 @@ def forward(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, tokens.device)
-    x = embed(_table(params, "tok", rules), tokens, rules)
+    x = embed(_table(params, "tok", rules), tokens, rules, cfg.vocab_padded)
     enc_out = _enc_out(params, enc_in, cfg, rules)
     x, _, aux = _backbone(params, x, cfg, positions, rules, enc_out=enc_out, train=train)
     x = rmsnorm(x, gather_at_use(params["final_norm"], rules), cfg.norm_eps)
     return unembed(_table(params, "head" if "head" in params["embed"] else "tok", rules), x,
-                   cfg.vocab, rules), aux
+                   cfg.vocab, rules, cfg.vocab_padded), aux
 
 
 def train_loss(params, batch, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
@@ -567,7 +571,7 @@ def train_loss(params, batch, cfg: ArchConfig, rules: ShardingRules = NO_SHARDIN
     tokens = batch["tokens"]
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     logits, aux = forward(params, inputs, cfg, rules, enc_in=batch.get("enc"), train=True)
-    loss = softmax_xent(logits, labels, cfg.vocab, rules) + aux_coef * aux
+    loss = softmax_xent(logits, labels, cfg.vocab, rules, cfg.vocab_padded) + aux_coef * aux
     return mean_over_batch(loss, rules)
 
 
@@ -715,7 +719,7 @@ def local_caches(full, cfg: ArchConfig, rules: ShardingRules):
             return {"self": blocks(entry["self"]), "cross": entry["cross"]}
         if kind == "ssm":
             state, tail = entry
-            h_lo, h_hi = attn.head_block(cfg.n_ssm_heads, rules)
+            h_lo, h_hi = ssm_mod.ssm_head_block(cfg, rules)
             return (state[:, h_lo:h_hi].contiguous(),
                     ssm_mod._rank_channels(tail, cfg, rules).contiguous())
         return blocks(entry)
@@ -766,14 +770,14 @@ def prefill(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
     check_explicit(rules)
     b, s = tokens.shape
     max_seq = max_seq or s
-    x = embed(params["embed"], tokens, rules)
+    x = embed(params["embed"], tokens, rules, cfg.vocab_padded)
     enc_out = _enc_out(params, enc_in, cfg, rules)
     x, caches, _ = _backbone(params, x, cfg, _positions(b, s, tokens.device), rules,
                              want_cache=True, enc_out=enc_out)
     if max_seq != s or rules.model_axis is not None:
         caches = _grow_caches(caches, cfg, max_seq, rules)
     x = rmsnorm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.vocab, rules)[:, 0], caches
+    return unembed(params["embed"], x, cfg.vocab, rules, cfg.vocab_padded)[:, 0], caches
 
 
 def decode_step(params, token, caches, pos, cfg: ArchConfig,
@@ -787,8 +791,8 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig,
     Returns (logits (B, vocab_padded), new_caches); under a model axis the
     logits are the rank's columns."""
     check_explicit(rules)
-    x = embed(params["embed"], token[:, None], rules)
+    x = embed(params["embed"], token[:, None], rules, cfg.vocab_padded)
     x, new_caches, _ = _backbone(params, x, cfg, pos[:, None], rules, caches=caches,
                                  cache_pos=pos)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.vocab, rules)[:, 0], new_caches
+    return unembed(params["embed"], x, cfg.vocab, rules, cfg.vocab_padded)[:, 0], new_caches

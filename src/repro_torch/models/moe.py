@@ -76,7 +76,7 @@ from repro_torch.dist.sharding import (
     model_index,
     reduce_from_model,
 )
-from repro_torch.models.layers import init_dense
+from repro_torch.models.layers import init_dense, mlp_spec
 
 
 def init_moe(gen: torch.Generator, cfg, dtype):
@@ -101,8 +101,7 @@ def moe_spec(cfg):
     expert = P("model", None, None)
     spec = {"router": P(None, None), "wi_gate": expert, "wi_up": expert, "wo": expert}
     if cfg.n_shared_experts:
-        spec["shared"] = {"wi_gate": P(None, "model"), "wi_up": P(None, "model"),
-                          "wo": P("model", None)}
+        spec["shared"] = mlp_spec((cfg.d_ff_shared or cfg.d_ff_expert) * cfg.n_shared_experts)
     return spec
 
 

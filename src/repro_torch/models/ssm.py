@@ -16,8 +16,9 @@ and what ``chip_smoke.py`` sets). ``ngroups == 1`` is assumed, as there.
 
 ``mamba2_spec`` gives the reference's sharding specs of a layer's weights.
 Under a model axis (``rules.model_axis``; ``dist.sharding``) each rank runs
-its block of the H heads, H/M of them, and the inner channels that belong
-to them:
+its block of the H heads, H/M of them (``ssm_head_block``: the model
+ranks must divide H, which the attention's balanced blocks do not need),
+and the inner channels that belong to them:
 
 * ``w_zx`` holds the rank's columns of z and of x (a split leaf:
   ``dist.sharding.SPLIT_PARTS``); ``w_dt``, ``dt_bias``, ``a_log``,
@@ -47,9 +48,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import NO_SHARDING, P, copy_to_model, reduce_from_model
+from repro_torch.dist.sharding import NO_SHARDING, P, copy_to_model, model_block, reduce_from_model
 from repro_torch.kernels import ops
-from repro_torch.models.attention import head_block
 from repro_torch.models.layers import init_dense
 
 
@@ -119,13 +119,23 @@ def _segsum(dta):
     return torch.where(mask, diff, -torch.inf)
 
 
+def ssm_head_block(cfg, rules=NO_SHARDING) -> tuple[int, int]:
+    """This rank's block ``(lo, hi)`` of the SSM's heads, an even one:
+    raises where the model ranks do not divide them (``mamba2_spec``'s
+    plain ``model`` entries cut the heads' leaves evenly)."""
+    h, m = cfg.n_ssm_heads, rules.model_size
+    if h % m:
+        raise ValueError(f"{h} SSM heads do not split over {m} model ranks")
+    return model_block(h, rules)
+
+
 def _rank_channels(t, cfg, rules):
     """The rank's conv channels of a (..., d_inner + 2N) tensor: x's
     channels of its heads, then the whole B and C (all of it without a
     model axis)."""
     if rules.model_axis is None:
         return t
-    lo, hi = head_block(cfg.n_ssm_heads, rules)
+    lo, hi = ssm_head_block(cfg, rules)
     p = cfg.ssm_headdim
     return torch.cat([t[..., lo * p:hi * p], t[..., cfg.d_inner:]], dim=-1)
 
@@ -167,7 +177,7 @@ def mamba2_forward(params, x, cfg, rules=NO_SHARDING, initial_state=None):
     handoff (under a model axis the rank's heads and channels)."""
     b, s_true, _ = x.shape
     n, p = cfg.ssm_state, cfg.ssm_headdim
-    h_lo, h_hi = head_block(cfg.n_ssm_heads, rules)
+    h_lo, h_hi = ssm_head_block(cfg, rules)
     h = h_hi - h_lo
     di = h * p
     q = min(cfg.ssm_chunk, s_true)
@@ -247,7 +257,7 @@ def mamba2_decode(params, x, cfg, rules, state):
     fresh tensor."""
     b = x.shape[0]
     p = cfg.ssm_headdim
-    h_lo, h_hi = head_block(cfg.n_ssm_heads, rules)
+    h_lo, h_hi = ssm_head_block(cfg, rules)
     h = h_hi - h_lo
     ssm_state, conv_tail = state  # (B, H, P, N), (B, W-1, C)
 

@@ -139,12 +139,13 @@ class Engine:
         b_rank = tokens.shape[0]
         pos = torch.full((b_rank,), s, dtype=torch.int64, device=self.device)  # true length
         out = []
-        tok = self._sample(gather_over_model(last_logits, 1, rules), gen, b, rules)
+        vp = self.cfg.vocab_padded
+        tok = self._sample(gather_over_model(last_logits, 1, rules, vp), gen, b, rules)
         finished = torch.zeros((b_rank,), dtype=torch.bool, device=self.device)
         for i in range(scfg.max_new_tokens):
             out.append(tok)
             logits, caches = lm.decode_step(self.params, tok, caches, pos + i, self.cfg, rules)
-            nxt = self._sample(gather_over_model(logits, 1, rules), gen, b, rules)
+            nxt = self._sample(gather_over_model(logits, 1, rules, vp), gen, b, rules)
             if scfg.eos_id >= 0:
                 finished = finished | (tok == scfg.eos_id)
                 nxt = torch.where(finished, scfg.eos_id, nxt)

@@ -62,7 +62,7 @@ from repro_torch.kernels import pairwise_score as ps
 from repro_torch.kernels import ssd_decode as sd
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import fake_world, production_shape
-from repro_torch.models import attention, lm
+from repro_torch.models import attention, lm, ssm
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
 from repro_torch.train.trainer import make_train_step
 from repro_torch.utils.collectives import CollectiveLedger
@@ -133,9 +133,17 @@ def ops_of(records) -> dict:
     return out
 
 
+#: (grid, arch) of the dry-against-real hold: every arch at every grid, and
+#: granite at (1, 3), whose 4 smoke heads, MLP columns and vocabulary the
+#: three model ranks split unevenly (deepseek's 4 experts and zamba2's SSM
+#: heads do not split over 3).
+COUNT_CASES = [(grid, arch) for grid in GRIDS for arch in ARCHS] + [((1, 3), "granite-3-2b")]
+
+
 @functools.cache
 def real_counts(grid, tmp: str) -> list:
-    return run_grid(grid, [(arch, job_counts, {"arch": arch}) for arch in ARCHS],
+    archs = [arch for g, arch in COUNT_CASES if g == grid]
+    return run_grid(grid, [(arch, job_counts, {"arch": arch}) for arch in archs],
                     os.path.join(tmp, grid_id(grid)))
 
 
@@ -165,8 +173,8 @@ def grid_tmp(tmp_path_factory):
     return str(tmp_path_factory.mktemp("dryrun_grids"))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("grid", GRIDS, ids=grid_id)
+@pytest.mark.parametrize("grid,arch", COUNT_CASES,
+                         ids=[f"{grid_id(g)}-{a}" for g, a in COUNT_CASES])
 def test_dry_run_counts_the_collectives_and_arguments_of_a_real_run(grid, arch, grid_tmp):
     real = real_counts(grid, grid_tmp)
     for rank in range(math.prod(grid)):
@@ -470,23 +478,31 @@ def test_cp_seq_is_unsupported_and_kv_int8_runs(monkeypatch):
 
 
 def test_heads_the_model_ranks_do_not_split_are_unsupported():
-    """The real path keeps the model axis and raises in ``head_block``; the
-    dry run records such a cell as unsupported with that reason."""
+    """The attention's heads split over any number of model ranks, in
+    balanced blocks (yi-34b's 56, llama4's 40 and whisper's 8 over 16);
+    SSM heads must split evenly: the real path raises in
+    ``ssm.ssm_head_block`` and the dry run records such a cell as
+    unsupported with that reason (mamba2's 32 and zamba2's 80 over 3)."""
     with fake_world((16, 16), NAMES) as mesh:
         for arch, heads in (("yi-34b", 56), ("llama4-scout-17b-a16e", 40), ("whisper-base", 8),
-                            ("granite-3-2b", 0), ("zamba2-2.7b", 0), ("mamba2-370m", 0)):
+                            ("granite-3-2b", 32), ("zamba2-2.7b", 32), ("mamba2-370m", 0)):
             cfg = configs.get(arch)
             rules = make_rules(cfg, mesh)
             assert rules.model_axis == "model", arch
-            if not heads:
-                specs.check_heads(cfg, rules)
-                continue
-            with pytest.raises(ValueError, match=f"{heads} heads do not split over 16"):
-                attention.head_block(cfg.n_heads, rules)
-            rec = dryrun.cell_record(cfg, SHAPES["train_4k"], mesh, rank=0, device="cuda",
-                                      verbose=False)
+            specs.check_heads(cfg, rules)
+            if heads:
+                lo, hi = attention.head_block(cfg.n_heads, rules)
+                assert (lo, hi) == (0, -(-heads // 16)), arch
+    with fake_world((1, 3), NAMES) as mesh:
+        for arch, heads in (("mamba2-370m", 32), ("zamba2-2.7b", 80)):
+            cfg = configs.get(arch)
+            rules = make_rules(cfg, mesh)
+            with pytest.raises(ValueError, match=f"{heads} SSM heads do not split over 3"):
+                ssm.ssm_head_block(cfg, rules)
+            rec = dryrun.cell_record(cfg, SHAPES["decode_32k"], mesh, rank=0, device="cuda",
+                                     verbose=False)
             assert rec["status"] == "unsupported", arch
-            assert rec["reason"] == f"{heads} heads do not split over 16 model ranks"
+            assert rec["reason"] == f"{heads} SSM heads do not split over 3 model ranks"
 
 
 def test_cost_mode_extrapolates_to_the_full_depth(capsys):
