@@ -264,7 +264,25 @@ Phases, each printed on its own line:
     one-rank step in turn and holding its own pieces
     (``fsdp_and_one_rank``: no full leaf on the wire; at (2, 2)
     deepseek's one-rank run routes each batch shard alone,
-    ``moe_local_capacity``).
+    ``moe_local_capacity``). Context parallelism (the reference's
+    ``cp_seq``: ``with_context_parallel``, each model rank its block of
+    the sequence with every head) at ``CP_GRID`` = (1, 2):
+    ``[granite_prefill_cp]``, granite-3-2b at full width and depth in
+    float32, B = 2 prompts of 2048: its seconds, collectives by op and
+    their seconds, arguments and peak per rank, its last logits within
+    ``SHARD_TOL`` of the one-rank prefill's and its split-KV caches of the
+    tensor-parallel prefill's, then 8 greedy tokens under the plain rules
+    on its caches against the one-rank run's (``GAP_TOL`` rule);
+    ``[granite_train_cp]``, granite at full width cut to
+    ``CP_TRAIN_LAYERS`` layers through ``trainer.train``, 2 steps of 2 ×
+    2048, its losses within ``BF16_LOSS_ATOL`` of the one-rank run's;
+    ``[train_cp_hold]`` at (1, 2) and, under FSDP, at (2, 2): granite (2
+    layers), gemma3 (one group, its attention at full width: the window,
+    cut to 8; 32768 vocabulary rows, 3840 MLP columns), deepseek
+    (the prologue and 2 MoE groups) and whisper-base, float32, the loss,
+    gradients and one AdamW step within ``SHARD_TOL`` of one rank's
+    (``fsdp_and_one_rank(cp=True)``); ``[cp_jobs]``, their seconds
+    against ``CP_JOBS_S``.
 20. Sharded serving (``Engine(rules=)``, split-KV caches, the SSM's heads
     over ``model``; the decode kernel on each rank's heads) in the same
     sets of ranks. ``[granite_serve_tp]`` and ``[zamba2_serve_tp]``: the
@@ -322,7 +340,11 @@ Phases, each printed on its own line:
     to the counted ones; and ``[dryrun_production]``, yi-34b/decode_32k on
     the 16 x 16 mesh as rank 1 (q heads 4-7 of 56, across two GQA groups),
     traced in the same pool, and its record (``[dryrun_record]``, which
-    must be ``ok``). The phase's seconds stay under ``DRYRUN_HOLD_S``.
+    must be ``ok``); and rank 0 of ``[granite_prefill_cp]`` and
+    ``[granite_train_cp]``, built as ``REPRO_OPT=cp_seq`` builds them
+    (``cp_dry_record``; ``hold_cp_cells``: the collectives by op, the
+    argument bytes, the peak and the temporaries). The phase's seconds
+    stay under ``DRYRUN_HOLD_S``.
 23. ``[smoke_wall]``: the script's seconds so far. Then a
     ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them, the decode
@@ -395,7 +417,11 @@ from repro_torch.serve.lingam_engine import pack_bucket  # noqa: E402
 from repro_torch.data.synthetic import TokenStream  # noqa: E402
 from repro_torch.launch.train import preset_config  # noqa: E402
 from repro_torch.configs.shapes import SHAPES, ShapeSpec  # noqa: E402
-from repro_torch.dist.sharding import gather_over_model, with_fsdp  # noqa: E402
+from repro_torch.dist.sharding import (  # noqa: E402
+    gather_over_model,
+    with_context_parallel,
+    with_fsdp,
+)
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import specs as cell_specs  # noqa: E402
 from repro_torch.launch.mesh import fake_world, production_shape  # noqa: E402
@@ -3490,11 +3516,13 @@ def moe_local_capacity(shards: int):
     return ffn
 
 
-def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
+def fsdp_and_one_rank(cfg, batch_size: int, grid, cp: bool = False) -> dict:
     """[train_fsdp_hold]'s recipe on this rank, under the train cell's FSDP
     rules (``with_fsdp``) on a ``(data, model) = grid`` mesh, in float32:
     the FSDP loss and gradients (this rank's shards) and the same grid's
-    loss without FSDP. Then the one-rank run from the same weights and
+    loss without FSDP. With ``cp`` ([train_cp_hold]) the rules are the
+    ``cp_seq`` train cell's (``with_context_parallel``, then FSDP where data
+    > 1), and the loss without FSDP is not run. Then the one-rank run from the same weights and
     batch (a MoE config with data > 1 and model > 1 routes each batch
     shard alone there, ``moe_local_capacity``, as the sharded run does)
     and its ``adamw_update``, on each rank in turn (one full tree on the
@@ -3517,6 +3545,8 @@ def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
     dev = torch.device(RANK_DEVICE)
     mesh = make_local_mesh(*grid, device_type=RANK_DEVICE)
     plain = make_rules(cfg, mesh)
+    if cp:
+        plain = with_context_parallel(plain)
     rules = with_fsdp(plain)
     specs = lm.param_specs(cfg, rules)
     names, spec_leaves = [n for n, _ in tree_flatten_with_names(specs)], tree_leaves(specs)
@@ -3542,8 +3572,11 @@ def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
     torch.cuda.synchronize()
     out = {"loss": float(loss), "seconds": time.perf_counter() - t0,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    out["plain_loss"] = float(run(plain, batch)[0][0])  # its gradients are not averaged
+    if not cp:
+        out["plain_loss"] = float(run(plain, batch)[0][0])  # its gradients are not averaged
     local = grid[0] if (cfg.is_moe and grid[0] > 1 and grid[1] > 1) else 1
+    t_turns = time.perf_counter()
+    free()  # every rank's cached blocks back before one rank at a time runs the whole model
     for turn in range(dist.get_world_size()):
         if turn == rank:
             saved = moe.moe_ffn
@@ -3562,6 +3595,7 @@ def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
             del one_grads, one_params
             free()
         dist.barrier()
+    out["turns_s"] = time.perf_counter() - t_turns
 
     squares = torch.zeros((4, len(names)), dtype=torch.float64, device=dev)
     for i, (g, want) in enumerate(zip(grads, want_grads)):
@@ -3580,7 +3614,7 @@ def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
         squares[2, i], squares[3, i] = (p.double() - want).square().sum(), want.square().sum()
     dist.all_reduce(squares)
     if rank != 0:
-        return {"loss": out["loss"], "plain_loss": out["plain_loss"]}
+        return {"loss": out["loss"], "plain_loss": out.get("plain_loss")}
     ratios = (squares[[0, 2]] / squares[[1, 3]].clamp(min=1e-60)).sqrt().cpu()
     worst = [max(zip(r.tolist(), names)) for r in ratios]
     flips = sum(len(routing_differences(rs, xs, ro, xo, cfg.top_k))  # rank 0's batch shard:
@@ -3590,7 +3624,8 @@ def fsdp_and_one_rank(cfg, batch_size: int, grid) -> dict:
             "fsdp_leaves": sum(s != f for s, f in zip(tree_leaves(lm.param_specs(cfg)),
                                                       spec_leaves)),
             "params_m": sum(math.prod(s) for s in shapes) / 1e6, "local_capacity": local,
-            "routing_flips": flips, "rules": (rules.batch_axes, rules.model_axis)}
+            "routing_flips": flips, "rules": (rules.batch_axes, rules.model_axis),
+            "fsdp_axes": rules.fsdp_axes, "context_parallel": rules.context_parallel}
 
 
 def sharded_and_one_rank(cfg, batch_size: int, grid, with_step: bool, reorder: bool = False):
@@ -3784,6 +3819,217 @@ def rank_fsdp_train():
             "peak_gb": peak_gb, "beside": beside.stop(), "launched": counts(),
             "params_m": param_count(params) / 1e6, "by_op": at_step, "rank": dist.get_rank(),
             "arg_bytes": step_args.bytes, "fsdp_axes": rules.fsdp_axes}
+
+
+# ---------------------------------------------------------------------------
+# context parallelism (the reference's cp_seq: the sequence over the model ranks)
+# ---------------------------------------------------------------------------
+
+# The (data, model) grid of [granite_prefill_cp] and [granite_train_cp], and
+# their batch: CP_B prompts (sequences) of CP_SEQ tokens, each model rank
+# running CP_SEQ / 2 positions of every row with every head.
+CP_GRID, CP_B, CP_SEQ = (1, 2), 2, 2048
+# [granite_prefill_cp]: CP_NEW greedy tokens decoded after the prefill under
+# the plain tensor-parallel rules on its caches; the last logits and the
+# caches within SHARD_TOL of the norms of the one-rank prefill's and of the
+# tensor-parallel prefill's (the same split-KV layout) respectively; the
+# tokens against the one-rank run's by [granite_serve_tp]'s rule (equal, or
+# departing at a GAP_TOL near-tie of the one-rank logits).
+CP_NEW = 8
+# [granite_train_cp]: granite-3-2b at full width, CP_TRAIN_LAYERS of its 40
+# layers (None: all of them), [granite_train]'s optimizer, CP_TRAIN_STEPS
+# steps on TokenStream batches of CP_B x CP_SEQ, the losses within
+# BF16_LOSS_ATOL of the one-rank run's on the same batches. Cut to 4
+# layers: at full depth a step took 22.7 s over gloo on the one card, 91%
+# of it in 848 collectives, and the job 57.8 s of the new jobs' 150.
+CP_TRAIN_LAYERS, CP_TRAIN_STEPS = 4, 2
+# [train_cp_hold]: [train_fsdp_hold]'s recipe under the cp_seq train cell's
+# rules (FSDP where data > 1), float32, a batch of SHARD_B x TRAIN_SEQ, on
+# these configs (cp_hold_config) and grids: the loss, every gradient and
+# every parameter after one AdamW step within SHARD_TOL of the one-rank
+# leaf's norm. gemma3-12b runs one group of its layout with its attention
+# at full width (d_model, heads, head_dim), its window cut to
+# CP_HOLD_WINDOW (128 positions never reach its 1024: a window of 8 is
+# crossed by every block of 64 and of 32), its untied vocabulary to
+# CP_HOLD_VOCAB rows (at 262144 the group held 13.4 GB of float32 leaves
+# and took 59.0 s over gloo at (1, 2) alone) and its MLP to CP_HOLD_D_FF
+# columns: with its 15360 the two grids' gemma3 jobs took 26.2 and 42.0 s
+# (both held), which would bring the CP jobs to ~139 s of their 150.
+CP_HOLD_WINDOW, CP_HOLD_VOCAB, CP_HOLD_D_FF = 8, 32768, 3840
+CP_HOLD_ARCHS = ("granite-3-2b", "gemma3-12b", "deepseek-v2-lite-16b", "whisper-base")
+CP_HOLD_GRIDS = ((1, 2), (2, 2))
+# The context-parallel jobs and the seconds they may take together
+# (``[cp_jobs]`` prints their sum, rank 0's job seconds).
+CP_JOBS, CP_JOBS_S = ("prefill_cp", "train_cp", "cp_hold"), 150
+
+
+def cp_train_config():
+    """[granite_train_cp]'s config: granite-3-2b, cut to CP_TRAIN_LAYERS."""
+    cfg = configs.get("granite-3-2b")
+    return cfg if CP_TRAIN_LAYERS is None else cfg.with_overrides(n_layers=CP_TRAIN_LAYERS)
+
+
+def cp_hold_config(arch: str):
+    """[train_cp_hold]'s float32 config: granite-3-2b at full width cut to
+    ``SHARD_CUT`` layers, gemma3-12b at full width cut to one group of its
+    layout (5 layers of window ``CP_HOLD_WINDOW`` and a global one, so the
+    window is held across the blocks), ``CP_HOLD_VOCAB`` rows and
+    ``CP_HOLD_D_FF`` MLP columns,
+    deepseek-v2-lite-16b at full width cut to its prologue and
+    ``DEEPSEEK_CUT_GROUPS`` MoE groups, whisper-base whole."""
+    cfg = configs.get(arch)
+    if arch == "gemma3-12b":
+        return cfg.with_overrides(n_layers=cfg.local_global_ratio + 1, window=CP_HOLD_WINDOW,
+                                  vocab=CP_HOLD_VOCAB, d_ff=CP_HOLD_D_FF, dtype="float32")
+    layers = {"granite-3-2b": SHARD_CUT,
+              "deepseek-v2-lite-16b": cfg.first_dense_layers + DEEPSEEK_CUT_GROUPS,
+              "whisper-base": cfg.n_layers}[arch]
+    return cfg.with_overrides(n_layers=layers, dtype="float32")
+
+
+def rank_cp_hold(grid, arch):
+    """[train_cp_hold] on this rank (the result on rank 0)."""
+    cfg = cp_hold_config(arch)
+    return {**fsdp_and_one_rank(cfg, SHARD_B, grid, cp=True), "arch": arch,
+            "layers": cfg.n_layers}
+
+
+def greedy_steps(params, cfg, rules, caches, logits, start: int, new: int):
+    """``new`` greedy decode steps under ``rules`` from a prefill's caches
+    and last logits (the whole vocabulary): (the tokens (B, new), each
+    step's top-2 gap of the logits it picked from)."""
+    from repro_torch.dist.sharding import NO_SHARDING
+
+    toks, gaps = [], []
+    b = logits.shape[0]
+    for i in range(new):
+        top = torch.topk(logits[:, :cfg.vocab].double(), 2).values
+        gaps.append((top[:, 0] - top[:, 1]).cpu())
+        tok = torch.argmax(logits[:, :cfg.vocab], -1)
+        toks.append(tok)
+        pos = torch.full((b,), start + i, dtype=torch.int64, device=tok.device)
+        logits, caches = lm.decode_step(params, tok, caches, pos, cfg, rules)
+        if rules is not NO_SHARDING:
+            logits = gather_over_model(logits, 1, rules, cfg.vocab_padded)
+    return torch.stack(toks, 1).cpu().numpy(), torch.stack(gaps, 1).numpy()
+
+
+def rank_prefill_cp():
+    """[granite_prefill_cp] on this rank: granite-3-2b at full width and depth
+    in float32 from seed 0 at ``CP_GRID`` under the cp_seq rules, a prefill
+    of ``CP_B`` prompts of ``CP_SEQ`` tokens (every rank given them whole)
+    timed, its collectives counted by op and timed (``CollectiveClock``),
+    its argument bytes, its peak and the bytes held beside it (``Beside``);
+    the tensor-parallel prefill of the same prompts on the same shards, its
+    caches and logits beside the context-parallel ones (each rank's block);
+    ``CP_NEW`` greedy steps under the tensor-parallel rules from the
+    context-parallel caches; then on rank 0 the one-rank prefill and
+    greedy steps of the same prompts (the others wait)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import NO_SHARDING, make_rules, seq_block
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device(RANK_DEVICE)
+    cfg = configs.get("granite-3-2b")
+    tp_rules = make_rules(cfg, make_local_mesh(*CP_GRID, device_type=RANK_DEVICE))
+    rules = with_context_parallel(tp_rules)
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=tp_rules)
+    toks = torch.as_tensor(serve_prompts(cfg, b=CP_B, s=CP_SEQ), dtype=torch.int64, device=dev)
+    max_seq, vp = CP_SEQ + CP_NEW, cfg.vocab_padded
+    arg_bytes = dryrun.argument_bytes((params, toks))
+    clock = CollectiveClock(dist.get_backend())
+    beside = Beside(arg_bytes)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad(), clock:
+        (last, caches), prefill_s = timed(lambda: lm.prefill(params, toks, cfg, rules,
+                                                            max_seq=max_seq))
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    beside.stop()
+    with torch.no_grad():
+        (tp_last, tp_caches), tp_prefill_s = timed(lambda: lm.prefill(params, toks, cfg, tp_rules,
+                                                                      max_seq=max_seq))
+        tp_last = gather_over_model(tp_last, 1, tp_rules, vp)
+        names = [n for n, _ in tree_flatten_with_names(caches)]
+        cache_ratio = hold_leaves(tree_leaves(caches), tree_leaves(tp_caches), names)
+        tp_logit_ratio = hold_leaves([last[:, :cfg.vocab]], [tp_last[:, :cfg.vocab]], ["last"])[0]
+        del tp_caches
+        tokens, _ = greedy_steps(params, cfg, tp_rules, caches, last, CP_SEQ, CP_NEW)
+    out = {"prefill_s": prefill_s, "tp_prefill_s": tp_prefill_s, "peak_gb": peak_gb,
+           "beside": beside.bytes, "arg_bytes": arg_bytes, "by_op": clock.by_op(),
+           "launched": launched, "cache_ratio": cache_ratio, "tp_logit_ratio": tp_logit_ratio,
+           "tokens": tokens, "last": last[:, :cfg.vocab].cpu(), "rank": dist.get_rank(),
+           "seq_block": seq_block(CP_SEQ, rules), "params_m": param_count(params) / 1e6,
+           "cache_shape": tuple(tree_leaves(caches)[0].shape)}
+    del params, caches, last
+    free()
+    if dist.get_rank() == 0:
+        full = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            one_last, one_caches = lm.prefill(full, toks, cfg, NO_SHARDING, max_seq=max_seq)
+            out["one_logit_ratio"] = hold_leaves([out["last"].to(dev)],
+                                                 [one_last[:, :cfg.vocab]], ["last"])[0]
+            out["one_tokens"], out["one_gaps"] = greedy_steps(full, cfg, NO_SHARDING, one_caches,
+                                                              one_last, CP_SEQ, CP_NEW)
+        del full, one_caches, one_last
+        free()
+    dist.barrier()
+    return out
+
+
+def rank_train_cp():
+    """[granite_train_cp] on this rank: ``cp_train_config()`` through
+    ``trainer.train`` under the cp_seq train cell's rules at ``CP_GRID``
+    (``with_context_parallel``, then ``with_fsdp``, which adds no axis at
+    data 1), [granite_train]'s weights and optimizer on ``TokenStream``
+    batches of ``CP_B`` x ``CP_SEQ`` (every rank given the rows whole),
+    ``CP_TRAIN_STEPS`` steps: the losses, each step's seconds, the
+    collectives per step by op and their seconds (``CollectiveClock``), a
+    step's argument bytes (``StepArguments``), the peak and the bytes held
+    beside the run (``Beside``); then on rank 0 the one-rank run's losses on
+    the same batches (the others wait, their state dropped)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import NO_SHARDING, make_rules
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device(RANK_DEVICE)
+    cfg = cp_train_config()
+    mesh = make_local_mesh(*CP_GRID, device_type=RANK_DEVICE)
+    rules = with_fsdp(with_context_parallel(make_rules(cfg, mesh)))
+    specs = lm.param_specs(cfg, rules)
+    opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+    tcfg = TrainerConfig(total_steps=CP_TRAIN_STEPS, log_every=CP_TRAIN_STEPS, opt=opt)
+    batches = train_batches(cfg, dev, CP_B, CP_SEQ)
+    beside = Beside()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    params = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev, rules=rules)
+    clock = CollectiveClock(dist.get_backend())
+    at_step = []
+    with clock, StepArguments() as step_args:
+        params, _, history = train(
+            params, lambda p, b: lm.train_loss(p, b, cfg, rules), batches, tcfg,
+            hooks=[lambda step, p, m: at_step.append(clock.by_op())], param_specs=specs,
+            rules=rules)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out = {"losses": [h["loss"] for h in history], "dts": [h["dt"] for h in history],
+           "peak_gb": peak_gb, "beside": beside.stop(), "launched": counts(),
+           "params_m": param_count(params) / 1e6, "by_op": at_step, "rank": dist.get_rank(),
+           "arg_bytes": step_args.bytes, "layers": cfg.n_layers,
+           "context_parallel": rules.context_parallel, "fsdp_axes": rules.fsdp_axes}
+    del params
+    free()
+    if dist.get_rank() == 0:
+        full = lm.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+        _, _, one = train(full, lambda p, b: lm.train_loss(p, b, cfg, NO_SHARDING), batches, tcfg)
+        out["one_rank_losses"] = [h["loss"] for h in one]
+        del full
+        free()
+    dist.barrier()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4030,7 +4276,8 @@ def rank_ssd_device(inputs):
 RANK_JOBS = {"tp_train": rank_tp_train, "sharded_hold": rank_sharded_hold,
              "ep_hold": rank_ep_hold, "serve_hold": rank_serve_hold, "serve_tp": rank_serve_tp,
              "ssd_device": rank_ssd_device, "fsdp_hold": rank_fsdp_hold,
-             "fsdp_train": rank_fsdp_train}
+             "fsdp_train": rank_fsdp_train, "prefill_cp": rank_prefill_cp,
+             "train_cp": rank_train_cp, "cp_hold": rank_cp_hold}
 
 
 def report_granite_train_tp(gpu, grid, ranks, backend, cards, one_rank_losses):
@@ -4064,6 +4311,18 @@ def report_granite_train_tp(gpu, grid, ranks, backend, cards, one_rank_losses):
         job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
 
 
+def per_step_by_op(by_op: list) -> dict:
+    """op -> (calls, seconds) per step, from ``CollectiveClock.by_op()``
+    read at the end of each step: the steps after the first, averaged."""
+    first, last, steps = by_op[0], by_op[-1], len(by_op) - 1
+    return {op: ((n - first.get(op, (0, 0.0))[0]) // steps,
+                 (t - first.get(op, (0, 0.0))[1]) / steps) for op, (n, t) in last.items()}
+
+
+def by_op_text(by_op: dict) -> str:
+    return ";".join(f"{op}:{n}:{t:.4f}s" for op, (n, t) in sorted(by_op.items()))
+
+
 def report_granite_train_fsdp(gpu, ranks, backend, cards, one_rank_losses, tp_ranks):
     """[granite_train_fsdp]: held against ``[granite_train]``'s losses; the
     GB per rank beside ``[granite_train_tp]``'s."""
@@ -4079,9 +4338,7 @@ def report_granite_train_fsdp(gpu, ranks, backend, cards, one_rank_losses, tp_ra
     check(max(diffs) <= BF16_LOSS_ATOL, f"granite_train_fsdp: losses {losses} against one "
           f"rank's {one_rank_losses[:FSDP_STEPS]}")
     steady = sum(dts[1:]) / (len(dts) - 1)
-    first, last = r0["by_op"][0], r0["by_op"][-1]
-    per_step = {op: ((last[op][0] - first.get(op, (0, 0.0))[0]) // (len(dts) - 1),
-                     (last[op][1] - first.get(op, (0, 0.0))[1]) / (len(dts) - 1)) for op in last}
+    per_step = per_step_by_op(r0["by_op"])
     coll_s = sum(t for _, t in per_step.values())
     say("granite_train_fsdp", arch="granite-3-2b", preset="full",
         grid="x".join(map(str, FSDP_GRID)), fsdp_axes=",".join(r0["fsdp_axes"]),
@@ -4095,8 +4352,7 @@ def report_granite_train_fsdp(gpu, ranks, backend, cards, one_rank_losses, tp_ra
         tp_arg_gb_per_rank=",".join(f"{r['arg_bytes'] / 1e9:.3f}" for r in tp_ranks),
         collective_calls_per_step=sum(n for n, _ in per_step.values()),
         collective_s_per_step=f"{coll_s:.4f}", collective_share=f"{coll_s / steady:.3f}",
-        by_op_per_step=";".join(f"{op}:{n}:{t:.4f}s" for op, (n, t) in sorted(per_step.items())),
-        losses=",".join(f"{v:.4f}" for v in losses),
+        by_op_per_step=by_op_text(per_step), losses=",".join(f"{v:.4f}" for v in losses),
         one_rank_losses=",".join(f"{v:.4f}" for v in one_rank_losses[:FSDP_STEPS]),
         loss_max_abs_diff=f"{max(diffs):.3e}", allowed=BF16_LOSS_ATOL,
         job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
@@ -4166,6 +4422,121 @@ def report_train_sharded_hold(gpu, grid, ranks, backend, cards):
         adamw_max_abs_diff=f"{r0['param_max_abs_diff']:.3e}", adamw_rtol=OPT_RTOL,
         adamw_atol=OPT_ATOL, sharded_grads_s=f"{r0['seconds']:.3f}",
         peak_gb_rank0=f"{r0['peak_gb']:.3f}", job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
+
+
+def report_granite_prefill_cp(gpu, ranks, backend, cards):
+    """[granite_prefill_cp]: every rank's caches and last logits against the
+    tensor-parallel prefill's, rank 0's logits against the one-rank
+    prefill's, the tokens decoded from its caches against the one-rank
+    run's (equal, or departing at a ``GAP_TOL`` near-tie)."""
+    tag, r0 = "granite_prefill_cp", ranks[0]
+    for r in ranks:
+        check(not any(r["launched"].values()), f"{tag}: kernels launched {r['launched']}")
+        check(np.array_equal(r["tokens"], r0["tokens"]), f"{tag}: the ranks' tokens differ")
+        check(r["cache_ratio"][0] <= SHARD_TOL, f"{tag}: rank {r['rank']}'s caches "
+              f"{r['cache_ratio'][0]:.3e} ({r['cache_ratio'][1]}) of the tensor-parallel norm")
+        check(r["tp_logit_ratio"] <= SHARD_TOL,
+              f"{tag}: logits {r['tp_logit_ratio']:.3e} of the tensor-parallel prefill's norm")
+    check(r0["one_logit_ratio"] <= SHARD_TOL,
+          f"{tag}: logits {r0['one_logit_ratio']:.3e} of the one-rank prefill's norm")
+    out, want, gaps = r0["tokens"], r0["one_tokens"], r0["one_gaps"]
+    same = 0
+    for row in range(out.shape[0]):
+        if np.array_equal(out[row], want[row]):
+            same += 1
+            continue
+        k = int(np.flatnonzero(out[row] != want[row])[0])
+        gap = float(gaps[row, k])
+        say("token_departure", case=tag, row=row, step=k, sharded_token=int(out[row, k]),
+            one_rank_token=int(want[row, k]), one_rank_top2_gap=f"{gap:.3e}", allowed=GAP_TOL,
+            near_tie=gap <= GAP_TOL)
+        check(gap <= GAP_TOL, f"{tag}: sequence {row} departs from one rank's at step {k} "
+              "beyond a near-tie")
+    coll = r0["by_op"]
+    coll_s = sum(t for _, t in coll.values())
+    say(tag, arch="granite-3-2b", layers=configs.get("granite-3-2b").n_layers, dtype="float32",
+        grid="x".join(map(str, CP_GRID)), backend=backend, cards=cards, ranks=len(ranks),
+        context_parallel=True, batch=CP_B, prompt_len=CP_SEQ,
+        seq_blocks=",".join(f"{lo}-{hi}" for lo, hi in (r["seq_block"] for r in ranks)),
+        params_m_per_rank=f"{r0['params_m']:.1f}", kernel_launches=0,
+        prefill_s=f"{r0['prefill_s']:.4f}", tp_prefill_s=f"{r0['tp_prefill_s']:.4f}",
+        collectives=sum(n for n, _ in coll.values()), collective_s=f"{coll_s:.4f}",
+        collective_share=f"{coll_s / r0['prefill_s']:.3f}", by_op=by_op_text(coll),
+        arg_gb_per_rank=",".join(f"{r['arg_bytes'] / 1e9:.3f}" for r in ranks),
+        peak_gb_per_rank=",".join(f"{r['peak_gb']:.3f}" for r in ranks),
+        cache_shape_per_rank="x".join(map(str, r0["cache_shape"])),
+        cache_norm_ratio_max=f"{max(r['cache_ratio'][0] for r in ranks):.3e}",
+        tp_logit_norm_ratio=f"{max(r['tp_logit_ratio'] for r in ranks):.3e}",
+        one_rank_logit_norm_ratio=f"{r0['one_logit_ratio']:.3e}", allowed=SHARD_TOL,
+        new_tokens=CP_NEW, decoded_under="tensor-parallel rules",
+        rows_equal_to_one_rank=f"{same}/{out.shape[0]}", sample=",".join(map(str, out[0])),
+        job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
+
+
+def report_granite_train_cp(gpu, ranks, backend, cards):
+    """[granite_train_cp]: held against the one-rank run's losses on the
+    same batches."""
+    tag, r0 = "granite_train_cp", ranks[0]
+    for r in ranks:
+        check(not any(r["launched"].values()), f"{tag}: kernels launched {r['launched']}")
+        check(r["losses"] == r0["losses"], f"{tag}: the ranks' losses differ")
+    losses, want, dts = r0["losses"], r0["one_rank_losses"], r0["dts"]
+    check(len(losses) == CP_TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"{tag}: losses {losses}")
+    diffs = [abs(a - b) for a, b in zip(losses, want)]
+    check(max(diffs) <= BF16_LOSS_ATOL, f"{tag}: losses {losses} against one rank's {want}")
+    steady = sum(dts[1:]) / (len(dts) - 1)
+    per_step = per_step_by_op(r0["by_op"])
+    coll_s = sum(t for _, t in per_step.values())
+    full = configs.get("granite-3-2b")
+    say(tag, arch=full.name, preset="full",
+        reduced=(f"n_layers {full.n_layers}->{r0['layers']}" if r0["layers"] != full.n_layers
+                 else "none"), grid="x".join(map(str, CP_GRID)), backend=backend, cards=cards,
+        ranks=len(ranks), context_parallel=r0["context_parallel"],
+        fsdp_axes=",".join(r0["fsdp_axes"]) or "none", params_m_per_rank=f"{r0['params_m']:.1f}",
+        batch=CP_B, seq=CP_SEQ, steps=CP_TRAIN_STEPS, kernel_launches=0,
+        first_step_s=f"{dts[0]:.4f}", step_s=",".join(f"{d:.4f}" for d in dts[1:]),
+        tok_per_s=f"{CP_B * CP_SEQ / steady:.1f}",
+        arg_gb_per_rank=",".join(f"{r['arg_bytes'] / 1e9:.3f}" for r in ranks),
+        peak_gb_per_rank=",".join(f"{r['peak_gb']:.3f}" for r in ranks),
+        collective_calls_per_step=sum(n for n, _ in per_step.values()),
+        collective_s_per_step=f"{coll_s:.4f}", collective_share=f"{coll_s / steady:.3f}",
+        by_op_per_step=by_op_text(per_step), losses=",".join(f"{v:.4f}" for v in losses),
+        one_rank_losses=",".join(f"{v:.4f}" for v in want),
+        loss_max_abs_diff=f"{max(diffs):.3e}", allowed=BF16_LOSS_ATOL,
+        job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
+
+
+def report_train_cp_hold(gpu, grid, ranks, backend, cards):
+    """[train_cp_hold] at ``grid``: against the one-rank run on the card."""
+    r0 = ranks[0]
+    arch = r0["arch"]
+    tag = f"train_cp_hold {arch} {grid}"
+    check(all(r["loss"] == r0["loss"] for r in ranks), f"{tag}: the ranks' losses differ")
+    check(r0["context_parallel"], f"{tag}: not under context parallelism")
+    dloss = abs(r0["loss"] - r0["one_loss"]) / abs(r0["one_loss"])
+    g_ratio, g_leaf = r0["grad_ratio"]
+    p_ratio, p_leaf = r0["param_ratio"]
+    check(dloss <= SHARD_TOL, f"{tag}: loss {r0['loss']} against one rank's {r0['one_loss']}")
+    check(g_ratio <= SHARD_TOL, f"{tag}: gradient of {g_leaf} {g_ratio:.3e} of its norm")
+    check(p_ratio <= SHARD_TOL, f"{tag}: parameter {p_leaf} {p_ratio:.3e} of its norm")
+    check((r0["fsdp_leaves"] > 0) == (grid[0] > 1) and r0["moments_sliced"] == 0,
+          f"{tag}: {r0['fsdp_leaves']} FSDP leaves, {r0['moments_sliced']} ZeRO-1 slices")
+    full, cfg = configs.get(arch), cp_hold_config(arch)
+    reduced = "".join(f"{f} {getattr(full, f)}->{getattr(cfg, f)}, "
+                      for f in ("n_layers", "d_model", "d_ff", "window", "vocab")
+                      if getattr(cfg, f) != getattr(full, f)) + f"batch {TRAIN_B}->{SHARD_B}"
+    say("train_cp_hold", arch=full.name, reduced=reduced, grid="x".join(map(str, grid)),
+        backend=backend, cards=cards, rules=r0["rules"], context_parallel=True,
+        fsdp_axes=",".join(r0["fsdp_axes"]) or "none", fsdp_leaves=r0["fsdp_leaves"],
+        params_m=f"{r0['params_m']:.1f}", seq=TRAIN_SEQ, dtype="float32",
+        loss=f"{r0['loss']:.6f}", one_rank_loss=f"{r0['one_loss']:.6f}",
+        loss_rel_diff=f"{dloss:.3e}", grad_norm_ratio_max=f"{g_ratio:.3e}",
+        grad_worst_leaf=g_leaf, param_norm_ratio_max=f"{p_ratio:.3e}", param_worst_leaf=p_leaf,
+        allowed=SHARD_TOL, leaves=r0["leaves"], one_rank_local_capacity=r0["local_capacity"],
+        routing_flips=r0["routing_flips"], sharded_grads_s=f"{r0['seconds']:.3f}",
+        one_rank_turns_s=f"{r0['turns_s']:.3f}", peak_gb_rank0=f"{r0['peak_gb']:.3f}",
+        job_s=f"{r0['job_s']:.1f}", gpu=f"'{gpu}'")
 
 
 def report_deepseek_ep_hold(gpu, grid, ranks, backend, cards):
@@ -4346,6 +4717,9 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
         plan[grid] += [("fsdp_hold", {"grid": grid, "arch": a}) for a in FSDP_HOLD_ARCHS]
     for grid in SHARD_GRIDS:
         plan[grid].append(("serve_hold", {"grid": grid}))
+    plan[CP_GRID] += [("prefill_cp", {}), ("train_cp", {})]
+    for grid in CP_HOLD_GRIDS:
+        plan[grid] += [("cp_hold", {"grid": grid, "arch": a}) for a in CP_HOLD_ARCHS]
     plan[UNEVEN_GRID] = [("serve_tp", {"arch": a, "grid": UNEVEN_GRID})
                          for a in UNEVEN_SERVE.values()]
     plan[UNEVEN_GRID] += [("sharded_hold", {"grid": UNEVEN_GRID, "arch": a})
@@ -4353,7 +4727,7 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
     worlds: dict = {}
     for grid, jobs in plan.items():
         worlds.setdefault(math.prod(grid), []).extend((grid, job, kw) for job, kw in jobs)
-    zamba2, held = None, {}
+    zamba2, held, cp_s = None, {}, 0.0
     for world, planned in worlds.items():
         jobs = [(job, kw) for _, job, kw in planned]
         t0 = time.perf_counter()
@@ -4365,6 +4739,8 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
             say("gloo_cuda_probe", **probes[0], ranks=len(ranks), gpu=f"'{gpu}'")
         for i, (grid, job, kwargs) in enumerate(planned, 1):
             results = [r[i] for r in ranks]
+            if job in CP_JOBS:
+                cp_s += results[0]["job_s"]
             if job == "tp_train":
                 report_granite_train_tp(gpu, grid, results, backend, cards, one_rank_losses)
                 held["granite_train_tp"] = results
@@ -4383,6 +4759,14 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
                 report_granite_train_fsdp(gpu, results, backend, cards, one_rank_losses,
                                           held["granite_train_tp"])
                 held["granite_train_fsdp"] = results
+            elif job == "prefill_cp":
+                report_granite_prefill_cp(gpu, results, backend, cards)
+                held["granite_prefill_cp"] = results
+            elif job == "train_cp":
+                report_granite_train_cp(gpu, results, backend, cards)
+                held["granite_train_cp"] = results
+            elif job == "cp_hold":
+                report_train_cp_hold(gpu, grid, results, backend, cards)
             else:
                 report_serve_hold(gpu, grid, results, backend, cards)
         grids = dict.fromkeys(grid for grid, _, _ in planned)
@@ -4390,6 +4774,8 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
             ranks=len(ranks), backend=backend, cards=cards,
             jobs=",".join(job for _, job, _ in planned), phase_s=f"{seconds:.1f}",
             elapsed_s=f"{time.perf_counter() - t_start:.1f}", gpu=f"'{gpu}'")
+    say("cp_jobs", jobs=",".join(CP_JOBS), seconds=f"{cp_s:.1f}", budget_s=CP_JOBS_S,
+        within=cp_s <= CP_JOBS_S, gpu=f"'{gpu}'")
     args = [a.to(dev) for a in zamba2["ssd_inputs"]]
     err = hold_ssd("zamba2_tp_rank0_layer0", args)
     return (zamba2["launched"]["ssd_decode"], err, ssd_times(args, rate, gpu, profile=False),
@@ -4717,6 +5103,8 @@ UNEVEN_TRACED_RANKS = (0, 2)
 # The processes that trace the held cells (the card's machine has 8 cores;
 # the main process waits meanwhile).
 DRYRUN_WORKERS = 7
+# The context-parallel cells held: rank 0 of each (``cp_dry_record``).
+CP_HELD = ("granite_prefill_cp", "granite_train_cp")
 # [granite_train_fsdp]'s ranks traced and held: rank 0 alone, to keep the
 # phase inside DRYRUN_HOLD_S (its cell traces ~12 s; the two data ranks of
 # (2, 1) hold cells of the same shapes).
@@ -4757,6 +5145,8 @@ def dry_task(task) -> dict:
             rec = dryrun.cell_record(configs.get(arch), SHAPES[shape], mesh, rank=rank,
                                      device="cuda", verbose=False)
         return {**rec, "record_s": time.perf_counter() - t0}
+    if tag in CP_HELD:
+        return cp_dry_record(tag)
     if tag.startswith("granite_train"):
         opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
         grid = {"granite_train": None, "granite_train_tp": HELD_GRID,
@@ -4774,13 +5164,35 @@ def dry_task(task) -> dict:
                       then=logits_gathered(cfg32))
 
 
+def cp_dry_record(tag: str) -> dict:
+    """The record of ``[granite_prefill_cp]``'s or ``[granite_train_cp]``'s
+    cell, built as ``REPRO_OPT=cp_seq`` builds it (``make_cell``), rank 0
+    of ``CP_GRID``."""
+    saved = os.environ.get("REPRO_OPT")
+    os.environ["REPRO_OPT"] = "cp_seq"
+    try:
+        if tag == "granite_prefill_cp":
+            cfg = configs.get("granite-3-2b").with_overrides(dtype="float32")
+            return dry_record(cfg, ShapeSpec("prefill", "prefill", CP_SEQ, CP_B), CP_GRID,
+                              max_seq=CP_SEQ + CP_NEW)
+        opt = OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=TRAIN_STEPS)
+        return dry_record(cp_train_config(), ShapeSpec("train", "train", CP_SEQ, CP_B),
+                          CP_GRID, opt_cfg=opt, accum_steps=1)
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_OPT", None)
+        else:
+            os.environ["REPRO_OPT"] = saved
+
+
 def dryrun_predictions() -> dict:
     """The dry run of every cell ``[dryrun_hold]`` holds, at the shapes and
     meshes the phases ran them (each rank of a grid as itself), on the
     card's path; traced in ``DRYRUN_WORKERS`` spawned processes (one CPU
     thread each, a fake process group each), the longest cells first."""
-    tasks = [("granite_train", 0, "train"), ("granite_train_fsdp", 0, "train"),
-             ("production", PRODUCTION_RANK, "production")]
+    tasks = [("granite_train_cp", 0, "train"), ("granite_train", 0, "train"),
+             ("granite_train_fsdp", 0, "train"), ("production", PRODUCTION_RANK, "production"),
+             ("granite_prefill_cp", 0, "prefill")]
     tasks += [("granite_train_tp", r, "train") for r in range(2)]
     tasks += [(tag, r, kind) for tag in SERVE_TP_ARCHS for r in range(2)
               for kind in ("prefill", "decode")]
@@ -4791,7 +5203,9 @@ def dryrun_predictions() -> dict:
     out = {"granite_train": recs["granite_train", 0, "train"],
            "granite_train_tp": [recs["granite_train_tp", r, "train"] for r in range(2)],
            "granite_train_fsdp": [recs["granite_train_fsdp", 0, "train"]],
-           "production": recs["production", PRODUCTION_RANK, "production"]}
+           "production": recs["production", PRODUCTION_RANK, "production"],
+           "granite_prefill_cp": recs["granite_prefill_cp", 0, "prefill"],
+           "granite_train_cp": recs["granite_train_cp", 0, "train"]}
     for tag in SERVE_TP_ARCHS:
         out[tag] = [{kind: recs[tag, r, kind] for kind in ("prefill", "decode")}
                     for r in range(2)]
@@ -4838,6 +5252,25 @@ class Holds:
         check(not self.misses, "dryrun_hold: " + "; ".join(self.misses))
 
 
+def hold_cp_cells(holds, pred, sharded):
+    """The context-parallel cells' pairs: rank 0's record of each
+    ``CP_HELD`` cell against its job's measurements (``sharded[tag]``):
+    ``context_parallel``, the collectives per step by op and the argument
+    bytes exactly, the peak within ``PEAK_TOL``, the temporaries within
+    ``TEMP_TOL``."""
+    for tag in CP_HELD:
+        r, rec = sharded[tag][0], pred[tag]
+        by_op = r["by_op"] if tag == "granite_prefill_cp" else per_step_by_op(r["by_op"])
+        holds.exact(tag, r["rank"], "context_parallel", rec.get("context_parallel"), True)
+        holds.exact(tag, r["rank"], "collectives_per_step_by_op",
+                    {op: a["count"] for op, a in sorted(rec["collectives"]["by_op"].items())},
+                    {op: n for op, (n, _) in sorted(by_op.items())})
+        holds.exact(tag, r["rank"], "argument_bytes", rec["memory"]["argument_size_in_bytes"],
+                    r["arg_bytes"])
+        holds.peak(tag, r["rank"], rec["peak_bytes"], r["peak_gb"])
+        holds.temp(tag, r["rank"], rec, r["peak_gb"], r["arg_bytes"], r["beside"])
+
+
 def phase_dryrun_hold(gpu, train_held, sharded):
     """[dryrun_hold], after the last timed phase: the dry run
     (``dryrun_predictions``: each cell traced on fake tensors over a fake
@@ -4874,9 +5307,8 @@ def phase_dryrun_hold(gpu, train_held, sharded):
         holds.temp("granite_train_tp", r["rank"], rec, r["peak_gb"], r["arg_bytes"],
                    r["beside"])
     for r in sharded["granite_train_fsdp"][:FSDP_TRACED_RANKS]:
-        rec, first, last = pred["granite_train_fsdp"][r["rank"]], r["by_op"][0], r["by_op"][-1]
-        steps = len(r["by_op"]) - 1
-        measured = {op: (n - first.get(op, (0, 0.0))[0]) // steps for op, (n, _) in last.items()}
+        rec = pred["granite_train_fsdp"][r["rank"]]
+        measured = {op: n for op, (n, _) in per_step_by_op(r["by_op"]).items()}
         holds.exact("granite_train_fsdp", r["rank"], "fsdp_axes", rec["fsdp_axes"],
                     list(r["fsdp_axes"]))
         holds.exact("granite_train_fsdp", r["rank"], "collectives_per_step_by_op",
@@ -4887,6 +5319,7 @@ def phase_dryrun_hold(gpu, train_held, sharded):
         holds.peak("granite_train_fsdp", r["rank"], rec["peak_bytes"], r["peak_gb"])
         holds.temp("granite_train_fsdp", r["rank"], rec, r["peak_gb"], r["arg_bytes"],
                    r["beside"])
+    hold_cp_cells(holds, pred, sharded)
     serve_held = [(tag, r, pred[tag][r["rank"]]) for tag in SERVE_TP_ARCHS for r in sharded[tag]]
     serve_held += [(tag, r, pred[tag][r["rank"]]) for tag in UNEVEN_HELD for r in sharded[tag]
                    if r["rank"] in UNEVEN_TRACED_RANKS]
@@ -4918,6 +5351,7 @@ def phase_dryrun_hold(gpu, train_held, sharded):
     print("[dryrun_record] " + json.dumps(prod, sort_keys=True), flush=True)
     check(prod["status"] == "ok", f"dryrun_production: {prod['cell']} {prod['status']}")
     held = [pred["granite_train"], *pred["granite_train_tp"], *pred["granite_train_fsdp"],
+            *(pred[tag] for tag in CP_HELD),
             *(rec for _, _, cells in serve_held for rec in cells.values())]
     phase_s = time.perf_counter() - t0
     say("dryrun_hold_phase", phase_s=f"{phase_s:.1f}", allowed_s=DRYRUN_HOLD_S,

@@ -62,11 +62,32 @@ layer that reads it runs (``gather_at_use``): the shard is cast to the
 compute dtype and all-gathered over ``data``; the backward reduce-scatters
 the gradient in float32 and hands this rank's slice to the master.
 
+Context parallelism (``context_parallel=True, shard_heads=False``, the
+reference's ``REPRO_OPT=cp_seq`` train and prefill cells): the model ranks
+cut the sequence instead of the heads. Each model rank runs the contiguous
+block ``seq_block`` of S/M positions of its batch rows, with every head,
+every MLP column and the whole vocabulary for them. The parameters keep
+their specs and shards; a layer gathers each leaf whose spec names
+``model`` where it runs (``gather_at_use`` with the leaves' specs: one
+``all_gather`` over ``model``, uneven ``Blocks`` padded and trimmed), and
+the backward reduce-scatters its float32 gradient (the sum of the model
+ranks' contributions, this rank's block of it). Attention all-gathers K
+and V along the sequence (``gather_seq``, whose backward reduce-scatters
+their gradients); MoE gathers the tokens the same way and reduce-scatters
+its partial outputs (``scatter_seq``, whose backward all-gathers). Every
+rank's loss is its block's mean, averaged over ``model`` as over the batch
+ranks (``mean_over_model``), and ``average_over_batch_`` then sums what each
+rank differentiated: a leaf whose spec names ``model`` arrives summed and
+is divided by M, a leaf replicated over ``model`` is averaged over it.
+
 The explicit path supports the reference's defaults under a model axis
-(``shard_heads=True``, ``context_parallel=False``), with or without FSDP:
-``check_explicit`` refuses the other two settings. Collectives never run
-over a dimension of size 1. ``NO_SHARDING`` (no mesh) turns every helper
-into the identity, so the same model code runs on one device.
+(``shard_heads=True``, ``context_parallel=False``) and its context
+parallelism (``context_parallel=True`` with ``shard_heads=False``), each
+with or without FSDP: ``check_explicit`` refuses ``shard_heads=False``
+alone and ``context_parallel=True`` with ``shard_heads=True``, which the
+reference never builds. Collectives never run over a dimension of size 1.
+``NO_SHARDING`` (no mesh) turns every helper into the identity, so the
+same model code runs on one device.
 """
 
 from __future__ import annotations
@@ -213,16 +234,63 @@ def make_rules(cfg, mesh, batch_axes: tuple | None = None) -> ShardingRules:
 
 
 def check_explicit(rules: ShardingRules):
-    """Refuse what the explicit path does not do: under a model axis only
-    the reference's defaults (heads sharded, no context parallelism), with
-    or without FSDP (``fsdp_axes``)."""
+    """Refuse what the explicit path does not do: under a model axis the
+    heads sharded without context parallelism (the reference's defaults),
+    or the sequence sharded with the heads whole (``context_parallel=True,
+    shard_heads=False``, its ``cp_seq``), each with or without FSDP
+    (``fsdp_axes``)."""
     if rules.model_axis is None:
         return
-    if not rules.shard_heads or rules.context_parallel:
+    if rules.shard_heads == rules.context_parallel:
         raise NotImplementedError(
-            "the explicit tensor-parallel path shards heads over the model dimension only: "
-            f"shard_heads={rules.shard_heads}, context_parallel={rules.context_parallel} "
-            "are not supported")
+            "the explicit tensor-parallel path shards either the heads or the sequence over "
+            f"the model dimension: shard_heads={rules.shard_heads}, "
+            f"context_parallel={rules.context_parallel} are not supported")
+
+
+def with_context_parallel(rules: ShardingRules) -> ShardingRules:
+    """``rules`` with the reference's ``cp_seq`` pair
+    (``launch/specs.py:72-82`` there): the sequence over the model ranks,
+    the heads whole."""
+    return replace(rules, context_parallel=True, shard_heads=False)
+
+
+def context_parallel(rules: ShardingRules) -> bool:
+    """Whether the model ranks cut the sequence (``context_parallel`` under
+    a model axis)."""
+    return rules.context_parallel and rules.model_axis is not None
+
+
+def decode_rules(rules: ShardingRules) -> ShardingRules:
+    """The rules a decode step runs under: tensor parallelism's where
+    ``rules`` cut the sequence (the reference never sets ``cp_seq`` on a
+    decode cell), ``rules`` themselves otherwise."""
+    if not rules.context_parallel:
+        return rules
+    return replace(rules, context_parallel=False, shard_heads=True)
+
+
+def local_rules(rules: ShardingRules) -> ShardingRules:
+    """The rules a context-parallel rank runs the weight-parallel parts of
+    a layer under, once its weights are gathered whole: no model axis (the
+    batch axes as they are). ``rules`` themselves otherwise."""
+    if not context_parallel(rules):
+        return rules
+    return replace(decode_rules(rules), model_axis=None)
+
+
+def seq_block(s: int, rules: ShardingRules) -> tuple[int, int]:
+    """``(lo, hi)``: this rank's block ``[r·S/M, (r+1)·S/M)`` of a sequence
+    of ``s`` positions under context parallelism (all of it otherwise).
+    Raises where the model ranks do not divide ``s`` (``make_cell``'s gate,
+    as the reference's)."""
+    if not context_parallel(rules):
+        return 0, s
+    m = rules.model_size
+    if s % m:
+        raise ValueError(f"a sequence of {s} positions does not split over {m} model ranks")
+    r = model_index(rules)
+    return r * (s // m), (r + 1) * (s // m)
 
 
 # ---------------------------------------------------------------------------
@@ -448,18 +516,19 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-class _MeanOverBatch(torch.autograd.Function):
-    """Mean over the batch dimensions forward; the identity backward (each
-    batch rank differentiates its own part, and the trainer averages the
-    gradients)."""
+class _MeanOver(torch.autograd.Function):
+    """Mean over the ranks of the mesh dimensions ``axes`` forward; the
+    identity backward (each rank differentiates its own part, and the
+    trainer averages the gradients)."""
 
     @staticmethod
-    def forward(ctx, x, rules):
-        return _all_reduce(x, rules.batch_axes, rules) / rules.batch_shards
+    def forward(ctx, x, axes, rules):
+        count = math.prod(mesh_sizes(rules.mesh).get(a, 1) for a in axes)
+        return _all_reduce(x, axes, rules) / count
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _GatherBatch(torch.autograd.Function):
@@ -542,7 +611,16 @@ def mean_over_batch(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
     """The mean over the batch ranks (the identity without batch axes)."""
     if rules.batch_shards == 1:
         return x
-    return _MeanOverBatch.apply(x, rules)
+    return _MeanOver.apply(x, tuple(rules.batch_axes), rules)
+
+
+def mean_over_model(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
+    """The mean over the model ranks under context parallelism, where each
+    holds its block's value (the loss); the identity backward, as
+    ``mean_over_batch``'s. The identity otherwise."""
+    if not context_parallel(rules):
+        return x
+    return _MeanOver.apply(x, (rules.model_axis,), rules)
 
 
 def gather_batch(x: torch.Tensor, rules: ShardingRules) -> torch.Tensor:
@@ -584,15 +662,29 @@ def average_over_batch_(tensors: list, rules: ShardingRules, specs=None):
     reduce-scatter of ``gather_at_use``'s backward): it is divided by
     their count and averaged over the other batch dimensions only (over
     none when the batch is replicated, ``batch_rows``, where every data
-    rank summed the same gradient)."""
+    rank summed the same gradient). Under context parallelism (``specs``
+    required) the model ranks count as batch ranks: a leaf whose spec
+    names ``model`` holds the sum over them already (the reduce-scatter
+    of its gather at use, or MoE's experts, whose outputs every model
+    rank's loss reads) and is divided by M; any other leaf is averaged
+    over ``model`` too."""
+    cp = context_parallel(rules)
+    if cp and specs is None:
+        raise ValueError("context parallelism averages the gradients by their specs")
     cuts = fsdp_cuts(specs, rules) if specs is not None else [None] * len(tensors)
+    spec_list = tree_leaves(specs) if cp else [None] * len(tensors)
     sizes = mesh_sizes(rules.mesh)
     groups: dict = {}
-    for t, cut in zip(tensors, cuts):
+    for t, cut, spec in zip(tensors, cuts, spec_list):
         names = _active(rules, cut[1]) if cut is not None else ()
-        if names:
-            t.div_(math.prod(sizes[n] for n in names))
+        div = math.prod(sizes[n] for n in names)
         rest = tuple(a for a in rules.batch_axes if a not in names)
+        if cp and spec_uses(spec, rules.model_axis):
+            div *= rules.model_size
+        elif cp:
+            rest += (rules.model_axis,)
+        if div > 1:
+            t.div_(div)
         groups.setdefault(rest, []).append(t)
     for axes, group in groups.items():
         _average_(group, axes, rules)
@@ -724,19 +816,138 @@ class _GatherAtUse(torch.autograd.Function):
         return _reduce_scatter(g, ctx.dim, ctx.entry, ctx.rules), None, None, None, None
 
 
-def gather_at_use(tree, rules: ShardingRules):
-    """``tree`` with each ``FsdpShard`` leaf gathered whole (a collective
-    on every rank of its data dimensions, in the order the model reads its
-    layers), the other leaves as they are; ``tree`` itself without FSDP."""
-    if not rules.fsdp_axes or tree is None:
+def gather_at_use(tree, rules: ShardingRules, specs=None):
+    """``tree`` with each ``FsdpShard`` leaf gathered whole over its data
+    dimensions, and under context parallelism each leaf whose spec in
+    ``specs`` (a tree of ``tree``'s structure) names ``model`` gathered
+    over ``model`` after that (``gather_model``): collectives on every rank
+    of those dimensions, in the order the model reads its layers. The other
+    leaves as they are; ``tree`` itself without FSDP or context
+    parallelism."""
+    cp = context_parallel(rules) and specs is not None
+    if tree is None or not (rules.fsdp_axes or cp):
         return tree
 
-    def one(x):
+    def one(x, spec=None):
         if isinstance(x, FsdpShard):
-            return _GatherAtUse.apply(x.shard, x.dim, x.entry, x.dtype, rules)
-        return x
+            x = _GatherAtUse.apply(x.shard, x.dim, x.entry, x.dtype, rules)
+        return gather_model(x, spec, rules) if cp else x
 
-    return tree_map(one, tree)
+    return tree_map(one, tree, specs) if cp else tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# context parallelism: the sequence over the model ranks
+# ---------------------------------------------------------------------------
+
+
+def _reduce_scatter_dim(g: torch.Tensor, dim: int, name: str, rules: ShardingRules,
+                        lengths: list | None = None, dtype=torch.float32) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``g`` over the ranks
+    of the mesh dimension ``name``, summed in ``dtype``: blocks of
+    ``lengths`` (each rank's, in rank order; padded to the largest and
+    trimmed after), else equal ones. The blocks are stacked into one
+    buffer, handed whole to ``reduce_scatter_tensor`` (a list of blocks
+    would be copied into such a buffer by the backend, out of sight of
+    the dry run's count of live bytes)."""
+    group = rules.mesh.get_group(name)
+    world = dist.get_world_size(group)
+    parts = list(g.split(lengths, dim)) if lengths else list(g.chunk(world, dim))
+    top = max(p.shape[dim] for p in parts)
+    if any(p.shape[dim] < top for p in parts):
+        pads = [list(p.shape) for p in parts]
+        for shape in pads:
+            shape[dim] = top - shape[dim]
+        parts = [torch.cat([p, p.new_zeros(pad)], dim) if pad[dim] else p
+                 for p, pad in zip(parts, pads)]
+    stacked = g.new_empty((world, *parts[0].shape), dtype=dtype)
+    for block, p in zip(stacked, parts):
+        block.copy_(p)
+    out = stacked.new_empty(stacked.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), stacked.view(-1), group=group)
+    mine = lengths[coordinate(rules)[name]] if lengths else top
+    return out if mine == top else out.narrow(dim, 0, mine)
+
+
+class _GatherModel(torch.autograd.Function):
+    """A leaf's model shard all-gathered whole along ``dim`` (blocks of
+    ``lengths``, uneven ones padded and trimmed); the backward
+    reduce-scatters the gradient in float32: the sum over the model ranks'
+    uses, this rank's block."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, lengths, rules):
+        ctx.dim, ctx.lengths, ctx.rules = dim, lengths, rules
+        return _all_gather(shard, dim, rules.model_axis, rules, lengths)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.rules
+        return _reduce_scatter_dim(g, ctx.dim, r.model_axis, r, ctx.lengths), None, None, None
+
+
+def gather_model(x: torch.Tensor, spec, rules: ShardingRules) -> torch.Tensor:
+    """The whole leaf from this rank's shard ``x`` cut over ``model`` by
+    ``spec`` (its ``Blocks`` entry's block sizes, or equal blocks), with
+    autograd (``_GatherModel``); ``x`` itself where ``spec`` does not cut
+    it over the model axis."""
+    for dim, entry in enumerate(spec or ()):
+        if rules.model_axis in _active(rules, entry):
+            lengths = None
+            if isinstance(entry, Blocks):
+                lengths = [n * entry.width for n in block_sizes(entry.count, rules.model_size)]
+            return _GatherModel.apply(x, dim, lengths, rules)
+    return x
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The model ranks' blocks of ``x`` along ``dim`` (the sequence)
+    all-gathered in rank order; the backward reduce-scatters the gradient
+    (the sum of every rank's, in float32), this rank's block in ``x``'s
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rules):
+        ctx.dim, ctx.rules, ctx.dtype = dim, rules, x.dtype
+        return _all_gather(x, dim, rules.model_axis, rules)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.rules
+        return _reduce_scatter_dim(g, ctx.dim, r.model_axis, r).to(ctx.dtype), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """The sum over the model ranks of ``x``, this rank's block along
+    ``dim`` (the sequence), summed in ``x``'s dtype; the backward
+    all-gathers the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rules):
+        ctx.dim, ctx.rules = dim, rules
+        return _reduce_scatter_dim(x, dim, rules.model_axis, rules, dtype=x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.rules.model_axis, ctx.rules), None, None
+
+
+def gather_seq(x: torch.Tensor, dim: int, rules: ShardingRules) -> torch.Tensor:
+    """Every model rank's block of the sequence along ``dim``, in order (K,
+    V, MLA's latent, MoE's tokens); the identity without context
+    parallelism."""
+    if not context_parallel(rules):
+        return x
+    return _GatherSeq.apply(x, dim, rules)
+
+
+def scatter_seq(x: torch.Tensor, dim: int, rules: ShardingRules) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of the model ranks'
+    partial ``x`` over the whole sequence (MoE's output); the identity
+    without context parallelism."""
+    if not context_parallel(rules):
+        return x
+    return _ScatterSeq.apply(x, dim, rules)
 
 
 def shard_axes(spec, rules: ShardingRules) -> tuple:

@@ -19,7 +19,13 @@ once under
   when the last tensor on it dies, a view or an in-place result counted
   once, so the peak is this rank's peak allocation on top of its
   arguments; the live bytes at the peak are kept by the op that made each
-  storage (``temp_by_op_at_peak``);
+  storage (``temp_by_op_at_peak``). On the card's path an op that the
+  CUDA kernel runs with a workspace of its own counts it while the op runs
+  (``workspace_bytes``: softmax's backward holds one as large as its
+  output, the ``grad * output`` it computes first, measured on the H100
+  for every shape and dtype tried, and a contiguous copy of a strided
+  gradient or output, seen in the allocator's history of a strided
+  attention backward), under ``"<op> workspace"``;
 * ``utils.collectives.CollectiveLedger``: every collective the rank issues;
 * ``kernels._fake.recording``: each hand kernel's fake calls and their
   FLOPs (``flops`` beside each wrapper), which no dispatch mode sees.
@@ -33,7 +39,9 @@ place; ``generated_code_size_in_bytes``: 0), ``flops_per_device``,
 ``mesh_kind``, ``fsdp_axes`` (the cell's: a train cell's data dimensions
 of size > 1, empty for prefill and decode); and adds ``trace_s`` (in place
 of ``lower_s`` and ``compile_s``), ``peak_bytes``, ``rank``, ``kernels``
-(each hand kernel's launches) and the path traced. Under FSDP each
+(each hand kernel's launches), ``peak_tensors`` (the storages alive at
+the peak, grouped by the op that made them, their shape and dtype: count
+and bytes) and the path traced. Under FSDP each
 gathered copy of a leaf and each reduce-scatter's output is a new
 storage, counted as a temporary while it lives. Every number is a
 prediction for one H100 rank of such a cluster, not a measurement.
@@ -109,22 +117,36 @@ _ALLOCATIONS = frozenset(("empty", "empty_like", "empty_strided", "new_empty",
                           "new_empty_strided"))
 
 
+def workspace_bytes(op: str, args, outs) -> int:
+    """The bytes the CUDA kernel of ``op`` allocates for itself while it
+    runs, on these arguments (0 for an op without a workspace): softmax's
+    backward computes ``grad * output`` into a new tensor, and first makes
+    a strided gradient or output contiguous."""
+    if op != "_softmax_backward_data":
+        return 0
+    strided = [t for t in args[:2] if isinstance(t, torch.Tensor) and not t.is_contiguous()]
+    return sum(map(_nbytes, outs)) + sum(map(_nbytes, strided))
+
+
 class _Tracer(TorchDispatchMode):
     """FLOPs, bytes and live storages of the ops run under it (above a
     ``FakeTensorMode``). ``known``: the arguments' storages, never counted
-    as new."""
+    as new; ``card``: the card's path (kernel workspaces counted,
+    ``workspace_bytes``)."""
 
-    def __init__(self, known):
+    def __init__(self, known, card: bool = False):
         super().__init__()
         self.known = set(known)
+        self.card = card
         self.flops = 0.0
         self.bytes = 0
-        self.live: dict = {}  # storage key -> [tensors alive on it, bytes, op]
+        self.live: dict = {}  # storage key -> [tensors alive on it, bytes, group]
         self.objs: set = set()  # ids of the tracked tensors alive
         self.total = 0
         self.peak = 0
-        self.op_bytes: dict = {}  # op -> bytes of the live storages it made
-        self.peak_by_op: dict = {}  # ``op_bytes`` at the peak
+        # (op that made it, shape, dtype) -> [storages, bytes] alive
+        self.groups: dict = {}
+        self.peak_groups: dict = {}  # ``groups`` at the peak
 
     def _release(self, obj_id: int, key: int):
         self.objs.discard(obj_id)
@@ -132,7 +154,11 @@ class _Tracer(TorchDispatchMode):
         entry[0] -= 1
         if entry[0] == 0:
             self.total -= entry[1]
-            self.op_bytes[entry[2]] -= entry[1]
+            g = self.groups[entry[2]]
+            g[0] -= 1
+            g[1] -= entry[1]
+            if g[0] == 0:
+                del self.groups[entry[2]]
             del self.live[key]
 
     def _track(self, t: torch.Tensor, op: str):
@@ -143,12 +169,15 @@ class _Tracer(TorchDispatchMode):
             return
         entry = self.live.get(key)
         if entry is None:
-            entry = self.live[key] = [0, t.untyped_storage().nbytes(), op]
+            group = (op, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            entry = self.live[key] = [0, t.untyped_storage().nbytes(), group]
             self.total += entry[1]
-            self.op_bytes[op] = self.op_bytes.get(op, 0) + entry[1]
+            g = self.groups.setdefault(group, [0, 0])
+            g[0] += 1
+            g[1] += entry[1]
             if self.total > self.peak:
                 self.peak = self.total
-                self.peak_by_op = dict(self.op_bytes)
+                self.peak_groups = {k: tuple(v) for k, v in self.groups.items()}
         entry[0] += 1
         self.objs.add(id(t))
         weakref.finalize(t, self._release, id(t), key)
@@ -167,16 +196,45 @@ class _Tracer(TorchDispatchMode):
             self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         for t in outs:
             self._track(t, packet.__name__)
+        if self.card:
+            self._workspace(packet.__name__, outs, workspace_bytes(packet.__name__, args, outs))
         return out
+
+    def _workspace(self, op: str, outs, size: int):
+        """A kernel's workspace of ``size`` bytes, alive while ``op`` runs
+        (its inputs and output alive too): a peak if the total with it is
+        one."""
+        if size and self.total + size > self.peak:
+            self.peak = self.total + size
+            group = (f"{op} workspace", tuple(outs[0].shape),
+                     str(outs[0].dtype).replace("torch.", ""))
+            self.peak_groups = {**{k: tuple(v) for k, v in self.groups.items()},
+                                group: (1, size)}
+
+    @property
+    def peak_by_op(self) -> dict:
+        """The live bytes at the peak by the op that made them."""
+        out: dict = {}
+        for (op, _, _), (_, size) in self.peak_groups.items():
+            out[op] = out.get(op, 0) + size
+        return out
+
+    def peak_tensors(self) -> list:
+        """The live storages at the peak by (op, shape, dtype): count and
+        bytes, the largest first."""
+        return [{"op": op, "shape": list(shape), "dtype": dtype, "count": n, "bytes": b}
+                for (op, shape, dtype), (n, b) in sorted(self.peak_groups.items(),
+                                                         key=lambda kv: -kv[1][1])]
 
 
 def _mesh_name(mesh) -> str:
     return "x".join(map(str, mesh.shape)) if mesh is not None else "1"
 
 
-def run_traced(fn, args, mode, *, stand_in: bool):
-    """Run ``fn(*args)`` once under ``mode`` and the counters. Returns
-    (outputs, tracer, ledger records, kernel calls, seconds)."""
+def run_traced(fn, args, mode, *, stand_in: bool, card: bool = False):
+    """Run ``fn(*args)`` once under ``mode`` and the counters (``card``:
+    the card's path). Returns (outputs, tracer, ledger records, kernel
+    calls, seconds)."""
     known = storages(args)
     t0 = time.perf_counter()
     with contextlib.ExitStack() as stack:
@@ -185,7 +243,7 @@ def run_traced(fn, args, mode, *, stand_in: bool):
             stack.enter_context(_fake.stand_in())
         calls = stack.enter_context(_fake.recording())
         ledger = stack.enter_context(CollectiveLedger())
-        tracer = stack.enter_context(_Tracer(known))
+        tracer = stack.enter_context(_Tracer(known, card))
         out = fn(*args)
     return out, tracer, ledger.records, calls, time.perf_counter() - t0
 
@@ -213,6 +271,7 @@ def record(name: str, mesh, args, out, tracer, colls, calls, seconds, *, rank: i
         "peak_bytes": arguments + tracer.peak,
         "temp_by_op_at_peak": {op: n for op, n in sorted(tracer.peak_by_op.items(),
                                                          key=lambda kv: -kv[1]) if n > 0},
+        "peak_tensors": tracer.peak_tensors(),
         "flops_per_device": float(tracer.flops) + sum(f for _, f in calls),
         "bytes_per_device": float(tracer.bytes),
         "collectives": summarize_collectives(colls),
@@ -231,7 +290,8 @@ def trace_cell(cell: Cell, mesh, *, rank: int = 0, verbose: bool = True, then=No
     cell's outputs, is traced with it (a caller's step around the cell)."""
     stand_in = cell.device == "cuda" and cell.traced_on != "cuda"
     fn = cell.fn if then is None else (lambda *args: then(cell.fn(*args)))
-    out, tracer, colls, calls, seconds = run_traced(fn, cell.args, cell.mode, stand_in=stand_in)
+    out, tracer, colls, calls, seconds = run_traced(fn, cell.args, cell.mode, stand_in=stand_in,
+                                                    card=cell.device == "cuda")
     rec = record(cell.name, mesh, cell.args, out, tracer, colls, calls, seconds, rank=rank,
                  device=cell.device, traced_on=cell.traced_on, fsdp_axes=cell.rules.fsdp_axes)
     rec.update(cell.info)

@@ -26,9 +26,12 @@ The three kinds are the reference's, each the port's own path:
 The batch shards over the batch ranks where its rows divide by them and is
 replicated where they do not (``dist.sharding.batch_rows``: the reference's
 ``long_500k`` rule). ``REPRO_OPT`` is honoured as the reference honours it:
-``kv_int8`` decodes over the int8 KV cache; ``cp_seq`` asks for context
-parallelism, which the explicit path refuses (``Unsupported``, with
-``check_explicit``'s reason). The model ranks hold balanced blocks of the
+``kv_int8`` decodes over the int8 KV cache; ``cp_seq`` runs the train and
+prefill cells of every family but ``ssm`` and ``hybrid`` under context
+parallelism where the model ranks divide the sequence
+(``context_parallel=True, shard_heads=False``: each model rank its block
+of the positions with every head, the record's ``context_parallel`` true,
+its ``head_block`` every head). The model ranks hold balanced blocks of the
 attention heads, uneven where they do not divide them (yi-34b's 56, llama4's
 40 and whisper's 8 heads over 16 ranks: ``attention.head_block``), and the
 record names the traced rank's block (``head_block``); a config whose SSM
@@ -46,7 +49,7 @@ tensors. ``device="cpu"`` is the plain path.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
@@ -54,7 +57,8 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.dist.sharding import (
-    ShardingRules, batch_rows, check_explicit, make_rules, with_fsdp)
+    ShardingRules, batch_rows, check_explicit, context_parallel, local_rules, make_rules,
+    with_context_parallel, with_fsdp)
 from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.models import ssm as ssm_mod
@@ -112,8 +116,9 @@ def check_heads(cfg: ArchConfig, rules: ShardingRules):
     ``cfg``'s heads as the real path needs: its SSM heads evenly, and
     sharded KV heads as their q heads, with the reason
     ``ssm.ssm_head_block`` and ``attention.head_blocks`` raise there. The
-    attention's q heads split over any number of ranks."""
-    if rules.model_axis is None:
+    attention's q heads split over any number of ranks. Under context
+    parallelism every rank runs every head: nothing to split."""
+    if rules.model_axis is None or context_parallel(rules):
         return
     try:
         if cfg.family != "ssm":
@@ -126,10 +131,15 @@ def check_heads(cfg: ArchConfig, rules: ShardingRules):
 
 def head_info(cfg: ArchConfig, rules: ShardingRules) -> dict:
     """The traced rank's block of the attention heads, ``[lo, hi)`` of
-    ``n_heads`` (an SSM config's none)."""
+    ``n_heads`` (an SSM config's none; every head under context
+    parallelism, which the record then states)."""
     if cfg.family == "ssm":
         return {}
-    return {"head_block": list(attn.head_block(cfg.n_heads, rules)), "n_heads": cfg.n_heads}
+    info = {"head_block": list(attn.head_block(cfg.n_heads, local_rules(rules))),
+            "n_heads": cfg.n_heads}
+    if context_parallel(rules):
+        info["context_parallel"] = True
+    return info
 
 
 def make_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, opt_cfg: OptimizerConfig | None = None,
@@ -148,7 +158,7 @@ def make_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, opt_cfg: OptimizerConfig 
     opts = os.environ.get("REPRO_OPT", "")
     if ("cp_seq" in opts and shape.kind in ("train", "prefill")
             and cfg.family not in ("ssm", "hybrid") and s % max(rules.model_size, 1) == 0):
-        rules = replace(rules, context_parallel=True, shard_heads=False)
+        rules = with_context_parallel(rules)
     if ("kv_int8" in opts and shape.kind == "decode" and not cfg.mla
             and cfg.family not in ("ssm",)):
         cfg = cfg.with_overrides(kv_quant="int8")

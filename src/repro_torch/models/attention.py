@@ -52,6 +52,20 @@ sequence (all-gathered over heads where ``wk``/``wv`` shard), which
    ``model``, as in ``forward``.
 
 Serving runs outside autograd: these collectives have no backward.
+
+Under context parallelism (``dist.sharding.context_parallel``: the
+reference's ``cp_seq``, training and prefill) ``x`` is this rank's block
+of S/M positions and ``params`` hold the whole weights (``lm`` gathers
+them where the layer runs): q holds the block's positions with every head,
+and K and V (MLA: ``c_kv`` and ``k_rope``) are all-gathered along the
+sequence over ``model`` (``gather_seq``, whose backward reduce-scatters
+their gradients). The masks read global positions: ``blocked_attention``
+takes the q block's first position and sizes its q chunks by the whole
+sequence's keys that each chunk scores, and rank r's causal rows find their
+keys among the first (r+1)·S/M of the S it scores, the reference's layout
+(not rebalanced). The output projection needs no sum over ``model``. A
+prefill returns the gathered K/V of the whole sequence, which
+``lm.prefill`` cuts to the rank's split-KV block.
 """
 
 from __future__ import annotations
@@ -64,11 +78,15 @@ from repro_torch.dist.sharding import (
     NO_SHARDING,
     Blocks,
     P,
+    context_parallel,
     copy_to_model,
     gather_over_model,
+    gather_seq,
+    local_rules,
     model_block,
     model_index,
     reduce_from_model,
+    seq_block,
 )
 from repro_torch.models.layers import NORM_SPEC, apply_rope, init_dense, init_rmsnorm, rmsnorm
 
@@ -250,7 +268,7 @@ def pick_q_chunk(b: int, h: int, s: int, batch_shards: int = 1,
 
 
 def blocked_attention(q, k, v, q_positions, kv_positions, window: int = 0,
-                      q_chunk: int = 256):
+                      q_chunk: int = 256, q_start: int = 0):
     """Memory-bounded attention: a loop over q chunks.
 
     * full causal: each q chunk scores against the whole KV (masked);
@@ -259,6 +277,11 @@ def blocked_attention(q, k, v, q_positions, kv_positions, window: int = 0,
       starting at max(ci*W - W, 0) — O(S*W) FLOPs, exact (mask from
       positions). Chunk 0 therefore sees chunk 1's keys, which the mask
       hides, as in the reference.
+
+    ``q_start`` is the index in k and v of q's first position (a context-
+    parallel rank's block of a sequence whose K/V it holds whole); the
+    windowed chunks' keys start ``q_start`` further on. The fallback to
+    ``causal_attention`` goes by q's own length.
     """
     s = q.shape[1]
     if window > 0:
@@ -269,7 +292,7 @@ def blocked_attention(q, k, v, q_positions, kv_positions, window: int = 0,
     for ci in range(s // q_chunk):
         rows = slice(ci * q_chunk, (ci + 1) * q_chunk)
         if window > 0:
-            start = max(ci * window - window, 0)
+            start = max(q_start + ci * window - window, 0)
             keys = slice(start, start + 2 * window)
             outs.append(causal_attention(q[:, rows], k[:, keys], v[:, keys],
                                          q_positions[:, rows], kv_positions[:, keys],
@@ -400,7 +423,12 @@ def attention_block(params, x, cfg, positions, rules=NO_SHARDING, *, window: int
     "int8"``, or None when ``want_cache`` is False (``forward``). Under a
     model axis the output is the sum over the model ranks of their heads'
     part, the fresh K/V hold every KV head, and a decode step reads this
-    rank's block of a split-KV cache (the module's docstring)."""
+    rank's block of a split-KV cache (the module's docstring). Under
+    context parallelism (not at a decode step) q holds this rank's
+    positions with every head, and the fresh K/V the whole sequence's,
+    gathered along it."""
+    cp = context_parallel(rules) and cache_pos is None
+    seq_rules, rules = rules, (local_rules(rules) if cp else rules)
     split = rules.model_axis is not None and (cache_pos is not None or want_cache)
     q, k, v = qkv(params, x, cfg, positions, rules, all_kv=split)
     if cache_pos is not None:
@@ -421,10 +449,12 @@ def attention_block(params, x, cfg, positions, rules=NO_SHARDING, *, window: int
         else:
             out = decode_attention(q, k_now, v_now, cache_pos + 1, window)
     else:
+        k, v = gather_seq(k, 1, seq_rules), gather_seq(v, 1, seq_rules)
         k_att, v_att = rank_kv(k, v, cfg, rules) if split else (k, v)
-        q_chunk = pick_q_chunk(x.shape[0], q.shape[2], x.shape[1])
+        kv_positions, q_start = seq_keys(positions, k.shape[1], seq_rules)
+        q_chunk = pick_q_chunk(x.shape[0], q.shape[2], k.shape[1])
         out = by_runs(blocked_attention, q, k_att, v_att, kv_runs(cfg, rules), positions,
-                      positions, window, q_chunk)
+                      kv_positions, window, q_chunk, q_start=q_start)
         if not want_cache:
             new_kv = None
         elif cfg.kv_quant == "int8":
@@ -435,6 +465,18 @@ def attention_block(params, x, cfg, positions, rules=NO_SHARDING, *, window: int
             new_kv = (k, v)
     out = out.reshape(*x.shape[:2], q.shape[2] * cfg.head_dim)
     return reduce_from_model(out @ params["wo"], rules), new_kv
+
+
+def seq_keys(positions, t: int, rules):
+    """(the (B, t) positions of the keys that q at ``positions`` scores,
+    the index among them of q's first position). Under context parallelism
+    the keys are the whole sequence's ``0 .. t - 1``, gathered along it,
+    and q is this rank's block (``seq_block``); otherwise they are q's own
+    positions."""
+    if not context_parallel(rules):
+        return positions, 0
+    b = positions.shape[0]
+    return torch.arange(t, device=positions.device)[None, :].expand(b, t), seq_block(t, rules)[0]
 
 
 def _owner_rows(cache, pos, rules):
@@ -547,9 +589,14 @@ def mla_block(params, x, cfg, positions, rules=NO_SHARDING, *, kv_cache=None, ca
     computed alike on every model rank and enter the heads' region; a
     decode step reads this rank's block of a split-KV cache, the absorbed
     q and q_rope all-gathered and the partials combined for the rank's
-    heads before ``W_uv`` (the module's docstring)."""
+    heads before ``W_uv`` (the module's docstring). Under context
+    parallelism every head of this rank's positions, ``c_kv`` and
+    ``k_rope`` gathered along the sequence before their decompression, and
+    the cache the whole sequence's latent."""
     b, s, _ = x.shape
     dn, dr, dh, r = cfg.nope_head_dim, cfg.rope_head_dim, cfg.head_dim, cfg.kv_lora_rank
+    cp = context_parallel(rules) and cache_pos is None
+    seq_rules, rules = rules, (local_rules(rules) if cp else rules)
     q_lo, q_hi = head_block(cfg.n_heads, rules)
     h = q_hi - q_lo
     q = (copy_to_model(x, rules) @ params["wq"]).reshape(b, s, h, dn + dr)
@@ -587,13 +634,17 @@ def mla_block(params, x, cfg, positions, rules=NO_SHARDING, *, kv_cache=None, ca
         out = torch.einsum("bhr,rhd->bhd", attn_c, params["w_uv"].reshape(r, h, dh))[:, None]
         new_cache = (c_cache, kr_cache)
     else:
+        # under context parallelism the latent of the whole sequence
+        c_kv, k_rope = gather_seq(c_kv, 1, seq_rules), gather_seq(k_rope, 1, seq_rules)
+        t = c_kv.shape[1]
+        kv_positions, q_start = seq_keys(positions, t, seq_rules)
         c_in = copy_to_model(c_kv, rules)
-        k_nope = (c_in @ params["w_uk"]).reshape(b, s, h, dn)
-        v = (c_in @ params["w_uv"]).reshape(b, s, h, dh)
+        k_nope = (c_in @ params["w_uk"]).reshape(b, t, h, dn)
+        v = (c_in @ params["w_uv"]).reshape(b, t, h, dh)
         k_r = copy_to_model(k_rope, rules)
-        k_full = torch.cat([k_nope, k_r[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+        k_full = torch.cat([k_nope, k_r[:, :, None, :].expand(b, t, h, dr)], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
-        out = blocked_attention(q_full, k_full, v, positions, positions,
-                                q_chunk=pick_q_chunk(b, h, s))
+        out = blocked_attention(q_full, k_full, v, positions, kv_positions,
+                                q_chunk=pick_q_chunk(b, h, t), q_start=q_start)
         new_cache = (c_kv, k_rope) if want_cache else None
     return reduce_from_model(out.reshape(b, s, h * dh) @ params["wo"], rules), new_cache

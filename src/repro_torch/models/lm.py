@@ -57,6 +57,24 @@ as a ``dist.sharding.FsdpShard``: each layer gathers its own where it runs
 (``_backbone``, ``_encode``), and the embedding, the final norm and
 whisper's ``enc_pos`` and ``enc_norm`` where they are read.
 
+Under context parallelism (``dist.sharding.context_parallel``: the
+reference's ``cp_seq`` train and prefill cells, every family but ``ssm``
+and ``hybrid``) each rank takes the full ``(b_rank, S[+1])`` tokens it is
+given and runs its block ``seq_block`` of the S positions, at their global
+positions (``train_loss`` shifts first, then cuts: inputs ``[lo, hi)``,
+labels ``[lo + 1, hi + 1)``). Each layer gathers its leaves whose specs
+name ``model`` where it runs (``gather_at_use`` with ``_use_specs``: not
+the MoE's experts and shared-expert columns, which stay local), and the
+embedding and unembedding their tables, so the logits are the block's over
+the whole vocabulary and the cross-entropy sums nothing over ``model``;
+the loss is averaged over the model ranks (``mean_over_model``). Whisper's
+encoder runs its block of ``enc_len`` where the model ranks divide it
+(``_enc_cut``; else the whole on every rank), and each ``xattn`` layer
+gathers its cross K/V along the encoder's positions. A prefill gives the
+last position's logits, from the last model rank, on every rank, and the
+caches split-KV as ``cache_specs`` lays them out; ``decode_step`` under
+these rules runs as under tensor parallelism.
+
 Entry points: ``init_params``, ``param_specs``, ``init_cache``,
 ``cache_specs``, ``local_caches``, ``gather_caches``, ``forward``,
 ``train_loss``, ``prefill``, ``decode_step``. They run where the
@@ -75,14 +93,20 @@ from repro_torch.dist.sharding import (
     P,
     ShardingRules,
     check_explicit,
+    context_parallel,
     copy_to_model,
+    decode_rules,
     fsdp_specs,
     gather_at_use,
     gather_over_model,
+    gather_seq,
     gather_shard,
+    local_rules,
     local_shard,
     mean_over_batch,
+    mean_over_model,
     reduce_from_model,
+    seq_block,
     seq_slice,
     shard_tree,
 )
@@ -233,6 +257,24 @@ def _layer_spec(kind: str, cfg: ArchConfig):
     return spec
 
 
+def _use_specs(kind: str, cfg: ArchConfig):
+    """The specs a layer's leaves are gathered by where it runs under
+    context parallelism: ``_layer_spec``'s, with the MoE's leaves named
+    whole (its experts and shared-expert columns stay this rank's)."""
+    spec = _layer_spec(kind, cfg)
+    if "moe" in spec:
+        spec["moe"] = tree_map(lambda s: P(*(None,) * len(s)), spec["moe"])
+    return spec
+
+
+def _check_context_parallel(cfg: ArchConfig, rules: ShardingRules):
+    """Refuse context parallelism for the families the reference keeps it
+    off (``ssm`` and ``hybrid``: ``make_cell`` never sets it there)."""
+    if context_parallel(rules) and cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"context parallelism does not apply to {cfg.name} "
+                                  f"({cfg.family})")
+
+
 def param_shapes(cfg: ArchConfig):
     """The full shape (``torch.Size``) of every leaf of ``init_params``'
     tree, from a draw on fake tensors (nothing allocated)."""
@@ -283,7 +325,12 @@ def _cross_attention(lp, hx, cfg, enc_out, cache, cache_pos, rules=NO_SHARDING,
     projects ``enc_out`` and attends everywhere (``q_pos = enc_len``).
     Under a model axis the rank's q heads against the KV heads they read;
     the cross K/V (the cache) hold every KV head, replicated over
-    ``model``. Returns (out before ``wo``, (ck, cv))."""
+    ``model``. Under context parallelism every head of this rank's
+    positions against the cross K/V, projected from the encoder's block
+    where it is cut (``_enc_cut``) and gathered along the encoder's
+    positions. Returns (out before ``wo``, (ck, cv))."""
+    cut = cache_pos is None and _enc_cut(cfg, rules)
+    seq_rules, rules = rules, (local_rules(rules) if cache_pos is None else rules)
     b, s, _ = hx.shape
     (q_lo, q_hi), (kv_lo, kv_hi) = attn.head_blocks(cfg, rules)
     q = attn._split_heads(copy_to_model(hx, rules) @ lp["wq"], q_hi - q_lo, cfg.head_dim)
@@ -298,6 +345,8 @@ def _cross_attention(lp, hx, cfg, enc_out, cache, cache_pos, rules=NO_SHARDING,
     n_kv = cfg.n_kv_heads if whole else kv_hi - kv_lo
     ck = attn._split_heads(src @ lp["wk"], n_kv, cfg.head_dim)
     cv = attn._split_heads(src @ lp["wv"], n_kv, cfg.head_dim)
+    if cut:  # the encoder's blocks of positions, in order
+        ck, cv = gather_seq(ck, 1, seq_rules), gather_seq(cv, 1, seq_rules)
     if whole:  # every KV head alike on every model rank; the rank reads its own
         k = copy_to_model(ck, rules)[:, :, kv_lo:kv_hi]
         v = copy_to_model(cv, rules)[:, :, kv_lo:kv_hi]
@@ -337,6 +386,7 @@ def _apply_layer(lp, kind, x, cfg, positions, rules=NO_SHARDING, *, shared=None,
         h2 = rmsnorm(x, shared["ln2"], cfg.norm_eps)
         return x + mlp(shared["mlp"], h2, cfg.act, rules), new_kv, None
 
+    tp = local_rules(rules)  # the MLP's and the cross-attention's sum (none under CP)
     if kind == "xattn":
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         out, new_self = attn.attention_block(
@@ -349,9 +399,9 @@ def _apply_layer(lp, kind, x, cfg, positions, rules=NO_SHARDING, *, shared=None,
             lp["xattn"], hx, cfg, enc_out, cache["cross"] if cache is not None else None,
             cache_pos, rules, want_cache)
         out_x = out_x.reshape(*x.shape[:2], out_x.shape[2] * cfg.head_dim)
-        x = x + reduce_from_model(out_x @ lp["xattn"]["wo"], rules)
+        x = x + reduce_from_model(out_x @ lp["xattn"]["wo"], tp)
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h2, cfg.act, rules)
+        x = x + mlp(lp["mlp"], h2, cfg.act, tp)
         new_cache = {"self": new_self, "cross": new_cross} if want_cache else None
         return x, new_cache, None
 
@@ -370,7 +420,14 @@ def _apply_layer(lp, kind, x, cfg, positions, rules=NO_SHARDING, *, shared=None,
     if kind in MOE_KINDS:
         out2, aux = moe_mod.moe_ffn(lp["moe"], h2, cfg, rules)
         return x + out2, new_kv, aux
-    return x + mlp(lp["mlp"], h2, cfg.act, rules), new_kv, None
+    return x + mlp(lp["mlp"], h2, cfg.act, tp), new_kv, None
+
+
+def _enc_cut(cfg: ArchConfig, rules: ShardingRules) -> bool:
+    """Whether a context-parallel rank runs its block of the encoder's
+    ``enc_len`` positions (the model ranks divide them, as the reference's
+    ``act`` spec cuts them), rather than the whole encoder."""
+    return context_parallel(rules) and cfg.enc_len % rules.model_size == 0
 
 
 def _encode(params, enc_in, cfg, rules=NO_SHARDING):
@@ -381,22 +438,36 @@ def _encode(params, enc_in, cfg, rules=NO_SHARDING):
     layer runs the rank's heads and the MLP's columns, and their outputs
     are summed over ``model``. The frames are cast to the weights' dtype
     first (the reference lets a float32 input promote bfloat16 weights'
-    products to float32; torch's products need one dtype)."""
+    products to float32; torch's products need one dtype). Under context
+    parallelism every head with the layers' weights gathered, over this
+    rank's block of the positions where the model ranks divide them
+    (``_enc_cut``: K and V gathered along them), else over all of them;
+    the output is that block."""
     pos = gather_at_use(params["enc_pos"], rules)
-    x = enc_in.to(pos.dtype) + pos[None, : enc_in.shape[1], :]
-    b, t, _ = x.shape
+    t = enc_in.shape[1]
+    lo, hi = 0, t
+    if _enc_cut(cfg, rules):
+        if t != cfg.enc_len:
+            raise ValueError(f"{cfg.name}'s encoder input holds {t} positions, not {cfg.enc_len}")
+        lo, hi = seq_block(t, rules)
+    tp = local_rules(rules)
+    x = enc_in[:, lo:hi].to(pos.dtype) + pos[None, lo:hi, :]
+    b = x.shape[0]
     positions = _positions(b, t, x.device)
-    q_pos = torch.full((b, t), t, dtype=torch.int64, device=x.device)
+    q_pos = torch.full((b, hi - lo), t, dtype=torch.int64, device=x.device)
+    specs = _use_specs("enc", cfg) if context_parallel(rules) else None
     for lp in params["enc_groups"]:
-        lp = gather_at_use(lp, rules)
+        lp = gather_at_use(lp, rules, specs)
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn.qkv(lp["attn"], h, cfg, positions, rules)
-        out = attn.by_runs(attn.causal_attention, q, k, v, attn.kv_runs(cfg, rules), q_pos,
+        q, k, v = attn.qkv(lp["attn"], h, cfg, positions[:, lo:hi], tp)
+        if hi - lo < t:
+            k, v = gather_seq(k, 1, rules), gather_seq(v, 1, rules)
+        out = attn.by_runs(attn.causal_attention, q, k, v, attn.kv_runs(cfg, tp), q_pos,
                            positions)
-        out = out.reshape(b, t, q.shape[2] * cfg.head_dim) @ lp["attn"]["wo"]
-        x = x + reduce_from_model(out, rules)
+        out = out.reshape(b, hi - lo, q.shape[2] * cfg.head_dim) @ lp["attn"]["wo"]
+        x = x + reduce_from_model(out, tp)
         h2 = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h2, cfg.act, rules)
+        x = x + mlp(lp["mlp"], h2, cfg.act, tp)
     return rmsnorm(x, gather_at_use(params["enc_norm"], rules), cfg.norm_eps)
 
 
@@ -464,7 +535,9 @@ def _backbone(params, x, cfg, positions, rules=NO_SHARDING, *, caches=None, cach
     applications) are gathered where the layer runs (``gather_at_use``):
     inside a recomputed superblock, so that the gathered copies live for
     its forward and are gathered again for its backward, as every rank
-    does in the same order."""
+    does in the same order. Under context parallelism each layer's leaves
+    whose specs name ``model`` are gathered over it there too
+    (``_use_specs``)."""
     layout = group_layout(cfg)
     emb0 = x if cfg.family == "hybrid" else None
     shared = params.get("shared")
@@ -473,10 +546,12 @@ def _backbone(params, x, cfg, positions, rules=NO_SHARDING, *, caches=None, cach
         raise ValueError("a training forward builds no caches")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = {}
+    cp = context_parallel(rules)
     for i, kind in enumerate(prologue_layout(cfg)):
         name = f"prologue{i}"
         x, new_caches[name], layer_aux = _apply_layer(
-            gather_at_use(params[name], rules), kind, x, cfg, positions, rules,
+            gather_at_use(params[name], rules, _use_specs(kind, cfg) if cp else None), kind, x,
+            cfg, positions, rules,
             cache=caches[name] if caches is not None else None, cache_pos=cache_pos,
             want_cache=want_cache)
         if layer_aux is not None:
@@ -490,7 +565,8 @@ def _backbone(params, x, cfg, positions, rules=NO_SHARDING, *, caches=None, cach
             for i, kind in enumerate(layout):
                 c = caches["groups"][gi][f"pos{i}"] if caches is not None else None
                 x, new_cache[f"pos{i}"], layer_aux = _apply_layer(
-                    gather_at_use(params["groups"][gi][f"pos{i}"], rules), kind, x, cfg,
+                    gather_at_use(params["groups"][gi][f"pos{i}"], rules,
+                                  _use_specs(kind, cfg) if cp else None), kind, x, cfg,
                     positions, rules,
                     shared=gather_at_use(shared, rules) if kind == "hybrid_attn" else None,
                     emb0=emb0, enc_out=enc_out, cache=c, cache_pos=cache_pos,
@@ -513,8 +589,8 @@ def _backbone(params, x, cfg, positions, rules=NO_SHARDING, *, caches=None, cach
     return x, (new_caches if want_cache else None), aux
 
 
-def _positions(b: int, s: int, device):
-    return torch.arange(s, device=device)[None, :].expand(b, s)
+def _positions(b: int, s: int, device, start: int = 0):
+    return torch.arange(start, start + s, device=device)[None, :].expand(b, s)
 
 
 # ---------------------------------------------------------------------------
@@ -531,12 +607,18 @@ def _enc_out(params, enc_in, cfg, rules=NO_SHARDING):
     return _encode(params, enc_in, cfg, rules)
 
 
-def _table(params, name: str, rules: ShardingRules) -> dict:
-    """``{name: the embedding's leaf}`` gathered at use (FSDP): the
-    embedding reads ``tok``, the unembedding ``head`` or, tied, ``tok``
-    again, gathered a second time rather than kept through the
-    backbone."""
-    return {name: gather_at_use(params["embed"][name], rules)}
+def _table(params, name: str, cfg: ArchConfig, rules: ShardingRules) -> dict:
+    """``{name: the embedding's leaf}`` gathered at use (FSDP, and under
+    context parallelism whole over ``model``): the embedding reads
+    ``tok``, the unembedding ``head`` or, tied, ``tok`` again, gathered a
+    second time rather than kept through the backbone."""
+    spec = embedding_spec(cfg.tie_embeddings, cfg.vocab_padded)[name]
+    return {name: gather_at_use(params["embed"][name], rules,
+                                spec if context_parallel(rules) else None)}
+
+
+def _unembed_name(params) -> str:
+    return "head" if "head" in params["embed"] else "tok"
 
 
 def forward(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING, positions=None,
@@ -548,17 +630,31 @@ def forward(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
     ``tokens`` are this rank's rows, and under a model axis the logits are
     this rank's columns of the vocabulary. Under FSDP the leaves that
     ``trainer.loss_and_grads`` hands in as ``FsdpShard``s are gathered
-    where they are read."""
+    where they are read. Under context parallelism ``tokens`` are this
+    rank's rows whole, and the logits (B, S/M, vocab_padded) those of its
+    block of positions (``seq_block``, at their global positions: no other
+    ``positions`` are taken)."""
     check_explicit(rules)
+    _check_context_parallel(cfg, rules)
+    lo, hi = seq_block(tokens.shape[1], rules)
+    if context_parallel(rules) and positions is not None:
+        raise ValueError("context parallelism runs the block's own positions")
+    return _forward(params, tokens[:, lo:hi], cfg, rules, positions, enc_in, train, lo)
+
+
+def _forward(params, tokens, cfg, rules, positions=None, enc_in=None, train=False, start=0):
+    """``forward`` over this rank's block of positions, ``tokens`` cut to
+    it, the first at ``start``."""
     b, s = tokens.shape
     if positions is None:
-        positions = _positions(b, s, tokens.device)
-    x = embed(_table(params, "tok", rules), tokens, rules, cfg.vocab_padded)
+        positions = _positions(b, s, tokens.device, start)
+    tp = local_rules(rules)
+    x = embed(_table(params, "tok", cfg, rules), tokens, tp, cfg.vocab_padded)
     enc_out = _enc_out(params, enc_in, cfg, rules)
     x, _, aux = _backbone(params, x, cfg, positions, rules, enc_out=enc_out, train=train)
     x = rmsnorm(x, gather_at_use(params["final_norm"], rules), cfg.norm_eps)
-    return unembed(_table(params, "head" if "head" in params["embed"] else "tok", rules), x,
-                   cfg.vocab, rules, cfg.vocab_padded), aux
+    return unembed(_table(params, _unembed_name(params), cfg, rules), x, cfg.vocab, tp,
+                   cfg.vocab_padded), aux
 
 
 def train_loss(params, batch, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
@@ -567,12 +663,20 @@ def train_loss(params, batch, cfg: ArchConfig, rules: ShardingRules = NO_SHARDIN
     The mean next-token cross-entropy plus ``aux_coef`` times the MoE aux.
     Under ``rules`` with batch axes, ``batch`` is this rank's rows and the
     loss is the mean over the batch ranks (whose gradient is this rank's
-    part: the trainer averages the gradients over the batch ranks)."""
+    part: the trainer averages the gradients over the batch ranks). Under
+    context parallelism the tokens are shifted, then cut to this rank's
+    block (inputs ``[lo, hi)``, labels ``[lo + 1, hi + 1)``), and the
+    block's loss is averaged over the model ranks as well."""
+    check_explicit(rules)
+    _check_context_parallel(cfg, rules)
     tokens = batch["tokens"]
-    inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(params, inputs, cfg, rules, enc_in=batch.get("enc"), train=True)
-    loss = softmax_xent(logits, labels, cfg.vocab, rules, cfg.vocab_padded) + aux_coef * aux
-    return mean_over_batch(loss, rules)
+    lo, hi = seq_block(tokens.shape[1] - 1, rules)
+    inputs, labels = tokens[:, lo:hi], tokens[:, lo + 1:hi + 1]
+    logits, aux = _forward(params, inputs, cfg, rules, enc_in=batch.get("enc"), train=True,
+                           start=lo)
+    loss = (softmax_xent(logits, labels, cfg.vocab, local_rules(rules), cfg.vocab_padded)
+            + aux_coef * aux)
+    return mean_over_batch(mean_over_model(loss, rules), rules)
 
 
 # ---------------------------------------------------------------------------
@@ -766,18 +870,30 @@ def prefill(params, tokens, cfg: ArchConfig, rules: ShardingRules = NO_SHARDING,
     rank's block of them (split-KV); an SSM layer's cache serves any number
     of decode steps as it is. An encoder-decoder model runs its encoder
     over ``enc_in`` first; its layers' cross K/V hold the encoder output's
-    projections for every decode step."""
+    projections for every decode step.
+
+    Under context parallelism each rank runs its block of the prompt's
+    positions (``seq_block``) and cuts its split-KV block from the K/V its
+    layers gathered whole; the logits are the last position's, from the
+    last model rank, over the whole vocabulary, alike on every rank."""
     check_explicit(rules)
+    _check_context_parallel(cfg, rules)
     b, s = tokens.shape
     max_seq = max_seq or s
-    x = embed(params["embed"], tokens, rules, cfg.vocab_padded)
+    lo, hi = seq_block(s, rules)
+    tp = local_rules(rules)
+    x = embed(_table(params, "tok", cfg, rules), tokens[:, lo:hi], tp, cfg.vocab_padded)
     enc_out = _enc_out(params, enc_in, cfg, rules)
-    x, caches, _ = _backbone(params, x, cfg, _positions(b, s, tokens.device), rules,
+    x, caches, _ = _backbone(params, x, cfg, _positions(b, hi - lo, tokens.device, lo), rules,
                              want_cache=True, enc_out=enc_out)
     if max_seq != s or rules.model_axis is not None:
         caches = _grow_caches(caches, cfg, max_seq, rules)
-    x = rmsnorm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    return unembed(params["embed"], x, cfg.vocab, rules, cfg.vocab_padded)[:, 0], caches
+    x = x[:, -1:, :]
+    if context_parallel(rules):  # the last position is the last model rank's
+        x = gather_over_model(x, 1, rules)[:, -1:, :]
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(_table(params, _unembed_name(params), cfg, rules), x, cfg.vocab, tp,
+                   cfg.vocab_padded)[:, 0], caches
 
 
 def decode_step(params, token, caches, pos, cfg: ArchConfig,
@@ -789,8 +905,10 @@ def decode_step(params, token, caches, pos, cfg: ArchConfig,
     its state; an ``xattn`` layer attends over its cached cross K/V.
 
     Returns (logits (B, vocab_padded), new_caches); under a model axis the
-    logits are the rank's columns."""
+    logits are the rank's columns (under context parallelism too: a decode
+    step runs as under tensor parallelism, as in the reference)."""
     check_explicit(rules)
+    rules = decode_rules(rules)
     x = embed(params["embed"], token[:, None], rules, cfg.vocab_padded)
     x, new_caches, _ = _backbone(params, x, cfg, pos[:, None], rules, caches=caches,
                                  cache_pos=pos)

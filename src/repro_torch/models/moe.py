@@ -16,6 +16,17 @@ Port of ``src/repro/models/moe.py``, both branches of ``moe_ffn``:
   routes the global batch (capacity and arrival order global) and keeps
   its own rows; without either, the single-device function.
 
+Under context parallelism (``dist.sharding.context_parallel``) each model
+rank holds its block of the sequence, and the MoE follows the reference's
+``shard_map``, whose tokens enter replicated over ``model``: the rank
+all-gathers its rows' tokens along the sequence (``gather_seq``), routes
+them all, runs its experts and its shared-expert columns as above (no
+tensor-parallel region: every model rank's loss reads the output), and
+reduce-scatters the partial outputs along the sequence (``scatter_seq``:
+the sum over the model ranks, this rank's block; its backward all-gathers
+the blocks' gradients). The router statistics are those of the gathered
+tokens, averaged over the batch ranks.
+
 Under FSDP the weights arrive gathered with their layer (``lm._backbone``
 gathers each layer's leaves over ``data`` where the layer runs:
 ``dist.sharding.gather_at_use``). ``fsdp_specs`` cuts an expert stack
@@ -69,12 +80,15 @@ import torch.nn.functional as F
 from repro_torch.dist.sharding import (
     NO_SHARDING,
     P,
+    context_parallel,
     copy_to_model,
     gather_batch,
+    gather_seq,
     local_shard,
     mean_over_batch,
     model_index,
     reduce_from_model,
+    scatter_seq,
 )
 from repro_torch.models.layers import init_dense, mlp_spec
 
@@ -195,7 +209,9 @@ def _aux_from_stats(frac, pbar, e):
 def moe_ffn(params, x, cfg, rules=NO_SHARDING):
     """x: (B, S, D), this rank's rows -> (out, aux_loss). Without a model
     axis all experts are here (routed over the global batch when the
-    batch is sharded); under one, this rank's block of them."""
+    batch is sharded); under one, this rank's block of them. Under context
+    parallelism ``x`` is this rank's block of the sequence, and so is the
+    output."""
     b, s, d = x.shape
     e = cfg.n_experts
     x2d = x.reshape(-1, d)
@@ -206,6 +222,13 @@ def moe_ffn(params, x, cfg, rules=NO_SHARDING):
         return out.reshape(b, s, d), _aux_from_stats(frac, pbar, e)
     n = rules.model_size
     e_loc = e // n
+    if context_parallel(rules):
+        whole = gather_seq(x, 1, rules)
+        out, (frac, pbar) = _moe_local(params, whole.reshape(-1, d), cfg,
+                                       model_index(rules) * e_loc, e_loc, n)
+        out = scatter_seq(out.reshape(whole.shape), 1, rules)
+        frac, pbar = mean_over_batch(frac, rules), mean_over_batch(pbar, rules)
+        return out, _aux_from_stats(frac, pbar, e)
     out, (frac, pbar) = _moe_local(params, x2d, cfg, model_index(rules) * e_loc, e_loc, n,
                                    enter=lambda t: copy_to_model(t, rules))
     out = reduce_from_model(out, rules)

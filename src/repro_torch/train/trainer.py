@@ -27,9 +27,12 @@ this rank's rows of the batch (``lm.train_loss(..., rules)``). The step
 averages the gradients over the batch ranks, then ``adamw_update`` runs
 on the shards with ZeRO-1 over the data ranks (``optimizer``). Under FSDP
 (``rules.fsdp_axes``) the parameters are sharded over the data ranks too,
-gathered where the model reads them (``make_train_step``). Checkpoints
-hold full leaves whatever the mesh (``checkpoint``), so a run restarts on
-another mesh.
+gathered where the model reads them (``make_train_step``). Under context
+parallelism (``rules.context_parallel``: each model rank runs its block of
+the sequence, ``lm``) the model ranks count as batch ranks when the
+gradients are averaged (``average_over_batch_`` by the leaves' specs).
+Checkpoints hold full leaves whatever the mesh (``checkpoint``), so a run
+restarts on another mesh.
 """
 
 from __future__ import annotations

@@ -90,14 +90,20 @@ def tokens_of(cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def job_counts(mesh, arch: str):
+def job_counts(mesh, arch: str, cp: bool = False):
     """On this rank: a training step under ZeRO-1 on the plain specs (as
     ``launch.train`` trains) and one under FSDP (``with_fsdp``: over
     ``data`` where it is > 1, as the train cell builds it), then a decode
     step of ``arch``, each for real under a ledger: the collectives, by
-    op, and the arguments' bytes."""
+    op, and the arguments' bytes. With ``cp`` the training steps and the
+    prefill run under the ``cp_seq`` rules (context parallelism), the
+    prefill under a ledger too, and the decode step under the plain ones,
+    as the cells of ``REPRO_OPT=cp_seq`` run them."""
     cfg = cfg_of(arch)
     plain, rows = batch_rows(B, make_rules(cfg, mesh))
+    tp_rules = plain
+    if cp:
+        plain = dataclasses.replace(plain, context_parallel=True, shard_heads=False)
     batch = {"tokens": local_shard(tokens_of(cfg), rows, plain)}
     out = {}
     for key, rules in (("train", plain), ("fsdp", with_fsdp(plain))):
@@ -111,11 +117,14 @@ def job_counts(mesh, arch: str):
             step(params, opt, batch)
         out[f"{key}_calls"] = ledger.calls
         out[f"{key}_ops"] = ops_of(ledger.records)
-    rules = plain
+    rules = tp_rules
     params = lm.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", rules=rules)
     with torch.no_grad():
         toks = batch["tokens"][:, :S]
-        _, caches = lm.prefill(params, toks, cfg, rules, max_seq=S + NEW)
+        with CollectiveLedger() as ledger:
+            _, caches = lm.prefill(params, toks, cfg, plain, max_seq=S + NEW)
+        if cp:
+            out["prefill_calls"] = ledger.calls
         tok = torch.zeros((toks.shape[0],), dtype=torch.int64)
         pos = torch.full((toks.shape[0],), S, dtype=torch.int64)
         out["decode_bytes"] = dryrun.argument_bytes((params, tok, caches, pos))
@@ -138,31 +147,57 @@ def ops_of(records) -> dict:
 #: three model ranks split unevenly (deepseek's 4 experts and zamba2's SSM
 #: heads do not split over 3).
 COUNT_CASES = [(grid, arch) for grid in GRIDS for arch in ARCHS] + [((1, 3), "granite-3-2b")]
+#: The cases run under ``REPRO_OPT=cp_seq`` as well (``job_counts(cp=True)``).
+CP_CASES = [((1, 2), "granite-3-2b")]
+CASES = [(g, a, False) for g, a in COUNT_CASES] + [(g, a, True) for g, a in CP_CASES]
+
+
+def case_key(arch: str, cp: bool) -> str:
+    return arch + ("-cp" if cp else "")
 
 
 @functools.cache
 def real_counts(grid, tmp: str) -> list:
-    archs = [arch for g, arch in COUNT_CASES if g == grid]
-    return run_grid(grid, [(arch, job_counts, {"arch": arch}) for arch in archs],
-                    os.path.join(tmp, grid_id(grid)))
+    cases = [(arch, cp) for g, arch, cp in CASES if g == grid]
+    return run_grid(grid, [(case_key(arch, cp), job_counts, {"arch": arch, "cp": cp})
+                           for arch, cp in cases], os.path.join(tmp, grid_id(grid)))
 
 
-def dry_counts(arch: str, grid, rank: int, device: str) -> dict:
+def dry_counts(arch: str, grid, rank: int, device: str, cp: bool = False) -> dict:
     cfg = cfg_of(arch)
     out = {}
-    with fake_world(grid, NAMES, rank=rank) as mesh:
-        for key, fsdp in (("train", False), ("fsdp", True)):
-            train = dryrun.trace_cell(
-                specs.make_cell(cfg, ShapeSpec("t", "train", S, B), mesh, opt_cfg=OPT,
-                                accum_steps=1, device=device, fsdp=fsdp),
-                mesh, rank=rank, verbose=False)
-            out[f"{key}_calls"] = train["n_collective_ops"]
-            out[f"{key}_ops"] = {op: a["count"]
-                                 for op, a in train["collectives"]["by_op"].items()}
-            out[f"{key}_bytes"] = train["memory"]["argument_size_in_bytes"]
-        decode = dryrun.trace_cell(specs.make_cell(cfg, ShapeSpec("d", "decode", S + NEW, B),
-                                                   mesh, device=device),
-                                   mesh, rank=rank, verbose=False)
+    saved = os.environ.pop("REPRO_OPT", None)
+    if cp:
+        os.environ["REPRO_OPT"] = "cp_seq"
+    try:
+        with fake_world(grid, NAMES, rank=rank) as mesh:
+            out.update(_dry_cells(cfg, mesh, rank, device, cp))
+    finally:
+        os.environ.pop("REPRO_OPT", None)
+        if saved is not None:
+            os.environ["REPRO_OPT"] = saved
+    return out
+
+
+def _dry_cells(cfg, mesh, rank: int, device: str, cp: bool) -> dict:
+    """``dry_counts``' cells, traced as ``rank`` of ``mesh``."""
+    out = {}
+    for key, fsdp in (("train", False), ("fsdp", True)):
+        train = dryrun.trace_cell(
+            specs.make_cell(cfg, ShapeSpec("t", "train", S, B), mesh, opt_cfg=OPT,
+                            accum_steps=1, device=device, fsdp=fsdp),
+            mesh, rank=rank, verbose=False)
+        out[f"{key}_calls"] = train["n_collective_ops"]
+        out[f"{key}_ops"] = {op: a["count"] for op, a in train["collectives"]["by_op"].items()}
+        out[f"{key}_bytes"] = train["memory"]["argument_size_in_bytes"]
+    if cp:
+        prefill = dryrun.trace_cell(specs.make_cell(cfg, ShapeSpec("p", "prefill", S, B), mesh,
+                                                    device=device, max_seq=S + NEW),
+                                    mesh, rank=rank, verbose=False)
+        out["prefill_calls"] = prefill["n_collective_ops"]
+    decode = dryrun.trace_cell(specs.make_cell(cfg, ShapeSpec("d", "decode", S + NEW, B),
+                                               mesh, device=device),
+                               mesh, rank=rank, verbose=False)
     out["decode_calls"] = decode["n_collective_ops"]
     out["decode_bytes"] = decode["memory"]["argument_size_in_bytes"]
     return out
@@ -173,18 +208,19 @@ def grid_tmp(tmp_path_factory):
     return str(tmp_path_factory.mktemp("dryrun_grids"))
 
 
-@pytest.mark.parametrize("grid,arch", COUNT_CASES,
-                         ids=[f"{grid_id(g)}-{a}" for g, a in COUNT_CASES])
-def test_dry_run_counts_the_collectives_and_arguments_of_a_real_run(grid, arch, grid_tmp):
+@pytest.mark.parametrize("grid,arch,cp", CASES,
+                         ids=[f"{grid_id(g)}-{a}" + ("-cp" if cp else "") for g, a, cp in CASES])
+def test_dry_run_counts_the_collectives_and_arguments_of_a_real_run(grid, arch, cp, grid_tmp):
     real = real_counts(grid, grid_tmp)
     for rank in range(math.prod(grid)):
-        want = real[rank][arch]
+        want = real[rank][case_key(arch, cp)]
         assert want["train_calls"] > 0 and (want["decode_calls"] > 0 or grid[1] == 1)
-        # ZeRO-1 reduce-scatters nothing; FSDP's backward does where data > 1
-        assert "reduce-scatter" not in want["train_ops"], want["train_ops"]
-        assert ("reduce-scatter" in want["fsdp_ops"]) == (grid[0] > 1), want["fsdp_ops"]
+        # ZeRO-1 reduce-scatters nothing; FSDP's backward does where data > 1, and
+        # context parallelism's gathers' backward wherever it runs
+        assert ("reduce-scatter" in want["train_ops"]) == cp, want["train_ops"]
+        assert ("reduce-scatter" in want["fsdp_ops"]) == (grid[0] > 1 or cp), want["fsdp_ops"]
         for device in ("cpu", "cuda"):
-            assert dry_counts(arch, grid, rank, device) == want, (grid, rank, device)
+            assert dry_counts(arch, grid, rank, device, cp) == want, (grid, rank, device)
 
 
 # ---------------------------------------------------------------------------
@@ -466,10 +502,18 @@ def test_dry_run_skips_what_the_reference_skips():
 
 
 def test_cp_seq_is_unsupported_and_kv_int8_runs(monkeypatch):
+    """``cp_seq`` builds the train cell under context parallelism (an
+    ``ok`` record that says so, every head on the rank, the train cell's
+    FSDP), and ``kv_int8`` still decodes over the int8 cache."""
     monkeypatch.setenv("REPRO_OPT", "cp_seq,kv_int8")
-    rec = dryrun._arch_cell(("granite-3-2b", "train_4k", "single", 0, "cuda", False))
-    assert rec["status"] == "unsupported" and "context_parallel=True" in rec["reason"]
     cfg = cfg_of("granite-3-2b")
+    with fake_world((2, 2), NAMES) as mesh:
+        cell = specs.make_cell(cfg, ShapeSpec("t", "train", S, B), mesh, opt_cfg=OPT,
+                               accum_steps=1)
+        rec = dryrun.trace_cell(cell, mesh, verbose=False)
+    assert rec["status"] == "ok" and rec["context_parallel"] is True
+    assert cell.rules.context_parallel and not cell.rules.shard_heads
+    assert rec["fsdp_axes"] == ["data"] and rec["head_block"] == [0, cfg.n_heads]
     with fake_world((2, 2), NAMES) as mesh:
         cell = specs.make_cell(cfg, ShapeSpec("d", "decode", S + NEW, B), mesh)
         rec = dryrun.trace_cell(cell, mesh, verbose=False)

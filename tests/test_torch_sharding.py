@@ -146,21 +146,28 @@ def test_make_rules_moe_divisibility_matches_reference(n_experts, model, want):
 
 
 def test_explicit_path_refuses_what_it_does_not_run():
+    """Under a model axis the heads sharded, or the sequence with the heads
+    whole (the reference's ``cp_seq`` pair); ``shard_heads=False`` alone
+    and ``context_parallel=True`` with heads sharded are refused."""
     stub = _stub_mesh(data=1, model=2)
     for kw in (dict(shard_heads=False), dict(context_parallel=True)):
         with pytest.raises(NotImplementedError, match="explicit tensor-parallel"):
             sharding.check_explicit(ShardingRules(mesh=stub, model_axis="model", **kw))
+    sharding.check_explicit(ShardingRules(mesh=stub, model_axis="model", context_parallel=True,
+                                          shard_heads=False))
     sharding.check_explicit(ShardingRules(mesh=stub, batch_axes=("data",), shard_heads=False))
 
 
 def test_explicit_path_accepts_fsdp_under_the_reference_defaults():
     """FSDP (the reference's train cell: ``fsdp_axes``) runs under a model
-    axis with heads sharded and no context parallelism; the other two
-    settings are refused with it as without it."""
+    axis with heads sharded and no context parallelism, and under context
+    parallelism with the heads whole; the other two settings are refused
+    with it as without it."""
     stub = _stub_mesh(data=2, model=2)
     rules = ShardingRules(mesh=stub, batch_axes=("data",), model_axis="model",
                           fsdp_axes=("data",))
     sharding.check_explicit(rules)
+    sharding.check_explicit(dataclasses.replace(rules, context_parallel=True, shard_heads=False))
     for kw in (dict(shard_heads=False), dict(context_parallel=True)):
         with pytest.raises(NotImplementedError, match="explicit tensor-parallel"):
             sharding.check_explicit(dataclasses.replace(rules, **kw))
