@@ -313,7 +313,23 @@ Phases, each printed on its own line:
     against ``[granite_serve]``'s and against whisper-base's float32
     one-rank tokens on the card (``[whisper_hold]``'s model) by the same
     near-tie rule; then ``[train_sharded_hold]`` at (1, 3) for granite
-    (2 layers) and whisper-base (whole).
+    (2 layers) and whisper-base (whole). Last in the two-rank set, the
+    batched estimator sharded over the data ranks:
+    ``[fit_batch_data_sharded] grid=2x1`` (``fit_batch(rules=)`` on the
+    ragged E. coli bucket under ``hopper_fused`` and under
+    ``threshold=True``, and on the two iJR904-size requests: every rank's
+    gathered orders, B, noise variances, comparisons, rounds and
+    convergence bit for bit the one-rank ``fit_batch``'s of phase 6 and of
+    ``[threshold_batch]``; seconds per dispatch, kernel #2's and the update
+    kernel's launches and the all-gather's bytes and seconds per rank) and
+    ``[engine_data_sharded]`` (``AsyncLingamEngine(rules=)`` pre-warmed at
+    every batch count, 3 submitter threads on the leader serving the 10
+    requests of item 7 over 2 replicas: every fit bit for bit item 7's,
+    launches counted on both ranks, a follower's submit refused); in the
+    four-rank set ``[fit_batch_data_sharded] grid=4x1`` (the E. coli
+    bucket, and 6 of its requests through ``dispatch_bucket(rules=)``,
+    padded to 8); ``[lingam_sharded_jobs]``, their seconds against
+    ``LINGAM_JOBS_S``.
 21. After every other phase, ``[ssd_decode_device_time]``: kernel #6's
     device time at the per-rank shape, from a torch.profiler session in a
     process of its own (a session in a process that ran ranks, or in a
@@ -945,7 +961,10 @@ def stage_times(name, raw, bucket, dev, gpu):
 
 def phase_fit_batch(dev, gpu):
     """(b) ``fit_batch`` on the E. coli bucket with the kernel and with the
-    plain square path. Returns each request's order."""
+    plain square path. Returns each request's order, and the kernel's
+    results on the bucket and on the iJR904 bucket with their seconds
+    (``{"ecoli_dense": (arrays, s), "ijr_dense": ...}``: the one-rank side of
+    ``[fit_batch_data_sharded]``)."""
     raw = ecoli_requests()
     xs, mask, nv, _ = pack_bucket(raw, *ECOLI_BUCKET)
     runs = {}
@@ -986,7 +1005,12 @@ def phase_fit_batch(dev, gpu):
     say("fit_batch_rows", B=len(raw), equal_to_own_fit_batch=f"{len(raw) - len({d.split(':')[0] for d in differ})}/{len(raw)}",
         first_differences=",".join(differ) or "none")
     check(not differ, "a dataset's fit differs between its batch and its own")
-    return [list(ok_[i, :p]) for i, p in enumerate(p_live)]
+    ijr = ijr_requests()
+    xi, mi, nvi, _ = pack_bucket(ijr, *IJR_BUCKET)
+    ri, ti = timed(lambda: batch_arrays(fit_batch(
+        xi, ParaLiNGAMConfig(score_backend="hopper_fused"), n_valid=nvi, mask=mi, device=dev)))
+    want = {"ecoli_dense": (batch_arrays(rk), tk), "ijr_dense": (ri, ti)}
+    return [list(ok_[i, :p]) for i, p in enumerate(p_live)], want
 
 
 def batch_differences(res, xs, mask, nv, cfg, p_live, names, dev):
@@ -1117,8 +1141,9 @@ def replay_identical(served, cfg, dev) -> int:
 
 
 def phase_engine(dev, gpu, batch_orders, profile: bool):
-    """(c) The serving path on the card. Returns the batched kernel's
-    launches in the served run."""
+    """(c) The serving path on the card. Returns the batched kernel's and
+    the update kernel's launches in the served run, and the served fits
+    (the one-rank side of ``[engine_data_sharded]``)."""
     ecoli, ijr = ecoli_requests(), ijr_requests()
     requests = ecoli + ijr
     cfg = ParaLiNGAMConfig()
@@ -1178,7 +1203,7 @@ def phase_engine(dev, gpu, batch_orders, profile: bool):
             device_busy_s=f"{busy_us / 1e6:.4f}", device_busy_share=f"{busy_us / 1e6 / wall2:.3f}",
             gpu=f"'{gpu}'")
         say_rows("engine", rows, busy_us)
-    return launches, updates
+    return launches, updates, results
 
 
 def device_rows(prof):
@@ -1681,7 +1706,8 @@ def phase_threshold_batch(dev, gpu):
     """``fit_batch(threshold=True)`` on the ragged E. coli bucket, against
     each dataset's own one-dataset ``fit_batch`` on the same padded inputs;
     then one served round of the same requests, each result bit-identical
-    to a replay of its dispatch."""
+    to a replay of its dispatch. Returns the bucket's results and seconds
+    (the one-rank side of ``[fit_batch_data_sharded]``)."""
     raw = ecoli_requests()
     xs, mask, nv, _ = pack_bucket(raw, *ECOLI_BUCKET)
     cfg = ParaLiNGAMConfig(threshold=True)
@@ -1701,6 +1727,7 @@ def phase_threshold_batch(dev, gpu):
         converged=bool(res.converged.all()), gpu=f"'{gpu}'")
     check(same == len(raw), "a dataset's threshold fit differs between its batch and its own")
     check(bool(res.converged.all()), "a threshold fit in the bucket did not converge")
+    one_rank = (batch_arrays(res), t_batch)
 
     results, wall, st, served, _, launched, _ = engine_round(cfg, raw, dev)
     replay_ok = replay_identical(served, cfg, dev)
@@ -1709,7 +1736,7 @@ def phase_threshold_batch(dev, gpu):
         results_bit_identical_to_replay=f"{replay_ok}/{len(raw)}",
         launches=sum(launched.values()), gpu=f"'{gpu}'")
     check(replay_ok == len(raw), "a served threshold result differs from the replay of its dispatch")
-    return t_batch
+    return one_rank
 
 
 def phase_threshold_slice(dev, gpu):
@@ -4273,11 +4300,228 @@ def rank_ssd_device(inputs):
     return {"device_ms": device_ms(lambda: sd.launch(*args), "ssd_decode_heads")}
 
 
+# ---------------------------------------------------------------------------
+# the batched estimator and the engines sharded over the data ranks
+# ---------------------------------------------------------------------------
+
+# [fit_batch_data_sharded] at LINGAM_GRIDS (in the two- and four-rank
+# sets), [engine_data_sharded] at LINGAM_ENGINE_GRID; [lingam_sharded_jobs]
+# prints their seconds beside LINGAM_JOBS_S without failing on it (the
+# host's speed varies ~2x between calls).
+LINGAM_GRIDS, LINGAM_ENGINE_GRID = ((2, 1), (4, 1)), (2, 1)
+LINGAM_JOBS, LINGAM_JOBS_S = ("fit_batch_sharded", "engine_sharded"), 30
+BATCH_FIELDS = ("orders", "comparisons", "rounds", "converged", "b", "noise_var")
+# The update kernel's fit mode and kernel #2, one launch each per scan
+# iteration of a dispatch: p_pad - 1 (127 for the E. coli bucket).
+FIT_KERNELS = ("fused_score_batch", "rank1_update")
+
+
+def batch_arrays(res) -> dict:
+    """A ``BatchFitResult``'s fields as host arrays."""
+    return {k: getattr(res, k).cpu().numpy() for k in BATCH_FIELDS}
+
+
+def fit_differences(tag: str, got: dict, want: dict) -> list:
+    """"tag:field@index" of the first entry of each field of ``got`` that
+    differs from ``want`` bit for bit (shapes and dtypes too)."""
+    out = []
+    for k in BATCH_FIELDS:
+        g, w = got[k], want[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            out.append(f"{tag}:{k}@{g.shape}{g.dtype}")
+        elif not np.array_equal(g, w):
+            out.append(f"{tag}:{k}@{tuple(int(i) for i in np.argwhere(g != w)[0])}")
+    return out
+
+
+def lingam_cases(grid) -> list:
+    """(tag, requests, bucket, config) of ``[fit_batch_data_sharded]`` at
+    ``grid``: the ragged E. coli bucket dense under ``hopper_fused``, and at
+    2 x 1 also under ``threshold=True`` and the two iJR904-size requests."""
+    dense = ParaLiNGAMConfig(score_backend="hopper_fused")
+    cases = [("ecoli_dense", ecoli_requests(), ECOLI_BUCKET, dense)]
+    if grid == LINGAM_ENGINE_GRID:
+        cases += [("ecoli_threshold", ecoli_requests(), ECOLI_BUCKET,
+                   ParaLiNGAMConfig(threshold=True)),
+                  ("ijr_dense", ijr_requests(), IJR_BUCKET, dense)]
+    return cases
+
+
+def same_fit(f, w) -> bool:
+    """Two ``LingamFit``s equal bit for bit."""
+    return (f.order == w.order and np.array_equal(f.b, w.b)
+            and np.array_equal(f.noise_var, w.noise_var) and f.comparisons == w.comparisons
+            and f.rounds == w.rounds and f.converged == w.converged)
+
+
+def unpadded_fits(raw, arrays: dict) -> list:
+    """Each request's ``LingamFit`` from a bucket's host results."""
+    from repro_torch.serve.lingam_engine import unpad
+
+    return unpad(raw, [arrays[k] for k in ("orders", "comparisons", "b", "noise_var", "rounds",
+                                           "converged")])
+
+
+def rank_fit_batch_sharded(grid, want):
+    """[fit_batch_data_sharded] on this rank: ``fit_batch(rules=)`` of each
+    ``lingam_cases`` bucket (dense ones after a warm-up dispatch), timed,
+    its launches and the gather counted, every field held bit for bit
+    against the one-rank ``want[tag]``; at 4 x 1 also 6 E. coli requests
+    through ``dispatch_bucket(rules=)``, padded to 8 (the last rank's rows
+    all dead), each fit against its row of the one-rank bucket."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import make_rules, row_block
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serve.lingam_engine import dispatch_bucket
+
+    dev = torch.device(RANK_DEVICE)
+    rules = make_rules(ParaLiNGAMConfig(), make_local_mesh(*grid, device_type=RANK_DEVICE))
+    cases = []
+
+    def timed_case(tag, b, run):
+        reset_counts()
+        clock = CollectiveClock(dist.get_backend())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with clock:
+            got = run()
+        seconds = time.perf_counter() - t0
+        gathers = [r for r in clock.records if r["op"] == "all-gather"]
+        cases.append({"tag": tag, "B": b, "rows": row_block(b, rules)[1:], "seconds": seconds,
+                      "launched": counts(), "gathers": len(gathers),
+                      "gather_bytes": sum(r["out_bytes"] for r in gathers),
+                      "gather_s": clock.by_op().get("all-gather", (0, 0.0))[1]})
+        return got
+
+    for tag, raw, bucket, cfg in lingam_cases(grid):
+        xs, mask, nv, _ = pack_bucket(raw, *bucket)
+
+        def run(cfg=cfg, xs=xs, mask=mask, nv=nv):
+            return batch_arrays(fit_batch(xs, cfg, n_valid=nv, mask=mask, rules=rules,
+                                          device=dev))
+
+        if not cfg.threshold:
+            run()  # this rank's first dispatch of the bucket
+        got = timed_case(tag, len(raw), run)
+        cases[-1]["differ"] = fit_differences(tag, got, want[tag][0])
+    if grid != LINGAM_ENGINE_GRID:
+        raw = ecoli_requests()[:6]
+        fits = timed_case("ecoli_6_of_8", 8, lambda: dispatch_bucket(
+            raw, *ECOLI_BUCKET, ParaLiNGAMConfig(score_backend="hopper_fused"), SERVE_CFG, rules,
+            device=dev))
+        ones = unpadded_fits(raw, want["ecoli_dense"][0])
+        cases[-1]["differ"] = [f"ecoli_6_of_8:{i}" for i, (f, w) in enumerate(zip(fits, ones))
+                               if not same_fit(f, w)]
+    return {"rank": dist.get_rank(), "cases": cases}
+
+
+def rank_engine_sharded(grid, want):
+    """[engine_data_sharded] on this rank: ``AsyncLingamEngine(rules=)``
+    built alike on every rank with [engine]'s buckets pre-warmed at every
+    batch count; the leader serves the 10 ``serve_mixed`` requests from 3
+    submitter threads over 2 replicas, each fit held bit for bit against
+    the one-rank engine's (``want``); a follower's submit must raise, and
+    its ``close()`` returns after the leader's. Launches counted from the
+    end of construction (a barrier) on."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import make_rules
+    from repro_torch.launch.mesh import make_local_mesh
+
+    dev = torch.device(RANK_DEVICE)
+    rules = make_rules(ParaLiNGAMConfig(), make_local_mesh(*grid, device_type=RANK_DEVICE))
+    requests = ecoli_requests() + ijr_requests()
+    t0 = time.perf_counter()
+    eng = AsyncLingamEngine(
+        ParaLiNGAMConfig(), SERVE_CFG, rules, batch_cfg=BatchingConfig(
+            max_batch=8, max_queue=64, flush_interval=1.0),
+        replicas=2, prewarm=[ECOLI, SLICE], device=dev)
+    out = {"rank": dist.get_rank(), "prewarm_s": time.perf_counter() - t0,
+           "prewarm": eng.stats()["prewarm"]}
+    reset_counts()
+    paralingam.reset_dispatch_stats()
+    dist.barrier()
+    if dist.get_rank() != 0:
+        try:
+            eng.submit(requests[0])
+            out["submit_refused"] = False
+        except ValueError:
+            out["submit_refused"] = True
+        eng.close()
+        out.update(launched=counts(), ended=not eng._follower.is_alive())
+        return out
+    try:
+        results, wall = serve_round(eng, requests)
+        launched, st = counts(), eng.stats()
+        st["rank1_update"] = paralingam.dispatch_stats_snapshot()["rank1_update"]
+    finally:
+        eng.close(timeout=120)
+    out.update(wall=wall, launched=launched, stats=st,
+               differ=[i for i, (f, w) in enumerate(zip(results, want)) if not same_fit(f, w)])
+    return out
+
+
+def report_fit_batch_sharded(gpu, grid, ranks, backend, cards, want):
+    """[fit_batch_data_sharded]: one line per case, each rank's numbers."""
+    for i, case in enumerate(ranks[0]["cases"]):
+        rows = [r["cases"][i] for r in ranks]
+        iterations = (IJR_BUCKET if case["tag"].startswith("ijr") else ECOLI_BUCKET)[0] - 1
+        # The threshold machine scores through torch ops, not kernel #2.
+        want_launches = [0 if "threshold" in case["tag"] else iterations, iterations]
+        launched = [[c["launched"][k] for k in FIT_KERNELS] for c in rows]
+        say("fit_batch_data_sharded", grid=f"{grid[0]}x{grid[1]}", case=case["tag"],
+            B=case["B"], backend=backend, cards=cards,
+            rows_per_rank=",".join(f"{c['rows'][0]}-{c['rows'][1]}" for c in rows),
+            seconds_per_dispatch=",".join(f"{c['seconds']:.4f}" for c in rows),
+            one_rank_s=f"{want[case['tag']][1]:.4f}" if case["tag"] in want else "none",
+            fused_score_batch_launches=",".join(str(n[0]) for n in launched),
+            update_launches=",".join(str(n[1]) for n in launched),
+            gathers=",".join(str(c["gathers"]) for c in rows),
+            gather_bytes=",".join(str(c["gather_bytes"]) for c in rows),
+            gather_s=",".join(f"{c['gather_s']:.4f}" for c in rows),
+            equal_to_one_rank=f"{sum(not c['differ'] for c in rows)}/{len(rows)}",
+            first_differences=",".join(d for c in rows for d in c["differ"][:2]) or "none",
+            gpu=f"'{gpu}'")
+        check(all(not c["differ"] for c in rows),
+              f"{grid} {case['tag']}: a rank's results differ from one rank's")
+        check(all(n == want_launches for n in launched),
+              f"{grid} {case['tag']}: launches {launched}, want {want_launches}")
+        check(all(c["gathers"] == 1 for c in rows), f"{grid} {case['tag']}: not one gather")
+
+
+def report_engine_sharded(gpu, grid, ranks, backend, cards):
+    """[engine_data_sharded]: the leader's round and every rank's launches."""
+    r0, followers = ranks[0], ranks[1:]
+    st = r0["stats"]
+    want = sum(b["dispatches"] * (bucket[0] - 1) for bucket, b in st["buckets"].items())
+    launched = [[r["launched"][k] for k in FIT_KERNELS] for r in ranks]
+    say("engine_data_sharded", grid=f"{grid[0]}x{grid[1]}", backend=backend, cards=cards,
+        requests=st["admitted"], delivered=st["delivered"], dispatches=st["dispatches"],
+        wall_s=f"{r0['wall']:.4f}", requests_per_s=f"{st['delivered'] / r0['wall']:.3f}",
+        prewarm_s=",".join(f"{r['prewarm_s']:.2f}" for r in ranks),
+        prewarm_executables=r0["prewarm"]["executables"],
+        fused_score_batch_launches=",".join(str(n[0]) for n in launched),
+        update_launches=",".join(str(n[1]) for n in launched), want_launches=want,
+        kernel_bypass=st["kernel_bypass"],
+        fits_equal_to_one_rank_engine=f"{10 - len(r0['differ'])}/10",
+        follower_submit_refused=all(r["submit_refused"] for r in followers),
+        followers_ended=all(r["ended"] for r in followers), gpu=f"'{gpu}'")
+    check(st["delivered"] == st["admitted"] == 10, f"delivered {st['delivered']} of 10")
+    check(st["kernel_bypass"] == 0, f"kernel_bypass={st['kernel_bypass']}")
+    check(not r0["differ"], f"served fits {r0['differ']} differ from the one-rank engine's")
+    check(all(n == [want] * 2 for n in launched) and st["rank1_update"] == want,
+          f"launches {launched} (dispatch_stats {st['rank1_update']}), want {want} of each")
+    check(all(r["submit_refused"] and r["ended"] for r in followers),
+          "a follower took a submit or did not end")
+
+
 RANK_JOBS = {"tp_train": rank_tp_train, "sharded_hold": rank_sharded_hold,
              "ep_hold": rank_ep_hold, "serve_hold": rank_serve_hold, "serve_tp": rank_serve_tp,
              "ssd_device": rank_ssd_device, "fsdp_hold": rank_fsdp_hold,
              "fsdp_train": rank_fsdp_train, "prefill_cp": rank_prefill_cp,
-             "train_cp": rank_train_cp, "cp_hold": rank_cp_hold}
+             "train_cp": rank_train_cp, "cp_hold": rank_cp_hold,
+             "fit_batch_sharded": rank_fit_batch_sharded, "engine_sharded": rank_engine_sharded}
 
 
 def report_granite_train_tp(gpu, grid, ranks, backend, cards, one_rank_losses):
@@ -4679,7 +4923,8 @@ def report_serve_tp(gpu, arch, grid, ranks, backend, cards, want_tokens, dev):
     return r0
 
 
-def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_start):
+def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_start,
+                           lingam_want, engine_fits):
     """The sharded phases: one set of ranks per world size runs its jobs
     one after another, each job on the mesh of its own grid (a rank
     process pays ~10 s of CUDA start-up on its first products, so the
@@ -4700,10 +4945,15 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
     its timing without the device time, its inputs on the CPU, and each
     rank's results of ``[granite_train_tp]``, ``[granite_train_fsdp]``,
     ``[granite_serve_tp]``, ``[zamba2_serve_tp]``, ``[granite_serve_uneven]``
-    and ``[whisper_serve_uneven]`` for ``[dryrun_hold]``, by tag).
+    and ``[whisper_serve_uneven]`` for ``[dryrun_hold]``, by tag, and the
+    leader's kernel launches in ``[engine_data_sharded]``'s round).
     ``one_rank_tokens``: each served arch's one-rank float32 tokens.
     ``t_start`` is the script's start, for the elapsed seconds each set of
-    ranks prints."""
+    ranks prints. The batched LiNGAM estimator and the async engine sharded
+    over the data ranks run last in the two-rank set
+    (``[fit_batch_data_sharded] grid=2x1``, ``[engine_data_sharded]``) and
+    at 4 x 1 in the four-rank set, held against the one-rank results
+    ``lingam_want`` (``{tag: (arrays, seconds)}``) and ``engine_fits``."""
     plan = {grid: [] for grid in SHARD_GRIDS}
     plan[HELD_GRID] += [("tp_train", {"argv": TP_ARGV})] + [
         ("serve_tp", {"arch": a, "grid": HELD_GRID}) for a in SERVE_TP_ARCHS.values()]
@@ -4724,10 +4974,15 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
                          for a in UNEVEN_SERVE.values()]
     plan[UNEVEN_GRID] += [("sharded_hold", {"grid": UNEVEN_GRID, "arch": a})
                           for a in UNEVEN_HOLD_ARCHS]
+    for grid in LINGAM_GRIDS:
+        plan.setdefault(grid, []).append(("fit_batch_sharded", {"grid": grid, "want": {
+            tag: lingam_want[tag] for tag, *_ in lingam_cases(grid)}}))
+    plan[LINGAM_ENGINE_GRID].append(("engine_sharded", {"grid": LINGAM_ENGINE_GRID,
+                                                        "want": engine_fits}))
     worlds: dict = {}
     for grid, jobs in plan.items():
         worlds.setdefault(math.prod(grid), []).extend((grid, job, kw) for job, kw in jobs)
-    zamba2, held, cp_s = None, {}, 0.0
+    zamba2, held, cp_s, lingam_s, engine_launched = None, {}, 0.0, 0.0, {}
     for world, planned in worlds.items():
         jobs = [(job, kw) for _, job, kw in planned]
         t0 = time.perf_counter()
@@ -4741,6 +4996,8 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
             results = [r[i] for r in ranks]
             if job in CP_JOBS:
                 cp_s += results[0]["job_s"]
+            if job in LINGAM_JOBS:
+                lingam_s += results[0]["job_s"]
             if job == "tp_train":
                 report_granite_train_tp(gpu, grid, results, backend, cards, one_rank_losses)
                 held["granite_train_tp"] = results
@@ -4767,6 +5024,11 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
                 held["granite_train_cp"] = results
             elif job == "cp_hold":
                 report_train_cp_hold(gpu, grid, results, backend, cards)
+            elif job == "fit_batch_sharded":
+                report_fit_batch_sharded(gpu, grid, results, backend, cards, kwargs["want"])
+            elif job == "engine_sharded":
+                report_engine_sharded(gpu, grid, results, backend, cards)
+                engine_launched = results[0]["launched"]
             else:
                 report_serve_hold(gpu, grid, results, backend, cards)
         grids = dict.fromkeys(grid for grid, _, _ in planned)
@@ -4776,10 +5038,12 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
             elapsed_s=f"{time.perf_counter() - t_start:.1f}", gpu=f"'{gpu}'")
     say("cp_jobs", jobs=",".join(CP_JOBS), seconds=f"{cp_s:.1f}", budget_s=CP_JOBS_S,
         within=cp_s <= CP_JOBS_S, gpu=f"'{gpu}'")
+    say("lingam_sharded_jobs", jobs=",".join(LINGAM_JOBS), seconds=f"{lingam_s:.1f}",
+        budget_s=LINGAM_JOBS_S, within=lingam_s <= LINGAM_JOBS_S, gpu=f"'{gpu}'")
     args = [a.to(dev) for a in zamba2["ssd_inputs"]]
     err = hold_ssd("zamba2_tp_rank0_layer0", args)
     return (zamba2["launched"]["ssd_decode"], err, ssd_times(args, rate, gpu, profile=False),
-            zamba2["ssd_inputs"], held)
+            zamba2["ssd_inputs"], held, engine_launched)
 
 
 def phase_ssd_device_tp(gpu, inputs, timing):
@@ -5427,20 +5691,20 @@ def main() -> int:
     phase_causal_order_host(dev, gpu, core)
     launches, err_fit, ms, plain_ms, bound, wrapper_ms = phase_fit_slice(dev, gpu)
     err_b, ms_b, wrapper_b, plain_b, bound_b, padded_b, shape_b = phase_batch_kernel(dev, gpu)
-    batch_orders = phase_fit_batch(dev, gpu)
+    batch_orders, lingam_want = phase_fit_batch(dev, gpu)
     launches_sqb = phase_fit_batch_hopper(dev, gpu, batch_orders)
-    launches_b, launches_upd = phase_engine(dev, gpu, batch_orders, profile)
+    launches_b, launches_upd, engine_fits = phase_engine(dev, gpu, batch_orders, profile)
     phase_threshold_ecoli(dev, gpu)
-    phase_threshold_batch(dev, gpu)
+    lingam_want["ecoli_threshold"] = phase_threshold_batch(dev, gpu)
     if time.perf_counter() - t_start < 500:  # well inside the 1200 s limit
         phase_threshold_slice(dev, gpu)
     else:
         say("threshold_slice", skipped=True, elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     free()
-    launches_tp, err_tp, tp_timing, tp_inputs, sharded_held = phase_sharded_training(
+    launches_tp, err_tp, tp_timing, tp_inputs, sharded_held, sharded_launched = phase_sharded_training(
         dev, gpu, rate, train_losses,
         {"granite-3-2b": granite_tokens, "zamba2-2.7b": zamba2_tokens,
-         "whisper-base": whisper_tokens}, t_start)
+         "whisper-base": whisper_tokens}, t_start, lingam_want, engine_fits)
     err_ring = phase_ring_block_kernel(dev, gpu, core["x"])
     launches_ring, launches_ring_find_root = phase_ring_ecoli(dev, gpu, profile)
     phase_ica_lingam(dev, gpu)
@@ -5464,6 +5728,7 @@ def main() -> int:
         "replaces": BATCH_REPLACES, "launches": launches_b, "max_abs_err": err_b,
         "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": "operations",
         "library_ms": None, "wrapper_ms": wrapper_b, "bound_ms_padded_buffer": padded_b,
+        "launches_data_sharded_per_rank": sharded_launched["fused_score_batch"],
         "shape": shape_b, "gpu": gpu,
     }, {
         "name": "pairwise_moments", "route": "cuda", "source": SQUARE_SOURCE,
@@ -5491,7 +5756,9 @@ def main() -> int:
     } for name, replaces, err in (("update_data", DATA_REPLACES, max(err_data, path_ex)),
                                   ("update_cov", COV_REPLACES, max(err_cov, path_ec)))] + [{
         "name": "rank1_update", "route": "cuda", "source": COV_SOURCE,
-        "replaces": RANK1_REPLACES, "launches": launches_upd, "max_abs_err": err_rank1,
+        "replaces": RANK1_REPLACES, "launches": launches_upd,
+        "launches_data_sharded_per_rank": sharded_launched["rank1_update"],
+        "max_abs_err": err_rank1,
         "ms": rank1_timing[0], "plain_ms": rank1_timing[1], "bound_ms": rank1_timing[2],
         "bound_by": "bytes", "library_ms": None, "device_ms": rank1_timing[3],
         "empty_kernel_device_ms": rank1_timing[4], "shape": rank1_timing[5], "gpu": gpu,

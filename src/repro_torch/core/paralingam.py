@@ -50,6 +50,7 @@ from repro_torch.core.pairwise import (
     row_entropies,
     scores_from_stats,
 )
+from repro_torch.dist.sharding import NO_SHARDING, ShardingRules, gather_rows, row_block
 from repro_torch.kernels import ops as kops
 from repro_torch.utils.schedule import make_schedule
 from repro_torch.utils.shapes import next_pow2
@@ -910,12 +911,10 @@ class BatchFitResult:
     noise_var: torch.Tensor | None = None  # (B, p)
 
 
-def _coerce_batch(xs, n_valid, mask, caller: str, dev):
-    """Shared frontend validation of the batched entry points: the (B, p, n)
-    float32 stack and the per-dataset padding seams, on the device."""
+def _coerce_batch(xs, n_valid, mask, dev):
+    """The (B, p, n) float32 stack and the per-dataset padding seams of the
+    batched entry points, on the device."""
     xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
-    if xs.ndim != 3:
-        raise ValueError(f"{caller} wants (B, p, n), got {tuple(xs.shape)}")
     nv = None
     if n_valid is not None:
         nv = torch.as_tensor(n_valid, dtype=torch.int32, device=dev)
@@ -932,23 +931,56 @@ def _reject_ring(cfg: ParaLiNGAMConfig, caller: str) -> None:
             "fit() for the ring")
 
 
-def _run_batch(xs, config, n_valid, mask, device, caller: str, *,
-               adjacency: bool, prune_below: float = 0.0) -> BatchFitResult:
-    cfg = config or ParaLiNGAMConfig()
-    _reject_ring(cfg, caller)
-    dev = _device(device, caller)
+def _block(a, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of a per-dataset seam (None and scalars as they are)."""
+    if a is None or (a.ndim if isinstance(a, torch.Tensor) else np.ndim(a)) == 0:
+        return a
+    return a[lo:hi]
+
+
+def _fit_local(xs, cfg: ParaLiNGAMConfig, dev, n_valid=None, mask=None, *,
+               adjacency: bool = True, prune_below: float = 0.0) -> list:
+    """The batched pipeline on the rows ``xs`` that this rank holds, with
+    their seams: the rows of ``BatchFitResult``'s fields, in its order (no
+    ``b``/``noise_var`` without ``adjacency``). No collective."""
     backend = kops.select_backend(cfg, dev)
     _note_backend(cfg, backend)
-    xs, nv, mk = _coerce_batch(xs, n_valid, mask, caller, dev)
+    xs, nv, mk = _coerce_batch(xs, n_valid, mask, dev)
     order, comps, rounds, conv, b, omega = _pipeline(
         xs, cfg, backend, adjacency=adjacency, n_valid=nv, mask0=mk,
         prune_below=prune_below)
-    return BatchFitResult(orders=order.to(torch.int32), comparisons=comps,
-                          rounds=rounds, converged=conv, b=b, noise_var=omega)
+    return [order.to(torch.int32), comps, rounds, conv] + ([b, omega] if adjacency else [])
+
+
+def _fit_rows(xs, cfg: ParaLiNGAMConfig, rules: ShardingRules, dev, n_valid=None,
+              mask=None, *, adjacency: bool = True, prune_below: float = 0.0):
+    """``_fit_local`` on this rank's rows ``xs`` of a batch that ``rules``
+    (``dist.sharding.row_block``'s) cut over its batch dimensions. Returns
+    the whole batch's ``BatchFitResult`` on every rank: the results' rows
+    all-gathered over the batch dimensions in one collective of one packed
+    buffer (``dist.sharding.gather_rows``; none where the rows are all of
+    the batch)."""
+    return BatchFitResult(*gather_rows(_fit_local(
+        xs, cfg, dev, n_valid, mask, adjacency=adjacency, prune_below=prune_below), rules))
+
+
+def _run_batch(xs, config, n_valid, mask, device, caller: str, *,
+               adjacency: bool, prune_below: float = 0.0, rules=None) -> BatchFitResult:
+    cfg = config or ParaLiNGAMConfig()
+    _reject_ring(cfg, caller)
+    dev = _device(device, caller)
+    if not isinstance(xs, torch.Tensor):
+        xs = np.asarray(xs, np.float32)
+    if xs.ndim != 3:
+        raise ValueError(f"{caller} wants (B, p, n), got {tuple(xs.shape)}")
+    rules, lo, hi = row_block(xs.shape[0], NO_SHARDING if rules is None else rules)
+    return _fit_rows(xs[lo:hi], cfg, rules, dev, _block(n_valid, lo, hi), _block(mask, lo, hi),
+                     adjacency=adjacency, prune_below=prune_below)
 
 
 def fit_batch(xs, config: ParaLiNGAMConfig | None = None, *, n_valid=None,
-              mask=None, prune_below: float = 0.0, device=None) -> BatchFitResult:
+              mask=None, rules=None, prune_below: float = 0.0,
+              device=None) -> BatchFitResult:
     """Batched DirectLiNGAM over ``xs: (B, p, n)``: the pipeline of
     :func:`fit` over a leading dataset axis, so B problems share every torch
     op and one launch of the batched score kernel per find-root (the
@@ -958,69 +990,101 @@ def fit_batch(xs, config: ParaLiNGAMConfig | None = None, *, n_valid=None,
     sample columns / live variable rows of shape-padded datasets (zero-pad
     the data; see ``serve.buckets.pad_dataset``). ``device`` as in
     :func:`fit`: ``None`` means ``cuda`` and raises without a card. A ring
-    config raises ``ConfigError``: the ring has no batched form."""
+    config raises ``ConfigError``: the ring has no batched form.
+
+    ``rules`` (``dist.sharding.make_rules(cfg, mesh)`` with a ``"data"``
+    axis) shards the dataset axis over the mesh's batch dimensions: every
+    rank of the mesh calls ``fit_batch`` with the same ``xs``, runs the
+    pipeline on its block of the datasets (all of them where the batch
+    ranks do not divide B, as the reference's spec drops the axis; the
+    model ranks alike), and returns the whole batch's results, gathered
+    from the ranks in one collective. The pipeline takes each dataset
+    alone, so the results equal the unsharded dispatch's bit for bit."""
     return _run_batch(xs, config, n_valid, mask, device, "fit_batch",
-                      adjacency=True, prune_below=prune_below)
+                      adjacency=True, prune_below=prune_below, rules=rules)
 
 
 def causal_order_batch(xs, config: ParaLiNGAMConfig | None = None, *,
-                       n_valid=None, mask=None, device=None) -> BatchFitResult:
+                       n_valid=None, mask=None, rules=None,
+                       device=None) -> BatchFitResult:
     """Batched causal order only (phase 1): :func:`fit_batch` without the
-    adjacency epilogue (``b`` and ``noise_var`` are None)."""
+    adjacency epilogue (``b`` and ``noise_var`` are None), with the same
+    padding and sharding contracts."""
     return _run_batch(xs, config, n_valid, mask, device, "causal_order_batch",
-                      adjacency=False)
+                      adjacency=False, rules=rules)
 
 
 @dataclass
 class CompiledFitBatch:
     """:func:`fit_batch` warmed up for ONE ``(batch, p, n)`` bucket shape
     (see :func:`aot_fit_batch`). Calling it mirrors ``fit_batch`` (same
-    result type, same padding contract) on inputs of exactly that shape.
+    result type, same padding and sharding contracts) on inputs of exactly
+    that shape.
 
     PyTorch compiles nothing per shape; what a bucket's first request would
     otherwise pay is the kernel library's build and load, the device
     context, the math libraries' handles, the allocator's first blocks and
     the kernel's tile maps per stage. The warm-up paid them, and
-    ``compile_seconds`` (the name the JAX package gives it) is what it took."""
+    ``compile_seconds`` (the name the JAX package gives it) is what it took.
+    ``padded`` calls always pass the ``n_valid``/mask seams (all valid where
+    the caller gives none), as the reference's executable takes them; an
+    exact (``padded=False``) one refuses them."""
 
     batch: int
     p: int
     n: int
+    padded: bool  # run with the n_valid/mask seams (the serve path)
     cfg: ParaLiNGAMConfig
     backend: str  # concrete score backend the bucket runs
     device: torch.device
     compile_seconds: float  # what the warm-up saved the first request
+    rules: ShardingRules | None = None
+    prune_below: float = 0.0
 
     def __call__(self, xs, n_valid=None, mask=None) -> BatchFitResult:
         if tuple(xs.shape) != (self.batch, self.p, self.n):
             raise ValueError(
                 f"CompiledFitBatch is specialized to "
                 f"{(self.batch, self.p, self.n)}, got {tuple(xs.shape)}")
-        return fit_batch(xs, self.cfg, n_valid=n_valid, mask=mask,
-                         device=self.device)
+        if self.padded:
+            n_valid = np.full((self.batch,), self.n, np.int32) if n_valid is None else n_valid
+            mask = np.ones((self.batch, self.p), bool) if mask is None else mask
+        elif n_valid is not None or mask is not None:
+            raise ValueError(
+                "this bucket was warmed up for exact (unpadded) batches; "
+                "aot_fit_batch(padded=True) for the seams")
+        return fit_batch(xs, self.cfg, n_valid=n_valid, mask=mask, rules=self.rules,
+                         prune_below=self.prune_below, device=self.device)
 
 
 def aot_fit_batch(batch: int, p: int, n: int,
-                  config: ParaLiNGAMConfig | None = None, *,
+                  config: ParaLiNGAMConfig | None = None, *, padded: bool = True,
+                  rules=None, prune_below: float = 0.0,
                   device=None) -> CompiledFitBatch:
     """Warm up the :func:`fit_batch` path for one ``(batch, p, n)`` bucket:
-    run one fit at that shape on seeded Gaussian data, through the
-    ``n_valid``/mask seams a padded bucket uses, and wait for it. That builds
-    and loads the kernel library on the card; after it, the bucket's first
-    request pays no build, module load or library-handle setup. The serving
-    engines call this over their bucket grid
+    run one fit at that shape on seeded Gaussian data (through the
+    ``n_valid``/mask seams a padded bucket uses, with ``padded``) and wait
+    for it. That builds and loads the kernel library on the card; after it,
+    the bucket's first request pays no build, module load or library-handle
+    setup. With ``rules`` it is a collective, as ``fit_batch(rules=)`` is:
+    every rank of the mesh calls it, and each fits and gathers its block.
+    The serving engines call this over their bucket grid
     (``AsyncLingamEngine(prewarm=...)``)."""
     cfg = config or ParaLiNGAMConfig()
     _reject_ring(cfg, "aot_fit_batch")
     dev = _device(device, "aot_fit_batch")
     backend = kops.select_backend(cfg, dev)
     t0 = time.perf_counter()
-    xs = np.random.default_rng(0).standard_normal((batch, p, n)).astype(np.float32)
-    res = fit_batch(xs, cfg, n_valid=np.full((batch,), n, np.int32),
-                    mask=np.ones((batch, p), bool), device=dev)
+    shard_rules, lo, hi = row_block(batch, NO_SHARDING if rules is None else rules)
+    xs = np.random.default_rng(0).standard_normal((hi - lo, p, n)).astype(np.float32)
+    seams = {}
+    if padded:
+        seams = dict(n_valid=np.full((hi - lo,), n, np.int32), mask=np.ones((hi - lo, p), bool))
+    res = _fit_rows(xs, cfg, shard_rules, dev, prune_below=prune_below, **seams)
     res.orders.cpu()  # wait for the device
-    return CompiledFitBatch(batch=batch, p=p, n=n, cfg=cfg, backend=backend,
-                            device=dev, compile_seconds=time.perf_counter() - t0)
+    return CompiledFitBatch(batch=batch, p=p, n=n, padded=padded, cfg=cfg, backend=backend,
+                            device=dev, compile_seconds=time.perf_counter() - t0,
+                            rules=rules, prune_below=prune_below)
 
 
 __all__ = ["BatchFitResult", "CompiledFitBatch", "ConfigError",

@@ -30,8 +30,11 @@ rank:
   (MoE's routing over the global batch without a model axis);
 * serving (no autograd): ``gather_over_model`` all-gathers along a
   dimension, ``seq_slice`` is this rank's block of a split-KV cache's
-  sequence axis (``cache_specs``: the sequence over ``model``), and
-  ``batch_rows`` shards a batch's rows or replicates them.
+  sequence axis (``cache_specs``: the sequence over ``model``),
+  ``batch_rows`` shards a batch's rows or replicates them (``row_block``:
+  this rank's rows), and ``gather_rows`` all-gathers the rows of several
+  results over the batch dimensions as one packed buffer (the batched
+  LiNGAM estimator's).
 
 A dimension that the model ranks need not split evenly (attention
 heads, the MLP's columns, the vocabulary) carries a ``Blocks`` entry in
@@ -594,6 +597,52 @@ def batch_rows(b: int, rules: ShardingRules) -> tuple[ShardingRules, P]:
     if b % rules.batch_shards:
         rules = replace(rules, batch_axes=())
     return rules, P(tuple(rules.batch_axes))
+
+
+def row_block(b: int, rules: ShardingRules) -> tuple[ShardingRules, int, int]:
+    """``batch_rows``' rules for a batch of ``b`` rows and this rank's rows
+    ``[lo, hi)`` of it: its block over the batch dimensions, or all ``b``
+    rows where they do not divide (every model rank the same rows)."""
+    rules, spec = batch_rows(b, rules)
+    lo, length = shard_bounds(rules, spec[0], b)
+    return rules, lo, lo + length
+
+
+def pack_rows(tensors) -> torch.Tensor:
+    """Tensors with a common leading row count as one ``(rows, bytes)``
+    uint8 tensor: each row holds the bytes of every tensor's row, in order."""
+    rows = tensors[0].shape[0]
+    return torch.cat([t.contiguous().reshape(rows, -1).view(torch.uint8) for t in tensors], 1)
+
+
+def row_bytes(dtype, shape) -> int:
+    """The bytes of one row of ``shape`` entries of ``dtype``."""
+    return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+
+
+def unpack_rows(buf: torch.Tensor, layout) -> list:
+    """``pack_rows``' inverse: one tensor per ``(dtype, row_shape)`` of
+    ``layout``, with the rows of ``buf``."""
+    out, off = [], 0
+    for dtype, shape in layout:
+        width = row_bytes(dtype, shape)
+        piece = buf[:, off:off + width].contiguous().view(dtype)
+        out.append(piece.reshape(buf.shape[0], *shape))
+        off += width
+    return out
+
+
+def gather_rows(tensors, rules: ShardingRules) -> list:
+    """Serving, outside autograd: every batch rank's rows of each tensor
+    (this rank's among them, in ``local_shard``'s order), through one
+    ``all_gather`` per batch dimension of one buffer that packs every
+    tensor's rows (``pack_rows``). The tensors themselves where
+    ``batch_shards == 1``."""
+    tensors = [t.detach() for t in tensors]
+    if rules.batch_shards == 1:
+        return tensors
+    full = gather_shard(pack_rows(tensors), P(tuple(rules.batch_axes)), rules)
+    return unpack_rows(full, [(t.dtype, t.shape[1:]) for t in tensors])
 
 
 def seq_slice(max_seq: int, rules: ShardingRules) -> tuple[int, int]:

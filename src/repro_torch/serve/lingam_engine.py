@@ -22,6 +22,15 @@ its sums (asserted on the CPU in tests/test_torch_serve.py).
 
 Each dispatch packs its requests into one float32 host array, copies it to
 the device once, and reads every result back in one copy.
+
+Batches can shard across ranks: pass ``rules=make_rules(cfg, mesh)`` (a
+``"data"`` mesh dimension) and each dispatch fits this rank's block of the
+bucket's datasets and gathers the results (``fit_batch(rules=)``). Where
+the data ranks do not divide a bucket's request count, its batch count is
+padded to a power of two (``pad_batch_pow2``), so a power-of-two data
+dimension divides a partial bucket too. ``LingamEngine`` is then SPMD: every rank of the mesh submits the same datasets in the same
+order and flushes alike; bucketing is deterministic, so every rank runs the
+same dispatches and returns every result.
 """
 
 from __future__ import annotations
@@ -29,11 +38,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from repro_torch.core.paralingam import ParaLiNGAMConfig, _device, fit_batch
 from repro_torch.core.validate import require_valid
+from repro_torch.dist.sharding import pack_rows, unpack_rows
 from repro_torch.serve.buckets import bucket_shape, pad_dataset  # noqa: F401
+from repro_torch.utils.shapes import next_pow2
 
 
 @dataclass(frozen=True)
@@ -41,6 +51,11 @@ class LingamServeConfig:
     max_batch: int = 64  # datasets per dispatch (a bucket splits into chunks)
     min_p_bucket: int = 8  # floors of the pow-2 padding grid: tiny requests
     min_n_bucket: int = 64  # share one bucket instead of one each
+    pad_batch_pow2: bool = True  # pad a sharded dispatch's batch count up
+    #   to a power of two (zero datasets, all-dead mask) where the data ranks
+    #   do not divide it, as the reference does: a power-of-two data
+    #   dimension then divides a partial bucket. One rank never pads (see
+    #   ``batch_pad``).
     validate: bool = True  # run the core.validate admission guardrails on
     #   every submitted dataset (NaN/Inf cells, constant/duplicate variables,
     #   p > n rank deficiency) and reject with a typed DatasetError before
@@ -68,12 +83,13 @@ class _Pending:
 def check_engine_config(config: ParaLiNGAMConfig | None) -> ParaLiNGAMConfig:
     """Shared construction-time config validation of the sync and async
     engines: fail at construction, not at the first flush. ``fit_batch`` has
-    no ring form."""
+    no ring form (the batch axis shards via ``rules`` instead)."""
     config = config or ParaLiNGAMConfig()
     if config.order_backend == "ring":
         raise ValueError(
             "the LiNGAM engines dispatch through fit_batch, which has no "
-            "ring form: use order_backend='host' or 'scan'")
+            "ring form: use order_backend='host' or 'scan' and shard the "
+            "batch axis via rules=make_rules(cfg, mesh)")
     return config
 
 
@@ -91,16 +107,31 @@ def check_dataset(x, *, validate: bool = False) -> np.ndarray:
     return x
 
 
-def pack_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int):
-    """Zero-pad ragged datasets into one float32 ``(b, p_pad, n_pad)`` host
-    batch, one dataset per request. Returns ``(xs, mask, n_valid, exact)``:
-    the live-row mask (b, p_pad), the valid sample counts (b,), and whether
-    no dataset was padded at all (then the seams can be left out)."""
+def batch_pad(b: int, serve_cfg: LingamServeConfig, rules=None) -> int:
+    """The batch count a bucket of ``b`` requests dispatches at under
+    ``rules``: ``min(next_pow2(b), max_batch)`` with ``pad_batch_pow2`` where
+    the rules' batch ranks are more than one and do not divide ``b``, else
+    ``b``. The reference pads every bucket to bound the shapes XLA compiles;
+    the port compiles nothing per shape, so only the data ranks need it."""
+    shards = 1 if rules is None else rules.batch_shards
+    if serve_cfg.pad_batch_pow2 and b % shards:
+        return min(next_pow2(b), serve_cfg.max_batch)
+    return b
+
+
+def pack_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int, b_pad: int | None = None):
+    """Zero-pad ragged datasets into one float32 ``(b_pad, p_pad, n_pad)``
+    host batch, one dataset per request and zero datasets with no live row
+    after them (``b_pad`` defaults to the request count). Returns ``(xs,
+    mask, n_valid, exact)``: the live-row mask (b_pad, p_pad), the valid
+    sample counts (b_pad,), and whether nothing was padded at all (then the
+    seams can be left out)."""
     b = len(xs_list)
-    xs = np.zeros((b, p_pad, n_pad), np.float32)
-    mask = np.zeros((b, p_pad), bool)
-    n_valid = np.full((b,), n_pad, np.int32)
-    exact = True
+    b_pad = b if b_pad is None else b_pad
+    xs = np.zeros((b_pad, p_pad, n_pad), np.float32)
+    mask = np.zeros((b_pad, p_pad), bool)
+    n_valid = np.full((b_pad,), n_pad, np.int32)
+    exact = b == b_pad
     for i, x in enumerate(xs_list):
         p, n = x.shape
         xs[i, :p, :n] = x
@@ -111,39 +142,24 @@ def pack_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int):
 
 
 def _read_back(*ts):
-    """Numpy copies of device tensors through ONE device-to-host copy: their
-    bytes are concatenated on the device and split again on the host (pass
-    the widest dtypes first, so every piece stays aligned)."""
-    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in ts]
-    host = torch.cat(flat).cpu().numpy()
-    out, off = [], 0
-    for t, f in zip(ts, flat):
-        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(host[off:off + f.numel()].view(dtype).reshape(t.shape))
-        off += f.numel()
-    return out
+    """Numpy copies of device tensors with a common leading row count through
+    ONE device-to-host copy: their rows packed into one byte buffer on the
+    device (``dist.sharding.pack_rows``) and split again on the host."""
+    host = pack_rows(ts).cpu()
+    return [t.numpy() for t in unpack_rows(host, [(t.dtype, t.shape[1:]) for t in ts])]
 
 
-def dispatch_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int,
-                    config: ParaLiNGAMConfig, *,
-                    device=None) -> list[LingamFit]:
-    """One bucket's device dispatch, shared by the sync and async engines:
-    pack the raw ragged datasets into a zero-padded (B, p_pad, n_pad) batch,
-    copy it to the device once, run the batched fit, read the results back
-    once, and unpad each back to its request's true shape. Returns one
-    ``LingamFit`` per input dataset, in order."""
-    dev = _device(device, "dispatch_bucket")
-    xs, mask, n_valid, exact = pack_bucket(xs_list, p_pad, n_pad)
-    xs_dev = torch.from_numpy(xs).to(dev)
-    seams = {}
-    if not exact:
-        seams = dict(n_valid=torch.from_numpy(n_valid).to(dev),
-                     mask=torch.from_numpy(mask).to(dev))
-    res = fit_batch(xs_dev, config, device=dev, **seams)
+def host_results(res):
+    """A ``BatchFitResult``'s host ``(orders, comparisons, b, noise_var,
+    rounds, converged)``, read back in one copy."""
+    return _read_back(res.orders, res.comparisons, res.b, res.noise_var, res.rounds,
+                      res.converged)
 
-    orders, comps, bs, omegas, rounds, conv = _read_back(
-        res.orders, res.comparisons, res.b, res.noise_var, res.rounds,
-        res.converged)
+
+def unpad(xs_list: list[np.ndarray], results) -> list[LingamFit]:
+    """Each request's ``LingamFit`` from a bucket's host results
+    (``host_results``'), cut back to its true shape."""
+    orders, comps, bs, omegas, rounds, conv = results
     out = []
     for i, x in enumerate(xs_list):
         p = x.shape[0]
@@ -158,6 +174,31 @@ def dispatch_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int,
     return out
 
 
+def dispatch_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int,
+                    config: ParaLiNGAMConfig, serve_cfg: LingamServeConfig | None = None,
+                    rules=None, compiled=None, *, device=None) -> list[LingamFit]:
+    """One bucket's device dispatch, shared by the sync and async engines:
+    pack the raw ragged datasets into a zero-padded (b_pad, p_pad, n_pad)
+    host batch (the batch count padded as ``batch_pad`` says),
+    run the batched fit (which copies this rank's rows of it to the device
+    once), read the results back once, and unpad each back to its request's
+    true shape.
+    Returns one ``LingamFit`` per input dataset, in order.
+
+    ``rules`` shards the batch over the mesh's data ranks
+    (``fit_batch(rules=)``): a collective, which every rank of the mesh
+    calls with the same datasets, each of them returning every fit.
+
+    ``compiled`` (the reference's executables by bucket shape) is accepted
+    and unused: the port compiles nothing per shape, and a warm-up
+    (``paralingam.aot_fit_batch``) leaves nothing that a later call needs."""
+    dev = _device(device, "dispatch_bucket")
+    b_pad = batch_pad(len(xs_list), serve_cfg or LingamServeConfig(), rules)
+    xs, mask, n_valid, exact = pack_bucket(xs_list, p_pad, n_pad, b_pad)
+    seams = {} if exact else dict(n_valid=n_valid, mask=mask)
+    return unpad(xs_list, host_results(fit_batch(xs, config, rules=rules, device=dev, **seams)))
+
+
 class LingamEngine:
     """Queue -> bucket -> batched fit -> unpad. Single-host front door.
 
@@ -166,12 +207,18 @@ class LingamEngine:
     submit-all + flush convenience. ``stats`` counts requests, dispatches and
     per-bucket traffic. ``device`` as in ``fit``: ``None`` means ``cuda``
     and raises at construction without a card; ``"cpu"`` runs the plain
-    torch path."""
+    torch path.
+
+    ``rules`` (``make_rules(cfg, mesh)``) shards every dispatch over the
+    mesh's data ranks. The engine is then SPMD: every rank of the mesh
+    builds it alike and calls ``submit``/``flush``/``fit_many`` with the
+    same datasets in the same order, and every rank gets every result."""
 
     def __init__(self, config: ParaLiNGAMConfig | None = None,
-                 serve_cfg: LingamServeConfig | None = None, *, device=None):
+                 serve_cfg: LingamServeConfig | None = None, rules=None, *, device=None):
         self.config = check_engine_config(config)
         self.serve_cfg = serve_cfg or LingamServeConfig()
+        self.rules = rules
         self.device = _device(device, "LingamEngine")
         self._queue: list[_Pending] = []
         self._completed: dict[int, LingamFit] = {}  # survives a failed flush
@@ -226,7 +273,7 @@ class LingamEngine:
 
     def _dispatch(self, reqs: list[_Pending], p_pad: int,
                   n_pad: int) -> dict[int, LingamFit]:
-        fits = dispatch_bucket([req.x for req in reqs], p_pad, n_pad,
-                               self.config, device=self.device)
+        fits = dispatch_bucket([req.x for req in reqs], p_pad, n_pad, self.config,
+                               self.serve_cfg, self.rules, device=self.device)
         self.stats["dispatches"] += 1
         return {req.req_id: f for req, f in zip(reqs, fits)}

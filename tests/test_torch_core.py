@@ -527,3 +527,39 @@ def test_public_surface_matches_reference():
     want = repro.fit_batch(jnp.asarray(x)).orders
     assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
     assert got.tolist() == np.asarray(want).tolist()
+
+
+@pytest.mark.parametrize("name", ["core.paralingam.fit_batch", "core.paralingam.causal_order_batch",
+                                  "core.paralingam.aot_fit_batch",
+                                  "serve.lingam_engine.dispatch_bucket",
+                                  "serve.lingam_engine.LingamEngine.__init__",
+                                  "serve.async_engine.AsyncLingamEngine.__init__",
+                                  "serve.lingam_engine.LingamServeConfig"])
+def test_batched_and_serving_signatures_take_the_reference_parameters(name):
+    """Every parameter (a dataclass: every field) of the reference's batched
+    estimator and serving entry points exists in the port's counterpart,
+    under the same name; the port adds ``device`` and nothing else."""
+    import importlib
+    import inspect
+
+    def resolve(package):
+        module, _, attr = name.partition(".")
+        parts = name.split(".")
+        for i in range(len(parts), 0, -1):
+            try:
+                obj = importlib.import_module(".".join([package] + parts[:i]))
+            except ModuleNotFoundError:
+                continue
+            for a in parts[i:]:
+                obj = getattr(obj, a)
+            return obj
+        raise AssertionError(name)
+
+    def names(obj):
+        if dataclasses.is_dataclass(obj):
+            return [f.name for f in dataclasses.fields(obj)]
+        return [p for p in inspect.signature(obj).parameters if p != "self"]
+
+    want, got = names(resolve("repro")), names(resolve("repro_torch"))
+    assert [p for p in want if p not in got] == []
+    assert [p for p in got if p not in want] in ([], ["device"])

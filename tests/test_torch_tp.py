@@ -114,10 +114,11 @@ def grid_id(grid) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _rank_main(rank: int, world: int, init: str, grid, jobs, out: str):
+def _rank_main(rank: int, world: int, init: str, grid, jobs, out: str, pg_timeout=None):
     torch.set_num_threads(1)
     try:
-        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                                timeout=pg_timeout)
         try:
             mesh = make_local_mesh(*grid, device_type="cpu")
             results = {name: fn(mesh, **kw) for name, fn, kw in jobs}
@@ -131,18 +132,20 @@ def _rank_main(rank: int, world: int, init: str, grid, jobs, out: str):
         raise
 
 
-def run_grid(grid, jobs, out, timeout: float = JOIN_TIMEOUT) -> list[dict]:
+def run_grid(grid, jobs, out, timeout: float = JOIN_TIMEOUT, pg_timeout=None) -> list[dict]:
     """Run ``jobs`` (``(name, fn, kwargs)``, ``fn(mesh, **kwargs)`` a
     function of this module) on D*M spawned gloo ranks of a
     ``make_local_mesh(*grid)`` mesh; returns each rank's ``{name:
     result}``. A rank that fails or outlives ``timeout`` fails the call,
-    and every rank still running is stopped."""
+    and every rank still running is stopped. ``pg_timeout`` (a
+    ``timedelta``) bounds each collective of the ranks' process group."""
     world = math.prod(grid)
     os.makedirs(out, exist_ok=True)
     ctx = mp.get_context("forkserver")
     ctx.set_forkserver_preload(["torch", "torch.distributed", __name__])
     init = "file://" + os.path.join(str(out), "init")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, init, grid, jobs, str(out)))
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, world, init, grid, jobs, str(out), pg_timeout))
              for r in range(world)]
     for proc in procs:
         proc.start()
