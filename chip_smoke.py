@@ -126,13 +126,35 @@ Phases, each printed on its own line:
     core through ``causal_order_ring`` under an NCCL process group of one
     rank, dense and with the threshold (chunk 16), under ``hopper_fused``:
     the order of the scan with the same kernel (``hopper``), the run
-    without a process group bit-equal, 84 square launches per dense order,
-    ``wire`` all zero; ``[ring_fit]``: ``fit(order_backend="ring")`` with
+    without a process group bit-equal, 84 square launches per dense order
+    and 84 launches of the update kernel's ring mode per order, no
+    collective under the group (a ``CollectiveLedger``: every dimension
+    has one rank), ``wire`` all zero; ``[ring_fit]``: ``fit(order_backend="ring")`` with
     the scan fit's B and noise variances; ``[ring_find_root]``: the
     degenerate one-shard ``ring_find_root`` through one square launch, at
     the dense root; wall times beside the scan's there and at the iJR904
     slice (``[ring_slice]``, orders not held; its threshold run only with
-    ``--profile``).
+    ``--profile``). ``[ring_update_kernel]`` (run after the fit-mode
+    phase, before any rank process): the update kernel's ring mode against
+    its plain version (the ring's torch update) on the E. coli core's first
+    update, every row block of (P, R, M) = (1, 2, 1) and every block and
+    sample shard of (1, 2, 2) (two launches around the sums' reduction),
+    bit-equal out of place and in place; its device ms per launch, the
+    live bytes' bound and an empty kernel's floor on block 0 of each.
+    ``[ring_sharded]``, last in the two- and four-rank sets of item 20 and
+    reported after ``[ring_ecoli]``: ``causal_order_ring`` on the card over
+    gloo at (1, 2, 1), (1, 4, 1), (2, 2, 1) and (1, 2, 2), the E. coli core
+    dense at each, the threshold ring at (1, 2, 1) and (2, 2, 1), with
+    ``--profile`` also the iJR904 slice dense at (1, 4, 1) (its time only:
+    15-23 s per rank, the largest of the ring's jobs): every rank's order
+    against the one-rank scan's (``hold_order``), ``wire`` against
+    ``make_hier_plan``'s hop counts, kernel #3's launches on every rank
+    against 1 + 2 per kept hop and find-root, the ring mode's against one
+    per iteration (two with sample shards), the collectives by op and
+    their seconds, seconds per order per rank beside the one-rank ring and
+    the scan; ``[ring_fit]`` at (1, 2, 1) over the world ring; gloo's probe
+    of each set also shifts a packet on the card around a ring of its
+    ranks; ``[ring_sharded_jobs]``, their seconds against ``RING_JOBS_S``.
 15. The attention families and the hybrid (``models/attention.py``,
     ``models/lm.py``; no hand kernel on the attention paths, the reference
     has none there). ``[granite_serve]``: granite-3-2b at full width and
@@ -363,8 +385,10 @@ Phases, each printed on its own line:
     stay under ``DRYRUN_HOLD_S``.
 23. ``[smoke_wall]``: the script's seconds so far. Then a
     ``{"kernels": [...]}`` line with each hand kernel's launches on its
-    path (the square kernel's ring launches beside them, the decode
-    kernel's zamba2 launches, one rank's and two ranks'), its error
+    path (the square kernel's ring launches beside them, one rank's and
+    each rank's of ``[ring_sharded]``; the update kernel's ring mode's
+    launches, error and times; the decode kernel's zamba2 launches, one
+    rank's and two ranks'), its error
     against the plain version, its time, the plain version's time and
     its bound.
 
@@ -1066,14 +1090,16 @@ def serve_round(eng, requests, threads=3):
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
     fs.LAUNCHES = fs.BATCH_LAUNCHES = ps.LAUNCHES = ps.BATCH_LAUNCHES = 0
-    cu.DATA_LAUNCHES = cu.COV_LAUNCHES = cu.RANK1_LAUNCHES = sd.LAUNCHES = 0
+    cu.DATA_LAUNCHES = cu.COV_LAUNCHES = cu.RANK1_LAUNCHES = cu.RING_LAUNCHES = 0
+    sd.LAUNCHES = 0
 
 
 def counts() -> dict:
     return {"fused_score": fs.LAUNCHES, "fused_score_batch": fs.BATCH_LAUNCHES,
             "pairwise_moments": ps.LAUNCHES, "pairwise_moments_batch": ps.BATCH_LAUNCHES,
             "update_data": cu.DATA_LAUNCHES, "update_cov": cu.COV_LAUNCHES,
-            "rank1_update": cu.RANK1_LAUNCHES, "ssd_decode": sd.LAUNCHES}
+            "rank1_update": cu.RANK1_LAUNCHES, "ring_update": cu.RING_LAUNCHES,
+            "ssd_decode": sd.LAUNCHES}
 
 
 def engine_round(cfg, requests, dev, *, replicas=1, prewarm=None, profile=False):
@@ -3354,9 +3380,14 @@ def run_ranks(jobs: list, world: int, timeout: float = RANK_TIMEOUT):
 
 def gloo_cuda_probe() -> dict:
     """gloo's ``all_reduce``, ``all_gather``, ``broadcast`` and
-    ``reduce_scatter`` (FSDP's backward) on CUDA tensors of this rank: each
+    ``reduce_scatter`` (FSDP's backward) on CUDA tensors of this rank, and
+    the ring's shift (``batch_isend_irecv``, one hop along a flat ring of
+    every rank, as ``dist.ring.Shards.shift`` moves a packet: gloo refuses
+    a CUDA tensor to send, so the packet goes through host buffers): each
     result where it belongs and right."""
     import torch.distributed as dist
+
+    from repro_torch.dist.ring import INTRA, Shards, ring_mesh
 
     r, w = dist.get_rank(), dist.get_world_size()
     x = torch.full((1024,), float(r + 1), device=RANK_DEVICE)
@@ -3369,11 +3400,17 @@ def gloo_cuda_probe() -> dict:
     blocks = [torch.full((6,), float(10 * r + i), device=RANK_DEVICE) for i in range(w)]
     z = torch.empty(6, device=RANK_DEVICE)
     dist.reduce_scatter(z, blocks)
+    ring = Shards(ring_mesh(None, torch.arange(w).reshape(1, w, 1), device_type=RANK_DEVICE))
+    got = ring.shift({"x": torch.full((1000,), float(r + 1), device=RANK_DEVICE),
+                      "i": torch.full((3,), r, dtype=torch.int64, device=RANK_DEVICE)},
+                     1, INTRA).wait()
     on = lambda t: t.device.type == RANK_DEVICE  # noqa: E731
     return {"all_reduce": bool((x == w * (w + 1) / 2).all()) and on(x),
             "all_gather": all(bool((p == i).all()) and on(p) for i, p in enumerate(parts)),
             "broadcast": bool((y == 7.0).all()) and on(y),
-            "reduce_scatter": bool((z == 5 * w * (w - 1) + w * r).all()) and on(z)}
+            "reduce_scatter": bool((z == 5 * w * (w - 1) + w * r).all()) and on(z),
+            "ring_shift": bool((got["x"] == float((r - 1) % w + 1)).all()
+                               and (got["i"] == (r - 1) % w).all()) and on(got["x"])}
 
 
 class CollectiveClock(CollectiveLedger):
@@ -4924,7 +4961,7 @@ def report_serve_tp(gpu, arch, grid, ranks, backend, cards, want_tokens, dev):
 
 
 def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_start,
-                           lingam_want, engine_fits):
+                           lingam_want, engine_fits, profile=False):
     """The sharded phases: one set of ranks per world size runs its jobs
     one after another, each job on the mesh of its own grid (a rank
     process pays ~10 s of CUDA start-up on its first products, so the
@@ -4953,7 +4990,12 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
     over the data ranks run last in the two-rank set
     (``[fit_batch_data_sharded] grid=2x1``, ``[engine_data_sharded]``) and
     at 4 x 1 in the four-rank set, held against the one-rank results
-    ``lingam_want`` (``{tag: (arrays, seconds)}``) and ``engine_fits``."""
+    ``lingam_want`` (``{tag: (arrays, seconds)}``) and ``engine_fits``.
+    The messaging ring's ``[ring_sharded]`` jobs run last in the two- and
+    four-rank sets, at ``RING_GRIDS`` (the iJR904 slice with ``profile``);
+    their results come back unreported
+    (``[grid, rank results, backend, cards, the script's elapsed seconds
+    at the end of their set]``) for ``report_ring_sharded``."""
     plan = {grid: [] for grid in SHARD_GRIDS}
     plan[HELD_GRID] += [("tp_train", {"argv": TP_ARGV})] + [
         ("serve_tp", {"arch": a, "grid": HELD_GRID}) for a in SERVE_TP_ARCHS.values()]
@@ -4979,10 +5021,12 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
             tag: lingam_want[tag] for tag, *_ in lingam_cases(grid)}}))
     plan[LINGAM_ENGINE_GRID].append(("engine_sharded", {"grid": LINGAM_ENGINE_GRID,
                                                         "want": engine_fits}))
+    for grid in RING_GRIDS:
+        plan.setdefault(grid, []).append(("ring_sharded", {"grid": grid, "profile": profile}))
     worlds: dict = {}
     for grid, jobs in plan.items():
         worlds.setdefault(math.prod(grid), []).extend((grid, job, kw) for job, kw in jobs)
-    zamba2, held, cp_s, lingam_s, engine_launched = None, {}, 0.0, 0.0, {}
+    zamba2, held, cp_s, lingam_s, engine_launched, ring = None, {}, 0.0, 0.0, {}, []
     for world, planned in worlds.items():
         jobs = [(job, kw) for _, job, kw in planned]
         t0 = time.perf_counter()
@@ -5029,8 +5073,12 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
             elif job == "engine_sharded":
                 report_engine_sharded(gpu, grid, results, backend, cards)
                 engine_launched = results[0]["launched"]
+            elif job == "ring_sharded":  # reported after [ring_ecoli], its one-rank reference
+                ring.append([grid, results, backend, cards, None])
             else:
                 report_serve_hold(gpu, grid, results, backend, cards)
+        for r in ring:
+            r[4] = r[4] if r[4] is not None else time.perf_counter() - t_start
         grids = dict.fromkeys(grid for grid, _, _ in planned)
         say("sharded_ranks", grids=",".join("x".join(map(str, g)) for g in grids),
             ranks=len(ranks), backend=backend, cards=cards,
@@ -5043,7 +5091,7 @@ def phase_sharded_training(dev, gpu, rate, one_rank_losses, one_rank_tokens, t_s
     args = [a.to(dev) for a in zamba2["ssd_inputs"]]
     err = hold_ssd("zamba2_tp_rank0_layer0", args)
     return (zamba2["launched"]["ssd_decode"], err, ssd_times(args, rate, gpu, profile=False),
-            zamba2["ssd_inputs"], held, engine_launched)
+            zamba2["ssd_inputs"], held, engine_launched, ring)
 
 
 def phase_ssd_device_tp(gpu, inputs, timing):
@@ -5133,15 +5181,16 @@ def phase_poly_scores(dev, gpu):
 
 
 def ring_runs(x, dev, cfg_kw, mesh, warm: bool = True):
-    """One timed ``causal_order_ring`` of ``x``, after a warm-up unless
-    ``warm`` is False: (result, seconds, square-kernel launches of the timed
-    run)."""
+    """One timed ``causal_order_ring`` of ``x``, after a warm-up if
+    ``warm``: (result, seconds, launches of kernel #3 and of the update
+    kernel's ring mode in the timed run)."""
     cfg = ParaLiNGAMConfig(order_backend="ring", **cfg_kw)
     if warm:
         causal_order_ring(x, cfg, mesh=mesh, device=dev)
     reset_counts()
     res, t = timed(lambda: causal_order_ring(x, cfg, mesh=mesh, device=dev))
-    return res, t, counts()["pairwise_moments"]
+    launched = counts()
+    return res, t, launched["pairwise_moments"], launched["ring_update"]
 
 
 def phase_ring_ecoli(dev, gpu, profile: bool):
@@ -5149,16 +5198,21 @@ def phase_ring_ecoli(dev, gpu, profile: bool):
     group of one rank (``file://`` init), through ``causal_order_ring``, at
     the E. coli core size, dense and with the threshold, under
     ``hopper_fused`` (both ``hopper`` names run the square kernel in the
-    ring): the orders of the scan with the same kernel (``hopper``), the runs
-    without a process group (one before the group exists, one after it is
-    gone: the wall times alternate none, NCCL, NCCL, none) bit-equal (orders
-    and every counter), 84 square launches per dense order, ``wire`` all
-    zero, ``fit(order_backend="ring")`` with the scan fit's B and noise
-    variances; ``ring_find_root`` on the degenerate one-shard ring runs the
-    square kernel once and gives the dense root; wall times beside the
-    scan's, here and at the iJR904 slice (where the orders mean nothing; its
-    threshold runs only with ``--profile``). Returns (the dense ring's
-    square launches, the degenerate find-root's)."""
+    ring, and the update kernel's ring mode): the orders of the scan with
+    the same kernel (``hopper``), the runs without a process group (one
+    before the group exists, one after it is gone: the wall times read
+    none, NCCL, none; the threshold runs no warm-up, the dense ones loaded
+    every kernel) bit-equal (orders and every counter), 84 square launches
+    and 84 ring-mode launches per dense order, no collective under the
+    group (a ``CollectiveLedger`` around its runs: every dimension has one
+    rank), ``wire`` all zero, ``fit(order_backend="ring")`` with the scan
+    fit's B and noise variances; ``ring_find_root`` on the degenerate
+    one-shard ring runs the square kernel once and gives the dense root;
+    wall times beside the scan's, here and at the iJR904 slice (where the
+    orders mean nothing; its threshold runs only with ``--profile``).
+    Returns (the dense ring's square launches, its ring-mode launches, the
+    degenerate find-root's square launches, what ``[ring_sharded]`` holds
+    its ranks against)."""
     import torch.distributed as dist
 
     from repro_torch.core.pairwise import dense_scores
@@ -5169,14 +5223,13 @@ def phase_ring_ecoli(dev, gpu, profile: bool):
     p, n = ECOLI
     data = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=0))
     x = data["x"]
-    dense_kw = dict(score_backend="hopper_fused")
-    thr_kw = dict(score_backend="hopper_fused", threshold=True, chunk=16)
+    kinds = (("dense", RING_DENSE), ("threshold", RING_THRESHOLD))
     scan_cfg = ParaLiNGAMConfig(score_backend="hopper")
     thr_scan_cfg = ParaLiNGAMConfig(score_backend="hopper", threshold=True, chunk=16)
     causal_order_scan(x, scan_cfg, device=dev)  # warm-up
     scan, t_scan = timed(lambda: causal_order_scan(x, scan_cfg, device=dev))
     thr_scan, t_thr_scan = timed(lambda: causal_order_scan(x, thr_scan_cfg, device=dev))
-    alone = {k: ring_runs(x, dev, kw, None) for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
+    alone = {k: ring_runs(x, dev, kw, None, warm=k == "dense") for k, kw in kinds}
 
     init = _build.BUILD_DIR / f"ring_init_{os.getpid()}"  # git-ignored
     init.parent.mkdir(parents=True, exist_ok=True)
@@ -5185,54 +5238,56 @@ def phase_ring_ecoli(dev, gpu, profile: bool):
     dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
     try:
         mesh = make_ring_mesh(1, 1, 1)
-        runs = {k: ring_runs(x, dev, kw, mesh) for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
-        again = {k: ring_runs(x, dev, kw, mesh, warm=False)[1]
-                 for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
+        with CollectiveLedger() as ledger:
+            runs = {k: ring_runs(x, dev, kw, mesh, warm=False) for k, kw in kinds}
         xn, c = normalized(x, dev)
         mask = torch.ones(p, dtype=torch.bool, device=dev)
         reset_counts()
         root, s_ring = ring_find_root(xn, c, mask, mesh, score_backend="hopper_fused")
         fr_launches = counts()["pairwise_moments"]
         (res_f, b_f), t_fit = timed(lambda: fit(
-            x, ParaLiNGAMConfig(order_backend="ring", **dense_kw), device=dev))
+            x, ParaLiNGAMConfig(order_backend="ring", **RING_DENSE), device=dev))
         slice_x = sem.generate(sem.SemSpec(p=SLICE[0], n=SLICE[1], density="sparse", seed=1))["x"]
-        slice_runs = {"dense": ring_runs(slice_x, dev, dense_kw, mesh)[:2]}
+        slice_runs = {"dense": ring_runs(slice_x, dev, RING_DENSE, mesh)[:2]}
         causal_order_scan(slice_x, scan_cfg, device=dev)  # warm-up
         slice_scans = {"dense": timed(lambda: causal_order_scan(slice_x, scan_cfg, device=dev))}
         if profile:  # 50-70 s on the card, and nothing held
             # no warm-up: the dense runs built and loaded everything it uses
-            slice_runs["threshold"] = ring_runs(slice_x, dev, thr_kw, mesh, warm=False)[:2]
+            slice_runs["threshold"] = ring_runs(slice_x, dev, RING_THRESHOLD, mesh, warm=False)[:2]
             slice_scans["threshold"] = timed(
                 lambda: causal_order_scan(slice_x, thr_scan_cfg, device=dev))
     finally:
         dist.destroy_process_group()
         init.unlink(missing_ok=True)
-    after = {k: ring_runs(x, dev, kw, None, warm=False)
-             for k, kw in (("dense", dense_kw), ("threshold", thr_kw))}
+    after = {k: ring_runs(x, dev, kw, None, warm=False) for k, kw in kinds}
     (res_s, b_s), _ = timed(lambda: fit(x, scan_cfg, device=dev))
 
     zero_wire = {"pods": 1, "ring": 1, "hops_intra": 0, "hops_cross": 0, "hops_overlapped": 0,
                  "seq_hops": 0, "seq_cross_hops": 0, "overlap_frac": 0.0}
     for kind, scan_res, t_ref in (("dense", scan, t_scan), ("threshold", thr_scan, t_thr_scan)):
-        res, t, launches = runs[kind]
-        res0, t0, launches0 = alone[kind]
-        res1, t1, _ = after[kind]
+        res, t, launches, upd = runs[kind]
+        res0, t0, launches0, upd0 = alone[kind]
+        res1, t1, _, _ = after[kind]
         same = hold_order(f"ring_{kind}_vs_scan_hopper", res.order, scan.order, x, dev)
         same_thr = hold_order(f"ring_{kind}_vs_scan_{kind}", res.order, scan_res.order, x, dev)
         bit_equal = res == res0 == res1
         say("ring_ecoli", run=kind, p=p, n=n, topology="1x1x1", backend="nccl",
             order_equals_scan_hopper=same, order_equals_scan_same_evaluation=same_thr,
             equal_without_process_group=bit_equal, square_launches=launches,
-            square_launches_without_process_group=launches0, comparisons=res.comparisons,
+            square_launches_without_process_group=launches0, update_launches=upd,
+            update_launches_without_process_group=upd0, comparisons=res.comparisons,
             rounds=res.rounds, converged=res.converged, wire_zero=res.wire == zero_wire,
-            ring_s_none_nccl_nccl_none=f"{t0:.4f},{t:.4f},{again[kind]:.4f},{t1:.4f}",
-            scan_s=f"{t_ref:.4f}", gpu=f"'{gpu}'")
+            collectives_under_the_group=ledger.calls,
+            ring_s_none_nccl_none=f"{t0:.4f},{t:.4f},{t1:.4f}", scan_s=f"{t_ref:.4f}",
+            gpu=f"'{gpu}'")
         check(bit_equal, f"ring {kind}: the run without a process group differs")
         check(res.wire == zero_wire, f"ring {kind}: wire counters {res.wire} at one shard")
         check(res.converged, f"ring {kind} did not converge")
+        check(upd == upd0 == p - 1, f"ring {kind}: {upd} ring-mode launches for {p - 1} updates")
         if kind == "dense":
             check(launches == launches0 == p - 1,
                   f"{launches} square launches for {p - 1} dense find-roots")
+    check(ledger.calls == 0, f"the one-shard ring issued {ledger.calls} collectives")
     s_dense = dense_scores(xn, c, mask)[0]
     fr_err = (s_ring - s_dense).abs()
     fr_ok = bool(torch.all(fr_err <= fs.score_tolerance(s_dense, xn, c, mask)))
@@ -5245,7 +5300,7 @@ def phase_ring_ecoli(dev, gpu, profile: bool):
     same = res_f.order == res_s.order
     b_err = (b_f - b_s).abs().max().item()
     nv_err = float(np.max(np.abs(res_f.noise_var - res_s.noise_var)))
-    say("ring_fit", p=p, n=n, order_equals_scan_fit=same, b_max_abs_diff=b_err,
+    say("ring_fit", grid="1x1x1", p=p, n=n, order_equals_scan_fit=same, b_max_abs_diff=b_err,
         noise_var_max_abs_diff=nv_err, fit_s=f"{t_fit:.4f}", gpu=f"'{gpu}'")
     check(same and b_err == 0.0 and nv_err == 0.0,
           "fit(order_backend='ring') differs from the scan fit")
@@ -5257,7 +5312,14 @@ def phase_ring_ecoli(dev, gpu, profile: bool):
             scan_s=f"{t_ref:.4f}", comparisons=res.comparisons, rounds=res.rounds,
             converged=res.converged, order_equals_scan=res.order == ref.order, held=False,
             gpu=f"'{gpu}'")
-    return runs["dense"][2], fr_launches
+    want = {"dense": {"scan_order": scan.order, "x": x},
+            "threshold": {"scan_order": thr_scan.order, "x": x},
+            "ring_s": {"ecoli_dense": runs["dense"][1], "ecoli_threshold": runs["threshold"][1],
+                       "ijr904_slice_dense": slice_runs["dense"][1]},
+            "scan_s": {"ecoli_dense": t_scan, "ecoli_threshold": t_thr_scan,
+                       "ijr904_slice_dense": slice_scans["dense"][1]},
+            "fit_order": res_s.order, "fit_b": b_s.cpu(), "fit_noise_var": res_s.noise_var}
+    return runs["dense"][2], runs["dense"][3], fr_launches, want
 
 
 #: Ring topologies whose row blocks ``[ring_block_kernel]`` holds: (pods, ring).
@@ -5336,6 +5398,287 @@ def phase_ring_block_kernel(dev, gpu, ecoli_x):
             check(ok, f"the square kernel disagrees on the ring's {stage} {pods}x{ring} blocks")
     return worst
 
+
+
+# ---------------------------------------------------------------------------
+# the messaging ring over several ranks (in the sharded phases' sets)
+# ---------------------------------------------------------------------------
+
+# [ring_sharded]: (pods, ring, model) grids run in the two- and four-rank
+# sets: the E. coli core order, dense under hopper_fused, at every grid; the
+# threshold ring at RING_THRESHOLD_GRIDS; with --profile, the iJR904 slice
+# (times only: its f32 order is degenerate) at RING_SLICE_GRID; fit(order_backend="ring")
+# over the world ring at RING_FIT_GRID. RING_JOBS_S is the jobs' budget,
+# printed beside their seconds without failing on it.
+RING_GRIDS = ((1, 2, 1), (1, 4, 1), (2, 2, 1), (1, 2, 2))
+RING_THRESHOLD_GRIDS = ((1, 2, 1), (2, 2, 1))
+RING_SLICE_GRID, RING_FIT_GRID = (1, 4, 1), (1, 2, 1)
+RING_JOBS_S = 90
+RING_DENSE = dict(score_backend="hopper_fused")
+RING_THRESHOLD = dict(score_backend="hopper_fused", threshold=True, chunk=16)
+
+
+def ring_runs_of(grid, profile: bool = False) -> list:
+    """(name, (p, n, seed), config kwargs, timed twice) of the ring orders
+    ``[ring_sharded]`` runs at ``grid``: the dense E. coli order a second
+    time, without the clock's synchronizations, at ``RING_FIT_GRID``; the
+    iJR904 slice only with ``profile``."""
+    runs = [("ecoli_dense", ECOLI + (0,), RING_DENSE, grid == RING_FIT_GRID)]
+    if grid in RING_THRESHOLD_GRIDS:
+        runs.append(("ecoli_threshold", ECOLI + (0,), RING_THRESHOLD, False))
+    if profile and grid == RING_SLICE_GRID:
+        runs.append(("ijr904_slice_dense", SLICE + (1,), RING_DENSE, False))
+    return runs
+
+
+def kept_hops(pods: int, ring: int, q: int, i: int) -> int:
+    """The hops of ``make_hier_plan(pods, ring)`` that row block (q, i)
+    computes (the other endpoint takes a self-conjugate hop it does not
+    keep): kernel #3 runs once per find-root for the own block and twice
+    for each of these."""
+    from repro_torch.utils.schedule import make_hier_plan
+
+    plan = make_hier_plan(pods, ring)
+    return sum(bool(plan.keep(dd, q * ring + i, plan.src(e, t, q, i)))
+               for e, t, dd in plan.processed_offsets())
+
+
+def rank_ring_sharded(grid, profile=False):
+    """[ring_sharded] on this rank: ``causal_order_ring`` on the card over a
+    ``make_ring_mesh(*grid)`` mesh for each of ``ring_runs_of(grid, profile)``, the
+    first run of each under a ``CollectiveClock`` with kernel #3's and the
+    update kernel's launches counted, a dense one timed once more alone;
+    at ``RING_FIT_GRID`` also ``fit(order_backend="ring")`` with no mesh
+    (the world ring). Returns each run's order, counters, ``wire``,
+    per-iteration hops and rounds, launches, collectives by op, seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_ring_mesh
+
+    dev = torch.device(RANK_DEVICE)
+    mesh = make_ring_mesh(*grid, device_type=RANK_DEVICE)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    out = {"rank": dist.get_rank(), "coord": coord,
+           "kept": kept_hops(grid[0], grid[1], coord["pod"], coord["ring"]), "runs": {}}
+    for name, (p, n, seed), kw, twice in ring_runs_of(grid, profile):
+        x = sem.generate(sem.SemSpec(p=p, n=n, density="sparse", seed=seed))["x"]
+        cfg = ParaLiNGAMConfig(order_backend="ring", **kw)
+        reset_counts()
+        clock = CollectiveClock(dist.get_backend())
+        with clock:
+            res, t = timed(lambda: causal_order_ring(x, cfg, mesh=mesh, device=dev))
+        run = {"p": p, "n": n, "order": res.order, "comparisons": res.comparisons,
+               "rounds": res.rounds, "converged": res.converged, "wire": res.wire,
+               "hops": [it["hops"] for it in res.per_iteration],
+               "rounds_it": [it["rounds"] for it in res.per_iteration],
+               "launched": counts(), "by_op": clock.by_op(), "seconds": [t]}
+        if twice:
+            run["seconds"].append(timed(lambda: causal_order_ring(x, cfg, mesh=mesh,
+                                                                  device=dev))[1])
+        out["runs"][name] = run
+    if grid == RING_FIT_GRID:
+        x = sem.generate(sem.SemSpec(p=ECOLI[0], n=ECOLI[1], density="sparse", seed=0))["x"]
+        (res, b), t = timed(lambda: fit(x, ParaLiNGAMConfig(order_backend="ring", **RING_DENSE),
+                                        device=dev))
+        out["fit"] = {"order": res.order, "b": b.cpu(), "noise_var": res.noise_var,
+                      "wire": res.wire, "seconds": t}
+    return out
+
+
+RANK_JOBS["ring_sharded"] = rank_ring_sharded
+
+
+def wire_of(hops_per_iteration) -> dict:
+    """``ParaLiNGAMResult.wire``'s hop totals from per-iteration counts."""
+    io, is_, co, cs = (sum(h[k] for h in hops_per_iteration) for k in range(4))
+    return {"hops_intra": io + is_, "hops_cross": co + cs, "hops_overlapped": io + co,
+            "seq_hops": is_ + cs, "seq_cross_hops": cs}
+
+
+def report_ring_sharded(gpu, ring_sets, want, profile=False):
+    """[ring_sharded]: one line per (grid, run), every rank's numbers; each
+    rank's order held against the one-rank scan's on the card with the same
+    evaluation (``hold_order``: a departure passes only at an f32 near-tie),
+    ``wire`` against ``make_hier_plan``'s hop counts (times the rounds of a
+    threshold iteration), kernel #3's launches on every rank against 1 + 2
+    per kept hop and find-root (dense), the update kernel's against 1 per
+    iteration (2 where the samples are sharded); ``[ring_fit]`` at
+    ``RING_FIT_GRID`` against the scan fit. ``ring_sets``: (grid, rank
+    results, backend, cards, the set's elapsed seconds); ``want``: what
+    ``phase_ring_ecoli`` measured on one rank. Returns the launches of
+    kernel #3 and of the update kernel per rank in the dense E. coli orders,
+    by grid, and the jobs' seconds."""
+    from repro_torch.utils.schedule import make_hier_plan
+
+    launches, seconds = {}, 0.0
+    for grid, ranks, backend, cards, elapsed in ring_sets:
+        gid = "x".join(map(str, grid))
+        seconds += ranks[0]["job_s"]
+        hc = make_hier_plan(grid[0], grid[1]).hop_counts()
+        plan_hops = (hc["intra_ovl"], hc["intra_seq"], hc["cross_ovl"], hc["cross_seq"])
+        for name, (p, n, _), kw, _ in ring_runs_of(grid, profile):
+            runs = [r["runs"][name] for r in ranks]
+            thr = kw.get("threshold", False)
+            equal = held = True
+            if name.startswith("ecoli"):
+                ref = want["threshold" if thr else "dense"]
+                for r, run in zip(ranks, runs):
+                    equal = hold_order(f"ring_sharded_{gid}_{name}_rank{r['rank']}",
+                                       run["order"], ref["scan_order"], ref["x"],
+                                       torch.device("cuda")) and equal
+            else:
+                held = False
+            wire_ok = all(
+                all(tuple(h) == tuple(v * (rd if thr else 1) for v in plan_hops)
+                    for h, rd in zip(run["hops"], run["rounds_it"]))
+                and {k: run["wire"][k] for k in wire_of(run["hops"])} == wire_of(run["hops"])
+                for run in runs)
+            sq = [run["launched"]["pairwise_moments"] for run in runs]
+            upd = [run["launched"]["ring_update"] for run in runs]
+            want_sq = [0 if thr else (p - 1) * (1 + 2 * r["kept"]) for r in ranks]
+            want_upd = (p - 1) * (2 if grid[2] > 1 else 1)
+            ops_text = ";".join(
+                f"{op}:{c}/{s:.4f}s" for op, (c, s) in sorted(runs[0]["by_op"].items()))
+            say("ring_sharded", grid=gid, run=name, p=p, n=n, backend=backend, cards=cards,
+                order_equals_scan=equal if held else "not held", converged=all(
+                    run["converged"] for run in runs),
+                ranks_agree=all(run["order"] == runs[0]["order"] for run in runs),
+                wire_equals_plan=wire_ok, hops_per_iteration=",".join(map(str, plan_hops)),
+                rounds=runs[0]["rounds"], comparisons=runs[0]["comparisons"],
+                square_launches=",".join(map(str, sq)),
+                want_square_launches=",".join(map(str, want_sq)),
+                update_launches=",".join(map(str, upd)), want_update_launches=want_upd,
+                update_launches_per_iteration_and_rank=f"{upd[0] / (p - 1):.1f}",
+                collectives_rank0=ops_text,
+                seconds_per_rank=",".join(
+                    "/".join(f"{t:.4f}" for t in run["seconds"]) for run in runs),
+                one_rank_ring_s=f"{want['ring_s'].get(name, float('nan')):.4f}",
+                scan_s=f"{want['scan_s'].get(name, float('nan')):.4f}",
+                elapsed_s=f"{elapsed:.1f}", gpu=f"'{gpu}'")
+            check(all(run["order"] == runs[0]["order"] for run in runs),
+                  f"ring {gid} {name}: the ranks' orders differ")
+            check(all(run["converged"] for run in runs), f"ring {gid} {name} did not converge")
+            check(wire_ok, f"ring {gid} {name}: wire counters differ from the plan's")
+            check(sq == want_sq, f"ring {gid} {name}: square launches {sq}, want {want_sq}")
+            check(all(u == want_upd for u in upd),
+                  f"ring {gid} {name}: update launches {upd}, want {want_upd}")
+            if name == "ecoli_dense":
+                launches[gid] = (sq, upd)
+        if grid == RING_FIT_GRID:
+            fits = [r["fit"] for r in ranks]
+            b_err = max((f["b"] - want["fit_b"]).abs().max().item() for f in fits)
+            nv_err = max(float(np.max(np.abs(f["noise_var"] - want["fit_noise_var"])))
+                         for f in fits)
+            same = all(f["order"] == want["fit_order"] for f in fits)
+            say("ring_fit", grid=gid, p=ECOLI[0], n=ECOLI[1], backend=backend,
+                order_equals_scan_fit=same, b_max_abs_diff=b_err,
+                noise_var_max_abs_diff=nv_err,
+                fit_s=",".join(f"{f['seconds']:.4f}" for f in fits), gpu=f"'{gpu}'")
+            check(same and b_err == 0.0 and nv_err == 0.0,
+                  f"fit(order_backend='ring') at {gid} differs from the scan fit")
+    say("ring_sharded_jobs", grids=",".join("x".join(map(str, g)) for g, *_ in ring_sets),
+        seconds=f"{seconds:.1f}", budget_s=RING_JOBS_S, within=seconds <= RING_JOBS_S,
+        gpu=f"'{gpu}'")
+    return launches, seconds
+
+
+def ring_update_case(xn, c, mask, root, grid, flat: int, mi: int):
+    """The arguments ``_update_shard`` hands the update kernel's ring mode on
+    row block ``flat`` and sample shard ``mi`` of ``grid`` (stage buffer
+    ``xn``, ``c``, live rows ``mask``, ``root`` an index into it), built as
+    it builds them, each collective's result taken from the whole buffer;
+    and the other sample shards' sums of squares (the plain version's),
+    which ``reduce`` adds."""
+    from repro_torch.core.covariance import rank1_gates
+
+    m, n = xn.shape
+    m_l, n_loc = m // (grid[0] * grid[1]), n // grid[2]
+    row0 = flat * m_l
+    own = slice(row0, row0 + m_l)
+    shard = lambda k: slice(k * n_loc, (k + 1) * n_loc)  # noqa: E731
+    x_loc = xn[own, shard(mi)].contiguous()
+    row_ids = torch.arange(row0, row0 + m_l, device=xn.device)
+    live = mask[own] & (row_ids != root)
+    b, s_row = rank1_gates(c[own, root].contiguous(), live)
+    b_col, s_col = rank1_gates(c[:, root].contiguous(),
+                               mask & (torch.arange(m, device=xn.device) != root))
+    others = torch.zeros(m_l, device=xn.device)
+    for k in range(grid[2]):
+        if k != mi:
+            x_root_k = xn[root, shard(k)]
+            out = (xn[own, shard(k)] - b[:, None] * x_root_k[None, :]) / s_row[:, None]
+            others = others + torch.sum(torch.square(out), dim=-1)
+    args = (x_loc, c[own].contiguous(), xn[root, shard(mi)].contiguous(), b, s_row, b_col,
+            s_col, live)
+    return args, row0, others
+
+
+def phase_ring_update_kernel(dev, gpu, x, order):
+    """[ring_update_kernel]: the update kernel's ring mode against its plain
+    version (the ring's torch update) at the E. coli core's first update
+    (the ring's 128-row first stage, the fit's mask, the scan's first root)
+    on every row block of (1, 2, 1) and on every block and sample shard of
+    (1, 2, 2), where a first launch writes the sums, ``reduce`` adds the
+    other shard's, a second scales: x' and c' bit-equal, out of place and
+    written over the inputs. Then, on block 0 of each grid, its device ms
+    per launch (profiler), the live bytes' bound at 3.35 TB/s, an empty
+    kernel on the first launch's grid, and the plain version's ms. Returns (max abs error, timing of
+    the (1, 2, 1) block 0 launch). ``order``: the E. coli core's order."""
+    from repro_torch.core.paralingam import _compact
+
+    p, n = ECOLI
+    xn0, c0 = normalized(x, dev)
+    m = 128
+    sel = _compact(torch.ones((1, p), dtype=torch.bool, device=dev), m)[0]
+    xn, c = xn0[sel].contiguous(), c0[sel][:, sel].contiguous()
+    mask = torch.arange(m, device=dev) < p
+    root = int(torch.nonzero(sel == order[0])[0, 0])
+    worst, timing = 0.0, None
+    for grid in ((1, 2, 1), (1, 2, 2)):
+        for flat in range(grid[0] * grid[1]):
+            for mi in range(grid[2]):
+                args, row0, others = ring_update_case(xn, c, mask, root, grid, flat, mi)
+                reduce = None if grid[2] == 1 else (lambda sq: sq.add_(others))
+                kx, kc = ops.ring_update(*args, row0=row0, n=n, reduce=reduce)
+                rx, rc = cu.ring_update_ref(*args, row0=row0, n=n, reduce=reduce)
+                ix, ic = args[0].clone(), args[1].clone()
+                ops.ring_update(ix, ic, *args[2:], row0=row0, n=n, reduce=reduce, inplace=True)
+                torch.cuda.synchronize()
+                err = max((kx.double() - rx.double()).abs().max().item(),
+                          (kc.double() - rc.double()).abs().max().item())
+                worst = max(worst, err)
+                ok = (torch.equal(kx, rx) and torch.equal(kc, rc) and torch.equal(ix, kx)
+                      and torch.equal(ic, kc))
+                m_l, n_loc = args[0].shape
+                launches = 1 if reduce is None else 2
+                live_rows = int(args[7].sum())
+                times = {}
+                if flat == mi == 0:
+                    def launch(args=args, row0=row0, reduce=reduce):
+                        ops.ring_update(*args, row0=row0, n=n, reduce=reduce)
+
+                    dev_ms = device_ms(launch, "rank1_update_kernel")
+                    empty_ms, empty_dev = empty_times(cu.MODE_RING, m_l, m, n_loc, dev)
+                    plain_ms = time_ms(lambda: cu.ring_update_ref(*args, row0=row0, n=n,
+                                                                  reduce=reduce), reps=20)
+                    bound = cu.ring_bytes(live_rows, m_l, m, n_loc) / HBM_BPS * 1e3
+                    times = dict(device_ms_per_launch=f"{dev_ms:.5f}",
+                                 empty_kernel_device_ms=f"{empty_dev:.5f}",
+                                 empty_kernel_ms=f"{empty_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+                                 bound_ms=f"{bound:.5f}", bound_by="bytes",
+                                 device_fraction_of_bound=f"{bound / (launches * dev_ms):.3f}")
+                say("ring_update_kernel", grid="x".join(map(str, grid)), block=flat,
+                    sample_shard=mi, m_l=m_l, m=m, n_loc=n_loc, live_rows=live_rows,
+                    launches=launches, x_bit_equal=torch.equal(kx, rx),
+                    c_bit_equal=torch.equal(kc, rc),
+                    in_place_bit_equal=torch.equal(ix, kx) and torch.equal(ic, kc),
+                    max_abs=f"{err:.3e}", **times, ok=ok, gpu=f"'{gpu}'")
+                check(ok, f"the ring mode disagrees with its plain version at {grid} "
+                          f"block {flat} shard {mi}")
+                if timing is None:
+                    timing = (dev_ms, plain_ms, bound, empty_dev,
+                              f"m_l={m_l},m={m},n_loc={n_loc},one launch")
+    return worst, timing
 
 
 # ---------------------------------------------------------------------------
@@ -5662,6 +6005,9 @@ def main() -> int:
     cov_launched, path_ex, path_ec = phase_covupdate_path(
         dev, gpu, core["x"], core["hopper_fused"][0].order)
     err_rank1, rank1_timing = phase_rank1_update(dev, gpu, core)
+    # before any rank process: a profiler session after them sees no device events
+    err_ring_upd, ring_upd_timing = phase_ring_update_kernel(
+        dev, gpu, core["x"], core["hopper_fused"][0].order)
     err_ssd, ssd_timing = phase_ssd_kernel(dev, gpu, rate)
     ssd_launches, err_serve, _ = phase_mamba2_serve(dev, gpu, profile)
     free()
@@ -5701,12 +6047,15 @@ def main() -> int:
     else:
         say("threshold_slice", skipped=True, elapsed_s=f"{time.perf_counter() - t_start:.1f}")
     free()
-    launches_tp, err_tp, tp_timing, tp_inputs, sharded_held, sharded_launched = phase_sharded_training(
+    (launches_tp, err_tp, tp_timing, tp_inputs, sharded_held, sharded_launched,
+     ring_sets) = phase_sharded_training(
         dev, gpu, rate, train_losses,
         {"granite-3-2b": granite_tokens, "zamba2-2.7b": zamba2_tokens,
-         "whisper-base": whisper_tokens}, t_start, lingam_want, engine_fits)
+         "whisper-base": whisper_tokens}, t_start, lingam_want, engine_fits, profile)
     err_ring = phase_ring_block_kernel(dev, gpu, core["x"])
-    launches_ring, launches_ring_find_root = phase_ring_ecoli(dev, gpu, profile)
+    launches_ring, launches_ring_upd, launches_ring_find_root, ring_want = phase_ring_ecoli(
+        dev, gpu, profile)
+    ring_launched, _ = report_ring_sharded(gpu, ring_sets, ring_want, profile)
     phase_ica_lingam(dev, gpu)
     phase_poly_scores(dev, gpu)
     if profile:
@@ -5734,6 +6083,7 @@ def main() -> int:
         "name": "pairwise_moments", "route": "cuda", "source": SQUARE_SOURCE,
         "replaces": SQUARE_REPLACES, "launches": launches_sq,
         "launches_ring": launches_ring, "launches_ring_find_root": launches_ring_find_root,
+        "launches_ring_sharded_per_rank": {g: sq for g, (sq, _) in ring_launched.items()},
         "max_abs_err": max(err_sq, err_ring),
         "ms": sq_ms, "plain_ms": sq_plain, "bound_ms": sq_bound, "bound_by": sq_by,
         "library_ms": None, "wrapper_ms": sq_wrapper,
@@ -5758,6 +6108,12 @@ def main() -> int:
         "name": "rank1_update", "route": "cuda", "source": COV_SOURCE,
         "replaces": RANK1_REPLACES, "launches": launches_upd,
         "launches_data_sharded_per_rank": sharded_launched["rank1_update"],
+        "launches_ring": launches_ring_upd,
+        "launches_ring_sharded_per_rank": {g: u for g, (_, u) in ring_launched.items()},
+        "max_abs_err_ring_mode": err_ring_upd, "device_ms_ring_mode": ring_upd_timing[0],
+        "plain_ms_ring_mode": ring_upd_timing[1], "bound_ms_ring_mode": ring_upd_timing[2],
+        "empty_kernel_device_ms_ring_mode": ring_upd_timing[3],
+        "shape_ring_mode": ring_upd_timing[4],
         "max_abs_err": err_rank1,
         "ms": rank1_timing[0], "plain_ms": rank1_timing[1], "bound_ms": rank1_timing[2],
         "bound_by": "bytes", "library_ms": None, "device_ms": rank1_timing[3],

@@ -155,3 +155,18 @@ def adjacency_from_order(x, order, mask=None, n_valid=None,
     b = torch.take_along_dim(b_ord, inv[..., :, None], dim=-2)
     b = torch.take_along_dim(b, inv[..., None, :], dim=-1)
     return b, torch.take_along_dim(omega_ord, inv, dim=-1)
+
+
+def estimate_adjacency(x, order, prune_below: float = 0.0, *, device=None):
+    """Phase 2 on its own for a full, unpadded dataset (``pruning.
+    estimate_adjacency``'s signature): B only. ``x`` and ``order`` (numpy or
+    torch) move to ``device``: the card unless the caller passes
+    ``device="cpu"``, as for ``paralingam.fit``.
+    :func:`adjacency_from_order` gives (B, Omega) and takes padded buffers."""
+    from repro_torch.core.paralingam import _device  # paralingam imports this module
+
+    dev = _device(device, "estimate_adjacency")
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    b, _ = adjacency_from_order(x, torch.as_tensor(order, dtype=torch.int64, device=dev),
+                                prune_below=prune_below)
+    return b

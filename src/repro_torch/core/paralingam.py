@@ -174,6 +174,16 @@ def _legacy_order(d: dict) -> tuple[str, bool]:
     return legacy
 
 
+def resolve_order_backend(cfg) -> str:
+    """A config's order driver as a concrete backend name (the counterpart of
+    ``kernels.ops.select_backend`` for score backends). Raises
+    :class:`ConfigError` for names outside ``ORDER_BACKENDS``."""
+    backend = getattr(cfg, "order_backend", "host")
+    if backend not in ORDER_BACKENDS:
+        raise ConfigError(f"order_backend={backend!r} is not one of {ORDER_BACKENDS}")
+    return backend
+
+
 def config_from_reference(d: dict) -> ParaLiNGAMConfig:
     """The port's config for ``dataclasses.asdict`` of a JAX
     ``repro.ParaLiNGAMConfig``, so the port never imports ``repro``.
@@ -816,11 +826,12 @@ def causal_order(x, config: ParaLiNGAMConfig | None = None, *,
     every ``READ_EVERY`` rounds). Per-iteration counters are read once, at
     the end. ``device`` as in :func:`fit`."""
     cfg = config or ParaLiNGAMConfig()
-    if cfg.order_backend == "ring":
+    driver = resolve_order_backend(cfg)
+    if driver == "ring":
         from repro_torch.dist.ring_order import causal_order_ring
 
         return causal_order_ring(x, cfg, device=device)
-    if cfg.order_backend == "scan":
+    if driver == "scan":
         return causal_order_scan(x, cfg, device=device)
     xn, c, dev = _normalized(x, "causal_order", device)
     backend = kops.select_backend(cfg, dev)

@@ -101,16 +101,19 @@ def process_pair(r: int, t: int, dst, src):
 
 class _Pending:
     """A packet in flight: a dict of tensors that ``wait`` returns once its
-    receives (and this rank's sends) have completed."""
+    receives (and this rank's sends) have completed, each moved to ``to``
+    when it was received in a host buffer (``Shards.shift``'s staging)."""
 
-    def __init__(self, packet=None, works=(), sent=()):
+    def __init__(self, packet=None, works=(), sent=(), to=None):
         # ``sent`` keeps the tensors being sent alive until the sends end.
-        self._packet, self._works, self._sent = packet, list(works), sent
+        self._packet, self._works, self._sent, self._to = packet, list(works), sent, to
 
     def wait(self) -> dict:
         for w in self._works:
             w.wait()
-        self._works, self._sent = [], ()
+        if self._to is not None:
+            self._packet = {k: v.to(self._to) for k, v in self._packet.items()}
+        self._works, self._sent, self._to = [], (), None
         return self._packet
 
 
@@ -125,6 +128,7 @@ class Shards:
         sizes = mesh_sizes(mesh)
         self.pods, self.ring, self.model = (sizes.get(d, 1) for d in RING_DIMS)
         self.sample_group = None
+        self._host_transport = False
         if mesh is None:
             self.coord = {}
             return
@@ -145,6 +149,7 @@ class Shards:
             self._order[d] = [dist.get_group_rank(g, r) for r in line]
         if sample_sharded and self.model > 1:
             self.sample_group = self._groups["model"]
+        self._host_transport = dist.get_backend() == "gloo"
 
     @property
     def q(self) -> int:
@@ -175,7 +180,14 @@ class Shards:
         """Shift a packet (a dict of tensors, or a pending one) ``s`` hops
         along ``dim`` (``INTRA`` or ``CROSS``): this rank receives the packet
         of the rank ``s`` behind it and sends its own ``s`` ahead, one
-        ``batch_isend_irecv`` posted now."""
+        ``batch_isend_irecv`` posted now.
+
+        The transport's rule: gloo moves host memory only (its send and
+        receive hand the tensor's pointer to a socket, whatever the
+        device), so under a gloo process group a packet on the card is
+        sent from host copies and received into host buffers, which
+        ``wait`` moves back to the card. Under NCCL device tensors go
+        straight. A failed transfer raises either way."""
         if isinstance(packet, _Pending):
             packet = packet.wait()
         size = self.ring if dim == INTRA else self.pods
@@ -184,12 +196,14 @@ class Shards:
             return _Pending(packet)
         me = self.coord[dim]
         dst, src = self._rank_at(dim, (me + s) % size), self._rank_at(dim, (me - s) % size)
+        dev = next(iter(packet.values())).device
+        to = dev if dev.type != "cpu" and self._host_transport else None
         out, ops, sent = {}, [], []
         for k in sorted(packet):
-            sent.append(packet[k].contiguous())
+            sent.append(packet[k].contiguous() if to is None else packet[k].cpu())
             out[k] = torch.empty_like(sent[-1])
             ops += [dist.P2POp(dist.isend, sent[-1], dst), dist.P2POp(dist.irecv, out[k], src)]
-        return _Pending(out, dist.batch_isend_irecv(ops), sent)
+        return _Pending(out, dist.batch_isend_irecv(ops), sent, to)
 
     def _gather(self, t, dim: str):
         g = self._groups[dim]
@@ -199,20 +213,24 @@ class Shards:
 
     def gather_rows(self, t):
         """Concatenate every row block's ``t`` (leading axis) in flat block
-        order: an ``all_gather`` over ``ring``, then over ``pod``."""
-        if self.mesh is None:
-            return t
-        return self._gather(self._gather(t, INTRA), CROSS)
+        order: an ``all_gather`` over ``ring``, then over ``pod``, each only
+        where that dimension has more than one rank (a group of one is the
+        identity: ``t`` itself, no collective)."""
+        for d, size in ((INTRA, self.ring), (CROSS, self.pods)):
+            if self.mesh is not None and size > 1:
+                t = self._gather(t, d)
+        return t
 
     def sum_rows(self, t):
         """``t`` summed over every row block (``all_reduce`` over ``ring``,
-        then ``pod``); exact where one block holds a value and the others
-        zeros, and for counts."""
-        if self.mesh is None:
-            return t
-        t = t.clone()
-        for d in (INTRA, CROSS):
-            dist.all_reduce(t, group=self._groups[d])
+        then ``pod``, each only where that dimension has more than one
+        rank: with neither, ``t`` itself); exact where one block holds a
+        value and the others zeros, and for counts."""
+        src = t
+        for d, size in ((INTRA, self.ring), (CROSS, self.pods)):
+            if self.mesh is not None and size > 1:
+                t = t.clone() if t is src else t
+                dist.all_reduce(t, group=self._groups[d])
         return t
 
 
@@ -539,27 +557,26 @@ def _ride(shift, riders: dict, ds: int, de: int) -> dict:
 _MESHES: dict = {}
 
 
-def ring_mesh(mesh, ranks, names=RING_DIMS):
+def ring_mesh(mesh, ranks, names=RING_DIMS, device_type: str | None = None):
     """The ``DeviceMesh`` over the global ``ranks`` tensor with dimensions
     ``names``: ``mesh`` itself when it is already that, else one built (a
     collective call: every rank builds it, in the same order) and kept for
-    the process group's life, so repeated calls create no new groups."""
+    the process group's life, so repeated calls create no new groups. Its
+    device type is ``device_type``, else ``mesh``'s, else ``cuda``: the
+    caller's choice, never read from the process group's backend."""
     ranks = torch.as_tensor(ranks, dtype=torch.int64)
+    if device_type is None:
+        device_type = mesh.device_type if mesh is not None else "cuda"
     if (mesh is not None and tuple(mesh.mesh_dim_names or ()) == tuple(names)
-            and torch.equal(mesh.mesh.cpu(), ranks)):
+            and mesh.device_type == device_type and torch.equal(mesh.mesh.cpu(), ranks)):
         return mesh
     from torch.distributed.device_mesh import DeviceMesh
 
-    device_type = mesh.device_type if mesh is not None else _world_device_type()
     key = (dist.group.WORLD, device_type, tuple(names), tuple(ranks.shape),
            tuple(ranks.flatten().tolist()))
     if key not in _MESHES:
         _MESHES[key] = DeviceMesh(device_type, ranks, mesh_dim_names=tuple(names))
     return _MESHES[key]
-
-
-def _world_device_type() -> str:
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -568,7 +585,8 @@ def _world_device_type() -> str:
 
 
 def ring_find_root(xn, c, mask, mesh, row_axes: tuple | None = None,
-                   sample_axis: str | None = None, score_backend: str = "auto"):
+                   sample_axis: str | None = None, score_backend: str = "auto", *,
+                   device=None):
     """Distributed find-root. Returns ``(root, scores)``, the dense
     evaluation's, on every rank.
 
@@ -587,11 +605,18 @@ def ring_find_root(xn, c, mask, mesh, row_axes: tuple | None = None,
     own hop-0 block, so a kernel backend still runs the square moments
     kernel. ``score_backend`` selects the per-shard moments
     (``kernels.ops.SCORE_BACKENDS``): both ``hopper`` names run the square
-    moments kernel."""
+    moments kernel. ``device`` is where it runs: the card unless the caller
+    passes ``"cpu"`` (raising without a card); the inputs move there."""
+    from repro_torch.core.paralingam import _device
     from repro_torch.kernels import ops as kops
 
+    xn, c, mask = _on(_device(device, "ring_find_root"), xn, c, mask)
     backend = kops.select_backend(score_backend, xn.device)
     return _find_root(xn, c, mask, ring_shards(mesh, *xn.shape, row_axes, sample_axis), backend)
+
+
+def _on(dev, *ts):
+    return tuple(torch.as_tensor(t).to(dev) for t in ts)
 
 
 def ring_shards(mesh, p: int, n: int, row_axes: tuple | None = None,
@@ -638,7 +663,8 @@ def _find_root(xn, c, mask, shards: Shards, backend: str):
     return torch.argmin(scores), scores
 
 
-def ring_find_root_jit(mesh, score_backend: str = "auto", topology: tuple | None = None):
+def ring_find_root_jit(mesh, score_backend: str = "auto", topology: tuple | None = None, *,
+                       device=None):
     """The ring find-root over *every* rank of ``mesh``, as a function of
     ``(xn, c, mask)`` (the JAX package's jitted factory; PyTorch compiles
     nothing, and the name is kept so the counterpart is found).
@@ -649,7 +675,9 @@ def ring_find_root_jit(mesh, score_backend: str = "auto", topology: tuple | None
     > 1 is kept: the other ranks flatten into the intra-pod ring and the
     find-root walks the two-level plan. ``topology=(P, R)`` overrides both
     and must factor the rank count (``ValueError`` otherwise); ``(1, R)``
-    forces the flat ring."""
+    forces the flat ring. ``device`` is where ``fn`` runs: the card unless
+    the caller passes ``"cpu"`` (raising here without a card); its inputs
+    move there."""
     n_dev = mesh.mesh.numel()
     if topology is None:
         pods = mesh_sizes(mesh).get("pod", 1)
@@ -657,11 +685,15 @@ def ring_find_root_jit(mesh, score_backend: str = "auto", topology: tuple | None
     pods, ring = topology
     if pods * ring != n_dev:
         raise ValueError(f"topology {topology} does not factor {n_dev} devices")
+    from repro_torch.core.paralingam import _device
+
+    dev = _device(device, "ring_find_root_jit")
     shards = Shards(ring_mesh(mesh, mesh.mesh.reshape(pods, ring, 1)))
 
     def fn(xn, c, mask):
         from repro_torch.kernels import ops as kops
 
-        return _find_root(xn, c, mask, shards, kops.select_backend(score_backend, xn.device))
+        xn, c, mask = _on(dev, xn, c, mask)
+        return _find_root(xn, c, mask, shards, kops.select_backend(score_backend, dev))
 
     return fn

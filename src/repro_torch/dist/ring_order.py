@@ -30,12 +30,13 @@ and compact the live rows; those are the only points where rows move between
 ranks. Every rank receives the whole (p, n) input (it takes its own block
 and sample shard) and returns the whole order and counters.
 
-The per-shard update is torch ops, as it is jnp in the JAX package; it is
-the scan's ``covariance.update_data`` and ``update_cov`` restricted to the
-own rows, with the root column gathered from every shard, so at one shard it
-is bit-equal to the scan's update. (The update kernel's fit mode reads its
-root row from its own buffer and sums the variance itself; the ring would
-need the root row from another shard and the sum across sample shards.)
+The per-shard update is the scan's ``covariance.update_data`` and
+``update_cov`` restricted to the own rows, with the root's data row and the
+root column gathered from every shard, so at one shard it is bit-equal to
+the scan's update. Under the ``hopper`` backends on the card it runs in the
+update kernel's ring mode (``kernels.ops.ring_update``: one launch, or two
+around the sum of the variances across the sample shards); otherwise its
+plain version, the torch ops of ``covupdate.ring_update_ref``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.covariance import VAR_EPS, cov_matrix, normalize, rank1_gates
+from repro_torch.core.covariance import cov_matrix, normalize, rank1_gates
 from repro_torch.core.paralingam import (
     ConfigError,
     ParaLiNGAMConfig,
@@ -54,6 +55,7 @@ from repro_torch.core.paralingam import (
 )
 from repro_torch.dist.ring import RING_DIMS, Shards, _ring_body, _ring_threshold_body, ring_mesh
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.covupdate import ring_update_ref
 from repro_torch.dist.sharding import mesh_sizes
 from repro_torch.utils.schedule import make_schedule
 from repro_torch.utils.shapes import next_pow2
@@ -78,36 +80,37 @@ def ring_order_stages(p: int, min_bucket: int, r: int) -> list[tuple[int, int]]:
 # ---------------------------------------------------------------------------
 
 
-def _update_shard(x_loc, c_loc, mask, root, shards: Shards, n: int):
+def _update_shard(x_loc, c_loc, mask, root, shards: Shards, n: int, backend: str = "torch"):
     """UpdateData and UpdateCovMat (Algorithms 7-8, Eqs. 10-11) on this
     rank's own rows, with the root (a device index into the stage buffer)
     still live in ``mask``. The root's data row comes from its owner (a sum
     of zeros and that row over the row blocks); the root's correlation
     column from every shard. Dead and root rows pass through (b = 0,
-    s = 1, scale = 1), as in ``covariance.update_data`` / ``update_cov``."""
+    s = 1, scale = 1), as in ``covariance.update_data`` / ``update_cov``.
+    Under a ``hopper`` backend the update kernel's ring mode does the
+    arithmetic (its wrapper: the kernel on the card, the plain version on
+    the CPU), written over ``x_loc`` and ``c_loc``; under the torch
+    backends the plain version returns new tensors."""
     m_l, m = c_loc.shape
     dev = x_loc.device
-    row_ids = shards.flat * m_l + torch.arange(m_l, device=dev)
+    row0 = shards.flat * m_l
+    row_ids = row0 + torch.arange(m_l, device=dev)
     owns = (root // m_l) == shards.flat
     r_l = (root % m_l).reshape(1)
     x_root = shards.sum_rows(torch.where(owns, torch.index_select(x_loc, 0, r_l)[0], 0.0))
     col = torch.index_select(c_loc, 1, root.reshape(1))[:, 0]  # c[own rows, root]
-    live = mask[shards.flat * m_l:(shards.flat + 1) * m_l] & (row_ids != root)
+    live = mask[row0:row0 + m_l] & (row_ids != root)
     b, s_row = rank1_gates(col, live)
-    out = (x_loc - b[:, None] * x_root[None, :]) / s_row[:, None]
-    sq = torch.sum(torch.square(out), dim=-1)
-    if shards.sample_group is not None:
-        dist.all_reduce(sq, group=shards.sample_group)
-    scale = torch.where(live, torch.rsqrt(torch.clamp(sq / max(n - 1, 1), min=VAR_EPS)), 1.0)
-    x2 = out * scale[:, None]
-
     # Columns: the gated root column over every row, dead columns and the
     # root passing through.
-    cols = torch.arange(m, device=dev)
-    b_col, s_col = rank1_gates(shards.gather_rows(col), mask & (cols != root))
-    c2 = (c_loc - b[:, None] * b_col[None, :]) / (s_row[:, None] * s_col[None, :])
-    c2 = torch.where(row_ids[:, None] == cols[None, :], 1.0, torch.clamp(c2, -1.0, 1.0))
-    return x2, c2
+    b_col, s_col = rank1_gates(shards.gather_rows(col),
+                               mask & (torch.arange(m, device=dev) != root))
+    group = shards.sample_group
+    reduce = None if group is None else (lambda sq: dist.all_reduce(sq, group=group))
+    args = (x_loc, c_loc, x_root, b, s_row, b_col, s_col, live)
+    if backend.startswith("hopper"):
+        return kops.ring_update(*args, row0=row0, n=n, reduce=reduce, inplace=True)
+    return ring_update_ref(*args, row0=row0, n=n, reduce=reduce)
 
 
 def _ring_order(xn, c, shards: Shards, *, p: int, n: int, min_bucket: int, backend: str,
@@ -162,7 +165,7 @@ def _ring_order(xn, c, shards: Shards, *, p: int, n: int, min_bucket: int, backe
             order[it] = idx_g[root]
             comps_it[it] = comps
             hops_it[it] = torch.tensor(hops, dtype=torch.int32)
-            x_loc, c_loc = _update_shard(x_loc, c_loc, mk, root, shards, n)
+            x_loc, c_loc = _update_shard(x_loc, c_loc, mk, root, shards, n, backend)
             mk = mk & (ar != root)
     # One live row remains; it needs no find-root.
     order[p - 1] = idx_g[torch.argmax(mk.to(torch.int8))]
@@ -174,14 +177,15 @@ def _ring_order(xn, c, shards: Shards, *, p: int, n: int, min_bucket: int, backe
 # ---------------------------------------------------------------------------
 
 
-def _canonical_mesh(mesh, n: int, pods: int | None = None):
+def _canonical_mesh(mesh, n: int, pods: int | None = None, device_type: str = "cuda"):
     """Canonicalize a mesh to the ring's ``("pod", "ring", "model")`` form.
 
     The model size comes from the mesh's ``model`` dimension (1 without
     one); the other ranks split into ``pods`` rings (default: the mesh's
     ``pod`` dimension, 1 without one). ``mesh=None`` means every rank of the
     process group as one flat ring, and one shard with no collective when
-    there is no process group. Returns ``(canon_mesh, pods, ring_size,
+    there is no process group; the mesh it builds for the process group is
+    on ``device_type``. Returns ``(canon_mesh, pods, ring_size,
     sample_sharded)``: ``canon_mesh`` None without a process group, and
     ``sample_sharded`` False when the samples cannot shard (model size 1,
     or n not divisible by it). Raises ``ValueError`` when ``pods`` does not
@@ -202,7 +206,8 @@ def _canonical_mesh(mesh, n: int, pods: int | None = None):
     if pods < 1 or rows % pods:
         raise ValueError(f"pod count {pods} does not divide the {rows} row shards")
     big_r = rows // pods
-    canon = ring_mesh(mesh, ranks.reshape(pods, big_r, msize), RING_DIMS)
+    canon = ring_mesh(mesh, ranks.reshape(pods, big_r, msize), RING_DIMS,
+                      None if mesh is not None else device_type)
     return canon, pods, big_r, msize > 1 and n % msize == 0
 
 
@@ -227,18 +232,18 @@ def causal_order_ring(x, config=None, mesh=None, *, device=None):
     (the dense sweep's analytic r(r-1)/2, 0 rounds, converged), plus
     ``wire``: the shift counters of every iteration, summed.
 
-    ``device`` is where the ring runs: by default the mesh's device type,
-    ``cuda`` without a mesh (raising without a card); ``"cpu"`` for gloo
-    ranks."""
+    ``device`` is where the ring runs: the card unless the caller passes
+    ``"cpu"`` (the CPU tests' gloo ranks), under any process group and
+    whatever the mesh's device type; without a card it raises and never
+    moves to the CPU on its own. Under gloo the ranks may share one card
+    (``Shards.shift`` stages the packets through host buffers)."""
     cfg = config or ParaLiNGAMConfig()
-    if device is None and mesh is not None:
-        device = mesh.device_type
     dev = _device(device, "causal_order_ring")
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     p, n = x.shape
     want_pods = cfg.ring_topology[0] if cfg.ring_topology else None
     try:
-        canon, pods, big_r, sample_sharded = _canonical_mesh(mesh, n, want_pods)
+        canon, pods, big_r, sample_sharded = _canonical_mesh(mesh, n, want_pods, dev.type)
     except ValueError as e:
         raise ConfigError(
             f"ring_topology={cfg.ring_topology} does not fit the device mesh: {e}") from e

@@ -1,7 +1,7 @@
 """Rank-1 iteration updates (paper Algorithms 7 and 8): the CUDA kernel's
 wrappers and their plain versions.
 
-One kernel, ``csrc/covupdate.cu``, in two modes of one design.
+One kernel, ``csrc/covupdate.cu``, in three modes of one design.
 
 TPU-kernel mode replaces the TPU kernels ``_update_data_kernel``
 (``src/repro/kernels/covupdate.py:21``, called at ``:56``) and
@@ -28,7 +28,19 @@ bucket. ``fit``, ``fit_batch``, the engines, the threshold fits,
 updates, the reference the kernel is held to. Its plain version is that
 composition itself.
 
-What bounds both modes: memory (each element read and written once, ~6 FP32
+Ring mode, :func:`ring_update`, is that update on one rank's row block of
+the messaging ring (``dist.ring_order._update_shard``): the rows
+``[row0, row0 + m_l)`` of x (this rank's sample shard) and of c, with the
+root's data row and the gates of the own rows and of every column given by
+the caller (they come from other ranks). One launch where the samples are
+whole; where they are sharded, a first launch writes each row's sum of
+squares and c', the caller's ``reduce`` sums them across the sample shards,
+and a second launch scales the rows. Its plain version,
+:func:`ring_update_ref`, is the ring's torch update itself, and the kernel
+is bit-equal to it (the sums in torch.sum's order over the (m_l, n_loc)
+squares). The ring takes it under the ``hopper`` backends on the card.
+
+What bounds every mode: memory (each element read and written once, ~6 FP32
 operations), and at these sizes the launch itself: an empty kernel on the
 same grid is measured beside each time (``chip_smoke.py``). The correlation
 update is written to a second buffer (every block reads column ``root`` of
@@ -62,6 +74,7 @@ from repro_torch.kernels import _fake
 DATA_LAUNCHES = 0
 COV_LAUNCHES = 0
 RANK1_LAUNCHES = 0
+RING_LAUNCHES = 0
 _count_mu = threading.Lock()
 
 #: Fit mode on the card against its plain version: a live row's
@@ -69,8 +82,11 @@ _count_mu = threading.Lock()
 #: squares in torch.sum's order, so the scales are the same bits.
 SCALE_ULP_TOL = 0
 
-#: Grid modes of the kernel (``blocks``, ``launch_empty``).
-MODE_DATA, MODE_COV, MODE_FIT = 0, 1, 2
+#: Grid modes of the kernel (``blocks``, ``launch_empty``); ``MODE_RING``'s
+#: grid is its first launch's, with ``batch`` the block's rows m_l.
+MODE_DATA, MODE_COV, MODE_FIT, MODE_RING = 0, 1, 2, 3
+#: Ring mode's launches: sums and scale in one, the sums (and c'), the scale.
+RING_FUSED, RING_SUMS, RING_SCALE = 0, 1, 2
 
 #: FP32 operations per element updated (x or c), as the bound counts them.
 FP32_PER_ELEMENT = 6
@@ -100,6 +116,33 @@ def update_cov_ref(c, b):
     new = (c - b[:, None] * b[None, :]) * inv[:, None] * inv[None, :]
     eye = torch.eye(c.shape[0], dtype=torch.bool, device=c.device)
     return torch.where(eye, 1.0, new)
+
+
+def ring_bytes(live_rows: int, m_l: int, m: int, n_loc: int) -> int:
+    """The bytes a ring-mode update must move, whatever its launches: each
+    live row of x read and written once, the root's row, the (m_l, m)
+    correlation block read and written, the gates, the live mask and the
+    sums."""
+    return 8 * live_rows * n_loc + 4 * n_loc + 8 * m_l * m + 4 * (3 * m_l + 2 * m) + m_l
+
+
+def ring_update_ref(x_loc, c_loc, x_root, b, s_row, b_col, s_col, live, *, row0: int,
+                    n: int, reduce=None):
+    """Plain version of :func:`ring_update`: the ring's update of its own
+    rows in torch ops, ``(x_loc', c_loc')``."""
+    out = (x_loc - b[:, None] * x_root[None, :]) / s_row[:, None]
+    sq = torch.sum(torch.square(out), dim=-1)
+    if reduce is not None:
+        reduce(sq)
+    scale = torch.where(live, torch.rsqrt(torch.clamp(sq / max(n - 1, 1), min=covariance.VAR_EPS)),
+                        1.0)
+    m_l, m = c_loc.shape
+    dev = c_loc.device
+    row_ids = row0 + torch.arange(m_l, device=dev)
+    cols = torch.arange(m, device=dev)
+    c2 = (c_loc - b[:, None] * b_col[None, :]) / (s_row[:, None] * s_col[None, :])
+    c2 = torch.where(row_ids[:, None] == cols[None, :], 1.0, torch.clamp(c2, -1.0, 1.0))
+    return out * scale[:, None], c2
 
 
 def rank1_update_ref(xb, cb, roots, mloc, n_valid=None):
@@ -135,6 +178,7 @@ def _entries():
             "rank1_update_launch": [ptr] * 7 + [num] * 3 + [ptr],
             "rank1_update_blocks": [num] * 4,
             "rank1_update_empty_launch": [num] * 4 + [ptr],
+            "ring_update_launch": [ptr] * 11 + [num] * 6 + [ptr],
             "rank1_scale_probe": [ptr, ptr, num, ptr],
             "rank1_sum_probe": [ptr, ptr, num, num, ctypes.POINTER(num), ptr]}
     fns = {}
@@ -192,10 +236,23 @@ def launch_rank1(xb, cb, roots, mloc, n_valid=None, inplace=False):
     return x_out, c_out
 
 
+def launch_ring(x, x_out, c, c_out, x_root, b, s_row, b_col, s_col, live, sq, phase: int,
+                row0: int, n: int):
+    """One ring-mode launch of ``phase`` on checked CUDA tensors (``live``
+    bool, all contiguous; ``sq`` the (m_l,) sums). Counts nothing."""
+    m_l, n_loc = x.shape
+    _raise_on(_entries()["ring_update_launch"](
+        x.data_ptr(), x_out.data_ptr(), c.data_ptr(), c_out.data_ptr(), x_root.data_ptr(),
+        b.data_ptr(), s_row.data_ptr(), b_col.data_ptr(), s_col.data_ptr(), live.data_ptr(),
+        sq.data_ptr(), phase, m_l, c.shape[1], n_loc, row0, n, _stream(x)), "ring_update")
+
+
 def blocks(mode: int, batch: int, m: int, n: int) -> int:
     """Blocks of 256 threads in a launch of ``mode`` (``MODE_DATA``:
     update_data of a (m, n) dataset, ``MODE_COV``: update_cov of a (m, m)
-    one, ``MODE_FIT``: rank1_update of a (batch, m, n) bucket)."""
+    one, ``MODE_FIT``: rank1_update of a (batch, m, n) bucket,
+    ``MODE_RING``: ring_update's first launch on ``batch`` rows of an (n,
+    m) block)."""
     return _entries()["rank1_update_blocks"](mode, batch, m, n)
 
 
@@ -330,3 +387,57 @@ def scale_ulps(x_got, x_want, xb, cb, roots, mloc):
     w32 = want.float()
     spacing = (torch.nextafter(w32, torch.full_like(w32, torch.inf)) - w32).double()
     return torch.where(live, (got - want).abs() / spacing, 0.0)
+
+
+def ring_update(x_loc, c_loc, x_root, b, s_row, b_col, s_col, live, *, row0: int, n: int,
+                reduce=None, inplace: bool = False):
+    """The ring's update of one rank's row block (Algorithms 7 and 8 with
+    the fit's gates and drift renormalization): ``x_loc: (m_l, n_loc)``
+    this rank's sample shard of its rows, ``c_loc: (m_l, m)`` their
+    correlations (global rows ``row0 ..``), ``x_root: (n_loc,)`` the root's
+    row, ``b``, ``s_row: (m_l,)`` and ``b_col``, ``s_col: (m,)`` the gates
+    (``covariance.rank1_gates`` of the root column), ``live: (m_l,)`` bool
+    own rows still in U less the root, ``n`` the global sample count.
+    ``reduce`` sums the (m_l,) sums of squares in place across the sample
+    shards (None: they are whole). Returns ``(x_loc', c_loc')``; with
+    ``inplace`` both are written over the inputs, which are returned."""
+    global RING_LAUNCHES
+    _check("ring_update", x_loc, c_loc, x_root, b, s_row, b_col, s_col)
+    m_l, n_loc = x_loc.shape if x_loc.ndim == 2 else (0, 0)
+    m = c_loc.shape[-1]
+    if (x_loc.ndim != 2 or tuple(c_loc.shape) != (m_l, m) or tuple(x_root.shape) != (n_loc,)
+            or tuple(b.shape) != (m_l,) or tuple(s_row.shape) != (m_l,)
+            or tuple(b_col.shape) != (m,) or tuple(s_col.shape) != (m,)
+            or tuple(live.shape) != (m_l,)):
+        raise ValueError(
+            f"want x_loc (m_l, n_loc), c_loc (m_l, m), x_root (n_loc,), b and s_row (m_l,), "
+            f"b_col and s_col (m,), live (m_l,); got {tuple(x_loc.shape)}, "
+            f"{tuple(c_loc.shape)}, {tuple(x_root.shape)}, {tuple(b.shape)}, "
+            f"{tuple(s_row.shape)}, {tuple(b_col.shape)}, {tuple(s_col.shape)}, "
+            f"{tuple(live.shape)}")
+    if live.dtype != torch.bool or live.device != x_loc.device:
+        raise TypeError("ring_update takes a bool live mask on x_loc's device")
+    if not 0 <= row0 <= m - m_l:
+        raise ValueError(f"ring_update: rows {row0}..{row0 + m_l} outside the {m} columns")
+    if _fake.on_card(x_loc):
+        _fake.note("ring_update", flops(x_loc.numel(), c_loc.numel()))
+        return (x_loc, c_loc) if inplace else (torch.empty_like(x_loc), torch.empty_like(c_loc))
+    if x_loc.device.type == "cpu":
+        x2, c2 = ring_update_ref(x_loc, c_loc, x_root, b, s_row, b_col, s_col, live,
+                                 row0=row0, n=n, reduce=reduce)
+        return (x_loc.copy_(x2), c_loc.copy_(c2)) if inplace else (x2, c2)
+    x_out, c_out = (x_loc, c_loc) if inplace else (torch.empty_like(x_loc), torch.empty_like(c_loc))
+    sq = torch.empty((m_l,), dtype=torch.float32, device=x_loc.device)
+    live = live.contiguous()
+    args = (x_root, b, s_row, b_col, s_col, live, sq)
+    if reduce is None:
+        launch_ring(x_loc, x_out, c_loc, c_out, *args, RING_FUSED, row0, n)
+        launches = 1
+    else:
+        launch_ring(x_loc, x_loc, c_loc, c_out, *args, RING_SUMS, row0, n)
+        reduce(sq)
+        launch_ring(x_loc, x_out, c_loc, c_out, *args, RING_SCALE, row0, n)
+        launches = 2
+    with _count_mu:
+        RING_LAUNCHES += launches
+    return x_out, c_out

@@ -1,5 +1,5 @@
 // Rank-1 iteration updates for Hopper (sm_90a): paper Algorithms 7 and 8,
-// Eq. (10)/(11). One kernel, two modes of one design.
+// Eq. (10)/(11). One kernel, three modes of one design.
 //
 // (a) TPU-kernel mode replaces the TPU kernels of
 //     src/repro/kernels/covupdate.py, one dataset (p, n), b given:
@@ -21,6 +21,20 @@
 //     out_i  = (x_i - b_i * x_root) / s_i,  then for a live row
 //              out_i * rsqrt(max(sum_k<n_valid out_ik^2 / max(n_valid - 1, 1), 1e-12))
 //     c'_ij  = clip((c_ij - b_i b_j) / (s_i s_j), -1, 1), 1 on the diagonal.
+//
+// (c) Ring mode is the same update on one rank's block of the messaging ring
+//     (src/repro_torch/dist/ring_order.py, `_update_shard`): rows
+//     [row0, row0 + m_l) of x (m_l, n_loc: this rank's sample shard) and of
+//     c (m_l, m), with the root's data row and the gates b, s of the own rows
+//     and of every column given (the root row lives on another rank; the
+//     gates come from the root column gathered over every row block). Its
+//     sums of squares are this shard's; where the samples are sharded they
+//     are summed across the sample shards between two launches: the first
+//     writes each row's sum and c', the second scales the rows from the
+//     summed sums (recomputing x - b x_root, which costs one read of x less
+//     than keeping it). With the samples whole one launch does both, as in
+//     fit mode. The variance divides by the global n - 1. c' may be written
+//     over c (no block reads another's entries: the gates are given).
 //
 // Rounding: every product, difference and quotient is rounded on its own
 // (__fmul_rn, __fsub_rn, __fdiv_rn, __fadd_rn: no FMA contraction), in the
@@ -110,7 +124,12 @@ constexpr float kFloor = 1e-4f;                    // covariance.COLLINEAR_FLOOR
 constexpr int kTorchThreads = 512;                 // ATen reduce: most threads in a block
 constexpr int kMaxCtas = 2048;                     // blocks per row of torch.sum replayed at most
 
-enum Mode { kModeData = 0, kModeCov = 1, kModeFit = 2 };
+enum Mode { kModeData = 0, kModeCov = 1, kModeFit = 2, kModeRing = 3 };
+// Ring mode's launches: sums and scale in one (samples whole), the sums and
+// c' (before the sums are added across sample shards), the scale.
+enum RingPhase { kRingFused = 0, kRingSums = 1, kRingScale = 2 };
+// The kernel's kinds: TPU mode, fit mode, ring mode.
+enum Kind { kTpu = 0, kFit = 1, kRing = 2 };
 
 // How torch.sum reduces a contiguous (rows, n) float32 tensor over its last
 // dimension (ATen's setReduceConfig, sum of floats: 4 accumulators, vectors
@@ -135,7 +154,15 @@ struct Args {
   const long long* roots; // fit mode: (B,)
   const unsigned char* mask;  // fit mode: (B, m) live rows
   const int* n_valid;     // fit mode: (B,) or null
-  float inv_den;          // fit mode without n_valid: 1 / (n - 1), as torch rounds it
+  const float* g_b;       // ring mode: (m_l,) b of the own rows
+  const float* g_s;       // ring mode: (m_l,) s of the own rows
+  const float* g_bc;      // ring mode: (m,) b of every column
+  const float* g_sc;      // ring mode: (m,) s of every column
+  const unsigned char* live;  // ring mode: (m_l,) own rows live (the root dead)
+  float* sq;              // ring mode: (m_l,) each row's sum of squares
+  int phase;              // ring mode: kRingFused, kRingSums or kRingScale
+  int rows, row0;         // correlation rows per dataset and the global id of the first
+  float inv_den;          // fit mode without n_valid, ring mode: 1 / (n - 1), as torch rounds it
   TorchSum order;         // fit mode: torch.sum's order over (B * m, n)
   int sq_cap;             // fit mode: squares staged in shared memory per row
   int m, n;
@@ -150,17 +177,19 @@ struct Plan {
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-Plan plan_of(int mode, int batch, int m, int n) {
+// `rows`: the correlation rows of a dataset (ring mode's m_l; m otherwise).
+// Ring mode with `cov` false is its scale launch: data blocks only.
+Plan plan_of(int mode, int batch, int m, int n, int rows, bool cov = true) {
   Plan p;
   if (mode != kModeCov) {
-    p.segs = mode == kModeFit ? 1 : ceil_div(n, kSegCols);
-    p.data_blocks = batch * m * p.segs;
+    p.segs = mode == kModeData ? ceil_div(n, kSegCols) : 1;
+    p.data_blocks = batch * rows * p.segs;
   }
-  if (mode != kModeData) {
+  if (mode != kModeData && cov) {
     const int w = m < kColChunk ? m : kColChunk;
-    const int rows = kTileElems / w;
-    p.tile_rows = rows < 1 ? 1 : (rows > kTileRows ? kTileRows : rows);
-    p.row_groups = ceil_div(m, p.tile_rows);
+    const int tr = kTileElems / w;
+    p.tile_rows = tr < 1 ? 1 : (tr > kTileRows ? kTileRows : tr);
+    p.row_groups = ceil_div(rows, p.tile_rows);
     p.col_chunks = ceil_div(m, kColChunk);
     p.cov_blocks = batch * p.row_groups * p.col_chunks;
   }
@@ -419,6 +448,69 @@ __device__ void fit_data_row(const Args& a, int row, float* smem) {
   }
 }
 
+// Ring mode: one own row per block. smem as in fit mode. The sums launch
+// writes each row's sum of squares (0 for a dead row); the scale launch
+// reads them summed across the sample shards; the fused launch does both.
+template <bool kVec>
+__device__ void ring_data_row(const Args& a, int i, float* smem) {
+  const float* xrow = a.x + static_cast<size_t>(i) * a.n;
+  float* orow = a.x_out + static_cast<size_t>(i) * a.n;
+  const bool in_place = a.x_out == a.x;
+  const int n = a.n;
+  if (!a.live[i]) {  // dead or the root: unchanged (b = 0, s = 1, scale 1)
+    if (a.phase != kRingSums && !in_place) copy_row<kVec>(xrow, orow, n);
+    if (a.phase != kRingScale && threadIdx.x == 0) a.sq[i] = 0.f;
+    return;
+  }
+  const float b = a.g_b[i], s = a.g_s[i];
+  const float* xr = a.x_root;
+  if (a.phase == kRingScale) {
+    const float g = row_scale(__fmul_rn(a.sq[i], a.inv_den));
+    for (int k = 4 * threadIdx.x; k < n; k += 4 * kThreads) {
+      store4<kVec>(orow, k, n, scale4(fit4(load4<kVec>(xrow, k, n), load4<kVec>(xr, k, n), b, s, k, n),
+                                      g, k, n));
+    }
+    return;
+  }
+  float* sq = smem;
+  float* vals = smem + a.sq_cap;
+  float4 v[kRowVecs];
+#pragma unroll
+  for (int t = 0; t < kRowVecs; ++t) {
+    const int k = 4 * (threadIdx.x + t * kThreads);
+    if (k < n) v[t] = fit4(load4<kVec>(xrow, k, n), load4<kVec>(xr, k, n), b, s, k, n);
+  }
+#pragma unroll
+  for (int t = 0; t < kRowVecs; ++t) {  // torch.square, staged for the sum
+    const int k = 4 * (threadIdx.x + t * kThreads);
+    if (k < n && k < a.sq_cap) {
+      *reinterpret_cast<float4*>(sq + k) = make_float4(
+          __fmul_rn(v[t].x, v[t].x), __fmul_rn(v[t].y, v[t].y), __fmul_rn(v[t].z, v[t].z),
+          __fmul_rn(v[t].w, v[t].w));
+    }
+  }
+  __syncthreads();
+  const auto square = [&](int e) {
+    if (e < a.sq_cap) return sq[e];
+    const float o = fit_elem(xrow[e], xr[e], b, s, true);
+    return __fmul_rn(o, o);
+  };
+  const int shift = static_cast<int>((static_cast<long long>(i) * n) & 3);
+  const float sum = torch_row_sum(a.order, n, n, shift, square, vals, vals + kTorchThreads);
+  if (threadIdx.x == 0) a.sq[i] = sum;
+  if (a.phase == kRingSums) return;
+  const float g = row_scale(__fmul_rn(sum, a.inv_den));
+#pragma unroll
+  for (int t = 0; t < kRowVecs; ++t) {
+    const int k = 4 * (threadIdx.x + t * kThreads);
+    if (k < n) store4<kVec>(orow, k, n, scale4(v[t], g, k, n));
+  }
+  for (int k = kRowCols + 4 * threadIdx.x; k < n; k += 4 * kThreads) {
+    store4<kVec>(orow, k, n, scale4(fit4(load4<kVec>(xrow, k, n), load4<kVec>(xr, k, n), b, s, k, n),
+                                    g, k, n));
+  }
+}
+
 // TPU mode: one (row, 2,048-column segment) per block.
 template <bool kVec>
 __device__ void tpu_data_segment(const Args& a, int blk) {
@@ -452,18 +544,21 @@ __device__ void tpu_data_segment(const Args& a, int blk) {
 }
 
 // One correlation entry from the row's and the column's gates.
-template <bool kFit>
+// (fit and ring modes: the clipped quotient; TPU mode: the product by inv).
+template <bool kClip>
 __device__ __forceinline__ float cov_elem(float c, float2 gi, float2 gj, bool diag) {
   if (diag) return 1.f;
   const float d = __fsub_rn(c, __fmul_rn(gi.x, gj.x));
-  return kFit ? clip1(__fdiv_rn(d, __fmul_rn(gi.y, gj.y))) : __fmul_rn(__fmul_rn(d, gi.y), gj.y);
+  return kClip ? clip1(__fdiv_rn(d, __fmul_rn(gi.y, gj.y))) : __fmul_rn(__fmul_rn(d, gi.y), gj.y);
 }
 
 // A tile of <= kTileElems entries: rows [i0, i0 + h) x columns [j0, j0 + w)
-// of one dataset. Its entries are loaded before the gates are computed, so
-// the two memory latencies overlap.
-template <bool kFit, bool kVec>
+// of one dataset's a.rows x m block (its row i is global row a.row0 + i).
+// Its entries are loaded before the gates are computed, so the two memory
+// latencies overlap.
+template <int kKind, bool kVec>
 __device__ void cov_tile(const Args& a, int blk, float2* col_g, float2* row_g) {
+  constexpr bool kFitMode = kKind == kFit;
   const int per = a.row_groups * a.col_chunks;
   const int d = blk / per;
   const int g = (blk - d * per) / a.col_chunks;
@@ -471,9 +566,9 @@ __device__ void cov_tile(const Args& a, int blk, float2* col_g, float2* row_g) {
   const int i0 = g * a.tile_rows;
   const int m = a.m;
   const int w = m - j0 < kColChunk ? m - j0 : kColChunk;
-  const int h = m - i0 < a.tile_rows ? m - i0 : a.tile_rows;
-  const float* cd = a.c + static_cast<size_t>(d) * m * m;
-  float* od = a.c_out + static_cast<size_t>(d) * m * m;
+  const int h = a.rows - i0 < a.tile_rows ? a.rows - i0 : a.tile_rows;
+  const float* cd = a.c + static_cast<size_t>(d) * a.rows * m;
+  float* od = a.c_out + static_cast<size_t>(d) * a.rows * m;
   // entry e of the tile: float4 e of a row of w / 4 (vector path), else a float
   const int wq = kVec ? w / 4 : w;
   constexpr int kPer = kVec ? kTileElems / 4 / kThreads : kTileElems / kThreads;
@@ -487,12 +582,17 @@ __device__ void cov_tile(const Args& a, int blk, float2* col_g, float2* row_g) {
       cv[t] = kVec ? load4<true>(row, 4 * q, w) : make_float4(row[q], 0.f, 0.f, 0.f);
     }
   }
-  const int root = kFit ? static_cast<int>(a.roots[d]) : 0;
-  const unsigned char* live = kFit ? a.mask + static_cast<size_t>(d) * m : nullptr;
+  const int root = kFitMode ? static_cast<int>(a.roots[d]) : 0;
+  const unsigned char* live = kFitMode ? a.mask + static_cast<size_t>(d) * m : nullptr;
   for (int t = threadIdx.x; t < w + h; t += kThreads) {
     const int idx = t < w ? j0 + t : i0 + t - w;
-    const float2 v = kFit ? gates(cd[static_cast<size_t>(idx) * m + root], live[idx] && idx != root)
-                          : tpu_gates(a.b[idx]);
+    float2 v;
+    if (kKind == kRing) {
+      v = t < w ? make_float2(a.g_bc[idx], a.g_sc[idx]) : make_float2(a.g_b[idx], a.g_s[idx]);
+    } else {
+      v = kFitMode ? gates(cd[static_cast<size_t>(idx) * m + root], live[idx] && idx != root)
+                   : tpu_gates(a.b[idx]);
+    }
     if (t < w) col_g[t] = v;
     else row_g[t - w] = v;
   }
@@ -503,33 +603,36 @@ __device__ void cov_tile(const Args& a, int blk, float2* col_g, float2* row_g) {
     if (e < h * wq) {
       const int r = e / wq, q = e - r * wq;
       const int i = i0 + r;
+      const int gid = a.row0 + i;  // the row's global id, for the diagonal
       const float2 gi = row_g[r];
       float* row = od + static_cast<size_t>(i) * m + j0;
+      constexpr bool kClip = kKind != kTpu;
       if (kVec) {
         const int j = j0 + 4 * q;
         store4<true>(row, 4 * q, w, make_float4(
-            cov_elem<kFit>(cv[t].x, gi, col_g[4 * q], i == j),
-            cov_elem<kFit>(cv[t].y, gi, col_g[4 * q + 1], i == j + 1),
-            cov_elem<kFit>(cv[t].z, gi, col_g[4 * q + 2], i == j + 2),
-            cov_elem<kFit>(cv[t].w, gi, col_g[4 * q + 3], i == j + 3)));
+            cov_elem<kClip>(cv[t].x, gi, col_g[4 * q], gid == j),
+            cov_elem<kClip>(cv[t].y, gi, col_g[4 * q + 1], gid == j + 1),
+            cov_elem<kClip>(cv[t].z, gi, col_g[4 * q + 2], gid == j + 2),
+            cov_elem<kClip>(cv[t].w, gi, col_g[4 * q + 3], gid == j + 3)));
       } else {
-        row[q] = cov_elem<kFit>(cv[t].x, gi, col_g[q], i == j0 + q);
+        row[q] = cov_elem<kClip>(cv[t].x, gi, col_g[q], gid == j0 + q);
       }
     }
   }
 }
 
-template <bool kFit, bool kVecX, bool kVecC>
+template <int kKind, bool kVecX, bool kVecC>
 __global__ void __launch_bounds__(kThreads, 2) rank1_update_kernel(Args a) {
   extern __shared__ float4 smem4[];
   const int blk = blockIdx.x;
   if (blk < a.data_blocks) {
-    if (kFit) fit_data_row<kVecX>(a, blk, reinterpret_cast<float*>(smem4));
+    if (kKind == kFit) fit_data_row<kVecX>(a, blk, reinterpret_cast<float*>(smem4));
+    else if (kKind == kRing) ring_data_row<kVecX>(a, blk, reinterpret_cast<float*>(smem4));
     else tpu_data_segment<kVecX>(a, blk);
   } else {
     float2* col_g = reinterpret_cast<float2*>(smem4);
-    cov_tile<kFit, kVecC>(a, blk - a.data_blocks, col_g,
-                          col_g + (a.m < kColChunk ? a.m : kColChunk));
+    cov_tile<kKind, kVecC>(a, blk - a.data_blocks, col_g,
+                           col_g + (a.m < kColChunk ? a.m : kColChunk));
   }
 }
 
@@ -603,18 +706,19 @@ bool torch_sum_of(int rows, int n, TorchSum* o) {
 
 constexpr int kFitSmemMax = (kRowCols + kTorchThreads + kMaxCtas) * 4;
 
-template <bool kFit>
+template <int kKind>
 int launch(const Args& a, int blocks, bool vec_x, bool vec_c, cudaStream_t st) {
-  auto kernel = vec_x ? (vec_c ? rank1_update_kernel<kFit, true, true>
-                               : rank1_update_kernel<kFit, true, false>)
-                      : (vec_c ? rank1_update_kernel<kFit, false, true>
-                               : rank1_update_kernel<kFit, false, false>);
+  auto kernel = vec_x ? (vec_c ? rank1_update_kernel<kKind, true, true>
+                               : rank1_update_kernel<kKind, true, false>)
+                      : (vec_c ? rank1_update_kernel<kKind, false, true>
+                               : rank1_update_kernel<kKind, false, false>);
   const int w = a.m < kColChunk ? a.m : kColChunk;
   int smem = a.row_groups ? (w + kTileRows) * 8 : 0;  // the correlation role's gates
-  if (kFit) {
-    const int data = (a.sq_cap + kTorchThreads + a.order.ctas) * 4;
+  if (kKind != kTpu) {
+    const int data = kKind == kRing && a.phase == kRingScale
+                         ? 0 : (a.sq_cap + kTorchThreads + a.order.ctas) * 4;
     smem = smem > data ? smem : data;
-    static bool raised[4] = {false, false, false, false};  // set twice at worst, harmlessly
+    static bool raised[4] = {false, false, false, false};  // per kind; set twice at worst, harmlessly
     bool& done = raised[2 * vec_x + vec_c];
     if (!done) {
       const cudaError_t rc = cudaFuncSetAttribute(
@@ -627,10 +731,11 @@ int launch(const Args& a, int blocks, bool vec_x, bool vec_c, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-Args args_of(const Plan& p, int m, int n) {
+Args args_of(const Plan& p, int m, int n, int rows) {
   Args a{};
   a.m = m;
   a.n = n;
+  a.rows = rows;
   a.data_blocks = p.data_blocks;
   a.segs = p.segs;
   a.tile_rows = p.tile_rows;
@@ -644,26 +749,26 @@ Args args_of(const Plan& p, int m, int n) {
 extern "C" int update_data_launch(const void* x, const void* xr, const void* b,
                                   void* out, int p, int n, void* stream) {
   if (p < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan plan = plan_of(kModeData, 1, p, n);
-  Args a = args_of(plan, p, n);
+  const Plan plan = plan_of(kModeData, 1, p, n, p);
+  Args a = args_of(plan, p, n, p);
   a.x = static_cast<const float*>(x);
   a.x_root = static_cast<const float*>(xr);
   a.b = static_cast<const float*>(b);
   a.x_out = static_cast<float*>(out);
   const bool vec = n % 4 == 0 && aligned16(x) && aligned16(xr) && aligned16(out);
-  return launch<false>(a, plan.data_blocks, vec, false, static_cast<cudaStream_t>(stream));
+  return launch<kTpu>(a, plan.data_blocks, vec, false, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int update_cov_launch(const void* c, const void* b, void* out,
                                  int p, void* stream) {
   if (p < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan plan = plan_of(kModeCov, 1, p, 1);
-  Args a = args_of(plan, p, 1);
+  const Plan plan = plan_of(kModeCov, 1, p, 1, p);
+  Args a = args_of(plan, p, 1, p);
   a.c = static_cast<const float*>(c);
   a.b = static_cast<const float*>(b);
   a.c_out = static_cast<float*>(out);
   const bool vec = p % 4 == 0 && aligned16(c) && aligned16(out);
-  return launch<false>(a, plan.cov_blocks, false, vec, static_cast<cudaStream_t>(stream));
+  return launch<kTpu>(a, plan.cov_blocks, false, vec, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int rank1_update_launch(const void* x, void* x_out, const void* c,
@@ -673,8 +778,8 @@ extern "C" int rank1_update_launch(const void* x, void* x_out, const void* c,
   if (batch < 1 || m < 1 || n < 1 || c_out == c) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan plan = plan_of(kModeFit, batch, m, n);
-  Args a = args_of(plan, m, n);
+  const Plan plan = plan_of(kModeFit, batch, m, n, m);
+  Args a = args_of(plan, m, n, m);
   a.x = static_cast<const float*>(x);
   a.x_out = static_cast<float*>(x_out);
   a.c = static_cast<const float*>(c);
@@ -688,14 +793,53 @@ extern "C" int rank1_update_launch(const void* x, void* x_out, const void* c,
   a.sq_cap = 4 * ceil_div(n, 4) < kRowCols ? 4 * ceil_div(n, 4) : kRowCols;
   const bool vec_x = n % 4 == 0 && aligned16(x) && aligned16(x_out);
   const bool vec_c = m % 4 == 0 && aligned16(c) && aligned16(c_out);
-  return launch<true>(a, plan.data_blocks + plan.cov_blocks, vec_x, vec_c,
+  return launch<kFit>(a, plan.data_blocks + plan.cov_blocks, vec_x, vec_c,
                       static_cast<cudaStream_t>(stream));
 }
 
+// Ring mode, one launch of `phase` (see the top): x (m_l, n) and x_root (n,)
+// this rank's sample shard, c (m_l, m) the rows [row0, row0 + m_l), the
+// gates b, s (m_l,) and b_col, s_col (m,), live (m_l,) uint8, sq (m_l,) the
+// sums (written by kRingFused and kRingSums, read by kRingScale), n_total
+// the global sample count. x_out may be x, c_out may be c; kRingScale reads
+// and writes x only.
+extern "C" int ring_update_launch(const void* x, void* x_out, const void* c, void* c_out,
+                                  const void* x_root, const void* b, const void* s,
+                                  const void* b_col, const void* s_col, const void* live,
+                                  void* sq, int phase, int m_l, int m, int n, int row0,
+                                  int n_total, void* stream) {
+  if (m_l < 1 || m < 1 || n < 1 || phase < kRingFused || phase > kRingScale || row0 < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Plan plan = plan_of(kModeRing, 1, m, n, m_l, phase != kRingScale);
+  Args a = args_of(plan, m, n, m_l);
+  a.x = static_cast<const float*>(x);
+  a.x_out = static_cast<float*>(x_out);
+  a.c = static_cast<const float*>(c);
+  a.c_out = static_cast<float*>(c_out);
+  a.x_root = static_cast<const float*>(x_root);
+  a.g_b = static_cast<const float*>(b);
+  a.g_s = static_cast<const float*>(s);
+  a.g_bc = static_cast<const float*>(b_col);
+  a.g_sc = static_cast<const float*>(s_col);
+  a.live = static_cast<const unsigned char*>(live);
+  a.sq = static_cast<float*>(sq);
+  a.phase = phase;
+  a.row0 = row0;
+  if (!torch_sum_of(m_l, n, &a.order)) return static_cast<int>(cudaErrorNotSupported);
+  a.inv_den = 1.f / static_cast<float>(n_total - 1 > 1 ? n_total - 1 : 1);
+  a.sq_cap = 4 * ceil_div(n, 4) < kRowCols ? 4 * ceil_div(n, 4) : kRowCols;
+  const bool vec_x = n % 4 == 0 && aligned16(x) && aligned16(x_out) && aligned16(x_root);
+  const bool vec_c = m % 4 == 0 && aligned16(c) && aligned16(c_out);
+  return launch<kRing>(a, plan.data_blocks + plan.cov_blocks, vec_x, vec_c,
+                       static_cast<cudaStream_t>(stream));
+}
+
 // The grid of a launch: mode 0 update_data (batch 1), 1 update_cov (batch
-// 1, n ignored), 2 the fit mode.
+// 1, n ignored), 2 the fit mode, 3 ring mode's first launch (batch is m_l,
+// its rows: m_l data blocks and the tiles of the (m_l, m) block).
 extern "C" int rank1_update_blocks(int mode, int batch, int m, int n) {
-  const Plan p = plan_of(mode, batch, m, n);
+  const Plan p = mode == kModeRing ? plan_of(mode, 1, m, n, batch) : plan_of(mode, batch, m, n, m);
   return p.data_blocks + p.cov_blocks;
 }
 

@@ -131,6 +131,18 @@ def rank1_update(xb, cb, roots, mloc, n_valid=None, *, inplace=False):
     return _covupdate.rank1_update(xb, cb, roots, mloc, n_valid, inplace=inplace)
 
 
+def ring_update(x_loc, c_loc, x_root, b, s_row, b_col, s_col, live, *, row0: int, n: int,
+                reduce=None, inplace=False):
+    """The messaging ring's rank-1 update of one rank's row block (rows
+    ``row0 ..`` of x's sample shard and of c, the root's row and every gate
+    given) via the update kernel's ring mode: one launch, or two around
+    ``reduce`` (the sums of squares summed across the sample shards).
+    Returns ``(x_loc', c_loc')``. Plain version: ``covupdate.ring_update_ref``
+    (the ring's torch update)."""
+    return _covupdate.ring_update(x_loc, c_loc, x_root, b, s_row, b_col, s_col, live,
+                                  row0=row0, n=n, reduce=reduce, inplace=inplace)
+
+
 def ssd_decode(state, x, dt, b, c, a, d):
     """Mamba2 SSD decode-step state update via the ssd_decode kernel:
     returns ``(y, new_state)``. Plain version: ``ssd_decode.ssd_decode_ref``."""

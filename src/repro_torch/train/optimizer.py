@@ -59,6 +59,7 @@ from repro_torch.dist.sharding import (
     shard_axes,
     shard_bounds,
     sum_over,
+    zero1_spec_for,  # noqa: F401 (the reference defines it here)
     zero1_specs,
 )
 from repro_torch.utils.tree import stacked_ndims, tree_leaves, tree_unflatten

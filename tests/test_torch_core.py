@@ -563,3 +563,123 @@ def test_batched_and_serving_signatures_take_the_reference_parameters(name):
     want, got = names(resolve("repro")), names(resolve("repro_torch"))
     assert [p for p in want if p not in got] == []
     assert [p for p in got if p not in want] in ([], ["device"])
+
+
+#: Reference modules whose port counterpart has another path.
+_COUNTERPART = {"utils/hlo.py": "utils/collectives.py"}
+#: Public names of the JAX package with no meaning in torch, by module (None:
+#: the whole module). Besides these, a ``*_jit`` name passes where its base
+#: name is in the port (the jitted aliases: PyTorch compiles nothing, and the
+#: port keeps such a name only where callers use it), and module constants
+#: (the Pallas block sizes, ``interpret`` flags) are not swept: only
+#: functions and classes are.
+_NO_MEANING_IN_TORCH = {
+    # jax/XLA version shims (``AxisType``, ``current_mesh``, ``install``)
+    "dist/compat.py": None,
+    # XLA's HLO text parser: the port counts its collectives at the call
+    # (``utils/collectives.CollectiveLedger``), so there is no text to parse
+    "utils/hlo.py": ("parse_collectives",),
+    # lowers and compiles a cell with XLA: the port traces it on fake tensors
+    "launch/dryrun.py": ("compile_cell",),
+    # the Pallas grids' tile arithmetic: the CUDA kernel's launcher sizes its
+    # own grid (``fused_score._launch``, ``tile_maps``)
+    "kernels/fused_score.py": ("tri_tile_count", "square_tile_count"),
+    # the reference tests' materialized (p, p, n) oracle: the port's kernels
+    # hold against their own plain versions (``fused_score_vector_ref``)
+    "kernels/ref.py": ("residual_entropy_matrix_ref",),
+}
+
+
+def _reference_modules():
+    src = os.path.join(os.path.dirname(__file__), "..", "src", "repro")
+    for root, _, files in os.walk(src):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(root, f), src).replace(os.sep, "/")
+
+
+def _public_defs(path) -> list:
+    """Public functions and classes a module defines (not imports)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return [n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")]
+
+
+def test_every_reference_module_definition_exists_in_the_port():
+    """The sweep of every module pair: each public function and class a
+    ``repro`` module defines exists in its ``repro_torch`` counterpart,
+    unless ``_NO_MEANING_IN_TORCH`` lists it (with the reason)."""
+    import importlib
+
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    missing, swept = [], 0
+    for rel in _reference_modules():
+        skip = _NO_MEANING_IN_TORCH.get(rel, ())
+        if skip is None:
+            continue
+        port_rel = _COUNTERPART.get(rel, rel)
+        name = "repro_torch." + port_rel[:-3].replace("/", ".").removesuffix(".__init__")
+        assert os.path.exists(os.path.join(src, "repro_torch", port_rel)), f"no port of {rel}"
+        module = importlib.import_module(name)
+        for n in _public_defs(os.path.join(src, "repro", rel)):
+            swept += 1
+            if n in skip or (n.endswith("_jit") and hasattr(module, n.removesuffix("_jit"))):
+                continue
+            if not hasattr(module, n):
+                missing.append(f"{rel}:{n}")
+    assert missing == []
+    assert swept > 200  # the sweep reads the whole package (213 names when written)
+
+
+@pytest.mark.parametrize("backend", ["host", "scan", "ring", "bogus"])
+def test_resolve_order_backend_matches_reference(backend):
+    """The port's ``resolve_order_backend`` names what the reference's does,
+    and refuses what it refuses, on a config object of either package."""
+    import types
+
+    from repro.core import paralingam as j_pl
+    from repro_torch.core import paralingam as t_pl
+
+    cfg = types.SimpleNamespace(order_backend=backend)
+    if backend == "bogus":
+        with pytest.raises(j_pl.ConfigError, match="bogus"):
+            j_pl.resolve_order_backend(cfg)
+        with pytest.raises(t_pl.ConfigError, match="bogus"):
+            t_pl.resolve_order_backend(cfg)
+        return
+    assert t_pl.resolve_order_backend(cfg) == j_pl.resolve_order_backend(cfg) == backend
+    assert (t_pl.resolve_order_backend(t_pl.ParaLiNGAMConfig(order_backend=backend))
+            == j_pl.resolve_order_backend(j_pl.ParaLiNGAMConfig(order_backend=backend)))
+    assert t_pl.resolve_order_backend(types.SimpleNamespace()) == "host"
+
+
+@pytest.mark.parametrize("prune_below", [0.0, 0.05])
+def test_estimate_adjacency_matches_reference(prune_below):
+    """Phase 2 on its own: B of the port's ``estimate_adjacency`` within the
+    tolerance of ``test_adjacency_from_order_matches`` of the reference's,
+    from numpy inputs, and equal to ``adjacency_from_order``'s B."""
+    data = t_sem.generate(t_sem.SemSpec(p=17, n=800, seed=4))
+    x = data["x"].astype(np.float32)
+    order = np.asarray(data["order"], np.int32)
+    b_t = t_adj.estimate_adjacency(x, order, prune_below=prune_below, device="cpu")
+    b_j = j_adj.estimate_adjacency(jnp.asarray(x), jnp.asarray(order), prune_below=prune_below)
+    assert b_t.shape == (17, 17) and b_t.dtype == torch.float32
+    _close(b_t, b_j, rtol=0, atol=1e-4)
+    b_ref, _ = t_adj.adjacency_from_order(torch.from_numpy(x), torch.from_numpy(order).long(),
+                                          prune_below=prune_below)
+    assert torch.equal(b_t, b_ref)
+
+
+def test_estimate_adjacency_needs_a_card_without_device():
+    """Without ``device`` phase 2 runs on the card, so on a host without one
+    it raises the device error instead of running where its input lies."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: without device the call runs on it")
+    data = t_sem.generate(t_sem.SemSpec(p=6, n=200, seed=1))
+    for x in (data["x"].astype(np.float32), torch.from_numpy(data["x"].astype(np.float32))):
+        with pytest.raises(RuntimeError, match="estimate_adjacency.*device='cpu'"):
+            t_adj.estimate_adjacency(x, data["order"])

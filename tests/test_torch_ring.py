@@ -115,13 +115,14 @@ def _job_find_root(mesh, xn, c, mask):
     ``topology=(1, world)`` on it and on a flat mesh."""
     xn, c, mask = torch.from_numpy(xn), torch.from_numpy(c), torch.from_numpy(mask)
     world = mesh.mesh.numel()
-    flat = ring_mesh(None, torch.arange(world).reshape(1, world, 1))
+    flat = ring_mesh(None, torch.arange(world).reshape(1, world, 1), device_type="cpu")
     root, s = ring_find_root(xn, c, mask, mesh, row_axes=("ring",), sample_axis="model",
-                             score_backend="torch")
+                             score_backend="torch", device="cpu")
     out = {"axes": (int(root), s.numpy())}
-    for name, fn in (("own", ring_find_root_jit(mesh, "torch")),
-                     ("pod1", ring_find_root_jit(mesh, "torch", topology=(1, world))),
-                     ("flat", ring_find_root_jit(flat, "torch"))):
+    for name, fn in (("own", ring_find_root_jit(mesh, "torch", device="cpu")),
+                     ("pod1", ring_find_root_jit(mesh, "torch", topology=(1, world),
+                                                 device="cpu")),
+                     ("flat", ring_find_root_jit(flat, "torch", device="cpu"))):
         root, s = fn(xn, c, mask)
         out[name] = (int(root), s.numpy())
     return out
@@ -513,7 +514,7 @@ def test_ring_find_root_degenerate_ring_is_dense(world1, backend):
     the ring's own hop-0 block (the square kernel's plain version here)."""
     xn, c, mask = find_root_problem()
     root, s = ring_find_root(torch.from_numpy(xn), torch.from_numpy(c), torch.from_numpy(mask),
-                             world1, row_axes=("ring",), score_backend=backend)
+                             world1, row_axes=("ring",), score_backend=backend, device="cpu")
     hold_find_root(root, s, xn, c, mask)
 
 

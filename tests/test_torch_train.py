@@ -724,12 +724,16 @@ _CLI = ["--arch", "granite-3-2b", "--preset", "smoke", "--steps", "3", "--batch"
         "--seq", "16", "--device", "cpu"]
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _rendezvous(world: int):
+    """The ranks' store, hosted here as ``torchrun``'s agent hosts it: a
+    ``TCPStore`` on a port the system picked and this process holds for the
+    ranks' whole run (``TORCHELASTIC_USE_AGENT_STORE``: every rank a
+    client), so no other process can take it between the pick and the
+    ranks' start. Returns the store (keep it alive) and its environment."""
+    store = torch.distributed.TCPStore("127.0.0.1", 0, world, is_master=True,
+                                       wait_for_workers=False)
+    return store, {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(store.port),
+                   "TORCHELASTIC_USE_AGENT_STORE": "True"}
 
 
 def _train_done(text: str):
@@ -744,8 +748,9 @@ def _cli_on_ranks(cli, data_shards, model_shards, capsys):
     assert t_launch.main(cli) == 0
     want = _train_done(capsys.readouterr().out)
     world = data_shards * model_shards
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
+    store, rendezvous = _rendezvous(world)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), WORLD_SIZE=str(world),
+               OMP_NUM_THREADS="1", **rendezvous)
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", *cli, "--data-shards",
          str(data_shards), "--model-shards", str(model_shards)],
@@ -761,6 +766,7 @@ def _cli_on_ranks(cli, data_shards, model_shards, capsys):
         for p in procs:
             if p.poll() is None:
                 p.kill()
+        del store
     got = [_train_done(out) for out in outs]
     assert len(got[0]) == 1 and not any(got[1:]), outs
     (arch, steps, first, last), = got[0]
