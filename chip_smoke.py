@@ -338,11 +338,11 @@ Phases, each printed on its own line:
     (2 layers) and whisper-base (whole). Last in the two-rank set, the
     batched estimator sharded over the data ranks:
     ``[fit_batch_data_sharded] grid=2x1`` (``fit_batch(rules=)`` on the
-    ragged E. coli bucket under ``hopper_fused`` and under
-    ``threshold=True``, and on the two iJR904-size requests: every rank's
-    gathered orders, B, noise variances, comparisons, rounds and
-    convergence bit for bit the one-rank ``fit_batch``'s of phase 6 and of
-    ``[threshold_batch]``; seconds per dispatch, kernel #2's and the update
+    ragged E. coli bucket under ``hopper_fused``, and on the two
+    iJR904-size requests: every rank's gathered orders, B, noise
+    variances, comparisons, rounds and convergence bit for bit the one-rank
+    ``fit_batch``'s of phase 6 (the threshold bucket at 2 x 1, 15.3 s, was
+    cut to make room for phase 23); seconds per dispatch, kernel #2's and the update
     kernel's launches and the all-gather's bytes and seconds per rank) and
     ``[engine_data_sharded]`` (``AsyncLingamEngine(rules=)`` pre-warmed at
     every batch count, 3 submitter threads on the leader serving the 10
@@ -383,7 +383,17 @@ Phases, each printed on its own line:
     (``cp_dry_record``; ``hold_cp_cells``: the collectives by op, the
     argument bytes, the peak and the temporaries). The phase's seconds
     stay under ``DRYRUN_HOLD_S``.
-23. ``[smoke_wall]``: the script's seconds so far. Then a
+23. The estimator in float64 (``ParaLiNGAMConfig(dtype=torch.float64)``).
+    ``[fit_f64]``: the E. coli core's float64 fit under ``torch`` gives the
+    float64 serial oracle's order (``ECOLI_F64_ORDER``); under
+    ``hopper_fused`` (kernel #1 on float32 copies of the float64 state) the
+    order of ``torch_fused``, or a departure at an f32 near-tie; where each
+    first departs from the oracle's order; p - 1 kernel launches and no
+    update-kernel launch (``dispatch_stats["rank1_update"]`` 0); the
+    seconds beside the float32 fit's. ``[fit_batch_f64]``: 3 ragged E.
+    coli-size requests in one float64 bucket, each row bit for bit its own
+    one-dataset ``fit_batch``, its order a dedicated float64 ``fit``'s.
+24. ``[smoke_wall]``: the script's seconds so far. Then a
     ``{"kernels": [...]}`` line with each hand kernel's launches on its
     path (the square kernel's ring launches beside them, one rank's and
     each rank's of ``[ring_sharded]``; the update kernel's ring mode's
@@ -520,8 +530,8 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def normalized(x, dev):
-    xn = normalize(torch.as_tensor(x, dtype=torch.float32, device=dev))
+def normalized(x, dev, dtype=torch.float32):
+    xn = normalize(torch.as_tensor(x, dtype=dtype, device=dev))
     return xn, cov_matrix(xn)
 
 
@@ -1152,7 +1162,8 @@ def replay_identical(served, cfg, dev) -> int:
     recorded dispatch through ``fit_batch``."""
     ok = 0
     for bucket, payloads, out, _ in served:
-        xs, mask, nv, exact = pack_bucket(payloads, *bucket)
+        xs, mask, nv, exact = pack_bucket(payloads, *bucket,
+                                          dtype=paralingam.numpy_dtype(cfg.dtype))
         seams = {} if exact else dict(n_valid=nv, mask=mask)
         res = fit_batch(xs, cfg, device=dev, **seams)
         orders, b, omega = res.orders.cpu().numpy(), res.b.cpu().numpy(), res.noise_var.cpu().numpy()
@@ -1586,29 +1597,38 @@ def phase_pairwise_kernel(dev, gpu, ecoli_x):
     return max(errs), timing
 
 
-def dense_scores_along(x, order, it, dev):
-    """The dense scores (plain square path) and their tolerance at iteration
-    ``it`` of the updates along ``order``."""
+def dense_scores_along(x, order, it, dev, dtype=torch.float32):
+    """The dense scores (plain square path, in float32) and their tolerance
+    at iteration ``it`` of the updates along ``order``, on a ``dtype``
+    state (a float64 one cast to float32 for the scores, as the kernels
+    take it)."""
     from repro_torch.core.covariance import update_cov, update_data
     from repro_torch.core.pairwise import dense_scores
 
-    xn, c = normalized(x, dev)
+    xn, c = normalized(x, dev, dtype)
     mask = torch.ones(xn.shape[0], dtype=torch.bool, device=dev)
     for r in order[:it]:
         xn, c = update_data(xn, c, r, mask), update_cov(c, r, mask)
         mask[r] = False
+    xn, c = xn.float(), c.float()
     s = dense_scores(xn, c, mask)[0]
     return s, fs.score_tolerance(s, xn, c, mask)
 
 
-def hold_order(name, got, want, x, dev) -> bool:
+def first_departure(got, want):
+    """The first iteration where two orders differ, or None."""
+    return next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+
+
+def hold_order(name, got, want, x, dev, dtype=torch.float32) -> bool:
     """Equal orders, or a departure at an f32 near-tie: the two roots' dense
     scores at the first differing iteration within their tolerances of each
-    other. Raises otherwise. Returns whether the orders are equal."""
+    other (on a ``dtype`` state). Raises otherwise. Returns whether the
+    orders are equal."""
     if got == want:
         return True
-    k = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-    s, tol = dense_scores_along(x, want, k, dev)
+    k = first_departure(got, want)
+    s, tol = dense_scores_along(x, want, k, dev, dtype)
     a, b = got[k], want[k]
     gap, allowed = abs(s[a] - s[b]).item(), (tol[a] + tol[b]).item()
     say("order_departure", case=name, iteration=k, root=a, reference_root=b,
@@ -1732,8 +1752,7 @@ def phase_threshold_batch(dev, gpu):
     """``fit_batch(threshold=True)`` on the ragged E. coli bucket, against
     each dataset's own one-dataset ``fit_batch`` on the same padded inputs;
     then one served round of the same requests, each result bit-identical
-    to a replay of its dispatch. Returns the bucket's results and seconds
-    (the one-rank side of ``[fit_batch_data_sharded]``)."""
+    to a replay of its dispatch."""
     raw = ecoli_requests()
     xs, mask, nv, _ = pack_bucket(raw, *ECOLI_BUCKET)
     cfg = ParaLiNGAMConfig(threshold=True)
@@ -1753,7 +1772,6 @@ def phase_threshold_batch(dev, gpu):
         converged=bool(res.converged.all()), gpu=f"'{gpu}'")
     check(same == len(raw), "a dataset's threshold fit differs between its batch and its own")
     check(bool(res.converged.all()), "a threshold fit in the bucket did not converge")
-    one_rank = (batch_arrays(res), t_batch)
 
     results, wall, st, served, _, launched, _ = engine_round(cfg, raw, dev)
     replay_ok = replay_identical(served, cfg, dev)
@@ -1762,7 +1780,6 @@ def phase_threshold_batch(dev, gpu):
         results_bit_identical_to_replay=f"{replay_ok}/{len(raw)}",
         launches=sum(launched.values()), gpu=f"'{gpu}'")
     check(replay_ok == len(raw), "a served threshold result differs from the replay of its dispatch")
-    return one_rank
 
 
 def phase_threshold_slice(dev, gpu):
@@ -4374,13 +4391,11 @@ def fit_differences(tag: str, got: dict, want: dict) -> list:
 def lingam_cases(grid) -> list:
     """(tag, requests, bucket, config) of ``[fit_batch_data_sharded]`` at
     ``grid``: the ragged E. coli bucket dense under ``hopper_fused``, and at
-    2 x 1 also under ``threshold=True`` and the two iJR904-size requests."""
+    2 x 1 also the two iJR904-size requests."""
     dense = ParaLiNGAMConfig(score_backend="hopper_fused")
     cases = [("ecoli_dense", ecoli_requests(), ECOLI_BUCKET, dense)]
     if grid == LINGAM_ENGINE_GRID:
-        cases += [("ecoli_threshold", ecoli_requests(), ECOLI_BUCKET,
-                   ParaLiNGAMConfig(threshold=True)),
-                  ("ijr_dense", ijr_requests(), IJR_BUCKET, dense)]
+        cases.append(("ijr_dense", ijr_requests(), IJR_BUCKET, dense))
     return cases
 
 
@@ -5968,6 +5983,103 @@ def phase_dryrun_hold(gpu, train_held, sharded):
     check(phase_s <= DRYRUN_HOLD_S, f"dryrun_hold took {phase_s:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the estimator in float64
+# ---------------------------------------------------------------------------
+
+# The float64 serial oracle's causal order of the E. coli core (p=85,
+# n=10000, ``sem.SemSpec(p=85, n=10_000, density="sparse", seed=0)``), from
+#   PYTHONPATH=src python -c "from repro_torch.core import direct_lingam, sem;
+#   print(direct_lingam.causal_order(sem.generate(sem.SemSpec(p=85, n=10_000,
+#   density='sparse', seed=0))['x']))"
+# (95 s on a CPU). Both float32 orders depart from it (ROADMAP queue 3).
+ECOLI_F64_ORDER = [
+    23, 0, 67, 26, 74, 13, 33, 31, 32, 7, 65, 79, 58, 49, 78, 72, 54, 64, 81, 50, 25, 52,
+    70, 37, 10, 66, 53, 30, 47, 84, 68, 41, 71, 75, 76, 21, 2, 20, 27, 8, 16, 48, 39, 62,
+    63, 82, 35, 1, 80, 51, 34, 11, 55, 24, 42, 22, 3, 4, 38, 57, 83, 59, 61, 9, 15, 45, 56,
+    14, 29, 40, 69, 36, 73, 19, 6, 44, 5, 18, 12, 60, 46, 77, 17, 28, 43]
+F64 = dict(dtype=torch.float64)
+
+
+def phase_fit_f64(dev, gpu, core):
+    """[fit_f64]: the E. coli core in float64 on the card. Under ``torch``
+    the order is the float64 oracle's (``ECOLI_F64_ORDER``); ``hopper_fused``
+    (kernel #1 on float32 copies of the float64 state) gives the order of
+    ``torch_fused`` (its plain version's sweep on the same copies), or
+    departs at an f32 near-tie; p - 1 kernel launches and no update-kernel
+    launch (``dispatch_stats["rank1_update"]`` 0: float64 takes the torch
+    updates). Seconds beside the float32 fit's. Returns kernel #1's
+    launches in the float64 fit."""
+    x = core["x"]
+    p, n = x.shape
+    check(sem.is_valid_causal_order(ECOLI_F64_ORDER, sem.generate(sem.SemSpec(
+        p=p, n=n, density="sparse", seed=0))["b_true"]), "the float64 oracle order is not valid")
+    run_fit(x, "hopper_fused", dev, **F64)  # warm-up
+    res_t, b_t, t_t, _, upd_t = run_fit(x, "torch", dev, **F64)
+    res_f, b_f, t_f, _, _ = run_fit(x, "torch_fused", dev, **F64)
+    paralingam.reset_dispatch_stats()
+    res_k, b_k, t_k, launches, updates = run_fit(x, "hopper_fused", dev, **F64)
+    stat = paralingam.dispatch_stats_snapshot()["rank1_update"]
+    same = hold_order("fit_f64_hopper_fused_vs_torch_fused", res_k.order, res_f.order, x, dev,
+                      torch.float64)
+    b_err = (b_k - b_f).abs().max().item()
+    say("fit_f64", p=p, n=n, order_equals_f64_oracle=res_t.order == ECOLI_F64_ORDER,
+        torch_first_departure=first_departure(res_t.order, ECOLI_F64_ORDER),
+        hopper_fused_equals_torch_fused=same,
+        hopper_fused_first_departure_from_oracle=first_departure(res_k.order, ECOLI_F64_ORDER),
+        torch_fused_first_departure_from_oracle=first_departure(res_f.order, ECOLI_F64_ORDER),
+        float32_first_departure_from_oracle=first_departure(core["hopper_fused"][0].order,
+                                                            ECOLI_F64_ORDER),
+        launches=launches, find_roots=p - 1, update_launches=updates + upd_t,
+        rank1_update_stat=stat, b_dtype=str(b_k.dtype).removeprefix("torch."),
+        b_max_abs_diff_vs_torch_fused=f"{b_err:.3e}", fit_s_torch=f"{t_t:.4f}",
+        fit_s_torch_fused=f"{t_f:.4f}", fit_s_hopper_fused=f"{t_k:.4f}",
+        fit_s_hopper_fused_float32=f"{core['hopper_fused'][2]:.4f}", gpu=f"'{gpu}'")
+    check(res_t.order == ECOLI_F64_ORDER, "the float64 torch fit is not the float64 oracle's order")
+    check(launches == p - 1, f"{launches} kernel launches for {p - 1} float64 find-roots")
+    check(updates == 0 and upd_t == 0 and stat == 0, "a float64 fit launched the update kernel")
+    check(b_k.dtype == torch.float64 and bool(torch.all(torch.isfinite(b_k)))
+          and np.all(np.isfinite(res_k.noise_var)), "float64 B or noise variances not finite")
+    if same:
+        check(b_err <= 1e-12, "float64 B differs between hopper_fused and torch_fused")
+    return launches
+
+
+def phase_fit_batch_f64(dev, gpu):
+    """[fit_batch_f64]: 3 ragged E. coli-size requests in one float64 bucket
+    under ``hopper_fused``: each row bit for bit its dataset's own
+    one-dataset float64 ``fit_batch``, its order a dedicated float64
+    ``fit``'s (or departing at an f32 near-tie), kernel #2 once per
+    find-root, no update-kernel launch. Returns kernel #2's launches."""
+    raw = ecoli_requests()[:3]
+    xs, mask, nv, _ = pack_bucket(raw, *ECOLI_BUCKET, dtype=np.float64)
+    cfg = ParaLiNGAMConfig(score_backend="hopper_fused", **F64)
+    fit_batch(xs, cfg, n_valid=nv, mask=mask, device=dev)  # warm-up
+    reset_counts()
+    res, t = timed(lambda: fit_batch(xs, cfg, n_valid=nv, mask=mask, device=dev))
+    launched = counts()
+    p_live = [x.shape[0] for x in raw]
+    differ = batch_differences(res, xs, mask, nv, cfg, p_live,
+                               ("orders", "comparisons", "rounds", "converged"), dev)
+    orders = res.orders.cpu().numpy()
+    same_fit = [hold_order(f"fit_batch_f64_{i}", list(orders[i, :p]),
+                           fit(x, cfg, device=dev)[0].order, x, dev, torch.float64)
+                for i, (x, p) in enumerate(zip(raw, p_live))]
+    say("fit_batch_f64", B=len(raw), bucket=f"{ECOLI_BUCKET}", seconds=f"{t:.4f}",
+        equal_to_own_fit_batch=f"{len(raw) - len({d.split(':')[0] for d in differ})}/{len(raw)}",
+        first_differences=",".join(differ) or "none",
+        orders_equal_to_fit=f"{sum(same_fit)}/{len(raw)}",
+        launches=launched["fused_score_batch"], find_roots=ECOLI_BUCKET[0] - 1,
+        update_launches=launched["rank1_update"], b_dtype=str(res.b.dtype).removeprefix("torch."),
+        gpu=f"'{gpu}'")
+    check(not differ, "a float64 dataset's fit differs between its batch and its own")
+    check(launched["fused_score_batch"] == ECOLI_BUCKET[0] - 1 and launched["rank1_update"] == 0,
+          f"float64 bucket launches {launched}")
+    check(res.b.dtype == torch.float64 and bool(torch.isfinite(res.b).all()),
+          "float64 bucket B not finite float64")
+    return launched["fused_score_batch"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -6041,7 +6153,7 @@ def main() -> int:
     launches_sqb = phase_fit_batch_hopper(dev, gpu, batch_orders)
     launches_b, launches_upd, engine_fits = phase_engine(dev, gpu, batch_orders, profile)
     phase_threshold_ecoli(dev, gpu)
-    lingam_want["ecoli_threshold"] = phase_threshold_batch(dev, gpu)
+    phase_threshold_batch(dev, gpu)
     if time.perf_counter() - t_start < 500:  # well inside the 1200 s limit
         phase_threshold_slice(dev, gpu)
     else:
@@ -6058,6 +6170,8 @@ def main() -> int:
     ring_launched, _ = report_ring_sharded(gpu, ring_sets, ring_want, profile)
     phase_ica_lingam(dev, gpu)
     phase_poly_scores(dev, gpu)
+    launches_f64 = phase_fit_f64(dev, gpu, core)
+    launches_b_f64 = phase_fit_batch_f64(dev, gpu)
     if profile:
         profile_fits(dev, gpu)
     tp_timing = phase_ssd_device_tp(gpu, tp_inputs, tp_timing)
@@ -6071,14 +6185,14 @@ def main() -> int:
         "max_abs_err": max(err_kernel, err_core, err_fit), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "operations", "library_ms": None,
         "wrapper_ms": wrapper_ms, "shape": "p=512,n=2000,block=8",
-        "gpu": gpu,
+        "launches_float64_fit": launches_f64, "gpu": gpu,
     }, {
         "name": "fused_score_batch", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": BATCH_REPLACES, "launches": launches_b, "max_abs_err": err_b,
         "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b, "bound_by": "operations",
         "library_ms": None, "wrapper_ms": wrapper_b, "bound_ms_padded_buffer": padded_b,
         "launches_data_sharded_per_rank": sharded_launched["fused_score_batch"],
-        "shape": shape_b, "gpu": gpu,
+        "launches_float64_bucket": launches_b_f64, "shape": shape_b, "gpu": gpu,
     }, {
         "name": "pairwise_moments", "route": "cuda", "source": SQUARE_SOURCE,
         "replaces": SQUARE_REPLACES, "launches": launches_sq,

@@ -157,16 +157,22 @@ def adjacency_from_order(x, order, mask=None, n_valid=None,
     return b, torch.take_along_dim(omega_ord, inv, dim=-1)
 
 
-def estimate_adjacency(x, order, prune_below: float = 0.0, *, device=None):
+def estimate_adjacency(x, order, prune_below: float = 0.0, *, config=None, device=None):
     """Phase 2 on its own for a full, unpadded dataset (``pruning.
     estimate_adjacency``'s signature): B only. ``x`` and ``order`` (numpy or
     torch) move to ``device``: the card unless the caller passes
-    ``device="cpu"``, as for ``paralingam.fit``.
+    ``device="cpu"``, as for ``paralingam.fit``. B comes in ``config.dtype``
+    where a ``ParaLiNGAMConfig`` is given, else in ``x``'s dtype where that
+    is float32 or float64 (numpy or torch), else in float32.
     :func:`adjacency_from_order` gives (B, Omega) and takes padded buffers."""
-    from repro_torch.core.paralingam import _device  # paralingam imports this module
+    from repro_torch.core.paralingam import DTYPES, _device  # paralingam imports this module
 
     dev = _device(device, "estimate_adjacency")
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    if config is not None:
+        dtype = config.dtype
+    else:
+        dtype = DTYPES.get(str(getattr(x, "dtype", "")).removeprefix("torch."), torch.float32)
+    x = torch.as_tensor(x, dtype=dtype, device=dev)
     b, _ = adjacency_from_order(x, torch.as_tensor(order, dtype=torch.int64, device=dev),
                                 prune_below=prune_below)
     return b

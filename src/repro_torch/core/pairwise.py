@@ -17,8 +17,9 @@ kernel in ``repro_torch.kernels.fused_score`` computes the fused triangular
 sweep by hand.
 
 Every (rows, cols, n) residual intermediate is built in chunks of at most
-``CHUNK_ELEMS`` elements, batched over many tiles or columns at once, so a
-p=512 sweep is a handful of large tensor ops rather than a loop per tile.
+``CHUNK_ELEMS`` float32 elements' bytes (half as many float64 elements),
+batched over many tiles or columns at once, so a p=512 sweep is a handful of
+large tensor ops rather than a loop per tile.
 Masked rows may hold non-finite data: every mask is applied with a select
 (``torch.where``), never a multiply.
 
@@ -40,9 +41,15 @@ import torch.nn.functional as F
 from repro_torch.core.covariance import VAR_EPS, _sample_count, per_dataset
 from repro_torch.core.entropy import entropy_from_moments, log_cosh, u_exp_moment
 
-#: Element budget of one chunk's (tiles, b, b, n) or (p, cols, n) residual
-#: tensor (64 MB in float32).
+#: Budget of one chunk's (tiles, b, b, n) or (p, cols, n) residual tensor,
+#: in float32 elements (64 MB); ``_chunk_elems`` turns it into elements of
+#: the data's dtype, so a float64 chunk holds half as many.
 CHUNK_ELEMS = 1 << 24
+
+
+def _chunk_elems(t) -> int:
+    """Elements of ``t``'s dtype that fit one chunk's bytes."""
+    return max(1, CHUNK_ELEMS * 4 // t.element_size())
 
 
 def _sum_across(m1_sum, m2_sum, group):
@@ -167,7 +174,7 @@ def diag_block_scores(xb, c_diag, hxb, mb, n_valid=None):
     row-sum credit applies. Returns (nt, b)."""
     nt, b, n = xb.shape
     eye = torch.eye(b, dtype=torch.bool, device=xb.device)
-    step = max(1, CHUNK_ELEMS // max(b * b * n, 1))
+    step = max(1, _chunk_elems(xb) // max(b * b * n, 1))
     per_tile = isinstance(n_valid, torch.Tensor) and n_valid.ndim == 1
     out = []
     for t0 in range(0, nt, step):
@@ -228,7 +235,7 @@ def tri_tile_partials(xb, c4, hxb, mb, imap, jmap, n_valid=None):
     column sums of the reverse credits. Returns ``(fwd, rev)``, each (T, b),
     built in chunks of tiles."""
     nt, b, n = xb.shape
-    step = max(1, CHUNK_ELEMS // max(b * b * n, 1))
+    step = max(1, _chunk_elems(xb) // max(b * b * n, 1))
     fwd, rev = [], []
     for t0 in range(0, imap.numel(), step):
         i, j = imap[t0:t0 + step], jmap[t0:t0 + step]
@@ -271,7 +278,7 @@ def residual_entropy_matrix(xn, c, n_valid=None):
     buffer (the chunking does not change the arithmetic: each entry is its
     own reduction over the samples)."""
     p, n = xn.shape
-    step = max(1, CHUNK_ELEMS // max(p * n, 1))
+    step = max(1, _chunk_elems(xn) // max(p * n, 1))
     return torch.cat(
         [residual_entropy_block(xn, c[:, j0:j0 + step], xn[j0:j0 + step],
                                 n_valid=n_valid)

@@ -71,6 +71,37 @@ ORDER_BACKENDS = ("host", "scan", "ring")
 #: keep the plain ``covariance.update_data`` / ``update_cov``.
 UPDATE_KERNEL_BACKENDS = ("hopper", "hopper_fused")
 
+#: The estimator's dtypes (``ParaLiNGAMConfig.dtype``), by name.
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def kernel_update(backend: str, dtype: torch.dtype) -> bool:
+    """Whether the scans, the host driver and the ring run their rank-1
+    updates through the update kernel: under ``UPDATE_KERNEL_BACKENDS`` on a
+    float32 state only. The kernel's fit and ring modes work in place on
+    float32 buffers; a float64 state takes the torch updates in float64
+    (``covariance.update_data`` / ``update_cov``, the ring's
+    ``covupdate.ring_update_ref``), as the reference's fit takes its jnp
+    updates in ``cfg.dtype`` and never calls its update kernels. The score
+    kernels still run under float64, on float32 copies of their operands."""
+    return backend in UPDATE_KERNEL_BACKENDS and dtype == torch.float32
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """``torch.float32``/``torch.float64`` for a torch or numpy float dtype
+    of either width or its name; ``ConfigError`` for anything else."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).removeprefix("torch.")
+    else:
+        try:
+            name = np.dtype(dtype).name
+        except TypeError:
+            name = None
+    if name not in DTYPES:
+        raise ConfigError(f"dtype={dtype!r} is not float32 or float64")
+    return DTYPES[name]
+
+
 @dataclass(frozen=True)
 class ParaLiNGAMConfig:
     order_backend: str = "host"  # "host" | "scan" | "ring"
@@ -99,8 +130,16 @@ class ParaLiNGAMConfig:
     # the scan always compacts on the stage plan)
     bucket: bool = True
     min_bucket: int = 32  # floor of the power-of-two stage buffers
+    # the estimator's floating dtype, float32 or float64 (torch or numpy, or
+    # its name; stored as the torch dtype): every entry point casts its data
+    # to it, and the state of the scan, the host driver and the ring, gamma
+    # and phase 2 are in it. The hand score kernels stay float32 and take
+    # float32 copies of their operands; so do the fused plain path's sweep
+    # and the sample-count denominators, as in the JAX package.
+    dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
+        object.__setattr__(self, "dtype", _torch_dtype(self.dtype))
         if self.order_backend not in ORDER_BACKENDS:
             raise ConfigError(
                 f"order_backend={self.order_backend!r} is not one of "
@@ -190,9 +229,9 @@ def config_from_reference(d: dict) -> ParaLiNGAMConfig:
 
     Backend names map ``xla`` -> ``torch``, ``xla_fused`` -> ``torch_fused``,
     ``pallas`` -> ``hopper``, ``pallas_fused`` -> ``hopper_fused``; the
-    deprecated flags map as the JAX package maps them. Raises
-    ``ConfigError`` for what this port does not run (a dtype other than
-    float32)."""
+    deprecated flags map as the JAX package maps them, and ``jnp.float32``/
+    ``jnp.float64`` to ``torch.float32``/``torch.float64``. Raises
+    ``ConfigError`` for any other dtype."""
     backend = _legacy_score_backend(d)
     if backend not in _BACKEND_NAMES:
         raise kops.BackendUnavailable(
@@ -201,9 +240,6 @@ def config_from_reference(d: dict) -> ParaLiNGAMConfig:
         )
     order_backend, threshold = _legacy_order(d)
     topo = d.get("ring_topology")
-    dtype = d.get("dtype", np.float32)
-    if np.dtype(dtype) != np.float32:
-        raise ConfigError(f"only float32 is ported, got dtype={dtype!r}")
     dflt = ParaLiNGAMConfig()
     return ParaLiNGAMConfig(
         order_backend=order_backend, score_backend=_BACKEND_NAMES[backend],
@@ -214,7 +250,8 @@ def config_from_reference(d: dict) -> ParaLiNGAMConfig:
         gamma_growth=float(d.get("gamma_growth", dflt.gamma_growth)),
         max_rounds=int(d.get("max_rounds", dflt.max_rounds)),
         bucket=bool(d.get("bucket", dflt.bucket)),
-        min_bucket=int(d.get("min_bucket", dflt.min_bucket)))
+        min_bucket=int(d.get("min_bucket", dflt.min_bucket)),
+        dtype=d.get("dtype", np.float32))
 
 
 @dataclass
@@ -298,13 +335,17 @@ def _find_root_dense_impl(xb, cb, mask, block_j: int, backend: str,
 
 
 def _operands(caller: str, device, xn, c, mask, n_valid=None):
-    """One dataset's find-root operands as float32/bool tensors on the
-    device: the given one, else that of a tensor ``xn``, else the card."""
+    """One dataset's find-root operands as float and bool tensors on the
+    device: the given one, else that of a tensor ``xn``, else the card. A
+    float64 tensor ``xn`` keeps its dtype (``c`` is cast to it); anything
+    else is taken as float32."""
     if device is None and isinstance(xn, torch.Tensor):
         device = xn.device
     dev = _device(device, caller)
-    xn = torch.as_tensor(xn, dtype=torch.float32, device=dev).contiguous()
-    c = torch.as_tensor(c, dtype=torch.float32, device=dev).contiguous()
+    dtype = (torch.float64 if isinstance(xn, torch.Tensor) and xn.dtype == torch.float64
+             else torch.float32)
+    xn = torch.as_tensor(xn, dtype=dtype, device=dev).contiguous()
+    c = torch.as_tensor(c, dtype=dtype, device=dev).contiguous()
     mask = torch.as_tensor(mask, dtype=torch.bool, device=dev)
     nv = None if n_valid is None else torch.as_tensor(n_valid, device=dev).reshape(1)
     return xn[None], c[None], mask[None], nv
@@ -323,7 +364,9 @@ def find_root_dense(xn, c, mask, block_j: int = 32, n_valid=None, *,
     fused triangular plain path (``torch_fused``) or the kernels
     (``hopper``: the square moments kernel; ``hopper_fused``: the fused
     triangular kernel). They run where the tensors lie (``device`` moves
-    them; numpy inputs go to the card)."""
+    them; numpy inputs go to the card), in float64 for float64 tensors and
+    in float32 otherwise; the kernels and ``torch_fused`` score float32
+    copies, as in the JAX package."""
     xb, cb, mb, nv = _operands("find_root_dense", device, xn, c, mask, n_valid)
     backend = kops.select_backend(score_backend, xb.device)
     roots, s = _find_root_dense_impl(xb, cb, mb, block_j=min(block_j, xb.shape[1]),
@@ -405,7 +448,10 @@ def _find_root_threshold_impl(xn, c, mask, gamma0: float, gamma_growth: float,
 
     s = torch.where(mask, 0.0, torch.inf).to(xn.dtype)
     d = ~pair_valid  # done := not a live pair (diagonal, dead rows and cols)
-    gamma = torch.full((bsz,), gamma0, dtype=xn.dtype, device=dev)
+    # gamma and its growth factor in the state's dtype, as the reference's
+    # jnp.asarray(gamma0, cfg.dtype)
+    gamma = torch.full((bsz,), float(gamma0), dtype=xn.dtype, device=dev)
+    gamma_growth = torch.full((), float(gamma_growth), dtype=xn.dtype, device=dev)
     comps = torch.zeros(bsz, dtype=torch.int64, device=dev)
     rounds = torch.zeros(bsz, dtype=torch.int32, device=dev)
     terminal = torch.zeros(bsz, dtype=torch.bool, device=dev)
@@ -509,11 +555,12 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
     unmasked), so ``argmin`` over the ``+inf`` dead scores resolves ties like
     the JAX driver. ``threshold=True`` runs the threshold state machine
     (``chunk``, ``gamma0``, ``gamma_growth``, ``max_rounds``) in place of the
-    dense evaluation. Under the kernel backends (``UPDATE_KERNEL_BACKENDS``)
-    each iteration's rank-1 updates are one launch of the update kernel for
-    the bucket, which writes x' over the scan's own buffer once an update
-    or a compaction has copied the caller's ``xn`` (never over ``xn``
-    itself); under the others, ``covariance.update_data`` / ``update_cov``.
+    dense evaluation. Where :func:`kernel_update` says so (a kernel backend
+    on a float32 state) each iteration's rank-1 updates are one launch of
+    the update kernel for the bucket, which writes x' over the scan's own
+    buffer once an update or a compaction has copied the caller's ``xn``
+    (never over ``xn`` itself); otherwise ``covariance.update_data`` /
+    ``update_cov`` in ``xn``'s dtype.
 
     Returns ``(order, comps_it, rounds_it, conv_it)``: the (B, p) causal
     orders and the (B, p) per-iteration comparison counts, threshold rounds
@@ -530,7 +577,7 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
 
     idx_g = torch.arange(p, device=dev).expand(bsz, p)  # local row -> variable id
     xb, cb = xn, c
-    kernel_update = backend in UPDATE_KERNEL_BACKENDS
+    by_kernel = kernel_update(backend, xn.dtype)
     owned = False  # xb is the caller's xn until an update or a compaction copies it
     mloc = torch.ones((bsz, p), dtype=torch.bool, device=dev) if mask0 is None else mask0
     m_cur = p
@@ -561,7 +608,7 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
                 comps = r * (r - 1) // 2
             order[:, it] = torch.take_along_dim(idx_g, roots[:, None], dim=1)[:, 0]
             comps_it[:, it] = comps
-            if kernel_update:  # one launch for the bucket; x' over the scan's own buffer
+            if by_kernel:  # one launch for the bucket; x' over the scan's own buffer
                 xb, cb = kops.rank1_update(xb, cb, roots, mloc, n_valid, inplace=owned)
                 owned = True
             else:
@@ -569,7 +616,7 @@ def _scan_order_impl(xn, c, mask0=None, n_valid=None, block_j: int = 32,
                 cb = update_cov(cb, roots, mloc)
             mloc = mloc & (ar != roots[:, None])
         pos += cnt
-    if kernel_update and dev.type == "cuda":
+    if by_kernel and dev.type == "cuda":
         _bump_stat("rank1_update", p - 1)  # one launch per iteration
 
     # One live row remains (for a full buffer); no find-root needed. An
@@ -725,9 +772,11 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
         *, validate: bool = False, device=None):
     """Full DirectLiNGAM pipeline: causal order (step 1) + causal strengths B
     and noise variances (step 2). Returns ``(result, B)`` with ``B`` a (p, p)
-    float32 tensor on the device and ``result.noise_var`` the Omega diagonal.
+    tensor on the device and ``result.noise_var`` the Omega diagonal.
 
-    ``x: (p, n)`` raw samples (numpy or torch), taken as float32. ``device``
+    ``x: (p, n)`` raw samples (numpy or torch), cast to ``config.dtype``
+    (float32 unless it says float64; ``B`` and the noise variances come
+    in it too). ``device``
     is where the fit runs: ``None`` means ``cuda`` (and raises without a
     CUDA device); ``"cpu"`` runs the plain torch path. Its float32 matmuls
     run at full precision (TF32 off, see ``covariance.full_precision_matmul``):
@@ -752,7 +801,7 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
         x_host = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
         diag = require_valid(x_host)
 
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(x, dtype=cfg.dtype, device=dev)
     if cfg.order_backend == "ring":
         result = causal_order(x, cfg, device=dev)
         order = torch.as_tensor(result.order, device=dev)
@@ -774,9 +823,9 @@ def fit(x, config: ParaLiNGAMConfig | None = None, prune_below: float = 0.0,
 # ---------------------------------------------------------------------------
 
 
-def _normalized(x, caller: str, device):
+def _normalized(x, cfg: ParaLiNGAMConfig, caller: str, device):
     dev = _device(device, caller)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(x, dtype=cfg.dtype, device=dev)
     xn = normalize(x)[None]
     return xn, cov_matrix(xn), dev
 
@@ -790,7 +839,7 @@ def causal_order_scan(x, config: ParaLiNGAMConfig | None = None, *,
     iteration, and ``comparisons``/``rounds``/``per_iteration`` come from
     its device counters. ``device`` as in :func:`fit`."""
     cfg = config or ParaLiNGAMConfig()
-    xn, c, dev = _normalized(x, "causal_order_scan", device)
+    xn, c, dev = _normalized(x, cfg, "causal_order_scan", device)
     backend = kops.select_backend(cfg, dev)
     order, comps, rounds, conv = _scan(xn, c, cfg, backend, single=True)
     return _result_from_counters(order[0], comps[0], rounds[0], conv[0],
@@ -799,10 +848,10 @@ def causal_order_scan(x, config: ParaLiNGAMConfig | None = None, *,
 
 def _update_iteration(xn, c, root, mask, backend: str):
     """UpdateData + UpdateCovMat (Algorithms 7-8) of a bucket of one, and
-    the root dropped from U. ``root`` is a (1,) tensor. Under the kernel
-    backends one launch of the update kernel, x' written over ``xn`` (the
-    driver's own normalized copy)."""
-    if backend in UPDATE_KERNEL_BACKENDS:
+    the root dropped from U. ``root`` is a (1,) tensor. Where
+    :func:`kernel_update` says so, one launch of the update kernel, x'
+    written over ``xn`` (the driver's own normalized copy)."""
+    if kernel_update(backend, xn.dtype):
         xn2, c2 = kops.rank1_update(xn, c, root, mask, inplace=True)
     else:
         xn2 = update_data(xn, c, root, mask)
@@ -833,7 +882,7 @@ def causal_order(x, config: ParaLiNGAMConfig | None = None, *,
         return causal_order_ring(x, cfg, device=device)
     if driver == "scan":
         return causal_order_scan(x, cfg, device=device)
-    xn, c, dev = _normalized(x, "causal_order", device)
+    xn, c, dev = _normalized(x, cfg, "causal_order", device)
     backend = kops.select_backend(cfg, dev)
     p = xn.shape[1]
     mask = torch.ones((1, p), dtype=torch.bool, device=dev)
@@ -871,7 +920,7 @@ def causal_order(x, config: ParaLiNGAMConfig | None = None, *,
         xn, c, mask = _update_iteration(xn, c, torch.tensor([root], device=dev), mask,
                                         backend)
         mask_np[root] = False
-    if backend in UPDATE_KERNEL_BACKENDS and dev.type == "cuda":
+    if kernel_update(backend, xn.dtype) and dev.type == "cuda":
         _bump_stat("rank1_update", len(order) - 1)
 
     live_rows = np.arange(p, 1, -1)
@@ -922,16 +971,21 @@ class BatchFitResult:
     noise_var: torch.Tensor | None = None  # (B, p)
 
 
-def _coerce_batch(xs, n_valid, mask, dev):
-    """The (B, p, n) float32 stack and the per-dataset padding seams of the
-    batched entry points, on the device."""
-    xs = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+def _coerce_batch(xs, n_valid, mask, dev, dtype=torch.float32):
+    """The (B, p, n) stack in ``dtype`` and the per-dataset padding seams of
+    the batched entry points, on the device."""
+    xs = torch.as_tensor(xs, dtype=dtype, device=dev)
     nv = None
     if n_valid is not None:
         nv = torch.as_tensor(n_valid, dtype=torch.int32, device=dev)
         nv = nv.expand(xs.shape[0]) if nv.ndim == 0 else nv
     mk = None if mask is None else torch.as_tensor(mask, dtype=torch.bool, device=dev)
     return xs, nv, mk
+
+
+def numpy_dtype(dtype: torch.dtype):
+    """The numpy counterpart of an estimator dtype (``DTYPES``)."""
+    return np.float64 if dtype == torch.float64 else np.float32
 
 
 def _reject_ring(cfg: ParaLiNGAMConfig, caller: str) -> None:
@@ -956,7 +1010,7 @@ def _fit_local(xs, cfg: ParaLiNGAMConfig, dev, n_valid=None, mask=None, *,
     ``b``/``noise_var`` without ``adjacency``). No collective."""
     backend = kops.select_backend(cfg, dev)
     _note_backend(cfg, backend)
-    xs, nv, mk = _coerce_batch(xs, n_valid, mask, dev)
+    xs, nv, mk = _coerce_batch(xs, n_valid, mask, dev, cfg.dtype)
     order, comps, rounds, conv, b, omega = _pipeline(
         xs, cfg, backend, adjacency=adjacency, n_valid=nv, mask0=mk,
         prune_below=prune_below)
@@ -981,7 +1035,7 @@ def _run_batch(xs, config, n_valid, mask, device, caller: str, *,
     _reject_ring(cfg, caller)
     dev = _device(device, caller)
     if not isinstance(xs, torch.Tensor):
-        xs = np.asarray(xs, np.float32)
+        xs = np.asarray(xs, numpy_dtype(cfg.dtype))
     if xs.ndim != 3:
         raise ValueError(f"{caller} wants (B, p, n), got {tuple(xs.shape)}")
     rules, lo, hi = row_block(xs.shape[0], NO_SHARDING if rules is None else rules)

@@ -33,10 +33,13 @@ and sample shard) and returns the whole order and counters.
 The per-shard update is the scan's ``covariance.update_data`` and
 ``update_cov`` restricted to the own rows, with the root's data row and the
 root column gathered from every shard, so at one shard it is bit-equal to
-the scan's update. Under the ``hopper`` backends on the card it runs in the
-update kernel's ring mode (``kernels.ops.ring_update``: one launch, or two
-around the sum of the variances across the sample shards); otherwise its
-plain version, the torch ops of ``covupdate.ring_update_ref``.
+the scan's update. Under the ``hopper`` backends on a float32 state
+(``core.paralingam.kernel_update``) it runs in the update kernel's ring mode
+(``kernels.ops.ring_update``: one launch, or two around the sum of the
+variances across the sample shards); otherwise its plain version, the torch
+ops of ``covupdate.ring_update_ref``, in the state's dtype. The ring works
+in ``config.dtype``; under float64 kernel #3 takes float32 copies of each
+block (``kernels.ops``), as the scan's kernels do.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from repro_torch.core.paralingam import (
     _device,
     _result_from_counters,
     causal_order_scan,
+    kernel_update,
 )
 from repro_torch.dist.ring import RING_DIMS, Shards, _ring_body, _ring_threshold_body, ring_mesh
 from repro_torch.kernels import ops as kops
@@ -87,10 +91,10 @@ def _update_shard(x_loc, c_loc, mask, root, shards: Shards, n: int, backend: str
     of zeros and that row over the row blocks); the root's correlation
     column from every shard. Dead and root rows pass through (b = 0,
     s = 1, scale = 1), as in ``covariance.update_data`` / ``update_cov``.
-    Under a ``hopper`` backend the update kernel's ring mode does the
-    arithmetic (its wrapper: the kernel on the card, the plain version on
-    the CPU), written over ``x_loc`` and ``c_loc``; under the torch
-    backends the plain version returns new tensors."""
+    Under a ``hopper`` backend on a float32 state (``kernel_update``) the
+    update kernel's ring mode does the arithmetic (its wrapper: the kernel
+    on the card, the plain version on the CPU), written over ``x_loc`` and
+    ``c_loc``; otherwise the plain version returns new tensors."""
     m_l, m = c_loc.shape
     dev = x_loc.device
     row0 = shards.flat * m_l
@@ -108,7 +112,7 @@ def _update_shard(x_loc, c_loc, mask, root, shards: Shards, n: int, backend: str
     group = shards.sample_group
     reduce = None if group is None else (lambda sq: dist.all_reduce(sq, group=group))
     args = (x_loc, c_loc, x_root, b, s_row, b_col, s_col, live)
-    if backend.startswith("hopper"):
+    if kernel_update(backend, x_loc.dtype):
         return kops.ring_update(*args, row0=row0, n=n, reduce=reduce, inplace=True)
     return ring_update_ref(*args, row0=row0, n=n, reduce=reduce)
 
@@ -239,7 +243,7 @@ def causal_order_ring(x, config=None, mesh=None, *, device=None):
     (``Shards.shift`` stages the packets through host buffers)."""
     cfg = config or ParaLiNGAMConfig()
     dev = _device(device, "causal_order_ring")
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    x = torch.as_tensor(x, dtype=cfg.dtype, device=dev)
     p, n = x.shape
     want_pods = cfg.ring_topology[0] if cfg.ring_topology else None
     try:

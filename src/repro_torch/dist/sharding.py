@@ -626,7 +626,9 @@ def unpack_rows(buf: torch.Tensor, layout) -> list:
     out, off = [], 0
     for dtype, shape in layout:
         width = row_bytes(dtype, shape)
-        piece = buf[:, off:off + width].contiguous().view(dtype)
+        # A fresh row-major copy: a view of one row keeps the buffer's row
+        # stride and offset, which a wider dtype (float64) cannot view.
+        piece = buf[:, off:off + width].clone(memory_format=torch.contiguous_format).view(dtype)
         out.append(piece.reshape(buf.shape[0], *shape))
         off += width
     return out

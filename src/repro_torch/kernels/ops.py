@@ -2,9 +2,17 @@
 
 On a CUDA tensor a kernel wrapper launches its kernel or raises; on a CPU
 tensor it runs the kernel's plain torch version (the CPU tests' route).
+
+The score kernels are float32, as the JAX package's Pallas kernels are. A
+float64 estimator state (``ParaLiNGAMConfig.dtype``) reaches them through
+these wrappers, which give them float32 copies of its operands, as the
+reference's kernel wrappers cast theirs; the kernels' own float32 guards
+stay, behind the cast. Their scores and sums come back float32.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.core.pairwise import pair_moments as _pair_moments
 from repro_torch.kernels import covupdate as _covupdate
@@ -46,10 +54,16 @@ def select_backend(cfg, device) -> str:
     return "hopper_fused" if getattr(device, "type", device) == "cuda" else "torch"
 
 
+def _f32(t):
+    """A float32 copy of a float64 kernel operand; anything else as it is
+    (for the kernel's own checks)."""
+    return t.to(torch.float32) if t.dtype == torch.float64 else t
+
+
 def score_vector(xn, c, mask, *, n_valid=None):
     """Messaging-folded (p,) score vector via the fused triangular kernel at
     its 8-row block. Plain version: ``repro_torch.core.pairwise.fused_scores``."""
-    return _fused.fused_score_vector(xn, c, mask, block=8, n_valid=n_valid)
+    return _fused.fused_score_vector(_f32(xn), _f32(c), mask, block=8, n_valid=n_valid)
 
 
 def score_batch(xb, cb, maskb, *, n_valid=None):
@@ -57,7 +71,7 @@ def score_batch(xb, cb, maskb, *, n_valid=None):
     batched fused triangular kernel at its 8-row block; ``n_valid`` is None
     or one valid sample count per dataset. Plain version:
     ``fused_score.fused_score_batch_ref``."""
-    return _fused.fused_score_batch(xb, cb, maskb, block=8, n_valid=n_valid)
+    return _fused.fused_score_batch(_f32(xb), _f32(cb), maskb, block=8, n_valid=n_valid)
 
 
 def pairwise_moments(xi, xj, c, *, live_i=None, live_j=None, n_valid=None):
@@ -67,15 +81,15 @@ def pairwise_moments(xi, xj, c, *, live_i=None, live_j=None, n_valid=None):
     ``pairwise.finalize_moments``). ``live_i``/``live_j`` bool live rows and
     ``n_valid`` restrict the sums to live pairs (0 elsewhere) and valid
     samples. Plain version: ``pairwise_score.pairwise_moments_ref``."""
-    return _pairwise.pairwise_moments(xi, xj, c, live_i=live_i, live_j=live_j,
-                                      n_valid=n_valid)
+    return _pairwise.pairwise_moments(_f32(xi), _f32(xj), _f32(c), live_i=live_i,
+                                      live_j=live_j, n_valid=n_valid)
 
 
 def pairwise_moments_batch(xb, cb, *, mask=None, n_valid=None):
     """The square raw sums of a bucket ``xb: (B, m, n)`` in one launch: two
     (B, m, m) tensors; ``mask: (B, m)`` and ``n_valid: (B,)`` as in
     :func:`pairwise_moments`. Plain version: ``pairwise_moments_batch_ref``."""
-    return _pairwise.pairwise_moments_batch(xb, cb, mask=mask, n_valid=n_valid)
+    return _pairwise.pairwise_moments_batch(_f32(xb), _f32(cb), mask=mask, n_valid=n_valid)
 
 
 def residual_entropy_matrix(xn, c, *, mask=None, n_valid=None):
@@ -83,14 +97,14 @@ def residual_entropy_matrix(xn, c, *, mask=None, n_valid=None):
     epilogue. The kernel sums the live pairs of ``mask`` (all rows when
     None) over the first ``n_valid`` samples; ``n_valid`` is also the
     epilogue's denominator."""
-    return _pairwise.pairwise_score(xn, c, mask=mask, n_valid=n_valid)
+    return _pairwise.pairwise_score(_f32(xn), _f32(c), mask=mask, n_valid=n_valid)
 
 
 def residual_entropy_matrix_batch(xb, cb, *, mask=None, n_valid=None):
     """(B, m, m) HR matrices of a bucket via one launch of the square moments
     kernel; ``mask`` None or (B, m) live rows, ``n_valid`` None or one valid
     count per dataset."""
-    return _pairwise.pairwise_score_batch(xb, cb, mask=mask, n_valid=n_valid)
+    return _pairwise.pairwise_score_batch(_f32(xb), _f32(cb), mask=mask, n_valid=n_valid)
 
 
 def pair_moments(xn, c_vals, xj, n_valid=None, group=None):

@@ -25,7 +25,7 @@ from repro_torch.serve.lingam_engine import (
     LingamServeConfig,
     dispatch_bucket,
 )
-from repro_torch.serve.async_engine import AsyncLingamEngine
+from repro_torch.serve.async_engine import AsyncLingamEngine, ServingPool
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.serve.replica import (
     ChaosDispatcher,

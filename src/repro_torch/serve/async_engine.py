@@ -94,6 +94,7 @@ from repro_torch.core.paralingam import (
     _fit_local,
     aot_fit_batch,
     dispatch_stats_snapshot,
+    numpy_dtype,
 )
 from repro_torch.dist.sharding import gather_rows, pack_rows, row_block, row_bytes, unpack_rows
 from repro_torch.serve.batching import (
@@ -115,7 +116,7 @@ from repro_torch.serve.lingam_engine import (
     pack_bucket,
     unpad,
 )
-from repro_torch.serve.replica import ReplicaPool, ReplicaPoolConfig
+from repro_torch.serve.replica import DEAD, ReplicaCrashed, ReplicaPool, ReplicaPoolConfig
 
 #: Kinds of the leader's headers: int64 ``[kind, p_pad, n_pad, b, b_pad, exact]``.
 STOP, DISPATCH, PREWARM = 0, 1, 2
@@ -134,14 +135,16 @@ class MeshLink:
     """The leader's channel to the other ranks of a sharded engine's mesh:
     a gloo group of the mesh's ranks (host tensors, whatever the mesh's own
     backend), the leader (the mesh's rank 0), each rank's block index over
-    the batch dimensions, and the lock that makes each of the leader's
-    messages and the collectives of its dispatch one unit (reentrant: the
-    replica pool's gate holds it around a dispatch that takes it again).
-    Building it is a collective of the mesh's ranks."""
+    the batch dimensions, the dtype of the packed buckets (the estimator's),
+    and the lock that makes each of the leader's messages and the
+    collectives of its dispatch one unit (reentrant: the replica pool's gate
+    holds it around a dispatch that takes it again). Building it is a
+    collective of the mesh's ranks."""
 
-    def __init__(self, rules):
+    def __init__(self, rules, dtype):
         ranks = [int(r) for r in rules.mesh.mesh.flatten().tolist()]
         self.rules = rules
+        self.dtype = dtype
         self.leader = ranks[0]
         self.is_leader = dist.get_rank() == self.leader
         self.ranks = sorted(ranks)  # the group's ranks, by their rank in it
@@ -179,7 +182,7 @@ class MeshLink:
         ``b_pad``, every row to every rank (``dist.broadcast``) where they do
         not."""
         _, p_pad, n_pad, _, b_pad, _ = head
-        layout = [(torch.float32, (p_pad, n_pad)), (torch.bool, (p_pad,)), (torch.int32, ())]
+        layout = [(self.dtype, (p_pad, n_pad)), (torch.bool, (p_pad,)), (torch.int32, ())]
         rules, lo, hi = row_block(b_pad, self.rules)
         buf = torch.empty((hi - lo, sum(row_bytes(*entry) for entry in layout)),
                           dtype=torch.uint8)
@@ -204,11 +207,91 @@ class MeshLink:
             raise FitFailed(f"the sharded fit raised on rank(s) {failed}")
 
 
-class _GatedPool(ReplicaPool):
+class ServingPool(ReplicaPool):
+    """The engine's replica pool: ``serve.replica.ReplicaPool`` with one rule
+    more, so that no ticket is stranded.
+
+    ``ReplicaPool`` fails its queue (``_fail_pool``) only once every replica
+    is ``DEAD``. A replica wedged in a hung dispatch is not: the watchdog
+    requeues its batch, but its thread stays blocked in the call, and when
+    every other replica has crashed no thread takes the queue again. Here,
+    whenever no replica can take work (each one is ``DEAD``, or blocked in a
+    dispatch whose budget the watchdog has expired), the pool fails every
+    queued request, the requeued ones included, with a typed
+    ``DispatchFailed`` and shuts intake, as ``_fail_pool`` does. It checks
+    after each watchdog expiry and after each replica crash. A wedged
+    replica whose call returns later goes on through its state machine,
+    and its late result is a zombie. Without a watchdog
+    (``dispatch_budget=None``) no dispatch counts as wedged."""
+
+    def __init__(self, *args, **kwargs):
+        self._calls: dict[int, int] = {}  # watchdog token -> replica of the call
+        self._stuck = False
+        super().__init__(*args, **kwargs)
+
+    def arm_dispatch(self, replica, bucket, reqs) -> int | None:
+        token = super().arm_dispatch(replica, bucket, reqs)
+        if token is not None:
+            with self._wmu:
+                self._calls[token] = replica.idx
+        return token
+
+    def disarm_dispatch(self, token: int | None) -> bool:
+        if token is None:
+            return True
+        with self._wmu:
+            self._calls.pop(token, None)
+            return self._armed.pop(token, None) is not None
+
+    def expire_hung(self) -> int:
+        expired = super().expire_hung()
+        if expired:
+            self._fail_if_stuck(None)
+        return expired
+
+    def _dispatch_one(self, rep, bucket, reqs) -> None:
+        try:
+            super()._dispatch_one(rep, bucket, reqs)
+        except ReplicaCrashed as e:
+            self._fail_if_stuck(e)
+            raise
+
+    def _fail_if_stuck(self, cause: BaseException | None) -> None:
+        """Fail the queue when no replica can take work, unless every
+        replica is ``DEAD`` (``ReplicaPool._fail_pool`` has done it)."""
+        with self._wmu:
+            wedged = {idx for token, idx in self._calls.items() if token not in self._armed}
+        core = self.core
+        with core._mu:
+            states = [r.state for r in self.replicas]
+            if (self._stuck or all(s == DEAD for s in states)
+                    or any(s != DEAD and r.idx not in wedged
+                           for r, s in zip(self.replicas, states))):
+                return
+            self._stuck = True
+            why = (f"{core.name}: no replica can take work (dead: "
+                   f"{[r.idx for r in self.replicas if r.state == DEAD]}, wedged in an "
+                   f"expired dispatch: {sorted(wedged)})")
+            core._closed = True
+            core._draining = False
+            now = core.clock.now()
+            for queued in core._queue.values():
+                for r in queued:
+                    err = DispatchFailed(why if cause is None else f"{why}: {cause!r}")
+                    err.__cause__ = cause
+                    core._finish_locked(r, kind="failed", now=now, error=err)
+            core._queue.clear()
+            core._depth = 0
+            core._work.notify_all()
+            core._space.notify_all()
+            core._maybe_idle_locked()
+
+
+class _GatedPool(ServingPool):
     """A replica pool whose dispatches run one at a time under ``gate`` (a
     sharded leader's link lock), taken before the watchdog arms: a
     dispatch's budget counts its own run, not its wait behind another
-    replica's."""
+    replica's. A replica waiting at the gate counts as able to take work."""
 
     def __init__(self, *args, gate, **kwargs):
         self._gate = gate
@@ -269,7 +352,7 @@ class AsyncLingamEngine:
         self._built = False  # prewarm runs on every rank until construction ends
         self.link: MeshLink | None = None
         if rules is not None and rules.mesh is not None and rules.mesh.size() > 1:
-            self.link = MeshLink(rules)
+            self.link = MeshLink(rules, self.config.dtype)
         if prewarm:
             self.prewarm(prewarm)
 
@@ -298,7 +381,7 @@ class AsyncLingamEngine:
             if seams is not None:
                 checked = [self._make_checked(s) for s in seams]
             if self.link is None:
-                self.pool = ReplicaPool(self.core, pcfg, checked, start=start)
+                self.pool = ServingPool(self.core, pcfg, checked, start=start)
             else:
                 self.pool = _GatedPool(self.core, pcfg, checked, start=start,
                                        gate=self.link.lock)
@@ -357,7 +440,8 @@ class AsyncLingamEngine:
             return dispatch_bucket(payloads, p_pad, n_pad, self.config, self.serve_cfg,
                                    self.rules, device=self.device)
         b_pad = batch_pad(len(payloads), self.serve_cfg, self.rules)
-        xs, mask, n_valid, exact = pack_bucket(payloads, p_pad, n_pad, b_pad)
+        xs, mask, n_valid, exact = pack_bucket(payloads, p_pad, n_pad, b_pad,
+                                               numpy_dtype(self.config.dtype))
         return unpad(payloads, self._lead(lambda: self._mesh_rows(
             self.link.header(DISPATCH, p_pad, n_pad, len(payloads), b_pad, exact),
             (xs, mask, n_valid))))

@@ -20,8 +20,9 @@ moment denominator (``pairwise.stream_moments``), so a padded request returns
 the causal order of a dedicated unpadded ``fit`` up to float32 rounding of
 its sums (asserted on the CPU in tests/test_torch_serve.py).
 
-Each dispatch packs its requests into one float32 host array, copies it to
-the device once, and reads every result back in one copy.
+Each dispatch packs its requests into one host array in the estimator's
+dtype (``ParaLiNGAMConfig.dtype``: float32 unless it says float64), copies it
+to the device once, and reads every result back in one copy.
 
 Batches can shard across ranks: pass ``rules=make_rules(cfg, mesh)`` (a
 ``"data"`` mesh dimension) and each dispatch fits this rank's block of the
@@ -39,7 +40,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from repro_torch.core.paralingam import ParaLiNGAMConfig, _device, fit_batch
+from repro_torch.core.paralingam import ParaLiNGAMConfig, _device, fit_batch, numpy_dtype
 from repro_torch.core.validate import require_valid
 from repro_torch.dist.sharding import pack_rows, unpack_rows
 from repro_torch.serve.buckets import bucket_shape, pad_dataset  # noqa: F401
@@ -119,16 +120,19 @@ def batch_pad(b: int, serve_cfg: LingamServeConfig, rules=None) -> int:
     return b
 
 
-def pack_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int, b_pad: int | None = None):
-    """Zero-pad ragged datasets into one float32 ``(b_pad, p_pad, n_pad)``
-    host batch, one dataset per request and zero datasets with no live row
-    after them (``b_pad`` defaults to the request count). Returns ``(xs,
-    mask, n_valid, exact)``: the live-row mask (b_pad, p_pad), the valid
-    sample counts (b_pad,), and whether nothing was padded at all (then the
-    seams can be left out)."""
+def pack_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int, b_pad: int | None = None,
+                dtype=np.float32):
+    """Zero-pad ragged datasets into one ``(b_pad, p_pad, n_pad)`` host batch
+    of ``dtype`` (the estimator's: float32 or float64), one dataset per
+    request and zero datasets with no live row after them (``b_pad``
+    defaults to the request count). Returns ``(xs, mask, n_valid, exact)``:
+    the live-row mask (b_pad, p_pad), the valid sample counts (b_pad,), and
+    whether nothing was padded at all (then the seams can be left out).
+    Each float64 request is rounded once, to ``dtype``: a float32 pack has
+    the bits of the reference's float64 pack cast to float32."""
     b = len(xs_list)
     b_pad = b if b_pad is None else b_pad
-    xs = np.zeros((b_pad, p_pad, n_pad), np.float32)
+    xs = np.zeros((b_pad, p_pad, n_pad), dtype)
     mask = np.zeros((b_pad, p_pad), bool)
     n_valid = np.full((b_pad,), n_pad, np.int32)
     exact = b == b_pad
@@ -194,7 +198,8 @@ def dispatch_bucket(xs_list: list[np.ndarray], p_pad: int, n_pad: int,
     (``paralingam.aot_fit_batch``) leaves nothing that a later call needs."""
     dev = _device(device, "dispatch_bucket")
     b_pad = batch_pad(len(xs_list), serve_cfg or LingamServeConfig(), rules)
-    xs, mask, n_valid, exact = pack_bucket(xs_list, p_pad, n_pad, b_pad)
+    xs, mask, n_valid, exact = pack_bucket(xs_list, p_pad, n_pad, b_pad,
+                                           numpy_dtype((config or ParaLiNGAMConfig()).dtype))
     seams = {} if exact else dict(n_valid=n_valid, mask=mask)
     return unpad(xs_list, host_results(fit_batch(xs, config, rules=rules, device=dev, **seams)))
 

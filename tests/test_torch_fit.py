@@ -185,7 +185,7 @@ def test_config_from_reference_refuses_legacy_ring_and_mixed_flags():
         tp.config_from_reference({"use_kernel": True, "fused": True,
                                   "score_backend": "xla"})
     with pytest.raises(tp.ConfigError, match="float32"):
-        tp.config_from_reference({"dtype": np.float64})
+        tp.config_from_reference({"dtype": np.float16})
 
 
 def test_fit_without_device_needs_cuda(monkeypatch):
