@@ -88,9 +88,16 @@ Phases, each printed on its own line:
     inputs the fits give it (the E. coli dispatch's stages m=128, 64, 32,
     the E. coli and p=512 fits, |b| at and past 1): c' bit-equal, the
     scale within ``covupdate.SCALE_ULP_TOL`` ulp, padded columns +0, in
-    place = out of place; ``[rank1_update_kernel_time]`` (device, event,
-    out-of-place and empty-kernel ms beside the live bytes' bound and the
-    plain composition). Every fit line, ``[fit_batch_ecoli]``, the host
+    place = out of place, and on forced plans (``FORCED_CASES``: each
+    cluster size, several rows per block, odd n, a valid count ending
+    mid-run, a row torch sums over 18 blocks, fewer than 16 rows);
+    ``[update_plan]`` (the kernel's own plan of its data rows equals
+    ``covupdate.update_plan``); ``[rank1_update_kernel_time]`` (the plan's
+    path, cluster size and rows per block; device, event, out-of-place and
+    empty-kernel ms beside the live bytes' bound and the plain composition;
+    the stage split: ``no_sum_device_ms`` and ``no_cov_device_ms`` of
+    builds without the sum's replay and without the correlation tiles,
+    ``COV_VARIANTS``, timed out of place). Every fit line, ``[fit_batch_ecoli]``, the host
     driver and ``[engine]`` count its launches (p - 1 per fit, 127 per
     E. coli dispatch).
 12. The SSD decode kernel against its plain version at Mamba2-370M's decode
@@ -139,7 +146,9 @@ Phases, each printed on its own line:
     its plain version (the ring's torch update) on the E. coli core's first
     update, every row block of (P, R, M) = (1, 2, 1) and every block and
     sample shard of (1, 2, 2) (two launches around the sums' reduction),
-    bit-equal out of place and in place; its device ms per launch, the
+    bit-equal out of place and in place, and under two plans it does not
+    choose (``forced_plans_bit_equal``); its device ms per launch and
+    stage split, the
     live bytes' bound and an empty kernel's floor on block 0 of each.
     ``[ring_sharded]``, last in the two- and four-rank sets of item 20 and
     reported after ``[ring_ecoli]``: ``causal_order_ring`` on the card over
@@ -1956,6 +1965,80 @@ def hold_covupdate(name, xn, c, b, xr):
     return ex, ec
 
 
+# The update kernel's stage split: builds of csrc/covupdate.cu edited by text
+# substitution into the git-ignored build directory, as the no-math build is.
+# "no_sum" keeps its data rows' loads and stores but takes a constant for the
+# replay of torch.sum; "no_cov" launches no correlation tiles in fit and ring
+# modes. Their device ms beside the kernel's say what holds it back. They are
+# timed out of place, on inputs no launch changes: a constant scale applied in
+# place again and again would drive the rows to inf and NaN, whose division
+# takes a slower path.
+COV_VARIANTS = {
+    "no_sum": (("if (sums) {", "if (false) {"), ("total = a.sq[r.i];", "total = 1.f;"),
+               ("const bool exchange = sums && k > 1;", "const bool exchange = false;")),
+    "no_cov": (("  if (mode != kModeData && cov) {", "  if (mode == kModeCov && cov) {"),),
+}
+_variant_builds = {}
+
+
+def cov_variant_path(variant: str):
+    return _build.BUILD_DIR / "variants" / f"libcovupdate_{variant}.so"
+
+
+def build_cov_variant(variant: str) -> str:
+    """Compile one stage-split build of the update kernel; returns its path."""
+    src = (_build.CSRC / "covupdate.cu").read_text()
+    for old, new in COV_VARIANTS[variant]:
+        check(old in src, f"{variant} build: {old!r} is not in covupdate.cu")
+        src = src.replace(old, new)
+    out = cov_variant_path(variant).parent
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"covupdate_{variant}.cu").write_text(src)
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(cov_variant_path(variant)),
+                    str(out / f"covupdate_{variant}.cu")], check=True, capture_output=True,
+                   timeout=600)
+    return str(cov_variant_path(variant))
+
+
+def start_variant_builds():
+    """Start every stage-split build at once, beside the other builds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=len(COV_VARIANTS))
+    for variant in COV_VARIANTS:
+        _variant_builds[variant] = pool.submit(build_cov_variant, variant)
+    pool.shutdown(wait=False)
+
+
+@functools.cache
+def cov_variant_entries(variant: str) -> dict:
+    """The stage-split build's C entries, typed as the kernel's own."""
+    future = _variant_builds.get(variant)
+    lib = ctypes.CDLL(future.result() if future else build_cov_variant(variant))
+    entries = {}
+    for name, real in cu._entries().items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        entries[name] = fn
+    return entries
+
+
+def variant_device_ms(variant: str, fn) -> float:
+    """``device_ms`` of ``fn`` with a stage-split build in place of the
+    update kernel (its results are not read)."""
+    real, entries = cu._entries, cov_variant_entries(variant)
+    cu._entries = lambda: entries
+    try:
+        return device_ms(fn, "rank1_update_kernel")
+    finally:
+        cu._entries = real
+
+
+def stage_split(fn) -> dict:
+    """``[..._kernel_time]`` fields of the stage split of ``fn``."""
+    return {f"{v}_device_ms": f"{variant_device_ms(v, fn):.5f}" for v in COV_VARIANTS}
+
+
 def empty_times(mode, batch, m, n, dev):
     """Event ms and device ms of an empty kernel on the grid of a ``mode``
     launch of the update kernel: the launch floor beside its time."""
@@ -2062,15 +2145,16 @@ def rank1_live(xb, roots, mloc):
     return mloc & (torch.arange(xb.shape[1], device=xb.device) != roots[:, None])
 
 
-def hold_rank1(name, xb, cb, roots, mloc, nv):
+def hold_rank1(name, xb, cb, roots, mloc, nv, **force):
     """The fit mode against its plain version on one launch's inputs: c'
     and x' bit-equal, each live row's scale within ``cu.SCALE_ULP_TOL`` ulp, columns
     past the valid count +0, dead rows unchanged, and the in-place launch
-    the bits of the out-of-place one. Returns the max abs error of x'."""
-    kx, kc = cu.launch_rank1(xb, cb, roots, mloc, nv)
+    the bits of the out-of-place one. ``force``: a forced plan (``cluster``,
+    ``rows``). Returns the max abs error of x'."""
+    kx, kc = cu.launch_rank1(xb, cb, roots, mloc, nv, **force)
     rx, rc = cu.rank1_update_ref(xb, cb, roots, mloc, n_valid=nv)
     own = xb.clone()
-    ix, ic = cu.launch_rank1(own, cb, roots, mloc, nv, inplace=True)
+    ix, ic = cu.launch_rank1(own, cb, roots, mloc, nv, inplace=True, **force)
     torch.cuda.synchronize()
     live = rank1_live(xb, roots, mloc)
     ulps = cu.scale_ulps(kx, rx, xb, cb, roots, mloc)
@@ -2083,7 +2167,9 @@ def hold_rank1(name, xb, cb, roots, mloc, nv):
     err = (kx.double() - rx.double()).abs().max().item()
     ok = (torch.equal(kc, rc) and torch.equal(kx, rx) and float(ulps.max()) <= cu.SCALE_ULP_TOL
           and padded_zero and dead_same and in_place)
+    plan = cu.update_plan(cu.MODE_FIT, *xb.shape, **force)
     say("rank1_update_vs_plain", case=name, B=xb.shape[0], m=xb.shape[1], n=n,
+        path=PATH_NAMES[plan["path"]], cluster=plan["k"], rows_per_block=plan["rows"],
         n_valid="none" if nv is None else f"{int(nv.min())}-{int(nv.max())}",
         live_rows=int(live.sum()), cb_bit_equal=torch.equal(kc, rc), xb_bit_equal=torch.equal(kx, rx),
         rows_bit_equal=f"{int(rows.sum())}/{rows.numel()}", scale_max_ulp=f"{float(ulps.max()):.3f}",
@@ -2091,6 +2177,74 @@ def hold_rank1(name, xb, cb, roots, mloc, nv):
         dead_rows_unchanged=dead_same, in_place_bit_equal=in_place, ok=ok)
     check(ok, f"{name}: the update kernel's fit mode disagrees with plain")
     return err
+
+
+PATH_NAMES = {cu.PATH_CLUSTER: "cluster", cu.PATH_WARPS: "warp_rows", cu.PATH_ROW: "row"}
+
+
+def plan_fields(kind, batch, m, n) -> dict:
+    """The data rows' plan of a launch, as ``[..._kernel_time]`` fields."""
+    plan = cu.update_plan(kind, batch, m, n)
+    return dict(path=PATH_NAMES[plan["path"]], cluster=plan["k"], rows_per_block=plan["rows"],
+                smem_bytes=plan["smem"])
+
+
+def forced_bucket(shapes, m, n_pad, seed, dev):
+    """A bucket as the scan holds it (dataset i's p_i rows normalized over
+    its n_i valid samples, zeros past them), its correlations, two earlier
+    roots dead but holding data and one live root each."""
+    rng = np.random.default_rng(seed)
+    x = torch.zeros((len(shapes), m, n_pad), device=dev)
+    mask = torch.zeros((len(shapes), m), dtype=torch.bool, device=dev)
+    for i, (p, n) in enumerate(shapes):
+        x[i, :p, :n] = torch.from_numpy(rng.standard_normal((p, n)).astype(np.float32))
+        mask[i, :p] = True
+    nv = torch.tensor([n for _, n in shapes], dtype=torch.int32, device=dev)
+    xn = torch.where(mask[..., None], normalize(x, n_valid=nv), 0.0).contiguous()
+    c = cov_matrix(xn, n_valid=nv).contiguous()
+    roots = []
+    for i, (p, _) in enumerate(shapes):
+        rows = rng.permutation(p)
+        mask[i, torch.from_numpy(rows[:2]).to(dev)] = False
+        roots.append(int(rows[2]))
+    return xn, c, torch.tensor(roots, device=dev), mask, nv
+
+
+# [rank1_update_vs_plain]'s forced plans: each cluster size, several rows
+# per block, odd n (every shift, the scalar path), a valid count ending
+# mid-run, a row torch sums over 18 blocks (read twice), fewer than 16 rows.
+FORCED_CASES = (("cluster1_p85", [(85, 10_000)], 128, 10_000, dict(cluster=1)),
+                ("cluster2_p85", [(85, 10_000)], 128, 10_000, dict(cluster=2)),
+                ("cluster4_mid_run", [(60, 9000), (64, 8500)], 64, 9216, dict(cluster=4)),
+                ("rows8_p512", [(512, 2000)], 512, 2000, dict(rows=8)),
+                ("rows4_ragged", [(30, 1000), (25, 777), (32, 513)], 32, 1024, dict(rows=4)),
+                ("row_odd_n", [(37, 1301), (20, 1000)], 37, 1301, {}),
+                ("row_long", [(16, 140_000)], 16, 140_000, {}),
+                ("row_few", [(8, 3000)], 8, 3000, {}))
+
+
+def phase_update_plan(dev):
+    """The kernel's own plan of its data rows equals ``cu.update_plan``'s
+    on this card at the main path's shapes and forced plans."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = ((cu.MODE_FIT, 1, 128, 10_000), (cu.MODE_FIT, 1, 512, 2000),
+              (cu.MODE_FIT, 8, 128, 16384), (cu.MODE_FIT, 8, 64, 16384),
+              (cu.MODE_FIT, 8, 32, 16384), (cu.MODE_RING, 64, 128, 10_000),
+              (cu.MODE_RING, 64, 128, 5000), (cu.MODE_FIT, 2, 37, 1301),
+              (cu.MODE_FIT, 1, 40, 131_072))
+    held = 0
+    for shape in shapes:
+        for force in ({}, dict(cluster=2), dict(rows=2)):
+            try:
+                want = cu.update_plan(*shape, sms=sms, **force)
+            except ValueError:
+                continue
+            got = cu.kernel_plan(*shape, vec=shape[3] % 4 == 0, **force)
+            flat = {**{f: int(v) for f, v in want["order"].items()},
+                    **{f: int(want[f]) for f in cu.PLAN_FIELDS if f not in want["order"]}}
+            check(got == flat, f"the kernel's plan {got} is not update_plan's {flat}")
+            held += 1
+    say("update_plan", shapes=len(shapes), plans_equal=held, sms=sms)
 
 
 def rank1_bytes(xb, cb, roots, mloc, nv):
@@ -2132,6 +2286,8 @@ def phase_rank1_update(dev, gpu, core):
     near[0, rows, r] = torch.tensor([1.0000001, -1.0000001, 0.99999, -0.9999999, 1.0, -1.0],
                                     device=dev)
     errs.append(hold_rank1("clip_and_floor_p85", xb, near, roots, mloc, None))
+    for name, shapes, m, n_pad, force in FORCED_CASES:
+        errs.append(hold_rank1(name, *forced_bucket(shapes, m, n_pad, m + n_pad, dev), **force))
 
     timing = None
     for name, (xb, cb, roots, mloc, nvb) in cases:
@@ -2148,7 +2304,9 @@ def phase_rank1_update(dev, gpu, core):
         bound = rank1_bytes(xb, cb, roots, mloc, nvb) / HBM_BPS * 1e3
         say("rank1_update_kernel_time", case=name, B=bsz, m=m, n=n,
             live_rows=int(rank1_live(xb, roots, mloc).sum()), blocks=cu.blocks(cu.MODE_FIT, bsz, m, n),
+            **plan_fields(cu.MODE_FIT, bsz, m, n),
             kernel_ms=f"{ms:.5f}", device_ms=f"{dev_ms:.5f}", out_of_place_device_ms=f"{out_ms:.5f}",
+            **stage_split(lambda: cu.launch_rank1(xb, cb, roots, mloc, nvb)),
             empty_kernel_ms=f"{empty_ms:.5f}", empty_kernel_device_ms=f"{empty_dev:.5f}",
             plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound:.5f}", bound_by="bytes",
             device_fraction_of_bound=f"{bound / dev_ms:.3f}", gpu=f"'{gpu}'")
@@ -2158,19 +2316,11 @@ def phase_rank1_update(dev, gpu, core):
     return max(errs), timing
 
 
-# (rows, n) of torch.sum over the squares: the fit mode's shapes (the E. coli
-# dispatch's stages, the E. coli and p=512 fits) and one of each other shape
-# ATen takes (unaligned rows, fewer than 16 rows, scalar loads, a row split
-# across blocks).
-SUM_ORDER_SHAPES = ((1024, 16384), (512, 16384), (256, 16384), (128, 10_000), (512, 2000),
-                    (74, 1301), (8, 3000), (3, 100), (2, 300_000), (40, 131_072))
-
-
 def phase_rank1_sum_order(dev):
     """The fit mode's sum of squares against torch.sum on the card, bit for
-    bit, at each of ``SUM_ORDER_SHAPES``."""
+    bit, at each of ``covupdate.SUM_ORDER_SHAPES``."""
     held = []
-    for rows, n in SUM_ORDER_SHAPES:
+    for rows, n in cu.SUM_ORDER_SHAPES:
         x = torch.from_numpy(np.random.default_rng(rows + n).standard_normal((rows, n))
                              .astype(np.float32)).to(dev)
         got, shape = cu.sum_probe(x)
@@ -5628,6 +5778,22 @@ def ring_update_case(xn, c, mask, root, grid, flat: int, mi: int):
     return args, row0, others
 
 
+def ring_forced(args, row0, n, reduce, force):
+    """Ring mode's launches (fused, or sums, ``reduce``, scale) on a forced
+    plan, out of place: (x', c')."""
+    x, c = args[0], args[1]
+    xo, co = torch.empty_like(x), torch.empty_like(c)
+    sq = torch.empty(x.shape[0], device=x.device)
+    if reduce is None:
+        cu.launch_ring(x, xo, c, co, *args[2:], sq, cu.RING_FUSED, row0, n, **force)
+    else:
+        cu.launch_ring(x, x, c, co, *args[2:], sq, cu.RING_SUMS, row0, n, **force)
+        reduce(sq)
+        cu.launch_ring(x, xo, c, co, *args[2:], sq, cu.RING_SCALE, row0, n, **force)
+    torch.cuda.synchronize()
+    return xo, co
+
+
 def phase_ring_update_kernel(dev, gpu, x, order):
     """[ring_update_kernel]: the update kernel's ring mode against its plain
     version (the ring's torch update) at the E. coli core's first update
@@ -5664,6 +5830,13 @@ def phase_ring_update_kernel(dev, gpu, x, order):
                 worst = max(worst, err)
                 ok = (torch.equal(kx, rx) and torch.equal(kc, rc) and torch.equal(ix, kx)
                       and torch.equal(ic, kc))
+                # the block under the plans it does not choose, every phase
+                forced = []
+                for force in (dict(cluster=2), dict(cluster=1)) if grid[2] == 1 else \
+                        (dict(rows=2), dict(rows=4)):
+                    fx, fc = ring_forced(args, row0, n, reduce, force)
+                    forced.append(torch.equal(fx, rx) and torch.equal(fc, rc))
+                ok = ok and all(forced)
                 m_l, n_loc = args[0].shape
                 launches = 1 if reduce is None else 2
                 live_rows = int(args[7].sum())
@@ -5677,16 +5850,17 @@ def phase_ring_update_kernel(dev, gpu, x, order):
                     plain_ms = time_ms(lambda: cu.ring_update_ref(*args, row0=row0, n=n,
                                                                   reduce=reduce), reps=20)
                     bound = cu.ring_bytes(live_rows, m_l, m, n_loc) / HBM_BPS * 1e3
-                    times = dict(device_ms_per_launch=f"{dev_ms:.5f}",
+                    times = dict(device_ms_per_launch=f"{dev_ms:.5f}", **stage_split(launch),
                                  empty_kernel_device_ms=f"{empty_dev:.5f}",
                                  empty_kernel_ms=f"{empty_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
                                  bound_ms=f"{bound:.5f}", bound_by="bytes",
                                  device_fraction_of_bound=f"{bound / (launches * dev_ms):.3f}")
                 say("ring_update_kernel", grid="x".join(map(str, grid)), block=flat,
                     sample_shard=mi, m_l=m_l, m=m, n_loc=n_loc, live_rows=live_rows,
-                    launches=launches, x_bit_equal=torch.equal(kx, rx),
-                    c_bit_equal=torch.equal(kc, rc),
+                    launches=launches, **plan_fields(cu.MODE_RING, m_l, m, n_loc),
+                    x_bit_equal=torch.equal(kx, rx), c_bit_equal=torch.equal(kc, rc),
                     in_place_bit_equal=torch.equal(ix, kx) and torch.equal(ic, kc),
+                    forced_plans_bit_equal=f"{sum(forced)}/{len(forced)}",
                     max_abs=f"{err:.3e}", **times, ok=ok, gpu=f"'{gpu}'")
                 check(ok, f"the ring mode disagrees with its plain version at {grid} "
                           f"block {flat} shard {mi}")
@@ -6093,6 +6267,7 @@ def main() -> int:
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
         device=f"'{torch.cuda.get_device_name(0)}'", count=torch.cuda.device_count())
     t0 = time.perf_counter()
+    start_variant_builds()
     logs = _build.build_all()
     say("build", kernels=",".join(logs), seconds=f"{time.perf_counter() - t0:.2f}")
     for name, log in logs.items():
@@ -6104,6 +6279,7 @@ def main() -> int:
     phase_math_probe(dev)
     phase_rank1_scale_probe(dev)
     phase_rank1_sum_order(dev)
+    phase_update_plan(dev)
     profile = "--profile" in sys.argv[1:]
     if profile:
         profile_find_root(dev, gpu)

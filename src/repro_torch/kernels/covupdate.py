@@ -41,8 +41,18 @@ is bit-equal to it (the sums in torch.sum's order over the (m_l, n_loc)
 squares). The ring takes it under the ``hopper`` backends on the card.
 
 What bounds every mode: memory (each element read and written once, ~6 FP32
-operations), and at these sizes the launch itself: an empty kernel on the
-same grid is measured beside each time (``chip_smoke.py``). The correlation
+operations), and at these sizes the launch and one row's latency: an empty
+kernel on the same grid is measured beside each time (``chip_smoke.py``).
+Fit and ring modes take each data row on one of three paths
+(:func:`update_plan` mirrors the kernel's host plan; :func:`kernel_plan`
+reads the kernel's own): a row torch sums over 16 warps spread over a
+thread-block cluster of 1, 2 or 4 CTAs, each staging (bulk copies) and
+replaying its share of torch's threads, the warp partials exchanged
+through distributed shared memory; several rows per block where torch
+gives a row one warp; one CTA per row otherwise (unaligned, few or very
+long rows). ``launch_rank1`` and ``launch_ring`` take ``cluster`` and
+``rows`` to force a plan (the tests hold every plan to the plain version;
+the entry points never force one). The correlation
 update is written to a second buffer (every block reads column ``root`` of
 c); x' may overwrite x (``inplace=True``) where the caller owns x, which
 the scan does after its first update: its first stage's buffers are the
@@ -91,11 +101,188 @@ RING_FUSED, RING_SUMS, RING_SCALE = 0, 1, 2
 #: FP32 operations per element updated (x or c), as the bound counts them.
 FP32_PER_ELEMENT = 6
 
+#: (rows, n) of torch.sum over the squares: the fit mode's shapes (the E.
+#: coli dispatch's stages, the E. coli and p=512 fits), the ring's blocks
+#: at (1, 2, 2), and one of each other shape ATen takes (unaligned rows,
+#: fewer than 16 rows, scalar loads, a row split across blocks).
+SUM_ORDER_SHAPES = ((1024, 16384), (512, 16384), (256, 16384), (128, 10_000), (512, 2000),
+                    (64, 5000), (74, 1301), (8, 3000), (3, 100), (2, 300_000), (40, 131_072))
+
+#: The data rows' paths of fit and ring modes (see ``update_plan``).
+PATH_CLUSTER, PATH_WARPS, PATH_ROW = 0, 1, 2
+#: The H100's SMs and threads per SM (ATen's block count of very long rows
+#: reads them), and the shared memory one block may use, in bytes.
+H100_SMS, THREADS_PER_SM, SMEM_MAX = 132, 2048, 232_448
+#: A cluster CTA's staging that leaves room for three CTAs per SM.
+SMEM_SHARE = 72 * 1024
+# The kernel's own constants (csrc/covupdate.cu), which its plan reads.
+_TORCH_THREADS, _MAX_CTAS, _MAX_ROWS = 512, 2048, 8
+_BAR_BYTES, _RED_SMALL = 16, 40
+_COL_CHUNK, _TILE_ELEMS, _TILE_ROWS = 2048, 2048, 64
+
 
 def flops(x_elems: int, c_elems: int) -> float:
     """The FP32 operations of one launch that updates ``x_elems`` elements
     of the rows and ``c_elems`` of the correlations, every row live."""
     return float(FP32_PER_ELEMENT * (x_elems + c_elems))
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _last_pow2(v: int) -> int:
+    return 1 << (max(v, 1).bit_length() - 1)
+
+
+def torch_sum_order(rows: int, n: int, sms: int = H100_SMS,
+                    threads_per_sm: int = THREADS_PER_SM) -> dict:
+    """How torch.sum reduces a contiguous (rows, n) float32 tensor over its
+    last dimension on the card (ATen's ``setReduceConfig``, as the kernel's
+    ``torch_sum_of`` replays it): a block of ``bw`` x ``bh`` threads, its
+    warps sharing one row where ``split``, ``ctas`` blocks per row, 16-byte
+    ``vec``tors, and the ``threads`` that sum one row in one block."""
+    vec = n >= 128
+    dim0 = n // 4 if vec else n
+    dim0_pow2 = _last_pow2(dim0) if dim0 < _TORCH_THREADS else _TORCH_THREADS
+    dim1_pow2 = _last_pow2(rows) if rows < _TORCH_THREADS else _TORCH_THREADS
+    bw = min(dim0_pow2, 32)
+    bh = min(dim1_pow2, _TORCH_THREADS // bw)
+    bw = min(dim0_pow2, _TORCH_THREADS // bh)
+    split = _ceil_div(n, bw) >= min(bh * 16, 256)
+    ctas = 1
+    per_thread = _ceil_div(n, bw * bh)
+    if split and per_thread >= 256:
+        target = sms * (threads_per_sm // (bw * bh))
+        if rows <= target:
+            ctas = max(min(_ceil_div(target, rows), _ceil_div(per_thread, 16)),
+                       _ceil_div(per_thread, 256))
+    return {"vec": vec, "bw": bw, "bh": bh, "split": split, "ctas": ctas,
+            "threads": bw * bh if split else bw}
+
+
+def _smem(red: int, cap: int, rows: int) -> int:
+    return _BAR_BYTES + 4 * red + 4 * cap * rows
+
+
+def update_plan(kind: int, batch: int, m: int, n: int, *, vec: bool | None = None,
+                cluster: int = 0, rows: int = 0, sms: int = H100_SMS, cov: bool = True) -> dict:
+    """The kernel's plan of a fit-mode (``kind`` ``MODE_FIT``: ``batch``
+    datasets of m rows) or ring-mode launch (``MODE_RING``: ``batch`` is the
+    block's rows m_l, of an (m_l, m) correlation block), as its host code
+    (``plan_rows``, ``launch_plan``) makes it: torch's order (``order``,
+    :func:`torch_sum_order`); the data rows' ``path`` (``PATH_CLUSTER``: a
+    row over a cluster of ``k`` CTAs; ``PATH_WARPS``: ``rows`` rows per
+    block, a warp each; ``PATH_ROW``: a CTA per row, ``staged`` whole when
+    it fits); ``cap`` floats staged per row and CTA, ``data_blocks``,
+    ``blocks`` and ``smem`` bytes; and ``shares``: for each CTA of one row,
+    the torch threads it replays (``threads``, a half-open range; for the
+    row path every thread of every torch block, ``threads * ctas``) and the
+    runs of columns it stages and stores (``runs``). ``vec``: 16-byte rows
+    (default: n a multiple of 4); ``cluster``, ``rows``: forced (0: chosen),
+    ValueError where the shape cannot take them; ``cov`` False for ring
+    mode's scale launch (no tiles)."""
+    if kind not in (MODE_FIT, MODE_RING) or min(batch, m, n) < 1:
+        raise ValueError(f"update_plan takes MODE_FIT or MODE_RING and positive sizes, got "
+                         f"{kind}, {batch}, {m}, {n}")
+    vec = n % 4 == 0 if vec is None else vec
+    sets, per = (1, batch) if kind == MODE_RING else (batch, m)
+    o = torch_sum_order(sets * per, n, sms)
+    if o["ctas"] > _MAX_CTAS:
+        raise ValueError(f"torch sums a row of {n} in {o['ctas']} blocks: refused")
+    total, nvec = sets * per, n // 4
+    fast = vec and o["vec"] and o["bw"] == 32 and o["ctas"] == 1
+    plan = None
+    if fast and o["split"]:
+        t, pick = o["threads"], 0
+        for k in (4, 2, 1):
+            cap = 4 * _ceil_div(nvec, t) * (t // k)
+            smem = _smem(_RED_SMALL, cap, 1)
+            if o["bh"] % k or smem > SMEM_MAX:
+                continue
+            if cluster:
+                pick = k if k == cluster else pick
+            elif not pick or (k * total >= 4 * sms and smem <= SMEM_SHARE):
+                pick = k
+        if pick:
+            if rows > 1:
+                raise ValueError("the cluster path takes one row per block")
+            cap = 4 * _ceil_div(nvec, t) * (t // pick)
+            plan = dict(path=PATH_CLUSTER, k=pick, rows=1, groups=1, cap=cap, staged=True,
+                        smem=_smem(_RED_SMALL, cap, 1), data_blocks=total * pick)
+    elif fast:
+        pick = 0
+        r = 1
+        while r <= _MAX_ROWS and _smem(_RED_SMALL, n, r) <= SMEM_MAX:
+            if (r == rows) if rows else (r == 1 or sets * _ceil_div(per, r) >= sms):
+                pick = r
+            r *= 2
+        if pick:
+            if cluster > 1:
+                raise ValueError("the warp path takes no cluster")
+            groups = _ceil_div(per, pick)
+            plan = dict(path=PATH_WARPS, k=1, rows=pick, groups=groups, cap=n, staged=True,
+                        smem=_smem(_RED_SMALL, n, pick), data_blocks=sets * groups)
+    if plan is None:
+        if cluster > 1 or rows > 1:
+            raise ValueError(f"a forced cluster of {cluster} or {rows} rows per block does not "
+                             f"fit rows of {n} columns")
+        red = 4 * _ceil_div(_TORCH_THREADS + o["ctas"], 4)
+        cap = 4 * _ceil_div(n, 4)
+        staged = _smem(red, cap, 1) <= SMEM_MAX
+        cap = cap if staged else 0
+        plan = dict(path=PATH_ROW, k=1, rows=1, groups=1, cap=cap, staged=staged,
+                    smem=_smem(red, cap, 1), data_blocks=total)
+    # the correlation tiles (plan_of): tiles of <= 2,048 entries of the rows
+    cov_blocks, tiles_smem = 0, 0
+    if cov:
+        w = min(m, _COL_CHUNK)
+        tile_rows = min(max(_TILE_ELEMS // w, 1), _TILE_ROWS)
+        cov_blocks = sets * _ceil_div(per, tile_rows) * _ceil_div(m, _COL_CHUNK)
+        tiles_smem = (w + _TILE_ROWS) * 8
+    k = plan["k"]
+    plan["blocks"] = k * _ceil_div(plan["data_blocks"] + cov_blocks, k)
+    plan["smem"] = max(plan["smem"], tiles_smem)
+    if plan["path"] == PATH_CLUSTER:
+        t, share = o["threads"], o["threads"] // k
+        plan["shares"] = [{"threads": (r * share, (r + 1) * share),
+                         "runs": [(4 * v, 4 * min(v + share, nvec))
+                                  for v in range(r * share, nvec, t)]} for r in range(k)]
+    else:
+        plan["shares"] = [{"threads": (0, o["threads"] * o["ctas"]), "runs": [(0, n)]}]
+    plan["order"] = o
+    return plan
+
+
+def aten_reads(n: int, shift: int, order: dict, nv: int | None = None) -> dict:
+    """The columns each thread of torch.sum's reduce reads of one row of n
+    (``torch_thread_sum`` of the kernel): ``{(u, c): [column, ...]}`` for
+    thread u of torch's block c, in the order it adds them, the head and
+    tail elements included (``shift``: the row's offset in floats past a
+    16-byte boundary; ``nv``: columns read at most, default n)."""
+    nv = n if nv is None else nv
+    stride = order["threads"] * order["ctas"]
+    reads = {}
+    for c in range(order["ctas"]):
+        for u in range(order["threads"]):
+            cols = []
+            idx0 = u + c * order["threads"]
+            edge = c == 0 and u < 4
+            if order["vec"]:
+                e0 = (4 - shift) & 3
+                ln = n - e0
+                if edge and shift > 0 and u >= shift:
+                    cols.append(u - shift)
+                v = idx0
+                while 4 * v + 3 < ln and e0 + 4 * v < nv:
+                    cols.extend(e0 + 4 * v + i for i in range(4))
+                    v += stride
+                if edge and u < ln % 4:
+                    cols.append(e0 + ln - ln % 4 + u)
+            else:
+                cols.extend(range(idx0, min(n, nv), stride))
+            reads[(u, c)] = cols
+    return reads
 
 
 def _inv_scale(b):
@@ -175,10 +362,11 @@ def _entries():
     ptr, num = ctypes.c_void_p, ctypes.c_int
     sigs = {"update_data_launch": [ptr] * 4 + [num] * 2 + [ptr],
             "update_cov_launch": [ptr] * 3 + [num, ptr],
-            "rank1_update_launch": [ptr] * 7 + [num] * 3 + [ptr],
+            "rank1_update_launch": [ptr] * 7 + [num] * 5 + [ptr],
             "rank1_update_blocks": [num] * 4,
             "rank1_update_empty_launch": [num] * 4 + [ptr],
-            "ring_update_launch": [ptr] * 11 + [num] * 6 + [ptr],
+            "rank1_update_plan": [num] * 7 + [ctypes.POINTER(num)],
+            "ring_update_launch": [ptr] * 11 + [num] * 8 + [ptr],
             "rank1_scale_probe": [ptr, ptr, num, ptr],
             "rank1_sum_probe": [ptr, ptr, num, num, ctypes.POINTER(num), ptr]}
     fns = {}
@@ -223,28 +411,48 @@ def _rank1_outputs(xb, cb, inplace: bool):
     return (xb if inplace else torch.empty_like(xb)), torch.empty_like(cb)
 
 
-def launch_rank1(xb, cb, roots, mloc, n_valid=None, inplace=False):
+def launch_rank1(xb, cb, roots, mloc, n_valid=None, inplace=False, *, cluster=0, rows=0):
     """The fit-mode kernel on checked CUDA tensors (``roots`` int64,
     ``mloc`` bool, ``n_valid`` None or int32, all contiguous). Counts
-    nothing. With ``inplace`` x' is written over ``xb``."""
+    nothing. With ``inplace`` x' is written over ``xb``. ``cluster`` and
+    ``rows`` force the plan's cluster size and rows per block (0: its own;
+    see :func:`update_plan`)."""
     bsz, m, n = xb.shape
     x_out, c_out = _rank1_outputs(xb, cb, inplace)
     _raise_on(_entries()["rank1_update_launch"](
         xb.data_ptr(), x_out.data_ptr(), cb.data_ptr(), c_out.data_ptr(), roots.data_ptr(),
-        mloc.data_ptr(), None if n_valid is None else n_valid.data_ptr(), bsz, m, n,
-        _stream(xb)), "rank1_update")
+        mloc.data_ptr(), None if n_valid is None else n_valid.data_ptr(), bsz, m, n, cluster,
+        rows, _stream(xb)), "rank1_update")
     return x_out, c_out
 
 
 def launch_ring(x, x_out, c, c_out, x_root, b, s_row, b_col, s_col, live, sq, phase: int,
-                row0: int, n: int):
+                row0: int, n: int, *, cluster=0, rows=0):
     """One ring-mode launch of ``phase`` on checked CUDA tensors (``live``
-    bool, all contiguous; ``sq`` the (m_l,) sums). Counts nothing."""
+    bool, all contiguous; ``sq`` the (m_l,) sums). Counts nothing.
+    ``cluster``, ``rows`` as in :func:`launch_rank1`."""
     m_l, n_loc = x.shape
     _raise_on(_entries()["ring_update_launch"](
         x.data_ptr(), x_out.data_ptr(), c.data_ptr(), c_out.data_ptr(), x_root.data_ptr(),
         b.data_ptr(), s_row.data_ptr(), b_col.data_ptr(), s_col.data_ptr(), live.data_ptr(),
-        sq.data_ptr(), phase, m_l, c.shape[1], n_loc, row0, n, _stream(x)), "ring_update")
+        sq.data_ptr(), phase, m_l, c.shape[1], n_loc, row0, n, cluster, rows, _stream(x)),
+        "ring_update")
+
+
+#: The fields of ``rank1_update_plan``'s answer, in its order.
+PLAN_FIELDS = ("bw", "bh", "split", "ctas", "vec", "threads", "path", "k", "rows", "staged",
+               "cap", "data_blocks", "blocks", "smem")
+
+
+def kernel_plan(kind: int, batch: int, m: int, n: int, *, vec: bool = True, cluster: int = 0,
+                rows: int = 0) -> dict:
+    """The plan the kernel's own host code makes for a launch (arguments as
+    :func:`update_plan`'s, on the current card), by ``PLAN_FIELDS``: the
+    card's check of :func:`update_plan`."""
+    out = (ctypes.c_int * len(PLAN_FIELDS))()
+    _raise_on(_entries()["rank1_update_plan"](kind, batch, m, n, int(vec), cluster, rows, out),
+              "rank1_update_plan")
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def blocks(mode: int, batch: int, m: int, n: int) -> int:

@@ -1,5 +1,5 @@
 // Rank-1 iteration updates for Hopper (sm_90a): paper Algorithms 7 and 8,
-// Eq. (10)/(11). One kernel, three modes of one design.
+// Eq. (10)/(11). One source, three modes.
 //
 // (a) TPU-kernel mode replaces the TPU kernels of
 //     src/repro/kernels/covupdate.py, one dataset (p, n), b given:
@@ -49,49 +49,90 @@
 // past an aligned address), four accumulators per thread, the head and tail
 // elements, the per-thread combine, the shared-memory and warp-shuffle trees
 // over x, the tree over y, and the split across blocks for very long rows.
-// The squares are staged in shared memory and each of torch's threads is
-// replayed in its own order (`TorchSum`, `torch_row_sum`). So x' and c' are
-// bit-equal to the plain version (`[rank1_update_vs_plain]`,
-// `[rank1_sum_order]`), and a dataset's result depends on its batch exactly
-// as the plain version's does: only through torch's block shape, which is
-// the same for every row count of 16 or more.
+// Each of torch's threads is replayed, in its own order, on squares taken
+// from rows staged in shared memory. So x' and c' are bit-equal to the plain
+// version (`[rank1_update_vs_plain]`, `[rank1_sum_order]`), and a dataset's
+// result depends on its batch exactly as the plain version's does: only
+// through torch's block shape, which is the same for every row count of 16
+// or more.
 //
-// What bounds it on the card: memory, and below a few microseconds the
-// launch. Each data element is read once and written once with ~7 FP32
-// operations (the division is IEEE, as torch's); the live bytes of the first
-// update of an E. coli dispatch (B=8, 630 live rows of 8,197-9,904 valid
-// samples) are ~48 MB, ~14 us at 3.35 TB/s, and of one p=85, n=10000 fit
-// iteration ~6.9 MB, ~2 us; an empty kernel on the same grid takes ~1-1.5
-// us. The design is about bytes in flight and about moving no byte that is
-// not live:
+// What bounds the fit and ring modes on the card: memory, and below a few
+// microseconds the launch and the latency of one row's load, sum and store.
+// Each data element is read once and written once with ~7 FP32 operations
+// (the division is IEEE, as torch's); the live bytes of the first update of
+// an E. coli dispatch (B=8, 630 live rows of 8,197-9,904 valid samples) are
+// ~48 MB, ~14 us at 3.35 TB/s, and of one p=85, n=10000 fit iteration ~6.9
+// MB, ~2 us; an empty kernel on the same grid takes ~1-1.5 us. A one-dataset
+// fit and a ring block have fewer rows (84, 63) than the card has SMs, so a
+// design with a block per row leaves most SMs idle, and where torch gives a
+// row one warp its block waits on that warp's chain of n / 128 adds. The
+// data rows take one of three paths, chosen by the host (`plan_rows`, and
+// `covupdate.update_plan` in Python, which mirrors it):
 //
-// - the grid: blocks [0, data_blocks) do data, the rest correlation tiles.
-//   Fit mode gives one 256-thread block to each (dataset, row); TPU mode one
-//   to each (row, 2,048-column segment); a correlation tile is <= 2,048
-//   entries of one dataset's rows, with b and s (TPU mode: b and inv) of
-//   its columns and rows computed once per block into shared memory, not
-//   once per element, while its entries load (1,024-column segments and
-//   tiles sized for ~256 blocks measured no faster at p=512);
+// - a row torch splits over its block's warps (bw = 32, 16 warps of 32
+//   threads, u = x + 32 y, thread u summing vectors u, u + 512, ..) is
+//   spread over a thread-block cluster of k = 1, 2 or 4 CTAs. CTA r replays
+//   torch's threads [r * 512 / k, (r + 1) * 512 / k), so it needs exactly
+//   the vectors of runs of 512 / k vectors at a stride of 512: warp 0 stages
+//   those runs of x with 1-D bulk copies (`cp.async.bulk`, a run per lane,
+//   completing on an mbarrier), every thread computes (x - b x_root) / s
+//   once per element into the staged runs, the CTA replays its threads'
+//   sums and warp shuffles from them and writes its warps' 16 / k partials
+//   into the shared memory of every CTA of the cluster (distributed shared
+//   memory). After one cluster barrier each CTA runs torch's tree over the
+//   16 partials itself, in torch's order (each gets the same bits, so no CTA
+//   waits for a leader to send the sum back), then scales and stores its
+//   own runs. k is the least that puts k * rows >= 4 SMs' worth of CTAs in
+//   flight with a CTA's staging <= 72 KB (three CTAs per SM), else 4: 4 at
+//   the p=85 fit and a ring block of 64 rows, 1 at the E. coli dispatch's
+//   1,024 rows; a 16,384-column row is held on chip whole (no second read);
+// - where torch gives a row one warp (split false), a block holds R rows
+//   of one dataset, each staged whole by a lane of warp 0: every thread
+//   computes (x - b x_root) / s, warp w replays row w's 32 threads, so no
+//   warp waits through another's chain, and every thread of the block then
+//   scales and stores. R is the largest of 8, 4, 2, 1 that still gives as
+//   many blocks as SMs (2 at the p=512 fit, 1 at a (1, 2, 2) ring block);
+// - rows that are not 16-byte aligned (n not a multiple of 4: torch's
+//   squares then start `shift` floats past a boundary; or a base pointer off
+//   one), rows of fewer than 16 (torch's bw is then not 32), and rows too
+//   long to hold on chip (torch splits them over several blocks past ~1.3e5
+//   columns) take one CTA per row: staged whole when they fit (cp.async of
+//   4 bytes per element in the scalar path), else read twice from global
+//   memory, and summed by the general replay of torch's order.
+//
+// Departures, measured on the H100: x_root is read through the read-only
+// cache (`__ldg`) and not staged. Every row of a dataset reads the same
+// root row, which stays in L1 and L2; a staged copy per CTA doubled the
+// shared memory and the copies, and dropping it took the dispatch's first
+// update from 0.0299 to 0.0248 ms and the p=512 fit's from 0.0080 to 0.0065
+// ms (the root row is dead in the launch, so no CTA writes what another
+// reads this way). Every CTA of a cluster runs the final tree, on the same
+// 16 values in the same order, which saves the barrier a send-back would
+// need. The cluster path takes only 16-byte aligned rows, where torch's
+// squares have no head or tail elements (n a multiple of 4 puts every
+// row's shift at 0), so its runs need no edge vectors; unaligned rows keep
+// one CTA per row. A persistent grid (clusters walking rows, the next row's
+// copies in flight) measured slower on every case: its extra stage of
+// shared memory cost more CTAs per SM than the overlap gave back. What is
+// left, from globaltimer stamps at a p=85 CTA (ns from its start): index
+// loads ~400, copies issued ~1,400, landed ~2,500, (x - b x_root) / s
+// ~3,500, sum and cluster barrier ~5,000, stores ~5,400, after a ~1 us
+// launch. The correlation tiles follow the data blocks in the same grid
+// (rounded up to a whole cluster); they finish inside the rows' time.
+//
+// - a correlation tile is <= 2,048 entries of one dataset's rows, with b and
+//   s (TPU mode: b and inv) of its columns and rows computed once per block
+//   into shared memory, not once per element, while its entries load;
 // - 16-byte loads and stores where rows are 16-byte aligned (n, resp. m, a
-//   multiple of 4 and aligned base pointers), a scalar path over the same
-//   columns otherwise;
-// - a fit-mode data row keeps up to 12 float4 of its result per thread in
-//   registers and their squares in shared memory (rows up to 12,288 valid
-//   columns), so it is read once, summed, scaled and written once; longer
-//   rows recompute their columns past that from x and x_root. All loads of
-//   a thread are issued before the first use;
+//   multiple of 4 and aligned base pointers), a scalar path otherwise;
 // - each row stops at its dataset's valid count; dead rows (the root
-//   included) and so dead datasets cost nothing in place;
-// - the replay of torch.sum costs a staging of the squares, three barriers
-//   and, where torch gives a row one warp (n < 8,161), a lane's chain of
-//   n / 128 dependent adds. A one-dataset fit has a row per block and fewer
-//   rows than SMs: latency, not bandwidth, sets its time.
+//   included) and so dead datasets cost nothing in place.
 //
 // In-place choices (fit mode): every correlation block reads column `root`
 // of c, so c' is always a second buffer (x_out == x is allowed, c_out == c
 // is not); and c' is written in full, dead entries included, so it stays
-// bit-equal to the plain version. x' may be written over x: a live row is
-// read and written by its own block only, the root row is dead and never
+// bit-equal to the plain version. x' may be written over x: a CTA writes
+// only the columns it staged of its own row, the root row is dead and never
 // written, so x_root is read safely. In place, dead rows and columns at or
 // past the valid count are not touched (the caller's padding is zero, and
 // so is the plain version's there). Out of place, dead rows are copied and
@@ -102,8 +143,10 @@
 // Contract (see covupdate.py): float32 contiguous x and c, uint8/bool mask,
 // int64 roots in [0, m), int32 valid counts <= n or none; batch, m, n >= 1.
 // A row that torch would sum in more than kMaxCtas blocks (n of ~2.7e8) is
-// refused with cudaErrorNotSupported. Launches on the given stream, does not
-// synchronize, allocates nothing.
+// refused with cudaErrorNotSupported, and so is a forced cluster size or
+// row count the shape cannot take (cudaErrorInvalidValue). A launch the card
+// refuses (a cluster it cannot place) returns its error. Launches on the
+// given stream, does not synchronize, allocates nothing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -112,8 +155,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowVecs = 12;                       // fit mode: float4 per thread in registers
-constexpr int kRowCols = 4 * kThreads * kRowVecs;  // 12,288 columns held in registers
 constexpr int kSegVecs = 2;                        // TPU mode: float4 per thread per segment
 constexpr int kSegCols = 4 * kThreads * kSegVecs;  // 2,048 columns per data block
 constexpr int kTileElems = 8 * kThreads;           // 2,048 entries per correlation tile
@@ -123,6 +164,12 @@ constexpr float kVarEps = 1e-12f;                  // covariance.VAR_EPS
 constexpr float kFloor = 1e-4f;                    // covariance.COLLINEAR_FLOOR
 constexpr int kTorchThreads = 512;                 // ATen reduce: most threads in a block
 constexpr int kMaxCtas = 2048;                     // blocks per row of torch.sum replayed at most
+constexpr int kSmemMax = 232448;                   // shared memory a block may use (227 KB)
+constexpr int kSmemShare = 72 * 1024;              // a cluster CTA's staging for 3 CTAs per SM
+constexpr int kBarBytes = 16;                      // the mbarrier, at the start of shared memory
+constexpr int kRedSmall = 40;                      // cluster / warp paths: partials, sums, gains
+constexpr int kMaxRows = 8;                        // rows of a block on the warp path
+constexpr int kMaxPerSm = 4;                       // blocks per SM: the launch bounds
 
 enum Mode { kModeData = 0, kModeCov = 1, kModeFit = 2, kModeRing = 3 };
 // Ring mode's launches: sums and scale in one (samples whole), the sums and
@@ -130,6 +177,8 @@ enum Mode { kModeData = 0, kModeCov = 1, kModeFit = 2, kModeRing = 3 };
 enum RingPhase { kRingFused = 0, kRingSums = 1, kRingScale = 2 };
 // The kernel's kinds: TPU mode, fit mode, ring mode.
 enum Kind { kTpu = 0, kFit = 1, kRing = 2 };
+// A data row's path (see the top): over a cluster, R rows per block, one CTA.
+enum Path { kPathCluster = 0, kPathWarps = 1, kPathRow = 2 };
 
 // How torch.sum reduces a contiguous (rows, n) float32 tensor over its last
 // dimension (ATen's setReduceConfig, sum of floats: 4 accumulators, vectors
@@ -142,6 +191,19 @@ struct TorchSum {
   int split;
   int ctas;
   int threads;  // threads of one block summing one row
+};
+
+// The data rows' plan of a fit- or ring-mode launch (`plan_rows`).
+struct RowPlan {
+  int path;
+  int k;            // cluster path: CTAs per row (the cluster size); 1 otherwise
+  int rows;         // warp path: rows per block; 1 otherwise
+  int groups;       // warp path: blocks per dataset
+  int staged;       // the rows' columns are held in shared memory
+  int cap;          // floats staged per row (per CTA on the cluster path)
+  int red;          // floats of the reduction area
+  int smem;         // dynamic shared memory of a data block (bytes)
+  int data_blocks;
 };
 
 struct Args {
@@ -163,11 +225,11 @@ struct Args {
   int phase;              // ring mode: kRingFused, kRingSums or kRingScale
   int rows, row0;         // correlation rows per dataset and the global id of the first
   float inv_den;          // fit mode without n_valid, ring mode: 1 / (n - 1), as torch rounds it
-  TorchSum order;         // fit mode: torch.sum's order over (B * m, n)
-  int sq_cap;             // fit mode: squares staged in shared memory per row
+  TorchSum order;         // fit and ring modes: torch.sum's order over (B * m, n)
+  RowPlan plan;           // fit and ring modes: the data rows' path
   int m, n;
   int data_blocks, segs;  // data role: blocks, segments per row (TPU mode)
-  int tile_rows, row_groups, col_chunks;  // correlation role, per dataset
+  int tile_rows, row_groups, col_chunks, cov_blocks;  // correlation role
 };
 
 struct Plan {
@@ -375,140 +437,458 @@ __device__ float torch_row_sum(const TorchSum& o, int n, int nv, int shift, Sq s
   return total;
 }
 
-template <bool kVec>
-__device__ void copy_row(const float* src, float* dst, int n) {
-  if (kVec) {
-    for (int k = 4 * threadIdx.x; k < n; k += 4 * kThreads) store4<true>(dst, k, n, load4<true>(src, k, n));
-  } else {
-    for (int k = threadIdx.x; k < n; k += kThreads) dst[k] = src[k];
+// -- asynchronous copies and the cluster (sm_90)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The block's mbarrier for its bulk copies: one arrival (the thread that
+// issues them), completed when every byte expected has landed.
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+
+// Wait for the barrier's phase of `parity` to complete.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-// Fit mode: one (dataset, row) per block. smem: the row's squares
-// (a.sq_cap floats), then torch.sum's thread values and block partials.
-template <bool kVec>
-__device__ void fit_data_row(const Args& a, int row, float* smem) {
-  const int d = row / a.m;
-  const int i = row - d * a.m;
-  const int root = static_cast<int>(a.roots[d]);
-  const float* xrow = a.x + static_cast<size_t>(row) * a.n;
-  float* orow = a.x_out + static_cast<size_t>(row) * a.n;
-  const bool in_place = a.x_out == a.x;
-  if (!a.mask[row] || i == root) {  // dead: unchanged (b = 0, s = 1, scale 1)
-    if (!in_place) copy_row<kVec>(xrow, orow, a.n);
-    return;
-  }
-  const float* xr = a.x + (static_cast<size_t>(d) * a.m + root) * a.n;
-  const float2 bs = gates(a.c[static_cast<size_t>(row) * a.m + root], true);
-  const int nv_raw = a.n_valid ? a.n_valid[d] : a.n;
-  const int nv = nv_raw < 0 ? 0 : (nv_raw > a.n ? a.n : nv_raw);
-  float* sq = smem;
-  float* vals = smem + a.sq_cap;
+// Global -> shared, `bytes` (a multiple of 16, both ends 16-byte aligned).
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
-  float4 v[kRowVecs];
-#pragma unroll
-  for (int t = 0; t < kRowVecs; ++t) {
-    const int k = 4 * (threadIdx.x + t * kThreads);
-    if (k < nv) v[t] = fit4(load4<kVec>(xrow, k, nv), load4<kVec>(xr, k, nv), bs.x, bs.y, k, nv);
+// One float global -> shared (the scalar path's staging), then all of them.
+__device__ __forceinline__ void copy4b(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copies_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// Every thread of every CTA of the cluster executes these (`aligned`).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// v into the float at `local`'s offset in the shared memory of CTA `rank`.
+__device__ __forceinline__ void store_remote(const float* local, int rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_addr(local)),
+               "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(remote), "f"(v) : "memory");
+}
+
+// -- the data rows of fit and ring modes
+
+// One row of the data role: where it lies, its gates and valid count.
+struct Row {
+  const float* x;   // the row of x
+  float* out;       // the row of x'
+  const float* xr;  // the root's row
+  float b, s;
+  int nv;           // valid columns, in [0, n]
+  int den;          // fit mode with valid counts: the variance's divisor; 0: times inv_den
+  int id;           // the row's index in the (rows, n) squares torch sums
+  int i;            // its index in its dataset's (ring mode: block's) rows
+  int root;         // fit mode: its dataset's root
+  bool live;
+};
+
+// A live row's gates b and s (fit mode: from column `root` of c).
+template <int kKind>
+__device__ __forceinline__ void set_gates(const Args& a, Row& r) {
+  if (!r.live) return;
+  if (kKind == kFit) {
+    const float2 bs = gates(a.c[static_cast<size_t>(r.id) * a.m + r.root], true);
+    r.b = bs.x;
+    r.s = bs.y;
+  } else {
+    r.b = a.g_b[r.i];
+    r.s = a.g_s[r.i];
   }
+}
+
+// Without `with_gates` b and s are left at 0 and 1 (`set_gates` reads them
+// later: the paths issue their copies first, so the gates' loads overlap
+// the copies).
+template <int kKind>
+__device__ __forceinline__ Row row_of(const Args& a, int d, int i, bool with_gates = true) {
+  Row r;
+  r.id = d * a.rows + i;
+  r.i = i;
+  r.x = a.x + static_cast<size_t>(r.id) * a.n;
+  r.out = a.x_out + static_cast<size_t>(r.id) * a.n;
+  r.b = 0.f;
+  r.s = 1.f;
+  r.root = 0;
+  if (kKind == kFit) {
+    r.root = static_cast<int>(a.roots[d]);
+    r.live = a.mask[r.id] && i != r.root;
+    r.xr = a.x + (static_cast<size_t>(d) * a.m + r.root) * a.n;
+    const int nv_raw = a.n_valid ? a.n_valid[d] : a.n;
+    r.nv = nv_raw < 0 ? 0 : (nv_raw > a.n ? a.n : nv_raw);
+    r.den = a.n_valid ? (nv_raw - 1 > 1 ? nv_raw - 1 : 1) : 0;
+  } else {
+    r.live = a.live[i];
+    r.xr = a.x_root;
+    r.nv = a.n;
+    r.den = 0;
+  }
+  if (with_gates) set_gates<kKind>(a, r);
+  return r;
+}
+
+// The row's scale from its sum of squares (fit: over its valid count).
+__device__ __forceinline__ float row_gain(const Args& a, const Row& r, float sum) {
+  return row_scale(r.den ? __fdiv_rn(sum, static_cast<float>(r.den)) : __fmul_rn(sum, a.inv_den));
+}
+
+__device__ __forceinline__ float4 square4(float4 o) {
+  return make_float4(__fmul_rn(o.x, o.x), __fmul_rn(o.y, o.y), __fmul_rn(o.z, o.z),
+                     __fmul_rn(o.w, o.w));
+}
+
+// torch's per-thread combine of its four accumulators.
+__device__ __forceinline__ float combine(float4 acc) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(acc.x, acc.y), acc.z), acc.w);
+}
+
+__device__ __forceinline__ float4 add4(float4 acc, float4 q) {
+  return make_float4(__fadd_rn(acc.x, q.x), __fadd_rn(acc.y, q.y), __fadd_rn(acc.z, q.z),
+                     __fadd_rn(acc.w, q.w));
+}
+
+// ATen's warp shuffles down by 16, 8, .., 1: lane 0 ends with the warp's sum.
+__device__ __forceinline__ float warp_x_tree(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// kUnroll vectors per thread per step of the staged loops: their loads are
+// issued together, so as many divisions are in flight at once.
+constexpr int kUnroll = 4;
+
+// fn(L) for L = threadIdx.x, + kThreads, .. below `count`, kUnroll at a
+// time: `load(L)` first for each, then `use(L, value)`.
+template <typename Load, typename Use>
+__device__ __forceinline__ void staged_loop(int count, Load load, Use use) {
+  for (int L0 = threadIdx.x; L0 < count; L0 += kUnroll * kThreads) {
+    float4 v[kUnroll];
 #pragma unroll
-  for (int t = 0; t < kRowVecs; ++t) {  // torch.square, staged for the sum
-    const int k = 4 * (threadIdx.x + t * kThreads);
-    if (k < nv && k < a.sq_cap) {
-      *reinterpret_cast<float4*>(sq + k) = make_float4(
-          __fmul_rn(v[t].x, v[t].x), __fmul_rn(v[t].y, v[t].y), __fmul_rn(v[t].z, v[t].z),
-          __fmul_rn(v[t].w, v[t].w));
+    for (int t = 0; t < kUnroll; ++t) {
+      if (L0 + t * kThreads < count) v[t] = load(L0 + t * kThreads);
+    }
+#pragma unroll
+    for (int t = 0; t < kUnroll; ++t) {
+      if (L0 + t * kThreads < count) use(L0 + t * kThreads, v[t]);
     }
   }
+}
+
+// Part `part` of `parts` (blocks of kThreads) of a row copied; columns of a
+// vector path as float4.
+template <bool kVec>
+__device__ void copy_part(const float* src, float* dst, int n, int part, int parts) {
+  if (kVec) {
+    for (int v = part * kThreads + threadIdx.x; 4 * v < n; v += parts * kThreads) {
+      store4<true>(dst, 4 * v, n, load4<true>(src, 4 * v, n));
+    }
+  } else {
+    for (int k = part * kThreads + threadIdx.x; k < n; k += parts * kThreads) dst[k] = src[k];
+  }
+}
+
+// A dead row (the root included): unchanged (b = 0, s = 1, scale 1). Out of
+// place it is copied; ring mode writes a 0 sum for it.
+template <int kKind, bool kVec>
+__device__ void dead_row(const Args& a, const Row& r, int part, int parts) {
+  if (a.x_out != a.x && a.phase != kRingSums) copy_part<kVec>(r.x, r.out, a.n, part, parts);
+  if (kKind == kRing && a.phase != kRingScale && part == 0 && threadIdx.x == 0) a.sq[r.i] = 0.f;
+}
+
+// Out of place, columns [from, n) of a live row are written +0 (part
+// `part` of `parts`).
+__device__ void zero_tail(const Args& a, const Row& r, int from, int part, int parts) {
+  if (a.x_out == a.x) return;
+  for (int k = from + part * kThreads + threadIdx.x; k < a.n; k += parts * kThreads) r.out[k] = 0.f;
+}
+
+template <int kKind>
+__device__ __forceinline__ Row unit_row(const Args& a, int u, bool with_gates = true) {
+  const int d = u / a.rows;
+  return row_of<kKind>(a, d, u - d * a.rows, with_gates);
+}
+
+// Cluster path: CTA `rank` of the row's k replays torch's threads
+// [rank * share, (rank + 1) * share), share = threads / k, whose vectors are
+// the runs [j * threads + rank * share, +share) of x: run j lands at local
+// vector j * share of xs. red: [0, 16) torch's warp partials (written by
+// every CTA of the cluster), [16] the sum.
+template <int kKind>
+__device__ void cluster_row(const Args& a, int blk, uint64_t* bar, float* red, float* xs) {
+  const int k = a.plan.k, rank = blk % k;
+  Row r = unit_row<kKind>(a, blk / k, false);
+  if (!r.live) {
+    dead_row<kKind, true>(a, r, rank, k);
+    return;
+  }
+  const bool sums = a.phase != kRingScale, stores = a.phase != kRingSums;
+  const bool exchange = sums && k > 1;
+  if (exchange) cluster_arrive_relaxed();  // running: the others may write into this CTA
+  const int T = a.order.threads, share = T / k, v0 = rank * share, lg = __ffs(share) - 1;
+  const int nvv = min(a.n / 4, ceil_div(r.nv, 4));  // vectors holding a valid column
+  const int runs = v0 < nvv ? ceil_div(nvv - v0, T) : 0;
+  if (threadIdx.x < 32) {  // warp 0 issues the copies, a run per lane
+    if (threadIdx.x == 0) {
+      uint32_t bytes = 0;
+      for (int v = v0; v < nvv; v += T) bytes += 16u * min(share, nvv - v);
+      bar_expect(bar, bytes);
+    }
+    __syncwarp();
+    for (int j = threadIdx.x, v = v0 + j * T; v < nvv; j += 32, v += 32 * T) {
+      const uint32_t cnt = 16u * min(share, nvv - v);
+      bulk_copy(xs + 4 * (j << lg), r.x + 4 * v, cnt, bar);
+    }
+  }
+  set_gates<kKind>(a, r);
+  bar_wait(bar, 0);
+  // x - b x_root over s, once per element, by every thread, over x's runs
+  float4* xs4 = reinterpret_cast<float4*>(xs);
+  const float4* xr4 = reinterpret_cast<const float4*>(r.xr);
+  const auto vec_of = [&](int L) { return (L >> lg) * T + v0 + (L & (share - 1)); };
+  staged_loop(
+      runs << lg,
+      [&](int L) {
+        const float4 x = xs4[L], xr = __ldg(xr4 + vec_of(L));
+        return fit4(x, xr, r.b, r.s, 4 * vec_of(L), r.nv);
+      },
+      [&](int L, float4 o) {
+        if (vec_of(L) < nvv) xs4[L] = o;
+      });
   __syncthreads();
-  const auto square = [&](int e) {
-    if (e >= nv) return 0.f;
-    if (e < a.sq_cap) return sq[e];
-    const float o = fit_elem(xrow[e], xr[e], bs.x, bs.y, true);
-    return __fmul_rn(o, o);
+  float total;
+  if (sums) {
+    const int lane = threadIdx.x % 32;
+    if (exchange) cluster_wait();
+    for (int w = threadIdx.x / 32; w < share / 32; w += kThreads / 32) {
+      const int ul = 32 * w + lane;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int L = ul, v = v0 + ul; v < nvv; L += share, v += T) acc = add4(acc, square4(xs4[L]));
+      const float val = warp_x_tree(combine(acc));
+      if (lane == 0) {
+        const int y = v0 / 32 + w;  // torch's warp
+        if (k == 1) red[y] = val;
+        else for (int c = 0; c < k; ++c) store_remote(red + y, c, val);
+      }
+    }
+    if (exchange) {
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
+    if (threadIdx.x < 32) {  // torch's tree over its bh warps, in every CTA alike
+      const int bh = T / 32;
+      float v = lane < bh ? red[lane] : 0.f;
+      for (int off = bh / 2; off > 0; off >>= 1) {
+        const float other = __shfl_down_sync(0xffffffffu, v, off);
+        if (lane < off) v = __fadd_rn(v, other);
+      }
+      if (lane == 0) red[16] = v;
+    }
+    __syncthreads();
+    total = red[16];
+    if (kKind == kRing && rank == 0 && threadIdx.x == 0) a.sq[r.i] = total;
+  } else {
+    total = a.sq[r.i];
+  }
+  if (!stores) return;
+  const float g = row_gain(a, r, total);
+  staged_loop(
+      runs << lg, [&](int L) { return xs4[L]; },
+      [&](int L, float4 o) {
+        const int v = vec_of(L);
+        if (v < nvv) store4<true>(r.out, 4 * v, r.nv, scale4(o, g, 4 * v, r.nv));
+      });
+  zero_tail(a, r, 4 * nvv, rank, k);
+}
+
+// Warp path: rows [i0, i0 + R) of one dataset per block, each staged whole
+// (a.plan.cap floats a row), a copy per lane of warp 0; warp w replays row
+// w's 32 threads. red: [8, 16) the gains, [16, 24) b, [24, 32) s, [32, 40)
+// live.
+template <int kKind>
+__device__ void warp_rows(const Args& a, int blk, uint64_t* bar, float* red, float* xs) {
+  const int d = blk / a.plan.groups;
+  const int i0 = (blk - d * a.plan.groups) * a.plan.rows;
+  const int cnt = min(a.plan.rows, a.rows - i0);
+  float *gain = red + 8, *bs_b = red + 16, *bs_s = red + 24, *lv = red + 32;
+  if (threadIdx.x < cnt) lv[threadIdx.x] = row_of<kKind>(a, d, i0 + threadIdx.x, false).live;
+  __syncthreads();
+  const Row first = row_of<kKind>(a, d, i0, false);  // x_root and the dataset's valid count
+  int live = 0;
+  for (int w = 0; w < cnt; ++w) {
+    if (lv[w] != 0.f) ++live;
+    else dead_row<kKind, true>(a, row_of<kKind>(a, d, i0 + w, false), 0, 1);
+  }
+  if (!live) return;
+  const bool sums = a.phase != kRingScale, stores = a.phase != kRingSums;
+  const int nv = first.nv, nvv = min(a.n / 4, ceil_div(nv, 4)), cap = a.plan.cap;
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) bar_expect(bar, 16u * nvv * live);
+    __syncwarp();
+    const int w = threadIdx.x;  // lane w: row w
+    if (nvv > 0 && w < cnt && lv[w] != 0.f) {
+      bulk_copy(xs + w * cap, first.x + static_cast<size_t>(w) * a.n, 16u * nvv, bar);
+    }
+  }
+  if (threadIdx.x < cnt) {
+    const Row r = row_of<kKind>(a, d, i0 + threadIdx.x);
+    bs_b[threadIdx.x] = r.b;
+    bs_s[threadIdx.x] = r.s;
+  }
+  __syncthreads();
+  bar_wait(bar, 0);
+  // x - b x_root over s, once per element, by every thread
+  const float4* xr4 = reinterpret_cast<const float4*>(first.xr);
+  for (int w = 0; w < cnt; ++w) {
+    if (lv[w] == 0.f) continue;
+    float4* x4 = reinterpret_cast<float4*>(xs + w * cap);
+    const float b = bs_b[w], sd = bs_s[w];
+    staged_loop(
+        nvv,
+        [&](int v) {
+          const float4 x = x4[v], xr = __ldg(xr4 + v);
+          return fit4(x, xr, b, sd, 4 * v, nv);
+        },
+        [&](int v, float4 o) { x4[v] = o; });
+  }
+  __syncthreads();
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (w < cnt && lv[w] != 0.f) {
+    const Row r = row_of<kKind>(a, d, i0 + w, false);
+    float total;
+    if (sums) {
+      const float4* x4 = reinterpret_cast<const float4*>(xs + w * cap);
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int v = lane; v < nvv; v += 32) acc = add4(acc, square4(x4[v]));
+      total = __shfl_sync(0xffffffffu, warp_x_tree(combine(acc)), 0);
+      if (kKind == kRing && lane == 0) a.sq[r.i] = total;
+    } else {
+      total = a.sq[r.i];
+    }
+    if (lane == 0) gain[w] = row_gain(a, r, total);
+  }
+  if (!stores) return;
+  __syncthreads();
+  for (int w = 0; w < cnt; ++w) {
+    if (lv[w] == 0.f) continue;
+    const float4* x4 = reinterpret_cast<const float4*>(xs + w * cap);
+    const Row r = row_of<kKind>(a, d, i0 + w, false);
+    const float g = gain[w];
+    staged_loop(
+        nvv, [&](int v) { return x4[v]; },
+        [&](int v, float4 o) { store4<true>(r.out, 4 * v, nv, scale4(o, g, 4 * v, nv)); });
+    zero_tail(a, r, 4 * nvv, 0, 1);
+  }
+}
+
+// Row path: one CTA per row, staged whole when a.plan.staged (bulk copies
+// in the vector path, 4-byte cp.async in the scalar one), else read from
+// global memory twice; summed by the general replay (`torch_row_sum`).
+// red: torch's thread values and block partials.
+template <int kKind, bool kVec>
+__device__ void one_row(const Args& a, int blk, uint64_t* bar, float* red, float* xs) {
+  const int d = blk / a.rows;
+  Row r = row_of<kKind>(a, d, blk - d * a.rows, false);
+  if (!r.live) {
+    dead_row<kKind, kVec>(a, r, 0, 1);
+    return;
+  }
+  const bool staged = a.plan.staged;
+  const int nv = r.nv;
+  const int lim = kVec ? 4 * ceil_div(nv, 4) : nv;  // columns read and written
+  if (staged) {
+    if (kVec) {
+      if (threadIdx.x == 0) {
+        bar_expect(bar, 4u * lim);
+        if (lim > 0) bulk_copy(xs, r.x, 4u * lim, bar);
+      }
+      set_gates<kKind>(a, r);
+      bar_wait(bar, 0);
+    } else {
+      for (int k = threadIdx.x; k < nv; k += kThreads) copy4b(xs + k, r.x + k);
+      set_gates<kKind>(a, r);
+      copies_wait();
+      __syncthreads();
+    }
+  } else {
+    set_gates<kKind>(a, r);
+  }
+  if (staged) {  // x - b x_root over s, once per element, by every thread
+    for (int k = threadIdx.x; k < nv; k += kThreads) xs[k] = fit_elem(xs[k], r.xr[k], r.b, r.s, true);
+    __syncthreads();
+  }
+  // element e of (x - b x_root) / s
+  const auto out_at = [&](int e) {
+    return staged ? xs[e] : fit_elem(r.x[e], r.xr[e], r.b, r.s, true);
   };
-  const int shift = static_cast<int>((static_cast<long long>(row) * a.n) & 3);
-  const float sum = torch_row_sum(a.order, a.n, nv, shift, square, vals, vals + kTorchThreads);
-  const float var = a.n_valid ? __fdiv_rn(sum, static_cast<float>(nv_raw - 1 > 1 ? nv_raw - 1 : 1))
-                              : __fmul_rn(sum, a.inv_den);
-  const float g = row_scale(var);
+  const bool sums = a.phase != kRingScale, stores = a.phase != kRingSums;
+  float total;
+  if (sums) {
+    const auto square = [&](int e) {
+      if (e >= nv) return 0.f;
+      const float o = out_at(e);
+      return __fmul_rn(o, o);
+    };
+    const int shift = static_cast<int>((static_cast<long long>(r.id) * a.n) & 3);
+    total = torch_row_sum(a.order, a.n, nv, shift, square, red, red + kTorchThreads);
+    if (kKind == kRing && threadIdx.x == 0) a.sq[r.i] = total;
+  } else {
+    total = a.sq[r.i];
+  }
+  if (!stores) return;
+  const float g = row_gain(a, r, total);
   // The vector path writes whole float4: columns of the last one past nv
   // get +0, which is what the caller's padding holds.
-#pragma unroll
-  for (int t = 0; t < kRowVecs; ++t) {
-    const int k = 4 * (threadIdx.x + t * kThreads);
-    if (k < nv) store4<kVec>(orow, k, nv, scale4(v[t], g, k, nv));
-  }
-  for (int k = kRowCols + 4 * threadIdx.x; k < nv; k += 4 * kThreads) {
-    store4<kVec>(orow, k, nv, scale4(fit4(load4<kVec>(xrow, k, nv), load4<kVec>(xr, k, nv),
-                                          bs.x, bs.y, k, nv), g, k, nv));
-  }
-  if (!in_place) {
-    for (int k = (kVec ? 4 * ceil_div(nv, 4) : nv) + threadIdx.x; k < a.n; k += kThreads) orow[k] = 0.f;
-  }
-}
-
-// Ring mode: one own row per block. smem as in fit mode. The sums launch
-// writes each row's sum of squares (0 for a dead row); the scale launch
-// reads them summed across the sample shards; the fused launch does both.
-template <bool kVec>
-__device__ void ring_data_row(const Args& a, int i, float* smem) {
-  const float* xrow = a.x + static_cast<size_t>(i) * a.n;
-  float* orow = a.x_out + static_cast<size_t>(i) * a.n;
-  const bool in_place = a.x_out == a.x;
-  const int n = a.n;
-  if (!a.live[i]) {  // dead or the root: unchanged (b = 0, s = 1, scale 1)
-    if (a.phase != kRingSums && !in_place) copy_row<kVec>(xrow, orow, n);
-    if (a.phase != kRingScale && threadIdx.x == 0) a.sq[i] = 0.f;
-    return;
-  }
-  const float b = a.g_b[i], s = a.g_s[i];
-  const float* xr = a.x_root;
-  if (a.phase == kRingScale) {
-    const float g = row_scale(__fmul_rn(a.sq[i], a.inv_den));
-    for (int k = 4 * threadIdx.x; k < n; k += 4 * kThreads) {
-      store4<kVec>(orow, k, n, scale4(fit4(load4<kVec>(xrow, k, n), load4<kVec>(xr, k, n), b, s, k, n),
-                                      g, k, n));
-    }
-    return;
-  }
-  float* sq = smem;
-  float* vals = smem + a.sq_cap;
-  float4 v[kRowVecs];
-#pragma unroll
-  for (int t = 0; t < kRowVecs; ++t) {
-    const int k = 4 * (threadIdx.x + t * kThreads);
-    if (k < n) v[t] = fit4(load4<kVec>(xrow, k, n), load4<kVec>(xr, k, n), b, s, k, n);
-  }
-#pragma unroll
-  for (int t = 0; t < kRowVecs; ++t) {  // torch.square, staged for the sum
-    const int k = 4 * (threadIdx.x + t * kThreads);
-    if (k < n && k < a.sq_cap) {
-      *reinterpret_cast<float4*>(sq + k) = make_float4(
-          __fmul_rn(v[t].x, v[t].x), __fmul_rn(v[t].y, v[t].y), __fmul_rn(v[t].z, v[t].z),
-          __fmul_rn(v[t].w, v[t].w));
+  for (int k = (kVec ? 4 : 1) * threadIdx.x; k < lim; k += (kVec ? 4 : 1) * kThreads) {
+    if (kVec) {
+      const float4 o = staged ? *reinterpret_cast<const float4*>(xs + k)
+                              : fit4(load4<true>(r.x, k, nv), load4<true>(r.xr, k, nv), r.b, r.s,
+                                     k, nv);
+      store4<true>(r.out, k, nv, scale4(o, g, k, nv));
+    } else {
+      r.out[k] = __fmul_rn(out_at(k), g);
     }
   }
-  __syncthreads();
-  const auto square = [&](int e) {
-    if (e < a.sq_cap) return sq[e];
-    const float o = fit_elem(xrow[e], xr[e], b, s, true);
-    return __fmul_rn(o, o);
-  };
-  const int shift = static_cast<int>((static_cast<long long>(i) * n) & 3);
-  const float sum = torch_row_sum(a.order, n, n, shift, square, vals, vals + kTorchThreads);
-  if (threadIdx.x == 0) a.sq[i] = sum;
-  if (a.phase == kRingSums) return;
-  const float g = row_scale(__fmul_rn(sum, a.inv_den));
-#pragma unroll
-  for (int t = 0; t < kRowVecs; ++t) {
-    const int k = 4 * (threadIdx.x + t * kThreads);
-    if (k < n) store4<kVec>(orow, k, n, scale4(v[t], g, k, n));
-  }
-  for (int k = kRowCols + 4 * threadIdx.x; k < n; k += 4 * kThreads) {
-    store4<kVec>(orow, k, n, scale4(fit4(load4<kVec>(xrow, k, n), load4<kVec>(xr, k, n), b, s, k, n),
-                                    g, k, n));
-  }
+  zero_tail(a, r, lim, 0, 1);
 }
 
 // TPU mode: one (row, 2,048-column segment) per block.
@@ -621,15 +1001,42 @@ __device__ void cov_tile(const Args& a, int blk, float2* col_g, float2* row_g) {
   }
 }
 
+// TPU mode's kernel: data segments, then correlation tiles.
 template <int kKind, bool kVecX, bool kVecC>
 __global__ void __launch_bounds__(kThreads, 2) rank1_update_kernel(Args a) {
   extern __shared__ float4 smem4[];
   const int blk = blockIdx.x;
   if (blk < a.data_blocks) {
-    if (kKind == kFit) fit_data_row<kVecX>(a, blk, reinterpret_cast<float*>(smem4));
-    else if (kKind == kRing) ring_data_row<kVecX>(a, blk, reinterpret_cast<float*>(smem4));
-    else tpu_data_segment<kVecX>(a, blk);
+    tpu_data_segment<kVecX>(a, blk);
   } else {
+    float2* col_g = reinterpret_cast<float2*>(smem4);
+    cov_tile<kKind, kVecC>(a, blk - a.data_blocks, col_g,
+                           col_g + (a.m < kColChunk ? a.m : kColChunk));
+  }
+}
+
+// Fit and ring modes' kernel: the data rows on their path (see the top),
+// then the correlation tiles, then blocks that round the grid up to a whole
+// cluster. smem: the mbarrier, the reduction area (a.plan.red floats),
+// x_root's staged columns, the rows' (a.plan.cap floats each).
+template <int kKind, bool kVecX, bool kVecC>
+__global__ void __launch_bounds__(kThreads, kMaxPerSm) rank1_update_kernel_rows(Args a) {
+  extern __shared__ float4 smem4[];
+  const int blk = blockIdx.x;
+  if (blk < a.data_blocks) {
+    unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+    uint64_t* bar = reinterpret_cast<uint64_t*>(base);
+    float* red = reinterpret_cast<float*>(base + kBarBytes);
+    float* xs = red + a.plan.red;  // the rows' staged columns
+    // before the rows' index loads, so its release fence waits for nothing
+    if (threadIdx.x == 0) bar_init(bar);
+    __syncthreads();
+    if constexpr (kVecX) {
+      if (a.plan.path == kPathCluster) return cluster_row<kKind>(a, blk, bar, red, xs);
+      if (a.plan.path == kPathWarps) return warp_rows<kKind>(a, blk, bar, red, xs);
+    }
+    one_row<kKind, kVecX>(a, blk, bar, red, xs);
+  } else if (blk - a.data_blocks < a.cov_blocks) {
     float2* col_g = reinterpret_cast<float2*>(smem4);
     cov_tile<kKind, kVecC>(a, blk - a.data_blocks, col_g,
                            col_g + (a.m < kColChunk ? a.m : kColChunk));
@@ -645,7 +1052,7 @@ __global__ void scale_probe(const float* __restrict__ var, float* __restrict__ o
 }
 
 // torch.sum(x * x, -1) of a contiguous (rows, n) tensor, one row per block,
-// in the order the fit mode replays: the check of that order.
+// in the order the row path replays: the check of that order.
 __global__ void __launch_bounds__(kThreads) sum_probe(const float* __restrict__ x,
                                                     float* __restrict__ out, TorchSum o, int n) {
   extern __shared__ float4 smem4[];
@@ -669,6 +1076,13 @@ int last_pow2(int v) {
   return p > 1 ? p : 1;
 }
 
+int device_sms() {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return sms;
+}
+
 // ATen's setReduceConfig for a float sum over the last dimension of a
 // contiguous (rows, n) float32 tensor (vt0 = input_vec_size = 4, at most
 // 512 threads, 16 values per thread before the warps split a row, 256
@@ -689,11 +1103,10 @@ bool torch_sum_of(int rows, int n, TorchSum* o) {
   o->ctas = 1;
   const int per_thread = ceil_div(n, bw * bh);
   if (o->split && per_thread >= 256) {
-    int dev = 0, sms = 0, per_sm = 0;
+    int dev = 0, per_sm = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor, dev);
-    const int target = sms * (per_sm / (bw * bh));
+    const int target = device_sms() * (per_sm / (bw * bh));
     if (rows <= target) {
       const int c1 = ceil_div(target, rows), c2 = ceil_div(per_thread, 16),
                 c3 = ceil_div(per_thread, 256);
@@ -704,31 +1117,92 @@ bool torch_sum_of(int rows, int n, TorchSum* o) {
   return o->ctas <= kMaxCtas;
 }
 
-constexpr int kFitSmemMax = (kRowCols + kTorchThreads + kMaxCtas) * 4;
+// Shared memory of a block: the mbarrier, `red` floats, `rows` rows of `cap`
+// floats.
+int smem_of(int red, int cap, int rows) { return kBarBytes + 4 * red + 4 * cap * rows; }
 
-template <int kKind>
-int launch(const Args& a, int blocks, bool vec_x, bool vec_c, cudaStream_t st) {
-  auto kernel = vec_x ? (vec_c ? rank1_update_kernel<kKind, true, true>
-                               : rank1_update_kernel<kKind, true, false>)
-                      : (vec_c ? rank1_update_kernel<kKind, false, true>
-                               : rank1_update_kernel<kKind, false, false>);
-  const int w = a.m < kColChunk ? a.m : kColChunk;
-  int smem = a.row_groups ? (w + kTileRows) * 8 : 0;  // the correlation role's gates
-  if (kKind != kTpu) {
-    const int data = kKind == kRing && a.phase == kRingScale
-                         ? 0 : (a.sq_cap + kTorchThreads + a.order.ctas) * 4;
-    smem = smem > data ? smem : data;
-    static bool raised[4] = {false, false, false, false};  // per kind; set twice at worst, harmlessly
-    bool& done = raised[2 * vec_x + vec_c];
-    if (!done) {
-      const cudaError_t rc = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFitSmemMax);
-      if (rc != cudaSuccess) return static_cast<int>(rc);
-      done = true;
+// The data rows' plan (see the top) of `batch` datasets of `rows` rows of n
+// columns, torch's order `o`, 16-byte rows or not; `want_k` / `want_rows`
+// force the cluster size / the rows per block (0: chosen here). Returns 0,
+// or cudaErrorInvalidValue for a forced shape the rows cannot take.
+int plan_rows(int batch, int rows, int n, bool vec, const TorchSum& o, int sms, int want_k,
+              int want_rows, RowPlan* p) {
+  *p = RowPlan{};
+  p->k = p->rows = p->groups = 1;
+  const bool fast = vec && o.vec && o.bw == 32 && o.ctas == 1;
+  const int total = batch * rows, nvec = n / 4;
+  if (fast && o.split) {
+    const int T = o.threads;
+    int pick = 0;
+    for (int k = 4; k >= 1; k >>= 1) {
+      const int cap = 4 * ceil_div(nvec, T) * (T / k);
+      const int smem = smem_of(kRedSmall, cap, 1);
+      if (o.bh % k || smem > kSmemMax) continue;
+      if (want_k) {
+        if (k == want_k) pick = k;
+      } else if (!pick || (k * total >= 4 * sms && smem <= kSmemShare)) {
+        pick = k;
+      }
+    }
+    if (pick) {
+      p->path = kPathCluster;
+      p->k = pick;
+      p->cap = 4 * ceil_div(nvec, T) * (T / pick);
+      p->red = kRedSmall;
+      p->staged = 1;
+      p->smem = smem_of(p->red, p->cap, 1);
+      p->data_blocks = total * pick;
+      return want_rows > 1 ? static_cast<int>(cudaErrorInvalidValue) : 0;
+    }
+  } else if (fast) {
+    int pick = 0;
+    for (int r = 1; r <= kMaxRows; r <<= 1) {
+      if (smem_of(kRedSmall, n, r) > kSmemMax) break;
+      if (want_rows ? r == want_rows : (r == 1 || batch * ceil_div(rows, r) >= sms)) pick = r;
+    }
+    if (pick) {
+      p->path = kPathWarps;
+      p->rows = pick;
+      p->groups = ceil_div(rows, pick);
+      p->cap = n;
+      p->red = kRedSmall;
+      p->staged = 1;
+      p->smem = smem_of(p->red, p->cap, pick);
+      p->data_blocks = batch * p->groups;
+      return want_k > 1 ? static_cast<int>(cudaErrorInvalidValue) : 0;
     }
   }
-  kernel<<<blocks, kThreads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  if (want_k > 1 || want_rows > 1) return static_cast<int>(cudaErrorInvalidValue);
+  p->path = kPathRow;
+  p->red = 4 * ceil_div(kTorchThreads + o.ctas, 4);
+  p->cap = 4 * ceil_div(n, 4);
+  p->staged = smem_of(p->red, p->cap, 1) <= kSmemMax;
+  if (!p->staged) p->cap = 0;
+  p->smem = smem_of(p->red, p->cap, 1);
+  p->data_blocks = total;
+  return 0;
+}
+
+// A fit- or ring-mode launch's whole plan: data rows, tiles, grid, smem.
+struct Launch {
+  TorchSum order;
+  RowPlan rows;
+  Plan tiles;
+  int blocks, smem;
+};
+
+int launch_plan(int mode, int batch, int rows, int m, int n, bool vec, bool cov, int want_k,
+                int want_rows, Launch* l) {
+  if (!torch_sum_of(batch * rows, n, &l->order)) return static_cast<int>(cudaErrorNotSupported);
+  const int rc = plan_rows(batch, rows, n, vec, l->order, device_sms(), want_k, want_rows, &l->rows);
+  if (rc) return rc;
+  l->tiles = plan_of(mode, batch, m, n, rows, cov);
+  const int k = l->rows.k;
+  l->blocks = k * ceil_div(l->rows.data_blocks + l->tiles.cov_blocks, k);
+  const int w = m < kColChunk ? m : kColChunk;
+  const int tiles = l->tiles.row_groups ? (w + kTileRows) * 8 : 0;
+  l->smem = l->rows.smem > tiles ? l->rows.smem : tiles;
+  return 0;
 }
 
 Args args_of(const Plan& p, int m, int n, int rows) {
@@ -741,7 +1215,74 @@ Args args_of(const Plan& p, int m, int n, int rows) {
   a.tile_rows = p.tile_rows;
   a.row_groups = p.row_groups;
   a.col_chunks = p.col_chunks;
+  a.cov_blocks = p.cov_blocks;
   return a;
+}
+
+// TPU mode's launch.
+int launch_tpu(const Args& a, int blocks, bool vec_x, bool vec_c, cudaStream_t st) {
+  auto kernel = vec_x ? (vec_c ? rank1_update_kernel<kTpu, true, true>
+                               : rank1_update_kernel<kTpu, true, false>)
+                      : (vec_c ? rank1_update_kernel<kTpu, false, true>
+                               : rank1_update_kernel<kTpu, false, false>);
+  const int w = a.m < kColChunk ? a.m : kColChunk;
+  const int smem = a.row_groups ? (w + kTileRows) * 8 : 0;  // the correlation role's gates
+  kernel<<<blocks, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `kernel` on `blocks` blocks in clusters of k, with `smem` bytes (its
+// limit raised to kSmemMax once per kernel).
+template <typename... Params>
+int launch_clustered(void (*kernel)(Params...), bool& raised, int blocks, int k, int smem,
+                     cudaStream_t st, Params... args) {
+  if (!raised) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    raised = true;  // set twice at worst, harmlessly
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = k > 1 ? 1 : 0;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kKind>
+int launch_rows(const Args& a, const Launch& l, bool vec_x, bool vec_c, cudaStream_t st) {
+  auto kernel = vec_x ? (vec_c ? rank1_update_kernel_rows<kKind, true, true>
+                               : rank1_update_kernel_rows<kKind, true, false>)
+                      : (vec_c ? rank1_update_kernel_rows<kKind, false, true>
+                               : rank1_update_kernel_rows<kKind, false, false>);
+  static bool raised[4] = {false, false, false, false};  // per instantiation
+  return launch_clustered(kernel, raised[2 * vec_x + vec_c], l.blocks, l.rows.k, l.smem, st, a);
+}
+
+// Args of a fit- or ring-mode launch from its plan.
+Args rows_args(const Launch& l, int m, int n, int rows) {
+  Args a = args_of(l.tiles, m, n, rows);
+  a.order = l.order;
+  a.plan = l.rows;
+  a.data_blocks = l.rows.data_blocks;
+  return a;
+}
+
+// The launch plan of `mode` (kModeFit: batch datasets of m rows; kModeRing:
+// `batch` is the block's rows m_l, of an (m_l, m) correlation block).
+int mode_plan(int mode, int batch, int m, int n, bool vec, int want_k, int want_rows, Launch* l) {
+  return mode == kModeRing ? launch_plan(mode, 1, batch, m, n, vec, true, want_k, want_rows, l)
+                           : launch_plan(mode, batch, m, m, n, vec, true, want_k, want_rows, l);
 }
 
 }  // namespace
@@ -756,7 +1297,7 @@ extern "C" int update_data_launch(const void* x, const void* xr, const void* b,
   a.b = static_cast<const float*>(b);
   a.x_out = static_cast<float*>(out);
   const bool vec = n % 4 == 0 && aligned16(x) && aligned16(xr) && aligned16(out);
-  return launch<kTpu>(a, plan.data_blocks, vec, false, static_cast<cudaStream_t>(stream));
+  return launch_tpu(a, plan.data_blocks, vec, false, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int update_cov_launch(const void* c, const void* b, void* out,
@@ -768,18 +1309,25 @@ extern "C" int update_cov_launch(const void* c, const void* b, void* out,
   a.b = static_cast<const float*>(b);
   a.c_out = static_cast<float*>(out);
   const bool vec = p % 4 == 0 && aligned16(c) && aligned16(out);
-  return launch<kTpu>(a, plan.cov_blocks, false, vec, static_cast<cudaStream_t>(stream));
+  return launch_tpu(a, plan.cov_blocks, false, vec, static_cast<cudaStream_t>(stream));
 }
 
+// Fit mode; `cluster` and `rows` force the data rows' cluster size and rows
+// per block (0: chosen by the plan).
 extern "C" int rank1_update_launch(const void* x, void* x_out, const void* c,
                                    void* c_out, const void* roots,
                                    const void* mask, const void* n_valid,
-                                   int batch, int m, int n, void* stream) {
+                                   int batch, int m, int n, int cluster, int rows,
+                                   void* stream) {
   if (batch < 1 || m < 1 || n < 1 || c_out == c) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan plan = plan_of(kModeFit, batch, m, n, m);
-  Args a = args_of(plan, m, n, m);
+  const bool vec_x = n % 4 == 0 && aligned16(x) && aligned16(x_out);
+  const bool vec_c = m % 4 == 0 && aligned16(c) && aligned16(c_out);
+  Launch l;
+  const int rc = launch_plan(kModeFit, batch, m, m, n, vec_x, true, cluster, rows, &l);
+  if (rc) return rc;
+  Args a = rows_args(l, m, n, m);
   a.x = static_cast<const float*>(x);
   a.x_out = static_cast<float*>(x_out);
   a.c = static_cast<const float*>(c);
@@ -787,14 +1335,9 @@ extern "C" int rank1_update_launch(const void* x, void* x_out, const void* c,
   a.roots = static_cast<const long long*>(roots);
   a.mask = static_cast<const unsigned char*>(mask);
   a.n_valid = static_cast<const int*>(n_valid);
-  if (!torch_sum_of(batch * m, n, &a.order)) return static_cast<int>(cudaErrorNotSupported);
   // torch's CUDA division by a Python number: a * (1 / b), 1 / b in float
   a.inv_den = 1.f / static_cast<float>(n - 1 > 1 ? n - 1 : 1);
-  a.sq_cap = 4 * ceil_div(n, 4) < kRowCols ? 4 * ceil_div(n, 4) : kRowCols;
-  const bool vec_x = n % 4 == 0 && aligned16(x) && aligned16(x_out);
-  const bool vec_c = m % 4 == 0 && aligned16(c) && aligned16(c_out);
-  return launch<kFit>(a, plan.data_blocks + plan.cov_blocks, vec_x, vec_c,
-                      static_cast<cudaStream_t>(stream));
+  return launch_rows<kFit>(a, l, vec_x, vec_c, static_cast<cudaStream_t>(stream));
 }
 
 // Ring mode, one launch of `phase` (see the top): x (m_l, n) and x_root (n,)
@@ -802,17 +1345,22 @@ extern "C" int rank1_update_launch(const void* x, void* x_out, const void* c,
 // gates b, s (m_l,) and b_col, s_col (m,), live (m_l,) uint8, sq (m_l,) the
 // sums (written by kRingFused and kRingSums, read by kRingScale), n_total
 // the global sample count. x_out may be x, c_out may be c; kRingScale reads
-// and writes x only.
+// and writes x only. `cluster`, `rows` as in rank1_update_launch.
 extern "C" int ring_update_launch(const void* x, void* x_out, const void* c, void* c_out,
                                   const void* x_root, const void* b, const void* s,
                                   const void* b_col, const void* s_col, const void* live,
                                   void* sq, int phase, int m_l, int m, int n, int row0,
-                                  int n_total, void* stream) {
+                                  int n_total, int cluster, int rows, void* stream) {
   if (m_l < 1 || m < 1 || n < 1 || phase < kRingFused || phase > kRingScale || row0 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan plan = plan_of(kModeRing, 1, m, n, m_l, phase != kRingScale);
-  Args a = args_of(plan, m, n, m_l);
+  const bool vec_x = n % 4 == 0 && aligned16(x) && aligned16(x_out) && aligned16(x_root);
+  const bool vec_c = m % 4 == 0 && aligned16(c) && aligned16(c_out);
+  Launch l;
+  const int rc = launch_plan(kModeRing, 1, m_l, m, n, vec_x, phase != kRingScale, cluster, rows,
+                             &l);
+  if (rc) return rc;
+  Args a = rows_args(l, m, n, m_l);
   a.x = static_cast<const float*>(x);
   a.x_out = static_cast<float*>(x_out);
   a.c = static_cast<const float*>(c);
@@ -826,29 +1374,58 @@ extern "C" int ring_update_launch(const void* x, void* x_out, const void* c, voi
   a.sq = static_cast<float*>(sq);
   a.phase = phase;
   a.row0 = row0;
-  if (!torch_sum_of(m_l, n, &a.order)) return static_cast<int>(cudaErrorNotSupported);
   a.inv_den = 1.f / static_cast<float>(n_total - 1 > 1 ? n_total - 1 : 1);
-  a.sq_cap = 4 * ceil_div(n, 4) < kRowCols ? 4 * ceil_div(n, 4) : kRowCols;
-  const bool vec_x = n % 4 == 0 && aligned16(x) && aligned16(x_out) && aligned16(x_root);
-  const bool vec_c = m % 4 == 0 && aligned16(c) && aligned16(c_out);
-  return launch<kRing>(a, plan.data_blocks + plan.cov_blocks, vec_x, vec_c,
-                       static_cast<cudaStream_t>(stream));
+  return launch_rows<kRing>(a, l, vec_x, vec_c, static_cast<cudaStream_t>(stream));
 }
 
 // The grid of a launch: mode 0 update_data (batch 1), 1 update_cov (batch
 // 1, n ignored), 2 the fit mode, 3 ring mode's first launch (batch is m_l,
-// its rows: m_l data blocks and the tiles of the (m_l, m) block).
+// its rows: its data blocks and the tiles of the (m_l, m) block), the fit
+// and ring modes on 16-byte rows (n a multiple of 4) or not.
 extern "C" int rank1_update_blocks(int mode, int batch, int m, int n) {
-  const Plan p = mode == kModeRing ? plan_of(mode, 1, m, n, batch) : plan_of(mode, batch, m, n, m);
-  return p.data_blocks + p.cov_blocks;
+  if (mode == kModeData || mode == kModeCov) {
+    const Plan p = plan_of(mode, batch, m, n, m);
+    return p.data_blocks + p.cov_blocks;
+  }
+  Launch l;
+  return mode_plan(mode, batch, m, n, n % 4 == 0, 0, 0, &l) ? -1 : l.blocks;
 }
 
-// An empty kernel on the grid of a launch: the launch floor.
+// An empty kernel on the grid of a launch: the launch floor. Fit and ring
+// modes' floor takes their clusters and shared memory too.
 extern "C" int rank1_update_empty_launch(int mode, int batch, int m, int n, void* stream) {
   if (batch < 1 || m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  rank1_update_empty<<<rank1_update_blocks(mode, batch, m, n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == kModeData || mode == kModeCov) {
+    rank1_update_empty<<<rank1_update_blocks(mode, batch, m, n), kThreads, 0, st>>>();
+    return static_cast<int>(cudaGetLastError());
+  }
+  Launch l;
+  const int rc = mode_plan(mode, batch, m, n, n % 4 == 0, 0, 0, &l);
+  if (rc) return rc;
+  static bool raised = false;
+  return launch_clustered(rank1_update_empty, raised, l.blocks, l.rows.k, l.smem, st);
+}
+
+// The plan of a fit- or ring-mode launch (mode, batch, m, n as in
+// rank1_update_blocks; vec: 16-byte rows; cluster, rows: forced or 0), as
+// 14 ints: torch's bw, bh, split, ctas, vectors, threads; the path, cluster
+// size, rows per block, staged, floats staged per row, data blocks, blocks
+// and shared memory bytes. Returns the plan's error, if any.
+extern "C" int rank1_update_plan(int mode, int batch, int m, int n, int vec, int cluster, int rows,
+                                 int* out) {
+  if (batch < 1 || m < 1 || n < 1 || (mode != kModeFit && mode != kModeRing)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Launch l;
+  const int rc = mode_plan(mode, batch, m, n, vec != 0, cluster, rows, &l);
+  if (rc) return rc;
+  const int vals[14] = {l.order.bw,   l.order.bh,     l.order.split,     l.order.ctas,
+                        l.order.vec,  l.order.threads, l.rows.path,      l.rows.k,
+                        l.rows.rows,  l.rows.staged,  l.rows.cap,        l.rows.data_blocks,
+                        l.blocks,     l.smem};
+  for (int i = 0; i < 14; ++i) out[i] = vals[i];
+  return 0;
 }
 
 extern "C" int rank1_scale_probe(const void* var, void* out, int count, void* stream) {
@@ -859,7 +1436,7 @@ extern "C" int rank1_scale_probe(const void* var, void* out, int count, void* st
 }
 
 // torch.sum(x * x, -1) of a contiguous (rows, n) float32 tensor in the order
-// the fit mode replays (the check of that order against torch itself).
+// the row path replays (the check of that order against torch itself).
 // ATen's block shape for it lands in shape[0..4]: bw, bh, split, ctas, vectors.
 extern "C" int rank1_sum_probe(const void* x, void* out, int rows, int n, int* shape,
                                void* stream) {

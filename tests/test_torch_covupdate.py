@@ -286,3 +286,197 @@ def test_scale_ulps_reads_a_one_ulp_scale():
     got[0, i] *= 1 + 2 ** -23
     ulps = t_cu.scale_ulps(got, want, xb, cb, roots, mask)
     assert 0.4 <= float(ulps[0, i]) <= 2.1 and float(ulps.sum()) == float(ulps[0, i])
+
+
+# -- the data rows' launch plan (``covupdate.update_plan``), on the CPU
+
+#: (kind, batch, m, n) of fit- and ring-mode launches: the E. coli and p=512
+#: fits' first stages, the E. coli dispatch's stages, the ring's (1, 2, 1)
+#: and (1, 2, 2) blocks, odd n, and each of ``SUM_ORDER_SHAPES`` as one
+#: dataset.
+PLAN_SHAPES = sorted({(t_cu.MODE_FIT, 1, 128, 10_000), (t_cu.MODE_FIT, 1, 512, 2000),
+                      (t_cu.MODE_FIT, 8, 128, 16384), (t_cu.MODE_FIT, 8, 64, 16384),
+                      (t_cu.MODE_FIT, 8, 32, 16384), (t_cu.MODE_RING, 64, 128, 10_000),
+                      (t_cu.MODE_RING, 64, 128, 5000), (t_cu.MODE_FIT, 2, 37, 1301),
+                      (t_cu.MODE_FIT, 3, 21, 1001), (t_cu.MODE_FIT, 2, 64, 9215)}
+                     | {(t_cu.MODE_FIT, 1, rows, n) for rows, n in t_cu.SUM_ORDER_SHAPES})
+FORCED = [{}] + [dict(cluster=k) for k in (1, 2, 4)] + [dict(rows=r) for r in (2, 4, 8)]
+
+
+def _plans(shape):
+    for force in FORCED:
+        try:
+            yield force, t_cu.update_plan(*shape, **force)
+        except ValueError:
+            assert force, f"the plan refuses {shape} unforced"
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_plan_runs_cover_each_read_exactly_once(shape):
+    """Each CTA of a row stages runs that hold every column its replayed
+    torch threads read, heads and tails included, and the CTAs' runs
+    together hold each column of the row exactly once, at every shift the
+    bucket's rows take."""
+    kind, batch, m, n = shape
+    rows = batch * m if kind == t_cu.MODE_FIT else batch
+    for force, plan in _plans(shape):
+        o = plan["order"]
+        cols = np.zeros(n, np.int64)
+        for cta in plan["shares"]:
+            for a, b in cta["runs"]:
+                assert 0 <= a < b <= n
+                cols[a:b] += 1
+        assert np.all(cols == 1), (force, plan["shares"])
+        for shift in sorted({(r * n) & 3 for r in range(min(rows, 4))}):
+            seen = np.zeros(n, np.int64)
+            for (u, c), read in t_cu.aten_reads(n, shift, o).items():
+                flat = u + c * o["threads"]
+                owner = [cta for cta in plan["shares"]
+                         if cta["threads"][0] <= flat < cta["threads"][1]]
+                assert len(owner) == 1
+                held = np.zeros(n, bool)
+                for a, b in owner[0]["runs"]:
+                    held[a:b] = True
+                assert all(held[e] for e in read), (force, shift, u, c)
+                seen[read] += 1
+            assert np.all(seen == 1), (force, shift)
+
+
+def _aten_sum(sq, shift, o, nv):
+    """torch.sum of one row of float32 squares in ATen's order, thread by
+    thread (``aten_reads``: element e of a vector adds into accumulator e
+    - e0 mod 4, head and tail into the first), then the warp shuffles over
+    x and the tree over y (``ctas`` 1). Columns at or past ``nv`` are +0,
+    as the plain version's squares hold them."""
+    f = np.float32
+    sq = np.where(np.arange(len(sq)) < nv, sq, 0).astype(np.float32)
+    e0 = (4 - shift) & 3 if o["vec"] else 0
+    vals = []
+    for u, read in sorted(t_cu.aten_reads(len(sq), shift, o, nv).items()):
+        acc = [f(0)] * 4
+        for j, e in enumerate(read):
+            if not o["vec"]:
+                slot = j & 3
+            elif e < e0 or e >= e0 + 4 * ((len(sq) - e0) // 4):
+                slot = 0
+            else:
+                slot = (e - e0) & 3
+            acc[slot] = f(acc[slot] + sq[e])
+        vals.append(f(f(f(acc[0] + acc[1]) + acc[2]) + acc[3]))
+    return _trees(np.array(vals, np.float32), o)
+
+
+def _trees(vals, o):
+    """ATen's shuffles down over each warp's 32 lanes, then its tree over
+    the bh warps (the bw = 32 layouts of the cluster and warp paths)."""
+    f = np.float32
+    warps = []
+    for y in range(0, len(vals), 32):
+        v = list(vals[y:y + 32])
+        for off in (16, 8, 4, 2, 1):
+            v = [f(v[x] + v[x + off]) if x + off < 32 else v[x] for x in range(32)]
+        warps.append(v[0])
+    off = len(warps) // 2
+    while off:
+        warps = [f(warps[y] + warps[y + off]) if y < off else warps[y] for y in range(len(warps))]
+        off //= 2
+    return warps[0]
+
+
+def _cluster_sum(sq, plan, nv):
+    """The kernel's cluster path on one row: CTA r stages its runs (run j
+    at local vector j * share), replays its torch threads from them, and
+    writes its warps' partials where every CTA reads them; then the tree."""
+    f = np.float32
+    o, k = plan["order"], plan["k"]
+    t, share = o["threads"], o["threads"] // plan["k"]
+    nvv = min(len(sq) // 4, -(-nv // 4))
+    sq4 = np.where(np.arange(len(sq)) < nv, sq, 0).astype(np.float32).reshape(-1, 4)
+    partials = np.zeros(t // 32, np.float32)
+    for r in range(k):
+        v0 = r * share
+        local = np.zeros((len(plan["shares"][r]["runs"]) * share, 4), np.float32)
+        for j, (a, b) in enumerate(plan["shares"][r]["runs"]):
+            local[j * share:j * share + (b - a) // 4] = sq4[a // 4:b // 4]
+        vals = []
+        for ul in range(share):
+            acc = [f(0)] * 4
+            L, v = ul, v0 + ul
+            while v < nvv:
+                acc = [f(acc[i] + local[L, i]) for i in range(4)]
+                L, v = L + share, v + t
+            vals.append(f(f(f(acc[0] + acc[1]) + acc[2]) + acc[3]))
+        for w in range(share // 32):
+            one = dict(o, threads=32)
+            partials[v0 // 32 + w] = _trees(np.array(vals[32 * w:32 * w + 32], np.float32), one)
+    out = list(partials)
+    off = len(out) // 2
+    while off:
+        out = [f(out[y] + out[y + off]) if y < off else out[y] for y in range(len(out))]
+        off //= 2
+    return out[0]
+
+
+@pytest.mark.parametrize("shape,force,nv", [
+    ((t_cu.MODE_FIT, 1, 128, 10_000), dict(cluster=4), 10_000),
+    ((t_cu.MODE_FIT, 1, 128, 10_000), dict(cluster=2), 9_001),
+    ((t_cu.MODE_FIT, 1, 128, 10_000), dict(cluster=1), 7_777),
+    ((t_cu.MODE_FIT, 8, 128, 16384), {}, 9_904),
+    ((t_cu.MODE_RING, 64, 128, 10_000), {}, 10_000),
+    ((t_cu.MODE_FIT, 2, 64, 9216), dict(cluster=4), 8_197),
+])
+def test_cluster_sum_is_atens_sum_bit_for_bit(shape, force, nv):
+    """A float32 emulation of the cluster path's partitioned sum (each CTA
+    on its own runs, the partials exchanged, the tree run by every CTA)
+    equals a sequential emulation of ATen's order bit for bit, valid count
+    ending mid-run included."""
+    plan = t_cu.update_plan(*shape, **force)
+    assert plan["path"] == t_cu.PATH_CLUSTER
+    n = shape[3]
+    x = np.random.default_rng(n + nv).standard_normal(n).astype(np.float32)
+    sq = (x * x).astype(np.float32)
+    want = _aten_sum(sq, 0, plan["order"], nv)
+    got = _cluster_sum(sq, plan, nv)
+    assert np.float32(got).tobytes() == np.float32(want).tobytes()
+
+
+@pytest.mark.parametrize("n,nv", [(2000, 2000), (5000, 5000), (8003, 7777)])
+def test_warp_sum_is_atens_sum_bit_for_bit(n, nv):
+    """The warp path's sum (lane x adds vectors x, x + 32, .. of its row,
+    then the shuffles) is ATen's one-warp order."""
+    o = t_cu.torch_sum_order(512, n)
+    assert not o["split"] and o["threads"] == 32
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    sq = (x * x).astype(np.float32)
+    want = _aten_sum(sq, (511 * n) & 3, o, nv)
+    if n % 4 == 0:
+        f = np.float32
+        sq4 = np.where(np.arange(n) < nv, sq, 0).astype(np.float32).reshape(-1, 4)
+        vals = []
+        for lane in range(32):
+            acc = [f(0)] * 4
+            for v in range(lane, -(-nv // 4), 32):
+                acc = [f(acc[i] + sq4[v, i]) for i in range(4)]
+            vals.append(f(f(f(acc[0] + acc[1]) + acc[2]) + acc[3]))
+        assert np.float32(_trees(np.array(vals, np.float32), o)).tobytes() == \
+            np.float32(want).tobytes()
+    else:  # odd n takes the row path: ATen's own order, which _aten_sum is
+        assert t_cu.update_plan(t_cu.MODE_FIT, 1, 512, n)["path"] == t_cu.PATH_ROW
+
+
+def test_plan_picks_the_documented_paths():
+    """The paths and sizes the design note names at the main path's shapes."""
+    p = t_cu.update_plan
+    assert (p(t_cu.MODE_FIT, 1, 128, 10_000)["path"], p(t_cu.MODE_FIT, 1, 128, 10_000)["k"]) \
+        == (t_cu.PATH_CLUSTER, 4)
+    assert p(t_cu.MODE_FIT, 8, 128, 16384)["k"] == 1  # 1,024 rows: one CTA each
+    assert p(t_cu.MODE_RING, 64, 128, 10_000)["k"] == 4
+    assert (p(t_cu.MODE_FIT, 1, 512, 2000)["path"], p(t_cu.MODE_FIT, 1, 512, 2000)["rows"]) \
+        == (t_cu.PATH_WARPS, 2)
+    assert p(t_cu.MODE_RING, 64, 128, 5000)["rows"] == 1
+    assert p(t_cu.MODE_FIT, 2, 37, 1301)["path"] == t_cu.PATH_ROW
+    assert not p(t_cu.MODE_FIT, 1, 40, 131_072)["staged"]
+    with pytest.raises(ValueError):
+        p(t_cu.MODE_FIT, 1, 512, 2000, cluster=2)
+    with pytest.raises(ValueError):
+        p(t_cu.MODE_FIT, 1, 128, 10_000, rows=2)

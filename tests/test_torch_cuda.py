@@ -536,6 +536,145 @@ def test_rank1_sum_order_is_torch_sum(cuda, rows, n):
     assert torch.equal(got, torch.sum(torch.square(x), dim=-1))
 
 
+def _hold_forced(xb, cb, roots, mloc, nv, **force):
+    """A fit-mode launch forced onto a plan (``cluster``, ``rows``): x' and
+    c' bit-equal to the plain version, out of place and in place."""
+    rx, rc = cu.rank1_update_ref(xb, cb, roots, mloc, n_valid=nv)
+    kx, kc = cu.launch_rank1(xb, cb, roots, mloc, nv, **force)
+    own = xb.clone()
+    ix, ic = cu.launch_rank1(own, cb, roots, mloc, nv, inplace=True, **force)
+    torch.cuda.synchronize()
+    assert torch.equal(kc, rc) and torch.equal(kx, rx)
+    assert torch.equal(ix, kx) and torch.equal(ic, kc)
+
+
+@pytest.mark.parametrize("shapes,m,n_pad,force", [
+    ([(85, 10_000)], 128, 10_000, dict(cluster=1)),  # the p=85 fit's first stage
+    ([(85, 10_000)], 128, 10_000, dict(cluster=2)),
+    ([(85, 10_000)], 128, 10_000, dict(cluster=4)),
+    ([(60, 9000), (64, 8500)], 64, 9216, dict(cluster=2)),  # valid counts end mid-run
+    ([(60, 9000), (64, 8500)], 64, 9216, dict(cluster=4)),
+    ([(30, 16_384), (20, 9001)], 32, 16_384, {}),  # the dispatch's rows, held whole
+    ([(512, 2000)], 512, 2000, dict(rows=1)),  # the p=512 fit: warp rows
+    ([(512, 2000)], 512, 2000, dict(rows=2)),
+    ([(512, 2000)], 512, 2000, dict(rows=8)),
+    ([(30, 1000), (25, 777), (32, 513)], 32, 1024, dict(rows=4)),  # ragged valid counts
+    ([(21, 1000), (13, 998)], 21, 1000, dict(rows=8)),  # a partial last block
+    ([(37, 1301), (20, 1000)], 37, 1301, {}),  # odd n: every shift, the scalar path
+    ([(16, 140_000)], 16, 140_000, {}),  # torch sums a row over 18 blocks: read twice
+    ([(8, 3000)], 8, 3000, {}),  # fewer than 16 rows: torch's bw is 64
+])
+def test_rank1_update_plans_are_bit_equal(cuda, shapes, m, n_pad, force):
+    """Each path of the fit mode's data rows, at each cluster size and row
+    count, gives the plain version's bits."""
+    xb, cb, roots, mloc, nv = _rank1_bucket(shapes, m, n_pad, m + n_pad, cuda)
+    _hold_forced(xb, cb, roots, mloc, nv, **force)
+    if len(shapes) == 1 and shapes[0] == (m, n_pad):
+        _hold_forced(xb, cb, roots, mloc, None, **force)
+
+
+@pytest.mark.parametrize("force", [dict(cluster=2), dict(cluster=4), dict(rows=4)])
+def test_rank1_update_dead_datasets_and_edge_roots(cuda, force):
+    """A dead dataset costs nothing in place and is copied out of place;
+    roots on the first and the last row of a multi-row block; under each
+    path."""
+    n = 9216 if "cluster" in force else 2000
+    xb, cb, roots, mloc, nv = _rank1_bucket([(16, n), (16, n - 7), (16, n - 400)], 16, n, 5,
+                                           cuda, retired=1)
+    mloc[1] = False
+    roots[0], roots[2] = 0, 3
+    mloc[0, 0] = mloc[2, 3] = True
+    _hold_forced(xb, cb, roots, mloc, nv, **force)
+
+
+def test_rank1_update_refuses_a_plan_the_shape_cannot_take(cuda):
+    xb, cb, roots, mloc, nv = _rank1_bucket([(512, 2000)], 512, 2000, 1, cuda)
+    with pytest.raises(RuntimeError, match="rank1_update"):
+        cu.launch_rank1(xb, cb, roots, mloc, nv, cluster=2)
+    xb, cb, roots, mloc, nv = _rank1_bucket([(85, 10_000)], 128, 10_000, 1, cuda)
+    with pytest.raises(RuntimeError, match="rank1_update"):
+        cu.launch_rank1(xb, cb, roots, mloc, nv, rows=2)
+
+
+@pytest.mark.parametrize("kind,batch,m,n", [
+    (cu.MODE_FIT, 1, 128, 10_000), (cu.MODE_FIT, 1, 512, 2000), (cu.MODE_FIT, 8, 128, 16384),
+    (cu.MODE_FIT, 8, 64, 16384), (cu.MODE_FIT, 8, 32, 16384), (cu.MODE_RING, 64, 128, 10_000),
+    (cu.MODE_RING, 64, 128, 5000), (cu.MODE_FIT, 2, 37, 1301), (cu.MODE_FIT, 1, 40, 131_072),
+    (cu.MODE_FIT, 1, 8, 3000), (cu.MODE_FIT, 1, 3, 100), (cu.MODE_FIT, 1, 1024, 16384)])
+def test_kernel_plan_is_the_python_plan(cuda, kind, batch, m, n):
+    """The kernel's own plan equals ``covupdate.update_plan`` on this card,
+    chosen and forced."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    forced = [{}] + [dict(cluster=k) for k in (1, 2, 4)] + [dict(rows=r) for r in (2, 8)]
+    for force in forced:
+        try:
+            want = cu.update_plan(kind, batch, m, n, sms=sms, **force)
+        except ValueError:
+            with pytest.raises(RuntimeError):
+                cu.kernel_plan(kind, batch, m, n, vec=n % 4 == 0, **force)
+            continue
+        got = cu.kernel_plan(kind, batch, m, n, vec=n % 4 == 0, **force)
+        flat = {**{f: int(v) for f, v in want["order"].items()},
+                **{f: int(want[f]) for f in ("path", "k", "rows", "staged", "cap",
+                                              "data_blocks", "blocks", "smem")}}
+        assert got == flat, (force, got, flat)
+
+
+def _ring_case(m_l, n_loc, shards, seed, device):
+    """One row block's ring-mode arguments at E. coli-like sizes (m = 2 m_l
+    columns, the root in the other block) and the other sample shards'
+    sums of squares, as ``_update_shard`` hands them to the kernel."""
+    from repro_torch.core.covariance import rank1_gates
+
+    m, n = 2 * m_l, n_loc * shards
+    xn, c = _setup(m, n, seed, device)
+    root = m_l + 3
+    mask = torch.ones(m, dtype=torch.bool, device=device)
+    mask[5] = False
+    live = mask[:m_l].clone()
+    b, s_row = rank1_gates(c[:m_l, root].contiguous(), live)
+    b_col, s_col = rank1_gates(c[:, root].contiguous(), mask & (torch.arange(m, device=device) != root))
+    others = torch.zeros(m_l, device=device)
+    for k in range(1, shards):
+        cols = slice(k * n_loc, (k + 1) * n_loc)
+        out = (xn[:m_l, cols] - b[:, None] * xn[root, cols][None, :]) / s_row[:, None]
+        others = others + torch.sum(torch.square(out), dim=-1)
+    args = (xn[:m_l, :n_loc].contiguous(), c[:m_l].contiguous(), xn[root, :n_loc].contiguous(),
+            b, s_row, b_col, s_col, live)
+    return args, n, others
+
+
+@pytest.mark.parametrize("m_l,n_loc,shards,force", [
+    (64, 10_000, 1, {}), (64, 10_000, 1, dict(cluster=1)), (64, 10_000, 1, dict(cluster=2)),
+    (64, 5000, 2, {}), (64, 5000, 2, dict(rows=2)), (64, 2000, 2, dict(rows=8)),
+    (64, 10_000, 2, dict(cluster=2)), (21, 1301, 2, {}), (64, 9216, 1, dict(cluster=4))])
+def test_ring_update_phases_are_bit_equal(cuda, m_l, n_loc, shards, force):
+    """Ring mode's three phases (fused where the samples are whole, sums
+    then scale around the sums' reduction where they are sharded), at the
+    E. coli (1, 2, 1) and (1, 2, 2) blocks and forced plans: x' and c'
+    bit-equal to ``ring_update_ref``, out of place and in place."""
+    args, n, others = _ring_case(m_l, n_loc, shards, m_l + n_loc, cuda)
+    reduce = None if shards == 1 else (lambda sq: sq.add_(others))
+    rx, rc = cu.ring_update_ref(*args, row0=0, n=n, reduce=reduce)
+    x, c, rest = args[0], args[1], args[2:]
+    sq = torch.empty(m_l, device=cuda)
+    for inplace in (False, True):
+        xi, ci = (x.clone(), c.clone()) if inplace else (x, c)
+        xo, co = (xi, ci) if inplace else (torch.empty_like(x), torch.empty_like(c))
+        if reduce is None:
+            cu.launch_ring(xi, xo, ci, co, *rest, sq, cu.RING_FUSED, 0, n, **force)
+        else:
+            cu.launch_ring(xi, xi, ci, co, *rest, sq, cu.RING_SUMS, 0, n, **force)
+            reduce(sq)
+            cu.launch_ring(xi, xo, ci, co, *rest, sq, cu.RING_SCALE, 0, n, **force)
+        torch.cuda.synchronize()
+        assert torch.equal(xo, rx) and torch.equal(co, rc)
+    before = cu.RING_LAUNCHES
+    gx, gc = ops.ring_update(*args, row0=0, n=n, reduce=reduce)
+    assert cu.RING_LAUNCHES == before + (1 if reduce is None else 2)
+    assert torch.equal(gx, rx) and torch.equal(gc, rc)
+
+
 def test_kernel_update_orders_equal_plain(cuda):
     """E. coli-size fits: the kernel backends (the update kernel on the
     path, one launch per iteration) give the plain path's orders through
